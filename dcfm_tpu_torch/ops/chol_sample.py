@@ -1,0 +1,70 @@
+"""K1: the Lambda update's batched factor-solve-sample.
+
+x_j = Q_j^{-1} b_j + L_j^{-T} z_j for B independent SPD K x K precisions
+(K <= 16).  Replaces ``dcfm_tpu/ops/pallas_gaussian.py::_chol_sample_kernel``
+(wrapper ``chol_sample_batched_pallas``).  On a CUDA tensor the wrapper
+launches the hand-written kernel ``dcfm_tpu_torch/csrc/chol_sample.cu``
+(which says what bounds it and what its design does about that); on a CPU
+tensor it runs :func:`chol_sample_plain`, the unrolled PyTorch recurrence.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from dcfm_tpu_torch.ops import cuda_lib
+from dcfm_tpu_torch.ops.gaussian import (
+    bwd_solve_unrolled, chol_unrolled, fwd_solve_unrolled)
+
+MAX_K = 16
+
+
+def chol_sample_plain(Q: torch.Tensor, b: torch.Tensor,
+                      z: torch.Tensor) -> torch.Tensor:
+    """The plain PyTorch version: unrolled Cholesky, forward solve, two
+    backward solves (``dcfm_tpu/ops/gaussian.py``'s ``_chol_unrolled``
+    family)."""
+    cols = chol_unrolled(Q)
+    v = fwd_solve_unrolled(cols, b)
+    return bwd_solve_unrolled(cols, v) + bwd_solve_unrolled(cols, z)
+
+
+def _check(Q, b, z) -> None:
+    if Q.dim() != 3 or Q.shape[1] != Q.shape[2]:
+        raise ValueError(f"Q must be (B, K, K), got {tuple(Q.shape)}")
+    B, K = Q.shape[0], Q.shape[2]
+    if not 1 <= K <= MAX_K:
+        raise ValueError(f"K={K} outside the kernel's range 1..{MAX_K}")
+    for name, t in (("b", b), ("z", z)):
+        if tuple(t.shape) != (B, K):
+            raise ValueError(
+                f"{name} must be ({B}, {K}), got {tuple(t.shape)}")
+    for name, t in (("Q", Q), ("b", b), ("z", z)):
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {t.dtype}")
+        if t.device != Q.device:
+            raise ValueError(f"{name} on {t.device}, Q on {Q.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def chol_sample(Q: torch.Tensor, b: torch.Tensor,
+                z: torch.Tensor) -> torch.Tensor:
+    """(B, K) draws x_j = Q_j^{-1} b_j + L_j^{-T} z_j; see module doc."""
+    _check(Q, b, z)
+    if Q.device.type == "cpu":
+        return chol_sample_plain(Q, b, z)
+    if Q.device.type != "cuda":
+        raise ValueError(f"chol_sample runs on cpu or cuda, not {Q.device}")
+    out = torch.empty_like(b)
+    if Q.shape[0] == 0:
+        return out
+    lib = cuda_lib.library()
+    with torch.cuda.device(Q.device):
+        stream = torch.cuda.current_stream(Q.device).cuda_stream
+        err = lib.dcfm_chol_sample(Q.data_ptr(), b.data_ptr(), z.data_ptr(),
+                                   out.data_ptr(), Q.shape[0], Q.shape[2],
+                                   stream)
+    cuda_lib.check(err, "chol_sample")
+    cuda_lib.LAUNCHES["chol_sample"] += 1
+    return out

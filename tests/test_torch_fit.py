@@ -1,0 +1,258 @@
+"""Whole fits of the PyTorch port on the CPU: against the NumPy twin
+(``reference_numpy.gibbs_numpy``), against the truth, against the JAX
+package's ``fit``, and the reference-shaped ``divideconquer`` - at the
+shapes and bands of ``tests/test_e2e.py``.  Plus what the port promises
+about itself: chunking never changes the chain, knobs outside the port
+are refused, TF32 matmuls are refused, and no module imports JAX or the
+JAX package.
+"""
+
+import functools
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from tests.conftest import make_synthetic  # noqa: E402
+
+import dcfm_tpu  # noqa: E402
+from dcfm_tpu.reference_numpy import gibbs_numpy  # noqa: E402
+from dcfm_tpu.utils.estimate import stitch_blocks  # noqa: E402
+from dcfm_tpu.utils.preprocess import preprocess  # noqa: E402
+from dcfm_tpu_torch import (  # noqa: E402
+    BackendConfig, FitConfig, ModelConfig, RunConfig, divideconquer, fit)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Fits at these sizes are launch-bound; one intra-op thread per test
+    worker keeps the parallel test run from oversubscribing the cores."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
+def _rel_frob(A, B):
+    return np.linalg.norm(A - B) / np.linalg.norm(B)
+
+
+# test_e2e.py's twin-parity shape: n=120, p=48, g=2, K=3, rho=0.7, 400+400
+TWIN = dict(g=2, K=3, rho=0.7, burnin=400, mcmc=400)
+
+
+@functools.lru_cache(maxsize=None)
+def _twin_data():
+    Y, _ = make_synthetic(120, 48, 3, seed=5)
+    pre = preprocess(Y, TWIN["g"], seed=0)
+    blocks_np, _ = gibbs_numpy(pre.data.astype(np.float64), TWIN["K"],
+                               TWIN["rho"], TWIN["burnin"], TWIN["mcmc"],
+                               seed=1)
+    return Y, stitch_blocks(blocks_np)
+
+
+def _twin_cfg(sse_mode="resid"):
+    return FitConfig(
+        model=ModelConfig(num_shards=TWIN["g"], factors_per_shard=TWIN["K"],
+                          rho=TWIN["rho"]),
+        run=RunConfig(burnin=TWIN["burnin"], mcmc=TWIN["mcmc"], seed=0),
+        backend=BackendConfig(sse_mode=sse_mode))
+
+
+@functools.lru_cache(maxsize=None)
+def _port_twin_fit(sse_mode):
+    Y, _ = _twin_data()
+    return fit(Y, _twin_cfg(sse_mode), device="cpu")
+
+
+@pytest.mark.parametrize("sse_mode", ["resid", "gram"])
+def test_parity_with_numpy_twin(sse_mode):
+    """The port and the independent NumPy twin agree statistically on the
+    posterior-mean covariance (test_e2e's band for the JAX package)."""
+    _, S_np = _twin_data()
+    res = _port_twin_fit(sse_mode)
+    S_pt = stitch_blocks(res.sigma_blocks.astype(np.float64))
+    assert _rel_frob(S_pt, S_np) < 0.05
+    assert res.kernel_launches == {"chol_sample": 0, "sse_ps": 0}  # CPU
+
+
+def test_parity_with_jax_fit():
+    """The port's fit and the JAX package's fit of the same data and
+    config agree statistically (different RNG streams, same model); the
+    JAX fit runs the slice's kernels in interpret mode."""
+    Y, _ = _twin_data()
+    cfg = _twin_cfg("gram")
+    jcfg = dcfm_tpu.FitConfig(
+        model=dcfm_tpu.ModelConfig(num_shards=TWIN["g"],
+                                   factors_per_shard=TWIN["K"],
+                                   rho=TWIN["rho"], lambda_kernel="pallas"),
+        run=dcfm_tpu.RunConfig(burnin=TWIN["burnin"], mcmc=TWIN["mcmc"],
+                               seed=0),
+        backend=dcfm_tpu.BackendConfig(sse_mode="gram"))
+    S_jx = dcfm_tpu.fit(Y, jcfg).Sigma
+    S_pt = _port_twin_fit(cfg.backend.sse_mode).Sigma
+    assert _rel_frob(S_pt, S_jx) < 0.05
+
+
+def test_multishard_recovers_sigma():
+    """test_e2e's truth-recovery shape and bands (2 pooled chains)."""
+    Y, St = make_synthetic(150, 96, 4, seed=3)
+    cfg = FitConfig(
+        model=ModelConfig(num_shards=4, factors_per_shard=4, rho=0.95,
+                          lambda_kernel="pallas"),
+        run=RunConfig(burnin=300, mcmc=300, thin=2, seed=0, num_chains=2),
+        backend=BackendConfig(sse_mode="auto"))
+    res = fit(Y, cfg, device="cpu")
+    assert _rel_frob(res.Sigma, St) < 0.25
+    assert _rel_frob(np.diag(np.diag(res.Sigma)), np.diag(np.diag(St))) < 0.15
+    assert res.stats.nonfinite_count == 0 and res.stats.acc_nonfinite == 0
+    assert res.stats.ps_min > 0 and np.isfinite(res.stats.tau_log_max)
+    assert res.traces.shape == (2, 600, 4) and np.isfinite(res.traces).all()
+    assert set(res.phase_seconds) == {"preprocess_s", "upload_s", "init_s",
+                                      "chain_s", "fetch_s", "assemble_s"}
+    assert len(res.state) == 2 and res.iters_per_sec > 0
+
+
+def test_divideconquer_compat_entrypoint():
+    """Reference-shaped API (divideconquer.m:1): 7 positional args."""
+    Y, St = make_synthetic(100, 40, 3, seed=9)
+    S = divideconquer(Y, 2, 6, 100, 100, 1, 0.8, seed=0, device="cpu")
+    assert S.shape == (40, 40)
+    np.testing.assert_allclose(S, S.T, atol=1e-5)
+    assert _rel_frob(S, St) < 1.0
+    with pytest.raises(ValueError, match="divisible"):
+        divideconquer(Y, 3, 7, 10, 10, 1, 0.8, device="cpu")
+
+
+def test_zero_columns_reinserted_and_chunking_changes_nothing():
+    """Sigma is (p, p) with zero rows/cols at all-zero input columns, and a
+    chunked run is the same chain (draws keyed on the global iteration)."""
+    Y, _ = make_synthetic(60, 20, 2, seed=13)
+    Y[:, 5] = 0.0
+    m = ModelConfig(num_shards=2, factors_per_shard=2, rho=0.5)
+    one = fit(Y, FitConfig(model=m, run=RunConfig(burnin=20, mcmc=20)),
+              device="cpu")
+    chunked = fit(Y, FitConfig(model=m, run=RunConfig(burnin=20, mcmc=20,
+                                                      chunk_size=7)),
+                  device="cpu")
+    assert one.Sigma.shape == (20, 20)
+    assert np.all(one.Sigma[5, :] == 0) and np.all(one.Sigma[:, 5] == 0)
+    assert one.Sigma[6, 6] > 0
+    np.testing.assert_array_equal(one.Sigma, chunked.Sigma)
+    np.testing.assert_array_equal(one.traces, chunked.traces)
+
+
+def test_plain_estimator_twin_parity():
+    """The reference's plain combine rule against the twin running the same
+    rule, at the shape and band of test_reference_semantics.py: the plain
+    rule is not invariant to the slow-mixing Lambda <-> eta scale ridge,
+    so four pooled chains and the JAX package's own 0.15 band."""
+    Y, _ = make_synthetic(120, 48, 3, seed=61)
+    pre = preprocess(Y, TWIN["g"], seed=0)
+    blocks_np, _ = gibbs_numpy(pre.data.astype(np.float64), TWIN["K"],
+                               TWIN["rho"], TWIN["burnin"], TWIN["mcmc"],
+                               seed=1, estimator="plain")
+    cfg = FitConfig(
+        model=ModelConfig(num_shards=TWIN["g"], factors_per_shard=TWIN["K"],
+                          rho=TWIN["rho"], estimator="plain"),
+        run=RunConfig(burnin=TWIN["burnin"], mcmc=TWIN["mcmc"], seed=0,
+                      num_chains=4))
+    res = fit(Y, cfg, device="cpu")
+    S_pt = stitch_blocks(res.sigma_blocks.astype(np.float64))
+    assert _rel_frob(S_pt, stitch_blocks(blocks_np)) < 0.15
+
+
+@pytest.mark.parametrize("bad", [
+    RunConfig(burnin=5, mcmc=5, thin=0), RunConfig(burnin=-1, mcmc=5),
+    RunConfig(burnin=0, mcmc=0), RunConfig(burnin=5, mcmc=5, thin=2)])
+def test_run_config_validation(bad):
+    Y, _ = make_synthetic(30, 8, 2, seed=0)
+    m = ModelConfig(num_shards=2, factors_per_shard=2, rho=0.5)
+    with pytest.raises(ValueError):
+        fit(Y, FitConfig(model=m, run=bad), device="cpu")
+
+
+@pytest.mark.parametrize("model,run,backend,extra", [
+    ({"prior": "horseshoe"}, {}, {}, {}),
+    ({"rank_adapt": True}, {}, {}, {}),
+    ({"lambda_kernel": "pallas-fused"}, {}, {}, {}),
+    ({"posterior_sd": True}, {}, {}, {}),
+    ({}, {"store_draws": True}, {}, {}),
+    ({}, {"early_stop": "rhat"}, {}, {}),
+    ({}, {}, {"compute_dtype": "bf16"}, {}),
+    ({}, {}, {"mesh_devices": 2}, {}),
+    ({}, {}, {"fetch_dtype": "quant8"}, {}),
+    ({}, {}, {}, {"checkpoint_path": "ck.npz"}),
+])
+def test_knobs_outside_the_port_are_refused(model, run, backend, extra):
+    """Every knob the port does not run raises, naming its ROADMAP item."""
+    Y, _ = make_synthetic(30, 8, 2, seed=0)
+    cfg = FitConfig(
+        model=ModelConfig(num_shards=2, factors_per_shard=2, rho=0.5,
+                          **model),
+        run=RunConfig(burnin=2, mcmc=2, **run),
+        backend=BackendConfig(**backend), **extra)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        fit(Y, cfg, device="cpu")
+
+
+def test_missing_values_are_refused():
+    Y, _ = make_synthetic(30, 8, 2, seed=0)
+    Y[0, 0] = np.nan
+    cfg = FitConfig(model=ModelConfig(num_shards=2, factors_per_shard=2,
+                                      rho=0.5),
+                    run=RunConfig(burnin=2, mcmc=2))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        fit(Y, cfg, device="cpu")
+
+
+def test_tf32_matmuls_are_refused():
+    Y, _ = make_synthetic(30, 8, 2, seed=0)
+    cfg = FitConfig(model=ModelConfig(num_shards=2, factors_per_shard=2,
+                                      rho=0.5),
+                    run=RunConfig(burnin=2, mcmc=2))
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        with pytest.raises(RuntimeError, match="tf32"):
+            fit(Y, cfg, device="cpu")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+
+
+_GUARD = r"""
+import importlib, importlib.abc, pkgutil, sys
+for name in list(sys.modules):
+    if name.split(".")[0] in ("jax", "jaxlib", "dcfm_tpu", "flax"):
+        del sys.modules[name]
+
+class Refuse(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "dcfm_tpu", "flax"):
+            raise ImportError("refused import of " + name)
+        return None
+
+sys.meta_path.insert(0, Refuse())
+import dcfm_tpu_torch
+mods = ["chip_smoke"] + [m.name for m in pkgutil.walk_packages(
+    dcfm_tpu_torch.__path__, "dcfm_tpu_torch.")]
+for m in mods:
+    importlib.import_module(m)
+bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "dcfm_tpu")]
+assert not bad, bad
+print(len(mods))
+"""
+
+
+def test_port_imports_neither_jax_nor_the_jax_package():
+    """Every module of dcfm_tpu_torch, and chip_smoke.py, imports with jax
+    and dcfm_tpu refused."""
+    out = subprocess.run([sys.executable, "-c", _GUARD], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.split()[-1]) >= 15

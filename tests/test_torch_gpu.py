@@ -1,0 +1,101 @@
+"""Card-only tests of the PyTorch port: the hand-written CUDA kernels
+against their plain PyTorch versions on the card, and a small fit whose
+main path launches both kernels.
+
+They need an NVIDIA GPU with nvcc (the kernels are built on first use) and
+skip without one.  They import no JAX, so on the card they run without the
+repo's conftest:
+
+    python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from dcfm_tpu_torch import BackendConfig, FitConfig, ModelConfig, RunConfig  # noqa: E402
+from dcfm_tpu_torch import fit  # noqa: E402
+from dcfm_tpu_torch.ops import cuda_lib  # noqa: E402
+from dcfm_tpu_torch.ops.chol_sample import chol_sample, chol_sample_plain  # noqa: E402
+from dcfm_tpu_torch.ops.sse_gamma import sse_ps, sse_ps_plain  # noqa: E402
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def cuda():
+    """The card, or a skip: decided here, at run time, so every xdist
+    worker collects the same tests."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _spd(rng, B, K):
+    A = rng.standard_normal((B, K, K)).astype(np.float32)
+    return A @ np.transpose(A, (0, 2, 1)) + 2.0 * np.eye(K, dtype=np.float32)
+
+
+@pytest.mark.parametrize("B,K", [(10048, 8), (10049, 1), (513, 4),
+                                 (10049, 16), (1, 5)])
+def test_chol_sample_kernel_matches_plain(cuda, B, K):
+    rng = np.random.default_rng(K)
+    Q = torch.as_tensor(_spd(rng, B, K), device=cuda)
+    b = torch.as_tensor(rng.standard_normal((B, K), np.float32), device=cuda)
+    z = torch.as_tensor(rng.standard_normal((B, K), np.float32), device=cuda)
+    before = cuda_lib.launch_counts()["chol_sample"]
+    out = chol_sample(Q, b, z)
+    torch.cuda.synchronize()
+    assert cuda_lib.launch_counts()["chol_sample"] == before + 1
+    # reciprocal-multiply vs divide in the backward solves, FMA contraction:
+    # float32 rounding, the JAX package's own 2e-4 kernel-vs-unrolled band
+    torch.testing.assert_close(out, chol_sample_plain(Q, b, z),
+                               rtol=2e-4, atol=2e-4)
+
+
+def test_sse_ps_kernel_matches_plain_and_clamps(cuda):
+    rng = np.random.default_rng(5)
+    B, K = 10048, 8
+    Lam, M, EYt = (rng.standard_normal((B, K)).astype(np.float32)
+                   for _ in range(3))
+    quad = np.sum(Lam.astype(np.float64) * M, axis=1)
+    dot2 = np.sum(Lam.astype(np.float64) * EYt, axis=1)
+    sse_true = rng.uniform(0, 100, B)
+    sse_true[:16] = -1e-3                  # overshoot: must clamp to 0
+    yty = (sse_true + 2 * dot2 - quad).astype(np.float32)
+    g = rng.gamma(50.5, 1.0, B).astype(np.float32)
+    t = [torch.as_tensor(a, device=cuda) for a in (Lam, M, EYt, yty, g)]
+    ps, sse = sse_ps(*t, bs=0.3)
+    ps_p, sse_p = sse_ps_plain(*t, 0.3)
+    torch.cuda.synchronize()
+    assert torch.all(sse[:16] == 0)
+    # K float32 products summed in another order: a few ulp of the terms
+    torch.testing.assert_close(sse, sse_p, rtol=1e-5, atol=1e-4)
+    torch.testing.assert_close(ps, ps_p, rtol=1e-4, atol=1e-6)
+
+
+def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    Q = torch.eye(3, device=cuda).expand(4, 3, 3)
+    b = torch.zeros((4, 3), device=cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        chol_sample(Q, b, b)
+    with pytest.raises(TypeError, match="float32"):
+        chol_sample(Q.contiguous().double(), b.double(), b.double())
+
+
+def test_small_fit_runs_both_kernels(cuda):
+    rng = np.random.default_rng(1)
+    L = rng.normal(size=(96, 4)) / 2
+    Y = (rng.normal(size=(150, 4)) @ L.T
+         + 0.2 * rng.normal(size=(150, 96))).astype(np.float32)
+    St = L @ L.T + 0.04 * np.eye(96)
+    cfg = FitConfig(
+        model=ModelConfig(num_shards=4, factors_per_shard=4, rho=0.9,
+                          lambda_kernel="pallas"),
+        run=RunConfig(burnin=150, mcmc=150, thin=2, num_chains=2),
+        backend=BackendConfig(sse_mode="gram"))
+    res = fit(Y, cfg, device=cuda)
+    assert res.kernel_launches == {"chol_sample": 600, "sse_ps": 600}
+    assert np.isfinite(res.Sigma).all() and res.stats.nonfinite_count == 0
+    assert np.linalg.norm(res.Sigma - St) / np.linalg.norm(St) < 0.25

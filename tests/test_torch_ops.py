@@ -1,0 +1,246 @@
+"""The PyTorch port's ops against the JAX package's, on the CPU.
+
+Inputs are made with numpy from a seed and handed to both packages.  The
+kernels' plain versions (what a CPU tensor runs) are held against the
+Pallas kernels in interpret mode and against the JAX package's own plain
+paths; the Gaussian samplers against their JAX twins on the same noise;
+the Gamma samplers by moments.
+"""
+
+import functools
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from dcfm_tpu.ops.gaussian import (  # noqa: E402
+    mvn_mean_precision, sample_mvn_precision_batched,
+    sample_mvn_precision_shared)
+from dcfm_tpu.ops.pallas_gaussian import chol_sample_batched_pallas  # noqa: E402
+from dcfm_tpu.ops.sse_gamma import gram_sse_ps  # noqa: E402
+from dcfm_tpu_torch.noise import TorchNoise  # noqa: E402
+from dcfm_tpu_torch.ops import cuda_lib  # noqa: E402
+from dcfm_tpu_torch.ops import gaussian as tg  # noqa: E402
+from dcfm_tpu_torch.ops.chol_sample import chol_sample  # noqa: E402
+from dcfm_tpu_torch.ops.gamma import (  # noqa: E402
+    gamma_rate, gamma_rate_half_integer, gamma_unit_static)
+from dcfm_tpu_torch.ops.sse_gamma import sse_ps  # noqa: E402
+
+
+def _spd(rng, B, K):
+    A = rng.standard_normal((B, K, K)).astype(np.float32)
+    return A @ np.transpose(A, (0, 2, 1)) + 2.0 * np.eye(K, dtype=np.float32)
+
+
+def _np(x):
+    return np.asarray(x)
+
+
+# ---------------------------------------------------------------------------
+# K1: the Lambda update's factor-solve-sample
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("B,K", [(700, 8), (1, 5), (513, 16), (64, 3)])
+def test_chol_sample_plain_matches_pallas_and_unrolled(B, K):
+    rng = np.random.default_rng(B + K)
+    Q = _spd(rng, B, K)
+    b = rng.standard_normal((B, K)).astype(np.float32)
+    key = jax.random.key(K)
+    Zn = np.array(jax.random.normal(key, (B, K), jnp.float32))
+    before = cuda_lib.launch_counts()
+    out = chol_sample(torch.as_tensor(Q), torch.as_tensor(b),
+                      torch.as_tensor(Zn)).numpy()
+    assert cuda_lib.launch_counts() == before      # a CPU tensor: plain path
+    pal = _np(chol_sample_batched_pallas(jnp.asarray(Q), jnp.asarray(b),
+                                         jnp.asarray(Zn), interpret=True))
+    unrolled = jax.jit(functools.partial(sample_mvn_precision_batched,
+                                         impl="unrolled"))
+    # the same key on purpose: it draws the Zn handed to the port above
+    unr = _np(unrolled(key,  # dcfm: ignore[DCFM101] - same Zn as the port
+                       jnp.asarray(Q), jnp.asarray(b)))
+    # the plain version repeats the unrolled recurrence op for op (only
+    # XLA's fusion differs); the Pallas kernel also multiplies by 1/L_jj in
+    # its backward solves.  Q = AA' + 2I is well conditioned, so both stay
+    # at float32 rounding: measured max |diff| 4.2e-7 against the unrolled
+    # path and 8.3e-7 against the kernel at |x| <= 2.4, so 1e-5 keeps
+    # 10x headroom
+    np.testing.assert_allclose(out, unr, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(out, pal, rtol=1e-5, atol=1e-5)
+
+
+def test_chol_sample_wrapper_refuses_bad_input():
+    Q = torch.eye(4).expand(3, 4, 4)
+    b = torch.zeros((3, 4))
+    with pytest.raises(ValueError, match="contiguous"):
+        chol_sample(Q, b, b)
+    with pytest.raises(TypeError, match="float32"):
+        chol_sample(Q.contiguous().double(), b.double(), b.double())
+    with pytest.raises(ValueError, match="range"):
+        chol_sample(torch.eye(17).expand(2, 17, 17).contiguous(),
+                    torch.zeros((2, 17)), torch.zeros((2, 17)))
+    with pytest.raises(ValueError, match=r"\(3, 4\)"):
+        chol_sample(Q.contiguous(), torch.zeros((3, 5)), b)
+
+
+def test_linalg_sampler_matches_unrolled():
+    """The K > 16 route (torch.linalg) samples the same function."""
+    rng = np.random.default_rng(4)
+    Q = torch.as_tensor(_spd(rng, 50, 6))
+    b = torch.as_tensor(rng.standard_normal((50, 6)).astype(np.float32))
+    z = torch.as_tensor(rng.standard_normal((50, 6)).astype(np.float32))
+    torch.testing.assert_close(tg.sample_mvn_precision_linalg(Q, b, z),
+                               chol_sample(Q, b, z), rtol=1e-4, atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# K5: the Gram SSE and the psi rate
+# ---------------------------------------------------------------------------
+
+def _sse_operands(rng, B, K, n=30):
+    """Gram operands of a real fit: eta (n, K), Y (n, B), so the SSE is
+    a residual sum of squares; the first 8 features are fit almost
+    perfectly, which drives the three-term SSE to the clamp."""
+    eta = rng.standard_normal((n, K)).astype(np.float32)
+    Lam = rng.standard_normal((B, K)).astype(np.float32)
+    Y = eta @ Lam.T + rng.standard_normal((n, B)).astype(np.float32)
+    Y[:, :8] = eta @ Lam[:8].T
+    E = eta.T @ eta
+    return (Lam, Lam @ E, (eta.T @ Y).T.copy(),
+            np.sum(Y * Y, axis=0), rng.gamma(n / 2 + 1, 1.0, B)
+            .astype(np.float32))
+
+
+@pytest.mark.parametrize("B,K", [(700, 8), (1, 5), (64, 3)])
+def test_sse_ps_plain_matches_pallas_and_plain(B, K):
+    rng = np.random.default_rng(B * K)
+    ops = _sse_operands(rng, B, K)
+    ps, sse = sse_ps(*(torch.as_tensor(a) for a in ops), bs=0.3)
+    ps, sse = ps.numpy(), sse.numpy()
+    assert np.all(sse >= 0)
+    for impl in ("pallas-interpret", "plain"):
+        ps_j, sse_j = gram_sse_ps(*(jnp.asarray(a) for a in ops), bs=0.3,
+                                  impl=impl)
+        # three O(Y'Y) terms cancel: the difference is a few ulp of
+        # Y'Y (~n*K here), 1e-4 absolute; ps inherits it relatively
+        np.testing.assert_allclose(sse, _np(sse_j), rtol=1e-5, atol=1e-4)
+        np.testing.assert_allclose(ps, _np(ps_j), rtol=1e-4, atol=1e-6)
+
+
+def test_sse_ps_clamps_overshoot_to_zero():
+    Lam = torch.ones((4, 2))
+    M = torch.ones((4, 2))
+    EYt = torch.ones((4, 2))
+    yty = torch.tensor([2.0 - 1e-3, 2.0, 3.0, float("nan")])
+    ps, sse = sse_ps(Lam, M, EYt, yty, torch.ones(4), bs=0.5)
+    assert sse[0] == 0 and sse[1] == 0 and sse[2] == 1.0
+    assert torch.isnan(sse[3]) and torch.isnan(ps[3])   # NaN is not hidden
+    assert ps[0] == 2.0
+
+
+# ---------------------------------------------------------------------------
+# the shared-precision sampler of the Z and X updates
+# ---------------------------------------------------------------------------
+
+def test_shared_sampler_matches_jax():
+    rng = np.random.default_rng(7)
+    K, n = 5, 40
+    Q = _spd(rng, 1, K)[0]
+    B = rng.standard_normal((n, K)).astype(np.float32)
+    key = jax.random.key(3)
+    Zn = np.array(jax.random.normal(key, (n, K), jnp.float32))
+    mean = tg.sample_mvn_precision_shared(
+        torch.zeros((n, K)), torch.as_tensor(Q), torch.as_tensor(B))
+    np.testing.assert_allclose(
+        mean.numpy(), _np(mvn_mean_precision(jnp.asarray(Q), jnp.asarray(B))),
+        rtol=1e-5, atol=1e-5)
+    draw = tg.sample_mvn_precision_shared(
+        torch.as_tensor(Zn), torch.as_tensor(Q), torch.as_tensor(B))
+    # LAPACK (torch) and XLA's triangular solves at float32 rounding
+    ref = sample_mvn_precision_shared(
+        key,  # dcfm: ignore[DCFM101] - draws the Zn handed to the port above
+        jnp.asarray(Q), jnp.asarray(B))
+    np.testing.assert_allclose(draw.numpy(), _np(ref), rtol=1e-5, atol=1e-5)
+
+
+def test_shared_sampler_batches_over_shards():
+    rng = np.random.default_rng(8)
+    Q = torch.as_tensor(_spd(rng, 3, 4))
+    B = torch.as_tensor(rng.standard_normal((3, 20, 4)).astype(np.float32))
+    Zn = torch.as_tensor(rng.standard_normal((3, 20, 4)).astype(np.float32))
+    batched = tg.sample_mvn_precision_shared(Zn, Q, B)
+    for g in range(3):
+        torch.testing.assert_close(
+            batched[g], tg.sample_mvn_precision_shared(Zn[g], Q[g], B[g]),
+            rtol=1e-6, atol=1e-6)
+
+
+def test_cholesky_of_a_non_spd_matrix_is_nan():
+    """A failed factorization poisons the draw (the chain's health counter
+    sees it) instead of raising mid-chain."""
+    Q = torch.tensor([[1.0, 2.0], [2.0, 1.0]])
+    assert torch.isnan(tg.sample_mvn_precision_shared(
+        torch.zeros((3, 2)), Q, torch.ones((3, 2)))).all()
+
+
+# ---------------------------------------------------------------------------
+# Gamma samplers by moments (the psi-stage shapes, as the JAX tests do)
+# ---------------------------------------------------------------------------
+
+def _draws(seed):
+    return TorchNoise(seed, "cpu").sweep(0, seed)
+
+
+@pytest.mark.parametrize("a", [3.0, 21.5, 101.0, 2.3])
+def test_gamma_unit_static_moments(a):
+    """Exp-sum (+ half chi-square) construction, and the standard-Gamma
+    fallback at a fractional shape: mean and variance both equal a,
+    within 5 standard errors."""
+    N = 40_000
+    g = gamma_unit_static(_draws(int(a * 10)), 5, a, (N,)).numpy()
+    assert np.all(g > 0)
+    assert abs(g.mean() - a) < 5 * np.sqrt(a / N), (g.mean(), a)
+    assert abs(g.var() - a) < 5 * np.sqrt(2.0 / N) * (a + 1), (g.var(), a)
+
+
+@pytest.mark.parametrize("shape,rate", [(1.0, 0.3), (1.5, 2.0), (2.0, 1.0),
+                                        (2.7, 0.5), (251.0, 40.0)])
+def test_gamma_rate_moments(shape, rate):
+    """The exponential, chi-square and standard-Gamma routes: mean
+    shape/rate, variance shape/rate^2."""
+    N = 40_000
+    g = gamma_rate(_draws(7), 4, shape, rate, sample_shape=(N,)).numpy()
+    mean, var = shape / rate, shape / rate ** 2
+    assert np.all(g > 0)
+    assert abs(g.mean() - mean) < 5 * np.sqrt(var / N)
+    assert abs(g.var() - var) < 5 * np.sqrt(2.0 / N) * var * (
+        1 + 3 / shape) ** 0.5
+
+
+def test_gamma_rate_half_integer_moments():
+    """Elementwise half-integer shapes (the MGP psi draw): k/2 for k in
+    {3, 4}, masked from max_twice = 4 normals per element."""
+    N = 40_000
+    twice = torch.tensor([3, 4]).repeat(N)
+    rate = torch.tensor([1.5, 0.5]).repeat(N)
+    g = gamma_rate_half_integer(_draws(11), 4, twice, rate,
+                                max_twice=4).numpy().reshape(N, 2)
+    for j, (s, r) in enumerate([(1.5, 1.5), (2.0, 0.5)]):
+        assert abs(g[:, j].mean() - s / r) < 5 * np.sqrt(s / r ** 2 / N)
+
+
+def test_noise_streams_are_keyed_not_sequential():
+    """A draw depends on (seed, chain, iteration, site) only: the order in
+    which sites are asked for, and what else was drawn, change nothing."""
+    a = TorchNoise(3, "cpu").sweep(1, 9)
+    b = TorchNoise(3, "cpu").sweep(1, 9)
+    za = a.normal(1, (4, 3))
+    b.normal(2, (10,))
+    torch.testing.assert_close(b.normal(1, (4, 3)), za, rtol=0, atol=0)
+    c = TorchNoise(3, "cpu").sweep(1, 10)
+    assert not torch.equal(c.normal(1, (4, 3)), za)
+    assert not torch.equal(TorchNoise(3, "cpu").sweep(2, 9).normal(1, (4, 3)),
+                           za)
