@@ -77,7 +77,10 @@ def build() -> tuple[str, str]:
     nvcc = nvcc_path()
     jobs = []
     for name in SOURCES:
-        obj = os.path.join(BUILD, f"{os.path.splitext(name)[0]}_{tag}.o")
+        # per-process object names: two processes building at once never
+        # write the same file (only the finished library is shared)
+        obj = os.path.join(
+            BUILD, f"{os.path.splitext(name)[0]}_{tag}.{os.getpid()}.o")
         cmd = [nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-c",
                os.path.join(CSRC, name), "-o", obj]
         jobs.append((name, obj, subprocess.Popen(
@@ -95,11 +98,14 @@ def build() -> tuple[str, str]:
     link = subprocess.run(
         [nvcc, *NVCC_FLAGS, "-shared", "-o", tmp, *(o for _, o, _ in jobs)],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    for _, obj, _ in jobs:
+        os.remove(obj)
     if link.returncode:
         raise RuntimeError(f"nvcc link failed:\n{link.stdout}")
     log = "\n".join(logs)
-    with open(log_path, "w") as f:
+    with open(f"{log_path}.tmp{os.getpid()}", "w") as f:
         f.write(log)
+    os.replace(f"{log_path}.tmp{os.getpid()}", log_path)
     os.replace(tmp, lib_path)
     return lib_path, log
 
