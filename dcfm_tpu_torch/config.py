@@ -15,13 +15,13 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional
 
-# ROADMAP items the refusals point at (ROADMAP.md, "Queue A" / "Queue B").
-_BF16 = "ROADMAP Queue A item 6 (bf16 compute path, kernel K4)"
-_FUSED = "ROADMAP Queue B K2 (lambda_kernel='pallas-fused')"
-_FETCH = "ROADMAP Queue A item 7 (fetch and artifact)"
-_CKPT = "ROADMAP Queue A item 8 (pipeline and checkpoint)"
-_MESH = "ROADMAP Queue A item 9 (multi-GPU shards)"
-_SCEN = "ROADMAP Queue A item 10 (scenarios)"
+# ROADMAP items the refusals point at (ROADMAP.md, "Still to port")
+_BF16 = "ROADMAP 'Still to port' item 1 (bf16 compute path, kernel K4)"
+_FUSED = "ROADMAP 'Still to port' item 2 (kernel K2, pallas-fused)"
+_FETCH = "ROADMAP 'Still to port' item 5 (fetch and artifact)"
+_CKPT = "ROADMAP 'Still to port' item 6 (pipeline and checkpoint)"
+_MESH = "ROADMAP 'Still to port' item 7 (multi-GPU shards)"
+_SCEN = "ROADMAP 'Still to port' item 8 (scenarios)"
 
 
 @dataclasses.dataclass(frozen=True)

@@ -107,5 +107,5 @@ def make_prior(cfg: ModelConfig) -> Prior:
     if cfg.prior != "mgp":
         raise NotImplementedError(
             f"prior={cfg.prior!r} is not ported to dcfm_tpu_torch yet: "
-            "ROADMAP Queue A item 10 (scenarios)")
+            "ROADMAP 'Still to port' item 8 (scenarios)")
     return make_mgp(cfg)

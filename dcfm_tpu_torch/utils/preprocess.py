@@ -64,7 +64,7 @@ def preprocess(
     if np.isnan(Y).any():
         raise NotImplementedError(
             "NaN (missing) entries are not ported to dcfm_tpu_torch yet: "
-            "ROADMAP Queue A item 10 (scenarios, impute_missing_y)")
+            "ROADMAP 'Still to port' item 8 (scenarios, impute_missing_y)")
     if np.isinf(Y).any():
         raise ValueError("Y contains infinite entries")
 
