@@ -5,23 +5,33 @@
 
 1. Prints the card (name and power limit, as nvidia-smi reports them),
    builds the hand-written kernels from dcfm_tpu_torch/csrc with nvcc for
-   sm_90a and prints the ptxas register/spill report.
-2. Kernel phase: each kernel against its plain PyTorch version on the card,
-   on identical inputs at the shapes the full-width fit gives it, with the
-   tolerance stated; then the device time (torch.profiler) of the kernel,
-   the plain version and one library yardstick, beside the least time the
-   card could take, and the kernel's per-call time (CUDA events).
+   sm_90a (one nvcc per source, all started together) and prints the ptxas
+   register/spill report.
+2. Kernel phase: each of the five kernels (K1 chol_sample, K4
+   chol_solve_sample, K3 cho_solve, K2 lam_update, K5 sse_ps) against its
+   plain PyTorch version on the card, on identical inputs at the shapes the
+   full-width fit gives it and at ragged shapes with K = 1, 4 and 16, with
+   the tolerance stated; then the device time (torch.profiler) of the
+   kernel, the plain version and one library yardstick, beside the least
+   time the card could take, and the kernel's per-call time (CUDA events).
 3. Fit phase: ``dcfm_tpu_torch.fit`` at the repo's north-star width
    (p = 10,000, g = 64 shards, n = 500, K = 8 factors per shard, 2 chains,
-   sse_mode="auto", lambda_kernel="pallas") on synthetic factor data.  The
-   launch counters are zeroed just before the fit and read just after: each
-   kernel must have launched once per sweep.  Sigma must be finite and
+   sse_mode="auto") on synthetic factor data, along three paths: float32
+   with lambda_kernel="pallas" (K1 and K5), compute_dtype="bf16" with
+   lambda_kernel="auto" (K4 and K5) and lambda_kernel="pallas-fused" (K2
+   and K5), each after a 4-sweep warm-up fit of the same path.  The
+   launch counters are zeroed just before each timed fit and read
+   just after: each of the path's kernels must have launched once per
+   sweep and every other kernel not at all.  Sigma must be finite and
    symmetric, the chains healthy, and its relative Frobenius error against
-   the truth < 0.25 and at most twice the sample covariance's.
-4. Where the time goes: 20 more sweeps of one chain at the same width and
-   the fit's save mix (one draw in four accumulated), timed on the host
-   clock and under torch.profiler: ms per sweep, the device's busy and
-   idle share, and the kernels that take the most device time.
+   the truth < 0.25 and at most twice the sample covariance's.  No fit path
+   runs K3 (nor in the JAX package): its launches are counted over one
+   call of its public op, ``cho_solve_batched``, at the fit's batch.
+4. Where the time goes, for each fit path: 20 more sweeps of one chain at
+   the same width and the fit's save mix (one draw in four accumulated),
+   timed on the host clock and under torch.profiler: ms per sweep, the
+   device's busy and idle share, and the kernels that take the most device
+   time.
 
 Any failed check exits non-zero before the last line.  The line before the
 last is the kernels' JSON record; the last line is
@@ -32,6 +42,7 @@ prints no result.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
@@ -128,13 +139,16 @@ def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def chol_sample_flops(K: int) -> int:
-    """Arithmetic of one K x K factor-solve-sample, as the kernel does it
-    (each multiply, add, divide and square root counted once)."""
+def solve_flops(K: int, noise: bool, recip: bool) -> int:
+    """Arithmetic of one K x K factor-solve(-sample), as the kernels do it
+    (each multiply, add, divide and square root counted once): Cholesky,
+    forward solve, one or two backward solves dividing by L_jj or
+    multiplying by its reciprocal, and the final m + y."""
+    per = 2 if noise else 1
     chol = sum(2 * (K - j) * j + 1 + (K - 1 - j) for j in range(K))
     fwd = sum(2 * j + 1 for j in range(K))
-    bwd = sum(4 * (K - 1 - j) + 3 for j in range(K))
-    return chol + fwd + bwd + K
+    bwd = sum(2 * per * (K - 1 - j) + per + recip for j in range(K))
+    return chol + fwd + bwd + (K if noise else 0)
 
 
 def spd(A: np.ndarray) -> np.ndarray:
@@ -143,58 +157,150 @@ def spd(A: np.ndarray) -> np.ndarray:
     return A @ np.transpose(A, (0, 2, 1)) + 2.0 * np.eye(K, dtype=np.float32)
 
 
-def k1_phase(torch, k1, rng) -> dict:
-    """K1 against its plain version at the full-width shape and at
-    K = 1, 4, 16 on a ragged batch; times at the full-width shape."""
+# tolerance of the four factor-solve kernels against their plain versions:
+# the plain versions repeat the kernels' operation order (reciprocal or
+# division alike), but nvcc contracts mul+sub into FMA; the precisions are
+# well conditioned (Q = A A' + 2I, or diag(plam) + ps E with plam > 0.1),
+# so float32 rounding stays far inside 2e-4 abs + 2e-4 rel (the bound the
+# JAX package holds its Pallas kernel to against the unrolled version)
+SOLVE_RTOL = SOLVE_ATOL = 2e-4
+
+
+def compare(torch, label: str, out, ref) -> float:
+    """Max |kernel - plain|; fails the run outside the solve tolerance."""
+    torch.cuda.synchronize()
+    err = float((out - ref).abs().max())
+    ok = bool(torch.all((out - ref).abs() <= SOLVE_ATOL
+                        + SOLVE_RTOL * ref.abs()))
+    say(f"{label}: max_abs_err={err:.3e} (tolerance {SOLVE_ATOL:g} + "
+        f"{SOLVE_RTOL:g}*|plain|) {'ok' if ok else 'MISMATCH'}")
+    check(ok and math.isfinite(err), f"{label} disagrees with its plain "
+          "version")
+    return err
+
+
+def timings(torch, kernel, plain, library, args, label: str,
+            plain_reps: int) -> dict:
+    """Device times of the kernel, its plain version and the library
+    yardstick on ``args``, and the kernel's per-call time; the yardstick
+    must compute the same function."""
+    check(float((library(*args) - plain(*args)).abs().max()) < 1e-3,
+          f"{label} library yardstick computes another function")
+    return dict(ms=device_ms(lambda: kernel(*args), 200),
+                call_ms=cuda_ms(lambda: kernel(*args), 200),
+                plain_ms=device_ms(lambda: plain(*args), plain_reps),
+                library_ms=device_ms(lambda: library(*args), 50))
+
+
+def library_sample(torch):
+    """x = Q^{-1} b + L^{-T} z through torch.linalg: Cholesky, then two
+    triangular solves (the second takes [v, z] as one right-hand side)."""
+    def run(Q, b, z):
+        L = torch.linalg.cholesky(Q)
+        v = torch.linalg.solve_triangular(L, b[..., None], upper=False)
+        mz = torch.linalg.solve_triangular(
+            L.mT, torch.cat([v, z[..., None]], dim=-1), upper=True)
+        return mz.sum(dim=-1)
+    return run
+
+
+def solve_phase(torch, rng, tag: str, name: str, kernel, plain, library,
+                noise: bool, recip: bool, source: str,
+                replaces: str) -> dict:
+    """One of the batched factor-solve kernels (K1, K4, K3) against its
+    plain version at the full-width batch and at K = 1, 4, 16 on a ragged
+    batch; times at the full-width shape."""
     dev = torch.device("cuda")
-    # tolerance: the kernel multiplies by 1/L_jj in the backward solves
-    # where the plain version divides, and nvcc contracts mul+sub into FMA;
-    # Q = A A' + 2I keeps the condition number below ~4K, so float32
-    # rounding stays far inside 2e-4 abs + 2e-4 rel (the bound the JAX
-    # package holds its Pallas kernel to against the unrolled version)
-    rtol = atol = 2e-4
-    worst = 0.0
     for B, K in ((FULL_B, FULL_K), (FULL_B + 1, 1), (FULL_B + 1, 4),
                  (FULL_B + 1, 16)):
-        Q = torch.as_tensor(spd(rng.standard_normal((B, K, K), np.float32)),
-                            device=dev)
-        b = torch.as_tensor(rng.standard_normal((B, K), np.float32),
-                            device=dev)
-        z = torch.as_tensor(rng.standard_normal((B, K), np.float32),
-                            device=dev)
-        out = k1.chol_sample(Q, b, z)
-        ref = k1.chol_sample_plain(Q, b, z)
-        torch.cuda.synchronize()
-        err = float((out - ref).abs().max())
-        ok = bool(torch.all((out - ref).abs() <= atol + rtol * ref.abs()))
-        say(f"K1 chol_sample B={B} K={K}: max_abs_err={err:.3e} "
-            f"(tolerance {atol:g} + {rtol:g}*|plain|) "
-            f"{'ok' if ok else 'MISMATCH'}")
-        check(ok and math.isfinite(err), f"K1 disagrees at B={B} K={K}")
+        args = [torch.as_tensor(spd(rng.standard_normal((B, K, K),
+                                                        np.float32)),
+                                device=dev)]
+        args += [torch.as_tensor(rng.standard_normal((B, K), np.float32),
+                                 device=dev) for _ in range(1 + noise)]
+        err = compare(torch, f"{tag} {name} B={B} K={K}", kernel(*args),
+                      plain(*args))
         if (B, K) == (FULL_B, FULL_K):
-            worst = err
-            Qf, bf, zf = Q, b, z
+            worst, full = err, args
     B, K = FULL_B, FULL_K
+    t = timings(torch, kernel, plain, library, full, tag, 20)
+    bnd, by = bound_ms(4.0 * B * (K * K + (3 if noise else 2) * K),
+                       B * solve_flops(K, noise, recip))
+    return dict(name=name, route="cuda", source=source, replaces=replaces,
+                max_abs_err=worst, bound_ms=bnd, bound_by=by, **t)
 
-    def library():
-        L = torch.linalg.cholesky(Qf)
-        v = torch.linalg.solve_triangular(L, bf[..., None], upper=False)
-        mz = torch.linalg.solve_triangular(
-            L.mT, torch.cat([v, zf[..., None]], dim=-1), upper=True)
-        return mz.sum(dim=-1)
 
-    check(float((library() - k1.chol_sample_plain(Qf, bf, zf)).abs().max())
-          < 1e-3, "K1 library yardstick computes another function")
-    ms = device_ms(lambda: k1.chol_sample(Qf, bf, zf), 200)
-    call = cuda_ms(lambda: k1.chol_sample(Qf, bf, zf), 200)
-    plain = device_ms(lambda: k1.chol_sample_plain(Qf, bf, zf), 20)
-    lib = device_ms(library, 50)
-    bnd, by = bound_ms(4.0 * B * (K * K + 3 * K), B * chol_sample_flops(K))
-    return dict(name="chol_sample", route="cuda",
-                source="dcfm_tpu_torch/csrc/chol_sample.cu",
-                replaces="dcfm_tpu/ops/pallas_gaussian.py:44",
-                max_abs_err=worst, ms=ms, call_ms=call, plain_ms=plain,
-                bound_ms=bnd, bound_by=by, library_ms=lib)
+def k1_phase(torch, k1, rng) -> dict:
+    return solve_phase(torch, rng, "K1", "chol_sample", k1.chol_sample,
+                       k1.chol_sample_plain, library_sample(torch),
+                       noise=True, recip=True,
+                       source="dcfm_tpu_torch/csrc/chol_sample.cu",
+                       replaces="dcfm_tpu/ops/pallas_gaussian.py:44")
+
+
+def k4_phase(torch, bs, rng) -> dict:
+    return solve_phase(torch, rng, "K4", "chol_solve_sample",
+                       bs.chol_solve_sample_batched,
+                       bs.chol_solve_sample_plain, library_sample(torch),
+                       noise=True, recip=False,
+                       source="dcfm_tpu_torch/csrc/batched_solve.cu",
+                       replaces="dcfm_tpu/ops/batched_solve.py:247")
+
+
+def k3_phase(torch, bs, rng) -> dict:
+    def library(Q, b):
+        return torch.cholesky_solve(b[..., None],
+                                    torch.linalg.cholesky(Q))[..., 0]
+    return solve_phase(torch, rng, "K3", "cho_solve", bs.cho_solve_batched,
+                       bs.cho_solve_plain, library, noise=False, recip=False,
+                       source="dcfm_tpu_torch/csrc/batched_solve.cu",
+                       replaces="dcfm_tpu/ops/batched_solve.py:238")
+
+
+def lam_operands(torch, rng, G: int, P: int, K: int) -> list:
+    """The fused update's operands as the sweep forms them: E = eta'eta
+    (SPD), prior precisions plam > 0.1, ps > 0, data terms, normals."""
+    A = rng.standard_normal((G, K, K)).astype(np.float32)
+    ops = [A @ np.transpose(A, (0, 2, 1)) + 0.5 * np.eye(K, dtype=np.float32),
+           (rng.gamma(2.0, 1.0, (G, P, K)) + 0.1).astype(np.float32),
+           rng.gamma(3.0, 0.5, (G, P)).astype(np.float32),
+           rng.standard_normal((G, P, K)).astype(np.float32),
+           rng.standard_normal((G, P, K)).astype(np.float32)]
+    return [torch.as_tensor(a, device="cuda") for a in ops]
+
+
+def k2_phase(torch, k2) -> dict:
+    """K2 against its plain version at the fit's (G, P, K) and at ragged
+    shapes with K = 1, 4, 16 (P not a multiple of the 32-row tile)."""
+    for G, P, K in ((64, 157, FULL_K), (3, 33, 1), (5, 157, 4),
+                    (2, 65, 16)):
+        args = lam_operands(torch, np.random.default_rng(200 + K), G, P, K)
+        err = compare(torch, f"K2 lam_update G={G} P={P} K={K}",
+                      k2.lam_update(*args), k2.lam_update_plain(*args))
+        if K == FULL_K:
+            worst, full = err, args
+    G, P, K = 64, 157, FULL_K
+    sample = library_sample(torch)
+
+    def library(E, plam, ps, EYt, Zn):
+        # what the fused kernel saves: forming Q and b in device memory,
+        # then the library sampler
+        Q = torch.diag_embed(plam) + ps[..., None, None] * E[:, None]
+        b = ps[..., None] * EYt
+        return sample(Q.reshape(G * P, K, K), b.reshape(G * P, K),
+                      Zn.reshape(G * P, K)).reshape(G, P, K)
+
+    t = timings(torch, k2.lam_update, k2.lam_update_plain, library, full,
+                "K2", 20)
+    # reads E, plam, ps, ey, z once and writes x; forms the lower triangle
+    # of Q (K(K+1)/2 products, K diagonal adds) and b (K products) per row
+    bnd, by = bound_ms(4.0 * (G * K * K + G * P * (3 * K + 1) + G * P * K),
+                       G * P * (solve_flops(K, True, True)
+                                + K * (K + 1) // 2 + 2 * K))
+    return dict(name="lam_update", route="cuda",
+                source="dcfm_tpu_torch/csrc/lam_rows.cu",
+                replaces="dcfm_tpu/ops/pallas_gaussian.py:119",
+                max_abs_err=worst, bound_ms=bnd, bound_by=by, **t)
 
 
 def k5_phase(torch, k5, rng) -> dict:
@@ -262,15 +368,33 @@ def synthetic(n: int, p: int, k_true: int, noise: float = 0.2,
     return Y.astype(np.float32), L.astype(np.float32), noise
 
 
-def fit_phase(torch, dt, cuda_lib, card: str) -> dict:
+# the fit paths: (label, ModelConfig knobs, BackendConfig knobs, the kernels
+# that must launch once per sweep; every other kernel must not launch)
+FIT_PATHS = (
+    ("f32", {"lambda_kernel": "pallas"}, {}, ("chol_sample", "sse_ps")),
+    ("bf16", {"lambda_kernel": "auto"}, {"compute_dtype": "bf16"},
+     ("chol_solve_sample", "sse_ps")),
+    ("fused", {"lambda_kernel": "pallas-fused"}, {},
+     ("lam_update", "sse_ps")),
+)
+
+
+def fit_phase(torch, dt, cuda_lib, card: str, label: str, model: dict,
+              backend: dict, kernels: tuple, Y, L, noise) -> tuple:
+    """One full-width fit along a path; returns (launches, config, rel.
+    Frobenius error against the truth)."""
     c = FIT
-    Y, L, noise = synthetic(c["n"], c["p"], c["k_true"])
     cfg = dt.FitConfig(
         model=dt.ModelConfig(num_shards=c["g"], factors_per_shard=c["K"],
-                             rho=c["rho"], lambda_kernel="pallas"),
+                             rho=c["rho"], **model),
         run=dt.RunConfig(burnin=c["burnin"], mcmc=c["mcmc"], thin=c["thin"],
                          seed=0, num_chains=c["chains"]),
-        backend=dt.BackendConfig(sse_mode="auto"))
+        backend=dt.BackendConfig(sse_mode="auto", **backend))
+    # warm-up: 4 sweeps of the same path and width, so that the timed fit
+    # pays no first-use cost (library loads, new GEMM shapes) that a path
+    # timed later would not pay
+    dt.fit(Y, dataclasses.replace(cfg, run=dt.RunConfig(burnin=2, mcmc=2)))
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     cuda_lib.reset_launch_counts()
     t0 = time.perf_counter()
@@ -279,17 +403,18 @@ def fit_phase(torch, dt, cuda_lib, card: str) -> dict:
     launches = cuda_lib.launch_counts()
     peak = torch.cuda.max_memory_allocated()
     sweeps = c["chains"] * (c["burnin"] + c["mcmc"])
-    say(f"fit: {sweeps} sweeps in {res.phase_seconds['chain_s']:.3f} s "
-        f"chain time = {res.iters_per_sec:.2f} iters/s "
-        f"(wall {wall:.3f} s; {card})")
-    say("fit phase_seconds: " + json.dumps(res.phase_seconds))
-    say(f"fit peak device memory: {peak} bytes "
+    say(f"fit [{label}]: {sweeps} sweeps in "
+        f"{res.phase_seconds['chain_s']:.3f} s chain time = "
+        f"{res.iters_per_sec:.2f} iters/s (wall {wall:.3f} s; {card})")
+    say(f"fit [{label}] phase_seconds: " + json.dumps(res.phase_seconds))
+    say(f"fit [{label}] peak device memory: {peak} bytes "
         f"({peak / 2**30:.3f} GiB; {card})")
-    say(f"fit kernel launches: {json.dumps(launches)} "
-        f"(expected {sweeps} each)")
-    for name in ("chol_sample", "sse_ps"):
-        check(launches[name] == sweeps,
-              f"{name} launched {launches[name]} times in {sweeps} sweeps")
+    say(f"fit [{label}] kernel launches: {json.dumps(launches)} "
+        f"(expected {sweeps} for {', '.join(kernels)}, 0 for the others)")
+    for name, count in launches.items():
+        want = sweeps if name in kernels else 0
+        check(count == want, f"[{label}] {name} launched {count} times in "
+              f"{sweeps} sweeps, expected {want}")
     S = res.Sigma
     check(S.shape == (c["p"], c["p"]), f"Sigma shape {S.shape}")
     check(bool(np.isfinite(S).all()), "Sigma has non-finite entries")
@@ -306,24 +431,41 @@ def fit_phase(torch, dt, cuda_lib, card: str) -> dict:
     Yc = Yc - Yc.mean(dim=0)
     Ss = Yc.T @ Yc / (c["n"] - 1)
     err_sample = float(torch.linalg.norm(Ss - St) / torch.linalg.norm(St))
-    say(f"fit rel Frobenius error vs truth: {err:.4f} "
-        f"(sample covariance: {err_sample:.4f})")
-    check(err < 0.25, f"rel Frobenius error {err:.4f} >= 0.25")
-    check(err <= 2 * err_sample,
-          f"rel Frobenius error {err:.4f} > 2x the sample covariance's")
-    return launches, cfg, Y
+    say(f"fit [{label}] rel Frobenius error vs truth: {err:.6f} "
+        f"(sample covariance: {err_sample:.6f})")
+    check(err < 0.25, f"[{label}] rel Frobenius error {err:.4f} >= 0.25")
+    check(err <= 2 * err_sample, f"[{label}] rel Frobenius error "
+          f"{err:.4f} > 2x the sample covariance's")
+    return launches, cfg, err
 
 
-def sweep_profile(torch, cfg, Y, card: str) -> None:
-    import dataclasses
+def k3_path(torch, bs, cuda_lib, rng) -> dict:
+    """K3's launches: one call of its public op at the fit's batch, the
+    counters zeroed just before and read just after."""
+    dev = torch.device("cuda")
+    Q = torch.as_tensor(spd(rng.standard_normal((FULL_B, FULL_K, FULL_K),
+                                                np.float32)), device=dev)
+    b = torch.as_tensor(rng.standard_normal((FULL_B, FULL_K), np.float32),
+                        device=dev)
+    cuda_lib.reset_launch_counts()
+    x = bs.cho_solve_batched(Q, b)
+    torch.cuda.synchronize()
+    launches = cuda_lib.launch_counts()
+    check(bool(torch.isfinite(x).all()), "cho_solve_batched: non-finite")
+    check(launches["cho_solve"] == 1, f"cho_solve_batched launched "
+          f"{launches}")
+    return launches
 
+
+def sweep_profile(torch, cfg, Y, card: str, label: str) -> None:
     from torch.profiler import ProfilerActivity, profile
 
     from dcfm_tpu_torch.models.priors import make_prior
     from dcfm_tpu_torch.models.sampler import init_chain, run_chunk
     from dcfm_tpu_torch.noise import TorchNoise
     from dcfm_tpu_torch.utils.preprocess import preprocess
-    m = dataclasses.replace(cfg.model, sse_mode=cfg.backend.sse_mode)
+    m = dataclasses.replace(cfg.model, sse_mode=cfg.backend.sse_mode,
+                            compute_dtype=cfg.backend.compute_dtype)
     Yd = torch.as_tensor(preprocess(Y, m.num_shards, seed=0).data,
                          device="cuda")
     noise, prior = TorchNoise(0, "cuda"), make_prior(m)
@@ -349,7 +491,7 @@ def sweep_profile(torch, cfg, Y, card: str) -> None:
         wall_prof = (time.perf_counter() - t) * 1e3 / n
     busy, rows = device_busy_ms(prof)
     busy /= n
-    say(f"sweep: {wall:.3f} ms per sweep on the host clock "
+    say(f"sweep [{label}]: {wall:.3f} ms per sweep on the host clock "
         f"({wall_prof:.3f} ms under the profiler); device busy "
         f"{busy:.3f} ms per sweep = {busy / wall_prof:.1%} of the "
         f"profiled wall, idle {1 - busy / wall_prof:.1%}; {card}")
@@ -368,8 +510,10 @@ def main() -> None:
              "CUDA device")
     try:
         import dcfm_tpu_torch as dt
+        from dcfm_tpu_torch.ops import batched_solve as bs
         from dcfm_tpu_torch.ops import chol_sample as k1
         from dcfm_tpu_torch.ops import cuda_lib
+        from dcfm_tpu_torch.ops import lam_update as k2
         from dcfm_tpu_torch.ops import sse_gamma as k5
     except ImportError as e:
         fail(f"the dcfm_tpu_torch package is not beside this script: {e}")
@@ -384,20 +528,35 @@ def main() -> None:
     _, log = cuda_lib.build()
     say(f"kernels built in {time.perf_counter() - t:.1f} s")
     for line in log.splitlines():
-        if "ptxas" in line or "spill" in line:
+        if "ptxas" in line or "spill" in line or "== nvcc" in line:
             say(line.rstrip())
 
     rng = np.random.default_rng(0)
-    kernels = [k1_phase(torch, k1, rng), k5_phase(torch, k5, rng)]
-    launches, fit_cfg, Y = fit_phase(torch, dt, cuda_lib, card)
-    sweep_profile(torch, fit_cfg, Y, card)
+    kernels = [k1_phase(torch, k1, rng), k4_phase(torch, bs, rng),
+               k3_phase(torch, bs, rng), k2_phase(torch, k2),
+               k5_phase(torch, k5, rng)]
+
+    c = FIT
+    Y, L, noise = synthetic(c["n"], c["p"], c["k_true"])
+    launches, errs = {}, {}
+    for label, model, backend, path_kernels in FIT_PATHS:
+        got, cfg, errs[label] = fit_phase(torch, dt, cuda_lib, card, label,
+                                          model, backend, path_kernels, Y,
+                                          L, noise)
+        for name in path_kernels:          # a kernel's count from its path
+            launches.setdefault(name, got[name])
+        sweep_profile(torch, cfg, Y, card, label)
+    say(f"|err_bf16 - err_f32| = {abs(errs['bf16'] - errs['f32']):.3e}, "
+        f"|err_fused - err_f32| = {abs(errs['fused'] - errs['f32']):.3e}")
+    launches["cho_solve"] = k3_path(torch, bs, cuda_lib, rng)["cho_solve"]
     for k in kernels:
         k["launches"] = launches[k["name"]]
         say(f"{k['name']}: kernel {k['ms'] * 1e3:.2f} us on the device "
             f"({k['call_ms'] * 1e3:.2f} us per wrapper call), plain "
             f"{k['plain_ms'] * 1e3:.2f} us, library "
             f"{k['library_ms'] * 1e3:.2f} us, bound "
-            f"{k['bound_ms'] * 1e3:.3f} us ({k['bound_by']}); {card}")
+            f"{k['bound_ms'] * 1e3:.3f} us ({k['bound_by']}); "
+            f"{k['launches']} launches on its path; {card}")
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {
       "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,9 +3,11 @@ port runs, copied (the port imports nothing of ``dcfm_tpu``).
 
 Field names, defaults and meanings are those of the JAX package, so a
 config written for one reads the same in the other.  The port runs one
-device, one process, the MGP prior in float32 with the packed float32
-accumulator fetch.  Every other knob the JAX package has is either absent
-here (passing it is a ``TypeError``) or present and refused by
+device, one process, the MGP prior with the packed float32 accumulator
+fetch; the sweep in float32 or mixed bf16 (``compute_dtype``,
+``combine_dtype``), with every ``lambda_kernel``.  Every other knob the
+JAX package has is either absent here (passing it is a ``TypeError``) or
+present and refused by
 :func:`validate` with a ``NotImplementedError`` that names the ROADMAP item
 that will port it - a knob is never silently ignored.
 """
@@ -16,12 +18,10 @@ import dataclasses
 from typing import Optional
 
 # ROADMAP items the refusals point at (ROADMAP.md, "Still to port")
-_BF16 = "ROADMAP 'Still to port' item 1 (bf16 compute path, kernel K4)"
-_FUSED = "ROADMAP 'Still to port' item 2 (kernel K2, pallas-fused)"
-_FETCH = "ROADMAP 'Still to port' item 5 (fetch and artifact)"
-_CKPT = "ROADMAP 'Still to port' item 6 (pipeline and checkpoint)"
-_MESH = "ROADMAP 'Still to port' item 7 (multi-GPU shards)"
-_SCEN = "ROADMAP 'Still to port' item 8 (scenarios)"
+_FETCH = "ROADMAP 'Still to port' item 2 (fetch and artifact)"
+_CKPT = "ROADMAP 'Still to port' item 3 (pipeline and checkpoint)"
+_MESH = "ROADMAP 'Still to port' item 4 (multi-GPU shards)"
+_SCEN = "ROADMAP 'Still to port' item 5 (scenarios)"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -49,15 +49,17 @@ class ModelConfig:
     as_: float = 1.0
     bs: float = 0.3
     posterior_sd: bool = False
-    combine_dtype: str = "float32"
+    combine_dtype: str = "float32"      # "float32" | "bfloat16"
     # internal mirrors of BackendConfig.compute_dtype / sse_mode (fit()
     # threads the backend knobs here, as the JAX package does)
     compute_dtype: str = "f32"
     sse_mode: str = "resid"              # "resid" | "gram" | "auto"
-    # Every accepted value runs the same sampler in the port: K <= 16 goes
-    # through the hand-written factor-solve-sample kernel on the card (its
-    # plain PyTorch version on the CPU), larger K through torch.linalg.
-    lambda_kernel: str = "auto"          # "auto" | "unrolled" | "lax" | "pallas"
+    # The Lambda update's kernel, chosen as in the JAX package: "pallas-
+    # fused" runs the fused update K2 and "pallas" the factor-solve-sample
+    # K1 (both K <= 16); every other value runs K4 under compute_dtype
+    # "bf16" and K1 otherwise, with torch.linalg for K > 16.  On the CPU
+    # each kernel runs its plain PyTorch version.
+    lambda_kernel: str = "auto"  # auto | unrolled | lax | pallas | pallas-fused
     rank_adapt: bool = False
     impute_missing: bool = False
     combine_chunks: int = 1
@@ -157,10 +159,13 @@ def validate(cfg: FitConfig, n: int, p: int) -> None:
         raise ValueError(
             f"unknown lambda_kernel {m.lambda_kernel!r} "
             "(auto | unrolled | lax | pallas | pallas-fused)")
-    if m.lambda_kernel == "pallas" and m.factors_per_shard > 16:
+    if m.lambda_kernel.startswith("pallas") and m.factors_per_shard > 16:
         raise ValueError(
-            f"lambda_kernel='pallas' supports factors_per_shard <= 16, got "
-            f"{m.factors_per_shard}; use lambda_kernel='auto'")
+            f"lambda_kernel={m.lambda_kernel!r} supports factors_per_shard "
+            f"<= 16, got {m.factors_per_shard}; use lambda_kernel='auto'")
+    if m.combine_dtype not in ("float32", "bfloat16"):
+        raise ValueError(
+            f"unknown combine_dtype {m.combine_dtype!r} (float32 | bfloat16)")
     if m.ridge_jitter < 0:
         raise ValueError(f"ridge_jitter must be >= 0, got {m.ridge_jitter}")
     for name, mode in (("BackendConfig.sse_mode", be.sse_mode),
@@ -184,12 +189,6 @@ def validate(cfg: FitConfig, n: int, p: int) -> None:
             f"resume must be False, True, or 'auto', got {cfg.resume!r}")
 
     # ---- knobs outside the port: refused, never ignored -----------------
-    if "bf16" in (be.compute_dtype, m.compute_dtype):
-        _refuse("compute_dtype='bf16'", _BF16)
-    if m.combine_dtype != "float32":
-        _refuse(f"combine_dtype={m.combine_dtype!r}", _BF16)
-    if m.lambda_kernel == "pallas-fused":
-        _refuse("lambda_kernel='pallas-fused'", _FUSED)
     if m.prior != "mgp":
         _refuse(f"prior={m.prior!r}", _SCEN)
     if m.rank_adapt:

@@ -1,21 +1,28 @@
 """The Gibbs sweep: Z, X, Lambda, the prior and psi in turn.
 
-The port of ``dcfm_tpu/models/conditionals.py`` for one device, the MGP
-prior and float32.  The shard axis is an explicit leading batch dimension
+The port of ``dcfm_tpu/models/conditionals.py`` for one device and the
+MGP prior.  The shard axis is an explicit leading batch dimension
 (the JAX package vmaps over it), so the X update's cross-shard sums are
 plain sums over axis 0.  Every draw comes from ``draws`` (noise.py) at
 the JAX package's site ids, and every kernel's noise is drawn outside the
 kernel, as the JAX package's Pallas path does.
 
-On a CUDA tensor the Lambda update (K <= 16) runs the hand-written
-factor-solve-sample kernel (ops/chol_sample.py) and the Gram psi stage
-the fused SSE/rate kernel (ops/sse_gamma.py); on a CPU tensor both run
-their plain PyTorch versions.
+The Lambda update (K <= 16) takes one of three hand-written kernels,
+chosen in the JAX package's order: the fused update K2 for
+``lambda_kernel="pallas-fused"`` (ops/lam_update.py), the factor-solve-
+sample K1 for "pallas" (ops/chol_sample.py), K4 under
+``compute_dtype="bf16"`` otherwise (ops/batched_solve.py), else K1.  The
+Gram psi stage runs the fused SSE/rate kernel K5 (ops/sse_gamma.py).  On a
+CPU tensor every kernel runs its plain PyTorch version.
 
 Matmul precision: the sweep's float32 products must run in full float32
 (the JAX sweep runs them at "high"/"highest" on purpose - under
 single-pass reduced precision its Geweke test measured a prior bias).
-``api.fit`` refuses to run with TF32 matmuls enabled.
+``api.fit`` refuses to run with TF32 matmuls enabled.  Under
+``compute_dtype="bf16"`` the large products that the JAX package routes
+through its ``mm`` (the Z and X products, E and EY of the Lambda update)
+take bfloat16 inputs with float32 accumulation and output
+(:func:`mm_bf16`); every K x K precision, Cholesky and state stays float32.
 """
 
 from __future__ import annotations
@@ -28,10 +35,12 @@ import torch
 from dcfm_tpu_torch.config import ModelConfig
 from dcfm_tpu_torch.models.state import SamplerState
 from dcfm_tpu_torch.noise import SITE_LAM, SITE_PS, SITE_X, SITE_Z
+from dcfm_tpu_torch.ops.batched_solve import chol_solve_sample_batched
 from dcfm_tpu_torch.ops.chol_sample import MAX_K, chol_sample
 from dcfm_tpu_torch.ops.gamma import gamma_rate, gamma_unit_static
 from dcfm_tpu_torch.ops.gaussian import (
     sample_mvn_precision_linalg, sample_mvn_precision_shared)
+from dcfm_tpu_torch.ops.lam_update import lam_update
 from dcfm_tpu_torch.ops.sse_gamma import sse_ps
 
 
@@ -45,6 +54,27 @@ def resolve_sse_mode(mode: str, *, n: int, K: int) -> str:
 
 def _t(x: torch.Tensor) -> torch.Tensor:
     return x.transpose(-1, -2)
+
+
+def mm_bf16(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` (broadcast over leading dims) on bfloat16-rounded inputs,
+    accumulated and returned in float32: the JAX package's
+    ``matmul(a.astype(bf16), b.astype(bf16), preferred_element_type=f32)``.
+    On the card, cuBLAS's bf16 GEMM with a float32 output (the mm.dtype /
+    bmm.dtype overloads; a plain bf16 matmul would round its output to
+    bf16).  The CPU has no such overload: there the rounded inputs are
+    multiplied in float32, exactly as products of two bf16 values are exact
+    in float32, so only the summation order differs."""
+    a16, b16 = a.to(torch.bfloat16), b.to(torch.bfloat16)
+    if a.device.type != "cuda":
+        return a16.float() @ b16.float()
+    if a.dim() == 2 and b.dim() == 2:
+        return torch.mm(a16, b16, out_dtype=torch.float32)
+    batch = torch.broadcast_shapes(a.shape[:-2], b.shape[:-2])
+    a3 = a16.expand(*batch, *a.shape[-2:]).reshape(-1, *a.shape[-2:])
+    b3 = b16.expand(*batch, *b.shape[-2:]).reshape(-1, *b.shape[-2:])
+    return torch.bmm(a3, b3, out_dtype=torch.float32).reshape(
+        *batch, a.shape[-2], b.shape[-1])
 
 
 def gibbs_sweep(draws, Y: torch.Tensor, state: SamplerState,
@@ -61,25 +91,26 @@ def gibbs_sweep(draws, Y: torch.Tensor, state: SamplerState,
     jit_eps = float(cfg.ridge_jitter)
     eye = torch.eye(K, dtype=Y.dtype, device=Y.device)
     sse_gram = resolve_sse_mode(cfg.sse_mode, n=n, K=K) == "gram"
+    mm = mm_bf16 if cfg.compute_dtype == "bf16" else torch.matmul
     Lam, ps = state.Lambda, state.ps
 
     # precision-weighted loadings and their K x K moment, shared by the
     # Z and X updates (both read the incoming Lambda and ps)
     W = Lam * ps[..., None]                                     # (G, P, K)
-    LtW = _t(Lam) @ W                                           # (G, K, K)
+    LtW = mm(_t(Lam), W)                                        # (G, K, K)
 
     # ---- Z_m | rest ------------------------------------------------------
     Qz = eye + (1.0 - rho) * LtW
     if jit_eps:
         Qz = Qz + jit_eps * eye
-    R = Y - sq_r * (state.X @ _t(Lam))                          # (G, n, P)
-    Bz = sq_1mr * (R @ W)                                       # (G, n, K)
+    R = Y - sq_r * mm(state.X, _t(Lam))                         # (G, n, P)
+    Bz = sq_1mr * mm(R, W)                                      # (G, n, K)
     Z = sample_mvn_precision_shared(draws.normal(SITE_Z, (G, n, K)), Qz, Bz)
 
     # ---- X | rest: the one cross-shard update ----------------------------
-    R = Y - sq_1mr * (Z @ _t(Lam))
+    R = Y - sq_1mr * mm(Z, _t(Lam))
     S1 = torch.sum(LtW, dim=0)                                  # (K, K)
-    S2 = torch.sum(R @ W, dim=0)                                # (n, K)
+    S2 = torch.sum(mm(R, W), dim=0)                             # (n, K)
     Qx = cfg.x_prior_precision * eye + rho * S1
     if jit_eps:
         Qx = Qx + jit_eps * eye
@@ -92,16 +123,28 @@ def gibbs_sweep(draws, Y: torch.Tensor, state: SamplerState,
     plam = prior.row_precision(state.prior)                     # (G, P, K)
     if jit_eps:
         plam = plam + jit_eps
-    E = _t(eta) @ eta                                           # (G, K, K)
-    EY = _t(eta) @ Y                                            # (G, K, P)
-    Q = torch.diag_embed(plam) + ps[..., None, None] * E[:, None]
-    B = ps[..., None] * _t(EY)                                  # (G, P, K)
+    fused = cfg.lambda_kernel == "pallas-fused"
+    # the JAX fused path forms the moments with float32 einsums even under
+    # bf16, except in Gram mode, where it reuses these mm moments
+    mm_e = torch.matmul if fused and not sse_gram else mm
+    E = mm_e(_t(eta), eta)                                      # (G, K, K)
+    EY = mm_e(_t(eta), Y)                                       # (G, K, P)
+    EYt = _t(EY).contiguous()                                   # (G, P, K)
     Zn = draws.normal(SITE_LAM, (G, P, K))
-    if K <= MAX_K:
-        Lam = chol_sample(Q.reshape(G * P, K, K), B.reshape(G * P, K),
-                          Zn.reshape(G * P, K)).reshape(G, P, K)
+    if fused:
+        Lam = lam_update(E, plam, ps, EYt, Zn)
     else:
-        Lam = sample_mvn_precision_linalg(Q, B, Zn)
+        Q = torch.diag_embed(plam) + ps[..., None, None] * E[:, None]
+        B = ps[..., None] * EYt                                 # (G, P, K)
+        if cfg.compute_dtype == "bf16" and cfg.lambda_kernel != "pallas":
+            Lam = chol_solve_sample_batched(
+                Q.reshape(G * P, K, K), B.reshape(G * P, K),
+                Zn.reshape(G * P, K)).reshape(G, P, K)
+        elif K <= MAX_K:
+            Lam = chol_sample(Q.reshape(G * P, K, K), B.reshape(G * P, K),
+                              Zn.reshape(G * P, K)).reshape(G, P, K)
+        else:
+            Lam = sample_mvn_precision_linalg(Q, B, Zn)
 
     # ---- shrinkage prior ---------------------------------------------------
     prior_state = prior.update(draws, state.prior, Lam)
@@ -115,7 +158,7 @@ def gibbs_sweep(draws, Y: torch.Tensor, state: SamplerState,
         gunit = gamma_unit_static(draws, SITE_PS, cfg.as_ + 0.5 * n, (G, P),
                                   device=Y.device)
         ps, sse = sse_ps(Lam.reshape(G * P, K), M.reshape(G * P, K),
-                         _t(EY).reshape(G * P, K), yty.reshape(G * P),
+                         EYt.reshape(G * P, K), yty.reshape(G * P),
                          gunit.reshape(G * P), bs=float(cfg.bs))
         ps, sse = ps.reshape(G, P), sse.reshape(G, P)
     else:
@@ -130,14 +173,26 @@ def gibbs_sweep(draws, Y: torch.Tensor, state: SamplerState,
 def covariance_panels(Lam_all: torch.Tensor, ps_all: torch.Tensor,
                       rho: float, pair_rows: torch.Tensor,
                       pair_cols: torch.Tensor, *,
-                      eta_all: Optional[torch.Tensor] = None) -> torch.Tensor:
+                      eta_all: Optional[torch.Tensor] = None,
+                      compute_dtype: Optional[torch.dtype] = None
+                      ) -> torch.Tensor:
     """Per-draw packed upper-triangle covariance panels (Q, P, P), panel q
     the block (pair_rows[q], pair_cols[q]).
 
     Scaled estimator (``eta_all`` given): Lam_r H_rc Lam_c' with the
     draw's factor cross-moments H_rc = eta_r' eta_c / n.  Plain rule
     (``eta_all`` None): rho Lam_r Lam_c' off the diagonal, Lam_r Lam_r' on
-    it.  Diagonal pairs add diag(1/ps_r)."""
+    it.  Diagonal pairs add diag(1/ps_r).
+
+    ``compute_dtype=torch.bfloat16`` runs the block products on bf16
+    inputs with float32 accumulation and output (:func:`mm_bf16`); as in
+    the JAX package, H is formed in float32 and the intermediate Lam_r H is
+    rounded to bf16 again before the second product.  None is float32."""
+    if compute_dtype not in (None, torch.bfloat16):
+        raise ValueError(
+            f"compute_dtype must be None or torch.bfloat16, got "
+            f"{compute_dtype}")
+    mm = torch.matmul if compute_dtype is None else mm_bf16
     Lam_r = Lam_all[pair_rows]                                  # (Q, P, K)
     Lam_c = Lam_all[pair_cols]
     diag = pair_rows == pair_cols                               # (Q,)
@@ -145,9 +200,9 @@ def covariance_panels(Lam_all: torch.Tensor, ps_all: torch.Tensor,
         n = eta_all.shape[1]
         H_grid = torch.einsum("rnk,cnj->rckj", eta_all, eta_all) / n
         H = H_grid[pair_rows, pair_cols]                        # (Q, K, K)
-        blocks = (Lam_r @ H) @ _t(Lam_c)
+        blocks = mm(mm(Lam_r, H), _t(Lam_c))
     else:
-        blocks = Lam_r @ _t(Lam_c)
+        blocks = mm(Lam_r, _t(Lam_c))
         scale = torch.where(diag, torch.ones((), dtype=blocks.dtype,
                                              device=blocks.device),
                             torch.full((), rho, dtype=blocks.dtype,

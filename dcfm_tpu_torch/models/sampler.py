@@ -124,6 +124,10 @@ def run_chunk(noise, chain: int, Y: torch.Tensor, carry: ChainCarry,
     cols = torch.as_tensor(cols, dtype=torch.long, device=Y.device)
     state, acc, health = carry.state, carry.sigma_acc, carry.health
     sq_r, sq_1mr = math.sqrt(cfg.rho), math.sqrt(1.0 - cfg.rho)
+    # the combine's input dtype: the combine_dtype knob, or the sweep-wide
+    # bf16 policy; the accumulator stays float32 either way
+    c_dtype = (torch.bfloat16 if (cfg.combine_dtype == "bfloat16"
+                                  or cfg.compute_dtype == "bf16") else None)
     traces = []
     it = carry.iteration
     for _ in range(num_iters):
@@ -134,7 +138,7 @@ def run_chunk(noise, chain: int, Y: torch.Tensor, carry: ChainCarry,
             eta = (sq_r * state.X[None] + sq_1mr * state.Z
                    if cfg.estimator == "scaled" else None)
             acc += covariance_panels(state.Lambda, state.ps, cfg.rho, rows,
-                                     cols, eta_all=eta)
+                                     cols, eta_all=eta, compute_dtype=c_dtype)
         health = _health_update(health, _health_now(state, prior))
         traces.append(_trace_now(state, sse, cfg.rho))
     h = health.cpu()

@@ -21,50 +21,46 @@ MAX_K = 16
 
 def chol_sample_plain(Q: torch.Tensor, b: torch.Tensor,
                       z: torch.Tensor) -> torch.Tensor:
-    """The plain PyTorch version: unrolled Cholesky, forward solve, two
-    backward solves (``dcfm_tpu/ops/gaussian.py``'s ``_chol_unrolled``
-    family)."""
+    """The plain PyTorch version, in the TPU kernel's order: unrolled
+    Cholesky, forward solve, two backward solves multiplying by 1/L_jj."""
     cols = chol_unrolled(Q)
     v = fwd_solve_unrolled(cols, b)
-    return bwd_solve_unrolled(cols, v) + bwd_solve_unrolled(cols, z)
+    return (bwd_solve_unrolled(cols, v, recip=True)
+            + bwd_solve_unrolled(cols, z, recip=True))
 
 
-def _check(Q, b, z) -> None:
+def check_systems(Q: torch.Tensor, **vecs: torch.Tensor) -> None:
+    """What the batched K x K kernels take: Q (B, K, K) with 1 <= K <= 16
+    and each named vector (B, K); float32, contiguous, on Q's device."""
     if Q.dim() != 3 or Q.shape[1] != Q.shape[2]:
         raise ValueError(f"Q must be (B, K, K), got {tuple(Q.shape)}")
     B, K = Q.shape[0], Q.shape[2]
     if not 1 <= K <= MAX_K:
         raise ValueError(f"K={K} outside the kernel's range 1..{MAX_K}")
-    for name, t in (("b", b), ("z", z)):
+    for name, t in vecs.items():
         if tuple(t.shape) != (B, K):
             raise ValueError(
                 f"{name} must be ({B}, {K}), got {tuple(t.shape)}")
-    for name, t in (("Q", Q), ("b", b), ("z", z)):
+    for name, t in (("Q", Q), *vecs.items()):
         if t.dtype != torch.float32:
             raise TypeError(f"{name} must be float32, got {t.dtype}")
         if t.device != Q.device:
             raise ValueError(f"{name} on {t.device}, Q on {Q.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+    if Q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"the kernels run on cpu or cuda, not {Q.device}")
 
 
 def chol_sample(Q: torch.Tensor, b: torch.Tensor,
                 z: torch.Tensor) -> torch.Tensor:
     """(B, K) draws x_j = Q_j^{-1} b_j + L_j^{-T} z_j; see module doc."""
-    _check(Q, b, z)
+    check_systems(Q, b=b, z=z)
     if Q.device.type == "cpu":
         return chol_sample_plain(Q, b, z)
-    if Q.device.type != "cuda":
-        raise ValueError(f"chol_sample runs on cpu or cuda, not {Q.device}")
     out = torch.empty_like(b)
-    if Q.shape[0] == 0:
-        return out
-    lib = cuda_lib.library()
-    with torch.cuda.device(Q.device):
-        stream = torch.cuda.current_stream(Q.device).cuda_stream
-        err = lib.dcfm_chol_sample(Q.data_ptr(), b.data_ptr(), z.data_ptr(),
-                                   out.data_ptr(), Q.shape[0], Q.shape[2],
-                                   stream)
-    cuda_lib.check(err, "chol_sample")
-    cuda_lib.LAUNCHES["chol_sample"] += 1
+    if Q.shape[0]:
+        cuda_lib.launch("chol_sample", "dcfm_chol_sample", Q.device,
+                        Q.data_ptr(), b.data_ptr(), z.data_ptr(),
+                        out.data_ptr(), Q.shape[0], Q.shape[2])
     return out

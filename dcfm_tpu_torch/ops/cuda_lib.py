@@ -1,8 +1,9 @@
 """Build, load and count the port's hand-written CUDA kernels.
 
-The sources are ``dcfm_tpu_torch/csrc/*.cu``, plain C entry points with no
-PyTorch headers.  On first use each source is compiled by its own ``nvcc``
-(all started together) for ``sm_90a`` and the objects are linked into one
+The sources are ``dcfm_tpu_torch/csrc/*.cu`` (and the recurrence header
+they share), plain C entry points with no PyTorch headers.  On first use
+each source is compiled by its own ``nvcc`` (all started together) for
+``sm_90a`` and the objects are linked into one
 shared library under ``dcfm_tpu_torch/build/`` (generated, never
 committed), named by a hash of the sources and flags so an edit rebuilds
 and an unchanged tree reuses it.  The library is loaded with ``ctypes``.
@@ -20,14 +21,18 @@ import shutil
 import subprocess
 import threading
 
+import torch
+
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD = os.path.join(_PKG, "build")
-SOURCES = ("chol_sample.cu", "sse_ps.cu")
+SOURCES = ("chol_sample.cu", "batched_solve.cu", "lam_rows.cu", "sse_ps.cu")
+HEADERS = ("chol_recurrence.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
-LAUNCHES = {"chol_sample": 0, "sse_ps": 0}
+LAUNCHES = {"chol_sample": 0, "chol_solve_sample": 0, "cho_solve": 0,
+            "lam_update": 0, "sse_ps": 0}
 
 _lock = threading.Lock()
 _lib = None
@@ -58,7 +63,7 @@ def nvcc_path() -> str:
 
 def _tag() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         with open(os.path.join(CSRC, name), "rb") as f:
             h.update(name.encode() + b"\0" + f.read())
     return h.hexdigest()[:16]
@@ -118,8 +123,13 @@ def library() -> ctypes.CDLL:
             path, _ = build()
             lib = ctypes.CDLL(path)
             ptr, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-            lib.dcfm_chol_sample.argtypes = [ptr, ptr, ptr, ptr, i64, i32, ptr]
-            lib.dcfm_chol_sample.restype = i32
+            for fn in (lib.dcfm_chol_sample, lib.dcfm_chol_solve_sample):
+                fn.argtypes = [ptr, ptr, ptr, ptr, i64, i32, ptr]
+                fn.restype = i32
+            lib.dcfm_cho_solve.argtypes = [ptr, ptr, ptr, i64, i32, ptr]
+            lib.dcfm_cho_solve.restype = i32
+            lib.dcfm_lam_rows.argtypes = [ptr] * 6 + [i32, i32, i32, ptr]
+            lib.dcfm_lam_rows.restype = i32
             lib.dcfm_sse_ps.argtypes = [ptr] * 7 + [i64, i32,
                                                     ctypes.c_float, ptr]
             lib.dcfm_sse_ps.restype = i32
@@ -134,3 +144,15 @@ def check(err: int, kernel: str) -> None:
     if err:
         msg = library().dcfm_cuda_error_string(err).decode()
         raise RuntimeError(f"{kernel} launch failed: CUDA error {err} ({msg})")
+
+
+def launch(kernel: str, entry: str, device, *args) -> None:
+    """Call the C entry ``entry`` with ``args`` and the current stream of
+    ``device``, raise on the cudaError_t it returns, and count one launch
+    of ``kernel``."""
+    lib = library()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = getattr(lib, entry)(*args, stream)
+    check(err, kernel)
+    LAUNCHES[kernel] += 1

@@ -11,8 +11,9 @@ normals z are arguments: the caller draws them from its noise provider.
   served the JAX package.
 * ``chol_unrolled`` / ``fwd_solve_unrolled`` / ``bwd_solve_unrolled`` -
   the statically unrolled elementwise recurrence over a batch of
-  per-row K x K systems; the plain PyTorch version of the factor-solve-
-  sample kernel (ops/chol_sample.py).
+  per-row K x K systems; the plain PyTorch versions of the factor-solve
+  kernels (ops/chol_sample.py, ops/batched_solve.py, ops/lam_update.py)
+  are built from it.
 * :func:`sample_mvn_precision_linalg` - the per-row sampler through
   ``torch.linalg`` for K above the kernel's bound.
 """
@@ -23,10 +24,13 @@ import torch
 
 
 def cholesky(Q: torch.Tensor) -> torch.Tensor:
-    """Lower Cholesky factor; a matrix that is not positive definite gives
-    NaN (as XLA's factorization does) instead of raising, so the chain's
-    health counter sees it and the card never synchronizes on a check."""
-    L, info = torch.linalg.cholesky_ex(Q)
+    """Lower Cholesky factor of (Q + Q') / 2, as ``lax.linalg.cholesky``
+    symmetrizes its input (under bf16 products L'(L ps) is asymmetric at
+    2^-8, so reading one triangle would factor another matrix); a matrix
+    that is not positive definite gives NaN (as XLA's factorization does)
+    instead of raising, so the chain's health counter sees it and the card
+    never synchronizes on a check."""
+    L, info = torch.linalg.cholesky_ex((Q + Q.transpose(-1, -2)) / 2)
     bad = (info != 0)[..., None, None]
     return torch.where(bad, torch.full_like(L, float("nan")), L)
 
@@ -54,10 +58,16 @@ def chol_unrolled(Q: torch.Tensor) -> list:
     """Cholesky of (B, K, K) SPD matrices as K unrolled steps of batched
     elementwise ops; returns columns [(B, K-j) for j in 0..K-1], column j
     holding rows j..K-1 of L."""
-    K = Q.shape[-1]
+    return chol_unrolled_columns(lambda j: Q[:, j:, j], Q.shape[-1])
+
+
+def chol_unrolled_columns(column, K: int) -> list:
+    """:func:`chol_unrolled` with the precision given column by column:
+    ``column(j)`` is the (B, K-j) slab of rows j..K-1 of column j of Q, so
+    a caller can form Q on the fly (the fused Lambda update)."""
     cols = []
     for j in range(K):
-        s = Q[:, j:, j]
+        s = column(j)
         for t in range(j):
             ct = cols[t]
             s = s - ct[:, j - t:] * ct[:, j - t, None]
@@ -78,15 +88,19 @@ def fwd_solve_unrolled(cols: list, b: torch.Tensor) -> torch.Tensor:
     return torch.stack(ys, dim=-1)
 
 
-def bwd_solve_unrolled(cols: list, b: torch.Tensor) -> torch.Tensor:
-    """Solve L' x = b for unrolled-column L; b, x are (B, K)."""
+def bwd_solve_unrolled(cols: list, b: torch.Tensor, *,
+                       recip: bool = False) -> torch.Tensor:
+    """Solve L' x = b for unrolled-column L; b, x are (B, K).  Each step
+    divides by L_jj, or with ``recip`` multiplies by 1/L_jj (the order of
+    the Pallas kernels in ``dcfm_tpu/ops/pallas_gaussian.py``)."""
     K = b.shape[-1]
     xs = [None] * K
     for j in reversed(range(K)):
         acc = b[:, j]
         for i in range(j + 1, K):
             acc = acc - cols[j][:, i - j] * xs[i]
-        xs[j] = acc / cols[j][:, 0]
+        d = cols[j][:, 0]
+        xs[j] = acc * (1.0 / d) if recip else acc / d
     return torch.stack(xs, dim=-1)
 
 

@@ -56,15 +56,9 @@ def sse_ps(Lam: torch.Tensor, M: torch.Tensor, EYt: torch.Tensor,
         raise ValueError(f"sse_ps runs on cpu or cuda, not {Lam.device}")
     ps = torch.empty_like(yty)
     sse = torch.empty_like(yty)
-    if Lam.shape[0] == 0:
-        return ps, sse
-    lib = cuda_lib.library()
-    with torch.cuda.device(Lam.device):
-        stream = torch.cuda.current_stream(Lam.device).cuda_stream
-        err = lib.dcfm_sse_ps(
-            Lam.data_ptr(), M.data_ptr(), EYt.data_ptr(), yty.data_ptr(),
-            gunit.data_ptr(), ps.data_ptr(), sse.data_ptr(),
-            Lam.shape[0], Lam.shape[1], float(bs), stream)
-    cuda_lib.check(err, "sse_ps")
-    cuda_lib.LAUNCHES["sse_ps"] += 1
+    if Lam.shape[0]:
+        cuda_lib.launch(
+            "sse_ps", "dcfm_sse_ps", Lam.device, Lam.data_ptr(), M.data_ptr(),
+            EYt.data_ptr(), yty.data_ptr(), gunit.data_ptr(), ps.data_ptr(),
+            sse.data_ptr(), Lam.shape[0], Lam.shape[1], float(bs))
     return ps, sse

@@ -79,7 +79,9 @@ def test_parity_with_numpy_twin(sse_mode):
     res = _port_twin_fit(sse_mode)
     S_pt = stitch_blocks(res.sigma_blocks.astype(np.float64))
     assert _rel_frob(S_pt, S_np) < 0.05
-    assert res.kernel_launches == {"chol_sample": 0, "sse_ps": 0}  # CPU
+    assert res.kernel_launches == {                              # CPU
+        "chol_sample": 0, "chol_solve_sample": 0, "cho_solve": 0,
+        "lam_update": 0, "sse_ps": 0}
 
 
 def test_parity_with_jax_fit():
@@ -181,14 +183,16 @@ def test_run_config_validation(bad):
 @pytest.mark.parametrize("model,run,backend,extra", [
     ({"prior": "horseshoe"}, {}, {}, {}),
     ({"rank_adapt": True}, {}, {}, {}),
-    ({"lambda_kernel": "pallas-fused"}, {}, {}, {}),
+    ({"combine_chunks": 2}, {}, {}, {}),
     ({"posterior_sd": True}, {}, {}, {}),
     ({}, {"store_draws": True}, {}, {}),
     ({}, {"early_stop": "rhat"}, {}, {}),
-    ({}, {}, {"compute_dtype": "bf16"}, {}),
+    ({}, {}, {"upload_dtype": "float16"}, {}),
+    ({}, {}, {"fetch_stream": "on"}, {}),
     ({}, {}, {"mesh_devices": 2}, {}),
     ({}, {}, {"fetch_dtype": "quant8"}, {}),
     ({}, {}, {}, {"checkpoint_path": "ck.npz"}),
+    ({}, {}, {}, {"resume": True}),
 ])
 def test_knobs_outside_the_port_are_refused(model, run, backend, extra):
     """Every knob the port does not run raises, naming its ROADMAP item."""
@@ -200,6 +204,20 @@ def test_knobs_outside_the_port_are_refused(model, run, backend, extra):
         backend=BackendConfig(**backend), **extra)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         fit(Y, cfg, device="cpu")
+
+
+@pytest.mark.parametrize("model,match", [
+    ({"combine_dtype": "float16"}, "combine_dtype"),
+    ({"lambda_kernel": "pallas-fused", "factors_per_shard": 17}, "<= 16"),
+    ({"lambda_kernel": "pallas", "factors_per_shard": 17}, "<= 16")])
+def test_model_config_validation(model, match):
+    """The JAX package's checks on the knobs the port now runs: an unknown
+    combine_dtype, and K > 16 under either Pallas-named Lambda kernel."""
+    Y, _ = make_synthetic(30, 8, 2, seed=0)
+    m = dict(num_shards=2, factors_per_shard=2, rho=0.5) | model
+    with pytest.raises(ValueError, match=match):
+        fit(Y, FitConfig(model=ModelConfig(**m),
+                         run=RunConfig(burnin=2, mcmc=2)), device="cpu")
 
 
 def test_missing_values_are_refused():

@@ -1,6 +1,7 @@
 """Card-only tests of the PyTorch port: the hand-written CUDA kernels
-against their plain PyTorch versions on the card, and a small fit whose
-main path launches both kernels.
+against their plain PyTorch versions on the card, the bf16 product, and
+small fits whose main paths launch the kernels (f32 through K1, bf16
+through K4, pallas-fused through K2; K5 in each).
 
 They need an NVIDIA GPU with nvcc (the kernels are built on first use) and
 skip without one.  They import no JAX, so on the card they run without the
@@ -16,8 +17,11 @@ torch = pytest.importorskip("torch")
 
 from dcfm_tpu_torch import BackendConfig, FitConfig, ModelConfig, RunConfig  # noqa: E402
 from dcfm_tpu_torch import fit  # noqa: E402
+from dcfm_tpu_torch.models.conditionals import mm_bf16  # noqa: E402
+from dcfm_tpu_torch.ops import batched_solve as bs  # noqa: E402
 from dcfm_tpu_torch.ops import cuda_lib  # noqa: E402
 from dcfm_tpu_torch.ops.chol_sample import chol_sample, chol_sample_plain  # noqa: E402
+from dcfm_tpu_torch.ops.lam_update import lam_update, lam_update_plain  # noqa: E402
 from dcfm_tpu_torch.ops.sse_gamma import sse_ps, sse_ps_plain  # noqa: E402
 
 pytestmark = pytest.mark.gpu
@@ -84,7 +88,82 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         chol_sample(Q.contiguous().double(), b.double(), b.double())
 
 
-def test_small_fit_runs_both_kernels(cuda):
+# the three solve kernels against their plain versions; float32 rounding
+# only (FMA contraction, and for K1/K2 the reciprocal the plain version
+# also multiplies by), inside the JAX package's 2e-4 kernel band
+_KERNEL_TOL = dict(rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("B,K", [(10048, 8), (10049, 1), (513, 4),
+                                 (10049, 16), (1, 5)])
+def test_batched_solve_kernels_match_plain(cuda, B, K):
+    rng = np.random.default_rng(100 + K)
+    Q = torch.as_tensor(_spd(rng, B, K), device=cuda)
+    b = torch.as_tensor(rng.standard_normal((B, K), np.float32), device=cuda)
+    z = torch.as_tensor(rng.standard_normal((B, K), np.float32), device=cuda)
+    before = cuda_lib.launch_counts()
+    x4 = bs.chol_solve_sample_batched(Q, b, z)
+    x3 = bs.cho_solve_batched(Q, b)
+    torch.cuda.synchronize()
+    after = cuda_lib.launch_counts()
+    assert after["chol_solve_sample"] == before["chol_solve_sample"] + 1
+    assert after["cho_solve"] == before["cho_solve"] + 1
+    torch.testing.assert_close(x4, bs.chol_solve_sample_plain(Q, b, z),
+                               **_KERNEL_TOL)
+    torch.testing.assert_close(x3, bs.cho_solve_plain(Q, b), **_KERNEL_TOL)
+
+
+@pytest.mark.parametrize("G,P,K", [(64, 157, 8), (3, 33, 1), (5, 157, 4),
+                                   (2, 65, 16), (1, 1, 3)])
+def test_lam_update_kernel_matches_plain(cuda, G, P, K):
+    rng = np.random.default_rng(200 + K)
+    A = rng.standard_normal((G, K, K)).astype(np.float32)
+    E = A @ np.transpose(A, (0, 2, 1)) + 0.5 * np.eye(K, dtype=np.float32)
+    ops = [E, (rng.gamma(2.0, 1.0, (G, P, K)) + 0.1).astype(np.float32),
+           rng.gamma(3.0, 0.5, (G, P)).astype(np.float32),
+           rng.standard_normal((G, P, K)).astype(np.float32),
+           rng.standard_normal((G, P, K)).astype(np.float32)]
+    t = [torch.as_tensor(a, device=cuda) for a in ops]
+    before = cuda_lib.launch_counts()["lam_update"]
+    out = lam_update(*t)
+    torch.cuda.synchronize()
+    assert cuda_lib.launch_counts()["lam_update"] == before + 1
+    torch.testing.assert_close(out, lam_update_plain(*t), **_KERNEL_TOL)
+
+
+def test_new_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    Q = torch.eye(3, device=cuda).expand(4, 3, 3)
+    b = torch.zeros((4, 3), device=cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        bs.chol_solve_sample_batched(Q, b, b)
+    with pytest.raises(TypeError, match="float32"):
+        bs.cho_solve_batched(Q.contiguous().double(), b.double())
+    E = torch.eye(3, device=cuda).expand(2, 3, 3)
+    plam = torch.ones((2, 5, 3), device=cuda)
+    ps = torch.ones((2, 5), device=cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        lam_update(E, plam, ps, plam, plam)
+    with pytest.raises(TypeError, match="float32"):
+        lam_update(E.contiguous(), plam, ps.double(), plam, plam)
+
+
+def test_mm_bf16_on_the_card_matches_the_cpu_rule(cuda):
+    """cuBLAS's bf16 GEMM with float32 output against the CPU rule (bf16
+    inputs multiplied exactly in float32): only the summation order
+    differs; a bf16-rounded output would miss by 2e-3 of the scale."""
+    rng = np.random.default_rng(9)
+    for sa, sb in (((64, 500, 157), (64, 157, 8)), ((500, 8), (64, 8, 157)),
+                   ((157, 8), (8, 157))):
+        a = torch.as_tensor(rng.standard_normal(sa).astype(np.float32))
+        b = torch.as_tensor(rng.standard_normal(sb).astype(np.float32))
+        ref = mm_bf16(a, b)
+        out = mm_bf16(a.to(cuda), b.to(cuda)).cpu()
+        assert out.dtype == torch.float32
+        scale = float(ref.abs().max())
+        torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-5 * scale)
+
+
+def _small_fit(cuda, **knobs):
     rng = np.random.default_rng(1)
     L = rng.normal(size=(96, 4)) / 2
     Y = (rng.normal(size=(150, 4)) @ L.T
@@ -92,10 +171,29 @@ def test_small_fit_runs_both_kernels(cuda):
     St = L @ L.T + 0.04 * np.eye(96)
     cfg = FitConfig(
         model=ModelConfig(num_shards=4, factors_per_shard=4, rho=0.9,
-                          lambda_kernel="pallas"),
+                          lambda_kernel=knobs.get("lambda_kernel", "pallas")),
         run=RunConfig(burnin=150, mcmc=150, thin=2, num_chains=2),
-        backend=BackendConfig(sse_mode="gram"))
+        backend=BackendConfig(sse_mode="gram",
+                              compute_dtype=knobs.get("compute_dtype",
+                                                      "f32")))
     res = fit(Y, cfg, device=cuda)
-    assert res.kernel_launches == {"chol_sample": 600, "sse_ps": 600}
     assert np.isfinite(res.Sigma).all() and res.stats.nonfinite_count == 0
     assert np.linalg.norm(res.Sigma - St) / np.linalg.norm(St) < 0.25
+    return res.kernel_launches
+
+
+def test_small_fit_runs_both_kernels(cuda):
+    assert _small_fit(cuda) == {"chol_sample": 600, "chol_solve_sample": 0,
+                                "cho_solve": 0, "lam_update": 0,
+                                "sse_ps": 600}
+
+
+@pytest.mark.parametrize("knobs,kernel", [
+    ({"compute_dtype": "bf16", "lambda_kernel": "auto"}, "chol_solve_sample"),
+    ({"lambda_kernel": "pallas-fused"}, "lam_update")])
+def test_small_bf16_and_fused_fits_run_their_kernels(cuda, knobs, kernel):
+    """600 sweeps: the path's Lambda kernel and K5 once each per sweep."""
+    launches = _small_fit(cuda, **knobs)
+    expected = dict.fromkeys(launches, 0)
+    expected.update({kernel: 600, "sse_ps": 600})
+    assert launches == expected

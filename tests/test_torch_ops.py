@@ -3,7 +3,7 @@
 Inputs are made with numpy from a seed and handed to both packages.  The
 kernels' plain versions (what a CPU tensor runs) are held against the
 Pallas kernels in interpret mode and against the JAX package's own plain
-paths; the Gaussian samplers against their JAX twins on the same noise;
+paths (K1 and K5 here, K2, K3 and K4 below); the Gaussian samplers against their JAX twins on the same noise;
 the Gamma samplers by moments.
 """
 
@@ -17,15 +17,19 @@ torch = pytest.importorskip("torch")
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
+from dcfm_tpu.ops import batched_solve as jbs  # noqa: E402
 from dcfm_tpu.ops.gaussian import (  # noqa: E402
     mvn_mean_precision, sample_mvn_precision_batched,
     sample_mvn_precision_shared)
-from dcfm_tpu.ops.pallas_gaussian import chol_sample_batched_pallas  # noqa: E402
+from dcfm_tpu.ops.pallas_gaussian import (  # noqa: E402
+    chol_sample_batched_pallas, lam_update_pallas)
 from dcfm_tpu.ops.sse_gamma import gram_sse_ps  # noqa: E402
 from dcfm_tpu_torch.noise import TorchNoise  # noqa: E402
+from dcfm_tpu_torch.ops import batched_solve as tbs  # noqa: E402
 from dcfm_tpu_torch.ops import cuda_lib  # noqa: E402
 from dcfm_tpu_torch.ops import gaussian as tg  # noqa: E402
 from dcfm_tpu_torch.ops.chol_sample import chol_sample  # noqa: E402
+from dcfm_tpu_torch.ops.lam_update import lam_update  # noqa: E402
 from dcfm_tpu_torch.ops.gamma import (  # noqa: E402
     gamma_rate, gamma_rate_half_integer, gamma_unit_static)
 from dcfm_tpu_torch.ops.sse_gamma import sse_ps  # noqa: E402
@@ -94,6 +98,133 @@ def test_linalg_sampler_matches_unrolled():
     z = torch.as_tensor(rng.standard_normal((50, 6)).astype(np.float32))
     torch.testing.assert_close(tg.sample_mvn_precision_linalg(Q, b, z),
                                chol_sample(Q, b, z), rtol=1e-4, atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# K4 / K3: the batched solves of the bf16 sweep; K2: the fused Lambda update
+# ---------------------------------------------------------------------------
+
+# Tolerance of the three plain versions against the Pallas kernels: the
+# plain version repeats the kernel's recurrence op for op, so only XLA's
+# fusion and FMA choices differ.  Over 5 seeds at each K in {1, 4, 8, 16}
+# the worst max |diff| was 9.0e-7 of the largest |x| (K2 at K = 16; K4
+# 4.0e-7, K3 6.3e-7), so 1e-5 absolute + 1e-5 relative at |x| <= 5 keeps
+# 10x headroom.
+_SOLVE_TOL = dict(rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("K", [1, 4, 8, 16])
+def test_chol_solve_sample_plain_matches_pallas_and_unrolled(K):
+    rng = np.random.default_rng(40 + K)
+    B = 701                                    # not a multiple of the tile
+    Q = _spd(rng, B, K)
+    b, z = (rng.standard_normal((B, K)).astype(np.float32) for _ in range(2))
+    before = cuda_lib.launch_counts()
+    out = tbs.chol_solve_sample_batched(
+        *(torch.as_tensor(a) for a in (Q, b, z))).numpy()
+    assert cuda_lib.launch_counts() == before      # a CPU tensor: plain path
+    for impl in ("pallas-interpret", "unrolled"):
+        ref = _np(jbs.chol_solve_sample_batched(Q, b, z, impl=impl))
+        np.testing.assert_allclose(out, ref, err_msg=impl, **_SOLVE_TOL)
+
+
+@pytest.mark.parametrize("K", [1, 4, 8, 16])
+def test_cho_solve_plain_matches_pallas(K):
+    rng = np.random.default_rng(60 + K)
+    B = 701
+    Q = _spd(rng, B, K)
+    b = rng.standard_normal((B, K)).astype(np.float32)
+    out = tbs.cho_solve_batched(torch.as_tensor(Q), torch.as_tensor(b))
+    ref = _np(jbs.cho_solve_batched(Q, b, impl="pallas-interpret"))
+    np.testing.assert_allclose(out.numpy(), ref, **_SOLVE_TOL)
+
+
+def test_batched_solves_above_the_kernel_bound_match_lax():
+    """K > 16 goes through torch.linalg, as the JAX package's lax branch:
+    LAPACK and XLA factor and solve in other orders (float32 rounding)."""
+    rng = np.random.default_rng(7)
+    Q = _spd(rng, 9, 20)
+    b, z = (rng.standard_normal((9, 20)).astype(np.float32) for _ in range(2))
+    t = [torch.as_tensor(a) for a in (Q, b, z)]
+    np.testing.assert_allclose(
+        tbs.chol_solve_sample_batched(*t).numpy(),
+        _np(jbs.chol_solve_sample_batched(Q, b, z, impl="lax")),
+        rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(
+        tbs.cho_solve_batched(t[0], t[1]).numpy(),
+        _np(jbs.cho_solve_batched(Q, b, impl="lax")), rtol=1e-4, atol=1e-4)
+
+
+def test_cho_solve_shared_matches_jax():
+    rng = np.random.default_rng(8)
+    Q = _spd(rng, 1, 6)[0]
+    B = rng.standard_normal((40, 6)).astype(np.float32)
+    np.testing.assert_allclose(
+        tbs.cho_solve_shared(torch.as_tensor(Q), torch.as_tensor(B)).numpy(),
+        _np(jbs.cho_solve_shared(jnp.asarray(Q), jnp.asarray(B))),
+        rtol=1e-5, atol=1e-5)
+
+
+def _lam_operands(rng, G, P, K):
+    """The fused update's operands as the sweep forms them: E = eta'eta
+    (SPD), plam > 0, ps > 0 (the JAX package's own test distribution)."""
+    A = rng.standard_normal((G, K, K)).astype(np.float32)
+    E = A @ np.transpose(A, (0, 2, 1)) + 0.5 * np.eye(K, dtype=np.float32)
+    plam = (rng.gamma(2.0, 1.0, (G, P, K)) + 0.1).astype(np.float32)
+    ps = rng.gamma(3.0, 0.5, (G, P)).astype(np.float32)
+    EYt, Zn = (rng.standard_normal((G, P, K)).astype(np.float32)
+               for _ in range(2))
+    return E, plam, ps, EYt, Zn
+
+
+@pytest.mark.parametrize("K", [1, 4, 8, 16])
+def test_lam_update_plain_matches_pallas(K):
+    """P = 157 is not a multiple of the Pallas kernel's 256-row tile, so
+    its padded rows are exercised (and must not leak into the result)."""
+    rng = np.random.default_rng(80 + K)
+    ops = _lam_operands(rng, 3, 157, K)
+    before = cuda_lib.launch_counts()
+    out = lam_update(*(torch.as_tensor(a) for a in ops)).numpy()
+    assert cuda_lib.launch_counts() == before
+    ref = _np(lam_update_pallas(*(jnp.asarray(a) for a in ops),
+                                interpret=True))
+    np.testing.assert_allclose(out, ref, **_SOLVE_TOL)
+
+
+def test_lam_update_plain_equals_k1_plain_on_the_formed_precision():
+    """Forming Q_j = diag(plam_j) + ps_j E in the recurrence changes no
+    operation of K1's: the two plain versions agree bitwise."""
+    from dcfm_tpu_torch.ops.chol_sample import chol_sample_plain
+    E, plam, ps, EYt, Zn = (torch.as_tensor(a) for a in _lam_operands(
+        np.random.default_rng(3), 2, 33, 5))
+    G, P, K = plam.shape
+    Q = torch.diag_embed(plam) + ps[..., None, None] * E[:, None]
+    x = chol_sample_plain(Q.reshape(G * P, K, K),
+                          (ps[..., None] * EYt).reshape(G * P, K),
+                          Zn.reshape(G * P, K)).reshape(G, P, K)
+    assert torch.equal(lam_update(E, plam, ps, EYt, Zn), x)
+
+
+def test_new_wrappers_refuse_bad_input():
+    Q = torch.eye(4).expand(3, 4, 4)
+    b = torch.zeros((3, 4))
+    with pytest.raises(ValueError, match="contiguous"):
+        tbs.chol_solve_sample_batched(Q, b, b)
+    with pytest.raises(TypeError, match="float32"):
+        tbs.cho_solve_batched(Q.contiguous().double(), b.double())
+    E, plam, ps, EYt, Zn = (torch.as_tensor(a) for a in _lam_operands(
+        np.random.default_rng(0), 2, 5, 3))
+    with pytest.raises(ValueError, match="contiguous"):
+        lam_update(E, plam, ps, EYt.transpose(0, 1).contiguous()
+                   .transpose(0, 1), Zn)
+    with pytest.raises(TypeError, match="float32"):
+        lam_update(E, plam, ps.double(), EYt, Zn)
+    with pytest.raises(ValueError, match=r"\(2, 5\)"):
+        lam_update(E, plam, ps[:, :4], EYt, Zn)
+    with pytest.raises(ValueError, match="range"):
+        lam_update(torch.eye(17).expand(2, 17, 17).contiguous(),
+                   torch.ones((2, 5, 17)), torch.ones((2, 5)),
+                   torch.ones((2, 5, 17)), torch.ones((2, 5, 17)))
 
 
 # ---------------------------------------------------------------------------

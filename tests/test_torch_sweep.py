@@ -84,17 +84,20 @@ def _jax_state_to_numpy(s):
 
 
 @functools.lru_cache(maxsize=None)
-def _case(sse_mode: str):
-    """(Y, JAX cfg, JAX prior, jitted JAX sweep, state after 6 JAX sweeps
-    from init) - a mixed state, so every conditional is exercised."""
+def _case(sse_mode: str, compute_dtype: str = "f32", lambda_kernel: str = ""):
+    """(Y, JAX cfg, jitted JAX sweep, state after 6 JAX sweeps from init)
+    - a mixed state, so every conditional is exercised.  The Lambda
+    kernel defaults to "pallas-interpret" in Gram mode, "auto" otherwise."""
     rng = np.random.default_rng(11)
     L = rng.standard_normal((G * P, 2)) / 2
     Y = (rng.standard_normal((N, 2)) @ L.T
          + 0.3 * rng.standard_normal((N, G * P)))
     Y = jpre.preprocess(Y.astype(np.float32), G, seed=0).data
-    kern = "pallas-interpret" if sse_mode == "gram" else "auto"
+    kern = lambda_kernel or ("pallas-interpret" if sse_mode == "gram"
+                             else "auto")
     cfg = JModelConfig(num_shards=G, factors_per_shard=K, rho=0.8,
-                       sse_mode=sse_mode, lambda_kernel=kern)
+                       sse_mode=sse_mode, lambda_kernel=kern,
+                       compute_dtype=compute_dtype)
     prior = jmake_prior(cfg)
     sweep = jax.jit(lambda k, y, s: jcond.gibbs_sweep(k, y, s, cfg, prior))
     state = jstate.init_state(jax.random.key(1), prior, num_local_shards=G,
@@ -105,10 +108,10 @@ def _case(sse_mode: str):
     return Y, cfg, sweep, _jax_state_to_numpy(state)
 
 
-@pytest.mark.parametrize("sse_mode", ["gram", "resid"])
-def test_one_sweep_matches_jax_leaf_by_leaf(sse_mode):
-    Y, jcfg, jsweep, s0 = _case(sse_mode)
-    key = jax.random.key(7)
+def _sweep_pairs(key, sse_mode, compute_dtype="f32", lambda_kernel=""):
+    """One sweep of each package from the same state on JAX's draws at
+    iteration key ``key``: [(leaf, port, JAX)]."""
+    Y, jcfg, jsweep, s0 = _case(sse_mode, compute_dtype, lambda_kernel)
     js = jax.tree.map(jnp.asarray, s0)
     jstate_new, jsse = jsweep(key, jnp.asarray(Y), jstate.SamplerState(
         Lambda=js["Lambda"], Z=js["Z"], X=js["X"], ps=js["ps"],
@@ -116,24 +119,54 @@ def test_one_sweep_matches_jax_leaf_by_leaf(sse_mode):
     j = _jax_state_to_numpy(jstate_new)
 
     cfg = ModelConfig(num_shards=G, factors_per_shard=K, rho=0.8,
-                      sse_mode=sse_mode)
+                      sse_mode=sse_mode, compute_dtype=compute_dtype,
+                      lambda_kernel=lambda_kernel or "auto")
     ts, tsse = tcond.gibbs_sweep(JaxNoise(key, G), torch.as_tensor(Y),
                                  state_from_numpy(s0, "cpu"), cfg,
                                  make_prior(cfg))
     t = state_to_numpy(ts)
+    pairs = [(leaf, t[leaf], j[leaf]) for leaf in ("Z", "X", "Lambda", "ps")]
+    pairs += [(leaf, t["prior"][leaf], j["prior"][leaf])
+              for leaf in ("psijh", "delta")]
+    pairs.append(("sse", tsse.numpy(), np.asarray(jsse)))
+    return pairs
+
+
+@pytest.mark.parametrize("sse_mode", ["gram", "resid"])
+def test_one_sweep_matches_jax_leaf_by_leaf(sse_mode):
     # Same state, same draws, same math: only float32 rounding differs
     # (LAPACK vs XLA triangular solves, matmul summation order, FMA), and
     # it compounds through Z -> X -> eta -> Lambda -> prior/psi.  Measured
     # over 20 iteration keys, the worst max |port - JAX| relative to the
     # leaf's largest entry is 7.1e-6 (gram ps; every other leaf of either
     # mode <= 9e-7), so 1e-4 of the leaf's scale keeps 14x headroom.
-    pairs = [(leaf, t[leaf], j[leaf]) for leaf in ("Z", "X", "Lambda", "ps")]
-    pairs += [(leaf, t["prior"][leaf], j["prior"][leaf])
-              for leaf in ("psijh", "delta")]
-    pairs.append(("sse", tsse.numpy(), np.asarray(jsse)))
-    for leaf, a, b in pairs:
+    for leaf, a, b in _sweep_pairs(jax.random.key(7), sse_mode):
         np.testing.assert_allclose(a, b, rtol=0,
                                    atol=1e-4 * float(np.max(np.abs(b))),
+                                   err_msg=leaf)
+
+
+@pytest.mark.parametrize("sse_mode,compute_dtype,lambda_kernel", [
+    ("gram", "bf16", "auto"), ("resid", "bf16", "auto"),
+    ("gram", "f32", "pallas-fused"), ("resid", "f32", "pallas-fused"),
+    ("gram", "bf16", "pallas-fused")])
+def test_one_sweep_bf16_and_fused_match_jax_leaf_by_leaf(
+        sse_mode, compute_dtype, lambda_kernel):
+    """The bf16 sweep (K4 for the Lambda update) and the fused Lambda
+    update (K2) against the JAX sweep, leaf by leaf on JAX's draws."""
+    # f32 (fused): as the f32 test above, 1e-4 of the leaf's scale (worst
+    # measured over 20 keys: 7.1e-6).  bf16: both packages round the same
+    # float32 inputs to bf16, but an input that differs by an ulp upstream
+    # can round to the neighbouring bf16 value (2^-8 relative) and move
+    # what follows.  Measured over 20 keys, the worst leaf is 6.7e-5 of
+    # its scale (Gram Lambda; resid <= 4.9e-6); 1e-3 keeps 15x headroom
+    # and still fails a sweep that skips the rounding: bf16 and f32 sweeps
+    # of either package differ by 2e-3 to 9e-3 of the scale.
+    tol = 1e-4 if compute_dtype == "f32" else 1e-3
+    for leaf, a, b in _sweep_pairs(jax.random.key(7), sse_mode,
+                                   compute_dtype, lambda_kernel):
+        np.testing.assert_allclose(a, b, rtol=0,
+                                   atol=tol * float(np.max(np.abs(b))),
                                    err_msg=leaf)
 
 
@@ -181,6 +214,62 @@ def test_covariance_panels_match_jax(estimator):
         eta_all=jnp.asarray(eta) if scaled else None))
     # two K-term float32 contractions per entry in another summation order
     np.testing.assert_allclose(out, ref, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("estimator", ["scaled", "plain"])
+def test_covariance_panels_bf16_match_jax(estimator):
+    """``compute_dtype=bf16``: bf16 block products with float32 output,
+    H in float32 and Lam_r H rounded to bf16 again, as the JAX package."""
+    rng = np.random.default_rng(4)
+    g, P_, K_, n = 4, 6, 3, 12
+    Lam = rng.standard_normal((g, P_, K_)).astype(np.float32)
+    ps = rng.gamma(2.0, 1.0, (g, P_)).astype(np.float32)
+    eta = rng.standard_normal((g, n, K_)).astype(np.float32)
+    rows, cols = tstate.packed_pair_indices(g)
+    scaled = estimator == "scaled"
+    out = tcond.covariance_panels(
+        torch.as_tensor(Lam), torch.as_tensor(ps), 0.7,
+        torch.as_tensor(rows, dtype=torch.long),
+        torch.as_tensor(cols, dtype=torch.long),
+        eta_all=torch.as_tensor(eta) if scaled else None,
+        compute_dtype=torch.bfloat16).numpy()
+    ref, f32 = (np.asarray(jcond.covariance_panels(
+        jnp.asarray(Lam), jnp.asarray(ps), 0.7, rows, cols,
+        eta_all=jnp.asarray(eta) if scaled else None, compute_dtype=dt))
+        for dt in (jnp.bfloat16, None))
+    # the same bf16 roundings and exact products; only the K-term float32
+    # sums differ in order (measured 0 over 20 seeds at this size).  The
+    # band is 1e-5 of the scale: the float32 panels miss it by 1e-3.
+    scale = float(np.max(np.abs(ref)))
+    np.testing.assert_allclose(out, ref, rtol=0, atol=1e-5 * scale)
+    assert np.max(np.abs(f32 - ref)) > 1e-5 * scale
+
+
+@pytest.mark.parametrize("sa,sb", [((3, 40, 157), (3, 157, 8)),
+                                   ((40, 8), (3, 8, 157)),
+                                   ((3, 8, 40), (3, 40, 8)),
+                                   ((24, 5), (5, 9))])
+def test_mm_bf16_matches_jax_preferred_f32(sa, sb):
+    """``mm_bf16`` against ``jnp.matmul`` of bf16 inputs with
+    ``preferred_element_type=float32``: the sweep's products and their
+    broadcast shapes (X @ Lam' over shards)."""
+    rng = np.random.default_rng(len(sa) * 10 + sb[-1])
+    a = rng.standard_normal(sa).astype(np.float32)
+    b = rng.standard_normal(sb).astype(np.float32)
+    out = tcond.mm_bf16(torch.as_tensor(a), torch.as_tensor(b))
+    assert out.dtype == torch.float32
+    ref = np.asarray(jnp.matmul(jnp.asarray(a).astype(jnp.bfloat16),
+                                jnp.asarray(b).astype(jnp.bfloat16),
+                                preferred_element_type=jnp.float32))
+    # exact products of bf16 values, float32 sums in another order: 1.5e-7
+    # of the scale measured.  1e-5 fails an output rounded to bf16 (2e-3
+    # of the scale) and a product of the unrounded inputs (2e-3).
+    scale = float(np.max(np.abs(ref)))
+    np.testing.assert_allclose(out.numpy(), ref, rtol=1e-5,
+                               atol=1e-5 * scale)
+    rounded = out.to(torch.bfloat16).float().numpy()
+    assert np.max(np.abs(rounded - ref)) > 1e-5 * scale
+    assert np.max(np.abs(a @ b - ref)) > 1e-5 * scale
 
 
 # ---------------------------------------------------------------------------
