@@ -10,10 +10,13 @@
 2. Kernel phase: each of the five kernels (K1 chol_sample, K4
    chol_solve_sample, K3 cho_solve, K2 lam_update, K5 sse_ps) against its
    plain PyTorch version on the card, on identical inputs at the shapes the
-   full-width fit gives it and at ragged shapes with K = 1, 4 and 16, with
+   full-width fit gives it and at ragged shapes with K = 1, 4 and 16 (and,
+   for K1 and K4, K = 5, 7 and 13 that leave lanes of their lane groups
+   idle; the ptxas registers and spills of every lane-group kernel), with
    the tolerance stated; then the device time (torch.profiler) of the
    kernel, the plain version and one library yardstick, beside the least
-   time the card could take, and the kernel's per-call time (CUDA events).
+   time the card could take, and the kernel's per-call time (CUDA events);
+   for K1, where the host time of one wrapper call goes.
 3. Fit phase: ``dcfm_tpu_torch.fit`` at the repo's north-star width
    (p = 10,000, g = 64 shards, n = 500, K = 8 factors per shard, 2 chains,
    sse_mode="auto") on synthetic factor data, along three paths: float32
@@ -46,6 +49,7 @@ import dataclasses
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -204,15 +208,24 @@ def library_sample(torch):
     return run
 
 
+# the shapes each factor-solve kernel is held to its plain version at: the
+# fit's batch, then K = 1, 4 and 16 on a batch ragged against every block
+SOLVE_SHAPES = ((FULL_B, FULL_K), (FULL_B + 1, 1), (FULL_B + 1, 4),
+                (FULL_B + 1, 16))
+# and for K1 and K4, whose lane groups are W >= K lanes wide (W a power of
+# two), K that leave lanes idle, on batches ragged against the group
+GROUP_SHAPES = SOLVE_SHAPES + ((FULL_B + 1, 5), (FULL_B + 1, 13), (33, 5),
+                               (3, 13), (1, 7))
+
+
 def solve_phase(torch, rng, tag: str, name: str, kernel, plain, library,
-                noise: bool, recip: bool, source: str,
-                replaces: str) -> dict:
+                noise: bool, recip: bool, source: str, replaces: str,
+                shapes=SOLVE_SHAPES) -> dict:
     """One of the batched factor-solve kernels (K1, K4, K3) against its
-    plain version at the full-width batch and at K = 1, 4, 16 on a ragged
-    batch; times at the full-width shape."""
+    plain version at ``shapes`` (the full-width batch first); times at the
+    full-width shape."""
     dev = torch.device("cuda")
-    for B, K in ((FULL_B, FULL_K), (FULL_B + 1, 1), (FULL_B + 1, 4),
-                 (FULL_B + 1, 16)):
+    for B, K in shapes:
         args = [torch.as_tensor(spd(rng.standard_normal((B, K, K),
                                                         np.float32)),
                                 device=dev)]
@@ -230,12 +243,45 @@ def solve_phase(torch, rng, tag: str, name: str, kernel, plain, library,
                 max_abs_err=worst, bound_ms=bnd, bound_by=by, **t)
 
 
-def k1_phase(torch, k1, rng) -> dict:
-    return solve_phase(torch, rng, "K1", "chol_sample", k1.chol_sample,
-                       k1.chol_sample_plain, library_sample(torch),
-                       noise=True, recip=True,
-                       source="dcfm_tpu_torch/csrc/chol_sample.cu",
-                       replaces="dcfm_tpu/ops/pallas_gaussian.py:44")
+def host_us(torch, fn, calls: int = 2000) -> float:
+    """Host time per call of ``fn`` on the host clock (the card runs any
+    launches behind it), after a warm-up."""
+    for _ in range(50):
+        fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    dt = time.perf_counter() - t
+    torch.cuda.synchronize()
+    return dt / calls * 1e6
+
+
+def k1_phase(torch, k1, cuda_lib, rng, card: str) -> dict:
+    rec = solve_phase(torch, rng, "K1", "chol_sample", k1.chol_sample,
+                      k1.chol_sample_plain, library_sample(torch),
+                      noise=True, recip=True,
+                      source="dcfm_tpu_torch/csrc/chol_sample.cu",
+                      replaces="dcfm_tpu/ops/pallas_gaussian.py:44",
+                      shapes=GROUP_SHAPES)
+    # where the host time of one wrapper call goes, at the fit's batch
+    Q = torch.as_tensor(spd(rng.standard_normal((FULL_B, FULL_K, FULL_K),
+                                                np.float32)), device="cuda")
+    b, z = (torch.as_tensor(rng.standard_normal((FULL_B, FULL_K), np.float32),
+                            device="cuda") for _ in range(2))
+    out = torch.empty_like(b)
+    parts = {
+        "input check": lambda: k1.check_systems(Q, b=b, z=z),
+        "output allocation": lambda: torch.empty_like(b),
+        "launch (cuda_lib.launch: stream, ctypes, CUDA launch, count)":
+            lambda: cuda_lib.launch(
+                "chol_sample", "dcfm_chol_sample", Q.device, Q.data_ptr(),
+                b.data_ptr(), z.data_ptr(), out.data_ptr(), FULL_B, FULL_K),
+        "whole wrapper": lambda: k1.chol_sample(Q, b, z)}
+    say("K1 host time per wrapper call (host clock, 2,000 calls): " + ", "
+        .join(f"{name} {host_us(torch, fn):.2f} us"
+              for name, fn in parts.items()) + f"; {card}")
+    return rec
 
 
 def k4_phase(torch, bs, rng) -> dict:
@@ -244,7 +290,8 @@ def k4_phase(torch, bs, rng) -> dict:
                        bs.chol_solve_sample_plain, library_sample(torch),
                        noise=True, recip=False,
                        source="dcfm_tpu_torch/csrc/batched_solve.cu",
-                       replaces="dcfm_tpu/ops/batched_solve.py:247")
+                       replaces="dcfm_tpu/ops/batched_solve.py:247",
+                       shapes=GROUP_SHAPES)
 
 
 def k3_phase(torch, bs, rng) -> dict:
@@ -499,6 +546,38 @@ def sweep_profile(torch, cfg, Y, card: str, label: str) -> None:
         say(f"  {ms / n * 1e3:9.2f} us/sweep  {name[:100]}")
 
 
+def group_kernel_report(log: str) -> None:
+    """The ptxas registers and spills of every instantiation of K1's and
+    K4's lane-group kernel (chol_group.cuh), one line each; fails on a
+    spill, or if an instantiation of K = 1..16 is missing from the log."""
+    rows, name, spill = {}, None, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name, spill = m.group(1), None
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and spill is None:           # the entry's own, listed first
+            spill = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        g = name and re.search(
+            r"chol_group_kernelILi(\d+)ELi(\d+)ELb([01])ELb([01])E", name)
+        if m and g and spill is not None:
+            K, T, div, vec = (int(v) for v in g.groups())
+            rows[(K, div, vec)] = (int(m.group(1)), *spill)
+            say(f"chol_group_kernel K={K:2d} T={T} "
+                f"{'K4 (divide)  ' if div else 'K1 (multiply)'} "
+                f"{'float4' if vec else 'scalar'} loads: {m.group(1)} "
+                f"registers, spill stores {spill[0]} B, spill loads "
+                f"{spill[1]} B")
+    missing = [(K, div) for K in range(1, 17) for div in (0, 1)
+               if not any((K, div, vec) in rows for vec in (0, 1))]
+    check(not missing, f"ptxas reports no lane-group kernel for (K, DIV_BWD) "
+          f"{missing}")
+    spilled = {k: v for k, v in rows.items() if v[1] or v[2]}
+    check(not spilled, f"lane-group kernels spill: {spilled}")
+
+
 def main() -> None:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     try:
@@ -530,9 +609,11 @@ def main() -> None:
     for line in log.splitlines():
         if "ptxas" in line or "spill" in line or "== nvcc" in line:
             say(line.rstrip())
+    group_kernel_report(log)
 
     rng = np.random.default_rng(0)
-    kernels = [k1_phase(torch, k1, rng), k4_phase(torch, bs, rng),
+    kernels = [k1_phase(torch, k1, cuda_lib, rng, card),
+               k4_phase(torch, bs, rng),
                k3_phase(torch, bs, rng), k2_phase(torch, k2),
                k5_phase(torch, k5, rng)]
 

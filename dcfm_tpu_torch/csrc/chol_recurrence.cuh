@@ -1,4 +1,6 @@
-// The K x K factor-solve(-sample) recurrence shared by K1, K2, K3 and K4.
+// The one-thread-per-system K x K factor-solve(-sample) recurrence of K2
+// (lam_rows.cu) and K3 (batched_solve.cu).  K1 and K4 run the lane-group
+// design of chol_group.cuh instead.
 //
 // One thread owns one SPD system.  Its precision Q sits row-major in a
 // per-thread tile of shared memory (a[i * K + j] = Q[i][j]); the lower
@@ -10,10 +12,10 @@
 // Operation order is the TPU kernels': division by L_jj in the Cholesky
 // and in the forward solve, the t-sums accumulated in increasing t, and
 // in the backward solves either multiplication by 1/L_jj
-// (dcfm_tpu/ops/pallas_gaussian.py, K1 and K2) or division by L_jj
-// (dcfm_tpu/ops/batched_solve.py, K3 and K4) - the DIV_BWD flag.  NOISE
-// adds the draw L' y = z to the mean (K1, K2, K4); without it the result
-// is the solve x = Q^{-1} b alone (K3).
+// (dcfm_tpu/ops/pallas_gaussian.py, K2) or division by L_jj
+// (dcfm_tpu/ops/batched_solve.py, K3) - the DIV_BWD flag.  NOISE adds the
+// draw L' y = z to the mean (K2); without it the result is the solve
+// x = Q^{-1} b alone (K3).
 
 #pragma once
 

@@ -31,7 +31,25 @@ def chol_sample_plain(Q: torch.Tensor, b: torch.Tensor,
 
 def check_systems(Q: torch.Tensor, **vecs: torch.Tensor) -> None:
     """What the batched K x K kernels take: Q (B, K, K) with 1 <= K <= 16
-    and each named vector (B, K); float32, contiguous, on Q's device."""
+    and each named vector (B, K); float32, contiguous, on Q's device.
+
+    Input that passes is accepted by one combined test (the wrappers run
+    once per sweep); anything else goes through the detailed checks below,
+    which raise with the message that names the fault."""
+    f32, shape = torch.float32, Q.shape
+    if len(shape) == 3 and Q.dtype is f32 and Q.is_contiguous():
+        B, K, K2 = shape
+        device = Q.device
+        ok = K == K2 and 1 <= K <= MAX_K and device.type in ("cpu", "cuda")
+        for t in vecs.values():
+            ok = (ok and t.dtype is f32 and t.is_contiguous()
+                  and t.shape == (B, K) and t.device == device)
+        if ok:
+            return
+    _explain_systems(Q, vecs)
+
+
+def _explain_systems(Q: torch.Tensor, vecs: dict) -> None:
     if Q.dim() != 3 or Q.shape[1] != Q.shape[2]:
         raise ValueError(f"Q must be (B, K, K), got {tuple(Q.shape)}")
     B, K = Q.shape[0], Q.shape[2]

@@ -1,6 +1,6 @@
 """Build, load and count the port's hand-written CUDA kernels.
 
-The sources are ``dcfm_tpu_torch/csrc/*.cu`` (and the recurrence header
+The sources are ``dcfm_tpu_torch/csrc/*.cu`` (and the ``*.cuh`` headers
 they share), plain C entry points with no PyTorch headers.  On first use
 each source is compiled by its own ``nvcc`` (all started together) for
 ``sm_90a`` and the objects are linked into one
@@ -27,7 +27,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD = os.path.join(_PKG, "build")
 SOURCES = ("chol_sample.cu", "batched_solve.cu", "lam_rows.cu", "sse_ps.cu")
-HEADERS = ("chol_recurrence.cuh",)
+HEADERS = ("chol_group.cuh", "chol_recurrence.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
@@ -36,6 +36,8 @@ LAUNCHES = {"chol_sample": 0, "chol_solve_sample": 0, "cho_solve": 0,
 
 _lock = threading.Lock()
 _lib = None
+_entries: dict = {}             # C entry name -> ctypes function
+_raw_stream = None
 
 
 def launch_counts() -> dict:
@@ -116,25 +118,30 @@ def build() -> tuple[str, str]:
 
 
 def library() -> ctypes.CDLL:
-    """The loaded kernel library (built on first use)."""
-    global _lib
+    """The loaded kernel library (built on first use); its C entries are
+    resolved once, into ``_entries``."""
+    global _lib, _raw_stream
     with _lock:
         if _lib is None:
             path, _ = build()
             lib = ctypes.CDLL(path)
             ptr, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-            for fn in (lib.dcfm_chol_sample, lib.dcfm_chol_solve_sample):
-                fn.argtypes = [ptr, ptr, ptr, ptr, i64, i32, ptr]
-                fn.restype = i32
-            lib.dcfm_cho_solve.argtypes = [ptr, ptr, ptr, i64, i32, ptr]
-            lib.dcfm_cho_solve.restype = i32
-            lib.dcfm_lam_rows.argtypes = [ptr] * 6 + [i32, i32, i32, ptr]
-            lib.dcfm_lam_rows.restype = i32
-            lib.dcfm_sse_ps.argtypes = [ptr] * 7 + [i64, i32,
-                                                    ctypes.c_float, ptr]
-            lib.dcfm_sse_ps.restype = i32
+            for name, argtypes in (
+                    ("dcfm_chol_sample", [ptr] * 4 + [i64, i32, ptr]),
+                    ("dcfm_chol_solve_sample", [ptr] * 4 + [i64, i32, ptr]),
+                    ("dcfm_cho_solve", [ptr] * 3 + [i64, i32, ptr]),
+                    ("dcfm_lam_rows", [ptr] * 6 + [i32, i32, i32, ptr]),
+                    ("dcfm_sse_ps", [ptr] * 7 + [i64, i32, ctypes.c_float,
+                                                 ptr])):
+                fn = getattr(lib, name)
+                fn.argtypes, fn.restype = argtypes, i32
+                _entries[name] = fn
             lib.dcfm_cuda_error_string.argtypes = [i32]
             lib.dcfm_cuda_error_string.restype = ctypes.c_char_p
+            # the current stream's cudaStream_t of a device index, without
+            # building a torch.cuda.Stream (PyTorch's own compiled code
+            # reads it the same way)
+            _raw_stream = torch._C._cuda_getCurrentRawStream
             _lib = lib
     return _lib
 
@@ -149,10 +156,15 @@ def check(err: int, kernel: str) -> None:
 def launch(kernel: str, entry: str, device, *args) -> None:
     """Call the C entry ``entry`` with ``args`` and the current stream of
     ``device``, raise on the cudaError_t it returns, and count one launch
-    of ``kernel``."""
-    lib = library()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = getattr(lib, entry)(*args, stream)
+    of ``kernel``.  The device is made current only when it is not
+    already."""
+    if _lib is None:
+        library()
+    index = device.index
+    if index == torch.cuda.current_device():
+        err = _entries[entry](*args, _raw_stream(index))
+    else:
+        with torch.cuda.device(index):
+            err = _entries[entry](*args, _raw_stream(index))
     check(err, kernel)
     LAUNCHES[kernel] += 1

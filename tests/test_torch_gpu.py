@@ -41,8 +41,15 @@ def _spd(rng, B, K):
     return A @ np.transpose(A, (0, 2, 1)) + 2.0 * np.eye(K, dtype=np.float32)
 
 
-@pytest.mark.parametrize("B,K", [(10048, 8), (10049, 1), (513, 4),
-                                 (10049, 16), (1, 5)])
+# K1's and K4's shapes: the fit's batch, then every K in 1..16 (lanes of the
+# W-lane group idle unless K is a power of two) on batches ragged against
+# the group and the block (1, 3, 33 and 10,049 systems)
+_SOLVE_SHAPES = [(10048, 8), (10049, 1), (513, 4), (10049, 16), (1, 5)] + [
+    (B, K) for K in range(1, 17) for B in (1, 3, 33, 10049)
+    if (B, K) not in ((10049, 1), (10049, 16))]
+
+
+@pytest.mark.parametrize("B,K", _SOLVE_SHAPES)
 def test_chol_sample_kernel_matches_plain(cuda, B, K):
     rng = np.random.default_rng(K)
     Q = torch.as_tensor(_spd(rng, B, K), device=cuda)
@@ -94,8 +101,7 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
 _KERNEL_TOL = dict(rtol=2e-4, atol=2e-4)
 
 
-@pytest.mark.parametrize("B,K", [(10048, 8), (10049, 1), (513, 4),
-                                 (10049, 16), (1, 5)])
+@pytest.mark.parametrize("B,K", _SOLVE_SHAPES)
 def test_batched_solve_kernels_match_plain(cuda, B, K):
     rng = np.random.default_rng(100 + K)
     Q = torch.as_tensor(_spd(rng, B, K), device=cuda)
@@ -111,6 +117,37 @@ def test_batched_solve_kernels_match_plain(cuda, B, K):
     torch.testing.assert_close(x4, bs.chol_solve_sample_plain(Q, b, z),
                                **_KERNEL_TOL)
     torch.testing.assert_close(x3, bs.cho_solve_plain(Q, b), **_KERNEL_TOL)
+
+
+@pytest.mark.parametrize("K", [3, 8, 16])
+@pytest.mark.parametrize("poison", ["nan", "not-spd"])
+def test_a_poisoned_system_stays_in_its_own_row(cuda, poison, K):
+    """One system of a warp is poisoned (a NaN in Q's lower triangle, or a
+    negative definite Q): in K1 and K4 only its own row of the output is
+    non-finite, as in the plain versions; every other row, its neighbours
+    in the same warp included, matches the plain version."""
+    rng = np.random.default_rng(300 + K)
+    B = 64
+    W = 1 << (K - 1).bit_length()          # lanes per system
+    bad = 32 // W + 1                      # the second system of warp 1
+    Qn = _spd(rng, B, K)
+    if poison == "nan":
+        Qn[bad, K - 1, 0] = Qn[bad, 0, K - 1] = np.nan
+    else:
+        Qn[bad] = -np.eye(K, dtype=np.float32)
+    Q = torch.as_tensor(Qn, device=cuda)
+    b = torch.as_tensor(rng.standard_normal((B, K), np.float32), device=cuda)
+    z = torch.as_tensor(rng.standard_normal((B, K), np.float32), device=cuda)
+    good = torch.arange(B, device=cuda) != bad
+    for kernel, plain in ((chol_sample, chol_sample_plain),
+                          (bs.chol_solve_sample_batched,
+                           bs.chol_solve_sample_plain)):
+        out, ref = kernel(Q, b, z), plain(Q, b, z)
+        torch.cuda.synchronize()
+        assert not torch.isfinite(ref[bad]).all()
+        assert not torch.isfinite(out[bad]).all()
+        assert torch.isfinite(out[good]).all()
+        torch.testing.assert_close(out[good], ref[good], **_KERNEL_TOL)
 
 
 @pytest.mark.parametrize("G,P,K", [(64, 157, 8), (3, 33, 1), (5, 157, 4),

@@ -48,7 +48,11 @@ def _np(x):
 # K1: the Lambda update's factor-solve-sample
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("B,K", [(700, 8), (1, 5), (513, 16), (64, 3)])
+# K = 3, 5, 7, 9, 13 and 15 leave lanes of the card kernel's W-lane group
+# idle (W the power of two >= K); the card holds the kernel against this
+# plain version there, so the plain version is held against JAX there first
+@pytest.mark.parametrize("B,K", [(700, 8), (1, 5), (513, 16), (64, 3),
+                                 (33, 7), (65, 9), (129, 13), (97, 15)])
 def test_chol_sample_plain_matches_pallas_and_unrolled(B, K):
     rng = np.random.default_rng(B + K)
     Q = _spd(rng, B, K)
@@ -90,6 +94,65 @@ def test_chol_sample_wrapper_refuses_bad_input():
         chol_sample(Q.contiguous(), torch.zeros((3, 5)), b)
 
 
+_F64 = dict(dtype=torch.float64)
+
+
+@pytest.mark.parametrize("shapes,kw,exc,msg", [
+    (((4, 4), (4, 4), (4, 4)), {}, ValueError,
+     "Q must be (B, K, K), got (4, 4)"),
+    (((2, 3, 4), (2, 3), (2, 3)), {}, ValueError,
+     "Q must be (B, K, K), got (2, 3, 4)"),
+    (((2, 17, 17), (2, 17), (2, 17)), {}, ValueError,
+     "K=17 outside the kernel's range 1..16"),
+    (((2, 0, 0), (2, 0), (2, 0)), {}, ValueError,
+     "K=0 outside the kernel's range 1..16"),
+    (((3, 4, 4), (3, 5), (3, 4)), {}, ValueError,
+     "b must be (3, 4), got (3, 5)"),
+    (((3, 4, 4), (3, 4), (4, 4)), {}, ValueError,
+     "z must be (3, 4), got (4, 4)"),
+    (((3, 4, 4), (3, 4), (3, 4)), {"Q": _F64}, TypeError,
+     "Q must be float32, got torch.float64"),
+    (((3, 4, 4), (3, 4), (3, 4)), {"z": _F64}, TypeError,
+     "z must be float32, got torch.float64"),
+    (((3, 4, 4), (3, 4), (3, 4)), {"b": dict(device="meta")}, ValueError,
+     "b on meta, Q on cpu"),
+    (((3, 4, 4), (3, 4), (3, 4)), {"z": dict(transpose=True)}, ValueError,
+     "z must be contiguous"),
+    (((3, 4, 4), (3, 4), (3, 4)),
+     {n: dict(device="meta") for n in "Qbz"}, ValueError,
+     "the kernels run on cpu or cuda, not meta"),
+])
+def test_check_systems_refusals_name_the_fault(shapes, kw, exc, msg):
+    """Every refusal of the K1/K4/K3 wrappers' input check, with its exact
+    message: the combined fast test hands each fault to the detailed one."""
+    from dcfm_tpu_torch.ops.chol_sample import check_systems
+    ts = {}
+    for name, shape in zip("Qbz", shapes):
+        opt = dict(kw.get(name, {}))
+        if opt.pop("transpose", False):
+            ts[name] = torch.zeros(shape[::-1], **opt).T
+        else:
+            ts[name] = torch.zeros(shape, **opt)
+    wrappers = [check_systems, chol_sample]
+    if ts["Q"].dim() != 3 or ts["Q"].shape[-1] <= 16:  # else torch.linalg
+        wrappers.append(tbs.chol_solve_sample_batched)
+    for fn in wrappers:
+        with pytest.raises(exc) as got:
+            fn(ts["Q"], b=ts["b"], z=ts["z"])
+        assert str(got.value) == msg, fn.__name__
+
+
+def test_check_systems_accepts_what_the_kernels_take():
+    from dcfm_tpu_torch.ops.chol_sample import check_systems
+    for K in (1, 5, 16):
+        Q = torch.zeros((3, K, K))
+        assert check_systems(Q, b=torch.zeros((3, K)),
+                             z=torch.zeros((3, K))) is None
+        assert check_systems(Q, b=torch.zeros((3, K))) is None
+        assert check_systems(torch.zeros((0, K, K)),
+                             b=torch.zeros((0, K))) is None
+
+
 def test_linalg_sampler_matches_unrolled():
     """The K > 16 route (torch.linalg) samples the same function."""
     rng = np.random.default_rng(4)
@@ -113,7 +176,7 @@ def test_linalg_sampler_matches_unrolled():
 _SOLVE_TOL = dict(rtol=1e-5, atol=1e-5)
 
 
-@pytest.mark.parametrize("K", [1, 4, 8, 16])
+@pytest.mark.parametrize("K", [1, 4, 8, 16, 3, 5, 7, 9, 13, 15])
 def test_chol_solve_sample_plain_matches_pallas_and_unrolled(K):
     rng = np.random.default_rng(40 + K)
     B = 701                                    # not a multiple of the tile
