@@ -10,13 +10,20 @@
 2. Kernel phase: each of the five kernels (K1 chol_sample, K4
    chol_solve_sample, K3 cho_solve, K2 lam_update, K5 sse_ps) against its
    plain PyTorch version on the card, on identical inputs at the shapes the
-   full-width fit gives it and at ragged shapes with K = 1, 4 and 16 (and,
-   for K1 and K4, K = 5, 7 and 13 that leave lanes of their lane groups
-   idle; the ptxas registers and spills of every lane-group kernel), with
-   the tolerance stated; then the device time (torch.profiler) of the
-   kernel, the plain version and one library yardstick, beside the least
-   time the card could take, and the kernel's per-call time (CUDA events);
-   for K1, where the host time of one wrapper call goes.
+   full-width fit gives it and at ragged shapes with K = 1, 4 and 16 (for
+   the four lane-group kernels also K = 5, 7 and 13, which leave lanes
+   idle, and for K2 a single shard and fewer rows than a block holds; for
+   K5 also K = 5 and K = 24, the run-time-K route above 16), with the
+   tolerance stated; the ptxas registers and spills of every templated
+   kernel (a spill fails the run) and, from cuobjdump, the SASS
+   instruction counts at K = 8; then the device time (torch.profiler)
+   of the kernel, the plain version and one library yardstick, beside the
+   least time the card could take, and the kernel's per-call time (CUDA
+   events); for K1, where the host time of one wrapper call goes; and the
+   card's floor for a launch of K5's size: an empty kernel and a streaming
+   pass of K5's traffic (``floor: empty X us, K5-sized pass Y us``).
+   ``python3 chip_smoke.py --kernels-only`` stops here, with no result
+   line.
 3. Fit phase: ``dcfm_tpu_torch.fit`` at the repo's north-star width
    (p = 10,000, g = 64 shards, n = 500, K = 8 factors per shard, 2 chains,
    sse_mode="auto") on synthetic factor data, along three paths: float32
@@ -212,8 +219,8 @@ def library_sample(torch):
 # fit's batch, then K = 1, 4 and 16 on a batch ragged against every block
 SOLVE_SHAPES = ((FULL_B, FULL_K), (FULL_B + 1, 1), (FULL_B + 1, 4),
                 (FULL_B + 1, 16))
-# and for K1 and K4, whose lane groups are W >= K lanes wide (W a power of
-# two), K that leave lanes idle, on batches ragged against the group
+# and, since the lane groups are W >= K lanes wide (W a power of two), K
+# that leave lanes idle, on batches ragged against the group
 GROUP_SHAPES = SOLVE_SHAPES + ((FULL_B + 1, 5), (FULL_B + 1, 13), (33, 5),
                                (3, 13), (1, 7))
 
@@ -301,7 +308,8 @@ def k3_phase(torch, bs, rng) -> dict:
     return solve_phase(torch, rng, "K3", "cho_solve", bs.cho_solve_batched,
                        bs.cho_solve_plain, library, noise=False, recip=False,
                        source="dcfm_tpu_torch/csrc/batched_solve.cu",
-                       replaces="dcfm_tpu/ops/batched_solve.py:238")
+                       replaces="dcfm_tpu/ops/batched_solve.py:238",
+                       shapes=GROUP_SHAPES)
 
 
 def lam_operands(torch, rng, G: int, P: int, K: int) -> list:
@@ -317,14 +325,16 @@ def lam_operands(torch, rng, G: int, P: int, K: int) -> list:
 
 
 def k2_phase(torch, k2) -> dict:
-    """K2 against its plain version at the fit's (G, P, K) and at ragged
-    shapes with K = 1, 4, 16 (P not a multiple of the 32-row tile)."""
+    """K2 against its plain version at the fit's (G, P, K), at ragged
+    shapes with K = 1, 4, 16, at K = 5, 7, 13 that leave lanes of a group
+    idle, at a single shard and at fewer rows than one block holds."""
     for G, P, K in ((64, 157, FULL_K), (3, 33, 1), (5, 157, 4),
-                    (2, 65, 16)):
+                    (2, 65, 16), (3, 157, 5), (2, 33, 7), (5, 65, 13),
+                    (1, 157, 8), (1, 5, 3), (2, 7, 16)):
         args = lam_operands(torch, np.random.default_rng(200 + K), G, P, K)
         err = compare(torch, f"K2 lam_update G={G} P={P} K={K}",
                       k2.lam_update(*args), k2.lam_update_plain(*args))
-        if K == FULL_K:
+        if (G, K) == (64, FULL_K):
             worst, full = err, args
     G, P, K = 64, 157, FULL_K
     sample = library_sample(torch)
@@ -350,25 +360,30 @@ def k2_phase(torch, k2) -> dict:
                 max_abs_err=worst, bound_ms=bnd, bound_by=by, **t)
 
 
-def k5_phase(torch, k5, rng) -> dict:
-    """K5 against its plain version at the full-width shape, with rows
-    whose SSE cancels to (or below) zero so the clamp is exercised."""
-    dev = torch.device("cuda")
-    B, K, bs = FULL_B, FULL_K, 0.3
+def sse_operands(torch, rng, B: int, K: int) -> list:
+    """K5's operands (Lam, M, EYt, yty, g) with a known SSE: the first
+    eighth of the features cancel to ~0 and the next eighth overshoot to
+    -1e-3, which must clamp to exactly 0."""
     Lam = rng.standard_normal((B, K)).astype(np.float32)
     M = rng.standard_normal((B, K)).astype(np.float32)
     EYt = rng.standard_normal((B, K)).astype(np.float32) * 5
     quad = np.sum(Lam.astype(np.float64) * M, axis=1)
     dot2 = np.sum(Lam.astype(np.float64) * EYt, axis=1)
     sse_true = rng.uniform(0.0, 500.0, B)
-    sse_true[:64] = 0.0                 # near-perfect fit: cancels to ~0
-    sse_true[64:128] = -1e-3            # overshoot: must clamp to exactly 0
+    sse_true[:B // 8] = 0.0
+    sse_true[B // 8:B // 4] = -1e-3
     yty = (sse_true + 2 * dot2 - quad).astype(np.float32)
     g = rng.gamma(250.5, 1.0, B).astype(np.float32)
-    t = [torch.as_tensor(a, device=dev) for a in (Lam, M, EYt, yty, g)]
-    ps, sse = k5.sse_ps(*t, bs=bs)
-    ps_p, sse_p = k5.sse_ps_plain(*t, bs)
+    return [torch.as_tensor(a, device="cuda") for a in (Lam, M, EYt, yty, g)]
+
+
+def k5_compare(torch, label: str, got, t, bs: float) -> float:
+    """(ps, sse) of a K5 kernel against the plain version on operands t."""
+    from dcfm_tpu_torch.ops.sse_gamma import sse_ps_plain
+    ps, sse = got
+    ps_p, sse_p = sse_ps_plain(*t, bs)
     torch.cuda.synchronize()
+    B, K = t[0].shape
     # tolerance: both sum K products in float32 in other orders (and the
     # kernel with FMA), so the three-term SSE differs by at most a few
     # ulp of its largest term; ps inherits that through the rate
@@ -379,12 +394,32 @@ def k5_phase(torch, k5, rng) -> dict:
     tol_ps = ps_p.abs() * (tol_sse / (2 * bs + sse_p) + 4 * eps)
     ok = bool(torch.all((sse - sse_p).abs() <= tol_sse)
               and torch.all((ps - ps_p).abs() <= tol_ps)
-              and torch.all(sse[64:128] == 0) and torch.all(sse >= 0))
+              and torch.all(sse[B // 8:B // 4] == 0) and torch.all(sse >= 0))
     err = max(float((sse - sse_p).abs().max()), float((ps - ps_p).abs().max()))
-    say(f"K5 sse_ps B={B} K={K}: max_abs_err={err:.3e} (tolerance "
+    say(f"{label} B={B} K={K}: max_abs_err={err:.3e} (tolerance "
         f"4*K*eps*|terms| on sse, propagated to ps; clamp rows exact) "
         f"{'ok' if ok else 'MISMATCH'}")
-    check(ok and math.isfinite(err), "K5 disagrees with its plain version")
+    check(ok and math.isfinite(err), f"{label} disagrees with its plain "
+          "version")
+    return err
+
+
+def k5_phase(torch, k5, cuda_lib, card: str) -> tuple:
+    """K5 against its plain version at the full-width shape, at K = 1, 4,
+    5 and 16 and K = 24 (the run-time-k route of K > 16) on batches ragged
+    against the block, with rows whose SSE cancels to (or below) zero so
+    the clamp is exercised; then the card's floor beside it: an empty
+    kernel and a streaming pass of K5's traffic on K5's grid.  Returns the
+    kernel's record and the pass's device time in ms."""
+    bs = 0.3
+    for B, K in ((FULL_B, FULL_K), (FULL_B + 1, 1), (FULL_B + 1, 4),
+                 (700, 5), (FULL_B + 1, 16), (FULL_B + 1, 24), (129, 24),
+                 (9, 8)):
+        ops = sse_operands(torch, np.random.default_rng(500 + B + K), B, K)
+        e = k5_compare(torch, "K5 sse_ps", k5.sse_ps(*ops, bs=bs), ops, bs)
+        if (B, K) == (FULL_B, FULL_K):
+            err, t = e, ops
+    B, K = FULL_B, FULL_K
 
     def library():
         q = torch.linalg.vecdot(t[0], t[1])
@@ -398,11 +433,21 @@ def k5_phase(torch, k5, rng) -> dict:
     lib = device_ms(library, 100)
     bnd, by = bound_ms(4.0 * B * (3 * K + 2) + 4.0 * 2 * B,
                        B * (4.0 * K + 5))
+
+    # the floor: neither is a port of anything nor counted as a launch
+    dev = t[0].device
+    ps, sse = torch.empty_like(t[3]), torch.empty_like(t[3])
+    ptrs = [a.data_ptr() for a in (*t, ps, sse)]
+    empty = device_ms(lambda: cuda_lib.call("dcfm_floor_empty", dev), 200)
+    sized = device_ms(lambda: cuda_lib.call("dcfm_floor_pass", dev, *ptrs,
+                                            B, K), 200)
+    say(f"floor: empty {empty * 1e3:.2f} us, K5-sized pass "
+        f"{sized * 1e3:.2f} us; {card}")
     return dict(name="sse_ps", route="cuda",
                 source="dcfm_tpu_torch/csrc/sse_ps.cu",
                 replaces="dcfm_tpu/ops/sse_gamma.py:127",
                 max_abs_err=err, ms=ms, call_ms=call, plain_ms=plain,
-                bound_ms=bnd, bound_by=by, library_ms=lib)
+                bound_ms=bnd, bound_by=by, library_ms=lib), sized
 
 
 def synthetic(n: int, p: int, k_true: int, noise: float = 0.2,
@@ -546,11 +591,48 @@ def sweep_profile(torch, cfg, Y, card: str, label: str) -> None:
         say(f"  {ms / n * 1e3:9.2f} us/sweep  {name[:100]}")
 
 
-def group_kernel_report(log: str) -> None:
-    """The ptxas registers and spills of every instantiation of K1's and
-    K4's lane-group kernel (chol_group.cuh), one line each; fails on a
-    spill, or if an instantiation of K = 1..16 is missing from the log."""
-    rows, name, spill = {}, None, None
+def _solver(div: str, sample: str) -> str:
+    """Which kernel an instantiation of chol_group_kernel serves."""
+    return "K1" if div == "0" else "K4" if sample == "1" else "K3"
+
+
+def _loads(vec: str) -> str:
+    return "float4 loads" if vec == "1" else "scalar loads"
+
+
+# the templated kernels by their mangled names: (pattern, label of one
+# instantiation from the pattern's groups, (kernel, K) of that instantiation)
+KERNEL_FAMILIES = (
+    (r"chol_group_kernelILi(\d+)ELi(\d+)ELb([01])ELb([01])ELb([01])E",
+     lambda K, T, div, sample, vec:
+         f"chol_group_kernel K={int(K):2d} T={T} {_solver(div, sample)} "
+         f"({'divide' if div == '1' else 'multiply'}"
+         f"{'' if sample == '1' else ', no noise chain'}), {_loads(vec)}",
+     lambda K, T, div, sample, vec: (_solver(div, sample), int(K))),
+    (r"lam_rows_kernelILi(\d+)ELi(\d+)ELb([01])E",
+     lambda K, T, vec: f"lam_rows_kernel K={int(K):2d} T={T} K2, {_loads(vec)}",
+     lambda K, T, vec: ("K2", int(K))),
+    (r"sse_ps_fixedILi(\d+)ELb([01])ELi(\d+)E",
+     lambda K, vec, T: f"sse_ps_fixed K={int(K):2d} T={T} K5, {_loads(vec)}",
+     lambda K, vec, T: ("K5", int(K))),
+    (r"sse_ps_anyILi(\d+)E",
+     lambda T: f"sse_ps_any any K T={T} K5 (the K > 16 route), scalar loads",
+     lambda T: ("K5", 0)),
+    (r"floor_empty_kernel", lambda: "floor_empty_kernel (no port)",
+     lambda: ("floor", 0)),
+    (r"floor_pass_kernelILi(\d+)ELi(\d+)E",
+     lambda per, T: f"floor_pass_kernel K={4 * int(per):2d} T={T} (no port), "
+                    "float4 loads",
+     lambda per, T: ("floor", int(per))),
+)
+
+
+def kernel_report(log: str) -> None:
+    """The ptxas registers and spills of every instantiation of the
+    templated kernels (the lane-group kernel of K1, K4 and K3, K2's
+    loader, K5's fixed-K and any-K kernels), one line each; fails on a
+    spill, or if a kernel lacks an instantiation for a K of 1..16."""
+    seen, spilled, name, spill = set(), [], None, None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
@@ -560,22 +642,72 @@ def group_kernel_report(log: str) -> None:
         if m and spill is None:           # the entry's own, listed first
             spill = (int(m.group(1)), int(m.group(2)))
         m = re.search(r"Used (\d+) registers", line)
-        g = name and re.search(
-            r"chol_group_kernelILi(\d+)ELi(\d+)ELb([01])ELb([01])E", name)
-        if m and g and spill is not None:
-            K, T, div, vec = (int(v) for v in g.groups())
-            rows[(K, div, vec)] = (int(m.group(1)), *spill)
-            say(f"chol_group_kernel K={K:2d} T={T} "
-                f"{'K4 (divide)  ' if div else 'K1 (multiply)'} "
-                f"{'float4' if vec else 'scalar'} loads: {m.group(1)} "
-                f"registers, spill stores {spill[0]} B, spill loads "
-                f"{spill[1]} B")
-    missing = [(K, div) for K in range(1, 17) for div in (0, 1)
-               if not any((K, div, vec) in rows for vec in (0, 1))]
-    check(not missing, f"ptxas reports no lane-group kernel for (K, DIV_BWD) "
-          f"{missing}")
-    spilled = {k: v for k, v in rows.items() if v[1] or v[2]}
-    check(not spilled, f"lane-group kernels spill: {spilled}")
+        if not (m and name and spill is not None):
+            continue
+        for pattern, label, key in KERNEL_FAMILIES:
+            g = re.search(pattern, name)
+            if g:
+                seen.add(key(*g.groups()))
+                say(f"{label(*g.groups())}: {m.group(1)} registers, spill "
+                    f"stores {spill[0]} B, spill loads {spill[1]} B")
+                if spill[0] or spill[1]:
+                    spilled.append(label(*g.groups()))
+        name = None
+    missing = [(k, K) for k in ("K1", "K4", "K3", "K2", "K5")
+               for K in range(1, 17) if (k, K) not in seen]
+    if ("K5", 0) not in seen:
+        missing.append(("K5", "any K"))
+    check(not missing, f"ptxas reports no kernel for {missing}")
+    check(not spilled, f"kernels spill: {spilled}")
+
+
+def sass_report(cuda_lib, lib_path: str) -> None:
+    """Static SASS instruction counts of the K = 8 float4 instantiation of
+    every templated kernel (the fit's shape), from cuobjdump: the body up
+    to its unpredicated EXIT, which is straight-line code (every loop is
+    unrolled), so it is what each warp executes; the out-of-line slow paths
+    of division and square root behind the EXIT are counted apart."""
+    exe = os.path.join(os.path.dirname(cuda_lib.nvcc_path()), "cuobjdump")
+    if not os.path.exists(exe):
+        say("sass: cuobjdump not found beside nvcc; instruction counts not "
+            "measured")
+        return
+    out = subprocess.run([exe, "-sass", lib_path], capture_output=True,
+                         text=True, timeout=600)
+    check(out.returncode == 0, f"cuobjdump failed: {out.stderr.strip()}")
+    want = {"chol_group_kernelILi8ELi128ELb0ELb1ELb1E": "K1",
+            "chol_group_kernelILi8ELi128ELb1ELb1ELb1E": "K4",
+            "chol_group_kernelILi8ELi128ELb1ELb0ELb1E": "K3",
+            "lam_rows_kernelILi8ELi128ELb1E": "K2",
+            "sse_ps_fixedILi8ELb1ELi128E": "K5"}
+    label, body, rest, by, done = None, 0, 0, {}, False
+
+    def flush():
+        if label:
+            mix = ", ".join(f"{k} {by[k]}" for k in sorted(by, key=by.get,
+                                                            reverse=True)[:6])
+            say(f"sass {label} K=8: {body} instructions to the EXIT ({mix}), "
+                f"{rest} behind it")
+
+    for line in out.stdout.splitlines():
+        m = re.search(r"Function : (\w+)", line)
+        if m:
+            flush()
+            label = next((v for k, v in want.items() if k in m.group(1)),
+                         None)
+            body, rest, by, done = 0, 0, {}, False
+            continue
+        m = re.match(r"\s+/\*[0-9a-f]{4,}\*/\s+(@!?U?P\d+\s+)?([A-Z][A-Z0-9_]*)",
+                     line)
+        if not (label and m) or m.group(2) == "NOP":
+            continue
+        if done:
+            rest += 1
+            continue
+        body += 1
+        by[m.group(2)] = by.get(m.group(2), 0) + 1
+        done = m.group(2) == "EXIT" and not m.group(1)
+    flush()
 
 
 def main() -> None:
@@ -604,18 +736,22 @@ def main() -> None:
     say(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)}")
     t = time.perf_counter()
-    _, log = cuda_lib.build()
+    lib_path, log = cuda_lib.build()
     say(f"kernels built in {time.perf_counter() - t:.1f} s")
-    for line in log.splitlines():
-        if "ptxas" in line or "spill" in line or "== nvcc" in line:
-            say(line.rstrip())
-    group_kernel_report(log)
+    kernel_report(log)
+    sass_report(cuda_lib, lib_path)
 
     rng = np.random.default_rng(0)
     kernels = [k1_phase(torch, k1, cuda_lib, rng, card),
                k4_phase(torch, bs, rng),
-               k3_phase(torch, bs, rng), k2_phase(torch, k2),
-               k5_phase(torch, k5, rng)]
+               k3_phase(torch, bs, rng), k2_phase(torch, k2)]
+    k5_rec, floor_ms = k5_phase(torch, k5, cuda_lib, card)
+    kernels.append(k5_rec)
+    if "--kernels-only" in sys.argv[1:]:
+        for k in kernels:
+            say(json.dumps(k))
+        say("kernel phase only: no fits were run and no result is printed")
+        return
 
     c = FIT
     Y, L, noise = synthetic(c["n"], c["p"], c["k_true"])
@@ -636,7 +772,9 @@ def main() -> None:
             f"({k['call_ms'] * 1e3:.2f} us per wrapper call), plain "
             f"{k['plain_ms'] * 1e3:.2f} us, library "
             f"{k['library_ms'] * 1e3:.2f} us, bound "
-            f"{k['bound_ms'] * 1e3:.3f} us ({k['bound_by']}); "
+            f"{k['bound_ms'] * 1e3:.3f} us ({k['bound_by']}): "
+            f"{(k['ms'] - k['bound_ms']) * 1e3:.2f} us above the bound, "
+            f"{(k['ms'] - floor_ms) * 1e3:.2f} us above the K5-sized pass; "
             f"{k['launches']} launches on its path; {card}")
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {

@@ -13,24 +13,23 @@
 // K = 8) K4 moves B (K^2 + 3K) * 4 B = 3.54 MB (1.056 us at 3.35 TB/s),
 // K3 B (K^2 + 2K) * 4 B = 3.22 MB (0.96 us), against ~4 MFLOP.
 //
-// K4 runs K1's design (chol_group.cuh, whose note says what it does about
+// Both run K1's design (chol_group.cuh, whose note says what it does about
 // the bound): one group of W >= K lanes per system, rows of Q loaded
 // straight into registers with float4 loads, the recurrence in registers
-// and warp shuffles, with DIV_BWD set.  Tensor cores and TMA do not apply,
-// as for K1.  K3 still runs the one-thread-per-system recurrence of
-// chol_recurrence.cuh (Q staged through shared memory, the factor formed
-// in place in the staged tile).
+// and warp shuffles, with DIV_BWD set.  K3 is the same instantiation
+// without SAMPLE: the y chain, the z loads and the final sum drop out.
+// Tensor cores and TMA do not apply, as for K1.
 
 #include "chol_group.cuh"
-#include "chol_recurrence.cuh"
 
 extern "C" int dcfm_chol_solve_sample(const void* q, const void* b,
                                       const void* z, void* out, long long n,
                                       int k, void* stream) {
-  return dcfm::dispatch_chol_group<true>(q, b, z, out, n, k, stream);
+  return dcfm::dispatch_chol_group<true, true>(q, b, z, out, n, k, stream);
 }
 
 extern "C" int dcfm_cho_solve(const void* q, const void* b, void* out,
                               long long n, int k, void* stream) {
-  return dcfm::dispatch_solve<true, false>(q, b, nullptr, out, n, k, stream);
+  return dcfm::dispatch_chol_group<true, false>(q, b, nullptr, out, n, k,
+                                                stream);
 }

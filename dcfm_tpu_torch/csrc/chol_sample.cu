@@ -27,7 +27,7 @@
 
 extern "C" int dcfm_chol_sample(const void* q, const void* b, const void* z,
                                 void* out, long long n, int k, void* stream) {
-  return dcfm::dispatch_chol_group<false>(q, b, z, out, n, k, stream);
+  return dcfm::dispatch_chol_group<false, true>(q, b, z, out, n, k, stream);
 }
 
 extern "C" const char* dcfm_cuda_error_string(int err) {

@@ -8,8 +8,8 @@ The port of ``dcfm_tpu/ops/batched_solve.py``:
   ``_chol_solve_sample_kernel``.
 * :func:`cho_solve_batched` (K3) - the plain solve x_j = Q_j^{-1} b_j.
   Replaces ``_cho_solve_kernel``; no fit path runs it (nor in the JAX
-  package).  It divides by L_jj as K4 does, but still runs the
-  one-thread-per-system recurrence (K4 runs K1's lane-group kernel).
+  package).  It divides by L_jj as K4 does and runs the same lane-group
+  kernel (``csrc/chol_group.cuh``) without the noise chain.
 * :func:`cho_solve_shared` - one shared precision and an (n, K) right-hand
   block, through ``torch.linalg``.
 

@@ -27,7 +27,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD = os.path.join(_PKG, "build")
 SOURCES = ("chol_sample.cu", "batched_solve.cu", "lam_rows.cu", "sse_ps.cu")
-HEADERS = ("chol_group.cuh", "chol_recurrence.cuh")
+HEADERS = ("chol_group.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
@@ -130,9 +130,12 @@ def library() -> ctypes.CDLL:
                     ("dcfm_chol_sample", [ptr] * 4 + [i64, i32, ptr]),
                     ("dcfm_chol_solve_sample", [ptr] * 4 + [i64, i32, ptr]),
                     ("dcfm_cho_solve", [ptr] * 3 + [i64, i32, ptr]),
-                    ("dcfm_lam_rows", [ptr] * 6 + [i32, i32, i32, ptr]),
+                    ("dcfm_lam_rows", [ptr] * 6 + [i64, i64, i32, ptr]),
                     ("dcfm_sse_ps", [ptr] * 7 + [i64, i32, ctypes.c_float,
-                                                 ptr])):
+                                                 ptr]),
+                    # the card's floor, timed by chip_smoke.py only
+                    ("dcfm_floor_empty", [ptr]),
+                    ("dcfm_floor_pass", [ptr] * 7 + [i64, i32, ptr])):
                 fn = getattr(lib, name)
                 fn.argtypes, fn.restype = argtypes, i32
                 _entries[name] = fn
@@ -153,11 +156,10 @@ def check(err: int, kernel: str) -> None:
         raise RuntimeError(f"{kernel} launch failed: CUDA error {err} ({msg})")
 
 
-def launch(kernel: str, entry: str, device, *args) -> None:
+def call(entry: str, device, *args) -> None:
     """Call the C entry ``entry`` with ``args`` and the current stream of
-    ``device``, raise on the cudaError_t it returns, and count one launch
-    of ``kernel``.  The device is made current only when it is not
-    already."""
+    ``device`` and raise on the cudaError_t it returns.  The device is made
+    current only when it is not already.  Counts nothing."""
     if _lib is None:
         library()
     index = device.index
@@ -166,5 +168,10 @@ def launch(kernel: str, entry: str, device, *args) -> None:
     else:
         with torch.cuda.device(index):
             err = _entries[entry](*args, _raw_stream(index))
-    check(err, kernel)
+    check(err, entry)
+
+
+def launch(kernel: str, entry: str, device, *args) -> None:
+    """:func:`call`, then count one launch of ``kernel``."""
+    call(entry, device, *args)
     LAUNCHES[kernel] += 1

@@ -1,9 +1,10 @@
 """K2: the fused Lambda update (``ModelConfig.lambda_kernel="pallas-fused"``).
 
 Per shard g and loading row j: Q_j = diag(plam_j) + ps_j E_g and
-b_j = ps_j ey_j are formed inside the kernel, then x_j = Q_j^{-1} b_j +
-L_j^{-T} z_j is drawn with K1's recurrence, so the (G, P, K, K) precision
-tensor never exists.  Replaces
+b_j = ps_j ey_j are formed inside the kernel, row by row in the registers
+of one lane group per loading row, then x_j = Q_j^{-1} b_j + L_j^{-T} z_j
+is drawn with the lane-group recurrence K1 runs (``csrc/chol_group.cuh``),
+so the (G, P, K, K) precision tensor never exists.  Replaces
 ``dcfm_tpu/ops/pallas_gaussian.py::_lam_rows_kernel`` (wrapper
 ``lam_update_pallas``).  On a CUDA tensor the wrapper launches the
 hand-written kernel ``dcfm_tpu_torch/csrc/lam_rows.cu``; on a CPU tensor

@@ -65,9 +65,14 @@ def test_chol_sample_kernel_matches_plain(cuda, B, K):
                                rtol=2e-4, atol=2e-4)
 
 
-def test_sse_ps_kernel_matches_plain_and_clamps(cuda):
+# K5's shapes: K = 8 at the fit's batch; K = 1, 4, 5 and 16 through the
+# fixed-K kernel (float4 loads at 4, 8, 16) and K = 24 through the
+# run-time-K kernel, on batches ragged against the 64-thread block
+@pytest.mark.parametrize("B,K", [(10048, 8), (10049, 1), (513, 4), (700, 5),
+                                 (10049, 8), (10049, 16), (129, 24),
+                                 (10049, 24), (1, 8)])
+def test_sse_ps_kernel_matches_plain_and_clamps(cuda, B, K):
     rng = np.random.default_rng(5)
-    B, K = 10048, 8
     Lam, M, EYt = (rng.standard_normal((B, K)).astype(np.float32)
                    for _ in range(3))
     quad = np.sum(Lam.astype(np.float64) * M, axis=1)
@@ -75,15 +80,25 @@ def test_sse_ps_kernel_matches_plain_and_clamps(cuda):
     sse_true = rng.uniform(0, 100, B)
     sse_true[:16] = -1e-3                  # overshoot: must clamp to 0
     yty = (sse_true + 2 * dot2 - quad).astype(np.float32)
+    bad = B // 2 if B > 32 else None       # a poisoned feature
+    if bad is not None:
+        yty[bad] = np.nan
     g = rng.gamma(50.5, 1.0, B).astype(np.float32)
     t = [torch.as_tensor(a, device=cuda) for a in (Lam, M, EYt, yty, g)]
+    before = cuda_lib.launch_counts()["sse_ps"]
     ps, sse = sse_ps(*t, bs=0.3)
     ps_p, sse_p = sse_ps_plain(*t, 0.3)
     torch.cuda.synchronize()
+    assert cuda_lib.launch_counts()["sse_ps"] == before + 1
     assert torch.all(sse[:16] == 0)
+    good = torch.ones(B, dtype=torch.bool, device=cuda)
+    if bad is not None:                    # NaN is kept, and stays put
+        assert torch.isnan(sse[bad]) and torch.isnan(ps[bad])
+        good[bad] = False
+    assert torch.isfinite(sse[good]).all() and torch.isfinite(ps[good]).all()
     # K float32 products summed in another order: a few ulp of the terms
-    torch.testing.assert_close(sse, sse_p, rtol=1e-5, atol=1e-4)
-    torch.testing.assert_close(ps, ps_p, rtol=1e-4, atol=1e-6)
+    torch.testing.assert_close(sse[good], sse_p[good], rtol=1e-5, atol=1e-4)
+    torch.testing.assert_close(ps[good], ps_p[good], rtol=1e-4, atol=1e-6)
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
@@ -150,22 +165,64 @@ def test_a_poisoned_system_stays_in_its_own_row(cuda, poison, K):
         torch.testing.assert_close(out[good], ref[good], **_KERNEL_TOL)
 
 
-@pytest.mark.parametrize("G,P,K", [(64, 157, 8), (3, 33, 1), (5, 157, 4),
-                                   (2, 65, 16), (1, 1, 3)])
-def test_lam_update_kernel_matches_plain(cuda, G, P, K):
-    rng = np.random.default_rng(200 + K)
+def _lam_operands(rng, G, P, K):
     A = rng.standard_normal((G, K, K)).astype(np.float32)
     E = A @ np.transpose(A, (0, 2, 1)) + 0.5 * np.eye(K, dtype=np.float32)
-    ops = [E, (rng.gamma(2.0, 1.0, (G, P, K)) + 0.1).astype(np.float32),
-           rng.gamma(3.0, 0.5, (G, P)).astype(np.float32),
-           rng.standard_normal((G, P, K)).astype(np.float32),
-           rng.standard_normal((G, P, K)).astype(np.float32)]
-    t = [torch.as_tensor(a, device=cuda) for a in ops]
+    return [E, (rng.gamma(2.0, 1.0, (G, P, K)) + 0.1).astype(np.float32),
+            rng.gamma(3.0, 0.5, (G, P)).astype(np.float32),
+            rng.standard_normal((G, P, K)).astype(np.float32),
+            rng.standard_normal((G, P, K)).astype(np.float32)]
+
+
+# K2's shapes: every K in 1..16 (lanes of the W-lane group idle unless K is
+# a power of two) on one row, on the fit's (64, 157) and on shards whose
+# rows are ragged against the group and the block
+@pytest.mark.parametrize("K", range(1, 17))
+@pytest.mark.parametrize("G,P", [(1, 1), (3, 33), (64, 157), (2, 65)])
+def test_lam_update_kernel_matches_plain(cuda, G, P, K):
+    t = [torch.as_tensor(a, device=cuda)
+         for a in _lam_operands(np.random.default_rng(200 + K), G, P, K)]
     before = cuda_lib.launch_counts()["lam_update"]
     out = lam_update(*t)
     torch.cuda.synchronize()
     assert cuda_lib.launch_counts()["lam_update"] == before + 1
     torch.testing.assert_close(out, lam_update_plain(*t), **_KERNEL_TOL)
+
+
+@pytest.mark.parametrize("K", [3, 8, 16])
+@pytest.mark.parametrize("poison", ["nan", "not-spd"])
+def test_a_poisoned_loading_row_stays_in_its_own_row(cuda, poison, K):
+    """One loading row of a warp is poisoned (a NaN residual precision, or
+    a negative prior precision that makes its Q indefinite): in K2 only its
+    own row of the output is non-finite, as in the plain version; every
+    other row, its neighbours in the same warp included, matches it."""
+    G, P = 2, 40
+    ops = _lam_operands(np.random.default_rng(400 + K), G, P, K)
+    W = 1 << (K - 1).bit_length()          # lanes per row
+    bad = 32 // W + 1                      # the second row of warp 1
+    if poison == "nan":
+        ops[2][1, bad] = np.nan
+    else:
+        ops[1][1, bad, 0] = -1e4
+    t = [torch.as_tensor(a, device=cuda) for a in ops]
+    out, ref = lam_update(*t), lam_update_plain(*t)
+    torch.cuda.synchronize()
+    good = torch.ones((G, P), dtype=torch.bool, device=cuda)
+    good[1, bad] = False
+    assert not torch.isfinite(ref[1, bad]).all()
+    assert not torch.isfinite(out[1, bad]).all()
+    assert torch.isfinite(out[good]).all()
+    torch.testing.assert_close(out[good], ref[good], **_KERNEL_TOL)
+
+
+def test_lam_rows_refuses_more_rows_than_the_grid_holds(cuda):
+    """One launch takes at most (2^31 - 1) * 8 rows with P < 2^31: the C
+    entry refuses more before it launches (no pointer is read)."""
+    t = [torch.zeros(8, device=cuda) for _ in range(6)]
+    ptrs = [a.data_ptr() for a in t]
+    for G, P in ((1 << 20, 1 << 20), (1, 1 << 31), (0, 5)):
+        with pytest.raises(RuntimeError, match="invalid argument"):
+            cuda_lib.call("dcfm_lam_rows", t[0].device, *ptrs, G, P, 8)
 
 
 def test_new_wrappers_refuse_what_the_kernels_do_not_take(cuda):

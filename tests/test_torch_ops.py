@@ -191,7 +191,7 @@ def test_chol_solve_sample_plain_matches_pallas_and_unrolled(K):
         np.testing.assert_allclose(out, ref, err_msg=impl, **_SOLVE_TOL)
 
 
-@pytest.mark.parametrize("K", [1, 4, 8, 16])
+@pytest.mark.parametrize("K", [1, 4, 8, 16, 3, 5, 7, 13])
 def test_cho_solve_plain_matches_pallas(K):
     rng = np.random.default_rng(60 + K)
     B = 701
@@ -240,12 +240,22 @@ def _lam_operands(rng, G, P, K):
     return E, plam, ps, EYt, Zn
 
 
-@pytest.mark.parametrize("K", [1, 4, 8, 16])
-def test_lam_update_plain_matches_pallas(K):
+# K = 3, 5, 7 and 13 leave lanes of the card kernel's W-lane group idle;
+# G = 1 is a single shard and P = 5 fewer rows than one block of groups
+# holds.  The card holds the kernel against this plain version at those
+# shapes, so the plain version is held against JAX there first.
+@pytest.mark.parametrize("G,P,K", [(3, 157, 1), (3, 157, 4), (3, 157, 8),
+                                   (3, 157, 16), (3, 157, 3), (3, 157, 5),
+                                   (3, 157, 7), (3, 157, 13), (1, 157, 8),
+                                   (2, 5, 8), (1, 5, 13)])
+def test_lam_update_plain_matches_pallas(G, P, K):
     """P = 157 is not a multiple of the Pallas kernel's 256-row tile, so
-    its padded rows are exercised (and must not leak into the result)."""
+    its padded rows are exercised (and must not leak into the result).
+    Tolerance _SOLVE_TOL (1e-5 + 1e-5 |x|): the plain version repeats the
+    kernel's recurrence op for op, only XLA's fusion and FMA choices
+    differ."""
     rng = np.random.default_rng(80 + K)
-    ops = _lam_operands(rng, 3, 157, K)
+    ops = _lam_operands(rng, G, P, K)
     before = cuda_lib.launch_counts()
     out = lam_update(*(torch.as_tensor(a) for a in ops)).numpy()
     assert cuda_lib.launch_counts() == before
@@ -297,9 +307,13 @@ def test_new_wrappers_refuse_bad_input():
 def _sse_operands(rng, B, K, n=30):
     """Gram operands of a real fit: eta (n, K), Y (n, B), so the SSE is
     a residual sum of squares; the first 8 features are fit almost
-    perfectly, which drives the three-term SSE to the clamp."""
+    perfectly, which drives the three-term SSE to the clamp.  Above K = 8
+    the loadings shrink by sqrt(8 / K), so Y'Y (and with it the ulp that
+    the absolute tolerances below are sized to) stays what it is at K = 8."""
     eta = rng.standard_normal((n, K)).astype(np.float32)
     Lam = rng.standard_normal((B, K)).astype(np.float32)
+    if K > 8:
+        Lam *= np.float32(np.sqrt(8.0 / K))
     Y = eta @ Lam.T + rng.standard_normal((n, B)).astype(np.float32)
     Y[:, :8] = eta @ Lam[:8].T
     E = eta.T @ eta
@@ -308,7 +322,11 @@ def _sse_operands(rng, B, K, n=30):
             .astype(np.float32))
 
 
-@pytest.mark.parametrize("B,K", [(700, 8), (1, 5), (64, 3)])
+# K = 24 is above the card kernel's fixed-K range (its run-time-K route);
+# B = 1, 129 and 700 are ragged against its block
+@pytest.mark.parametrize("B,K", [(700, 8), (1, 5), (64, 3), (1, 1), (129, 1),
+                                 (700, 4), (129, 4), (1, 16), (129, 16),
+                                 (700, 16), (1, 24), (129, 24), (700, 24)])
 def test_sse_ps_plain_matches_pallas_and_plain(B, K):
     rng = np.random.default_rng(B * K)
     ops = _sse_operands(rng, B, K)
@@ -321,7 +339,52 @@ def test_sse_ps_plain_matches_pallas_and_plain(B, K):
         # three O(Y'Y) terms cancel: the difference is a few ulp of
         # Y'Y (~n*K here), 1e-4 absolute; ps inherits it relatively
         np.testing.assert_allclose(sse, _np(sse_j), rtol=1e-5, atol=1e-4)
-        np.testing.assert_allclose(ps, _np(ps_j), rtol=1e-4, atol=1e-6)
+        # at the clamp (sse ~ 0) the sse tolerance reaches ps through the
+        # rate as 0.5 * 1e-4 / bs = 1.7e-4 relative; the longer sums of
+        # K > 8 get there (1.3e-4 measured at K = 24), the others stay
+        # inside 1e-4
+        np.testing.assert_allclose(ps, _np(ps_j),
+                                   rtol=1e-4 if K <= 8 else 2e-4, atol=1e-6)
+
+
+@pytest.mark.parametrize("K,lanes", [(8, 2), (16, 4), (16, 2), (4, 1)])
+def test_sse_lanewise_summation_stays_inside_the_card_tolerance(K, lanes):
+    """A card kernel that splits a feature's K products over `lanes` lanes
+    (each summing K / lanes products in increasing k, the partial sums
+    combined pairwise, as a butterfly of warp shuffles does) changes the
+    order of the float32 sums only: emulated in numpy, its SSE stays inside
+    4 K eps |terms| of the increasing-k order, the tolerance the smoke test
+    applies to the card kernel.  (The kernel that was kept sums in
+    increasing k; the other order was timed and lost.)"""
+    rng = np.random.default_rng(K * lanes)
+    Lam, M, EYt, yty, _ = _sse_operands(rng, 4096, K)
+    f32 = np.float32
+
+    def dots(order):
+        quad, dot2 = order(Lam * M), order(Lam * EYt)
+        return yty - f32(2.0) * dot2 + quad
+
+    def increasing(t):
+        acc = t[:, 0]
+        for j in range(1, t.shape[1]):
+            acc = (acc + t[:, j]).astype(f32)
+        return acc
+
+    def lanewise(t):
+        parts = [increasing(c) for c in np.split(t, lanes, axis=1)]
+        while len(parts) > 1:           # shfl_xor at distance len / 2
+            half = len(parts) // 2
+            parts = [(parts[i] + parts[i + half]).astype(f32)
+                     for i in range(half)]
+        return parts[0]
+
+    a, b = dots(increasing), dots(lanewise)
+    scale = (np.abs(yty) + 2 * np.abs(Lam * EYt).sum(-1)
+             + np.abs(Lam * M).sum(-1))
+    tol = 4 * K * np.finfo(f32).eps * scale
+    assert np.all(np.abs(a - b) <= tol)
+    if lanes > 1:
+        assert np.any(a != b)           # the order does change the bits
 
 
 def test_sse_ps_clamps_overshoot_to_zero():
