@@ -24,24 +24,38 @@
    pass of K5's traffic (``floor: empty X us, K5-sized pass Y us``).
    ``python3 chip_smoke.py --kernels-only`` stops here, with no result
    line.
-3. Fit phase: ``dcfm_tpu_torch.fit`` at the repo's north-star width
+3. Graphs against the eager chain: one chain at the fit's width (below)
+   for one chunk of 10 trips of T sweeps (burn-in 2 trips, thin 3), run
+   eagerly and as CUDA graphs from the same init, at T = 8 along the three
+   fit paths and the float32 path under sse_mode="resid", and at the
+   fits' T (``CUDA_AUTO_UNROLL``) along the float32 path:
+   the accumulator, every state leaf, health, the trace and the launch
+   counts must be bitwise equal (``graph == eager`` lines give the max
+   |graph - eager| of each; a difference names the first differing sweep
+   and leaf); the graphs captured, their capture seconds and the graph
+   pool's bytes.  Then the trip length behind ``CUDA_AUTO_UNROLL``: ms per
+   sweep of one graphed chain at T = 1, 2, 4 and 8 (``unroll`` lines).
+4. Fit phase: ``dcfm_tpu_torch.fit`` at the repo's north-star width
    (p = 10,000, g = 64 shards, n = 500, K = 8 factors per shard, 2 chains,
    sse_mode="auto") on synthetic factor data, along three paths: float32
    with lambda_kernel="pallas" (K1 and K5), compute_dtype="bf16" with
    lambda_kernel="auto" (K4 and K5) and lambda_kernel="pallas-fused" (K2
-   and K5), each after a 4-sweep warm-up fit of the same path.  The
-   launch counters are zeroed just before each timed fit and read
-   just after: each of the path's kernels must have launched once per
-   sweep and every other kernel not at all.  Sigma must be finite and
-   symmetric, the chains healthy, and its relative Frobenius error against
-   the truth < 0.25 and at most twice the sample covariance's.  No fit path
-   runs K3 (nor in the JAX package): its launches are counted over one
-   call of its public op, ``cho_solve_batched``, at the fit's batch.
-4. Where the time goes, for each fit path: 20 more sweeps of one chain at
-   the same width and the fit's save mix (one draw in four accumulated),
-   timed on the host clock and under torch.profiler: ms per sweep, the
-   device's busy and idle share, and the kernels that take the most device
-   time.
+   and K5), each after a 4-sweep warm-up fit of the same path; every fit
+   runs its chain as CUDA graphs (the card's only path), and prints the
+   graphs it captured and the seconds the captures took (inside its
+   chain time).  The launch counters are zeroed just before each timed
+   fit and read just after: each of the path's kernels must have launched
+   once per sweep and every other kernel not at all.  Sigma must be finite
+   and symmetric, the chains healthy, and its relative Frobenius error
+   against the truth < 0.25 and at most twice the sample covariance's.  No
+   fit path runs K3 (nor in the JAX package): its launches are counted
+   over one call of its public op, ``cho_solve_batched``, at the fit's
+   batch.
+5. Where the time goes, for each fit path: 48 more graphed sweeps of one
+   chain at the same width and the fit's save mix (one draw in four
+   accumulated), timed on the host clock and under torch.profiler: ms per
+   sweep, the device's busy and idle share, and the kernels that take the
+   most device time.
 
 Any failed check exits non-zero before the last line.  The line before the
 last is the kernels' JSON record; the last line is
@@ -471,17 +485,146 @@ FIT_PATHS = (
 )
 
 
+def graph_pool_bytes(torch):
+    """Bytes the caching allocator holds in graph pools (every segment
+    outside the default pool), or None if the snapshot does not say."""
+    segs = torch.cuda.memory_snapshot()
+    if not any("segment_pool_id" in s for s in segs):
+        return None
+    return sum(s["total_size"] for s in segs
+               if tuple(s.get("segment_pool_id", (0, 0))) != (0, 0))
+
+
+def path_config(dt, model: dict, backend: dict):
+    c = FIT
+    return dt.FitConfig(
+        model=dt.ModelConfig(num_shards=c["g"], factors_per_shard=c["K"],
+                             rho=c["rho"], **model),
+        run=dt.RunConfig(burnin=c["burnin"], mcmc=c["mcmc"], thin=c["thin"],
+                         seed=0, num_chains=c["chains"]),
+        backend=dt.BackendConfig(**({"sse_mode": "auto"} | backend)))
+
+
+def chain_setup(torch, cfg, Y):
+    """(model config with the backend's sweep knobs, data on the card,
+    prior) as ``fit`` builds them."""
+    from dcfm_tpu_torch.models.priors import make_prior
+    from dcfm_tpu_torch.utils.preprocess import preprocess
+    m = dataclasses.replace(cfg.model, sse_mode=cfg.backend.sse_mode,
+                            compute_dtype=cfg.backend.compute_dtype)
+    Yd = torch.as_tensor(preprocess(Y, m.num_shards, seed=0).data,
+                         device="cuda")
+    return m, Yd, make_prior(m)
+
+
+# the leaves in the order the sweep writes them: the first of these that
+# differs names the conditional where graph and eager part
+SWEEP_ORDER = ("Z", "X", "Lambda", "delta", "psijh", "ps", "sigma_acc",
+               "health")
+
+
+def graph_equality_phase(torch, cuda_lib, cfg, Y, card: str, label: str,
+                         T: int) -> None:
+    """One chain, one chunk of 10 trips of T sweeps (burn-in 2 trips, thin
+    3), eager and graphed from the same init: every leaf, the accumulator,
+    health, the trace and the launches bitwise."""
+    from dcfm_tpu_torch.models.sampler import ChainRunner, state_leaves
+    from dcfm_tpu_torch.noise import TorchNoise
+    m, Yd, prior = chain_setup(torch, cfg, Y)
+    label = f"{label}, T={T}"
+    got, peak = {}, {}
+    for graphs in (False, True):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        runner = ChainRunner(TorchNoise(0, "cuda"), Yd, m, prior,
+                             burnin=2 * T, thin=3, unroll=T, graphs=graphs)
+        carry = runner.init_chain(0)
+        cuda_lib.reset_launch_counts()
+        t = time.perf_counter()
+        carry, _, trace = runner.run_chunk(0, carry, 10 * T)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        peak[graphs] = torch.cuda.max_memory_allocated() - base
+        names = ["Lambda", "Z", "X", "ps", *sorted(carry.state.prior)]
+        got[graphs] = dict(zip(names, state_leaves(carry.state)),
+                           sigma_acc=carry.sigma_acc, health=carry.health,
+                           trace=trace, launches=cuda_lib.launch_counts())
+        if graphs:
+            pool = graph_pool_bytes(torch)
+            say(f"graphs [{label}]: {10 * T} sweeps in {wall:.3f} s, "
+                f"{runner.captured} graphs captured in "
+                f"{runner.capture_s:.3f} s, {runner.replays} replays, "
+                f"{runner.eager_trips} eager trips; graph pool "
+                f"{'not measured' if pool is None else f'{pool} bytes'} "
+                f"reserved; peak allocated above the data: eager "
+                f"{peak[False]} bytes, graphed {peak[True]} bytes ({card})")
+        del runner, carry
+    e, g = got[False], got[True]
+    check(g["launches"] == e["launches"], f"[{label}] launches under graphs "
+          f"{g['launches']} != eager {e['launches']}")
+    diff = {k: float((g[k] - e[k]).abs().max()) for k in e if k != "launches"}
+    say(f"graph == eager [{label}]: max |graph - eager| "
+        + ", ".join(f"{k} {v:g}" for k, v in diff.items())
+        + f"; launches {json.dumps(g['launches'])}")
+    same = {k: bool(torch.equal(g[k], e[k])) for k in diff}
+    if not all(same.values()):
+        rows = (g["trace"] != e["trace"]).any(dim=1).nonzero()
+        first = int(rows[0]) + 1 if len(rows) else None
+        leaf = next((k for k in SWEEP_ORDER if not same.get(k, True)), None)
+        fail(f"[{label}] the graphed chain is not the eager chain: first "
+             f"differing trace row at sweep {first}, first differing leaf "
+             f"in sweep order {leaf} (differing: "
+             f"{[k for k, v in same.items() if not v]})")
+    del got, e, g
+    torch.cuda.empty_cache()
+
+
+def unroll_phase(torch, cfg, Y, card: str) -> None:
+    """ms per sweep of one graphed chain at the fit's width and save mix
+    (one draw in four) for trips of T = 1, 2, 4 and 8 sweeps, in turns
+    (1, 2, 4, 8, 8, 4, 2, 1, 1, 2, 4, 8): a 16-sweep chunk meets and
+    captures every pattern (timed, with its captures: a fit's first-use
+    cost), then a 96-sweep chunk of replays is timed on the host clock."""
+    from dcfm_tpu_torch.api import CUDA_AUTO_UNROLL
+    from dcfm_tpu_torch.models.sampler import ChainRunner
+    from dcfm_tpu_torch.noise import TorchNoise
+    m, Yd, prior = chain_setup(torch, cfg, Y)
+    times = {}
+    for T in (1, 2, 4, 8, 8, 4, 2, 1, 1, 2, 4, 8):
+        runner = ChainRunner(TorchNoise(0, "cuda"), Yd, m, prior, burnin=0,
+                             thin=4, unroll=T)
+        carry = runner.init_chain(0)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        runner.run_chunk(0, carry, 16)
+        torch.cuda.synchronize()
+        first = time.perf_counter() - t
+        t = time.perf_counter()
+        runner.run_chunk(0, carry, 96)
+        torch.cuda.synchronize()
+        times.setdefault(T, []).append((time.perf_counter() - t) * 1e3 / 96)
+        pool = graph_pool_bytes(torch)
+        say(f"unroll T={T}: {times[T][-1]:.4f} ms per sweep (96 graphed "
+            f"sweeps, host clock); first 16 sweeps {first:.3f} s with "
+            f"{runner.captured} captures ({runner.capture_s:.3f} s); graph "
+            f"pool {'not measured' if pool is None else f'{pool} bytes'}; "
+            f"{card}")
+        del runner, carry
+        torch.cuda.empty_cache()
+    med = {T: sorted(v)[len(v) // 2] for T, v in times.items()}
+    say("unroll: median ms per sweep " + ", ".join(
+        f"T={T} {v:.4f}" for T, v in med.items())
+        + f"; fastest T={min(med, key=med.get)}; "
+        f"CUDA_AUTO_UNROLL={CUDA_AUTO_UNROLL}")
+
+
 def fit_phase(torch, dt, cuda_lib, card: str, label: str, model: dict,
               backend: dict, kernels: tuple, Y, L, noise) -> tuple:
     """One full-width fit along a path; returns (launches, config, rel.
     Frobenius error against the truth)."""
     c = FIT
-    cfg = dt.FitConfig(
-        model=dt.ModelConfig(num_shards=c["g"], factors_per_shard=c["K"],
-                             rho=c["rho"], **model),
-        run=dt.RunConfig(burnin=c["burnin"], mcmc=c["mcmc"], thin=c["thin"],
-                         seed=0, num_chains=c["chains"]),
-        backend=dt.BackendConfig(sse_mode="auto", **backend))
+    cfg = path_config(dt, model, backend)
     # warm-up: 4 sweeps of the same path and width, so that the timed fit
     # pays no first-use cost (library loads, new GEMM shapes) that a path
     # timed later would not pay
@@ -494,13 +637,19 @@ def fit_phase(torch, dt, cuda_lib, card: str, label: str, model: dict,
     wall = time.perf_counter() - t0
     launches = cuda_lib.launch_counts()
     peak = torch.cuda.max_memory_allocated()
+    peak_reserved = torch.cuda.max_memory_reserved()
     sweeps = c["chains"] * (c["burnin"] + c["mcmc"])
     say(f"fit [{label}]: {sweeps} sweeps in "
         f"{res.phase_seconds['chain_s']:.3f} s chain time = "
         f"{res.iters_per_sec:.2f} iters/s (wall {wall:.3f} s; {card})")
     say(f"fit [{label}] phase_seconds: " + json.dumps(res.phase_seconds))
-    say(f"fit [{label}] peak device memory: {peak} bytes "
-        f"({peak / 2**30:.3f} GiB; {card})")
+    say(f"fit [{label}] graphs: {json.dumps(res.graphs)} (capture_s is "
+        "inside chain_s)")
+    check(res.graphs["captured"] > 0 and res.graphs["replays"] > 0,
+          f"[{label}] the fit ran no CUDA graph: {res.graphs}")
+    say(f"fit [{label}] peak device memory: {peak} bytes allocated "
+        f"({peak / 2**30:.3f} GiB), {peak_reserved} bytes reserved "
+        f"({card})")
     say(f"fit [{label}] kernel launches: {json.dumps(launches)} "
         f"(expected {sweeps} for {', '.join(kernels)}, 0 for the others)")
     for name, count in launches.items():
@@ -552,43 +701,46 @@ def k3_path(torch, bs, cuda_lib, rng) -> dict:
 def sweep_profile(torch, cfg, Y, card: str, label: str) -> None:
     from torch.profiler import ProfilerActivity, profile
 
-    from dcfm_tpu_torch.models.priors import make_prior
-    from dcfm_tpu_torch.models.sampler import init_chain, run_chunk
+    from dcfm_tpu_torch.api import CUDA_AUTO_UNROLL
+    from dcfm_tpu_torch.models.sampler import ChainRunner
     from dcfm_tpu_torch.noise import TorchNoise
-    from dcfm_tpu_torch.utils.preprocess import preprocess
-    m = dataclasses.replace(cfg.model, sse_mode=cfg.backend.sse_mode,
-                            compute_dtype=cfg.backend.compute_dtype)
-    Yd = torch.as_tensor(preprocess(Y, m.num_shards, seed=0).data,
-                         device="cuda")
-    noise, prior = TorchNoise(0, "cuda"), make_prior(m)
-    carry = init_chain(noise.init(0), Yd, m, prior)
-    n = 20
+    m, Yd, prior = chain_setup(torch, cfg, Y)
+    # thin 4: one sweep in four accumulates, the fit's mix (200 burn-in +
+    # 200 kept at thin 2); windows of 48 sweeps meet the same patterns
+    runner = ChainRunner(TorchNoise(0, "cuda"), Yd, m, prior, burnin=0,
+                         thin=4, unroll=CUDA_AUTO_UNROLL)
+    carry = runner.init_chain(0)
+    n = 48
 
-    def window(carry):
-        # thin 4 from the window's start: one sweep in four accumulates,
-        # the fit's mix (200 burn-in + 200 kept at thin 2)
-        return run_chunk(noise, 0, Yd, carry, m, prior, num_iters=n,
-                         burnin=carry.iteration, thin=4)[0]
+    def window():
+        runner.run_chunk(0, carry, n)
 
-    carry = window(carry)                                 # warm-up
+    window()                               # warm-up: eager trips, captures
+    window()
     torch.cuda.synchronize()
     t = time.perf_counter()
-    carry = window(carry)
+    window()
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t) * 1e3 / n
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
-        carry = window(carry)
+        window()
         torch.cuda.synchronize()
         wall_prof = (time.perf_counter() - t) * 1e3 / n
     busy, rows = device_busy_ms(prof)
     busy /= n
-    say(f"sweep [{label}]: {wall:.3f} ms per sweep on the host clock "
-        f"({wall_prof:.3f} ms under the profiler); device busy "
-        f"{busy:.3f} ms per sweep = {busy / wall_prof:.1%} of the "
-        f"profiled wall, idle {1 - busy / wall_prof:.1%}; {card}")
+    # the profiler slows the host, so idle is read against the unprofiled
+    # window's wall (and, for reference, the profiled one's)
+    say(f"sweep [{label}] (graphed, T={CUDA_AUTO_UNROLL}, "
+        f"{runner.captured} graphs): {wall:.3f} ms per sweep on the host "
+        f"clock ({wall_prof:.3f} ms under the profiler); device busy "
+        + (f"{busy:.3f} ms per sweep, idle {1 - busy / wall:.1%} of the "
+           f"unprofiled wall ({1 - busy / wall_prof:.1%} of the profiled)"
+           if busy > 0 else
+           "not measured (the profiler recorded no device time)")
+        + f"; {card}")
     for name, ms in rows[:12]:
-        say(f"  {ms / n * 1e3:9.2f} us/sweep  {name[:100]}")
+        say(f"  {ms / n * 1e3:9.2f} us/sweep  {name[:160]}")
 
 
 def _solver(div: str, sample: str) -> str:
@@ -755,6 +907,15 @@ def main() -> None:
 
     c = FIT
     Y, L, noise = synthetic(c["n"], c["p"], c["k_true"])
+    for label, model, backend, _ in FIT_PATHS:
+        graph_equality_phase(torch, cuda_lib, path_config(dt, model, backend),
+                             Y, card, label, 8)
+    graph_equality_phase(torch, cuda_lib, path_config(
+        dt, {"lambda_kernel": "pallas"}, {"sse_mode": "resid"}), Y, card,
+        "f32 resid", 8)
+    graph_equality_phase(torch, cuda_lib, path_config(
+        dt, *FIT_PATHS[0][1:3]), Y, card, "f32", dt.api.CUDA_AUTO_UNROLL)
+    unroll_phase(torch, path_config(dt, *FIT_PATHS[0][1:3]), Y, card)
     launches, errs = {}, {}
     for label, model, backend, path_kernels in FIT_PATHS:
         got, cfg, errs[label] = fit_phase(torch, dt, cuda_lib, card, label,

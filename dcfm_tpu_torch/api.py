@@ -7,10 +7,12 @@ count -> the mean over chains -> host assembly into the caller's
 coordinates, zero columns reinserted.
 
 Entry points run on the card (``device="cuda"``) unless the caller asks
-for the CPU.  Float32 matmuls run in full float32: the sweep's products
-are numerically load-bearing (the JAX package measured a prior bias under
-single-pass reduced precision), so ``fit`` refuses to run while
-``torch.backends.cuda.matmul.allow_tf32`` is on.
+for the CPU.  On the card the chain always runs as CUDA graphs of
+``RunConfig.sweep_unroll`` sweeps (models/sampler.ChainRunner); the CPU
+runs the same trips eagerly.  Float32 matmuls run in full float32: the
+sweep's products are numerically load-bearing (the JAX package measured a
+prior bias under single-pass reduced precision), so ``fit`` refuses to run
+while ``torch.backends.cuda.matmul.allow_tf32`` is on.
 """
 
 from __future__ import annotations
@@ -26,8 +28,8 @@ from dcfm_tpu_torch.config import (
     BackendConfig, FitConfig, ModelConfig, RunConfig, validate)
 from dcfm_tpu_torch.models.priors import make_prior
 from dcfm_tpu_torch.models.sampler import (
-    ChainStats, init_chain, num_saved_draws, run_chunk)
-from dcfm_tpu_torch.models.state import num_upper_pairs
+    ChainRunner, ChainStats, num_saved_draws)
+from dcfm_tpu_torch.models.state import SamplerState, num_upper_pairs
 from dcfm_tpu_torch.noise import TorchNoise
 from dcfm_tpu_torch.ops import cuda_lib
 from dcfm_tpu_torch.utils.estimate import (
@@ -53,6 +55,8 @@ class FitResult:
     phase_seconds: dict            # preprocess_s, upload_s, init_s,
                                    # chain_s, fetch_s, assemble_s
     kernel_launches: dict          # hand-written kernel launches in this fit
+    graphs: dict                   # unroll, captured, capture_s (inside
+                                   # chain_s), replays, eager_trips
 
     @functools.cached_property
     def sigma_blocks(self) -> np.ndarray:
@@ -61,9 +65,27 @@ class FitResult:
                                       self.config.model.num_shards)
 
 
+# RunConfig.sweep_unroll's auto value (0) on the card.  Measured at the
+# north-star width (chip_smoke.py's "unroll" lines, PERF.md's findings on
+# the graphed chunk): once a trip is one graph replay the host issues
+# trips far faster than the card runs them, and T = 1, 2, 4 and 8 sweep
+# within 1.5% of each other (T = 2 ~1% the fastest, a saving a 400-sweep
+# chain spends again on its dearer warm-up), so auto takes the T with the
+# fewest graphs (at most 2 save patterns), the smallest draw buffers and
+# the cheapest warm-up.  The CPU takes 1, as the JAX package does
+# "elsewhere".
+CUDA_AUTO_UNROLL = 1
+
+
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def _copy_state(state: SamplerState) -> SamplerState:
+    return SamplerState(*(t.clone() for t in (state.Lambda, state.Z,
+                                              state.X, state.ps)),
+                        prior={k: v.clone() for k, v in state.prior.items()})
 
 
 def fit(Y: np.ndarray, cfg: FitConfig, *, device="cuda") -> FitResult:
@@ -102,25 +124,34 @@ def fit(Y: np.ndarray, cfg: FitConfig, *, device="cuda") -> FitResult:
 
     prior = make_prior(m)
     chunk = run.chunk_size or run.total_iters
+    unroll = run.sweep_unroll or (CUDA_AUTO_UNROLL if device.type == "cuda"
+                                  else 1)
+    runner = ChainRunner(noise, Yd, m, prior, burnin=run.burnin,
+                         thin=run.thin, unroll=unroll)
     phase["init_s"] = phase["chain_s"] = 0.0
-    states, accs, traces, stats = [], [], [], []
+    states, traces, stats = [], [], []
+    pooled = None                 # the chains' accumulators, summed in place
     for c in range(run.num_chains):
         t = time.perf_counter()
-        carry = init_chain(noise.init(c), Yd, m, prior)
+        carry = runner.init_chain(c)
         _sync(device)
         phase["init_s"] += time.perf_counter() - t
         t = time.perf_counter()
         chain_traces = []
         while carry.iteration < run.total_iters:
             todo = min(chunk, run.total_iters - carry.iteration)
-            carry, st, tr = run_chunk(noise, c, Yd, carry, m, prior,
-                                      num_iters=todo, burnin=run.burnin,
-                                      thin=run.thin)
+            carry, st, tr = runner.run_chunk(c, carry, todo)
             chain_traces.append(tr.cpu().numpy())
         _sync(device)
         phase["chain_s"] += time.perf_counter() - t
-        states.append(carry.state)
-        accs.append(carry.sigma_acc)
+        # the runner's carry is the next chain's too: keep copies, except
+        # of the last chain
+        last = c == run.num_chains - 1
+        states.append(carry.state if last else _copy_state(carry.state))
+        if pooled is None:
+            pooled = carry.sigma_acc if last else carry.sigma_acc.clone()
+        else:
+            pooled += carry.sigma_acc
         traces.append(np.concatenate(chain_traces, axis=0))
         stats.append(st)
 
@@ -129,15 +160,12 @@ def fit(Y: np.ndarray, cfg: FitConfig, *, device="cuda") -> FitResult:
     t = time.perf_counter()
     n_saved = num_saved_draws(run.total_iters, run.burnin, run.thin)
     inv_count = np.float32(1.0 / max(n_saved, 1))
-    pooled = accs[0]                       # summed in place: no stacked copy
-    for acc in accs[1:]:
-        pooled += acc
-    if len(accs) > 1:
-        pooled /= len(accs)
+    if run.num_chains > 1:
+        pooled /= run.num_chains
     upper = (pooled[:num_upper_pairs(m.num_shards)]
              * float(inv_count)).cpu().numpy()
     phase["fetch_s"] = time.perf_counter() - t
-    del accs, pooled
+    del pooled
 
     t = time.perf_counter()
     Sigma = assemble_from_upper(upper, pre, reinsert_zero_cols=True)
@@ -157,7 +185,10 @@ def fit(Y: np.ndarray, cfg: FitConfig, *, device="cuda") -> FitResult:
         iters_per_sec=(run.num_chains * run.total_iters
                        / max(phase["chain_s"], 1e-12)),
         traces=np.stack(traces), phase_seconds=phase,
-        kernel_launches={k: launches1[k] - launches0[k] for k in launches1})
+        kernel_launches={k: launches1[k] - launches0[k] for k in launches1},
+        graphs={"unroll": unroll, "captured": runner.captured,
+                "capture_s": runner.capture_s, "replays": runner.replays,
+                "eager_trips": runner.eager_trips})
 
 
 def divideconquer(Y: np.ndarray, g: int, k: int, BURNIN: int, MCMC: int,

@@ -83,6 +83,11 @@ class RunConfig:
     # changes the chain - every draw is keyed on the global iteration
     chunk_size: int = 0
     num_chains: int = 1
+    # sweeps per trip of the chain (0 = auto): on the card one trip is one
+    # CUDA graph replay; results are identical for every value (every
+    # iteration keeps its own draws, save condition and trace row).  Auto
+    # is api.CUDA_AUTO_UNROLL on the card and 1 on the CPU
+    sweep_unroll: int = 0
     store_draws: bool = False
     early_stop: str = "off"
 
@@ -150,6 +155,9 @@ def validate(cfg: FitConfig, n: int, p: int) -> None:
         raise ValueError("mcmc must be divisible by thin")
     if run.chunk_size < 0:
         raise ValueError(f"chunk_size must be >= 0, got {run.chunk_size}")
+    if run.sweep_unroll < 0:
+        raise ValueError(
+            f"sweep_unroll must be >= 0 (0 = auto), got {run.sweep_unroll}")
     if m.estimator not in ("plain", "scaled"):
         raise ValueError(
             f"unknown estimator {m.estimator!r} (expected 'plain' or "

@@ -1,19 +1,29 @@
-"""Chain driver: a Python loop over Gibbs sweeps with on-device
-accumulation of the packed posterior-mean covariance panels.
+"""Chain driver: Gibbs sweeps in trips of ``unroll``, captured as CUDA
+graphs on the card, with on-device accumulation of the packed
+posterior-mean covariance panels.
 
-The port of ``init_chain`` / ``run_chunk`` in ``dcfm_tpu/models/sampler.py``
-(where a ``lax.scan`` runs the loop).  Every draw of iteration ``it`` comes
-from ``noise.sweep(chain, it)``, keyed on the chain's global index and the
-global iteration, so splitting a run into chunks never changes the chain.
-Nothing in the loop reads a device value on the host: the save cadence is
-host arithmetic, and health and trace stay on the device until the chunk
-ends.
+The port of ``init_chain`` / ``run_chunk`` in ``dcfm_tpu/models/sampler.py``,
+where one ``lax.scan`` runs a chunk, ``RunConfig.sweep_unroll`` sweeps to a
+compiled loop trip.  Here a chunk is a sequence of trips of ``unroll``
+sweeps plus one shorter remainder trip (trips never cross a chunk
+boundary).  On the card a trip is a CUDA graph, captured once per
+(trip length, save pattern) and replayed once per trip; on the CPU the
+same trip code runs eagerly.  Either way the chain is the one a loop of
+single sweeps gives: every draw of iteration ``it`` comes from
+``noise.sweep(chain, it)``, keyed on the chain's global index and the
+global iteration (drawn ahead of each trip, outside any graph:
+noise.BufferedDraws), and every iteration keeps its own save condition and
+trace row.  Nothing inside a chunk reads a device value on the host: the
+save cadence is host arithmetic, and health and trace stay on the device
+until the chunk ends.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
+import time
 from typing import NamedTuple
 
 import torch
@@ -22,6 +32,8 @@ from dcfm_tpu_torch.config import ModelConfig
 from dcfm_tpu_torch.models.conditionals import covariance_panels, gibbs_sweep
 from dcfm_tpu_torch.models.state import (
     SamplerState, init_state, num_padded_pairs, packed_pair_indices)
+from dcfm_tpu_torch.noise import BufferedDraws, RecordingDraws, draw_into
+from dcfm_tpu_torch.ops import cuda_lib
 
 # per-iteration chain summaries, in the JAX package's order: mean signal
 # variance, mean residual variance, their sum, average log-likelihood
@@ -96,6 +108,25 @@ def _trace_now(state: SamplerState, sse: torch.Tensor,
                         (signal + rvar) / p_total, ll / (p_total * n)])
 
 
+_STREAMS: dict = {}     # device index -> the runners' stream
+
+
+def _runner_stream(device: torch.device):
+    """One side stream per card for every runner: PyTorch keeps a cuBLAS
+    workspace per (handle, stream) for the life of the process, so a new
+    stream per fit would leave one behind each time."""
+    index = (torch.cuda.current_device() if device.index is None
+             else device.index)
+    if index not in _STREAMS:
+        _STREAMS[index] = torch.cuda.Stream(index)
+    return _STREAMS[index]
+
+
+def _health_init(G: int, device) -> torch.Tensor:
+    return torch.tensor([0.0, math.inf, 0.0, 0.0], dtype=torch.float32,
+                        device=device).expand(G, 4).clone()
+
+
 def init_chain(draws, Y: torch.Tensor, cfg: ModelConfig, prior) -> ChainCarry:
     """Initial state, a zero packed accumulator and a fresh health panel."""
     G, n, P = Y.shape
@@ -104,48 +135,213 @@ def init_chain(draws, Y: torch.Tensor, cfg: ModelConfig, prior) -> ChainCarry:
                        device=Y.device)
     acc = torch.zeros((num_padded_pairs(G), P, P), dtype=torch.float32,
                       device=Y.device)
-    health = torch.tensor([0.0, math.inf, 0.0, 0.0], dtype=torch.float32,
-                          device=Y.device).expand(G, 4).clone()
-    return ChainCarry(state=state, sigma_acc=acc, iteration=0, health=health)
+    return ChainCarry(state=state, sigma_acc=acc, iteration=0,
+                      health=_health_init(G, Y.device))
 
 
-def run_chunk(noise, chain: int, Y: torch.Tensor, carry: ChainCarry,
-              cfg: ModelConfig, prior, *, num_iters: int, burnin: int,
-              thin: int) -> tuple[ChainCarry, ChainStats, torch.Tensor]:
-    """Run ``num_iters`` Gibbs iterations of chain ``chain`` from ``carry``.
+def state_leaves(state: SamplerState) -> list:
+    """The state's tensors in a fixed order (the prior's by name)."""
+    return [state.Lambda, state.Z, state.X, state.ps,
+            *(state.prior[k] for k in sorted(state.prior))]
 
-    On every thin-th post-burn-in iteration the packed Sigma panels of the
-    draw are ADDED to the accumulator (raw sums; the caller divides by
-    :func:`num_saved_draws`).  Returns (carry, stats, trace) with trace
-    (num_iters, 4) on the device."""
-    G = Y.shape[0]
-    rows, cols = packed_pair_indices(G)
-    rows = torch.as_tensor(rows, dtype=torch.long, device=Y.device)
-    cols = torch.as_tensor(cols, dtype=torch.long, device=Y.device)
-    state, acc, health = carry.state, carry.sigma_acc, carry.health
-    sq_r, sq_1mr = math.sqrt(cfg.rho), math.sqrt(1.0 - cfg.rho)
-    # the combine's input dtype: the combine_dtype knob, or the sweep-wide
-    # bf16 policy; the accumulator stays float32 either way
-    c_dtype = (torch.bfloat16 if (cfg.combine_dtype == "bfloat16"
-                                  or cfg.compute_dtype == "bf16") else None)
-    traces = []
-    it = carry.iteration
-    for _ in range(num_iters):
-        state, sse = gibbs_sweep(noise.sweep(chain, it), Y, state, cfg,
-                                 prior)
-        it += 1                                   # 1-based, like the JAX chain
-        if it > burnin and (it - burnin) % thin == 0:
-            eta = (sq_r * state.X[None] + sq_1mr * state.Z
-                   if cfg.estimator == "scaled" else None)
-            acc += covariance_panels(state.Lambda, state.ps, cfg.rho, rows,
-                                     cols, eta_all=eta, compute_dtype=c_dtype)
-        health = _health_update(health, _health_now(state, prior))
-        traces.append(_trace_now(state, sse, cfg.rho))
-    h = health.cpu()
-    stats = ChainStats(
-        tau_log_max=float(h[:, 0].max()), ps_min=float(h[:, 1].min()),
-        ps_max=float(h[:, 2].max()), nonfinite_count=float(h[:, 3].sum()),
-        acc_nonfinite=float((~torch.isfinite(acc)).sum()))
-    trace = (torch.stack(traces) if traces else
-             torch.zeros((0, len(TRACE_SUMMARIES)), device=Y.device))
-    return ChainCarry(state, acc, it, health), stats, trace
+
+def save_pattern(start: int, length: int, burnin: int,
+                 thin: int) -> tuple:
+    """The save conditions of the ``length`` iterations after ``start``
+    global iterations: iteration ``it`` (1-based, as the JAX chain's
+    ``save``) accumulates when it > burnin and (it - burnin) % thin == 0."""
+    return tuple(it > burnin and (it - burnin) % thin == 0
+                 for it in range(start + 1, start + length + 1))
+
+
+def trip_lengths(num_iters: int, unroll: int) -> list:
+    """A chunk's trips: ``unroll`` sweeps each, then the remainder."""
+    full, rest = divmod(num_iters, unroll)
+    return [unroll] * full + ([rest] if rest else [])
+
+
+class ChainRunner:
+    """Runs the chains of one fit on ``Y`` in trips of ``unroll`` sweeps.
+
+    ``graphs`` (default: whether Y is on the card) makes each trip a CUDA
+    graph: a (length, save pattern) is run eagerly the first time it is
+    met, on the real chain (the warm-up), captured the second time and
+    replayed from then on.  A capture advances nothing and counts no
+    launch; each replay adds the launches its capture counted
+    (cuda_lib.capture_tally).  All graphs share one memory pool and replay
+    serially on the runner's stream, which also runs the eager trips and
+    the draws.  ``graphs=False`` on the card is the eager chain the card
+    tests and chip_smoke.py hold the graphs against; a failed capture or
+    replay raises, never falls back to it.
+
+    The chains share one static carry (the graphs read and write its
+    tensors in place) and run one after another: :meth:`init_chain` resets
+    it to chain c's initial state, so a caller copies what it keeps of one
+    chain before starting the next.  One carry, not one per chain, because
+    the accumulator is the largest tensor of the fit.  Graphs, draw slots
+    and the carry are the runner's: it is meant to live for one fit.
+    """
+
+    def __init__(self, noise, Y: torch.Tensor, cfg: ModelConfig, prior, *,
+                 burnin: int, thin: int, unroll: int = 1, graphs=None):
+        if unroll < 1:
+            raise ValueError(f"unroll must be >= 1, got {unroll}")
+        cuda = Y.device.type == "cuda"
+        self.use_graphs = cuda if graphs is None else bool(graphs)
+        if self.use_graphs and not cuda:
+            raise ValueError("CUDA graphs need Y on a CUDA device")
+        self.noise, self.Y, self.cfg, self.prior = noise, Y, cfg, prior
+        self.burnin, self.thin, self.unroll = burnin, thin, unroll
+        rows, cols = packed_pair_indices(Y.shape[0])
+        self._rows = torch.as_tensor(rows, dtype=torch.long, device=Y.device)
+        self._cols = torch.as_tensor(cols, dtype=torch.long, device=Y.device)
+        # the combine's input dtype: the combine_dtype knob, or the
+        # sweep-wide bf16 policy; the accumulator stays float32 either way
+        self._c_dtype = (torch.bfloat16 if (cfg.combine_dtype == "bfloat16"
+                                            or cfg.compute_dtype == "bf16")
+                         else None)
+        self._stream = _runner_stream(Y.device) if cuda else None
+        self._pool = (torch.cuda.graph_pool_handle() if self.use_graphs
+                      else None)
+        self._trace = torch.empty((unroll, len(TRACE_SUMMARIES)),
+                                  dtype=torch.float32, device=Y.device)
+        self.carry = None
+        self._recipe = None        # the sweep's draw calls, recorded once
+        self._slots = None         # per call: (unroll, *shape) variates
+        self._seen: set = set()    # save patterns run at least once
+        self._graphs: dict = {}    # save pattern -> (graph, launch tally)
+        self.captured, self.capture_s = 0, 0.0
+        self.replays = self.eager_trips = 0
+
+    @contextlib.contextmanager
+    def _on_stream(self):
+        if self._stream is None:
+            yield
+            return
+        caller = torch.cuda.current_stream(self.Y.device)
+        self._stream.wait_stream(caller)
+        with torch.cuda.stream(self._stream):
+            yield
+        caller.wait_stream(self._stream)
+
+    def init_chain(self, chain: int) -> ChainCarry:
+        """Reset the static carry to chain ``chain``'s initial state (the
+        first call creates it) and return it."""
+        if self.carry is None:
+            self.carry = init_chain(self.noise.init(chain), self.Y,
+                                    self.cfg, self.prior)
+            return self.carry
+        G, n, P = self.Y.shape
+        state = init_state(self.noise.init(chain), self.prior, G=G, n=n,
+                           P=P, K=self.cfg.factors_per_shard,
+                           as_=self.cfg.as_, bs=self.cfg.bs,
+                           device=self.Y.device)
+        for dst, src in zip(state_leaves(self.carry.state),
+                            state_leaves(state), strict=True):
+            dst.copy_(src)
+        self.carry.sigma_acc.zero_()
+        self.carry.health.copy_(_health_init(G, self.Y.device))
+        self.carry.iteration = 0
+        return self.carry
+
+    def run_chunk(self, chain: int, carry: ChainCarry, num_iters: int
+                  ) -> tuple[ChainCarry, ChainStats, torch.Tensor]:
+        """Run ``num_iters`` Gibbs iterations of chain ``chain`` on the
+        runner's carry, in place.
+
+        On every thin-th post-burn-in iteration the packed Sigma panels of
+        the draw are ADDED to the accumulator (raw sums; the caller divides
+        by :func:`num_saved_draws`).  Returns (carry, stats, trace) with
+        trace (num_iters, 4) on the device."""
+        if carry is not self.carry:
+            raise ValueError("run_chunk advances the runner's own carry "
+                             "(ChainRunner.init_chain)")
+        trace = torch.empty((num_iters, len(TRACE_SUMMARIES)),
+                            dtype=torch.float32, device=self.Y.device)
+        with self._on_stream():
+            pos = 0
+            for length in trip_lengths(num_iters, self.unroll):
+                self._trip(chain, carry.iteration, save_pattern(
+                    carry.iteration, length, self.burnin, self.thin))
+                trace[pos:pos + length].copy_(self._trace[:length])
+                carry.iteration += length
+                pos += length
+            h = carry.health.cpu()
+            stats = ChainStats(
+                tau_log_max=float(h[:, 0].max()), ps_min=float(h[:, 1].min()),
+                ps_max=float(h[:, 2].max()),
+                nonfinite_count=float(h[:, 3].sum()),
+                acc_nonfinite=float((~torch.isfinite(carry.sigma_acc)).sum()))
+        return carry, stats, trace
+
+    def _trip(self, chain: int, start: int, pattern: tuple) -> None:
+        if self._recipe is None:
+            # the runner's first trip: live draws, the first sweep's calls
+            # recorded as the recipe every later trip is drawn from
+            recipe: list = []
+            draws = [RecordingDraws(self.noise.sweep(chain, start), recipe)]
+            draws += [self.noise.sweep(chain, start + j)
+                      for j in range(1, len(pattern))]
+            self._sweeps(draws, pattern)
+            self._recipe = recipe
+            self._slots = [torch.empty((self.unroll, *c.shape),
+                                       dtype=torch.float32,
+                                       device=self.Y.device) for c in recipe]
+            self._seen.add(pattern)
+            self.eager_trips += 1
+            return
+        draws = []
+        for j in range(len(pattern)):
+            slots = [s[j] for s in self._slots]
+            draw_into(self.noise.sweep(chain, start + j), self._recipe, slots)
+            draws.append(BufferedDraws(self._recipe, slots))
+        if not self.use_graphs or pattern not in self._seen:
+            self._sweeps(draws, pattern)
+            self._seen.add(pattern)
+            self.eager_trips += 1
+            return
+        graph = self._graphs.get(pattern) or self._capture(draws, pattern)
+        graph[0].replay()
+        cuda_lib.add_launches(graph[1])
+        self.replays += 1
+
+    def _capture(self, draws: list, pattern: tuple) -> tuple:
+        graph = torch.cuda.CUDAGraph()
+        t = time.perf_counter()
+        try:
+            with cuda_lib.capture_tally() as tally:
+                with torch.cuda.graph(graph, pool=self._pool,
+                                      stream=self._stream):
+                    self._sweeps(draws, pattern)
+        except RuntimeError as e:
+            raise RuntimeError(
+                f"capturing a trip of {len(pattern)} sweeps (saves "
+                f"{pattern}) into a CUDA graph failed: {e}") from e
+        self.capture_s += time.perf_counter() - t
+        self.captured += 1
+        self._graphs[pattern] = (graph, tally)
+        return graph, tally
+
+    def _sweeps(self, draws: list, pattern: tuple) -> None:
+        """The trip: one sweep per entry of ``draws``, the packed panels
+        added on the saved ones, health and trace rows; the results are
+        written into the carry's tensors and the trace buffer in place."""
+        carry, cfg = self.carry, self.cfg
+        sq_r, sq_1mr = math.sqrt(cfg.rho), math.sqrt(1.0 - cfg.rho)
+        state, health = carry.state, carry.health
+        for j, d in enumerate(draws):
+            state, sse = gibbs_sweep(d, self.Y, state, cfg, self.prior)
+            if isinstance(d, BufferedDraws):
+                d.finish()
+            if pattern[j]:
+                eta = (sq_r * state.X[None] + sq_1mr * state.Z
+                       if cfg.estimator == "scaled" else None)
+                carry.sigma_acc += covariance_panels(
+                    state.Lambda, state.ps, cfg.rho, self._rows, self._cols,
+                    eta_all=eta, compute_dtype=self._c_dtype)
+            health = _health_update(health, _health_now(state, self.prior))
+            self._trace[j].copy_(_trace_now(state, sse, cfg.rho))
+        for dst, src in zip(state_leaves(carry.state), state_leaves(state),
+                            strict=True):
+            dst.copy_(src)
+        carry.health.copy_(health)

@@ -18,11 +18,21 @@ draw whose leading axis is the shard axis is per-shard at every site but
 on the data's device per (seed, chain, global iteration, site) and takes
 that site's parts from it in order.  Keying on the GLOBAL iteration is
 what keeps host-level chunking from changing the chain.
+
+Draws a CUDA graph can consume.  Every variate a sweep draws is
+independent of the chain state (static shapes; the only Gamma shapes are
+constants of the config, n, P and K), so the chain driver takes the random
+numbers out of the graph: :class:`RecordingDraws` records the sweep's
+ordered calls (its draw *recipe*) once, during one eager sweep;
+:func:`draw_into` draws a later iteration's recipe from the unchanged
+:class:`TorchNoise` streams into static tensors before a replay; and
+:class:`BufferedDraws` hands those tensors to the sweep inside the graph in
+the recorded order, refusing any call that departs from the recipe.
 """
 
 from __future__ import annotations
 
-from typing import Protocol
+from typing import NamedTuple, Optional, Protocol
 
 import numpy as np
 import torch
@@ -34,14 +44,18 @@ _INIT, _SWEEP = 0, 1
 
 
 class Draws(Protocol):
-    """The draws of one chain at one iteration (or at its init)."""
+    """The draws of one chain at one iteration (or at its init).  A
+    provider that takes ``out`` writes the variates into it and returns
+    it (:func:`draw_into` needs that; the sweep never passes it)."""
 
-    def normal(self, site: int, shape, *, part=None) -> torch.Tensor: ...
+    def normal(self, site: int, shape, *, part=None,
+               out=None) -> torch.Tensor: ...
 
-    def exponential(self, site: int, shape, *, part=None) -> torch.Tensor: ...
+    def exponential(self, site: int, shape, *, part=None,
+                    out=None) -> torch.Tensor: ...
 
     def standard_gamma(self, site: int, alpha: torch.Tensor, *,
-                       part=None) -> torch.Tensor: ...
+                       part=None, out=None) -> torch.Tensor: ...
 
 
 class NoiseProvider(Protocol):
@@ -72,17 +86,24 @@ class _SiteStreams:
             self._gens[site] = gen
         return gen
 
-    def normal(self, site, shape, *, part=None):
+    # ``out`` gives the same variates as a fresh tensor: each fill depends
+    # only on the generator's state and the element count
+    def normal(self, site, shape, *, part=None, out=None):
+        if out is not None:
+            return torch.randn(tuple(shape), generator=self._gen(site),
+                               out=out)
         return torch.randn(tuple(shape), generator=self._gen(site),
                            device=self._device, dtype=torch.float32)
 
-    def exponential(self, site, shape, *, part=None):
-        out = torch.empty(tuple(shape), device=self._device,
-                          dtype=torch.float32)
+    def exponential(self, site, shape, *, part=None, out=None):
+        if out is None:
+            out = torch.empty(tuple(shape), device=self._device,
+                              dtype=torch.float32)
         return out.exponential_(generator=self._gen(site))
 
-    def standard_gamma(self, site, alpha, *, part=None):
-        return torch._standard_gamma(alpha, generator=self._gen(site))
+    def standard_gamma(self, site, alpha, *, part=None, out=None):
+        g = torch._standard_gamma(alpha, generator=self._gen(site))
+        return g if out is None else out.copy_(g)
 
 
 class TorchNoise:
@@ -99,3 +120,91 @@ class TorchNoise:
     def sweep(self, chain: int, iteration: int) -> Draws:
         return _SiteStreams((self.seed, int(chain), _SWEEP, int(iteration)),
                             self.device)
+
+
+class DrawCall(NamedTuple):
+    """One call of a sweep on its provider."""
+    site: int
+    part: Optional[int]
+    kind: str                      # "normal" | "exponential" | "standard_gamma"
+    shape: tuple
+    alpha: Optional[torch.Tensor]  # standard_gamma's shape parameters
+
+
+class RecordingDraws:
+    """Takes every draw from ``draws`` and appends the call to ``recipe``."""
+
+    def __init__(self, draws: Draws, recipe: list):
+        self._draws, self._recipe = draws, recipe
+
+    def normal(self, site, shape, *, part=None):
+        self._recipe.append(DrawCall(site, part, "normal", tuple(shape), None))
+        return self._draws.normal(site, shape, part=part)
+
+    def exponential(self, site, shape, *, part=None):
+        self._recipe.append(
+            DrawCall(site, part, "exponential", tuple(shape), None))
+        return self._draws.exponential(site, shape, part=part)
+
+    def standard_gamma(self, site, alpha, *, part=None):
+        self._recipe.append(DrawCall(site, part, "standard_gamma",
+                                     tuple(alpha.shape), alpha.clone()))
+        return self._draws.standard_gamma(site, alpha, part=part)
+
+
+def draw_into(draws: Draws, recipe: list, slots: list) -> None:
+    """Draw one iteration's ``recipe`` from ``draws`` into ``slots`` (one
+    tensor per call, of the call's shape), in the recorded order: the
+    variates the sweep would have drawn itself."""
+    for call, out in zip(recipe, slots, strict=True):
+        if call.kind == "standard_gamma":
+            draws.standard_gamma(call.site, call.alpha, part=call.part,
+                                 out=out)
+        else:
+            getattr(draws, call.kind)(call.site, call.shape, part=call.part,
+                                      out=out)
+
+
+class BufferedDraws:
+    """Hands out ``slots[i]`` for the sweep's i-th call, after checking the
+    call against ``recipe[i]`` (site, part, kind, shape; on every call made
+    outside a capture, also standard_gamma's alpha by value, so an alpha
+    that came to depend on the chain state is refused by name).
+    :meth:`finish` checks that the sweep made every recorded call."""
+
+    def __init__(self, recipe: list, slots: list):
+        self._recipe, self._slots, self._i = recipe, slots, 0
+
+    def _next(self, site, part, kind, shape, alpha=None) -> torch.Tensor:
+        i = self._i
+        want = (self._recipe[i][:4] if i < len(self._recipe)
+                else "no further draw")
+        if want != (site, part, kind, tuple(shape)):
+            raise RuntimeError(
+                f"draw {i} of the sweep is {kind} at site {site} part {part} "
+                f"shape {tuple(shape)}, but the recorded recipe has {want}")
+        if alpha is not None and not (
+                alpha.is_cuda and torch.cuda.is_current_stream_capturing()):
+            if not torch.equal(alpha, self._recipe[i].alpha):
+                raise ValueError(
+                    f"draw {i} of the sweep (standard_gamma at site {site} "
+                    f"part {part}) has an alpha that differs from the "
+                    "recorded one: it depends on the chain state, and a "
+                    "pre-drawn variate cannot follow it")
+        self._i += 1
+        return self._slots[i]
+
+    def normal(self, site, shape, *, part=None):
+        return self._next(site, part, "normal", shape)
+
+    def exponential(self, site, shape, *, part=None):
+        return self._next(site, part, "exponential", shape)
+
+    def standard_gamma(self, site, alpha, *, part=None):
+        return self._next(site, part, "standard_gamma", alpha.shape, alpha)
+
+    def finish(self) -> None:
+        if self._i != len(self._recipe):
+            raise RuntimeError(
+                f"the sweep made {self._i} draws, the recorded recipe has "
+                f"{len(self._recipe)}")

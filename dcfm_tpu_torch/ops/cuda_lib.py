@@ -9,11 +9,15 @@ committed), named by a hash of the sources and flags so an edit rebuilds
 and an unchanged tree reuses it.  The library is loaded with ``ctypes``.
 
 ``LAUNCHES`` counts, per kernel, the launches its wrapper made; a wrapper
-adds one where it launches its kernel and nowhere else.
+adds one where it launches its kernel and nowhere else.  Under CUDA graphs
+a launch made while a graph is captured runs nothing, so it is counted into
+that graph's own tally (:func:`capture_tally`), and each replay of the
+graph adds the tally to ``LAUNCHES`` (:func:`add_launches`).
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -38,6 +42,7 @@ _lock = threading.Lock()
 _lib = None
 _entries: dict = {}             # C entry name -> ctypes function
 _raw_stream = None
+_tally = None                   # the tally of the graph being captured
 
 
 def launch_counts() -> dict:
@@ -47,6 +52,24 @@ def launch_counts() -> dict:
 def reset_launch_counts() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+@contextlib.contextmanager
+def capture_tally():
+    """Count the launches made inside the block into a tally of their own
+    (yielded), not into ``LAUNCHES``: wrap a CUDA graph's capture in it."""
+    global _tally
+    outer, _tally = _tally, dict.fromkeys(LAUNCHES, 0)
+    try:
+        yield _tally
+    finally:
+        _tally = outer
+
+
+def add_launches(tally: dict) -> None:
+    """Count a replay of a graph whose capture counted ``tally``."""
+    for name, count in tally.items():
+        LAUNCHES[name] += count
 
 
 def nvcc_path() -> str:
@@ -172,6 +195,16 @@ def call(entry: str, device, *args) -> None:
 
 
 def launch(kernel: str, entry: str, device, *args) -> None:
-    """:func:`call`, then count one launch of ``kernel``."""
+    """:func:`call`, then count one launch of ``kernel``: into the tally of
+    the graph being captured, if any, else into ``LAUNCHES``.  A capture
+    outside :func:`capture_tally` is refused: its replays would go
+    uncounted."""
     call(entry, device, *args)
-    LAUNCHES[kernel] += 1
+    if _tally is not None:
+        _tally[kernel] += 1
+    elif torch.cuda.is_current_stream_capturing():
+        raise RuntimeError(
+            f"{kernel} was captured into a CUDA graph outside "
+            "cuda_lib.capture_tally(): its replays would not be counted")
+    else:
+        LAUNCHES[kernel] += 1

@@ -28,7 +28,12 @@ def gamma_rate(draws, site: int, shape, rate, *, sample_shape=None,
     A small static half-integer shape (2*shape integer, shape <= 2) takes
     the rejection-free path: Gamma(1, r) = Exp(1)/r and Gamma(k/2, r) =
     chi^2_k / (2r).  Other shapes take standard-Gamma variates."""
-    rate = torch.as_tensor(rate, dtype=torch.float32, device=device)
+    # built on the device (torch.full), never copied from the host: a
+    # host-to-device copy cannot be captured into a CUDA graph
+    if isinstance(rate, torch.Tensor):
+        rate = rate.to(torch.float32)
+    else:
+        rate = torch.full((), rate, dtype=torch.float32, device=device)
     out_shape = _out_shape(rate, sample_shape)
     rate_b = torch.broadcast_to(rate, out_shape)
     if (not isinstance(shape, torch.Tensor) and float(2 * float(shape))
@@ -40,9 +45,12 @@ def gamma_rate(draws, site: int, shape, rate, *, sample_shape=None,
             z = draws.normal(site, out_shape + (tw,), part=part)
             g = 0.5 * torch.sum(z * z, dim=-1)
         return g / rate_b
-    alpha = torch.broadcast_to(
-        torch.as_tensor(shape, dtype=torch.float32, device=rate.device),
-        out_shape).contiguous()
+    if isinstance(shape, torch.Tensor):
+        alpha = torch.broadcast_to(shape.to(torch.float32),
+                                   out_shape).contiguous()
+    else:
+        alpha = torch.full(out_shape, shape, dtype=torch.float32,
+                           device=rate.device)
     return draws.standard_gamma(site, alpha, part=part) / rate_b
 
 

@@ -1,7 +1,8 @@
 """Card-only tests of the PyTorch port: the hand-written CUDA kernels
-against their plain PyTorch versions on the card, the bf16 product, and
-small fits whose main paths launch the kernels (f32 through K1, bf16
-through K4, pallas-fused through K2; K5 in each).
+against their plain PyTorch versions on the card, the bf16 product, small
+fits whose main paths launch the kernels (f32 through K1, bf16 through K4,
+pallas-fused through K2; K5 in each) as CUDA graphs, the graphed chain
+against the eager chain bit for bit, and a failed capture raising.
 
 They need an NVIDIA GPU with nvcc (the kernels are built on first use) and
 skip without one.  They import no JAX, so on the card they run without the
@@ -17,12 +18,16 @@ torch = pytest.importorskip("torch")
 
 from dcfm_tpu_torch import BackendConfig, FitConfig, ModelConfig, RunConfig  # noqa: E402
 from dcfm_tpu_torch import fit  # noqa: E402
+from dcfm_tpu_torch.models import sampler  # noqa: E402
 from dcfm_tpu_torch.models.conditionals import mm_bf16  # noqa: E402
+from dcfm_tpu_torch.models.priors import make_prior  # noqa: E402
+from dcfm_tpu_torch.noise import TorchNoise  # noqa: E402
 from dcfm_tpu_torch.ops import batched_solve as bs  # noqa: E402
 from dcfm_tpu_torch.ops import cuda_lib  # noqa: E402
 from dcfm_tpu_torch.ops.chol_sample import chol_sample, chol_sample_plain  # noqa: E402
 from dcfm_tpu_torch.ops.lam_update import lam_update, lam_update_plain  # noqa: E402
 from dcfm_tpu_torch.ops.sse_gamma import sse_ps, sse_ps_plain  # noqa: E402
+from dcfm_tpu_torch.utils.preprocess import preprocess  # noqa: E402
 
 pytestmark = pytest.mark.gpu
 
@@ -257,22 +262,34 @@ def test_mm_bf16_on_the_card_matches_the_cpu_rule(cuda):
         torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-5 * scale)
 
 
-def _small_fit(cuda, **knobs):
+def _small_data():
     rng = np.random.default_rng(1)
     L = rng.normal(size=(96, 4)) / 2
     Y = (rng.normal(size=(150, 4)) @ L.T
          + 0.2 * rng.normal(size=(150, 96))).astype(np.float32)
-    St = L @ L.T + 0.04 * np.eye(96)
+    return Y, L @ L.T + 0.04 * np.eye(96)
+
+
+def _small_fit(cuda, **knobs):
+    """A fit on the card (graphed: its trips of 8 sweeps replay captured
+    graphs); returns its kernel launches."""
+    Y, St = _small_data()
     cfg = FitConfig(
         model=ModelConfig(num_shards=4, factors_per_shard=4, rho=0.9,
                           lambda_kernel=knobs.get("lambda_kernel", "pallas")),
-        run=RunConfig(burnin=150, mcmc=150, thin=2, num_chains=2),
+        run=RunConfig(burnin=150, mcmc=150, thin=2, num_chains=2,
+                      sweep_unroll=8),
         backend=BackendConfig(sse_mode="gram",
                               compute_dtype=knobs.get("compute_dtype",
                                                       "f32")))
     res = fit(Y, cfg, device=cuda)
     assert np.isfinite(res.Sigma).all() and res.stats.nonfinite_count == 0
     assert np.linalg.norm(res.Sigma - St) / np.linalg.norm(St) < 0.25
+    # 300 iterations a chain in trips of 8 (burn-in 150 ends inside a
+    # trip): 38 trips a chain, 4 save patterns, each eager once, captured
+    # at its second meeting and replayed from then on
+    assert res.graphs == dict(res.graphs, unroll=8, captured=4,
+                              replays=2 * 38 - 4, eager_trips=4)
     return res.kernel_launches
 
 
@@ -291,3 +308,78 @@ def test_small_bf16_and_fused_fits_run_their_kernels(cuda, knobs, kernel):
     expected = dict.fromkeys(launches, 0)
     expected.update({kernel: 600, "sse_ps": 600})
     assert launches == expected
+
+
+# the graphed chain against the eager one: chunk 13, thin 3, trips of 5
+# (nothing divides anything), burn-in 11 ending inside a trip, two chains so
+# that chain 1 replays every pattern chain 0 met, the crossing trip's too
+_GRAPH_PATHS = [(sse, dt, lk) for sse in ("resid", "gram")
+                for dt, lk in (("f32", "pallas"), ("bf16", "auto"),
+                               ("f32", "pallas-fused"))]
+
+
+def _run_chains(cuda, cfg, graphs):
+    """Both chains through a runner; per chain the state leaves, the
+    accumulator, health and the trace, copied to the host, and the
+    launches and the runner's counts."""
+    Y, _ = _small_data()
+    Yd = torch.as_tensor(preprocess(Y, cfg.num_shards, seed=0).data,
+                         device=cuda)
+    runner = sampler.ChainRunner(TorchNoise(0, cuda), Yd, cfg,
+                                 make_prior(cfg), burnin=11, thin=3,
+                                 unroll=5, graphs=graphs)
+    out = []
+    cuda_lib.reset_launch_counts()
+    for c in range(2):
+        carry, traces = runner.init_chain(c), []
+        while carry.iteration < 38:
+            carry, _, tr = runner.run_chunk(c, carry,
+                                            min(13, 38 - carry.iteration))
+            traces.append(tr.cpu())
+        out.append([t.cpu() for t in sampler.state_leaves(carry.state)]
+                   + [carry.sigma_acc.cpu(), carry.health.cpu(),
+                      torch.cat(traces)])
+    counts = (runner.captured, runner.replays, runner.eager_trips)
+    return out, cuda_lib.launch_counts(), counts
+
+
+@pytest.mark.parametrize("sse_mode,compute_dtype,lambda_kernel",
+                         _GRAPH_PATHS)
+def test_graph_chain_equals_eager_chain_bitwise(cuda, sse_mode,
+                                                compute_dtype,
+                                                lambda_kernel):
+    cfg = ModelConfig(num_shards=4, factors_per_shard=4, rho=0.9,
+                      sse_mode=sse_mode, compute_dtype=compute_dtype,
+                      lambda_kernel=lambda_kernel)
+    eager, n_eager, c_eager = _run_chains(cuda, cfg, graphs=False)
+    graph, n_graph, c_graph = _run_chains(cuda, cfg, graphs=True)
+    names = ["Lambda", "Z", "X", "ps", "delta", "psijh", "sigma_acc",
+             "health", "trace"]
+    for c in range(2):
+        for name, a, b in zip(names, eager[c], graph[c], strict=True):
+            assert torch.equal(a, b), (c, name, float((a - b).abs().max()))
+    # chunks of 13 / 13 / 12 in trips [5, 5, 3], [5, 5, 3], [5, 5, 2]: 18
+    # trips; of chain 0's 7 save patterns (the all-burn-in 5 twice, the
+    # crossing 3, and 5, 5, 3, 5, 5, 2 after it, one 5 met twice) 2 are
+    # captured in chain 0 and the other 5 in chain 1, which only replays
+    assert c_eager == (0, 0, 18)
+    assert c_graph == (7, 11, 7)                 # captured, replays, eager
+    assert n_graph == n_eager
+    # the Lambda kernel every sweep, K5 every Gram sweep
+    assert sum(n_eager.values()) == 2 * 38 * (1 + (sse_mode == "gram"))
+
+
+def test_a_failed_capture_raises_and_is_not_hidden(cuda, monkeypatch):
+    """A sweep op that synchronizes (an .item() in the trace) runs eagerly
+    but cannot be captured: fit raises and does not fall back to the eager
+    chain.  Kept last in the file: the failed capture is left behind."""
+    trace_now = sampler._trace_now
+
+    def syncing_trace(state, sse, rho):
+        out = trace_now(state, sse, rho)
+        out[0].item()
+        return out
+
+    monkeypatch.setattr(sampler, "_trace_now", syncing_trace)
+    with pytest.raises(RuntimeError, match="CUDA graph failed"):
+        _small_fit(cuda)

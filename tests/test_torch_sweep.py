@@ -330,10 +330,12 @@ def test_preprocess_refuses_missing_values():
 
 
 def test_config_mirrors_jax_defaults():
-    """A config written for one package reads the same in the other."""
+    """A config written for one package reads the same in the other
+    (``RunConfig.sweep_unroll`` among the fields compared)."""
     from dcfm_tpu import config as jc
 
     from dcfm_tpu_torch import config as tc
+    assert "sweep_unroll" in {f.name for f in dataclasses.fields(tc.RunConfig)}
     for name in ("MGPConfig", "ModelConfig", "RunConfig", "BackendConfig",
                  "FitConfig"):
         tf = {f.name: f for f in dataclasses.fields(getattr(tc, name))}
