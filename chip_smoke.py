@@ -4,8 +4,10 @@
     python3 chip_smoke.py
 
 1. Prints the card (name and power limit, as nvidia-smi reports them),
-   builds the hand-written kernels from dcfm_tpu_torch/csrc with nvcc for
-   sm_90a (one nvcc per source, all started together) and prints the ptxas
+   builds the native host assembler from dcfm_tpu_torch/native with g++
+   (it must build: the fetch phase has no fallback), builds the
+   hand-written kernels from dcfm_tpu_torch/csrc with nvcc for sm_90a (one
+   nvcc per source, all started together) and prints the ptxas
    register/spill report.
 2. Kernel phase: each of the five kernels (K1 chol_sample, K4
    chol_solve_sample, K3 cho_solve, K2 lam_update, K5 sse_ps) against its
@@ -43,19 +45,34 @@
    and K5), each after a 4-sweep warm-up fit of the same path; every fit
    runs its chain as CUDA graphs (the card's only path), and prints the
    graphs it captured and the seconds the captures took (inside its
-   chain time).  The launch counters are zeroed just before each timed
+   chain time), its chain iterations/s (all chains' sweeps / chain_s) and
+   its phase seconds.  The launch counters are zeroed just before each
    fit and read just after: each of the path's kernels must have launched
    once per sweep and every other kernel not at all.  Sigma must be finite
    and symmetric, the chains healthy, and its relative Frobenius error
    against the truth < 0.25 and at most twice the sample covariance's.  No
    fit path runs K3 (nor in the JAX package): its launches are counted
    over one call of its public op, ``cho_solve_batched``, at the fit's
-   batch.
+   batch.  Each path then fits once more with upload_dtype="bfloat16",
+   under the same checks.
 5. Where the time goes, for each fit path: 48 more graphed sweeps of one
    chain at the same width and the fit's save mix (one draw in four
    accumulated), timed on the host clock and under torch.profiler: ms per
    sweep, the device's busy and idle share, and the kernels that take the
    most device time.
+6. Fetch phase, on the float32 path at the same width: one fit per
+   fetch_dtype (float32, bfloat16, float16, quant8) with Sigma assembled,
+   and float32 and quant8 once more with materialize_sigma="never", each
+   under step 4's checks where it has a Sigma (the launches in every fit).
+   Per fit: fetch_s, exposed_fetch_s, assemble_s and the bytes that cross
+   the link (``fetch`` lines).  Every fit runs the same chain, so the
+   quant8 Sigma must lie within the quant8 rule's bound of the float32
+   one, entry by entry: scale/254 of the entry's panel times the two
+   column scales (plus float32 rounding of the products), and the packed
+   fits must hold the assembled fits' panels bit for bit.  Then the
+   quant8 and the packed quant8 results are exported as serve artifacts:
+   seconds, bytes, and ``PosteriorArtifact.open(path).assemble()`` equal
+   to the quant8 Sigma bit for bit.
 
 Any failed check exits non-zero before the last line.  The line before the
 last is the kernels' JSON record; the last line is
@@ -641,30 +658,47 @@ def fit_phase(torch, dt, cuda_lib, card: str, label: str, model: dict,
     sweeps = c["chains"] * (c["burnin"] + c["mcmc"])
     say(f"fit [{label}]: {sweeps} sweeps in "
         f"{res.phase_seconds['chain_s']:.3f} s chain time = "
-        f"{res.iters_per_sec:.2f} iters/s (wall {wall:.3f} s; {card})")
+        f"{sweeps / res.phase_seconds['chain_s']:.2f} chain iterations/s "
+        f"(wall {wall:.3f} s; {card})")
     say(f"fit [{label}] phase_seconds: " + json.dumps(res.phase_seconds))
     say(f"fit [{label}] graphs: {json.dumps(res.graphs)} (capture_s is "
         "inside chain_s)")
-    check(res.graphs["captured"] > 0 and res.graphs["replays"] > 0,
-          f"[{label}] the fit ran no CUDA graph: {res.graphs}")
     say(f"fit [{label}] peak device memory: {peak} bytes allocated "
         f"({peak / 2**30:.3f} GiB), {peak_reserved} bytes reserved "
         f"({card})")
+    err = check_fit(torch, res, launches, label, kernels, Y, L, noise)
+    return launches, cfg, err
+
+
+def check_fit(torch, res, launches: dict, label: str, kernels: tuple, Y,
+              L, noise) -> float:
+    """A fit's checks: CUDA graphs ran; each of the path's kernels launched
+    once per sweep and every other kernel not at all (``launches``, the
+    counters zeroed just before the fit and read just after); healthy
+    chains; and, where the fit assembled Sigma, a finite, symmetric Sigma
+    within the quality rule.  Returns the rel. Frobenius error against
+    the truth (None without a Sigma)."""
+    c = FIT
+    sweeps = c["chains"] * (c["burnin"] + c["mcmc"])
+    check(res.graphs["captured"] > 0 and res.graphs["replays"] > 0,
+          f"[{label}] the fit ran no CUDA graph: {res.graphs}")
     say(f"fit [{label}] kernel launches: {json.dumps(launches)} "
         f"(expected {sweeps} for {', '.join(kernels)}, 0 for the others)")
     for name, count in launches.items():
         want = sweeps if name in kernels else 0
         check(count == want, f"[{label}] {name} launched {count} times in "
               f"{sweeps} sweeps, expected {want}")
+    check(res.stats.nonfinite_count == 0 and res.stats.acc_nonfinite == 0,
+          f"chain health: {res.stats}")
     S = res.Sigma
+    if S is None:
+        return None
     check(S.shape == (c["p"], c["p"]), f"Sigma shape {S.shape}")
     check(bool(np.isfinite(S).all()), "Sigma has non-finite entries")
     dev = torch.device("cuda")
     Sd = torch.as_tensor(S, device=dev)
     asym = float((Sd - Sd.T).abs().max() / Sd.abs().max())
     check(asym <= 1e-6, f"Sigma asymmetric (max rel {asym:.2e})")
-    check(res.stats.nonfinite_count == 0 and res.stats.acc_nonfinite == 0,
-          f"chain health: {res.stats}")
     Lt = torch.as_tensor(L, device=dev)
     St = Lt @ Lt.T + noise ** 2 * torch.eye(c["p"], device=dev)
     err = float(torch.linalg.norm(Sd - St) / torch.linalg.norm(St))
@@ -677,7 +711,136 @@ def fit_phase(torch, dt, cuda_lib, card: str, label: str, model: dict,
     check(err < 0.25, f"[{label}] rel Frobenius error {err:.4f} >= 0.25")
     check(err <= 2 * err_sample, f"[{label}] rel Frobenius error "
           f"{err:.4f} > 2x the sample covariance's")
-    return launches, cfg, err
+    return err
+
+
+def counted_fit(torch, dt, cuda_lib, cfg, Y) -> tuple:
+    """One fit with the launch counters zeroed just before and read just
+    after; returns (result, launches, wall seconds)."""
+    torch.cuda.synchronize()
+    cuda_lib.reset_launch_counts()
+    t = time.perf_counter()
+    res = dt.fit(Y, cfg)                                  # device="cuda"
+    wall = time.perf_counter() - t
+    return res, cuda_lib.launch_counts(), wall
+
+
+def upload_phase(torch, dt, cuda_lib, card: str, Y, L, noise) -> None:
+    """Each fit path once with upload_dtype="bfloat16": the data crosses
+    the link as bfloat16 and is widened to float32 on the card."""
+    for label, model, backend, kernels in FIT_PATHS:
+        cfg = path_config(dt, model, backend | {"upload_dtype": "bfloat16"})
+        res, launches, wall = counted_fit(torch, dt, cuda_lib, cfg, Y)
+        label = f"{label}, upload bfloat16"
+        say(f"fit [{label}]: upload_s {res.phase_seconds['upload_s']:.4f} "
+            f"(float32 data: {Y.nbytes} bytes, bfloat16 on the link: "
+            f"{Y.nbytes // 2} bytes), wall {wall:.3f} s; {card}")
+        check_fit(torch, res, launches, label, kernels, Y, L, noise)
+
+
+def link_bytes(res) -> int:
+    """The bytes of the posterior-mean panels that crossed the link: the
+    g(g+1)/2 panels in the fetch dtype, and quant8's float32 scales."""
+    if res._q8_panels is not None:
+        return res._q8_panels.nbytes + res._q8_scales.nbytes
+    pre = res.preprocess
+    g, P = pre.num_shards, pre.shard_size
+    size = {"float32": 4, "bfloat16": 2,
+            "float16": 2}[res.config.backend.fetch_dtype]
+    return g * (g + 1) // 2 * P * P * size
+
+
+def quant8_bound(torch, q8, f32, card: str) -> None:
+    """|Sigma_q8 - Sigma_f32| entry by entry against the quant8 rule: the
+    int8 panel is off by at most scale/254 of its panel, and the assembly
+    multiplies by the two column scales; float32 rounding of the products
+    adds a few ulps of the entry (8 eps |Sigma_f32| allowed)."""
+    from dcfm_tpu_torch.utils.preprocess import caller_to_shard_index
+    dev = torch.device("cuda")
+    pre = q8.preprocess
+    g, P = pre.num_shards, pre.shard_size
+    idx = caller_to_shard_index(pre, np.arange(pre.p_original))
+    ok = torch.as_tensor(idx >= 0, device=dev)
+    shard = torch.as_tensor(idx[idx >= 0] // P, device=dev)
+    s = torch.as_tensor(pre.col_scale.reshape(-1)[idx[idx >= 0]], device=dev)
+    r, c = np.triu_indices(g)
+    grid = torch.zeros((g, g), dtype=torch.float32, device=dev)
+    scales = torch.as_tensor(q8._q8_scales, device=dev)
+    grid[r, c] = scales
+    grid[c, r] = scales
+    bound = grid[shard][:, shard] / 254.0 * (s[:, None] * s[None, :])
+    Sq = torch.as_tensor(q8.Sigma, device=dev)[ok][:, ok]
+    Sf = torch.as_tensor(f32.Sigma, device=dev)[ok][:, ok]
+    diff = (Sq - Sf).abs()
+    slack = 8 * float(np.finfo(np.float32).eps) * Sf.abs()
+    worst = float((diff - bound - slack).max())
+    ratio = float((diff / torch.clamp(bound, min=1e-30)).max())
+    say(f"fetch quant8 vs float32 Sigma: max |diff| {float(diff.max()):.4e}, "
+        f"max bound (scale/254 x s_i x s_j) {float(bound.max()):.4e}, max "
+        f"|diff| / bound {ratio:.6f} (limit 1 + 8 eps |Sigma_f32|); {card}")
+    check(worst <= 0, f"quant8 Sigma off the float32 Sigma beyond the "
+          f"quant8 bound by {worst:.3e}")
+
+
+def fetch_phase(torch, dt, cuda_lib, card: str, Y, L, noise) -> None:
+    """The fetch at the north-star width on the float32 path: each
+    fetch_dtype with Sigma assembled, float32 and quant8 packed too; the
+    quant8 bound; the exports and their round trip."""
+    import shutil
+    import tempfile
+
+    from dcfm_tpu_torch.serve.artifact import PosteriorArtifact
+    label0, model, backend, kernels = FIT_PATHS[0]
+    runs = {}
+    for mode, materialize in (("float32", "auto"), ("bfloat16", "auto"),
+                              ("float16", "auto"), ("quant8", "auto"),
+                              ("float32", "never"), ("quant8", "never")):
+        cfg = dataclasses.replace(
+            path_config(dt, model, backend | {"fetch_dtype": mode}),
+            materialize_sigma=materialize)
+        res, launches, wall = counted_fit(torch, dt, cuda_lib, cfg, Y)
+        label = f"{label0}, fetch {mode}, materialize_sigma={materialize}"
+        ph = res.phase_seconds
+        say(f"fetch [{mode}, {materialize}]: fetch_s {ph['fetch_s']:.4f}, "
+            f"exposed_fetch_s {ph['exposed_fetch_s']:.4f}, assemble_s "
+            f"{ph['assemble_s']:.4f}, link {link_bytes(res)} bytes, wall "
+            f"{wall:.3f} s; {card}")
+        err = check_fit(torch, res, launches, label, kernels, Y, L, noise)
+        check((res.Sigma is None) == (materialize == "never")
+              and (err is None) == (res.Sigma is None),
+              f"[{label}] Sigma is {type(res.Sigma).__name__}")
+        runs[mode, materialize] = res
+    f32 = runs["float32", "auto"]
+    for mode in ("bfloat16", "float16"):
+        d = np.abs(runs[mode, "auto"].Sigma - f32.Sigma)
+        say(f"fetch {mode} vs float32 Sigma: max |diff| {d.max():.4e}, "
+            f"max rel {float((d / np.maximum(np.abs(f32.Sigma), 1e-30)).max()):.4e}")
+    q8 = runs["quant8", "auto"]
+    quant8_bound(torch, q8, f32, card)
+    check(np.array_equal(runs["float32", "never"].upper_panels,
+                         f32.upper_panels)
+          and np.array_equal(runs["quant8", "never"]._q8_panels,
+                             q8._q8_panels),
+          "the packed fits' panels are not the assembled fits'")
+    tmp = tempfile.mkdtemp(prefix="dcfm_artifact_")
+    try:
+        for key in (("quant8", "auto"), ("quant8", "never")):
+            path = os.path.join(tmp, "_".join(key))
+            t = time.perf_counter()
+            runs[key].export_artifact(path)
+            export_s = time.perf_counter() - t
+            nbytes = sum(os.path.getsize(os.path.join(path, f))
+                         for f in os.listdir(path))
+            t = time.perf_counter()
+            back = PosteriorArtifact.open(path).assemble()
+            say(f"export [{', '.join(key)}]: {export_s:.4f} s, {nbytes} "
+                f"bytes; open + assemble {time.perf_counter() - t:.4f} s; "
+                f"{card}")
+            check(np.array_equal(back, q8.Sigma), f"[{key}] the artifact's "
+                  "assembly is not the quant8 Sigma bit for bit")
+            del back
+    finally:
+        shutil.rmtree(tmp)
 
 
 def k3_path(torch, bs, cuda_lib, rng) -> dict:
@@ -873,6 +1036,7 @@ def main() -> None:
              "CUDA device")
     try:
         import dcfm_tpu_torch as dt
+        from dcfm_tpu_torch import native
         from dcfm_tpu_torch.ops import batched_solve as bs
         from dcfm_tpu_torch.ops import chol_sample as k1
         from dcfm_tpu_torch.ops import cuda_lib
@@ -887,6 +1051,11 @@ def main() -> None:
     say(card)          # name, power limit (nvidia-smi's line)
     say(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)}")
+    t = time.perf_counter()
+    native.build()
+    check(native.available(), "the native assembler did not load")
+    say(f"native assembler built with g++ in {time.perf_counter() - t:.1f} "
+        "s")
     t = time.perf_counter()
     lib_path, log = cuda_lib.build()
     say(f"kernels built in {time.perf_counter() - t:.1f} s")
@@ -926,6 +1095,8 @@ def main() -> None:
         sweep_profile(torch, cfg, Y, card, label)
     say(f"|err_bf16 - err_f32| = {abs(errs['bf16'] - errs['f32']):.3e}, "
         f"|err_fused - err_f32| = {abs(errs['fused'] - errs['f32']):.3e}")
+    upload_phase(torch, dt, cuda_lib, card, Y, L, noise)
+    fetch_phase(torch, dt, cuda_lib, card, Y, L, noise)
     launches["cho_solve"] = k3_path(torch, bs, cuda_lib, rng)["cho_solve"]
     for k in kernels:
         k["launches"] = launches[k["name"]]

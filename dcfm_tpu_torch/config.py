@@ -3,13 +3,16 @@ port runs, copied (the port imports nothing of ``dcfm_tpu``).
 
 Field names, defaults and meanings are those of the JAX package, so a
 config written for one reads the same in the other.  The port runs one
-device, one process, the MGP prior with the packed float32 accumulator
-fetch; the sweep in float32 or mixed bf16 (``compute_dtype``,
-``combine_dtype``), with every ``lambda_kernel``.  Every other knob the
-JAX package has is either absent here (passing it is a ``TypeError``) or
-present and refused by
-:func:`validate` with a ``NotImplementedError`` that names the ROADMAP item
-that will port it - a knob is never silently ignored.
+device, one process, the MGP prior; the sweep in float32 or mixed bf16
+(``compute_dtype``, ``combine_dtype``), with every ``lambda_kernel``; the
+post-hoc accumulator fetch under every ``fetch_dtype`` and the data upload
+under every ``upload_dtype``, with Sigma assembled or kept packed
+(``materialize_sigma``).  Every other knob the JAX package has is either
+absent here (passing it is a ``TypeError``) or present and refused by
+:func:`validate` with a ``NotImplementedError`` that names the ROADMAP
+Queue A item that will port it - a knob is never silently ignored.  An
+invalid value of a refused knob is a ``ValueError`` first, as in the JAX
+package.
 """
 
 from __future__ import annotations
@@ -17,11 +20,11 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional
 
-# ROADMAP items the refusals point at (ROADMAP.md, "Still to port")
-_FETCH = "ROADMAP 'Still to port' item 2 (fetch and artifact)"
-_CKPT = "ROADMAP 'Still to port' item 3 (pipeline and checkpoint)"
-_MESH = "ROADMAP 'Still to port' item 4 (multi-GPU shards)"
-_SCEN = "ROADMAP 'Still to port' item 5 (scenarios)"
+# ROADMAP items the refusals point at (ROADMAP.md, "Queue A")
+_CKPT = "ROADMAP Queue A item 3 (pipeline and checkpoint)"
+_MESH = "ROADMAP Queue A item 4 (multi-GPU shards)"
+_SCEN = "ROADMAP Queue A item 5 (scenarios)"
+_INGEST = "ROADMAP Queue A item 6 (scale-out ingest)"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -122,6 +125,11 @@ class FitConfig:
     pad_to_shards: bool = True
     checkpoint_path: Optional[str] = None
     resume: "bool | str" = False
+    # the dense (p, p) posterior mean: "always", "never" (FitResult.Sigma
+    # is None; blocks through FitResult.sigma_block, or the serve
+    # artifact), or "auto" - assembled up to api._AUTO_MATERIALIZE_MAX_P
+    # used columns
+    materialize_sigma: str = "auto"
 
 
 def _refuse(what: str, item: str) -> None:
@@ -189,12 +197,53 @@ def validate(cfg: FitConfig, n: int, p: int) -> None:
         raise ValueError(
             f"unknown fetch_dtype {be.fetch_dtype!r} "
             "(float32 | bfloat16 | float16 | quant8)")
+    if be.upload_dtype not in ("float32", "float16", "bfloat16"):
+        raise ValueError(
+            f"unknown upload_dtype {be.upload_dtype!r} "
+            "(float32 | float16 | bfloat16)")
     if be.fetch_stream not in ("auto", "on", "off"):
         raise ValueError(
             f"unknown fetch_stream {be.fetch_stream!r} (auto | on | off)")
+    if be.fetch_stream == "on" and be.fetch_dtype != "quant8":
+        raise ValueError(
+            "fetch_stream='on' requires fetch_dtype='quant8': the "
+            "streamed double buffer lands int8 panels (use fetch_stream="
+            "'auto', which simply does not engage for other dtypes)")
+    if be.fetch_dtype == "float16" and not cfg.standardize:
+        raise ValueError(
+            "fetch_dtype='float16' requires standardize=True: raw-scale "
+            "covariance entries can exceed float16's 65504 max and would "
+            "silently saturate to inf (bfloat16 keeps float32 range, "
+            "quant8's per-panel scale adapts to any range)")
+    if be.upload_dtype == "float16" and not cfg.standardize:
+        raise ValueError(
+            "upload_dtype='float16' requires standardize=True: raw-scale "
+            "data entries can exceed float16's 65504 max and would reach "
+            "the sampler as inf (bfloat16 keeps float32 range)")
+    if cfg.materialize_sigma not in ("auto", "always", "never"):
+        raise ValueError(
+            f"unknown materialize_sigma {cfg.materialize_sigma!r} "
+            "(auto | always | never)")
     if cfg.resume not in (False, True, "auto"):
         raise ValueError(
             f"resume must be False, True, or 'auto', got {cfg.resume!r}")
+    if cfg.resume and not cfg.checkpoint_path:
+        raise ValueError("resume requires checkpoint_path")
+    # value checks of the knobs refused below, as the JAX package makes
+    # them: an invalid value is a ValueError, never "not ported yet"
+    if m.prior not in ("mgp", "horseshoe", "dl"):
+        raise ValueError(f"unknown prior {m.prior!r}")
+    if run.early_stop not in ("off", "rhat"):
+        raise ValueError(
+            f"unknown early_stop {run.early_stop!r} (off | rhat)")
+    if run.store_draws and run.num_saved < 1:
+        raise ValueError(
+            "store_draws=True but the schedule saves no draws "
+            f"(mcmc={run.mcmc}, thin={run.thin})")
+    if m.combine_chunks < 1 or m.num_shards % m.combine_chunks != 0:
+        raise ValueError(
+            f"combine_chunks={m.combine_chunks} must be >= 1 and divide "
+            f"num_shards={m.num_shards}")
 
     # ---- knobs outside the port: refused, never ignored -----------------
     if m.prior != "mgp":
@@ -215,9 +264,6 @@ def validate(cfg: FitConfig, n: int, p: int) -> None:
         _refuse(f"mesh_devices={be.mesh_devices}", _MESH)
     if m.combine_chunks != 1:
         _refuse(f"combine_chunks={m.combine_chunks}", _MESH)
-    if be.fetch_dtype != "float32":
-        _refuse(f"fetch_dtype={be.fetch_dtype!r}", _FETCH)
     if be.fetch_stream == "on":
-        _refuse("fetch_stream='on'", _FETCH)
-    if be.upload_dtype != "float32":
-        _refuse(f"upload_dtype={be.upload_dtype!r}", _FETCH)
+        _refuse("fetch_stream='on' (the streamed fetch, StreamingFetcher)",
+                _CKPT)

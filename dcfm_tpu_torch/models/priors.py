@@ -19,7 +19,7 @@ from typing import Any, Callable, NamedTuple
 
 import torch
 
-from dcfm_tpu_torch.config import ModelConfig
+from dcfm_tpu_torch.config import _SCEN, ModelConfig
 from dcfm_tpu_torch.noise import SITE_PRIOR
 from dcfm_tpu_torch.ops.gamma import gamma_rate, gamma_rate_half_integer
 
@@ -107,5 +107,5 @@ def make_prior(cfg: ModelConfig) -> Prior:
     if cfg.prior != "mgp":
         raise NotImplementedError(
             f"prior={cfg.prior!r} is not ported to dcfm_tpu_torch yet: "
-            "ROADMAP 'Still to port' item 8 (scenarios)")
+            f"{_SCEN}")
     return make_mgp(cfg)

@@ -15,6 +15,8 @@ import dataclasses
 
 import numpy as np
 
+from dcfm_tpu_torch.config import _SCEN
+
 
 @dataclasses.dataclass
 class PreprocessResult:
@@ -63,8 +65,8 @@ def preprocess(
     n, p = Y.shape
     if np.isnan(Y).any():
         raise NotImplementedError(
-            "NaN (missing) entries are not ported to dcfm_tpu_torch yet: "
-            "ROADMAP 'Still to port' item 8 (scenarios, impute_missing_y)")
+            "NaN (missing) entries (impute_missing_y) are not ported to "
+            f"dcfm_tpu_torch yet: {_SCEN}")
     if np.isinf(Y).any():
         raise ValueError("Y contains infinite entries")
 
@@ -122,6 +124,27 @@ def preprocess(
     )
 
 
+def caller_to_shard_index(pre: PreprocessResult, idx) -> np.ndarray:
+    """Caller-coordinate column indices -> shard-coordinate positions.
+
+    Shard position j models caller column ``kept_cols[perm[j]]``, so caller
+    column c (at position q of kept_cols) sits at shard position
+    ``inv_perm[q]``; shard j // P, row j % P of that shard's panels.
+    Dropped all-zero columns map to -1 (they have no shard coordinate;
+    their covariance entries are identically 0).
+    """
+    idx = np.asarray(idx, np.int64)
+    if idx.size and (idx.min() < 0 or idx.max() >= pre.p_original):
+        raise IndexError(
+            f"column index out of range [0, {pre.p_original})")
+    pos = np.searchsorted(pre.kept_cols, idx)
+    out = np.full(idx.shape, -1, np.int64)
+    ok = pos < pre.kept_cols.size
+    ok &= pre.kept_cols[np.minimum(pos, pre.kept_cols.size - 1)] == idx
+    out[ok] = pre.inv_perm[pos[ok]]
+    return out
+
+
 def restore_covariance(
     Sigma_shard: np.ndarray,
     pre: PreprocessResult,
@@ -139,9 +162,10 @@ def restore_covariance(
             f"expected ({p_used}, {p_used}), got {Sigma_shard.shape}")
     p_kept = p_used - pre.n_pad
     if destandardize:
+        # the native assembler's per-entry order: the two column scales
+        # combine first, then one multiply (v * (s_row * s_col))
         s = pre.col_scale.reshape(-1)
-        S = Sigma_shard * s[:, None]
-        S *= s[None, :]
+        S = Sigma_shard * (s[:, None] * s[None, :])
     else:
         S = Sigma_shard
     gidx = pre.inv_perm[:p_kept]

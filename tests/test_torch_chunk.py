@@ -193,8 +193,7 @@ def test_sweep_unroll_preserves_cadence_and_results():
     np.testing.assert_array_equal(r1.traces, r5.traces)
     np.testing.assert_array_equal(r1.upper_panels, r5.upper_panels)
     np.testing.assert_array_equal(r1.Sigma, r5.Sigma)
-    for a, b in zip(r1.state, r5.state, strict=True):
-        assert _equal_states(a, b)
+    assert _equal_states(r1.state, r5.state)      # both chains, stacked
     # 38 iterations in chunks of 13 / 13 / 12, trips of 5 and remainders
     assert r5.graphs == {"unroll": 5, "captured": 0, "capture_s": 0.0,
                          "replays": 0, "eager_trips": 2 * 9}

@@ -9,6 +9,7 @@ JAX package.
 
 import functools
 import os
+import re
 import subprocess
 import sys
 
@@ -20,6 +21,7 @@ torch = pytest.importorskip("torch")
 from tests.conftest import make_synthetic  # noqa: E402
 
 import dcfm_tpu  # noqa: E402
+import dcfm_tpu_torch  # noqa: E402
 from dcfm_tpu.reference_numpy import gibbs_numpy  # noqa: E402
 from dcfm_tpu.utils.estimate import stitch_blocks  # noqa: E402
 from dcfm_tpu.utils.preprocess import preprocess  # noqa: E402
@@ -116,9 +118,23 @@ def test_multishard_recovers_sigma():
     assert res.stats.nonfinite_count == 0 and res.stats.acc_nonfinite == 0
     assert res.stats.ps_min > 0 and np.isfinite(res.stats.tau_log_max)
     assert res.traces.shape == (2, 600, 4) and np.isfinite(res.traces).all()
-    assert set(res.phase_seconds) == {"preprocess_s", "upload_s", "init_s",
-                                      "chain_s", "fetch_s", "assemble_s"}
-    assert len(res.state) == 2 and res.iters_per_sec > 0
+    ph = res.phase_seconds
+    assert set(ph) == {"preprocess_s", "upload_s", "init_s", "chain_s",
+                       "fetch_s", "exposed_fetch_s", "assemble_s"}
+    # fault C2: the JAX package's meanings - one state with a leading
+    # chain axis, rates of the executed iterations counted once (not once
+    # per chain) over the fit's seconds and over chain_s, chunk walls,
+    # split-R-hat and ESS of every trace summary
+    assert res.state.Lambda.shape == (2, 4, 24, 4)
+    assert res.state.prior["delta"].shape[0] == 2
+    assert res.iters_per_sec == pytest.approx(600 / res.seconds)
+    assert res.chain_iters_per_sec == pytest.approx(600 / ph["chain_s"])
+    assert len(res.chunk_seconds) == 1
+    assert sum(res.chunk_seconds) == pytest.approx(ph["chain_s"])
+    assert ph["exposed_fetch_s"] == ph["fetch_s"]
+    assert set(res.diagnostics["rhat"]) == set(res.diagnostics["ess"]) == {
+        "signal_var_mean", "resid_var_mean", "sigma_diag_mean", "avg_loglik"}
+    assert all(np.isfinite(v) for v in res.diagnostics["ess"].values())
 
 
 def test_divideconquer_compat_entrypoint():
@@ -180,6 +196,22 @@ def test_run_config_validation(bad):
         fit(Y, FitConfig(model=m, run=bad), device="cpu")
 
 
+def _queue_a_items() -> set:
+    """The item numbers ROADMAP.md's Queue A lists."""
+    with open(os.path.join(REPO, "ROADMAP.md"), encoding="utf-8") as f:
+        text = f.read()
+    section = text.split("### Queue A", 1)[1].split("\n### ", 1)[0]
+    return {int(n) for n in re.findall(r"^(\d+)\. \*\*", section, re.M)}
+
+
+def _names_a_queue_a_item(message: str) -> bool:
+    m = re.search(r"ROADMAP Queue A item (\d+)", message)
+    return bool(m) and int(m.group(1)) in _queue_a_items()
+
+
+# the refusals: the fetch and upload dtypes (now ported) gave their places
+# to the streamed fetch, missing values and the DL prior, and resume
+# without a checkpoint (now a ValueError) to resume with one
 @pytest.mark.parametrize("model,run,backend,extra", [
     ({"prior": "horseshoe"}, {}, {}, {}),
     ({"rank_adapt": True}, {}, {}, {}),
@@ -187,22 +219,128 @@ def test_run_config_validation(bad):
     ({"posterior_sd": True}, {}, {}, {}),
     ({}, {"store_draws": True}, {}, {}),
     ({}, {"early_stop": "rhat"}, {}, {}),
-    ({}, {}, {"upload_dtype": "float16"}, {}),
-    ({}, {}, {"fetch_stream": "on"}, {}),
+    ({}, {}, {"fetch_stream": "on", "fetch_dtype": "quant8"}, {}),
+    ({"impute_missing": True}, {}, {}, {}),
     ({}, {}, {"mesh_devices": 2}, {}),
-    ({}, {}, {"fetch_dtype": "quant8"}, {}),
+    ({"prior": "dl"}, {}, {}, {}),
     ({}, {}, {}, {"checkpoint_path": "ck.npz"}),
-    ({}, {}, {}, {"resume": True}),
+    ({}, {}, {}, {"resume": True, "checkpoint_path": "ck.npz"}),
 ])
 def test_knobs_outside_the_port_are_refused(model, run, backend, extra):
-    """Every knob the port does not run raises, naming its ROADMAP item."""
+    """Every knob the port does not run raises, naming the ROADMAP Queue A
+    item that will port it (fault C1: the item must exist)."""
     Y, _ = make_synthetic(30, 8, 2, seed=0)
     cfg = FitConfig(
         model=ModelConfig(num_shards=2, factors_per_shard=2, rho=0.5,
                           **model),
         run=RunConfig(burnin=2, mcmc=2, **run),
         backend=BackendConfig(**backend), **extra)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="ROADMAP") as e:
+        fit(Y, cfg, device="cpu")
+    assert _names_a_queue_a_item(str(e.value)), str(e.value)
+
+
+def _refusal_messages() -> list:
+    """Every message of the package that cites the ROADMAP: the string
+    constants (and f-string parts) of its sources that mention it,
+    docstrings aside."""
+    import ast
+    import dcfm_tpu_torch
+    root = os.path.dirname(dcfm_tpu_torch.__file__)
+    found = []
+    for dirpath, _, files in os.walk(root):
+        for name in files:
+            if name.endswith(".py"):
+                with open(os.path.join(dirpath, name)) as f:
+                    tree = ast.parse(f.read())
+                docs = {id(n.value) for n in ast.walk(tree)
+                        if isinstance(n, ast.Expr)}
+                found += [(name, node.value) for node in ast.walk(tree)
+                          if isinstance(node, ast.Constant)
+                          and isinstance(node.value, str)
+                          and "ROADMAP" in node.value
+                          and id(node) not in docs]
+    return found
+
+
+def test_every_refusal_names_a_queue_a_item():
+    """Fault C1: refusals cited "'Still to port' item 8", which the ROADMAP
+    never numbered.  Every ROADMAP citation in the package names a Queue A
+    item the ROADMAP lists, and the refusals outside config.validate (the
+    prior, missing values, streaming inputs) do too."""
+    cited = [(f, m) for f, m in _refusal_messages()
+             if re.search(r"item \d", m)]
+    assert len(cited) >= 4
+    for name, message in cited:
+        assert _names_a_queue_a_item(message), (name, message)
+    from dcfm_tpu_torch.models.priors import make_prior
+    from dcfm_tpu_torch.utils.preprocess import preprocess as tpreprocess
+    Y, _ = make_synthetic(30, 8, 2, seed=0)
+    Y[0, 0] = np.nan
+    for call in (lambda: make_prior(ModelConfig(
+                     num_shards=2, factors_per_shard=2, rho=0.5,
+                     prior="horseshoe")),
+                 lambda: tpreprocess(Y, 2)):
+        with pytest.raises(NotImplementedError) as e:
+            call()
+        assert _names_a_queue_a_item(str(e.value)), str(e.value)
+
+
+# fault C3: invalid values of knobs the port refuses are the JAX package's
+# ValueErrors, not "not ported yet"
+@pytest.mark.parametrize("model,run,backend,extra", [
+    ({"prior": "bogus"}, {}, {}, {}),
+    ({}, {"early_stop": "bogus"}, {}, {}),
+    ({}, {"store_draws": True, "mcmc": 0}, {}, {}),
+    ({}, {}, {"upload_dtype": "bogus"}, {}),
+    ({"combine_chunks": 0}, {}, {}, {}),
+    ({"combine_chunks": 3}, {}, {}, {}),
+    ({}, {}, {}, {"resume": True}),
+    ({}, {}, {"fetch_stream": "on"}, {}),
+    ({}, {}, {"fetch_dtype": "float16"}, {"standardize": False}),
+    ({}, {}, {"upload_dtype": "float16"}, {"standardize": False}),
+    ({}, {}, {}, {"materialize_sigma": "bogus"}),
+])
+def test_invalid_values_are_value_errors_in_both_packages(model, run,
+                                                          backend, extra):
+    Y, _ = make_synthetic(30, 8, 2, seed=0)
+    run = {"burnin": 2, "mcmc": 2} | run
+    errors = []
+    for pkg, kw in ((dcfm_tpu, {}), (dcfm_tpu_torch, {"device": "cpu"})):
+        cfg = pkg.FitConfig(
+            model=pkg.ModelConfig(num_shards=2, factors_per_shard=2,
+                                  rho=0.5, **model),
+            run=pkg.RunConfig(**run), backend=pkg.BackendConfig(**backend),
+            **extra)
+        with pytest.raises(Exception) as e:
+            pkg.fit(Y, cfg, **kw)
+        errors.append(type(e.value))
+    assert errors == [ValueError, ValueError]
+
+
+@pytest.mark.parametrize("kind", ["memmap", "scipy", "triple"])
+def test_streaming_inputs_are_refused_by_name(kind, tmp_path):
+    """Fault C4: np.memmap, scipy sparse matrices and any object with
+    indptr/indices/data (the JAX package streams all three) are refused
+    naming Queue A item 6, before np.asarray densifies or mangles them."""
+    Y, _ = make_synthetic(30, 8, 2, seed=0)
+    if kind == "memmap":
+        path = str(tmp_path / "Y.npy")
+        np.save(path, Y)
+        Y = np.load(path, mmap_mode="r")
+    elif kind == "scipy":
+        sparse = pytest.importorskip("scipy.sparse")
+        Y = sparse.csr_matrix(Y)
+    else:
+        import types
+        Y = types.SimpleNamespace(indptr=np.zeros(9, np.int64),
+                                  indices=np.zeros(0, np.int64),
+                                  data=np.zeros(0, np.float32),
+                                  shape=(30, 8))
+    cfg = FitConfig(model=ModelConfig(num_shards=2, factors_per_shard=2,
+                                      rho=0.5),
+                    run=RunConfig(burnin=2, mcmc=2))
+    with pytest.raises(NotImplementedError, match="Queue A item 6"):
         fit(Y, cfg, device="cpu")
 
 
@@ -263,14 +401,18 @@ for m in mods:
     importlib.import_module(m)
 bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "dcfm_tpu")]
 assert not bad, bad
-print(len(mods))
+print(" ".join(mods))
 """
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
     """Every module of dcfm_tpu_torch, and chip_smoke.py, imports with jax
-    and dcfm_tpu refused."""
+    and dcfm_tpu refused - the fetch and artifact modules among them."""
     out = subprocess.run([sys.executable, "-c", _GUARD], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 15
+    mods = out.stdout.split()
+    assert len(mods) >= 19
+    assert {"dcfm_tpu_torch.native", "dcfm_tpu_torch.runtime.fetch",
+            "dcfm_tpu_torch.serve.artifact",
+            "dcfm_tpu_torch.utils.diagnostics"} <= set(mods)

@@ -2,7 +2,9 @@
 against their plain PyTorch versions on the card, the bf16 product, small
 fits whose main paths launch the kernels (f32 through K1, bf16 through K4,
 pallas-fused through K2; K5 in each) as CUDA graphs, the graphed chain
-against the eager chain bit for bit, and a failed capture raising.
+against the eager chain bit for bit, the fetch (the pinned, sliced drain
+against a plain copy, the fetch prep against the CPU's, fits at every
+fetch_dtype), and a failed capture raising.
 
 They need an NVIDIA GPU with nvcc (the kernels are built on first use) and
 skip without one.  They import no JAX, so on the card they run without the
@@ -27,6 +29,8 @@ from dcfm_tpu_torch.ops import cuda_lib  # noqa: E402
 from dcfm_tpu_torch.ops.chol_sample import chol_sample, chol_sample_plain  # noqa: E402
 from dcfm_tpu_torch.ops.lam_update import lam_update, lam_update_plain  # noqa: E402
 from dcfm_tpu_torch.ops.sse_gamma import sse_ps, sse_ps_plain  # noqa: E402
+from dcfm_tpu_torch.runtime import fetch  # noqa: E402
+from dcfm_tpu_torch.serve.artifact import PosteriorArtifact  # noqa: E402
 from dcfm_tpu_torch.utils.preprocess import preprocess  # noqa: E402
 
 pytestmark = pytest.mark.gpu
@@ -367,6 +371,80 @@ def test_graph_chain_equals_eager_chain_bitwise(cuda, sse_mode,
     assert n_graph == n_eager
     # the Lambda kernel every sweep, K5 every Gram sweep
     assert sum(n_eager.values()) == 2 * 38 * (1 + (sse_mode == "gram"))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16, torch.int8])
+@pytest.mark.parametrize("n", [2080, 7, 1])
+def test_pinned_sliced_drain_equals_a_plain_copy(cuda, dtype, n):
+    """The drain's slices land in pinned host memory on the side stream,
+    each behind its event; what it returns is a plain .cpu() of the same
+    tensor, bit for bit - right after the kernel that wrote the tensor."""
+    x = torch.randn(n, 33, 33, device=cuda) * 50
+    x = x.to(torch.int8) if dtype == torch.int8 else x.to(dtype)
+    y = x * 1 if dtype == torch.int8 else x * 2      # just queued
+    d = fetch.Drain(y)
+    assert d.host.is_pinned() and len(d.ranges) == min(n, 8)
+    want = y.cpu()
+    want = (want.float() if dtype in (torch.bfloat16, torch.float16)
+            else want).numpy()
+    np.testing.assert_array_equal(d.wait(), want)
+
+
+@pytest.mark.parametrize("mode", ["float32", "bfloat16", "float16",
+                                  "quant8"])
+@pytest.mark.parametrize("C", [1, 2, 3])
+def test_fetch_prep_on_the_card_is_the_cpus(cuda, mode, C):
+    """The chain mean, trim, division and link cast on the card give the
+    CPU's bits (tests/test_torch_fetch.py holds the CPU to the JAX fetch):
+    one correctly rounded multiply, round half to even, a true division."""
+    g, P = 9, 157
+    rng = np.random.default_rng(C)
+    accs = (rng.standard_normal((C, 45, P, P))
+            * rng.uniform(0.1, 100.0, (C, 1, 1, 1))).astype(np.float32)
+    out = {}
+    for dev in ("cpu", cuda):
+        pooled = torch.as_tensor(accs[0], device=dev).clone()
+        for c in range(1, C):
+            pooled += torch.as_tensor(accs[c], device=dev)
+        got = fetch.fetch_prep(pooled, C, g, np.float32(1 / 101), mode)
+        out[str(dev)] = [t.cpu() for t in (got if mode == "quant8"
+                                           else (got,))]
+    for a, b in zip(out["cpu"], out[str(cuda)], strict=True):
+        assert torch.equal(a, b)
+
+
+def test_small_fits_at_each_fetch_dtype(cuda, tmp_path):
+    """The same chain on the card fetched four ways: every Sigma within
+    its link's rounding of the float32 fetch's (quant8: scale/254 of each
+    panel times the two column scales), the quant8 export opens to the
+    quant8 Sigma bit for bit, and materialize_sigma='never' keeps the
+    panels packed."""
+    Y, _ = _small_data()
+
+    def run(mode, materialize="auto"):
+        cfg = FitConfig(
+            model=ModelConfig(num_shards=4, factors_per_shard=4, rho=0.9,
+                              lambda_kernel="pallas"),
+            run=RunConfig(burnin=50, mcmc=50, thin=2, num_chains=2),
+            backend=BackendConfig(sse_mode="gram", fetch_dtype=mode),
+            materialize_sigma=materialize)
+        return fit(Y, cfg, device=cuda)
+
+    ref = run("float32")
+    for mode, rtol in (("bfloat16", 2 ** -8), ("float16", 2 ** -11)):
+        np.testing.assert_allclose(run(mode).Sigma, ref.Sigma, rtol=rtol,
+                                   atol=1e-6)
+    q8 = run("quant8")
+    s = ref.preprocess.col_scale.reshape(-1)
+    bound = q8._q8_scales.max() / 254 * s.max() ** 2
+    assert np.abs(q8.Sigma - ref.Sigma).max() <= bound * (1 + 1e-5)
+    art = q8.export_artifact(str(tmp_path / "art"))
+    np.testing.assert_array_equal(PosteriorArtifact.open(art.path).assemble(),
+                                  q8.Sigma)
+    lazy = run("quant8", "never")
+    assert lazy.Sigma is None
+    np.testing.assert_array_equal(lazy._q8_panels, q8._q8_panels)
 
 
 def test_a_failed_capture_raises_and_is_not_hidden(cuda, monkeypatch):
