@@ -84,10 +84,12 @@ prints no result.
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import json
 import math
 import os
 import re
+import signal
 import subprocess
 import sys
 import time
@@ -688,6 +690,14 @@ def check_fit(torch, res, launches: dict, label: str, kernels: tuple, Y,
         want = sweeps if name in kernels else 0
         check(count == want, f"[{label}] {name} launched {count} times in "
               f"{sweeps} sweeps, expected {want}")
+    return check_quality(torch, res, label, Y, L, noise)
+
+
+def check_quality(torch, res, label: str, Y, L, noise) -> float:
+    """Healthy chains and, where the fit assembled Sigma, a finite,
+    symmetric Sigma within the quality rule; returns the rel. Frobenius
+    error against the truth (None without a Sigma)."""
+    c = FIT
     check(res.stats.nonfinite_count == 0 and res.stats.acc_nonfinite == 0,
           f"chain health: {res.stats}")
     S = res.Sigma
@@ -841,6 +851,357 @@ def fetch_phase(torch, dt, cuda_lib, card: str, Y, L, noise) -> None:
             del back
     finally:
         shutil.rmtree(tmp)
+
+
+# the checkpoint phase: the float32 path at the fits' width in chunks of
+# 50 (8 boundaries over 400 iterations); the kills on 1,000 iterations, at
+# the first file at iteration 200 or later
+CKPT_CHUNK = 50
+KILL_RUN = {"burnin": 200, "mcmc": 800}
+KILL_AT = 200
+
+
+def sigma_digest(S: np.ndarray) -> str:
+    """sha256 of Sigma's float32 bytes: two fits agree bit for bit iff
+    their digests do."""
+    return hashlib.sha256(np.ascontiguousarray(S, np.float32)
+                          .view(np.uint8)).hexdigest()
+
+
+def ckpt_config(dt, label: str, run: dict | None = None, **fit_kw):
+    """The path's fit config in chunks of CKPT_CHUNK, with ``run``'s
+    changes and FitConfig fields ``fit_kw``."""
+    _, model, backend, _ = next(p for p in FIT_PATHS if p[0] == label)
+    cfg = path_config(dt, model, backend)
+    return dataclasses.replace(cfg, run=dataclasses.replace(
+        cfg.run, chunk_size=CKPT_CHUNK, **(run or {})), **fit_kw)
+
+
+def fit_child(spec: str) -> None:
+    """``--fit-child SPEC``: one fit of ckpt_config(**SPEC) in this process
+    on the script's synthetic data; prints one JSON line (Sigma's digest,
+    phase seconds, executed iterations, rewinds)."""
+    import torch
+    import dcfm_tpu_torch as dt
+    check(torch.cuda.is_available(), "the fit child sees no CUDA device")
+    spec = json.loads(spec)
+    c = FIT
+    Y, _, _ = synthetic(c["n"], c["p"], c["k_true"])
+    res = dt.fit(Y, ckpt_config(dt, spec["path"], spec.get("run"),
+                                **spec.get("fit", {})))
+    say(json.dumps({"sigma": sigma_digest(res.Sigma),
+                    "phase_seconds": res.phase_seconds,
+                    "executed": int(res.traces.shape[1]),
+                    "rewinds": res.sentinel_rewinds}))
+
+
+def run_child(spec: dict, workdir: str, name: str, *, kill_at=None,
+              path=None, timeout: float = 600.0) -> dict:
+    """A fit in a fresh process (``--fit-child``).  With ``kill_at``, the
+    child is SIGKILLed once the checkpoint at ``path`` says iteration >=
+    kill_at (its meta is polled); returns that iteration.  Else returns
+    the child's JSON line."""
+    from dcfm_tpu_torch.utils.checkpoint import read_checkpoint_meta
+    out_path = os.path.join(workdir, name + ".out")
+    with open(out_path, "w") as out:
+        proc = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--fit-child",
+             json.dumps(spec)], stdout=out, stderr=subprocess.STDOUT)
+        try:
+            deadline = time.perf_counter() + timeout
+            seen = -1
+            while proc.poll() is None and time.perf_counter() < deadline:
+                if kill_at is not None and os.path.exists(path):
+                    try:
+                        seen = int(read_checkpoint_meta(path)["iteration"])
+                    except (OSError, ValueError, KeyError):
+                        seen = -1
+                    if seen >= kill_at:
+                        proc.kill()
+                        break
+                time.sleep(0.005)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+            proc.wait()
+    log = open(out_path).read()
+    if kill_at is not None:
+        check(proc.returncode == -signal.SIGKILL,
+              f"[{name}] the child was not killed mid-run (exit "
+              f"{proc.returncode}, file at {seen}): {log[-2000:]}")
+        return {"killed_at": seen}
+    check(proc.returncode == 0, f"[{name}] the fit child failed "
+          f"({proc.returncode}): {log[-3000:]}")
+    return json.loads(log.strip().splitlines()[-1])
+
+
+class SaveLog:
+    """Records every save of the chunk loop (file, iteration, light or
+    full, bytes on disk, seconds in the writer's thread) and every join
+    of the writer (the last is the final durability join): the script's
+    instrumentation around runtime/pipeline, removed on exit."""
+
+    def __init__(self):
+        from dcfm_tpu_torch.runtime import pipeline
+        self._pipeline = pipeline
+        self.saves, self.joins = [], []
+
+    def __enter__(self):
+        p = self._pipeline
+        self._save, self._writer = p.save_checkpoint, p.AsyncCheckpointWriter
+        save, log = self._save, self
+
+        def logged(path, leaves, cfg, **kw):
+            t = time.perf_counter()
+            save(path, leaves, cfg, **kw)
+            log.saves.append({
+                "file": os.path.basename(path),
+                "iteration": int(np.asarray(leaves["iteration"])
+                                 .reshape(-1)[0]),
+                "light": bool(kw.get("state_only")),
+                "bytes": os.path.getsize(path),
+                "write_s": time.perf_counter() - t})
+
+        class Writer(self._writer):
+            def wait(self):
+                t = time.perf_counter()
+                try:
+                    super().wait()
+                finally:
+                    log.joins.append(time.perf_counter() - t)
+
+        p.save_checkpoint, p.AsyncCheckpointWriter = logged, Writer
+        return self
+
+    def __exit__(self, *exc):
+        p = self._pipeline
+        p.save_checkpoint, p.AsyncCheckpointWriter = self._save, self._writer
+
+
+def poison_chain0(at: int):
+    """The sentinel's test double: before the chunk that starts at global
+    iteration ``at``, chain 0's Lambda becomes NaN (rebound, so a
+    snapshot still reading the old tensor is untouched), once.  Returns
+    the undo."""
+    from dcfm_tpu_torch.models import sampler
+    run_chunk = sampler.ChainRunner.run_chunk
+    left = [1]
+
+    def poisoned(self, c, carry, n):
+        if c == 0 and carry.iteration == at and left[0]:
+            left[0] -= 1
+            carry.state = dataclasses.replace(
+                carry.state, Lambda=carry.state.Lambda * float("nan"))
+        return run_chunk(self, c, carry, n)
+
+    sampler.ChainRunner.run_chunk = poisoned
+
+    def undo():
+        sampler.ChainRunner.run_chunk = run_chunk
+    return undo
+
+
+def ckpt_fit(torch, dt, cuda_lib, cfg, Y, label: str, card: str,
+             log: SaveLog | None = None):
+    """One in-process fit of the checkpoint phase, its peak memory and,
+    under ``log``, its saves; prints one ``checkpoint`` line."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    res, launches, wall = counted_fit(torch, dt, cuda_lib, cfg, Y)
+    peak = torch.cuda.max_memory_allocated()
+    ph = res.phase_seconds
+    saves = "" if log is None else (
+        f"; {len(log.saves)} saves at {[s['iteration'] for s in log.saves]}"
+        f" ({sorted({(s['file'], s['bytes']) for s in log.saves})} bytes), "
+        f"write_s {[round(s['write_s'], 4) for s in log.saves]}, final "
+        f"join {log.joins[-1]:.4f} s" if log.joins else "")
+    say(f"checkpoint [{label}]: wall {wall:.3f} s, chain_s "
+        f"{ph['chain_s']:.4f}, checkpoint_s {ph['checkpoint_s']:.4f}, "
+        f"init_s {ph['init_s']:.4f}, fetch_s {ph['fetch_s']:.4f}, "
+        f"exposed_fetch_s {ph['exposed_fetch_s']:.4f}, executed "
+        f"{res.traces.shape[1]}, peak allocated {peak} bytes{saves}; "
+        f"sigma {sigma_digest(res.Sigma)[:16] if res.Sigma is not None else None}"
+        f"; {card}")
+    return res, launches
+
+
+def checkpoint_phase(torch, dt, cuda_lib, card: str, Y, L, noise) -> None:
+    """Checkpoint, resume, the sentinel and the streamed fetch at the
+    north-star width: (a) the float32 path uninterrupted; (b) full saves
+    at every boundary, Sigma bitwise (a), and the "auto" cadence; light
+    saves; (e) a finished file resumed as a no-op; (f) the sentinel on a
+    chain the script poisons: "abort" raises ChainDivergedError, "rewind"
+    finishes with one rewind inside the quality rule; (g) quant8 streamed
+    against post hoc, bitwise, at least one snapshot; then, on each path
+    (f32, bf16, fused) over KILL_RUN: (c) a child SIGKILLed once its file
+    reaches iteration KILL_AT, resumed in a fresh process: Sigma bitwise
+    the uninterrupted fit's; and for f32 (d), as (c) in light mode with a
+    full sidecar every 2nd save, the sidecar used."""
+    import shutil
+    import tempfile
+
+    from dcfm_tpu_torch.resilience.sentinel import ChainDivergedError
+    kernels = FIT_PATHS[0][3]
+    total = FIT["burnin"] + FIT["mcmc"]
+    work = tempfile.mkdtemp(prefix="dcfm_ckpt_")
+    try:
+        a, _ = ckpt_fit(torch, dt, cuda_lib, ckpt_config(dt, "f32"), Y,
+                        "f32 (a) no checkpoint", card)
+        ref = sigma_digest(a.Sigma)
+        path = os.path.join(work, "b.npz")
+        with SaveLog() as log:
+            b, launches = ckpt_fit(
+                torch, dt, cuda_lib,
+                ckpt_config(dt, "f32", checkpoint_path=path,
+                            checkpoint_every_chunks=1), Y,
+                "f32 (b) full, every boundary", card, log)
+        check_fit(torch, b, launches, "f32 (b)", kernels, Y, L, noise)
+        check(sigma_digest(b.Sigma) == ref, "(b) checkpointing on changed "
+              "Sigma's bits")
+        # a save still in flight defers a due one to a later boundary
+        # (the reference's policy): the first and the last boundary save
+        its = [s["iteration"] for s in log.saves]
+        check(its[0] == CKPT_CHUNK and its[-1] == total
+              and its == sorted(set(its))
+              and all(i % CKPT_CHUNK == 0 for i in its),
+              f"(b) saves at {its}")
+        for mode, every in (("full", "auto"), ("light", 1), ("light", "auto")):
+            with SaveLog() as log:
+                r, _ = ckpt_fit(torch, dt, cuda_lib, ckpt_config(
+                    dt, "f32", checkpoint_path=os.path.join(
+                        work, f"{mode}_{every}.npz"), checkpoint_mode=mode,
+                    checkpoint_every_chunks=every), Y,
+                    f"f32 {mode}, every {every}", card, log)
+            check(sigma_digest(r.Sigma) == ref, f"[{mode}, {every}] "
+                  "checkpointing on changed Sigma's bits")
+            check(log.saves and log.saves[-1]["iteration"] == total,
+                  f"[{mode}, {every}] the last boundary did not save")
+            del r
+        # (e) the finished full file from (b), resumed: a no-op
+        e, _ = ckpt_fit(torch, dt, cuda_lib, ckpt_config(
+            dt, "f32", checkpoint_path=path, resume=True), Y,
+            "f32 (e) finished file resumed", card)
+        check(sigma_digest(e.Sigma) == ref and e.traces.shape[1] == 0,
+              "(e) the no-op resume is not the finished fit")
+        del b, e
+        # (f) the sentinel on a chain poisoned at iteration 200
+        undo = poison_chain0(total // 2)
+        try:
+            try:
+                dt.fit(Y, ckpt_config(dt, "f32", sentinel="abort"))
+                fail("(f) sentinel='abort' let a poisoned chain finish")
+            except ChainDivergedError as err:
+                check(err.iteration == total // 2 + CKPT_CHUNK,
+                      f"(f) diverged at {err.iteration}")
+                say(f"sentinel [abort]: ChainDivergedError at iteration "
+                    f"{err.iteration} (poisoned before {total // 2})")
+        finally:
+            undo()
+        undo = poison_chain0(total // 2)
+        try:
+            f, _ = ckpt_fit(torch, dt, cuda_lib, ckpt_config(
+                dt, "f32", checkpoint_path=os.path.join(work, "f.npz"),
+                checkpoint_every_chunks=1, sentinel="rewind"), Y,
+                "f32 (f) sentinel rewind", card)
+        finally:
+            undo()
+        check(f.sentinel_rewinds == 1, f"(f) {f.sentinel_rewinds} rewinds")
+        err = check_quality(torch, f, "f32 (f) rewound", Y, L, noise)
+        say(f"sentinel [rewind]: {f.sentinel_rewinds} rewind, rel Frobenius "
+            f"error {err:.6f}, graphs {json.dumps(f.graphs)}; {card}")
+        del f
+        # (g) quant8, streamed against post hoc
+        got = {}
+        for stream in ("off", "auto"):
+            cfg = ckpt_config(dt, "f32")
+            cfg = dataclasses.replace(cfg, backend=dataclasses.replace(
+                cfg.backend, fetch_dtype="quant8", fetch_stream=stream))
+            got[stream], _ = ckpt_fit(torch, dt, cuda_lib, cfg, Y,
+                                      f"f32 (g) quant8, stream {stream}",
+                                      card)
+        st = got["auto"].stream_stats
+        check(st is not None and st["snapshots"] > 0, f"(g) the streamed "
+              f"fit did not stream: {st}")
+        check(got["off"].stream_stats is None, "(g) 'off' streamed")
+        check(sigma_digest(got["auto"].Sigma) == sigma_digest(
+            got["off"].Sigma) and np.array_equal(
+                got["auto"]._q8_panels, got["off"]._q8_panels)
+              and np.array_equal(got["auto"]._q8_scales,
+                                 got["off"]._q8_scales),
+              "(g) the streamed quant8 panels are not the post-hoc ones")
+        say(f"stream [quant8]: snapshots {st['snapshots']}, skipped "
+            f"{st['skipped']}, streamed fetch_s "
+            f"{got['auto'].phase_seconds['fetch_s']:.4f} exposed "
+            f"{got['auto'].phase_seconds['exposed_fetch_s']:.4f}, post-hoc "
+            f"fetch_s {got['off'].phase_seconds['fetch_s']:.4f}, drains "
+            f"{[round(x, 4) for x in st['chunk_fetch_s']]}; {card}")
+        del got
+        # (c), (d) and (c) on bf16 and fused, on KILL_RUN's longer chain:
+        # a full save (~420 MB) takes about as long as the 400-iteration
+        # chain, so there a kill at iteration >= 200 would land after the
+        # last save
+        for label in ("f32", "bf16", "fused"):
+            r, _ = ckpt_fit(torch, dt, cuda_lib,
+                            ckpt_config(dt, label, KILL_RUN), Y,
+                            f"{label} (a) no checkpoint, "
+                            f"{sum(KILL_RUN.values())} iterations", card)
+            ref = sigma_digest(r.Sigma)
+            del r
+            kill_resume(dt, label, {}, ref, work, "full", card)
+            if label == "f32":
+                kill_resume(dt, label, {"checkpoint_mode": "light",
+                                        "checkpoint_full_every": 2},
+                            ref, work, "light", card)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def kill_resume(dt, label: str, fit_kw: dict, ref: str, work: str,
+                tag: str, card: str) -> None:
+    """(c)/(d): a child fit of KILL_RUN with a checkpoint at every
+    boundary, SIGKILLed once its file is at iteration KILL_AT or more;
+    then resume=True in a fresh process: Sigma bitwise ``ref``.  A light
+    file with a full sidecar must resume from the sidecar."""
+    from dcfm_tpu_torch.utils.checkpoint import read_checkpoint_meta
+    total = sum(KILL_RUN.values())
+    path = os.path.join(work, f"{label}_{tag}.npz")
+    spec = {"path": label, "run": KILL_RUN,
+            "fit": {"checkpoint_path": path, "checkpoint_every_chunks": 1,
+                    **fit_kw}}
+    t = time.perf_counter()
+    killed = run_child(spec, work, f"{label}_{tag}_killed",
+                       kill_at=KILL_AT, path=path)["killed_at"]
+    kill_s = time.perf_counter() - t
+    meta = read_checkpoint_meta(path)
+    check(meta["iteration"] < total, f"[{label} {tag}] the file reached the "
+          f"end ({meta['iteration']}) before the kill")
+    side = path + ".full"
+    side_it = (read_checkpoint_meta(side)["iteration"]
+               if os.path.exists(side) else None)
+    t = time.perf_counter()
+    out = run_child(dict(spec, fit=dict(spec["fit"], resume=True)), work,
+                    f"{label}_{tag}_resumed")
+    resume_s = time.perf_counter() - t
+    say(f"kill [{label}, {tag}]: killed with the file at iteration "
+        f"{killed} ({kill_s:.1f} s child wall), light file "
+        f"{meta.get('state_only')}, sidecar at {side_it}; resumed in a "
+        f"fresh process ({resume_s:.1f} s wall): executed "
+        f"{out['executed']}, init_s (the load) "
+        f"{out['phase_seconds']['init_s']:.4f}, checkpoint_s "
+        f"{out['phase_seconds']['checkpoint_s']:.4f}; Sigma "
+        f"{'=' if out['sigma'] == ref else '!='} uninterrupted; {card}")
+    check(out["sigma"] == ref, f"[{label} {tag}] the resumed fit's Sigma is "
+          "not the uninterrupted fit's bits")
+    if fit_kw.get("checkpoint_mode") == "light":
+        check(meta.get("state_only") and side_it is not None
+              and out["executed"] == total - side_it,
+              f"[{label} {tag}] the resume did not take the sidecar (light "
+              f"{meta.get('state_only')}, sidecar {side_it}, executed "
+              f"{out['executed']})")
+    else:
+        check(out["executed"] == total - meta["iteration"],
+              f"[{label} {tag}] resumed from the wrong iteration")
 
 
 def k3_path(torch, bs, cuda_lib, rng) -> dict:
@@ -1027,6 +1388,9 @@ def sass_report(cuda_lib, lib_path: str) -> None:
 
 def main() -> None:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    if sys.argv[1:2] == ["--fit-child"]:
+        fit_child(sys.argv[2])
+        return
     try:
         import torch
     except ImportError as e:
@@ -1047,6 +1411,7 @@ def main() -> None:
     check(not torch.backends.cuda.matmul.allow_tf32,
           "TF32 matmuls are on; the port needs full float32")
 
+    t_start = time.perf_counter()
     card = card_line()
     say(card)          # name, power limit (nvidia-smi's line)
     say(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
@@ -1085,6 +1450,9 @@ def main() -> None:
     graph_equality_phase(torch, cuda_lib, path_config(
         dt, *FIT_PATHS[0][1:3]), Y, card, "f32", dt.api.CUDA_AUTO_UNROLL)
     unroll_phase(torch, path_config(dt, *FIT_PATHS[0][1:3]), Y, card)
+    say(f"unroll_phase done at {time.perf_counter() - t_start:.1f} s")
+    say(f"graph and kernel phases done at "
+        f"{time.perf_counter() - t_start:.1f} s")
     launches, errs = {}, {}
     for label, model, backend, path_kernels in FIT_PATHS:
         got, cfg, errs[label] = fit_phase(torch, dt, cuda_lib, card, label,
@@ -1096,7 +1464,11 @@ def main() -> None:
     say(f"|err_bf16 - err_f32| = {abs(errs['bf16'] - errs['f32']):.3e}, "
         f"|err_fused - err_f32| = {abs(errs['fused'] - errs['f32']):.3e}")
     upload_phase(torch, dt, cuda_lib, card, Y, L, noise)
+    say(f"upload_phase done at {time.perf_counter() - t_start:.1f} s")
     fetch_phase(torch, dt, cuda_lib, card, Y, L, noise)
+    say(f"fetch_phase done at {time.perf_counter() - t_start:.1f} s")
+    checkpoint_phase(torch, dt, cuda_lib, card, Y, L, noise)
+    say(f"checkpoint_phase done at {time.perf_counter() - t_start:.1f} s")
     launches["cho_solve"] = k3_path(torch, bs, cuda_lib, rng)["cho_solve"]
     for k in kernels:
         k["launches"] = launches[k["name"]]

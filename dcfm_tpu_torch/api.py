@@ -2,13 +2,16 @@
 
 The port of ``dcfm_tpu/api.py`` for one device and one process.  The flow:
 host preprocessing -> the data's upload (``BackendConfig.upload_dtype``)
--> per chain: state init and the Gibbs loop with the packed covariance
-accumulator on the device, the chains' accumulators summed in place ->
-the fetch (runtime/fetch.py: the chain mean, the padding trim, the
+-> the chunk loop (runtime/pipeline.run_chain: the chains' states and
+packed covariance accumulators on the device, run chunk-major, with
+resume, write-behind checkpoints, the divergence sentinel and, under
+quant8, the streamed fetch) -> the fetch (runtime/fetch.py: the chains'
+accumulators summed in place, the chain mean, the padding trim, the
 division by the saved-draw count and the link cast under
 ``BackendConfig.fetch_dtype`` on the device, then a sliced drain into
-pinned host memory) -> the native one-pass assembly of Sigma in the
-caller's coordinates, zero columns reinserted - or the panels kept packed
+pinned host memory; or the streamed fetch's final snapshot, the same
+bits) -> the native one-pass assembly of Sigma in the caller's
+coordinates, zero columns reinserted - or the panels kept packed
 (``FitConfig.materialize_sigma``), queried through
 :meth:`FitResult.sigma_block` or exported as the serve artifact.
 
@@ -26,6 +29,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import time
+import warnings
 from typing import Optional
 
 import numpy as np
@@ -35,14 +39,16 @@ from dcfm_tpu_torch.config import (
     _INGEST, BackendConfig, FitConfig, ModelConfig, RunConfig, validate)
 from dcfm_tpu_torch.models.priors import make_prior
 from dcfm_tpu_torch.models.sampler import (
-    TRACE_SUMMARIES, ChainRunner, ChainStats, num_saved_draws)
+    TRACE_SUMMARIES, ChainRunner, ChainStats)
 from dcfm_tpu_torch.models.state import SamplerState
 from dcfm_tpu_torch.noise import TorchNoise
 from dcfm_tpu_torch.ops import cuda_lib
 from dcfm_tpu_torch.runtime.fetch import (
-    fetch_prep, fetch_upper, quant8_fetch_assemble, quant8_start,
-    upload_host_array)
+    accumulator_window, assemble_q8_sigma, fetch_prep, fetch_upper,
+    quant8_fetch_assemble, quant8_start, upload_host_array)
+from dcfm_tpu_torch.runtime.pipeline import run_chain
 from dcfm_tpu_torch.serve.artifact import PosteriorArtifact, export_fit_result
+from dcfm_tpu_torch.utils.checkpoint import carry_template, data_fingerprint
 from dcfm_tpu_torch.utils.diagnostics import ess, split_rhat
 from dcfm_tpu_torch.utils.estimate import (
     assemble_from_q8, assemble_from_upper, dequantize_panels,
@@ -74,18 +80,34 @@ class FitResult:
     seconds: float
     iters_per_sec: float           # executed iterations / seconds
     chain_iters_per_sec: float     # executed iterations / chain_s
-    traces: np.ndarray             # (num_chains, iters, 4) chain summaries
+    traces: np.ndarray             # (num_chains, executed iters, 4) chain
+                                   # summaries
     # {"rhat": {summary: float}, "ess": {summary: float}} on the
     # post-burn-in traces; rhat needs num_chains > 1
     diagnostics: dict
-    chunk_seconds: list            # wall per chunk, summed over the chains
-    # preprocess_s, upload_s, init_s, chain_s (= sum of chunk_seconds),
-    # fetch_s (the device prep and the drain), exposed_fetch_s (the part
-    # nothing hid: all of it, since the fetch is post hoc), assemble_s
+    chunk_seconds: list            # wall per chunk, all chains
+    # preprocess_s, upload_s, init_s (state init or checkpoint load),
+    # chain_s (= sum of chunk_seconds), checkpoint_s (the chain-visible
+    # cost of the write-behind saves: snapshot dispatch, joins, the final
+    # durability join), fetch_s (the device prep and the drain; streamed:
+    # every snapshot's drain), exposed_fetch_s (the part nothing hid: all
+    # of a post-hoc fetch, the final join of a streamed one), assemble_s
     phase_seconds: dict
     kernel_launches: dict          # hand-written kernel launches in this fit
     graphs: dict                   # unroll, captured, capture_s (inside
                                    # chain_s), replays, eager_trips
+    # repr of a checkpoint save that failed after the chain's last chunk
+    # (warned about; the results stand, the run is not resumable from its
+    # end), or None
+    checkpoint_error: Optional[str] = None
+    # divergence-sentinel rewinds this fit performed: > 0 means the chains
+    # rewound to a checkpoint on re-lineaged streams with an escalated
+    # ridge jitter - a valid chain, not bitwise an undiverged one
+    sentinel_rewinds: int = 0
+    # the streamed fetch's telemetry, or None when the post-hoc fetch
+    # served the result: {"streamed": True, "snapshots", "skipped",
+    # "exposed_fetch_s", "chunk_fetch_s", "overlap_fraction"}
+    stream_stats: Optional[dict] = None
     # backing of .upper_panels: float32 panels (every fetch_dtype but
     # quant8), or the int8 panels and their per-panel scales (quant8)
     _upper_f32: Optional[np.ndarray] = None
@@ -172,12 +194,6 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def _copy_state(state: SamplerState) -> SamplerState:
-    return SamplerState(*(t.clone() for t in (state.Lambda, state.Z,
-                                              state.X, state.ps)),
-                        prior={k: v.clone() for k, v in state.prior.items()})
-
-
 def _stack_states(states: list) -> SamplerState:
     """One state per chain -> the chains' state with a leading chain axis
     (a single chain's state as it is)."""
@@ -190,10 +206,23 @@ def _stack_states(states: list) -> SamplerState:
                for k in states[0].prior})
 
 
-def _diagnose(traces: np.ndarray, run: RunConfig) -> dict:
+def _carried_stats(carries: list) -> ChainStats:
+    """The chains' health panels and accumulators as ChainStats: a no-op
+    resume ran no chunk to report them."""
+    h = torch.stack([c.health for c in carries]).cpu()
+    return ChainStats(
+        tau_log_max=float(h[..., 0].max()), ps_min=float(h[..., 1].min()),
+        ps_max=float(h[..., 2].max()),
+        nonfinite_count=float(h[..., 3].sum()),
+        acc_nonfinite=float(sum((~torch.isfinite(c.sigma_acc)).sum()
+                                for c in carries)))
+
+
+def _diagnose(traces: np.ndarray, trace0: int, run: RunConfig) -> dict:
     """Split-R-hat (num_chains > 1) and ESS of each trace summary on the
-    post-burn-in iterations, as the JAX package reports them."""
-    post = traces[:, run.burnin:, :]
+    post-burn-in iterations, as the JAX package reports them.  The traces
+    cover global iterations trace0 + 1 .. total (a resumed fit's start)."""
+    post = traces[:, max(run.burnin - trace0, 0):, :]
     out = {"rhat": {}, "ess": {}}
     if post.shape[1] < 4:
         return out
@@ -236,7 +265,6 @@ def fit(Y: np.ndarray, cfg: FitConfig, *, device="cuda") -> FitResult:
     # the JAX package does
     m = dataclasses.replace(m, sse_mode=be.sse_mode,
                             compute_dtype=be.compute_dtype)
-    noise = TorchNoise(run.seed, device)
     launches0 = cuda_lib.launch_counts()
     t_start = time.perf_counter()
 
@@ -256,89 +284,114 @@ def fit(Y: np.ndarray, cfg: FitConfig, *, device="cuda") -> FitResult:
     _sync(device)
     phase["upload_s"] = time.perf_counter() - t
 
-    prior = make_prior(m)
-    chunk = run.chunk_size or run.total_iters
     unroll = run.sweep_unroll or (CUDA_AUTO_UNROLL if device.type == "cuda"
                                   else 1)
-    runner = ChainRunner(noise, Yd, m, prior, burnin=run.burnin,
-                         thin=run.thin, unroll=unroll)
-    phase["init_s"] = 0.0
-    states, traces, stats, chunk_secs = [], [], [], []
-    pooled = None          # the chains' accumulators, summed in chain order
-    for c in range(run.num_chains):
-        t = time.perf_counter()
-        carry = runner.init_chain(c)
-        _sync(device)
-        phase["init_s"] += time.perf_counter() - t
-        chain_traces = []
-        for i in range(0, run.total_iters, chunk):
-            t = time.perf_counter()
-            carry, st, tr = runner.run_chunk(
-                c, carry, min(chunk, run.total_iters - i))
-            chain_traces.append(tr.cpu().numpy())
-            _sync(device)
-            if c == 0:
-                chunk_secs.append(0.0)
-            chunk_secs[i // chunk] += time.perf_counter() - t
-        # the runner's carry is the next chain's too: keep copies, except
-        # of the last chain
-        last = c == run.num_chains - 1
-        states.append(carry.state if last else _copy_state(carry.state))
-        if pooled is None:
-            pooled = carry.sigma_acc if last else carry.sigma_acc.clone()
-        else:
-            pooled += carry.sigma_acc
-        traces.append(np.concatenate(chain_traces, axis=0))
-        stats.append(st)
-    phase["chain_s"] = float(sum(chunk_secs))
-    traces = np.stack(traces)
-    state = _stack_states(states)
+
+    def make_runner(model: ModelConfig, lineage: tuple) -> ChainRunner:
+        return ChainRunner(TorchNoise(run.seed, device, lineage), Yd, model,
+                           make_prior(model), burnin=run.burnin,
+                           thin=run.thin, unroll=unroll)
+
+    g, C, mode = m.num_shards, run.num_chains, be.fetch_dtype
+
+    def window(acc_start: int, win) -> np.float32:
+        # the one divisor of the streamed and the post-hoc fetch
+        return accumulator_window(
+            run.total_iters, run.burnin, run.thin, acc_start, C,
+            chain_acc_starts=None if win is None else win[0],
+            fold_draws=0 if win is None else win[1])[1]
+
+    rr = run_chain(
+        cfg=cfg, model=m, run=run, phase=phase,
+        fingerprint=(data_fingerprint(pre.data) if cfg.checkpoint_path
+                     else None),
+        template=carry_template(m, n=n, P=pre.data.shape[2],
+                                num_chains=C),
+        make_runner=make_runner, device=device, window_fn=window,
+        stream=mode == "quant8" and be.fetch_stream != "off")
+    carries, streamer = rr.carries, rr.streamer
+    phase["chain_s"] = float(sum(rr.chunk_seconds))
+    stats = rr.stats or _carried_stats(carries)
+    traces = (np.concatenate(rr.traces, axis=1) if rr.traces
+              else np.zeros((C, 0, len(TRACE_SUMMARIES)), np.float32))
+    state = _stack_states([c.state for c in carries])
 
     # raw sums -> posterior mean on the device (chain mean, padding
     # dropped, times 1/saved draws), the link cast, the drain and the
-    # assembly (or not)
-    t = time.perf_counter()
-    inv_count = np.float32(
-        1.0 / max(num_saved_draws(run.total_iters, run.burnin, run.thin), 1))
-    g, C, mode = m.num_shards, run.num_chains, be.fetch_dtype
+    # assembly (or not) - or, under the streamed fetch, the join of the
+    # drain that already landed the final snapshot
+    inv_count = window(rr.acc_start, rr.window)
     upper = q8 = scales = Sigma = None
-    phase["assemble_s"] = 0.0
-    if mode == "quant8":
-        started = quant8_start(*fetch_prep(pooled, C, g, inv_count, mode))
-        del pooled
-        phase["fetch_s"] = time.perf_counter() - t
-        Sigma, q8, scales = quant8_fetch_assemble(started, pre, phase,
-                                                  assemble=want_sigma)
-    else:
-        upper = fetch_upper(pooled, C, g, inv_count, mode)
-        del pooled
-        phase["fetch_s"] = time.perf_counter() - t
+    phase["fetch_s"] = phase["assemble_s"] = 0.0
+    stream_stats = streamed = None
+    if streamer is not None:
+        t = time.perf_counter()
+        try:
+            streamed = streamer.finish()
+            if not streamed["final_landed"]:
+                streamed = None
+        except Exception as e:  # the reference's policy: warn, fetch post hoc
+            warnings.warn(f"streamed accumulator fetch failed ({e!r}); "
+                          "falling back to the post-hoc fetch",
+                          RuntimeWarning)
+        phase["exposed_fetch_s"] = time.perf_counter() - t
+    if streamed is not None:
+        phase["exposed_fetch_s"] += streamed["final_wait_s"]
+        drain = float(sum(streamed["chunk_fetch_s"]))
+        phase["fetch_s"] += drain
+        stream_stats = {
+            "streamed": True, "snapshots": streamed["snapshots"],
+            "skipped": streamed["skipped"],
+            "exposed_fetch_s": phase["exposed_fetch_s"],
+            "chunk_fetch_s": [float(x) for x in streamed["chunk_fetch_s"]],
+            "overlap_fraction": (
+                max(0.0, min(1.0, 1.0 - phase["exposed_fetch_s"] / drain))
+                if drain > 0 else 0.0)}
+        q8, scales = streamed["q8"], streamed["scales"]
         if want_sigma:
             t = time.perf_counter()
-            Sigma = assemble_from_upper(upper, pre, reinsert_zero_cols=True)
+            Sigma = assemble_q8_sigma(q8, scales, pre)
             phase["assemble_s"] = time.perf_counter() - t
-    phase["exposed_fetch_s"] = phase["fetch_s"]
+    else:
+        exposed0 = phase.get("exposed_fetch_s", 0.0)
+        t = time.perf_counter()
+        pooled = carries[0].sigma_acc   # summed in place, in chain order
+        for c in carries[1:]:
+            pooled += c.sigma_acc
+        if mode == "quant8":
+            started = quant8_start(*fetch_prep(pooled, C, g, inv_count,
+                                               mode))
+            del pooled
+            phase["fetch_s"] = time.perf_counter() - t
+            Sigma, q8, scales = quant8_fetch_assemble(
+                started, pre, phase, assemble=want_sigma)
+        else:
+            upper = fetch_upper(pooled, C, g, inv_count, mode)
+            del pooled
+            phase["fetch_s"] = time.perf_counter() - t
+            if want_sigma:
+                t = time.perf_counter()
+                Sigma = assemble_from_upper(upper, pre,
+                                            reinsert_zero_cols=True)
+                phase["assemble_s"] = time.perf_counter() - t
+        # after a failed stream its join is exposed too
+        phase["exposed_fetch_s"] = exposed0 + phase["fetch_s"]
+    del carries
 
     seconds = time.perf_counter() - t_start
     launches1 = cuda_lib.launch_counts()
-    executed = run.total_iters       # once, not once per chain
+    executed = rr.executed          # once, not once per chain
     return FitResult(
-        Sigma=Sigma, preprocess=pre, state=state,
-        stats=ChainStats(
-            tau_log_max=max(s.tau_log_max for s in stats),
-            ps_min=min(s.ps_min for s in stats),
-            ps_max=max(s.ps_max for s in stats),
-            nonfinite_count=sum(s.nonfinite_count for s in stats),
-            acc_nonfinite=sum(s.acc_nonfinite for s in stats)),
+        Sigma=Sigma, preprocess=pre, state=state, stats=stats,
         config=cfg, device=str(device), seconds=seconds,
         iters_per_sec=executed / max(seconds, 1e-9),
         chain_iters_per_sec=executed / max(phase["chain_s"], 1e-9),
-        traces=traces, diagnostics=_diagnose(traces, run),
-        chunk_seconds=chunk_secs, phase_seconds=phase,
+        traces=traces, diagnostics=_diagnose(traces, rr.trace0, run),
+        chunk_seconds=rr.chunk_seconds, phase_seconds=phase,
         kernel_launches={k: launches1[k] - launches0[k] for k in launches1},
-        graphs={"unroll": unroll, "captured": runner.captured,
-                "capture_s": runner.capture_s, "replays": runner.replays,
-                "eager_trips": runner.eager_trips},
+        graphs={"unroll": unroll, **rr.graphs},
+        checkpoint_error=rr.checkpoint_error,
+        sentinel_rewinds=rr.rewinds, stream_stats=stream_stats,
         _upper_f32=upper, _q8_panels=q8, _q8_scales=scales)
 
 

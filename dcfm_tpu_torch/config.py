@@ -5,9 +5,11 @@ Field names, defaults and meanings are those of the JAX package, so a
 config written for one reads the same in the other.  The port runs one
 device, one process, the MGP prior; the sweep in float32 or mixed bf16
 (``compute_dtype``, ``combine_dtype``), with every ``lambda_kernel``; the
-post-hoc accumulator fetch under every ``fetch_dtype`` and the data upload
+accumulator fetch under every ``fetch_dtype`` (post hoc, or streamed at
+chunk boundaries under quant8, ``fetch_stream``) and the data upload
 under every ``upload_dtype``, with Sigma assembled or kept packed
-(``materialize_sigma``).  Every other knob the JAX package has is either
+(``materialize_sigma``); checkpoints, resume and the divergence sentinel
+on one process.  Every other knob the JAX package has is either
 absent here (passing it is a ``TypeError``) or present and refused by
 :func:`validate` with a ``NotImplementedError`` that names the ROADMAP
 Queue A item that will port it - a knob is never silently ignored.  An
@@ -25,6 +27,7 @@ _CKPT = "ROADMAP Queue A item 3 (pipeline and checkpoint)"
 _MESH = "ROADMAP Queue A item 4 (multi-GPU shards)"
 _SCEN = "ROADMAP Queue A item 5 (scenarios)"
 _INGEST = "ROADMAP Queue A item 6 (scale-out ingest)"
+_OUTER = "ROADMAP Queue A item 7 (outer layers)"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -116,6 +119,16 @@ class BackendConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class WarmStart:
+    """Seed a fresh chain from a prior run's checkpoint (the JAX package's
+    online loop).  Present so a config names it as the JAX package does;
+    refused by :func:`validate` (ROADMAP Queue A item 7)."""
+
+    checkpoint: str
+    relineage: int = 1
+
+
+@dataclasses.dataclass(frozen=True)
 class FitConfig:
     model: ModelConfig
     run: RunConfig
@@ -123,8 +136,37 @@ class FitConfig:
     permute: bool = True
     standardize: bool = True
     pad_to_shards: bool = True
+    # chunk-boundary checkpoints of the chains (utils/checkpoint.py) and
+    # resume from them (runtime/resume.py): False | True (a compatible
+    # file is required) | "auto" (fall back to a fresh start)
     checkpoint_path: Optional[str] = None
     resume: "bool | str" = False
+    # may a checkpoint written at a different chain count be adopted?
+    # "auto" and True would adopt it, which the port refuses (ROADMAP
+    # Queue A item 3); False refuses the file as incompatible
+    elastic: "bool | str" = "auto"
+    # save every k-th chunk boundary (the last always saves); "auto"
+    # starts at 1 and re-sizes from the latest save's measured seconds
+    # (runtime/pipeline.auto_cadence)
+    checkpoint_every_chunks: "int | str" = "auto"
+    # "full": the whole carry (exact resume); "light": the sampler state
+    # only (MBs), a resume restarts the accumulator at the saved iteration
+    checkpoint_mode: str = "full"
+    # light mode: every k-th due save is full, into checkpoint_path +
+    # ".full" (the sidecar resume prefers when it keeps more draws)
+    checkpoint_full_every: int = 0
+    # the live file plus keep_last - 1 rotated ``.bakK`` generations
+    checkpoint_keep_last: int = 1
+    # divergence sentinel (resilience/sentinel.py): "rewind" to the last
+    # good checkpoint, "abort" with ChainDivergedError, "auto" (rewind
+    # with a checkpoint, abort without), or "off"
+    sentinel: str = "auto"
+    sentinel_max_rewinds: int = 3
+    # the streamed fetch landing in a serve artifact: refused (ROADMAP
+    # Queue A item 3)
+    stream_artifact: Optional[str] = None
+    # refused (ROADMAP Queue A item 7)
+    warm_start: Optional[WarmStart] = None
     # the dense (p, p) posterior mean: "always", "never" (FitResult.Sigma
     # is None; blocks through FitResult.sigma_block, or the serve
     # artifact), or "auto" - assembled up to api._AUTO_MATERIALIZE_MAX_P
@@ -209,6 +251,25 @@ def validate(cfg: FitConfig, n: int, p: int) -> None:
             "fetch_stream='on' requires fetch_dtype='quant8': the "
             "streamed double buffer lands int8 panels (use fetch_stream="
             "'auto', which simply does not engage for other dtypes)")
+    if cfg.stream_artifact is not None:
+        if be.fetch_dtype != "quant8":
+            raise ValueError(
+                "stream_artifact requires fetch_dtype='quant8' (the "
+                "artifact layout is the int8 panel set)")
+        if be.fetch_stream == "off":
+            raise ValueError(
+                "stream_artifact requires the streamed fetch "
+                "(fetch_stream 'auto' or 'on', not 'off')")
+    if cfg.warm_start is not None:
+        ws = cfg.warm_start
+        if not isinstance(ws.checkpoint, str) or not ws.checkpoint:
+            raise ValueError(
+                "warm_start.checkpoint must be a non-empty path to the "
+                "donor run's checkpoint")
+        if not isinstance(ws.relineage, int) or ws.relineage < 1:
+            raise ValueError(
+                f"warm_start.relineage must be an int >= 1, got "
+                f"{ws.relineage!r} (0 would replay the donor's streams)")
     if be.fetch_dtype == "float16" and not cfg.standardize:
         raise ValueError(
             "fetch_dtype='float16' requires standardize=True: raw-scale "
@@ -229,6 +290,37 @@ def validate(cfg: FitConfig, n: int, p: int) -> None:
             f"resume must be False, True, or 'auto', got {cfg.resume!r}")
     if cfg.resume and not cfg.checkpoint_path:
         raise ValueError("resume requires checkpoint_path")
+    if cfg.elastic not in (False, True, "auto"):
+        raise ValueError(
+            f"elastic must be False, True, or 'auto', got {cfg.elastic!r}")
+    cek = cfg.checkpoint_every_chunks
+    if not (cek == "auto" or (isinstance(cek, int) and cek >= 1)):
+        raise ValueError(
+            f"checkpoint_every_chunks must be >= 1 or 'auto', got {cek!r}")
+    if cfg.checkpoint_mode not in ("full", "light"):
+        raise ValueError(
+            f"unknown checkpoint_mode {cfg.checkpoint_mode!r} "
+            "(full | light)")
+    if cfg.checkpoint_full_every < 0:
+        raise ValueError(
+            f"checkpoint_full_every must be >= 0, got "
+            f"{cfg.checkpoint_full_every}")
+    if cfg.checkpoint_keep_last < 1:
+        raise ValueError(
+            f"checkpoint_keep_last must be >= 1, got "
+            f"{cfg.checkpoint_keep_last}")
+    if cfg.sentinel not in ("auto", "off", "abort", "rewind"):
+        raise ValueError(
+            f"unknown sentinel mode {cfg.sentinel!r} "
+            "(auto | off | abort | rewind)")
+    if cfg.sentinel == "rewind" and not cfg.checkpoint_path:
+        raise ValueError(
+            "sentinel='rewind' requires checkpoint_path (there is nothing "
+            "to rewind to); use 'abort', or 'auto' which degrades itself")
+    if cfg.sentinel_max_rewinds < 0:
+        raise ValueError(
+            f"sentinel_max_rewinds must be >= 0, got "
+            f"{cfg.sentinel_max_rewinds}")
     # value checks of the knobs refused below, as the JAX package makes
     # them: an invalid value is a ValueError, never "not ported yet"
     if m.prior not in ("mgp", "horseshoe", "dl"):
@@ -258,12 +350,12 @@ def validate(cfg: FitConfig, n: int, p: int) -> None:
         _refuse("store_draws=True", _SCEN)
     if run.early_stop != "off":
         _refuse(f"early_stop={run.early_stop!r}", _SCEN)
-    if cfg.checkpoint_path or cfg.resume:
-        _refuse("checkpoint/resume", _CKPT)
+    if cfg.stream_artifact is not None:
+        _refuse("stream_artifact (the streamed fetch landing in a serve "
+                "artifact)", _CKPT)
+    if cfg.warm_start is not None:
+        _refuse("warm_start", _OUTER)
     if be.mesh_devices > 1:
         _refuse(f"mesh_devices={be.mesh_devices}", _MESH)
     if m.combine_chunks != 1:
         _refuse(f"combine_chunks={m.combine_chunks}", _MESH)
-    if be.fetch_stream == "on":
-        _refuse("fetch_stream='on' (the streamed fetch, StreamingFetcher)",
-                _CKPT)

@@ -50,6 +50,24 @@ class ChainCarry:
     iteration: int            # global Gibbs iterations done
     health: torch.Tensor      # (G, 4) running [max |log tau|, min ps,
                               # max ps, #iterations with non-finite state]
+    # CUDA events of copies that still read these tensors on a side
+    # stream (a checkpoint snapshot, a streamed-fetch sum): whatever writes
+    # the carry next waits for them first (wait_readers)
+    readers: list = dataclasses.field(default_factory=list)
+
+
+def carry_tensors(carry: ChainCarry) -> list:
+    """The carry's tensors in a fixed order: the state's leaves, the
+    accumulator, health."""
+    return [*state_leaves(carry.state), carry.sigma_acc, carry.health]
+
+
+def wait_readers(carry: ChainCarry, stream) -> None:
+    """Make ``stream`` wait for every side-stream copy still reading
+    ``carry``, before it writes the carry (a CPU carry has no readers)."""
+    for ev in carry.readers:
+        stream.wait_event(ev)
+    carry.readers.clear()
 
 
 class ChainStats(NamedTuple):
@@ -174,12 +192,17 @@ class ChainRunner:
     tests and chip_smoke.py hold the graphs against; a failed capture or
     replay raises, never falls back to it.
 
-    The chains share one static carry (the graphs read and write its
-    tensors in place) and run one after another: :meth:`init_chain` resets
-    it to chain c's initial state, so a caller copies what it keeps of one
-    chain before starting the next.  One carry, not one per chain, because
-    the accumulator is the largest tensor of the fit.  Graphs, draw slots
-    and the carry are the runner's: it is meant to live for one fit.
+    The graphs read and write one static carry, the runner's, in place.
+    A chain either runs on it directly (:meth:`init_chain` resets it to
+    chain c's initial state; the card tests and chip_smoke.py drive one
+    chain that way) or keeps a carry of its own (:meth:`new_chain`), which
+    :meth:`run_chunk` copies into the static carry on the runner's stream,
+    advances there and copies back out - so ``fit`` runs its chains
+    chunk-major, all of them at the same global iteration at every chunk
+    boundary, and nothing is recaptured.  Graphs, draw slots and the
+    static carry are the runner's: it lives for one fit, or until a
+    sentinel rewind changes the model (its jitter is baked into the
+    graphs).
     """
 
     def __init__(self, noise, Y: torch.Tensor, cfg: ModelConfig, prior, *,
@@ -244,35 +267,67 @@ class ChainRunner:
         self.carry.iteration = 0
         return self.carry
 
+    def new_chain(self, chain: int) -> ChainCarry:
+        """Chain ``chain``'s initial carry in tensors of its own (the
+        static carry's values after ``init_chain(chain)``)."""
+        return init_chain(self.noise.init(chain), self.Y, self.cfg,
+                          self.prior)
+
     def run_chunk(self, chain: int, carry: ChainCarry, num_iters: int
                   ) -> tuple[ChainCarry, ChainStats, torch.Tensor]:
-        """Run ``num_iters`` Gibbs iterations of chain ``chain`` on the
-        runner's carry, in place.
+        """Run ``num_iters`` Gibbs iterations of chain ``chain`` on
+        ``carry``: the runner's static carry in place, or a chain's own
+        carry (:meth:`new_chain`) copied into the static one, advanced and
+        copied back, once whatever still reads it is done.
 
         On every thin-th post-burn-in iteration the packed Sigma panels of
         the draw are ADDED to the accumulator (raw sums; the caller divides
         by :func:`num_saved_draws`).  Returns (carry, stats, trace) with
         trace (num_iters, 4) on the device."""
-        if carry is not self.carry:
-            raise ValueError("run_chunk advances the runner's own carry "
-                             "(ChainRunner.init_chain)")
+        own = carry is not self.carry
         trace = torch.empty((num_iters, len(TRACE_SUMMARIES)),
                             dtype=torch.float32, device=self.Y.device)
         with self._on_stream():
+            if own:
+                self._load(carry)
+            work = self.carry
             pos = 0
             for length in trip_lengths(num_iters, self.unroll):
-                self._trip(chain, carry.iteration, save_pattern(
-                    carry.iteration, length, self.burnin, self.thin))
+                self._trip(chain, work.iteration, save_pattern(
+                    work.iteration, length, self.burnin, self.thin))
                 trace[pos:pos + length].copy_(self._trace[:length])
-                carry.iteration += length
+                work.iteration += length
                 pos += length
-            h = carry.health.cpu()
+            h = work.health.cpu()
             stats = ChainStats(
                 tau_log_max=float(h[:, 0].max()), ps_min=float(h[:, 1].min()),
                 ps_max=float(h[:, 2].max()),
                 nonfinite_count=float(h[:, 3].sum()),
-                acc_nonfinite=float((~torch.isfinite(carry.sigma_acc)).sum()))
+                acc_nonfinite=float((~torch.isfinite(work.sigma_acc)).sum()))
+            if own:
+                wait_readers(carry, self._stream)
+                for dst, src in zip(carry_tensors(carry),
+                                    carry_tensors(work), strict=True):
+                    dst.copy_(src)
+                carry.iteration = work.iteration
         return carry, stats, trace
+
+    def _load(self, carry: ChainCarry) -> None:
+        """Copy a chain's own carry into the static one (created on first
+        use with the chain's shapes)."""
+        if self.carry is None:
+            self.carry = ChainCarry(
+                state=SamplerState(
+                    *(torch.empty_like(getattr(carry.state, f))
+                      for f in ("Lambda", "Z", "X", "ps")),
+                    prior={k: torch.empty_like(v)
+                           for k, v in carry.state.prior.items()}),
+                sigma_acc=torch.empty_like(carry.sigma_acc), iteration=0,
+                health=torch.empty_like(carry.health))
+        for dst, src in zip(carry_tensors(self.carry), carry_tensors(carry),
+                            strict=True):
+            dst.copy_(src)
+        self.carry.iteration = carry.iteration
 
     def _trip(self, chain: int, start: int, pattern: tuple) -> None:
         if self._recipe is None:

@@ -108,18 +108,25 @@ class _SiteStreams:
 
 class TorchNoise:
     """Default provider: Philox streams keyed on (seed, chain, global
-    iteration, site) on ``device`` (an init has its own key space)."""
+    iteration, site) on ``device`` (an init has its own key space).
 
-    def __init__(self, seed: int, device):
+    ``lineage`` re-lineages the sweeps' streams: the divergence sentinel's
+    rewind appends its rewind count (runtime/pipeline), so a retried
+    trajectory never replays the draws that diverged - the port of the JAX
+    package's ``fold_in(key_chain, rewinds)``.  The empty lineage keys the
+    streams exactly as before it existed."""
+
+    def __init__(self, seed: int, device, lineage: tuple = ()):
         self.seed = int(seed)
         self.device = torch.device(device)
+        self.lineage = tuple(int(w) for w in lineage)
 
     def init(self, chain: int) -> Draws:
         return _SiteStreams((self.seed, int(chain), _INIT), self.device)
 
     def sweep(self, chain: int, iteration: int) -> Draws:
-        return _SiteStreams((self.seed, int(chain), _SWEEP, int(iteration)),
-                            self.device)
+        return _SiteStreams((self.seed, int(chain), _SWEEP, int(iteration),
+                             *self.lineage), self.device)
 
 
 class DrawCall(NamedTuple):

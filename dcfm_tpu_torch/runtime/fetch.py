@@ -16,13 +16,14 @@ move it cheaply:
   followed by an event, waited slice by slice, and the native one-pass
   assembly of the caller-coordinate Sigma;
 * :func:`upload_host_array` - the data's down-cast for the host->device
-  link (the device casts back to float32 on arrival).
+  link (the device casts back to float32 on arrival);
+* :func:`accumulator_window` - the one home of the window divisor: the
+  post-hoc fetch, the streamed fetch (runtime/pipeline.StreamingFetcher)
+  and a light resume's restarted window all divide by what it returns.
 
 On the CPU the same functions run with no stream and no pinned memory:
 the "copy" is the tensor itself.  No fetch runs inside a captured graph.
-The streamed fetch (``fetch_stream='on'``, StreamingFetcher), the
-posterior-SD fetch and the elastic divisor are not ported (ROADMAP Queue A
-items 3 and 5).
+The posterior-SD fetch is not ported (ROADMAP Queue A item 5).
 """
 
 from __future__ import annotations
@@ -32,12 +33,59 @@ import time
 import numpy as np
 import torch
 
+from dcfm_tpu_torch.models.sampler import num_saved_draws
 from dcfm_tpu_torch.models.state import num_upper_pairs
 from dcfm_tpu_torch.utils.estimate import assemble_from_q8
 from dcfm_tpu_torch.utils.preprocess import PreprocessResult
 
 LINK_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
                "float16": torch.float16}
+
+
+def elastic_pooled_draws(total_iters: int, burnin: int, thin: int,
+                         chain_acc_starts, fold_draws: int = 0) -> int:
+    """Total saved draws the pooled accumulators hold: each chain's own
+    window ``(acc_start_c, total_iters]`` plus the draws folded in from
+    dropped chains (``fold_draws``, checkpoint meta v7).  Integer-exact."""
+    return fold_draws + sum(
+        num_saved_draws(total_iters, burnin, thin)
+        - num_saved_draws(int(a), burnin, thin)
+        for a in chain_acc_starts)
+
+
+def accumulator_window(total_iters: int, burnin: int, thin: int,
+                       acc_start: int, num_chains: int,
+                       chain_acc_starts=None, fold_draws: int = 0):
+    """``(n_saved, inv_count, bessel)`` for the accumulator window
+    ``(acc_start, total_iters]``: the divisor :func:`fetch_prep` scales
+    by.  The streamed and the post-hoc fetch both call this, so the two
+    feed fetch_prep the same float32 divisor (their bitwise equality
+    depends on it); the arithmetic is the JAX package's
+    ``runtime.fetch.accumulator_window``, non-elastic branch bit for bit.
+
+    ``chain_acc_starts`` / ``fold_draws`` (checkpoint meta v7): per-chain
+    window starts and draws folded in from dropped chains; fetch_prep
+    computes ``sum over chains * inv_count / C``, so their inv_count is
+    ``C / total_draws``.  The uniform case reduces to ``1 / n_saved``."""
+    n_saved = (num_saved_draws(total_iters, burnin, thin)
+               - num_saved_draws(acc_start, burnin, thin))
+    if chain_acc_starts is None and not fold_draws:
+        inv_count = np.float32(1.0 / max(n_saved, 1))
+        n_draws = max(n_saved * num_chains, 1)
+        bessel = np.float32(n_draws / (n_draws - 1) if n_draws > 1 else 1.0)
+        return n_saved, inv_count, bessel
+    if chain_acc_starts is None:
+        chain_acc_starts = [acc_start] * num_chains
+    total_draws = elastic_pooled_draws(total_iters, burnin, thin,
+                                       chain_acc_starts, fold_draws)
+    n_saved = max(n_saved, max(
+        (num_saved_draws(total_iters, burnin, thin)
+         - num_saved_draws(int(a), burnin, thin))
+        for a in chain_acc_starts))
+    inv_count = np.float32(num_chains / max(total_draws, 1))
+    n_draws = max(total_draws, 1)
+    bessel = np.float32(n_draws / (n_draws - 1) if n_draws > 1 else 1.0)
+    return n_saved, inv_count, bessel
 
 
 def fetch_prep(acc: torch.Tensor, num_chains: int, g: int, inv_count,

@@ -1,0 +1,473 @@
+"""The chunk loop and the streamed accumulator fetch.
+
+The port of ``dcfm_tpu/runtime/pipeline.py`` for one process:
+
+* :func:`run_chain` - the host-side chunk loop moved out of ``api.fit``:
+  the chains run chunk-major (every chain advances one chunk before any
+  chain starts the next, so all of them sit at one global iteration at
+  each boundary); resume (runtime/resume.py); write-behind checkpoints
+  (utils/checkpoint.AsyncCheckpointWriter) at the cadence
+  ``checkpoint_every_chunks`` sets, light saves with periodic full
+  sidecars; the save-failure policy; the divergence sentinel
+  (resilience/sentinel.py) with its rewind; and a snapshot of the pooled
+  accumulator for the stream below at every boundary.
+* :class:`StreamingFetcher` - the double-buffered device->host stream of
+  quant8 accumulator snapshots.  Each boundary after the first saved draw
+  sums the chains' accumulators in chain order into a device buffer and
+  runs ``fetch_prep`` and ``cast_for_link`` on it on a side stream, while
+  the next chunk computes; a drain thread lands the int8 panels.  At most
+  ``max_inflight`` snapshots are in flight: a boundary that finds every
+  slot busy is skipped, and the final boundary waits for one.  The final
+  snapshot is the post-hoc quant8 fetch's computation on the same sums
+  with the same divisor (runtime/fetch.accumulator_window), so the
+  streamed panels and scales are bitwise the post-hoc ones: snapshots,
+  never deltas (float32 sums of deltas do not reproduce the running sum).
+
+The card's copies never race the chain: a snapshot or a stream sum reads a
+chain's carry on a side stream after waiting for the runner's work, and
+appends its end event to the carry's ``readers``; the runner waits for
+those events before it writes the carry again.  No snapshot runs inside a
+capture: they all run between chunks.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import queue
+import threading
+import time
+import warnings
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+
+from dcfm_tpu_torch.models.sampler import (
+    ChainCarry, ChainStats, num_saved_draws)
+from dcfm_tpu_torch.models.state import SamplerState
+from dcfm_tpu_torch.resilience.sentinel import (
+    ChainDivergedError, DivergenceSentinel)
+from dcfm_tpu_torch.runtime.fetch import (
+    _fetch_stream, fetch_prep, quant8_drain, quant8_start)
+from dcfm_tpu_torch.runtime.resume import (
+    ResumeContext, resume_state, rewind_source)
+from dcfm_tpu_torch.utils.checkpoint import (
+    AsyncCheckpointWriter, save_checkpoint)
+
+
+def chunk_schedule(num_iters: int, chunk: int) -> list:
+    """Full chunks and one remainder chunk, exactly ``num_iters`` (every
+    draw is keyed on the global iteration, so neither chunking nor a
+    resume boundary changes the chain)."""
+    out = [chunk] * (num_iters // chunk)
+    if num_iters % chunk:
+        out.append(num_iters % chunk)
+    return out
+
+
+def auto_cadence(last_save_seconds: float, chunk_secs: list) -> int:
+    """``checkpoint_every_chunks="auto"``: the boundaries between saves
+    such that one save (its copy and its write, ``last_save_seconds``)
+    fits with 1.5x headroom in the chunks it overlaps; chunk 0 (first-use
+    costs) is left out of the mean when there are others."""
+    steady = chunk_secs[1:] if len(chunk_secs) > 1 else chunk_secs
+    mean_chunk = sum(steady) / len(steady)
+    return max(1, int(np.ceil(1.5 * last_save_seconds
+                              / max(mean_chunk, 1e-9))))
+
+
+def pool_stats(stats: list) -> ChainStats:
+    """The chains' ChainStats reduced to one (max, min, max, sums)."""
+    return ChainStats(
+        tau_log_max=max(s.tau_log_max for s in stats),
+        ps_min=min(s.ps_min for s in stats),
+        ps_max=max(s.ps_max for s in stats),
+        nonfinite_count=sum(s.nonfinite_count for s in stats),
+        acc_nonfinite=sum(s.acc_nonfinite for s in stats))
+
+
+def carries_from_leaves(leaves: dict, num_chains: int, device,
+                        acc_shape: tuple) -> list:
+    """The chains' carries on ``device`` from checkpoint leaves (a light
+    file's accumulator restarts at zero)."""
+    def get(name, c):
+        a = leaves[name]
+        return torch.as_tensor(np.array(a[c] if num_chains > 1 else a,
+                                        copy=True), device=device)
+
+    out = []
+    for c in range(num_chains):
+        acc = (get("sigma_acc", c) if "sigma_acc" in leaves
+               else torch.zeros(acc_shape, dtype=torch.float32,
+                                device=device))
+        out.append(ChainCarry(
+            state=SamplerState(
+                *(get(k, c) for k in ("Lambda", "Z", "X", "ps")),
+                prior={k: get(k, c) for k in ("delta", "psijh")}),
+            sigma_acc=acc,
+            iteration=int(np.asarray(leaves["iteration"]).reshape(-1)[c]),
+            health=get("health", c)))
+    return out
+
+
+@dataclasses.dataclass
+class _StreamJob:
+    started: tuple             # runtime.fetch.quant8_start's
+    final: bool
+    sources: list              # the summed accumulators, alive until drained
+
+
+class StreamingFetcher:
+    """Double-buffered background drain of per-boundary quant8 snapshots
+    of the chains' pooled accumulator (module docstring).
+
+    ``inv_count`` is the final window's divisor (the post-hoc fetch's,
+    runtime/fetch.accumulator_window); a sentinel rewind that moves the
+    window resets it (:meth:`reset_window`)."""
+
+    def __init__(self, inv_count, num_chains: int, g: int, *,
+                 max_inflight: int = 2):
+        self._inv_count = inv_count
+        self._C, self._g = num_chains, g
+        self._buf: Optional[torch.Tensor] = None
+        self.q8: Optional[np.ndarray] = None
+        self.scales: Optional[np.ndarray] = None
+        self.snapshots = self.skipped = 0
+        self.chunk_fetch_s: list = []
+        # seconds the final submit waited for a free slot: exposed fetch
+        # time spent inside the chunk loop
+        self.final_wait_s = 0.0
+        self.final_landed = False
+        self._slots = threading.Semaphore(max_inflight)
+        self._queue: "queue.Queue" = queue.Queue()
+        self._error: Optional[BaseException] = None
+        self._finished = False
+        # non-daemon: finish()/abort() join it, and the interpreter joins
+        # an abandoned one at exit
+        self._worker = threading.Thread(target=self._drain_loop,
+                                        name="dcfm-stream-drain")
+        self._worker.start()
+
+    def reset_window(self, inv_count) -> None:
+        """A sentinel rewind moved the window: its new divisor (snapshots
+        already queued are superseded by the final one)."""
+        self._inv_count = inv_count
+
+    def submit(self, carries: list, *, final: bool = False) -> bool:
+        """Dispatch one boundary's snapshot: the chain-order sum, the
+        quant8 prep and the start of its drain.  A non-final submit never
+        blocks: with every slot busy the boundary is skipped (False).  The
+        final submit waits for a slot."""
+        if self._error is not None:
+            return False
+        if final:
+            t = time.perf_counter()
+            self._slots.acquire()
+            self.final_wait_s = time.perf_counter() - t
+        elif not self._slots.acquire(blocking=False):
+            self.skipped += 1
+            return False
+        try:
+            accs = [c.sigma_acc for c in carries]
+            dev = accs[0].device
+            side = None
+            if dev.type == "cuda":
+                side = _fetch_stream(dev)
+                side.wait_stream(torch.cuda.current_stream(dev))
+            with (torch.cuda.stream(side) if side is not None
+                  else contextlib.nullcontext()):
+                if self._buf is None:
+                    self._buf = torch.empty_like(accs[0])
+                self._buf.copy_(accs[0])
+                for a in accs[1:]:
+                    self._buf += a
+                if side is not None:
+                    read = torch.cuda.Event()
+                    read.record(side)
+                    for c in carries:
+                        c.readers.append(read)
+                q, scale = fetch_prep(self._buf, self._C, self._g,
+                                      self._inv_count, "quant8")
+                started = quant8_start(q, scale)
+        except BaseException:
+            self._slots.release()      # a later final submit waits on it
+            raise
+        self.snapshots += 1
+        self._queue.put(_StreamJob(started, final, accs))
+        return True
+
+    def finish(self) -> dict:
+        """Join the drain (the caller times the join: it is the exposed
+        fetch) and return the landed panels and the telemetry; raises the
+        drain's stored failure (the caller falls back to the post-hoc
+        fetch: the carries are still alive)."""
+        self._close()
+        if self._error is not None:
+            e, self._error = self._error, None
+            raise e
+        return {"q8": self.q8, "scales": self.scales,
+                "final_landed": self.final_landed,
+                "snapshots": self.snapshots, "skipped": self.skipped,
+                "final_wait_s": self.final_wait_s,
+                "chunk_fetch_s": list(self.chunk_fetch_s)}
+
+    def abort(self) -> None:
+        """Exception path: stop the drain without raising its errors."""
+        self._close()
+        self._error = None
+
+    def _close(self) -> None:
+        if not self._finished:
+            self._finished = True
+            self._queue.put(None)
+            self._worker.join()
+            self._buf = None
+
+    def _drain_loop(self) -> None:
+        while True:
+            job = self._queue.get()
+            if job is None:
+                return
+            try:
+                if self._error is None:
+                    t = time.perf_counter()
+                    self.q8, self.scales = quant8_drain(job.started)
+                    if job.final:
+                        self.final_landed = True
+                    self.chunk_fetch_s.append(time.perf_counter() - t)
+            except BaseException as e:      # surfaced by finish()
+                self._error = e
+            finally:
+                job.sources = None
+                self._slots.release()
+
+
+@dataclasses.dataclass
+class ChainRunResult:
+    """What the chunk loop hands back to ``api.fit``'s epilogue."""
+
+    carries: list
+    stats: Optional[ChainStats]    # None after a no-op resume
+    executed: int
+    traces: list                   # (C, iters, 4) host arrays per chunk
+    chunk_seconds: list
+    done: int                      # the iteration the run started at
+    acc_start: int
+    window: Optional[tuple]        # ResumeContext.window
+    checkpoint_error: Optional[str]
+    rewinds: int
+    trace0: int                    # global iteration the traces start at
+    streamer: Optional[StreamingFetcher]
+    graphs: dict                   # the runners' graph counts, summed
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+_GRAPH_KEYS = ("captured", "capture_s", "replays", "eager_trips")
+
+
+def run_chain(*, cfg, model, run, phase: dict, fingerprint, template: dict,
+              make_runner: Callable, device: torch.device,
+              window_fn: Callable, stream: bool = False) -> ChainRunResult:
+    """The host-side chunk loop.  ``make_runner(model, lineage)`` builds a
+    ``models/sampler.ChainRunner`` for ``model`` (the base ModelConfig, or
+    the sentinel's jitter-escalated one after a rewind) on streams of the
+    given lineage; ``window_fn(acc_start, window)`` is the fetch divisor
+    (``window``: ResumeContext.window); ``stream`` feeds a
+    :class:`StreamingFetcher`, built once the resume point is known."""
+    C = run.num_chains
+    chunk = run.chunk_size or run.total_iters
+    rctx = ResumeContext(cfg=cfg, fingerprint=fingerprint, template=template)
+    graphs = dict.fromkeys(_GRAPH_KEYS, 0)
+
+    def retire(r):
+        for k in _GRAPH_KEYS:
+            graphs[k] += getattr(r, k)
+
+    t_init = time.perf_counter()
+    lineage: tuple = ()
+    m_active = model
+    runner = make_runner(m_active, lineage)
+    leaves, done, acc_start = resume_state(rctx)
+    carries = ([runner.new_chain(c) for c in range(C)] if leaves is None
+               else carries_from_leaves(leaves, C, device,
+                                        template["sigma_acc"][0][-3:]))
+    del leaves
+    _sync(device)
+    phase["init_s"] = time.perf_counter() - t_init
+    executed = run.total_iters - done
+    stats, traces, chunk_secs = None, [], []
+    phase["checkpoint_s"] = 0.0
+    writer = AsyncCheckpointWriter() if cfg.checkpoint_path else None
+    light_mode = cfg.checkpoint_mode == "light"
+    cadence = cfg.checkpoint_every_chunks
+    auto = cadence == "auto"
+    if auto:
+        cadence = 1
+    since_save, saves_done, ck_error = 0, 0, None
+
+    def save_failure(e, last):
+        """Before the last boundary a failed save re-raises (fail fast,
+        lose one chunk); once the chain is complete it only warns and
+        sets FitResult.checkpoint_error."""
+        nonlocal ck_error
+        if not last:
+            raise e
+        warnings.warn(f"checkpoint save failed: {e!r}; results are "
+                      "returned but the run is NOT resumable from its end",
+                      RuntimeWarning)
+        ck_error = repr(e)
+
+    s_mode = cfg.sentinel
+    if s_mode == "auto":
+        s_mode = "rewind" if cfg.checkpoint_path else "abort"
+    sentinel = None
+    if s_mode in ("abort", "rewind") and executed:
+        sentinel = DivergenceSentinel(
+            s_mode, max_rewinds=cfg.sentinel_max_rewinds,
+            baseline_nonfinite=sum(float(c.health[..., 3].sum())
+                                   for c in carries),
+            base_jitter=model.ridge_jitter)
+    trace0 = it_now = done
+    streamer = (StreamingFetcher(window_fn(acc_start, rctx.window), C,
+                                 model.num_shards)
+                if stream and executed else None)
+    queue_ = chunk_schedule(executed, chunk)
+    qi = 0
+    try:
+        while qi < len(queue_):
+            ni = queue_[qi]
+            qi += 1
+            t = time.perf_counter()
+            chain_stats, chain_traces = [], []
+            for c in range(C):
+                # (the returned carry is not kept: a rewind must be able
+                # to free every chain's old carry)
+                st, tr = runner.run_chunk(c, carries[c], ni)[1:]
+                chain_stats.append(st)
+                chain_traces.append(tr.cpu().numpy())
+            _sync(device)
+            chunk_secs.append(time.perf_counter() - t)
+            it_now += ni
+            traces.append((it_now - ni, np.stack(chain_traces)))
+            stats = pool_stats(chain_stats)
+            last = qi == len(queue_)
+            if sentinel is not None and sentinel.tripped(stats):
+                reloaded = None
+                if sentinel.mode == "rewind":
+                    if writer is not None:
+                        try:
+                            writer.wait()    # no racing an in-flight save
+                        except Exception:  # dcfm: ignore[DCFM601] - a failed save of a diverged carry is moot mid-rewind
+                            pass
+                    reloaded = rewind_source(rctx)
+                if reloaded is None:
+                    raise ChainDivergedError(
+                        "chain produced non-finite values in the chunk "
+                        f"ending at iteration {it_now}"
+                        + (" and no usable checkpoint exists to rewind to"
+                           if sentinel.mode == "rewind"
+                           else " (sentinel mode 'abort')"),
+                        iteration=it_now, rewinds=sentinel.rewinds)
+                sentinel.record_rewind(it_now)  # raises past the budget
+                leaves, it_now, acc_start = reloaded
+                # the rewound chains restart from the file on fresh
+                # streams (the rewind count folded into their lineage) and
+                # a 10x ridge jitter, which every captured graph has baked
+                # in: the runner and its graphs are replaced
+                _sync(device)
+                retire(runner)
+                del runner, carries
+                carries = carries_from_leaves(
+                    leaves, C, device, template["sigma_acc"][0][-3:])
+                del leaves
+                lineage = lineage + (sentinel.rewinds,)
+                m_active = dataclasses.replace(
+                    m_active, ridge_jitter=sentinel.escalated_jitter())
+                runner = make_runner(m_active, lineage)
+                trace0 = min(trace0, it_now)
+                traces = [(s, tr) for s, tr in traces if s < it_now]
+                if streamer is not None:
+                    streamer.reset_window(window_fn(acc_start,
+                                                    rctx.window))
+                queue_ = chunk_schedule(run.total_iters - it_now, chunk)
+                qi = 0
+                since_save = 0
+                continue
+            if streamer is not None:
+                # before the checkpoint's snapshot, so the panels are
+                # first on the link; burn-in boundaries (no saved draw
+                # yet) skip
+                draws = (num_saved_draws(it_now, run.burnin, run.thin)
+                         - num_saved_draws(acc_start, run.burnin, run.thin))
+                if rctx.window is not None:
+                    draws += rctx.window[1]
+                if last or draws > 0:
+                    try:
+                        streamer.submit(carries, final=last)
+                    except Exception as e:  # the stream is an optimization: the post-hoc fetch serves
+                        warnings.warn(
+                            f"streamed fetch dispatch failed ({e!r}); "
+                            "disabling streaming for this run - the "
+                            "post-hoc fetch will serve the result",
+                            RuntimeWarning)
+                        streamer.abort()
+                        streamer = None
+            if writer is None:
+                continue
+            if writer.poll_error() is not None and not last:
+                writer.wait()       # re-raises the stored failure
+            if auto and writer.last_save_seconds is not None:
+                cadence = auto_cadence(writer.last_save_seconds, chunk_secs)
+            since_save += 1
+            # the last boundary always saves; a still-running save defers
+            # a non-final due save to the next boundary
+            if (since_save >= cadence and not writer.busy()) or last:
+                full_due = (light_mode and cfg.checkpoint_full_every > 0
+                            and (saves_done + 1)
+                            % cfg.checkpoint_full_every == 0)
+                # light mode's full saves go to the sidecar (the next light
+                # save replaces checkpoint_path), except the last one
+                target = (cfg.checkpoint_path + ".full"
+                          if full_due and not last else cfg.checkpoint_path)
+                state_only = light_mode and not full_due
+                kw = {}
+                if rctx.window is not None and not state_only:
+                    kw = dict(chain_acc_starts=list(rctx.window[0]),
+                              fold_draws=rctx.window[1])
+                t = time.perf_counter()
+                try:
+                    writer.submit(save_checkpoint, target, carries, cfg,
+                                  fingerprint=fingerprint,
+                                  state_only=state_only,
+                                  acc_start=acc_start,
+                                  keep_last=cfg.checkpoint_keep_last, **kw)
+                except Exception as e:  # the save-failure policy
+                    save_failure(e, last)
+                phase["checkpoint_s"] += time.perf_counter() - t
+                since_save = 0
+                saves_done += 1
+        if writer is not None:
+            # the last save must be durable before fit returns
+            t = time.perf_counter()
+            try:
+                writer.wait()
+            except Exception as e:  # the chain is complete: downgrade
+                save_failure(e, True)
+            phase["checkpoint_s"] += time.perf_counter() - t
+    except BaseException:
+        if streamer is not None:
+            streamer.abort()
+        raise
+    retire(runner)
+    return ChainRunResult(
+        carries=carries, stats=stats, executed=executed,
+        traces=[tr for _, tr in traces], chunk_seconds=chunk_secs,
+        done=done, acc_start=acc_start, window=rctx.window,
+        checkpoint_error=ck_error,
+        rewinds=sentinel.rewinds if sentinel is not None else 0,
+        trace0=trace0, streamer=streamer, graphs=graphs)

@@ -36,6 +36,7 @@ from typing import Optional
 
 import numpy as np
 
+from dcfm_tpu_torch.config import _CKPT
 from dcfm_tpu_torch.utils.estimate import assemble_from_q8
 from dcfm_tpu_torch.utils.preprocess import PreprocessResult
 
@@ -355,3 +356,11 @@ def export_fit_result(res, path: str) -> PosteriorArtifact:
     }
     return write_artifact(path, mean_q8=mean_q8, mean_scale=mean_scale,
                           pre=res.preprocess, provenance=provenance)
+
+
+def export_from_checkpoint(checkpoint_path: str, Y: np.ndarray,
+                           path: str) -> PosteriorArtifact:
+    """The JAX package's export straight from a checkpoint, with no refit:
+    refused until it is ported."""
+    raise NotImplementedError(
+        f"export_from_checkpoint is not ported to dcfm_tpu_torch yet: {_CKPT}")

@@ -1,0 +1,530 @@
+"""Checkpoint files of the chains: format, integrity, retention, the
+write-behind writer and the snapshot of a chain on the card.
+
+The port of the single-process part of ``dcfm_tpu/utils/checkpoint.py``.
+The restartable state of a fit is its chains' carries (sampler state,
+packed covariance accumulator, iteration, health), the FitConfig (to
+refuse resuming under a different model) and a fingerprint of the sharded
+data (preprocessing is deterministic given the seed, so the resumed fit
+recomputes it from the caller's Y and the fingerprint refuses other data).
+
+Format: the JAX package's v8 - one ``.npz`` with the leaves ``leaf_0``,
+``leaf_1``, ... in the JAX ``ChainCarry``'s flatten order
+(:data:`FULL_LEAVES`: Lambda, Z, X, ps, the MGP prior's delta and psijh,
+sigma_acc, iteration, health; a light file drops sigma_acc and renumbers,
+:data:`LIGHT_LEAVES`), a leading chain axis on every leaf when there is
+more than one chain and none for one, and a JSON ``__meta__`` entry with
+the JAX package's keys, per-leaf CRC32s among them.  So the JAX package's
+``verify_checkpoint`` and ``load_checkpoint`` (with a ``jax.eval_shape``
+template) read a port file leaf for leaf.
+
+One key is the port's own: ``"rng": "torch-philox"``, naming the random
+streams the chains were drawn from (``noise.TorchNoise``).  The port
+resumes only files that carry it: a chain the JAX package wrote came from
+threefry keys and cannot be continued on Philox streams as the same chain
+(and the JAX package cannot continue a port chain either).
+
+Writes are atomic (tmp + rename), so a crash mid-save never corrupts the
+previous checkpoint; ``keep_last`` > 1 keeps older generations as
+``.bakK`` files.  The fault-injection and flight-recorder seams of the
+JAX writer (``fault_plan``, ``record``) are not ported (ROADMAP Queue A
+item 7).
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import hashlib
+import json
+import os
+import re
+import shutil
+import tempfile
+import threading
+import time
+import zipfile
+import zlib
+from typing import Callable, Optional, Tuple
+
+import numpy as np
+import torch
+
+from dcfm_tpu_torch.config import (
+    BackendConfig, FitConfig, MGPConfig, ModelConfig, RunConfig)
+from dcfm_tpu_torch.models.state import num_padded_pairs
+
+# the random streams a port chain is drawn from (meta["rng"])
+RNG_STREAMS = "torch-philox"
+
+# the JAX package's format version, and the versions whose meta it reads
+_FORMAT_VERSION = 8
+_LOADABLE_VERSIONS = (_FORMAT_VERSION, 7, 6)
+
+# the leaves of a chain's carry in the JAX ChainCarry's flatten order
+STATE_LEAVES = ("Lambda", "Z", "X", "ps", "delta", "psijh")
+FULL_LEAVES = STATE_LEAVES + ("sigma_acc", "iteration", "health")
+# a light (state-only) file drops the accumulator: the JAX _slim carry
+LIGHT_LEAVES = STATE_LEAVES + ("iteration", "health")
+_ACC_LEAF = FULL_LEAVES.index("sigma_acc")
+_TREEDEF = ("ChainCarry(state=SamplerState(Lambda, Z, X, ps, prior={delta, "
+            "psijh}), sigma_acc, iteration, health)")
+
+
+class CheckpointCorruptError(ValueError):
+    """A checkpoint leaf failed its recorded CRC32: the file's bytes are
+    not the bytes that were written (a torn write the rename hid, a media
+    error).  ``path`` names the offending file."""
+
+    def __init__(self, message: str, *, path: str = ""):
+        super().__init__(message)
+        self.path = path
+
+
+def carry_template(model: ModelConfig, *, n: int, P: int,
+                   num_chains: int) -> dict:
+    """``{leaf: (shape, numpy dtype)}`` of a fit's checkpoint, full form,
+    with the chain-axis convention (a leading ``num_chains`` axis when
+    there is more than one chain)."""
+    G, K = model.num_shards, model.factors_per_shard
+    core = {"Lambda": (G, P, K), "Z": (G, n, K), "X": (n, K), "ps": (G, P),
+            "delta": (G, K), "psijh": (G, P, K),
+            "sigma_acc": (num_padded_pairs(G), P, P), "iteration": (),
+            "health": (G, 4)}
+    lead = (num_chains,) if num_chains > 1 else ()
+    return {k: (lead + s, np.dtype(np.int32 if k == "iteration"
+                                   else np.float32))
+            for k, s in core.items()}
+
+
+def _chain_tensors(carry, state_only: bool) -> dict:
+    """One chain's leaves as tensors (iteration stays a Python int)."""
+    st = carry.state
+    out = {"Lambda": st.Lambda, "Z": st.Z, "X": st.X, "ps": st.ps,
+           "delta": st.prior["delta"], "psijh": st.prior["psijh"]}
+    if not state_only:
+        out["sigma_acc"] = carry.sigma_acc
+    out["health"] = carry.health
+    return out
+
+
+_STREAMS: dict = {}     # device index -> the snapshots' side stream
+
+
+def _snapshot_stream(device: torch.device):
+    index = (torch.cuda.current_device() if device.index is None
+             else device.index)
+    if index not in _STREAMS:
+        _STREAMS[index] = torch.cuda.Stream(index)
+    return _STREAMS[index]
+
+
+class Snapshot:
+    """The chains' carries copied to the host, as checkpoint leaves.
+
+    On the card the copies go into pinned host memory on a side stream
+    that first waits for the work queued so far on the current stream;
+    one event marks their end, and it is appended to every carry's
+    ``readers``, so the runner waits for it before it writes a carry
+    again (models/sampler.wait_readers).  :meth:`wait` (the writer's
+    thread) waits for that event before anything reads the host copies;
+    the device tensors are kept alive until then.  On the CPU the leaves
+    are copied at once."""
+
+    def __init__(self, carries: list, *, state_only: bool):
+        C = len(carries)
+        iters = np.asarray([int(c.iteration) for c in carries], np.int32)
+        self._iteration = iters if C > 1 else iters[0].copy()
+        per_chain = [_chain_tensors(c, state_only) for c in carries]
+        self._event, self._src = None, None
+        first = per_chain[0]["Lambda"]
+        if first.device.type != "cuda":
+            self._host = {k: (np.stack([t[k].numpy() for t in per_chain])
+                              if C > 1 else per_chain[0][k].numpy().copy())
+                          for k in per_chain[0]}
+            return
+        side = _snapshot_stream(first.device)
+        side.wait_stream(torch.cuda.current_stream(first.device))
+        self._host = {}
+        with torch.cuda.stream(side):
+            for k, t0 in per_chain[0].items():
+                host = torch.empty(((C,) if C > 1 else ()) + tuple(t0.shape),
+                                   dtype=t0.dtype, pin_memory=True)
+                for c, t in enumerate(per_chain):
+                    (host[c] if C > 1 else host).copy_(t[k],
+                                                       non_blocking=True)
+                self._host[k] = host
+            self._event = torch.cuda.Event()
+            self._event.record(side)
+        self._src = per_chain
+        for c in carries:
+            c.readers.append(self._event)
+
+    def wait(self) -> dict:
+        """``{leaf name: numpy array}`` once the copies have landed."""
+        if self._event is not None:
+            self._event.synchronize()
+            self._event, self._src = None, None
+        out = {k: (v.numpy() if isinstance(v, torch.Tensor) else v)
+               for k, v in self._host.items()}
+        out["iteration"] = self._iteration
+        return out
+
+
+def _num_chains(leaves: dict) -> int:
+    it = np.asarray(leaves["iteration"])
+    return int(it.shape[0]) if it.ndim else 1
+
+
+def data_fingerprint(data: np.ndarray) -> str:
+    """Cheap content hash of the dense sharded (g, n, P) data: its shape
+    and a strided sample (the JAX package's, dense branch)."""
+    h = hashlib.sha256()
+    h.update(str(tuple(data.shape)).encode())
+    flat = np.ascontiguousarray(data).reshape(-1)
+    h.update(flat[:: max(1, flat.size // 65536)].tobytes())
+    return h.hexdigest()[:16]
+
+
+def _config_to_json(cfg: FitConfig) -> dict:
+    return dataclasses.asdict(cfg)
+
+
+def _config_from_json(d: dict) -> FitConfig:
+    model = dict(d["model"])
+    model["mgp"] = MGPConfig(**model["mgp"])
+    known = {f.name for f in dataclasses.fields(FitConfig)}
+    rest = {k: v for k, v in d.items()
+            if k in known and k not in ("model", "run", "backend")}
+    return FitConfig(model=ModelConfig(**model), run=RunConfig(**d["run"]),
+                     backend=BackendConfig(**d["backend"]), **rest)
+
+
+def elastic_meta(meta: dict, num_chains: int) -> Tuple[list, int, int]:
+    """``(chain_acc_starts, fold_draws, elastic_lineage)`` of a loadable
+    meta, with the lossless v6 defaults (uniform starts at ``acc_start``,
+    nothing folded, lineage 0) where the file predates the v7 fields.
+    ``num_chains`` is the chain count the file was written at."""
+    acc_start = int(meta.get("acc_start", 0))
+    starts = meta.get("chain_acc_starts")
+    if starts is None:
+        starts = [acc_start] * int(num_chains)
+    return ([int(a) for a in starts], int(meta.get("fold_draws", 0)),
+            int(meta.get("elastic_lineage", 0)))
+
+
+def _leaf_crc(arr: np.ndarray) -> int:
+    """CRC32 of a leaf's raw bytes."""
+    a = np.ascontiguousarray(arr)
+    return zlib.crc32(a.reshape(-1).view(np.uint8))
+
+
+def _read_leaf(z, meta: dict, name: str, path: str) -> np.ndarray:
+    """One payload entry, checked against its recorded CRC32.  A byte
+    that changed on disk fails the zip member's own CRC first: that is
+    the same corruption, and raises the same error."""
+    try:
+        arr = z[name]
+    except zipfile.BadZipFile as e:
+        raise CheckpointCorruptError(f"{path}: checkpoint entry {name!r} "
+                                     f"is unreadable ({e})", path=path) from e
+    _verify_crc(meta, name, arr, path)
+    return arr
+
+
+def _verify_crc(meta: dict, name: str, arr: np.ndarray, path: str) -> None:
+    """Check one loaded payload entry against the CRC recorded at save
+    (files written before the integrity format carry none: unverified)."""
+    want = (meta.get("leaf_crc") or {}).get(name)
+    if want is None:
+        return
+    got = _leaf_crc(arr)
+    if got != int(want):
+        raise CheckpointCorruptError(
+            f"{path}: checkpoint entry {name!r} fails its CRC32 (stored "
+            f"{int(want):#010x}, computed {got:#010x}) - the file is "
+            "corrupt (torn write, media error); resuming it would compute "
+            "on garbage", path=path)
+
+
+def retained_path(path: str, k: int) -> str:
+    """Name of the k-th retained (rotated-out) checkpoint, k >= 1."""
+    return f"{path}.bak{k}"
+
+
+def retained_checkpoints(path: str) -> list:
+    """The live file (if present) and every ``.bakK`` the keep_last
+    rotation produced, newest first; holes in the K sequence are
+    tolerated (a directory listing, not sequential probing)."""
+    out = [path] if os.path.exists(path) else []
+    d = os.path.dirname(os.path.abspath(path)) or "."
+    if os.path.isdir(d):
+        pat = re.compile(re.escape(os.path.basename(path)) + r"\.bak(\d+)$")
+        ks = sorted(int(m.group(1)) for f in os.listdir(d)
+                    for m in [pat.match(f)] if m)
+        out.extend(retained_path(path, k) for k in ks)
+    return out
+
+
+def _rotate_retained(target: str, keep_last: int) -> None:
+    """Shift the retention chain before a new save lands on ``target``:
+    bak(K-1) -> bakK, ..., then a hard link target -> bak1 (so there is
+    no instant with no file at ``target``).  keep_last=1 retains
+    nothing."""
+    if keep_last <= 1 or not os.path.exists(target):
+        return
+    for k in range(keep_last - 1, 1, -1):
+        src = retained_path(target, k - 1)
+        if os.path.exists(src):
+            os.replace(src, retained_path(target, k))
+    b1 = retained_path(target, 1)
+    if os.path.exists(b1):
+        os.unlink(b1)
+    try:
+        os.link(target, b1)
+    except OSError:
+        # filesystems without hard links: a real copy
+        shutil.copy2(target, b1)
+
+
+def _atomic_savez(target: str, meta: dict, payload: dict, *,
+                  keep_last: int = 1) -> None:
+    """Atomic npz write (tmp + rename) with every payload entry's CRC32 in
+    ``meta["leaf_crc"]`` and the ``keep_last`` rotation first."""
+    d = os.path.dirname(os.path.abspath(target)) or "."
+    os.makedirs(d, exist_ok=True)
+    meta = dict(meta)
+    meta["leaf_crc"] = {k: _leaf_crc(np.asarray(v))
+                        for k, v in payload.items()}
+    fd, tmp = tempfile.mkstemp(dir=d, suffix=".npz.tmp")
+    try:
+        with os.fdopen(fd, "wb") as f:
+            np.savez(f, __meta__=np.frombuffer(json.dumps(meta).encode(),
+                                               dtype=np.uint8), **payload)
+        _rotate_retained(target, keep_last)
+        os.replace(tmp, target)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+
+
+def save_checkpoint(path: str, leaves: dict, cfg: FitConfig, *,
+                    fingerprint: str, state_only: bool = False,
+                    acc_start: int = 0, keep_last: int = 1,
+                    chain_acc_starts=None, fold_draws: int = 0) -> None:
+    """Atomically write the chains' leaves (``{name: numpy array}``, a
+    :class:`Snapshot`'s), the config and the data fingerprint, with the
+    JAX package's v8 meta and the port's stream key.
+
+    ``state_only`` writes the light file (no accumulator: MBs instead of
+    the p^2-sized full file); a light resume restarts accumulation at the
+    saved iteration.  ``acc_start`` is the global iteration the current
+    accumulators' window started at (0 for an uninterrupted run), so a
+    full save after a light resume stays self-describing;
+    ``chain_acc_starts`` / ``fold_draws`` the v7 bookkeeping (None:
+    uniform starts at ``acc_start``)."""
+    names = LIGHT_LEAVES if state_only else FULL_LEAVES
+    num_chains = int(cfg.run.num_chains)
+    if _num_chains(leaves) != num_chains:
+        raise ValueError(f"{_num_chains(leaves)} chains' leaves for a "
+                         f"config of {num_chains} chains")
+    topology = {"num_chains": num_chains, "num_devices": 1,
+                "num_processes": 1}
+    meta = {
+        "version": _FORMAT_VERSION,
+        "config": _config_to_json(cfg),
+        "treedef": _TREEDEF,
+        "iteration": int(np.asarray(leaves["iteration"]).reshape(-1)[0]),
+        "fingerprint": fingerprint,
+        "state_only": bool(state_only),
+        "acc_start": int(acc_start),
+        "acc_leaf_indices": [] if state_only else [_ACC_LEAF],
+        "chain_acc_starts": [int(a) for a in (
+            chain_acc_starts if chain_acc_starts is not None
+            else [acc_start] * num_chains)],
+        "fold_draws": int(fold_draws),
+        "elastic_lineage": 0,
+        "pod_hosts": 1,
+        "pod_adoptions": 0,
+        "topology": topology,
+        "rng": RNG_STREAMS,
+    }
+    _atomic_savez(path, meta, {f"leaf_{i}": np.asarray(leaves[k])
+                               for i, k in enumerate(names)},
+                  keep_last=keep_last)
+
+
+@contextlib.contextmanager
+def _open(path: str):
+    """The npz; a file that is no longer a zip archive (a torn write) is
+    a corrupt checkpoint."""
+    try:
+        z = np.load(path)
+    except zipfile.BadZipFile as e:
+        raise CheckpointCorruptError(f"{path}: not a readable checkpoint "
+                                     f"({e})", path=path) from e
+    with z:
+        yield z
+
+
+def _read_meta(z, path: str) -> dict:
+    meta = json.loads(bytes(z["__meta__"]).decode())
+    if meta["version"] not in _LOADABLE_VERSIONS:
+        raise ValueError(
+            f"{path}: checkpoint format v{meta['version']} != "
+            f"v{_FORMAT_VERSION} (loadable: {sorted(_LOADABLE_VERSIONS)})")
+    return meta
+
+
+def verify_checkpoint(path: str) -> dict:
+    """Template-free integrity check: a readable npz, a loadable format
+    version, every payload entry matching its recorded CRC32.  Returns the
+    meta with ``crc_verified`` set; raises :class:`CheckpointCorruptError`
+    on a CRC mismatch."""
+    with _open(path) as z:
+        meta = _read_meta(z, path)
+        for name in z.files:
+            if name != "__meta__":
+                _read_leaf(z, meta, name, path)
+    meta["crc_verified"] = bool(meta.get("leaf_crc"))
+    return meta
+
+
+def scan_generations(path: str) -> list:
+    """``(path, iteration, error)`` for the live file and every ``.bakK``,
+    newest first: ``error`` is None for a CRC-clean generation, else the
+    verification failure (``iteration`` -1)."""
+    out = []
+    for p in retained_checkpoints(path):
+        try:
+            meta = verify_checkpoint(p)
+            out.append((p, int(meta["iteration"]), None))
+        except (OSError, ValueError, KeyError) as e:
+            out.append((p, -1, e))
+    return out
+
+
+def read_checkpoint_meta(path: str) -> dict:
+    """Only the metadata entry: cheap, for compatibility checks before any
+    leaf is read."""
+    with _open(path) as z:
+        return _read_meta(z, path)
+
+
+def load_checkpoint(path: str, template: dict) -> Tuple[dict, dict]:
+    """``({leaf name: numpy array}, meta)``.  ``template`` is
+    :func:`carry_template`'s: every leaf is CRC-checked, then its shape
+    checked against the template, so a config/data mismatch fails loudly.
+    A light file has no ``sigma_acc``: the caller restarts the
+    accumulator at zero (accumulation restarts at ``meta["iteration"]``)."""
+    with _open(path) as z:
+        meta = _read_meta(z, path)
+        names = LIGHT_LEAVES if meta.get("state_only") else FULL_LEAVES
+        leaves = {}
+        for i, name in enumerate(names):
+            arr = _read_leaf(z, meta, f"leaf_{i}", path)
+            shape, _ = template[name]
+            if tuple(arr.shape) != tuple(shape):
+                raise ValueError(
+                    f"checkpoint leaf {i} ({name}) shape {arr.shape} != "
+                    f"expected {shape} - config/data mismatch?")
+            leaves[name] = arr
+    return leaves, meta
+
+
+def checkpoint_compatible(meta: dict, cfg: FitConfig, fingerprint: str, *,
+                          ignore_chains: bool = False) -> Optional[str]:
+    """None if resumable under ``cfg``, else a human-readable refusal: the
+    JAX package's rules, after the port's own - the file's chains must
+    come from the port's Philox streams."""
+    if meta.get("rng") != RNG_STREAMS:
+        return (f"the checkpoint names no {RNG_STREAMS!r} streams (meta "
+                "'rng'): it was written by the JAX package, whose chains "
+                "come from threefry keys and cannot be continued on the "
+                "port's Philox streams as the same chain")
+    saved = _config_from_json(meta["config"])
+    if saved.model != cfg.model:
+        return f"model config changed: {saved.model} != {cfg.model}"
+    if saved.run.seed != cfg.run.seed:
+        return f"seed changed: {saved.run.seed} != {cfg.run.seed}"
+    if (saved.run.burnin, saved.run.thin) != (cfg.run.burnin, cfg.run.thin):
+        return ("burnin/thin changed (which draws count as saved depends on "
+                "them)")
+    # the accumulators are raw sums, so a LONGER mcmc extends the chain;
+    # only shrinking below what already ran is unresumable
+    if cfg.run.total_iters < meta["iteration"]:
+        return (f"checkpoint is at iteration {meta['iteration']} but the "
+                f"schedule ends at {cfg.run.total_iters} - a chain cannot "
+                "be shrunk (saved draws are already summed in)")
+    if not ignore_chains and saved.run.num_chains != cfg.run.num_chains:
+        return (f"checkpoint has num_chains={saved.run.num_chains}, run "
+                f"configured {cfg.run.num_chains}; pass "
+                f"num_chains={saved.run.num_chains} to match the checkpoint")
+    # one accumulated posterior must come from one sweep precision
+    if saved.backend.compute_dtype != cfg.backend.compute_dtype:
+        return (f"compute_dtype changed: checkpoint ran "
+                f"{saved.backend.compute_dtype!r}, resume requests "
+                f"{cfg.backend.compute_dtype!r} (one accumulated "
+                "posterior must come from one sweep precision)")
+    # backend.sse_mode is deliberately not compared (as in the JAX
+    # package): both psi strategies draw from the same conditional law
+    if meta["fingerprint"] != fingerprint:
+        return "data fingerprint mismatch - resuming on different data"
+    return None
+
+
+class AsyncCheckpointWriter:
+    """Write-behind saves: :meth:`submit` snapshots the chains' carries
+    (:class:`Snapshot`: a side-stream copy into pinned host memory) and a
+    background thread waits for the copy and writes the file, so the next
+    chunk runs while the save lands.
+
+    At most one save is in flight: ``submit`` joins the previous one
+    first.  :meth:`wait` must be called before the results are used (it
+    makes the last file durable); a failed save re-raises there or at the
+    next submit.  :meth:`poll_error` shows a stored failure without
+    blocking.  ``last_save_seconds`` is the wall of the latest completed
+    save (the copy's wait and the write) - what
+    ``checkpoint_every_chunks="auto"`` sizes its cadence from."""
+
+    def __init__(self):
+        self._thread: Optional[threading.Thread] = None
+        self._error: Optional[BaseException] = None
+        self.last_save_seconds: Optional[float] = None
+
+    def submit(self, save_fn: Callable[..., None], path: str, carries: list,
+               cfg: FitConfig, *, fingerprint: str, **save_kwargs) -> None:
+        self.wait()
+        snap = Snapshot(carries, state_only=bool(save_kwargs.get(
+            "state_only")))
+
+        def run():
+            t0 = time.perf_counter()
+            try:
+                save_fn(path, snap.wait(), cfg, fingerprint=fingerprint,
+                        **save_kwargs)
+                self.last_save_seconds = time.perf_counter() - t0
+            except BaseException as e:   # surfaced by wait()/poll_error()
+                self._error = e
+
+        # non-daemon: the interpreter joins it at exit, so an abandoned
+        # writer still finishes its file instead of dying inside np.savez
+        self._thread = threading.Thread(target=run,
+                                        name="dcfm-checkpoint-writer")
+        self._thread.start()
+
+    def poll_error(self) -> Optional[BaseException]:
+        """A stored background failure, not consumed (wait() raises it)."""
+        return self._error
+
+    def busy(self) -> bool:
+        return self._thread is not None and self._thread.is_alive()
+
+    def wait(self) -> None:
+        t = self._thread
+        if t is not None:
+            t.join()
+            self._thread = None
+        if self._error is not None:
+            e, self._error = self._error, None
+            raise e

@@ -248,10 +248,16 @@ def test_runner_refuses_what_it_cannot_run():
         ChainRunner(noise, Y, cfg, prior, burnin=1, thin=1, graphs=True)
     with pytest.raises(ValueError, match="unroll"):
         ChainRunner(noise, Y, cfg, prior, burnin=1, thin=1, unroll=0)
+    # a chain's own carry is copied into the runner's static one (fit's
+    # chunk-major loop), so it must have the runner's shapes: one of
+    # another width is refused by the copy, and the static carry is left
+    # as it was
     runner = ChainRunner(noise, Y, cfg, prior, burnin=1, thin=1, unroll=2)
-    other = init_chain(noise.init(0), Y, cfg, prior)
-    with pytest.raises(ValueError, match="runner's own carry"):
+    own = runner.run_chunk(0, runner.new_chain(0), 2)[0]
+    other = init_chain(noise.init(0), Y[:, :, :-1].contiguous(), cfg, prior)
+    with pytest.raises(RuntimeError):
         runner.run_chunk(0, other, 2)
+    assert own.iteration == 2 and runner.carry.iteration == 2
 
 
 def test_runner_chains_share_one_carry_and_restart_cleanly():

@@ -120,7 +120,9 @@ def test_multishard_recovers_sigma():
     assert res.traces.shape == (2, 600, 4) and np.isfinite(res.traces).all()
     ph = res.phase_seconds
     assert set(ph) == {"preprocess_s", "upload_s", "init_s", "chain_s",
-                       "fetch_s", "exposed_fetch_s", "assemble_s"}
+                       "fetch_s", "exposed_fetch_s", "assemble_s",
+                       "checkpoint_s"}
+    assert ph["checkpoint_s"] == 0.0
     # fault C2: the JAX package's meanings - one state with a leading
     # chain axis, rates of the executed iterations counted once (not once
     # per chain) over the fit's seconds and over chain_s, chunk walls,
@@ -210,8 +212,10 @@ def _names_a_queue_a_item(message: str) -> bool:
 
 
 # the refusals: the fetch and upload dtypes (now ported) gave their places
-# to the streamed fetch, missing values and the DL prior, and resume
-# without a checkpoint (now a ValueError) to resume with one
+# to missing values and the DL prior, resume without a checkpoint (now a
+# ValueError) and the streamed fetch, checkpoint and resume (ported) to
+# what stays of their items: stream_artifact, adopting a checkpoint of
+# another chain count (elastic) and warm_start
 @pytest.mark.parametrize("model,run,backend,extra", [
     ({"prior": "horseshoe"}, {}, {}, {}),
     ({"rank_adapt": True}, {}, {}, {}),
@@ -219,17 +223,27 @@ def _names_a_queue_a_item(message: str) -> bool:
     ({"posterior_sd": True}, {}, {}, {}),
     ({}, {"store_draws": True}, {}, {}),
     ({}, {"early_stop": "rhat"}, {}, {}),
-    ({}, {}, {"fetch_stream": "on", "fetch_dtype": "quant8"}, {}),
+    ({}, {}, {"fetch_dtype": "quant8"}, {"stream_artifact": "art"}),
     ({"impute_missing": True}, {}, {}, {}),
     ({}, {}, {"mesh_devices": 2}, {}),
     ({"prior": "dl"}, {}, {}, {}),
-    ({}, {}, {}, {"checkpoint_path": "ck.npz"}),
-    ({}, {}, {}, {"resume": True, "checkpoint_path": "ck.npz"}),
+    ({}, {"num_chains": 2}, {}, {"checkpoint_path": "one_chain.npz",
+                                 "resume": True}),
+    ({}, {}, {}, {"warm_start": dcfm_tpu_torch.config.WarmStart("w.npz")}),
 ])
-def test_knobs_outside_the_port_are_refused(model, run, backend, extra):
+def test_knobs_outside_the_port_are_refused(model, run, backend, extra,
+                                            tmp_path):
     """Every knob the port does not run raises, naming the ROADMAP Queue A
-    item that will port it (fault C1: the item must exist)."""
+    item that will port it (fault C1: the item must exist).  The elastic
+    case resumes, at two chains, a checkpoint written at one."""
     Y, _ = make_synthetic(30, 8, 2, seed=0)
+    if "checkpoint_path" in extra:
+        extra = extra | {"checkpoint_path": str(tmp_path / "one_chain.npz")}
+        fit(Y, FitConfig(model=ModelConfig(num_shards=2, factors_per_shard=2,
+                                           rho=0.5),
+                         run=RunConfig(burnin=2, mcmc=2),
+                         checkpoint_path=extra["checkpoint_path"]),
+            device="cpu")
     cfg = FitConfig(
         model=ModelConfig(num_shards=2, factors_per_shard=2, rho=0.5,
                           **model),
@@ -407,7 +421,8 @@ print(" ".join(mods))
 
 def test_port_imports_neither_jax_nor_the_jax_package():
     """Every module of dcfm_tpu_torch, and chip_smoke.py, imports with jax
-    and dcfm_tpu refused - the fetch and artifact modules among them."""
+    and dcfm_tpu refused - the fetch, artifact, checkpoint, resume,
+    pipeline and sentinel modules among them."""
     out = subprocess.run([sys.executable, "-c", _GUARD], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
@@ -415,4 +430,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert len(mods) >= 19
     assert {"dcfm_tpu_torch.native", "dcfm_tpu_torch.runtime.fetch",
             "dcfm_tpu_torch.serve.artifact",
-            "dcfm_tpu_torch.utils.diagnostics"} <= set(mods)
+            "dcfm_tpu_torch.utils.diagnostics",
+            "dcfm_tpu_torch.utils.checkpoint",
+            "dcfm_tpu_torch.runtime.resume",
+            "dcfm_tpu_torch.runtime.pipeline",
+            "dcfm_tpu_torch.resilience.sentinel"} <= set(mods)

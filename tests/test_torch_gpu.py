@@ -13,6 +13,8 @@ repo's conftest:
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -445,6 +447,134 @@ def test_small_fits_at_each_fetch_dtype(cuda, tmp_path):
     lazy = run("quant8", "never")
     assert lazy.Sigma is None
     np.testing.assert_array_equal(lazy._q8_panels, q8._q8_panels)
+
+
+def _ckpt_cfg(lambda_kernel="pallas", compute_dtype="f32", **kw):
+    return FitConfig(
+        model=ModelConfig(num_shards=4, factors_per_shard=4, rho=0.9,
+                          lambda_kernel=lambda_kernel),
+        run=RunConfig(burnin=40, mcmc=40, thin=2, num_chains=2,
+                      chunk_size=16, sweep_unroll=4),
+        backend=BackendConfig(sse_mode="gram", compute_dtype=compute_dtype),
+        **kw)
+
+
+class _Killed(BaseException):
+    pass
+
+
+@pytest.mark.parametrize("knobs", [
+    {}, {"compute_dtype": "bf16", "lambda_kernel": "auto"},
+    {"lambda_kernel": "pallas-fused"}])
+def test_a_killed_graphed_fit_resumes_bitwise_on_the_card(cuda, tmp_path,
+                                                          monkeypatch,
+                                                          knobs):
+    """The write-behind writer (snapshots on a side stream while the next
+    chunk replays) until the second save lands, then a kill: the resumed
+    graphed fit is the uninterrupted one's bits, and checkpointing on
+    changes no bit either."""
+    from dcfm_tpu_torch.runtime import pipeline
+    from dcfm_tpu_torch.utils import checkpoint as ck
+    Y, _ = _small_data()
+    ref = fit(Y, _ckpt_cfg(**knobs), device=cuda)
+    path = str(tmp_path / "ck.npz")
+    cfg = _ckpt_cfg(**knobs, checkpoint_path=path, checkpoint_every_chunks=1)
+    on = fit(Y, cfg, device=cuda)
+    np.testing.assert_array_equal(on.Sigma, ref.Sigma)
+    save = ck.save_checkpoint
+
+    def save_then_kill(p, leaves, c, **kw):
+        # the writer thread stores the kill; the chunk loop raises it at a
+        # later boundary, before any further save
+        save(p, leaves, c, **kw)
+        if int(np.asarray(leaves["iteration"]).reshape(-1)[0]) == 32:
+            raise _Killed()
+
+    monkeypatch.setattr(pipeline, "save_checkpoint", save_then_kill)
+    with pytest.raises(_Killed):
+        fit(Y, cfg, device=cuda)
+    monkeypatch.undo()
+    assert ck.read_checkpoint_meta(path)["iteration"] == 32
+    res = fit(Y, dataclasses.replace(cfg, resume=True), device=cuda)
+    np.testing.assert_array_equal(res.Sigma, ref.Sigma)
+    assert res.traces.shape == (2, 48, 4) and res.graphs["replays"] > 0
+
+
+def test_a_resumed_graphed_chain_is_the_resumed_eager_chain(cuda, tmp_path):
+    """From one checkpoint, a graphed and an eager runner run the rest of
+    the chains: every leaf, accumulator and trace bitwise."""
+    from dcfm_tpu_torch.runtime import pipeline
+    from dcfm_tpu_torch.utils import checkpoint as ck
+    Y, _ = _small_data()
+    path = str(tmp_path / "ck.npz")
+    cfg = dataclasses.replace(_ckpt_cfg(checkpoint_path=path),
+                              run=RunConfig(burnin=40, mcmc=0, num_chains=2,
+                                            chunk_size=16))
+    res = fit(Y, cfg, device=cuda)
+    m = dataclasses.replace(cfg.model, sse_mode="gram")
+    tpl = ck.carry_template(m, n=150, P=res.preprocess.data.shape[2],
+                            num_chains=2)
+    leaves, _ = ck.load_checkpoint(path, tpl)
+    Yd = torch.as_tensor(res.preprocess.data, device=cuda)
+    out = {}
+    for graphs in (False, True):
+        runner = sampler.ChainRunner(TorchNoise(0, cuda), Yd, m,
+                                     make_prior(m), burnin=40, thin=2,
+                                     unroll=4, graphs=graphs)
+        carries = pipeline.carries_from_leaves(leaves, 2, cuda,
+                                               tpl["sigma_acc"][0][-3:])
+        traces = []
+        for _ in range(3):
+            for c, carry in enumerate(carries):
+                traces.append(runner.run_chunk(c, carry, 14)[2].cpu())
+        out[graphs] = ([t.cpu() for c in carries
+                        for t in sampler.carry_tensors(c)] + traces)
+        assert runner.replays > 0 or not graphs
+    for a, b in zip(out[False], out[True], strict=True):
+        assert torch.equal(a, b)
+
+
+def test_a_snapshot_taken_while_replays_run_is_a_synchronous_save(cuda):
+    """A snapshot's copy runs on a side stream while the next chunk
+    replays on the runner's stream: it holds the boundary's bits, and the
+    replays waited for it before writing the carries back."""
+    from dcfm_tpu_torch.utils import checkpoint as ck
+    Y, _ = _small_data()
+    m = ModelConfig(num_shards=4, factors_per_shard=4, rho=0.9,
+                    lambda_kernel="pallas", sse_mode="gram")
+    Yd = torch.as_tensor(preprocess(Y, 4, seed=0).data, device=cuda)
+    runner = sampler.ChainRunner(TorchNoise(0, cuda), Yd, m, make_prior(m),
+                                 burnin=4, thin=2, unroll=4)
+    carries = [runner.new_chain(c) for c in range(2)]
+    for _ in range(3):                # warm: every pattern captured
+        for c, carry in enumerate(carries):
+            runner.run_chunk(c, carry, 8)
+    want = {k: v.copy() for k, v in ck.Snapshot(
+        carries, state_only=False).wait().items()}
+    snap = ck.Snapshot(carries, state_only=False)
+    replays = runner.replays
+    for c, carry in enumerate(carries):
+        runner.run_chunk(c, carry, 8)
+    assert runner.replays > replays
+    got = snap.wait()
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k])
+    torch.cuda.synchronize()
+    assert all(not c.readers for c in carries)
+
+
+def test_a_streamed_quant8_fit_on_the_card_is_the_post_hoc_one(cuda):
+    Y, _ = _small_data()
+    out = {}
+    for stream in ("off", "auto"):
+        cfg = dataclasses.replace(_ckpt_cfg(), backend=BackendConfig(
+            sse_mode="gram", fetch_dtype="quant8", fetch_stream=stream))
+        out[stream] = fit(Y, cfg, device=cuda)
+    assert out["off"].stream_stats is None
+    assert out["auto"].stream_stats["snapshots"] > 0
+    for k in ("Sigma", "_q8_panels", "_q8_scales"):
+        np.testing.assert_array_equal(getattr(out["auto"], k),
+                                      getattr(out["off"], k))
 
 
 def test_a_failed_capture_raises_and_is_not_hidden(cuda, monkeypatch):
