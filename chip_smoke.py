@@ -73,6 +73,32 @@
    quant8 and the packed quant8 results are exported as serve artifacts:
    seconds, bytes, and ``PosteriorArtifact.open(path).assemble()`` equal
    to the quant8 Sigma bit for bit.
+7. Checkpoint phase, on the float32 path in chunks of 50: full, light and
+   "auto" saves bitwise no checkpoint, a finished file resumed as a
+   no-op, the divergence sentinel's abort and rewind on a chain the script
+   poisons, quant8 streamed against post hoc; then on each path a child
+   process SIGKILLed once its file reaches iteration 200 of 1,000 and
+   resumed in a fresh one (``--fit-child SPEC``), Sigma bitwise the
+   uninterrupted fit's (f32 also in light mode through its sidecar).
+8. Posterior SD (``ModelConfig.posterior_sd``) on the float32 path:
+   graphs against the eager chain with the second-moment accumulator
+   (sigma_sq_acc bitwise too); fits under fetch_dtype float32 and quant8,
+   each with K1 and K5 once per sweep and nothing else, Sigma bitwise the
+   fit without posterior_sd, a finite non-negative SD, the quant8 SD
+   within its quant8 bound of the float32 SD; chain iterations/s, peak
+   allocated, and the graphed sweep's device busy time with the SD on.
+9. Export from a checkpoint: the SD fit's full file, and a light file
+   read through its ``.full`` sidecar, exported with
+   ``serve.artifact.export_from_checkpoint``: mean panels and scales the
+   fit's own ``export_artifact`` byte for byte, SD panels within one int8
+   step; the seconds of each.
+10. ``FitConfig.stream_artifact``: a quant8 SD fit whose stream lands in
+   the artifact, against the post-hoc export of the same chain: panels,
+   scales, maps and CRCs byte for byte; the exposed seconds.
+11. Elastic chain counts: a 2-chain float32 child SIGKILLed after a full
+   save, resumed at 1 and at 3 chains in fresh processes: the adoption's
+   bookkeeping and divisor, the kernels once per executed sweep, and the
+   rel. Frobenius error inside the quality rule.
 
 Any failed check exits non-zero before the last line.  The line before the
 last is the kernels' JSON record; the last line is
@@ -539,7 +565,7 @@ def chain_setup(torch, cfg, Y):
 # the leaves in the order the sweep writes them: the first of these that
 # differs names the conditional where graph and eager part
 SWEEP_ORDER = ("Z", "X", "Lambda", "delta", "psijh", "ps", "sigma_acc",
-               "health")
+               "sigma_sq_acc", "health")
 
 
 def graph_equality_phase(torch, cuda_lib, cfg, Y, card: str, label: str,
@@ -569,6 +595,8 @@ def graph_equality_phase(torch, cuda_lib, cfg, Y, card: str, label: str,
         got[graphs] = dict(zip(names, state_leaves(carry.state)),
                            sigma_acc=carry.sigma_acc, health=carry.health,
                            trace=trace, launches=cuda_lib.launch_counts())
+        if carry.sigma_sq_acc is not None:
+            got[graphs]["sigma_sq_acc"] = carry.sigma_sq_acc
         if graphs:
             pool = graph_pool_bytes(torch)
             say(f"graphs [{label}]: {10 * T} sweeps in {wall:.3f} s, "
@@ -641,7 +669,7 @@ def unroll_phase(torch, cfg, Y, card: str) -> None:
 def fit_phase(torch, dt, cuda_lib, card: str, label: str, model: dict,
               backend: dict, kernels: tuple, Y, L, noise) -> tuple:
     """One full-width fit along a path; returns (launches, config, rel.
-    Frobenius error against the truth)."""
+    Frobenius error against the truth, the result)."""
     c = FIT
     cfg = path_config(dt, model, backend)
     # warm-up: 4 sweeps of the same path and width, so that the timed fit
@@ -669,7 +697,7 @@ def fit_phase(torch, dt, cuda_lib, card: str, label: str, model: dict,
         f"({peak / 2**30:.3f} GiB), {peak_reserved} bytes reserved "
         f"({card})")
     err = check_fit(torch, res, launches, label, kernels, Y, L, noise)
-    return launches, cfg, err
+    return launches, cfg, err, res
 
 
 def check_fit(torch, res, launches: dict, label: str, kernels: tuple, Y,
@@ -705,17 +733,11 @@ def check_quality(torch, res, label: str, Y, L, noise) -> float:
         return None
     check(S.shape == (c["p"], c["p"]), f"Sigma shape {S.shape}")
     check(bool(np.isfinite(S).all()), "Sigma has non-finite entries")
-    dev = torch.device("cuda")
-    Sd = torch.as_tensor(S, device=dev)
+    Sd = torch.as_tensor(S, device="cuda")
     asym = float((Sd - Sd.T).abs().max() / Sd.abs().max())
     check(asym <= 1e-6, f"Sigma asymmetric (max rel {asym:.2e})")
-    Lt = torch.as_tensor(L, device=dev)
-    St = Lt @ Lt.T + noise ** 2 * torch.eye(c["p"], device=dev)
-    err = float(torch.linalg.norm(Sd - St) / torch.linalg.norm(St))
-    Yc = torch.as_tensor(Y, device=dev)
-    Yc = Yc - Yc.mean(dim=0)
-    Ss = Yc.T @ Yc / (c["n"] - 1)
-    err_sample = float(torch.linalg.norm(Ss - St) / torch.linalg.norm(St))
+    del Sd
+    err, err_sample = rel_errors(torch, S, Y, L, noise)
     say(f"fit [{label}] rel Frobenius error vs truth: {err:.6f} "
         f"(sample covariance: {err_sample:.6f})")
     check(err < 0.25, f"[{label}] rel Frobenius error {err:.4f} >= 0.25")
@@ -760,11 +782,12 @@ def link_bytes(res) -> int:
     return g * (g + 1) // 2 * P * P * size
 
 
-def quant8_bound(torch, q8, f32, card: str) -> None:
+def quant8_bound(torch, q8, f32, card: str, kind: str = "mean") -> None:
     """|Sigma_q8 - Sigma_f32| entry by entry against the quant8 rule: the
     int8 panel is off by at most scale/254 of its panel, and the assembly
     multiplies by the two column scales; float32 rounding of the products
-    adds a few ulps of the entry (8 eps |Sigma_f32| allowed)."""
+    adds a few ulps of the entry (8 eps |Sigma_f32| allowed).  ``kind``
+    "sd" holds Sigma_sd to the same rule with the SD panels' scales."""
     from dcfm_tpu_torch.utils.preprocess import caller_to_shard_index
     dev = torch.device("cuda")
     pre = q8.preprocess
@@ -775,20 +798,25 @@ def quant8_bound(torch, q8, f32, card: str) -> None:
     s = torch.as_tensor(pre.col_scale.reshape(-1)[idx[idx >= 0]], device=dev)
     r, c = np.triu_indices(g)
     grid = torch.zeros((g, g), dtype=torch.float32, device=dev)
-    scales = torch.as_tensor(q8._q8_scales, device=dev)
+    sd = kind == "sd"
+    scales = torch.as_tensor(q8._sd_q8_scales if sd else q8._q8_scales,
+                             device=dev)
     grid[r, c] = scales
     grid[c, r] = scales
     bound = grid[shard][:, shard] / 254.0 * (s[:, None] * s[None, :])
-    Sq = torch.as_tensor(q8.Sigma, device=dev)[ok][:, ok]
-    Sf = torch.as_tensor(f32.Sigma, device=dev)[ok][:, ok]
+    Sq = torch.as_tensor(q8.Sigma_sd if sd else q8.Sigma,
+                         device=dev)[ok][:, ok]
+    Sf = torch.as_tensor(f32.Sigma_sd if sd else f32.Sigma,
+                         device=dev)[ok][:, ok]
     diff = (Sq - Sf).abs()
     slack = 8 * float(np.finfo(np.float32).eps) * Sf.abs()
     worst = float((diff - bound - slack).max())
     ratio = float((diff / torch.clamp(bound, min=1e-30)).max())
-    say(f"fetch quant8 vs float32 Sigma: max |diff| {float(diff.max()):.4e}, "
+    say(f"fetch quant8 vs float32 Sigma{'_sd' if sd else ''}: max |diff| "
+        f"{float(diff.max()):.4e}, "
         f"max bound (scale/254 x s_i x s_j) {float(bound.max()):.4e}, max "
         f"|diff| / bound {ratio:.6f} (limit 1 + 8 eps |Sigma_f32|); {card}")
-    check(worst <= 0, f"quant8 Sigma off the float32 Sigma beyond the "
+    check(worst <= 0, f"quant8 {kind} off the float32 one beyond the "
           f"quant8 bound by {worst:.3e}")
 
 
@@ -877,22 +905,45 @@ def ckpt_config(dt, label: str, run: dict | None = None, **fit_kw):
         cfg.run, chunk_size=CKPT_CHUNK, **(run or {})), **fit_kw)
 
 
+def rel_errors(torch, S: np.ndarray, Y, L, noise) -> tuple:
+    """(rel. Frobenius error of S against the truth L L' + noise^2 I, the
+    sample covariance's), on the card."""
+    c = FIT
+    dev = torch.device("cuda")
+    Sd = torch.as_tensor(S, device=dev)
+    Lt = torch.as_tensor(L, device=dev)
+    St = Lt @ Lt.T + noise ** 2 * torch.eye(c["p"], device=dev)
+    Yc = torch.as_tensor(Y, device=dev)
+    Yc = Yc - Yc.mean(dim=0)
+    Ss = Yc.T @ Yc / (c["n"] - 1)
+    norm = torch.linalg.norm(St)
+    return (float(torch.linalg.norm(Sd - St) / norm),
+            float(torch.linalg.norm(Ss - St) / norm))
+
+
 def fit_child(spec: str) -> None:
     """``--fit-child SPEC``: one fit of ckpt_config(**SPEC) in this process
     on the script's synthetic data; prints one JSON line (Sigma's digest,
-    phase seconds, executed iterations, rewinds)."""
+    phase seconds, executed iterations, rewinds, the elastic bookkeeping,
+    the kernel launches and the rel. Frobenius errors of Sigma and of the
+    sample covariance)."""
     import torch
     import dcfm_tpu_torch as dt
     check(torch.cuda.is_available(), "the fit child sees no CUDA device")
     spec = json.loads(spec)
     c = FIT
-    Y, _, _ = synthetic(c["n"], c["p"], c["k_true"])
+    Y, L, noise = synthetic(c["n"], c["p"], c["k_true"])
     res = dt.fit(Y, ckpt_config(dt, spec["path"], spec.get("run"),
                                 **spec.get("fit", {})))
+    err, err_sample = rel_errors(torch, res.Sigma, Y, L, noise)
     say(json.dumps({"sigma": sigma_digest(res.Sigma),
                     "phase_seconds": res.phase_seconds,
                     "executed": int(res.traces.shape[1]),
-                    "rewinds": res.sentinel_rewinds}))
+                    "rewinds": res.sentinel_rewinds,
+                    "elastic_resume": res.elastic_resume,
+                    "kernel_launches": res.kernel_launches,
+                    "err": err, "err_sample": err_sample,
+                    "nonfinite": res.stats.nonfinite_count}))
 
 
 def run_child(spec: dict, workdir: str, name: str, *, kill_at=None,
@@ -1204,6 +1255,214 @@ def kill_resume(dt, label: str, fit_kw: dict, ref: str, work: str,
               f"[{label} {tag}] resumed from the wrong iteration")
 
 
+def sd_config(dt, fetch_dtype: str = "float32", **fit_kw):
+    """The float32 path with ModelConfig.posterior_sd (and ``fit_kw``'s
+    FitConfig fields), in chunks of CKPT_CHUNK."""
+    cfg = ckpt_config(dt, "f32", **fit_kw)
+    return dataclasses.replace(
+        cfg, model=dataclasses.replace(cfg.model, posterior_sd=True),
+        backend=dataclasses.replace(cfg.backend, fetch_dtype=fetch_dtype))
+
+
+def sd_phase(torch, dt, cuda_lib, card: str, Y, L, noise,
+             f32_digest: str) -> None:
+    """(8) The posterior SD on the float32 path: graph == eager with the
+    second moment; fits under fetch_dtype float32 and quant8 (each after a
+    4-sweep warm-up), their launches, Sigma bitwise the fit without SD,
+    the SD finite and non-negative, the quant8 SD within its bound; chain
+    iterations/s, peak allocated, device busy per sweep."""
+    label0, model, backend, kernels = FIT_PATHS[0]
+    sd_model = model | {"posterior_sd": True}
+    graph_equality_phase(torch, cuda_lib, path_config(dt, sd_model, backend),
+                         Y, card, "f32 posterior_sd", 8)
+    c = FIT
+    sweeps = c["chains"] * (c["burnin"] + c["mcmc"])
+    runs = {}
+    for mode in ("float32", "quant8"):
+        cfg = path_config(dt, sd_model, backend | {"fetch_dtype": mode})
+        dt.fit(Y, dataclasses.replace(cfg, run=dt.RunConfig(burnin=2,
+                                                            mcmc=2)))
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        res, launches, wall = counted_fit(torch, dt, cuda_lib, cfg, Y)
+        peak = torch.cuda.max_memory_allocated()
+        label = f"{label0} posterior_sd, fetch {mode}"
+        ph = res.phase_seconds
+        say(f"sd [{mode}]: {sweeps} sweeps in {ph['chain_s']:.3f} s chain "
+            f"time = {sweeps / ph['chain_s']:.2f} chain iterations/s (wall "
+            f"{wall:.3f} s), fetch_s {ph['fetch_s']:.4f}, exposed_fetch_s "
+            f"{ph['exposed_fetch_s']:.4f}, assemble_s "
+            f"{ph['assemble_s']:.4f}, link {link_bytes(res)} bytes of mean "
+            f"panels and as many of SD panels, peak allocated {peak} bytes "
+            f"({peak / 2**30:.3f} GiB); {card}")
+        check_fit(torch, res, launches, label, kernels, Y, L, noise)
+        SD = res.Sigma_sd
+        check(SD is not None and SD.shape == (c["p"], c["p"])
+              and bool(np.isfinite(SD).all()) and bool((SD >= 0).all()),
+              f"[{label}] Sigma_sd is not finite and non-negative")
+        say(f"sd [{mode}]: Sigma_sd max {float(SD.max()):.4e}, mean "
+            f"{float(SD.mean()):.4e}, diagonal mean "
+            f"{float(np.diag(SD).mean()):.4e}")
+        if mode == "float32":
+            check(sigma_digest(res.Sigma) == f32_digest, "[posterior_sd] "
+                  "the SD changed the mean's bits (Sigma != the f32 fit's)")
+        runs[mode] = res
+    quant8_bound(torch, runs["quant8"], runs["float32"], card, kind="sd")
+    sweep_profile(torch, path_config(dt, sd_model, backend), Y, card,
+                  "f32 posterior_sd")
+
+
+def same_artifact(a_path: str, b_path: str, sd: bool) -> None:
+    """Two artifacts' panels, per-panel scales, maps and CRCs byte for
+    byte (meta.json's provenance names each one's source)."""
+    from dcfm_tpu_torch.serve.artifact import PosteriorArtifact
+    a, b = PosteriorArtifact.open(a_path), PosteriorArtifact.open(b_path)
+    for name in ("mean_q8.bin",) + (("sd_q8.bin",) if sd else ()):
+        with open(os.path.join(a_path, name), "rb") as x, \
+                open(os.path.join(b_path, name), "rb") as y:
+            check(x.read() == y.read(), f"{name} differs between "
+                  f"{a_path} and {b_path}")
+    check(a.meta["panel_crc"] == b.meta["panel_crc"], "panel CRCs differ")
+    with np.load(os.path.join(a_path, "maps.npz")) as x, \
+            np.load(os.path.join(b_path, "maps.npz")) as y:
+        check(sorted(x.files) == sorted(y.files)
+              and all(x[k].tobytes() == y[k].tobytes() for k in x.files),
+              "maps.npz differs")
+
+
+def sd_within_a_step(a, b) -> float:
+    """Max |SD_a - SD_b| over the dequantized SD panels of two artifacts,
+    in int8 steps (scale/127 of the panel); checked <= 1."""
+    da = a.sd_panels.astype(np.float32) * (a.sd_scale / 127)[:, None, None]
+    db = b.sd_panels.astype(np.float32) * (b.sd_scale / 127)[:, None, None]
+    step = np.maximum(a.sd_scale, b.sd_scale)[:, None, None] / 127
+    steps = float((np.abs(da - db) / np.maximum(step, 1e-30)).max())
+    check(steps <= 1 + 1e-5, f"SD panels {steps:.3f} steps apart")
+    return steps
+
+
+def export_phase(torch, dt, cuda_lib, card: str, Y, work: str) -> None:
+    """(9) export_from_checkpoint of the SD fit's full file and of a light
+    file read through its .full sidecar, against the fit's own
+    export_artifact: mean panels and scales byte for byte, SD within one
+    int8 step."""
+    import shutil
+
+    from dcfm_tpu_torch.serve.artifact import export_from_checkpoint
+    full = os.path.join(work, "sd_full.npz")
+    with SaveLog() as log:
+        res, _ = ckpt_fit(torch, dt, cuda_lib, sd_config(
+            dt, checkpoint_path=full), Y, "f32 posterior_sd, full saves",
+            card, log)
+    light = os.path.join(work, "sd_light.npz")
+    ckpt_fit(torch, dt, cuda_lib, sd_config(
+        dt, checkpoint_path=light, checkpoint_mode="light"), Y,
+        "f32 posterior_sd, light saves", card)
+    shutil.copy(full, light + ".full")        # the sidecar: the final sums
+    own = res.export_artifact(os.path.join(work, "own"))
+    for tag, path in (("full", full), ("light + sidecar", light)):
+        t = time.perf_counter()
+        art = export_from_checkpoint(path, Y, os.path.join(work, "x_" +
+                                                           tag[:5]))
+        secs = time.perf_counter() - t
+        check(art.mean_panels.tobytes() == own.mean_panels.tobytes()
+              and art.mean_scale.tobytes() == own.mean_scale.tobytes(),
+              f"[export {tag}] mean panels are not the fit's own export")
+        steps = sd_within_a_step(art, own)
+        say(f"export from checkpoint [{tag}]: {secs:.3f} s for a "
+            f"{os.path.getsize(path if tag == 'full' else path + '.full')}"
+            f"-byte file; mean panels = the fit's export byte for byte, SD "
+            f"within {steps:.3f} int8 steps ({int((art.sd_panels != own.sd_panels).sum())} "
+            f"of {art.sd_panels.size} entries differ); {card}")
+    del res
+
+
+def stream_artifact_phase(torch, dt, cuda_lib, card: str, Y,
+                          work: str) -> None:
+    """(10) A quant8 SD fit streamed into the serve artifact against the
+    post-hoc export of the same chain, byte for byte."""
+    art = os.path.join(work, "streamed")
+    streamed, _ = ckpt_fit(torch, dt, cuda_lib, sd_config(
+        dt, "quant8", stream_artifact=art), Y,
+        "f32 posterior_sd quant8, stream_artifact", card)
+    st = streamed.stream_stats
+    check(streamed.artifact_path == art and st is not None
+          and st["snapshots"] > 0, f"(10) nothing streamed: {st}")
+    cfg = sd_config(dt, "quant8")
+    post, _ = ckpt_fit(torch, dt, cuda_lib, dataclasses.replace(
+        cfg, backend=dataclasses.replace(cfg.backend, fetch_stream="off")),
+        Y, "f32 posterior_sd quant8, post hoc", card)
+    t = time.perf_counter()
+    post.export_artifact(os.path.join(work, "post"))
+    export_s = time.perf_counter() - t
+    same_artifact(art, os.path.join(work, "post"), True)
+    say(f"stream_artifact: snapshots {st['snapshots']}, skipped "
+        f"{st['skipped']}, exposed_fetch_s "
+        f"{streamed.phase_seconds['exposed_fetch_s']:.4f} (post hoc: fetch "
+        f"exposed {post.phase_seconds['exposed_fetch_s']:.4f} s + export "
+        f"{export_s:.4f} s); panels, scales, maps and CRCs = the post-hoc "
+        f"export byte for byte; {card}")
+
+
+def elastic_phase(dt, card: str, work: str) -> None:
+    """(11) A 2-chain float32 child over KILL_RUN SIGKILLed once its full
+    file is at KILL_AT or more, resumed at 1 and at 3 chains in fresh
+    processes: the adoption, its divisor, the kernels once per executed
+    sweep, Sigma inside the quality rule."""
+    import shutil
+
+    from dcfm_tpu_torch.runtime.fetch import accumulator_window
+    from dcfm_tpu_torch.utils.checkpoint import read_checkpoint_meta
+    run = dict(KILL_RUN)
+    total = sum(run.values())
+    path = os.path.join(work, "elastic.npz")
+    spec = {"path": "f32", "run": run,
+            "fit": {"checkpoint_path": path, "checkpoint_every_chunks": 1}}
+    killed = run_child(spec, work, "elastic_killed", kill_at=KILL_AT,
+                       path=path)["killed_at"]
+    meta = read_checkpoint_meta(path)
+    check(not meta["state_only"] and meta["iteration"] < total,
+          f"(11) the killed file: {meta['iteration']}")
+    for to in (1, 3):
+        mine = os.path.join(work, f"elastic_{to}.npz")
+        shutil.copy(path, mine)
+        t = time.perf_counter()
+        out = run_child({"path": "f32", "run": run | {"num_chains": to},
+                         "fit": {"checkpoint_path": mine, "resume": True,
+                                 "checkpoint_every_chunks": 1}},
+                        work, f"elastic_to_{to}")
+        wall = time.perf_counter() - t
+        el = out["elastic_resume"]
+        check(el is not None and (el["from_chains"], el["to_chains"])
+              == (2, to), f"(11) to {to}: {el}")
+        _, inv, bessel = accumulator_window(
+            total, run["burnin"], FIT["thin"], min(el["chain_acc_starts"]),
+            to, el["chain_acc_starts"], el["fold_draws"])
+        sweeps = to * out["executed"]
+        check(out["executed"] == total - meta["iteration"],
+              f"(11) to {to}: resumed from the wrong iteration")
+        for name, count in out["kernel_launches"].items():
+            want = sweeps if name in FIT_PATHS[0][3] else 0
+            check(count == want, f"(11) to {to}: {name} launched {count} "
+                  f"times in {sweeps} sweeps")
+        check(out["nonfinite"] == 0, f"(11) to {to}: non-finite state")
+        say(f"elastic [2 -> {to}]: killed with the file at {killed} (meta "
+            f"{meta['iteration']}), resumed in a fresh process ({wall:.1f} "
+            f"s wall, init_s {out['phase_seconds']['init_s']:.4f}): "
+            f"kept {el['kept']}, dropped {el['dropped']}, birthed "
+            f"{el['birthed']}, fold_draws {el['fold_draws']}, "
+            f"chain_acc_starts {el['chain_acc_starts']}, lineage "
+            f"{el['elastic_lineage']}, divisor inv_count {float(inv):.9g} "
+            f"(bessel {float(bessel):.9g}), launches "
+            f"{json.dumps(out['kernel_launches'])}; rel Frobenius error "
+            f"{out['err']:.6f} (sample covariance {out['err_sample']:.6f});"
+            f" {card}")
+        check(out["err"] < 0.25 and out["err"] <= 2 * out["err_sample"],
+              f"(11) to {to}: rel Frobenius error {out['err']:.4f} outside "
+              "the quality rule")
+
+
 def k3_path(torch, bs, cuda_lib, rng) -> dict:
     """K3's launches: one call of its public op at the fit's batch, the
     counters zeroed just before and read just after."""
@@ -1453,11 +1712,14 @@ def main() -> None:
     say(f"unroll_phase done at {time.perf_counter() - t_start:.1f} s")
     say(f"graph and kernel phases done at "
         f"{time.perf_counter() - t_start:.1f} s")
-    launches, errs = {}, {}
+    launches, errs, digests = {}, {}, {}
     for label, model, backend, path_kernels in FIT_PATHS:
-        got, cfg, errs[label] = fit_phase(torch, dt, cuda_lib, card, label,
-                                          model, backend, path_kernels, Y,
-                                          L, noise)
+        got, cfg, errs[label], res = fit_phase(
+            torch, dt, cuda_lib, card, label, model, backend, path_kernels,
+            Y, L, noise)
+        digests[label] = sigma_digest(res.Sigma)
+        say(f"fit [{label}] sigma sha256 {digests[label]}")
+        del res
         for name in path_kernels:          # a kernel's count from its path
             launches.setdefault(name, got[name])
         sweep_profile(torch, cfg, Y, card, label)
@@ -1469,6 +1731,21 @@ def main() -> None:
     say(f"fetch_phase done at {time.perf_counter() - t_start:.1f} s")
     checkpoint_phase(torch, dt, cuda_lib, card, Y, L, noise)
     say(f"checkpoint_phase done at {time.perf_counter() - t_start:.1f} s")
+    sd_phase(torch, dt, cuda_lib, card, Y, L, noise, digests["f32"])
+    say(f"sd_phase done at {time.perf_counter() - t_start:.1f} s")
+    import shutil
+    import tempfile
+    work = tempfile.mkdtemp(prefix="dcfm_export_")
+    try:
+        export_phase(torch, dt, cuda_lib, card, Y, work)
+        say(f"export_phase done at {time.perf_counter() - t_start:.1f} s")
+        stream_artifact_phase(torch, dt, cuda_lib, card, Y, work)
+        say(f"stream_artifact_phase done at "
+            f"{time.perf_counter() - t_start:.1f} s")
+        elastic_phase(dt, card, work)
+        say(f"elastic_phase done at {time.perf_counter() - t_start:.1f} s")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
     launches["cho_solve"] = k3_path(torch, bs, cuda_lib, rng)["cho_solve"]
     for k in kernels:
         k["launches"] = launches[k["name"]]

@@ -13,7 +13,11 @@ pinned host memory; or the streamed fetch's final snapshot, the same
 bits) -> the native one-pass assembly of Sigma in the caller's
 coordinates, zero columns reinserted - or the panels kept packed
 (``FitConfig.materialize_sigma``), queried through
-:meth:`FitResult.sigma_block` or exported as the serve artifact.
+:meth:`FitResult.sigma_block` or exported as the serve artifact.  Under
+``ModelConfig.posterior_sd`` the second-moment sums ride beside the mean's
+and the entrywise posterior SD is fetched beside it (``Sigma_sd``); under
+``FitConfig.stream_artifact`` the streamed fetch lands its panels in the
+serve artifact, which ``fit`` finalizes.
 
 Entry points run on the card (``device="cuda"``) unless the caller asks
 for the CPU.  On the card the chain always runs as CUDA graphs of
@@ -28,6 +32,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import os
 import time
 import warnings
 from typing import Optional
@@ -44,10 +49,12 @@ from dcfm_tpu_torch.models.state import SamplerState
 from dcfm_tpu_torch.noise import TorchNoise
 from dcfm_tpu_torch.ops import cuda_lib
 from dcfm_tpu_torch.runtime.fetch import (
-    accumulator_window, assemble_q8_sigma, fetch_prep, fetch_upper,
-    quant8_fetch_assemble, quant8_start, upload_host_array)
-from dcfm_tpu_torch.runtime.pipeline import run_chain
-from dcfm_tpu_torch.serve.artifact import PosteriorArtifact, export_fit_result
+    Drain, accumulator_window, assemble_q8_sigma, fetch_prep, fetch_sd_prep,
+    fetch_upper, quant8_fetch_assemble, quant8_start, upload_host_array)
+from dcfm_tpu_torch.runtime.pipeline import StreamingFetcher, run_chain
+from dcfm_tpu_torch.serve.artifact import (
+    PosteriorArtifact, begin_streamed_artifact, export_fit_result,
+    finalize_streamed_artifact, fit_provenance)
 from dcfm_tpu_torch.utils.checkpoint import carry_template, data_fingerprint
 from dcfm_tpu_torch.utils.diagnostics import ess, split_rhat
 from dcfm_tpu_torch.utils.estimate import (
@@ -108,11 +115,28 @@ class FitResult:
     # served the result: {"streamed": True, "snapshots", "skipped",
     # "exposed_fetch_s", "chunk_fetch_s", "overlap_fraction"}
     stream_stats: Optional[dict] = None
+    # (p, p) entrywise posterior SD of the covariance in the caller's
+    # coordinates (ModelConfig.posterior_sd), assembled as Sigma is (None
+    # when posterior_sd is off or Sigma is kept packed)
+    Sigma_sd: Optional[np.ndarray] = None
+    # the serve artifact this fit streamed its panels into
+    # (FitConfig.stream_artifact), finalized and openable; else None
+    artifact_path: Optional[str] = None
+    # the elastic bookkeeping (FitConfig.elastic; checkpoint meta v7) when
+    # this fit adopted a checkpoint of another chain count, or resumed a
+    # file saved after one: from_chains, to_chains, kept, dropped,
+    # birthed, fold_draws, chain_acc_starts, elastic_lineage,
+    # from_topology, to_topology; None otherwise
+    elastic_resume: Optional[dict] = None
     # backing of .upper_panels: float32 panels (every fetch_dtype but
-    # quant8), or the int8 panels and their per-panel scales (quant8)
+    # quant8), or the int8 panels and their per-panel scales (quant8);
+    # the same for .sd_upper_panels
     _upper_f32: Optional[np.ndarray] = None
     _q8_panels: Optional[np.ndarray] = None
     _q8_scales: Optional[np.ndarray] = None
+    _sd_upper_f32: Optional[np.ndarray] = None
+    _sd_q8_panels: Optional[np.ndarray] = None
+    _sd_q8_scales: Optional[np.ndarray] = None
 
     @functools.cached_property
     def upper_panels(self) -> np.ndarray:
@@ -123,9 +147,29 @@ class FitResult:
         return dequantize_panels(self._q8_panels, self._q8_scales)
 
     @functools.cached_property
+    def sd_upper_panels(self) -> Optional[np.ndarray]:
+        """(g(g+1)/2, P, P) float32 entrywise-SD panels in shard
+        coordinates (ModelConfig.posterior_sd), under quant8 dequantized
+        here on first access; None when posterior_sd was off."""
+        if self._sd_upper_f32 is not None:
+            return self._sd_upper_f32
+        if self._sd_q8_panels is None:
+            return None
+        return dequantize_panels(self._sd_q8_panels, self._sd_q8_scales)
+
+    @functools.cached_property
     def sigma_blocks(self) -> np.ndarray:
         """(g, g, P, P) dense block grid in shard coordinates."""
         return full_blocks_from_upper(self.upper_panels,
+                                      self.config.model.num_shards)
+
+    @functools.cached_property
+    def sigma_sd_blocks(self) -> Optional[np.ndarray]:
+        """(g, g, P, P) dense SD block grid in shard coordinates, or
+        None."""
+        if self.sd_upper_panels is None:
+            return None
+        return full_blocks_from_upper(self.sd_upper_panels,
                                       self.config.model.num_shards)
 
     def covariance(self, *, destandardize: bool = True,
@@ -139,6 +183,23 @@ class FitResult:
                 destandardize=destandardize,
                 reinsert_zero_cols=reinsert_zero_cols)
         return assemble_from_upper(self.upper_panels, self.preprocess,
+                                   destandardize=destandardize,
+                                   reinsert_zero_cols=reinsert_zero_cols)
+
+    def posterior_sd(self, *, destandardize: bool = True,
+                     reinsert_zero_cols: bool = False) -> np.ndarray:
+        """The dense entrywise posterior SD, with :meth:`covariance`'s
+        coordinate options (de-standardization scales an SD entry as it
+        scales a covariance entry); with both on it is ``Sigma_sd``, bit
+        for bit."""
+        if self.sd_upper_panels is None:
+            raise ValueError("run with ModelConfig(posterior_sd=True)")
+        if self._sd_q8_panels is not None:
+            return assemble_from_q8(
+                self._sd_q8_panels, self._sd_q8_scales, self.preprocess,
+                destandardize=destandardize,
+                reinsert_zero_cols=reinsert_zero_cols)
+        return assemble_from_upper(self.sd_upper_panels, self.preprocess,
                                    destandardize=destandardize,
                                    reinsert_zero_cols=reinsert_zero_cols)
 
@@ -171,9 +232,15 @@ class FitResult:
         return block
 
     def export_artifact(self, path: str) -> PosteriorArtifact:
-        """Write the serve artifact (serve/artifact.py) - int8 panels,
-        per-panel scales and the preprocess maps, no dense Sigma - and
-        return it opened."""
+        """Write the serve artifact (serve/artifact.py) - int8 panels (and
+        SD panels under posterior_sd), per-panel scales and the preprocess
+        maps, no dense Sigma - and return it opened.  When the fit already
+        streamed its panels into ``path`` (``FitConfig.stream_artifact``)
+        the artifact is on disk and this only opens it."""
+        if (self.artifact_path is not None
+                and os.path.abspath(path)
+                == os.path.abspath(self.artifact_path)):
+            return PosteriorArtifact.open(path)
         return export_fit_result(self, path)
 
 
@@ -293,22 +360,36 @@ def fit(Y: np.ndarray, cfg: FitConfig, *, device="cuda") -> FitResult:
                            thin=run.thin, unroll=unroll)
 
     g, C, mode = m.num_shards, run.num_chains, be.fetch_dtype
+    P = pre.data.shape[2]
 
-    def window(acc_start: int, win) -> np.float32:
-        # the one divisor of the streamed and the post-hoc fetch
+    def window(acc_start: int, elastic) -> tuple:
+        # the one divisor (and Bessel factor) of the streamed and the
+        # post-hoc fetch; ``elastic``: runtime/resume.ElasticResume
         return accumulator_window(
             run.total_iters, run.burnin, run.thin, acc_start, C,
-            chain_acc_starts=None if win is None else win[0],
-            fold_draws=0 if win is None else win[1])[1]
+            chain_acc_starts=(None if elastic is None
+                              else elastic.chain_acc_starts),
+            fold_draws=0 if elastic is None else elastic.fold_draws)[1:]
+
+    def make_streamer(acc_start: int, elastic) -> StreamingFetcher:
+        land_mean = land_sd = None
+        if cfg.stream_artifact:
+            # land in the serve artifact's panel files (its meta.json is
+            # invalidated until the fit finalizes it)
+            land_mean, land_sd = begin_streamed_artifact(
+                cfg.stream_artifact, g=g, P=P, has_sd=m.posterior_sd)
+        inv_count, bessel = window(acc_start, elastic)
+        return StreamingFetcher(inv_count, C, g, bessel=bessel,
+                                land_mean=land_mean, land_sd=land_sd)
 
     rr = run_chain(
         cfg=cfg, model=m, run=run, phase=phase,
         fingerprint=(data_fingerprint(pre.data) if cfg.checkpoint_path
                      else None),
-        template=carry_template(m, n=n, P=pre.data.shape[2],
-                                num_chains=C),
+        template=carry_template(m, n=n, P=P, num_chains=C),
         make_runner=make_runner, device=device, window_fn=window,
-        stream=mode == "quant8" and be.fetch_stream != "off")
+        make_streamer=(make_streamer if mode == "quant8"
+                       and be.fetch_stream != "off" else None))
     carries, streamer = rr.carries, rr.streamer
     phase["chain_s"] = float(sum(rr.chunk_seconds))
     stats = rr.stats or _carried_stats(carries)
@@ -319,11 +400,14 @@ def fit(Y: np.ndarray, cfg: FitConfig, *, device="cuda") -> FitResult:
     # raw sums -> posterior mean on the device (chain mean, padding
     # dropped, times 1/saved draws), the link cast, the drain and the
     # assembly (or not) - or, under the streamed fetch, the join of the
-    # drain that already landed the final snapshot
-    inv_count = window(rr.acc_start, rr.window)
+    # drain that already landed the final snapshot; the SD beside the
+    # mean under posterior_sd
+    inv_count, bessel = window(rr.acc_start, rr.elastic)
+    want_sd = m.posterior_sd
     upper = q8 = scales = Sigma = None
+    sd_upper = sd_q8 = sd_scales = Sigma_sd = None
     phase["fetch_s"] = phase["assemble_s"] = 0.0
-    stream_stats = streamed = None
+    stream_stats = streamed = artifact_path = None
     if streamer is not None:
         t = time.perf_counter()
         try:
@@ -348,9 +432,23 @@ def fit(Y: np.ndarray, cfg: FitConfig, *, device="cuda") -> FitResult:
                 max(0.0, min(1.0, 1.0 - phase["exposed_fetch_s"] / drain))
                 if drain > 0 else 0.0)}
         q8, scales = streamed["q8"], streamed["scales"]
+        sd_q8, sd_scales = streamed["sd_q8"], streamed["sd_scales"]
+        if cfg.stream_artifact:
+            # the panels landed in the artifact's memmaps: finalize writes
+            # the O(p) maps and the metadata (fit -> export is free); the
+            # result keeps the artifact's read-only maps, never the
+            # writable landing ones
+            art = finalize_streamed_artifact(
+                cfg.stream_artifact, mean_mm=q8, mean_scale=scales,
+                pre=pre, sd_mm=sd_q8, sd_scale=sd_scales,
+                provenance=fit_provenance(cfg, "fit-stream"))
+            q8, sd_q8 = art.mean_panels, art.sd_panels
+            artifact_path = cfg.stream_artifact
         if want_sigma:
             t = time.perf_counter()
             Sigma = assemble_q8_sigma(q8, scales, pre)
+            if sd_q8 is not None:
+                Sigma_sd = assemble_q8_sigma(sd_q8, sd_scales, pre)
             phase["assemble_s"] = time.perf_counter() - t
     else:
         exposed0 = phase.get("exposed_fetch_s", 0.0)
@@ -358,21 +456,41 @@ def fit(Y: np.ndarray, cfg: FitConfig, *, device="cuda") -> FitResult:
         pooled = carries[0].sigma_acc   # summed in place, in chain order
         for c in carries[1:]:
             pooled += c.sigma_acc
+        pooled_sq = None
+        if want_sd:
+            pooled_sq = carries[0].sigma_sq_acc
+            for c in carries[1:]:
+                pooled_sq += c.sigma_sq_acc
         if mode == "quant8":
-            started = quant8_start(*fetch_prep(pooled, C, g, inv_count,
-                                               mode))
-            del pooled
+            q_dev, s_dev = fetch_prep(pooled, C, g, inv_count, mode)
+            started = quant8_start(q_dev, s_dev)
+            sd_started = None
+            if want_sd:
+                sd_started = quant8_start(*fetch_sd_prep(
+                    pooled_sq, pooled[:q_dev.shape[0]], C, inv_count,
+                    bessel, mode))
+            del pooled, pooled_sq
             phase["fetch_s"] = time.perf_counter() - t
             Sigma, q8, scales = quant8_fetch_assemble(
                 started, pre, phase, assemble=want_sigma)
+            if want_sd:
+                Sigma_sd, sd_q8, sd_scales = quant8_fetch_assemble(
+                    sd_started, pre, phase, assemble=want_sigma)
         else:
             upper = fetch_upper(pooled, C, g, inv_count, mode)
-            del pooled
+            if want_sd:
+                sd_upper = Drain(fetch_sd_prep(
+                    pooled_sq, pooled[:upper.shape[0]], C, inv_count,
+                    bessel, mode)).wait()
+            del pooled, pooled_sq
             phase["fetch_s"] = time.perf_counter() - t
             if want_sigma:
                 t = time.perf_counter()
                 Sigma = assemble_from_upper(upper, pre,
                                             reinsert_zero_cols=True)
+                if want_sd:
+                    Sigma_sd = assemble_from_upper(sd_upper, pre,
+                                                   reinsert_zero_cols=True)
                 phase["assemble_s"] = time.perf_counter() - t
         # after a failed stream its join is exposed too
         phase["exposed_fetch_s"] = exposed0 + phase["fetch_s"]
@@ -381,7 +499,7 @@ def fit(Y: np.ndarray, cfg: FitConfig, *, device="cuda") -> FitResult:
     seconds = time.perf_counter() - t_start
     launches1 = cuda_lib.launch_counts()
     executed = rr.executed          # once, not once per chain
-    return FitResult(
+    res = FitResult(
         Sigma=Sigma, preprocess=pre, state=state, stats=stats,
         config=cfg, device=str(device), seconds=seconds,
         iters_per_sec=executed / max(seconds, 1e-9),
@@ -392,7 +510,18 @@ def fit(Y: np.ndarray, cfg: FitConfig, *, device="cuda") -> FitResult:
         graphs={"unroll": unroll, **rr.graphs},
         checkpoint_error=rr.checkpoint_error,
         sentinel_rewinds=rr.rewinds, stream_stats=stream_stats,
-        _upper_f32=upper, _q8_panels=q8, _q8_scales=scales)
+        Sigma_sd=Sigma_sd, artifact_path=artifact_path,
+        elastic_resume=(None if rr.elastic is None
+                        else dataclasses.asdict(rr.elastic)),
+        _upper_f32=upper, _q8_panels=q8, _q8_scales=scales,
+        _sd_upper_f32=sd_upper, _sd_q8_panels=sd_q8,
+        _sd_q8_scales=sd_scales)
+    if cfg.stream_artifact and res.artifact_path is None:
+        # nothing landed (a no-op finished resume, a stream that failed):
+        # the post-hoc export, so the artifact exists whenever fit returns
+        export_fit_result(res, cfg.stream_artifact)
+        res.artifact_path = cfg.stream_artifact
+    return res
 
 
 def divideconquer(Y: np.ndarray, g: int, k: int, BURNIN: int, MCMC: int,

@@ -8,8 +8,10 @@ device, one process, the MGP prior; the sweep in float32 or mixed bf16
 accumulator fetch under every ``fetch_dtype`` (post hoc, or streamed at
 chunk boundaries under quant8, ``fetch_stream``) and the data upload
 under every ``upload_dtype``, with Sigma assembled or kept packed
-(``materialize_sigma``); checkpoints, resume and the divergence sentinel
-on one process.  Every other knob the JAX package has is either
+(``materialize_sigma``); the entrywise posterior SD (``posterior_sd``);
+checkpoints, resume (elastic across chain counts too) and the divergence
+sentinel on one process; the streamed fetch landing in a serve artifact
+(``stream_artifact``).  Every other knob the JAX package has is either
 absent here (passing it is a ``TypeError``) or present and refused by
 :func:`validate` with a ``NotImplementedError`` that names the ROADMAP
 Queue A item that will port it - a knob is never silently ignored.  An
@@ -23,7 +25,6 @@ import dataclasses
 from typing import Optional
 
 # ROADMAP items the refusals point at (ROADMAP.md, "Queue A")
-_CKPT = "ROADMAP Queue A item 3 (pipeline and checkpoint)"
 _MESH = "ROADMAP Queue A item 4 (multi-GPU shards)"
 _SCEN = "ROADMAP Queue A item 5 (scenarios)"
 _INGEST = "ROADMAP Queue A item 6 (scale-out ingest)"
@@ -141,9 +142,10 @@ class FitConfig:
     # file is required) | "auto" (fall back to a fresh start)
     checkpoint_path: Optional[str] = None
     resume: "bool | str" = False
-    # may a checkpoint written at a different chain count be adopted?
-    # "auto" and True would adopt it, which the port refuses (ROADMAP
-    # Queue A item 3); False refuses the file as incompatible
+    # may a full checkpoint written at a different chain count be adopted
+    # (runtime/resume._try_elastic: a shrink folds the dropped chains'
+    # sums into chain 0, a grow births chains on a fresh lineage)?  True
+    # and "auto" adopt it; False refuses the file as incompatible
     elastic: "bool | str" = "auto"
     # save every k-th chunk boundary (the last always saves); "auto"
     # starts at 1 and re-sizes from the latest save's measured seconds
@@ -162,8 +164,9 @@ class FitConfig:
     # with a checkpoint, abort without), or "off"
     sentinel: str = "auto"
     sentinel_max_rewinds: int = 3
-    # the streamed fetch landing in a serve artifact: refused (ROADMAP
-    # Queue A item 3)
+    # a serve artifact directory the streamed quant8 fetch lands its
+    # panels in (serve/artifact.begin_streamed_artifact); fit finalizes
+    # it, or exports post hoc when nothing landed
     stream_artifact: Optional[str] = None
     # refused (ROADMAP Queue A item 7)
     warm_start: Optional[WarmStart] = None
@@ -344,15 +347,10 @@ def validate(cfg: FitConfig, n: int, p: int) -> None:
         _refuse("rank_adapt=True", _SCEN)
     if m.impute_missing:
         _refuse("impute_missing=True (NaN input)", _SCEN)
-    if m.posterior_sd:
-        _refuse("posterior_sd=True", _SCEN)
     if run.store_draws:
         _refuse("store_draws=True", _SCEN)
     if run.early_stop != "off":
         _refuse(f"early_stop={run.early_stop!r}", _SCEN)
-    if cfg.stream_artifact is not None:
-        _refuse("stream_artifact (the streamed fetch landing in a serve "
-                "artifact)", _CKPT)
     if cfg.warm_start is not None:
         _refuse("warm_start", _OUTER)
     if be.mesh_devices > 1:

@@ -24,7 +24,7 @@ import contextlib
 import dataclasses
 import math
 import time
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -50,6 +50,9 @@ class ChainCarry:
     iteration: int            # global Gibbs iterations done
     health: torch.Tensor      # (G, 4) running [max |log tau|, min ps,
                               # max ps, #iterations with non-finite state]
+    # (Q, P, P) packed running SUM of the panels' squares over saved draws
+    # (ModelConfig.posterior_sd: the entrywise second moment), else None
+    sigma_sq_acc: Optional[torch.Tensor] = None
     # CUDA events of copies that still read these tensors on a side
     # stream (a checkpoint snapshot, a streamed-fetch sum): whatever writes
     # the carry next waits for them first (wait_readers)
@@ -58,8 +61,9 @@ class ChainCarry:
 
 def carry_tensors(carry: ChainCarry) -> list:
     """The carry's tensors in a fixed order: the state's leaves, the
-    accumulator, health."""
-    return [*state_leaves(carry.state), carry.sigma_acc, carry.health]
+    accumulator, health and, under posterior_sd, the second moment."""
+    sq = [] if carry.sigma_sq_acc is None else [carry.sigma_sq_acc]
+    return [*state_leaves(carry.state), carry.sigma_acc, carry.health, *sq]
 
 
 def wait_readers(carry: ChainCarry, stream) -> None:
@@ -146,7 +150,7 @@ def _health_init(G: int, device) -> torch.Tensor:
 
 
 def init_chain(draws, Y: torch.Tensor, cfg: ModelConfig, prior) -> ChainCarry:
-    """Initial state, a zero packed accumulator and a fresh health panel."""
+    """Initial state, zero packed accumulators and a fresh health panel."""
     G, n, P = Y.shape
     state = init_state(draws, prior, G=G, n=n, P=P,
                        K=cfg.factors_per_shard, as_=cfg.as_, bs=cfg.bs,
@@ -154,7 +158,9 @@ def init_chain(draws, Y: torch.Tensor, cfg: ModelConfig, prior) -> ChainCarry:
     acc = torch.zeros((num_padded_pairs(G), P, P), dtype=torch.float32,
                       device=Y.device)
     return ChainCarry(state=state, sigma_acc=acc, iteration=0,
-                      health=_health_init(G, Y.device))
+                      health=_health_init(G, Y.device),
+                      sigma_sq_acc=(torch.zeros_like(acc)
+                                    if cfg.posterior_sd else None))
 
 
 def state_leaves(state: SamplerState) -> list:
@@ -263,15 +269,19 @@ class ChainRunner:
                             state_leaves(state), strict=True):
             dst.copy_(src)
         self.carry.sigma_acc.zero_()
+        if self.carry.sigma_sq_acc is not None:
+            self.carry.sigma_sq_acc.zero_()
         self.carry.health.copy_(_health_init(G, self.Y.device))
         self.carry.iteration = 0
         return self.carry
 
-    def new_chain(self, chain: int) -> ChainCarry:
+    def new_chain(self, chain: int, lineage: int = 0) -> ChainCarry:
         """Chain ``chain``'s initial carry in tensors of its own (the
-        static carry's values after ``init_chain(chain)``)."""
-        return init_chain(self.noise.init(chain), self.Y, self.cfg,
-                          self.prior)
+        static carry's values after ``init_chain(chain)``); ``lineage`` > 0
+        draws it on a fresh lineage (an elastic birth)."""
+        draws = (self.noise.init(chain, lineage) if lineage
+                 else self.noise.init(chain))
+        return init_chain(draws, self.Y, self.cfg, self.prior)
 
     def run_chunk(self, chain: int, carry: ChainCarry, num_iters: int
                   ) -> tuple[ChainCarry, ChainStats, torch.Tensor]:
@@ -281,8 +291,9 @@ class ChainRunner:
         copied back, once whatever still reads it is done.
 
         On every thin-th post-burn-in iteration the packed Sigma panels of
-        the draw are ADDED to the accumulator (raw sums; the caller divides
-        by :func:`num_saved_draws`).  Returns (carry, stats, trace) with
+        the draw are ADDED to the accumulator, and under posterior_sd their
+        squares to the second-moment accumulator (raw sums; the caller
+        divides by :func:`num_saved_draws`).  Returns (carry, stats, trace) with
         trace (num_iters, 4) on the device."""
         own = carry is not self.carry
         trace = torch.empty((num_iters, len(TRACE_SUMMARIES)),
@@ -323,7 +334,9 @@ class ChainRunner:
                     prior={k: torch.empty_like(v)
                            for k, v in carry.state.prior.items()}),
                 sigma_acc=torch.empty_like(carry.sigma_acc), iteration=0,
-                health=torch.empty_like(carry.health))
+                health=torch.empty_like(carry.health),
+                sigma_sq_acc=(None if carry.sigma_sq_acc is None
+                              else torch.empty_like(carry.sigma_sq_acc)))
         for dst, src in zip(carry_tensors(self.carry), carry_tensors(carry),
                             strict=True):
             dst.copy_(src)
@@ -391,9 +404,16 @@ class ChainRunner:
             if pattern[j]:
                 eta = (sq_r * state.X[None] + sq_1mr * state.Z
                        if cfg.estimator == "scaled" else None)
-                carry.sigma_acc += covariance_panels(
+                blocks = covariance_panels(
                     state.Lambda, state.ps, cfg.rho, self._rows, self._cols,
                     eta_all=eta, compute_dtype=self._c_dtype)
+                carry.sigma_acc += blocks
+                if carry.sigma_sq_acc is not None:
+                    # the JAX package's acc_sq + blocks * blocks: the
+                    # square rounded on its own (an in-place multiply, no
+                    # second temporary), then the add - two kernels, so
+                    # no compiler can contract them into an FMA
+                    carry.sigma_sq_acc += blocks.mul_(blocks)
             health = _health_update(health, _health_now(state, self.prior))
             self._trace[j].copy_(_trace_now(state, sse, cfg.rho))
         for dst, src in zip(state_leaves(carry.state), state_leaves(state),

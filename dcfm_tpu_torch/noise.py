@@ -59,7 +59,7 @@ class Draws(Protocol):
 
 
 class NoiseProvider(Protocol):
-    def init(self, chain: int) -> Draws: ...
+    def init(self, chain: int, lineage: int = 0) -> Draws: ...
 
     def sweep(self, chain: int, iteration: int) -> Draws: ...
 
@@ -114,15 +114,20 @@ class TorchNoise:
     rewind appends its rewind count (runtime/pipeline), so a retried
     trajectory never replays the draws that diverged - the port of the JAX
     package's ``fold_in(key_chain, rewinds)``.  The empty lineage keys the
-    streams exactly as before it existed."""
+    streams exactly as before it existed.  ``init(chain, lineage)`` with a
+    lineage > 0 is an elastic birth's initial state (the JAX package's
+    ``fold_in(k_init, elastic_lineage)``): never the state any chain of
+    another lineage started from."""
 
     def __init__(self, seed: int, device, lineage: tuple = ()):
         self.seed = int(seed)
         self.device = torch.device(device)
         self.lineage = tuple(int(w) for w in lineage)
 
-    def init(self, chain: int) -> Draws:
-        return _SiteStreams((self.seed, int(chain), _INIT), self.device)
+    def init(self, chain: int, lineage: int = 0) -> Draws:
+        words = (self.seed, int(chain), _INIT) + ((int(lineage),)
+                                                  if lineage else ())
+        return _SiteStreams(words, self.device)
 
     def sweep(self, chain: int, iteration: int) -> Draws:
         return _SiteStreams((self.seed, int(chain), _SWEEP, int(iteration),

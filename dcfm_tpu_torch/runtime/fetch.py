@@ -8,6 +8,10 @@ move it cheaply:
 * :func:`fetch_prep` - on the device, in torch ops: the chain mean, the
   padding trim and the division by the saved-draw count, in the float32
   arithmetic of the JAX package's fetch, then :func:`cast_for_link`;
+* :func:`fetch_sd_prep` - the entrywise posterior SD (ModelConfig.
+  posterior_sd) from the second-moment sums and the prepped mean, formed
+  in float32 on the device before any link cast (the JAX package's
+  ``fetch_sd_jit``);
 * :func:`cast_for_link` - the down-cast for the link: bfloat16, float16,
   or quant8 (max-abs int8 per panel with one float32 scale);
 * :class:`Drain` / :func:`quant8_start` / :func:`quant8_drain` /
@@ -23,7 +27,6 @@ move it cheaply:
 
 On the CPU the same functions run with no stream and no pinned memory:
 the "copy" is the tensor itself.  No fetch runs inside a captured graph.
-The posterior-SD fetch is not ported (ROADMAP Queue A item 5).
 """
 
 from __future__ import annotations
@@ -88,6 +91,15 @@ def accumulator_window(total_iters: int, burnin: int, thin: int,
     return n_saved, inv_count, bessel
 
 
+def _chain_factor(num_chains: int, inv_count) -> float:
+    """``inv_count`` times the float32 1/num_chains, folded as XLA folds
+    the chain mean's division into the scalar."""
+    factor = np.float32(inv_count)
+    if num_chains > 1:
+        factor = factor * np.float32(1.0 / num_chains)
+    return float(factor)
+
+
 def fetch_prep(acc: torch.Tensor, num_chains: int, g: int, inv_count,
                mode: str):
     """The posterior-mean panels for the link, from ``acc``: the packed
@@ -103,11 +115,27 @@ def fetch_prep(acc: torch.Tensor, num_chains: int, g: int, inv_count,
     multiply by ``inv_count * (1/num_chains)``; then
     :func:`cast_for_link`."""
     u = acc[:num_upper_pairs(g)]
-    factor = np.float32(inv_count)
-    if num_chains > 1:
-        factor = factor * np.float32(1.0 / num_chains)
-    u.mul_(float(factor))
+    u.mul_(_chain_factor(num_chains, inv_count))
     return cast_for_link(u, mode)
+
+
+def fetch_sd_prep(acc_sq: torch.Tensor, mean: torch.Tensor,
+                  num_chains: int, inv_count, bessel, mode: str):
+    """The entrywise posterior-SD panels for the link: ``acc_sq``, the
+    chains' second-moment sums summed in chain order (CONSUMED: scaled in
+    place), and ``mean``, the float32 mean panels :func:`fetch_prep`
+    formed from the first-moment sums (its ``acc[:n_pairs]``, scaled).
+
+    The JAX package's ``fetch_sd_jit``: m2 = the sums' chain mean times
+    ``inv_count`` (the mean's one multiply), then ``sqrt(max(m2 - mean *
+    mean, 0) * bessel)`` in float32 - the square rounded on its own, then
+    the difference - and only then :func:`cast_for_link`: the difference
+    cancels, so it is never formed in a link dtype."""
+    m2 = acc_sq[:mean.shape[0]]
+    m2.mul_(_chain_factor(num_chains, inv_count))
+    m2.sub_(mean * mean)
+    sd = m2.clamp_(min=0.0).mul_(float(np.float32(bessel))).sqrt_()
+    return cast_for_link(sd, mode)
 
 
 def cast_for_link(u: torch.Tensor, mode: str):

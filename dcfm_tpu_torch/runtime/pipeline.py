@@ -14,8 +14,11 @@ The port of ``dcfm_tpu/runtime/pipeline.py`` for one process:
 * :class:`StreamingFetcher` - the double-buffered device->host stream of
   quant8 accumulator snapshots.  Each boundary after the first saved draw
   sums the chains' accumulators in chain order into a device buffer and
-  runs ``fetch_prep`` and ``cast_for_link`` on it on a side stream, while
-  the next chunk computes; a drain thread lands the int8 panels.  At most
+  runs ``fetch_prep`` and ``cast_for_link`` on it on a side stream (and,
+  under posterior_sd, the same for the second-moment sums through
+  ``fetch_sd_prep``), while the next chunk computes; a drain thread lands
+  the int8 panels - into the serve artifact's memmaps under
+  ``FitConfig.stream_artifact``.  At most
   ``max_inflight`` snapshots are in flight: a boundary that finds every
   slot busy is skipped, and the final boundary waits for one.  The final
   snapshot is the post-hoc quant8 fetch's computation on the same sums
@@ -49,11 +52,11 @@ from dcfm_tpu_torch.models.state import SamplerState
 from dcfm_tpu_torch.resilience.sentinel import (
     ChainDivergedError, DivergenceSentinel)
 from dcfm_tpu_torch.runtime.fetch import (
-    _fetch_stream, fetch_prep, quant8_drain, quant8_start)
+    _fetch_stream, fetch_prep, fetch_sd_prep, quant8_drain, quant8_start)
 from dcfm_tpu_torch.runtime.resume import (
-    ResumeContext, resume_state, rewind_source)
+    ElasticResume, ResumeContext, resume_state, rewind_source)
 from dcfm_tpu_torch.utils.checkpoint import (
-    AsyncCheckpointWriter, save_checkpoint)
+    AsyncCheckpointWriter, Snapshot, save_checkpoint)
 
 
 def chunk_schedule(num_iters: int, chunk: int) -> list:
@@ -88,26 +91,30 @@ def pool_stats(stats: list) -> ChainStats:
 
 
 def carries_from_leaves(leaves: dict, num_chains: int, device,
-                        acc_shape: tuple) -> list:
+                        acc_shape: tuple, *,
+                        posterior_sd: bool = False) -> list:
     """The chains' carries on ``device`` from checkpoint leaves (a light
-    file's accumulator restarts at zero)."""
+    file's accumulators restart at zero)."""
     def get(name, c):
         a = leaves[name]
         return torch.as_tensor(np.array(a[c] if num_chains > 1 else a,
                                         copy=True), device=device)
 
+    def acc(name, c):
+        return (get(name, c) if name in leaves
+                else torch.zeros(acc_shape, dtype=torch.float32,
+                                 device=device))
+
     out = []
     for c in range(num_chains):
-        acc = (get("sigma_acc", c) if "sigma_acc" in leaves
-               else torch.zeros(acc_shape, dtype=torch.float32,
-                                device=device))
         out.append(ChainCarry(
             state=SamplerState(
                 *(get(k, c) for k in ("Lambda", "Z", "X", "ps")),
                 prior={k: get(k, c) for k in ("delta", "psijh")}),
-            sigma_acc=acc,
+            sigma_acc=acc("sigma_acc", c),
             iteration=int(np.asarray(leaves["iteration"]).reshape(-1)[c]),
-            health=get("health", c)))
+            health=get("health", c),
+            sigma_sq_acc=acc("sigma_sq_acc", c) if posterior_sd else None))
     return out
 
 
@@ -116,23 +123,36 @@ class _StreamJob:
     started: tuple             # runtime.fetch.quant8_start's
     final: bool
     sources: list              # the summed accumulators, alive until drained
+    sd_started: Optional[tuple] = None     # the SD panels' drain
 
 
 class StreamingFetcher:
     """Double-buffered background drain of per-boundary quant8 snapshots
     of the chains' pooled accumulator (module docstring).
 
-    ``inv_count`` is the final window's divisor (the post-hoc fetch's,
-    runtime/fetch.accumulator_window); a sentinel rewind that moves the
-    window resets it (:meth:`reset_window`)."""
+    ``inv_count`` and ``bessel`` are the final window's divisor and
+    Bessel factor (the post-hoc fetch's, runtime/fetch.accumulator_window);
+    a sentinel rewind that moves the window resets them
+    (:meth:`reset_window`).  A carry with a second-moment accumulator
+    (posterior_sd) streams its SD panels beside the mean's.  ``land_mean``
+    / ``land_sd`` are landing buffers for the drained int8 panels (the
+    serve artifact's writable memmaps, serve/artifact.
+    begin_streamed_artifact); without them the drain's own host arrays
+    are kept."""
 
     def __init__(self, inv_count, num_chains: int, g: int, *,
+                 bessel=None, land_mean: Optional[np.ndarray] = None,
+                 land_sd: Optional[np.ndarray] = None,
                  max_inflight: int = 2):
-        self._inv_count = inv_count
+        self._inv_count, self._bessel = inv_count, bessel
         self._C, self._g = num_chains, g
         self._buf: Optional[torch.Tensor] = None
+        self._buf_sq: Optional[torch.Tensor] = None
+        self.land_mean, self.land_sd = land_mean, land_sd
         self.q8: Optional[np.ndarray] = None
         self.scales: Optional[np.ndarray] = None
+        self.sd_q8: Optional[np.ndarray] = None
+        self.sd_scales: Optional[np.ndarray] = None
         self.snapshots = self.skipped = 0
         self.chunk_fetch_s: list = []
         # seconds the final submit waited for a free slot: exposed fetch
@@ -149,16 +169,27 @@ class StreamingFetcher:
                                         name="dcfm-stream-drain")
         self._worker.start()
 
-    def reset_window(self, inv_count) -> None:
+    def reset_window(self, inv_count, bessel=None) -> None:
         """A sentinel rewind moved the window: its new divisor (snapshots
         already queued are superseded by the final one)."""
-        self._inv_count = inv_count
+        self._inv_count, self._bessel = inv_count, bessel
+
+    @staticmethod
+    def _sum(buf, accs):
+        """The chain-order sum of ``accs`` into ``buf`` (created on first
+        use)."""
+        if buf is None:
+            buf = torch.empty_like(accs[0])
+        buf.copy_(accs[0])
+        for a in accs[1:]:
+            buf += a
+        return buf
 
     def submit(self, carries: list, *, final: bool = False) -> bool:
-        """Dispatch one boundary's snapshot: the chain-order sum, the
-        quant8 prep and the start of its drain.  A non-final submit never
-        blocks: with every slot busy the boundary is skipped (False).  The
-        final submit waits for a slot."""
+        """Dispatch one boundary's snapshot: the chain-order sums, the
+        quant8 preps and the start of their drains.  A non-final submit
+        never blocks: with every slot busy the boundary is skipped (False).
+        The final submit waits for a slot."""
         if self._error is not None:
             return False
         if final:
@@ -170,6 +201,8 @@ class StreamingFetcher:
             return False
         try:
             accs = [c.sigma_acc for c in carries]
+            sqs = [getattr(c, "sigma_sq_acc", None) for c in carries]
+            sqs = None if sqs[0] is None else sqs
             dev = accs[0].device
             side = None
             if dev.type == "cuda":
@@ -177,11 +210,9 @@ class StreamingFetcher:
                 side.wait_stream(torch.cuda.current_stream(dev))
             with (torch.cuda.stream(side) if side is not None
                   else contextlib.nullcontext()):
-                if self._buf is None:
-                    self._buf = torch.empty_like(accs[0])
-                self._buf.copy_(accs[0])
-                for a in accs[1:]:
-                    self._buf += a
+                self._buf = self._sum(self._buf, accs)
+                if sqs is not None:
+                    self._buf_sq = self._sum(self._buf_sq, sqs)
                 if side is not None:
                     read = torch.cuda.Event()
                     read.record(side)
@@ -190,11 +221,16 @@ class StreamingFetcher:
                 q, scale = fetch_prep(self._buf, self._C, self._g,
                                       self._inv_count, "quant8")
                 started = quant8_start(q, scale)
+                sd_started = None
+                if sqs is not None:
+                    sd_started = quant8_start(*fetch_sd_prep(
+                        self._buf_sq, self._buf[:q.shape[0]], self._C,
+                        self._inv_count, self._bessel, "quant8"))
         except BaseException:
             self._slots.release()      # a later final submit waits on it
             raise
         self.snapshots += 1
-        self._queue.put(_StreamJob(started, final, accs))
+        self._queue.put(_StreamJob(started, final, accs, sd_started))
         return True
 
     def finish(self) -> dict:
@@ -207,6 +243,7 @@ class StreamingFetcher:
             e, self._error = self._error, None
             raise e
         return {"q8": self.q8, "scales": self.scales,
+                "sd_q8": self.sd_q8, "sd_scales": self.sd_scales,
                 "final_landed": self.final_landed,
                 "snapshots": self.snapshots, "skipped": self.skipped,
                 "final_wait_s": self.final_wait_s,
@@ -222,7 +259,14 @@ class StreamingFetcher:
             self._finished = True
             self._queue.put(None)
             self._worker.join()
-            self._buf = None
+            self._buf = self._buf_sq = None
+
+    @staticmethod
+    def _land(q8: np.ndarray, land: Optional[np.ndarray]) -> np.ndarray:
+        if land is None:
+            return q8
+        land[...] = q8
+        return land
 
     def _drain_loop(self) -> None:
         while True:
@@ -232,7 +276,11 @@ class StreamingFetcher:
             try:
                 if self._error is None:
                     t = time.perf_counter()
-                    self.q8, self.scales = quant8_drain(job.started)
+                    q8, self.scales = quant8_drain(job.started)
+                    self.q8 = self._land(q8, self.land_mean)
+                    if job.sd_started is not None:
+                        q8, self.sd_scales = quant8_drain(job.sd_started)
+                        self.sd_q8 = self._land(q8, self.land_sd)
                     if job.final:
                         self.final_landed = True
                     self.chunk_fetch_s.append(time.perf_counter() - t)
@@ -254,7 +302,7 @@ class ChainRunResult:
     chunk_seconds: list
     done: int                      # the iteration the run started at
     acc_start: int
-    window: Optional[tuple]        # ResumeContext.window
+    elastic: Optional[ElasticResume]   # ResumeContext.elastic
     checkpoint_error: Optional[str]
     rewinds: int
     trace0: int                    # global iteration the traces start at
@@ -272,16 +320,18 @@ _GRAPH_KEYS = ("captured", "capture_s", "replays", "eager_trips")
 
 def run_chain(*, cfg, model, run, phase: dict, fingerprint, template: dict,
               make_runner: Callable, device: torch.device,
-              window_fn: Callable, stream: bool = False) -> ChainRunResult:
+              window_fn: Callable,
+              make_streamer: Optional[Callable] = None) -> ChainRunResult:
     """The host-side chunk loop.  ``make_runner(model, lineage)`` builds a
     ``models/sampler.ChainRunner`` for ``model`` (the base ModelConfig, or
     the sentinel's jitter-escalated one after a rewind) on streams of the
-    given lineage; ``window_fn(acc_start, window)`` is the fetch divisor
-    (``window``: ResumeContext.window); ``stream`` feeds a
-    :class:`StreamingFetcher`, built once the resume point is known."""
+    given lineage; ``window_fn(acc_start, elastic)`` is the fetch divisor
+    and Bessel factor (``elastic``: ResumeContext.elastic);
+    ``make_streamer(acc_start, elastic)`` builds the
+    :class:`StreamingFetcher`, once the resume point is known and only if
+    a chunk will run."""
     C = run.num_chains
     chunk = run.chunk_size or run.total_iters
-    rctx = ResumeContext(cfg=cfg, fingerprint=fingerprint, template=template)
     graphs = dict.fromkeys(_GRAPH_KEYS, 0)
 
     def retire(r):
@@ -292,10 +342,23 @@ def run_chain(*, cfg, model, run, phase: dict, fingerprint, template: dict,
     lineage: tuple = ()
     m_active = model
     runner = make_runner(m_active, lineage)
+
+    def birth(c, elastic_lineage):
+        # an elastic grow's new chain: its initial state on the bumped
+        # lineage, as host leaves
+        return Snapshot([runner.new_chain(c, elastic_lineage)],
+                        state_only=False).wait()
+
+    def from_leaves(leaves):
+        return carries_from_leaves(leaves, C, device,
+                                   template["sigma_acc"][0][-3:],
+                                   posterior_sd=model.posterior_sd)
+
+    rctx = ResumeContext(cfg=cfg, fingerprint=fingerprint, template=template,
+                         birth=birth)
     leaves, done, acc_start = resume_state(rctx)
     carries = ([runner.new_chain(c) for c in range(C)] if leaves is None
-               else carries_from_leaves(leaves, C, device,
-                                        template["sigma_acc"][0][-3:]))
+               else from_leaves(leaves))
     del leaves
     _sync(device)
     phase["init_s"] = time.perf_counter() - t_init
@@ -333,9 +396,8 @@ def run_chain(*, cfg, model, run, phase: dict, fingerprint, template: dict,
                                    for c in carries),
             base_jitter=model.ridge_jitter)
     trace0 = it_now = done
-    streamer = (StreamingFetcher(window_fn(acc_start, rctx.window), C,
-                                 model.num_shards)
-                if stream and executed else None)
+    streamer = (make_streamer(acc_start, rctx.elastic)
+                if make_streamer is not None and executed else None)
     queue_ = chunk_schedule(executed, chunk)
     qi = 0
     try:
@@ -382,8 +444,7 @@ def run_chain(*, cfg, model, run, phase: dict, fingerprint, template: dict,
                 _sync(device)
                 retire(runner)
                 del runner, carries
-                carries = carries_from_leaves(
-                    leaves, C, device, template["sigma_acc"][0][-3:])
+                carries = from_leaves(leaves)
                 del leaves
                 lineage = lineage + (sentinel.rewinds,)
                 m_active = dataclasses.replace(
@@ -392,8 +453,9 @@ def run_chain(*, cfg, model, run, phase: dict, fingerprint, template: dict,
                 trace0 = min(trace0, it_now)
                 traces = [(s, tr) for s, tr in traces if s < it_now]
                 if streamer is not None:
-                    streamer.reset_window(window_fn(acc_start,
-                                                    rctx.window))
+                    # the rewound file carries its own elastic record
+                    streamer.reset_window(*window_fn(acc_start,
+                                                     rctx.elastic))
                 queue_ = chunk_schedule(run.total_iters - it_now, chunk)
                 qi = 0
                 since_save = 0
@@ -404,8 +466,10 @@ def run_chain(*, cfg, model, run, phase: dict, fingerprint, template: dict,
                 # yet) skip
                 draws = (num_saved_draws(it_now, run.burnin, run.thin)
                          - num_saved_draws(acc_start, run.burnin, run.thin))
-                if rctx.window is not None:
-                    draws += rctx.window[1]
+                if rctx.elastic is not None:
+                    # draws folded in from dropped chains are in the
+                    # accumulator before this run saves any
+                    draws += rctx.elastic.fold_draws
                 if last or draws > 0:
                     try:
                         streamer.submit(carries, final=last)
@@ -435,10 +499,16 @@ def run_chain(*, cfg, model, run, phase: dict, fingerprint, template: dict,
                 target = (cfg.checkpoint_path + ".full"
                           if full_due and not last else cfg.checkpoint_path)
                 state_only = light_mode and not full_due
+                # the birth lineage rides every save (a light resume
+                # must not rewind it), the window bookkeeping every save
+                # that keeps the accumulators
                 kw = {}
-                if rctx.window is not None and not state_only:
-                    kw = dict(chain_acc_starts=list(rctx.window[0]),
-                              fold_draws=rctx.window[1])
+                if rctx.elastic is not None:
+                    kw["elastic_lineage"] = rctx.elastic.elastic_lineage
+                    if not state_only:
+                        kw.update(chain_acc_starts=list(
+                            rctx.elastic.chain_acc_starts),
+                            fold_draws=rctx.elastic.fold_draws)
                 t = time.perf_counter()
                 try:
                     writer.submit(save_checkpoint, target, carries, cfg,
@@ -467,7 +537,7 @@ def run_chain(*, cfg, model, run, phase: dict, fingerprint, template: dict,
     return ChainRunResult(
         carries=carries, stats=stats, executed=executed,
         traces=[tr for _, tr in traces], chunk_seconds=chunk_secs,
-        done=done, acc_start=acc_start, window=rctx.window,
+        done=done, acc_start=acc_start, elastic=rctx.elastic,
         checkpoint_error=ck_error,
         rewinds=sentinel.rewinds if sentinel is not None else 0,
         trace0=trace0, streamer=streamer, graphs=graphs)

@@ -3,11 +3,11 @@
 The port's copy of the NumPy/stdlib part of ``dcfm_tpu/serve/artifact.py``,
 in the same format (``dcfm-posterior-artifact`` v1): an artifact exported
 here opens under the JAX package's ``PosteriorArtifact`` and the other way
-round (its posterior-SD panels, ``sd_q8.bin``, included; the port writes
-none).  A directory::
+round.  A directory::
 
     artifact/
       mean_q8.bin   int8  (n_pairs, P, P) C-order  - memmapped
+      sd_q8.bin     int8  (n_pairs, P, P) C-order  - memmapped, optional
       maps.npz      per-panel scales + preprocess maps (O(p), loaded whole)
       meta.json     format tag, version, shape, per-panel CRC32s,
                     provenance, fingerprint - written LAST
@@ -19,10 +19,14 @@ quantized with the quant8 link's max-abs rule (runtime/fetch.cast_for_link;
 and written last, so a half-written artifact fails to open instead of
 serving garbage.
 
-Not ported (ROADMAP Queue A): writing posterior-SD panels (item 5), the
-streamed and cooperative exports, ``export_from_checkpoint`` (item 3) and
-the fault-injection and flight-recorder seams, the query engine and the
-server (item 7).
+Three export sources, no refit: :func:`export_fit_result` (a FitResult),
+the streamed export (:func:`begin_streamed_artifact` hands the streamed
+fetch its landing memmaps, :func:`finalize_streamed_artifact` completes
+the artifact) and :func:`export_from_checkpoint` (a checkpoint file of
+either package and the data matrix).  Not ported (ROADMAP Queue A item 7):
+``.procK-of-N`` checkpoint sets, the cooperative exports, the
+fault-injection and flight-recorder seams, the query engine and the
+server.
 """
 
 from __future__ import annotations
@@ -36,9 +40,15 @@ from typing import Optional
 
 import numpy as np
 
-from dcfm_tpu_torch.config import _CKPT
+from dcfm_tpu_torch.config import FitConfig, validate
+from dcfm_tpu_torch.models.state import num_upper_pairs
+from dcfm_tpu_torch.runtime.fetch import accumulator_window
+from dcfm_tpu_torch.runtime.resume import refuse_multiprocess_sets
+from dcfm_tpu_torch.utils.checkpoint import (
+    carry_template, config_from_checkpoint_meta, data_fingerprint,
+    elastic_meta, load_checkpoint, read_checkpoint_meta)
 from dcfm_tpu_torch.utils.estimate import assemble_from_q8
-from dcfm_tpu_torch.utils.preprocess import PreprocessResult
+from dcfm_tpu_torch.utils.preprocess import PreprocessResult, preprocess
 
 ARTIFACT_FORMAT = "dcfm-posterior-artifact"
 ARTIFACT_VERSION = 1
@@ -265,9 +275,9 @@ def _write_panels(path: str, name: str, q: np.ndarray) -> None:
         np.ascontiguousarray(q, np.int8).tofile(f)
 
 
-def _build_maps(pre: PreprocessResult, mean_scale) -> dict:
-    """The maps.npz payload."""
-    return dict(
+def _build_maps(pre: PreprocessResult, mean_scale, sd_scale) -> dict:
+    """The maps.npz payload, the same for every export path."""
+    maps = dict(
         mean_scale=np.asarray(mean_scale, np.float32),
         col_scale=np.asarray(pre.col_scale, np.float32),
         col_mean=np.asarray(pre.col_mean, np.float32),
@@ -275,6 +285,9 @@ def _build_maps(pre: PreprocessResult, mean_scale) -> dict:
         inv_perm=np.asarray(pre.inv_perm, np.int64),
         kept_cols=np.asarray(pre.kept_cols, np.int64),
     )
+    if sd_scale is not None:
+        maps["sd_scale"] = np.asarray(sd_scale, np.float32)
+    return maps
 
 
 def _write_meta_last(path: str, meta: dict) -> None:
@@ -287,17 +300,95 @@ def _write_meta_last(path: str, meta: dict) -> None:
     os.replace(tmp, os.path.join(path, META_FILE))
 
 
+def _meta(pre: PreprocessResult, P: int, crc: dict, has_sd: bool,
+          provenance: Optional[dict]) -> dict:
+    meta = {
+        "format": ARTIFACT_FORMAT,
+        "version": ARTIFACT_VERSION,
+        "g": int(pre.num_shards),
+        "P": int(P),
+        "p_original": int(pre.p_original),
+        "n_pad": int(pre.n_pad),
+        "has_sd": bool(has_sd),
+        "panel_crc": crc,
+        "provenance": provenance or {},
+    }
+    meta["fingerprint"] = artifact_fingerprint(meta)
+    return meta
+
+
+def begin_streamed_artifact(path: str, *, g: int, P: int,
+                            has_sd: bool = False):
+    """The panel files of a streamed export as writable memmaps: the
+    landing buffers of the streamed fetch (runtime/pipeline.
+    StreamingFetcher).  An existing ``meta.json`` is removed first, so a
+    crash mid-stream leaves a directory that refuses to open.  Each panel
+    file is a fresh inode (an existing one is unlinked, never truncated:
+    an earlier result may still map it).  Returns ``(mean memmap, SD
+    memmap or None)``."""
+    n_pairs = _num_pairs(g)
+    os.makedirs(path, exist_ok=True)
+    for name in (META_FILE, SD_PANELS_FILE, MEAN_PANELS_FILE):
+        fp = os.path.join(path, name)
+        if os.path.exists(fp):
+            os.unlink(fp)
+    mean_mm = np.memmap(os.path.join(path, MEAN_PANELS_FILE), dtype=np.int8,
+                        mode="w+", shape=(n_pairs, P, P))
+    sd_mm = (np.memmap(os.path.join(path, SD_PANELS_FILE), dtype=np.int8,
+                       mode="w+", shape=(n_pairs, P, P)) if has_sd else None)
+    return mean_mm, sd_mm
+
+
+def finalize_streamed_artifact(
+    path: str,
+    *,
+    mean_mm: np.ndarray,
+    mean_scale: np.ndarray,
+    pre: PreprocessResult,
+    sd_mm: Optional[np.ndarray] = None,
+    sd_scale: Optional[np.ndarray] = None,
+    provenance: Optional[dict] = None,
+) -> PosteriorArtifact:
+    """Complete a streamed export: flush the landed memmaps, record their
+    per-panel CRC32s, write the maps and the metadata (last) - the bytes a
+    post-hoc :func:`export_fit_result` of the same chain writes - and
+    return the artifact opened (read-only maps)."""
+    n_pairs, P, _ = np.shape(mean_mm)
+    g = pre.num_shards
+    if n_pairs != _num_pairs(g) or g * P != pre.p_used:
+        raise ValueError(
+            f"streamed panels {np.shape(mean_mm)} do not match g={g}, "
+            f"p_used={pre.p_used}")
+    if np.shape(mean_scale) != (n_pairs,):
+        raise ValueError(f"mean_scale must be ({n_pairs},), got "
+                         f"{np.shape(mean_scale)}")
+    if (sd_mm is None) != (sd_scale is None):
+        raise ValueError("sd_mm and sd_scale must be passed together")
+    mean_mm.flush()
+    crc = {"mean": [int(panel_crc32(q)) for q in mean_mm]}
+    if sd_mm is not None:
+        sd_mm.flush()
+        crc["sd"] = [int(panel_crc32(q)) for q in sd_mm]
+    np.savez(os.path.join(path, MAPS_FILE),
+             **_build_maps(pre, mean_scale, sd_scale))
+    _write_meta_last(path, _meta(pre, P, crc, sd_mm is not None, provenance))
+    return PosteriorArtifact.open(path)
+
+
 def write_artifact(
     path: str,
     *,
     mean_q8: np.ndarray,
     mean_scale: np.ndarray,
     pre: PreprocessResult,
+    sd_q8: Optional[np.ndarray] = None,
+    sd_scale: Optional[np.ndarray] = None,
     provenance: Optional[dict] = None,
 ) -> PosteriorArtifact:
     """Write a v1 artifact directory from already-quantized mean panels
-    and return it opened.  An existing ``meta.json`` is removed before any
-    payload byte lands and the new one written last."""
+    (and SD panels, ``has_sd``) and return it opened.  An existing
+    ``meta.json`` is removed before any payload byte lands and the new one
+    written last."""
     n_pairs, P, P2 = np.shape(mean_q8)
     g = pre.num_shards
     if P != P2 or n_pairs != _num_pairs(g):
@@ -309,28 +400,26 @@ def write_artifact(
     if np.shape(mean_scale) != (n_pairs,):
         raise ValueError(f"mean_scale must be ({n_pairs},), got "
                          f"{np.shape(mean_scale)}")
+    if (sd_q8 is None) != (sd_scale is None):
+        raise ValueError("sd_q8 and sd_scale must be passed together")
+    if sd_q8 is not None and np.shape(sd_q8) != (n_pairs, P, P):
+        raise ValueError(f"sd panels {np.shape(sd_q8)} != mean panels "
+                         f"({n_pairs}, {P}, {P})")
     os.makedirs(path, exist_ok=True)
     crc = {"mean": [int(panel_crc32(q)) for q in np.asarray(mean_q8)]}
+    if sd_q8 is not None:
+        crc["sd"] = [int(panel_crc32(q)) for q in np.asarray(sd_q8)]
     meta_path = os.path.join(path, META_FILE)
     if os.path.exists(meta_path):
         os.unlink(meta_path)
-    if os.path.exists(os.path.join(path, SD_PANELS_FILE)):
+    if sd_q8 is None and os.path.exists(os.path.join(path, SD_PANELS_FILE)):
         os.unlink(os.path.join(path, SD_PANELS_FILE))   # stale SD panels
     _write_panels(path, MEAN_PANELS_FILE, mean_q8)
-    np.savez(os.path.join(path, MAPS_FILE), **_build_maps(pre, mean_scale))
-    meta = {
-        "format": ARTIFACT_FORMAT,
-        "version": ARTIFACT_VERSION,
-        "g": int(g),
-        "P": int(P),
-        "p_original": int(pre.p_original),
-        "n_pad": int(pre.n_pad),
-        "has_sd": False,
-        "panel_crc": crc,
-        "provenance": provenance or {},
-    }
-    meta["fingerprint"] = artifact_fingerprint(meta)
-    _write_meta_last(path, meta)
+    if sd_q8 is not None:
+        _write_panels(path, SD_PANELS_FILE, sd_q8)
+    np.savez(os.path.join(path, MAPS_FILE),
+             **_build_maps(pre, mean_scale, sd_scale))
+    _write_meta_last(path, _meta(pre, P, crc, sd_q8 is not None, provenance))
     return PosteriorArtifact.open(path)
 
 
@@ -338,29 +427,135 @@ def export_fit_result(res, path: str) -> PosteriorArtifact:
     """Export a :class:`dcfm_tpu_torch.api.FitResult` - no refit, no dense
     Sigma.  Under the quant8 fetch the fetched int8 panels and scales are
     written as they are; every other fetch is quantized on the host with
-    the identical rule."""
+    the identical rule.  The SD panels ride along under posterior_sd."""
     if res._q8_panels is not None:
         mean_q8 = np.asarray(res._q8_panels)
         mean_scale = np.asarray(res._q8_scales, np.float32)
     else:
         mean_q8, mean_scale = quantize_panels(res.upper_panels)
-    m, run = res.config.model, res.config.run
+    sd_q8 = sd_scale = None
+    if res._sd_q8_panels is not None:
+        sd_q8 = np.asarray(res._sd_q8_panels)
+        sd_scale = np.asarray(res._sd_q8_scales, np.float32)
+    elif res.sd_upper_panels is not None:
+        sd_q8, sd_scale = quantize_panels(res.sd_upper_panels)
+    return write_artifact(path, mean_q8=mean_q8, mean_scale=mean_scale,
+                          pre=res.preprocess, sd_q8=sd_q8,
+                          sd_scale=sd_scale,
+                          provenance=fit_provenance(res.config, "fit"))
+
+
+def fit_provenance(cfg: FitConfig, source: str) -> dict:
+    """The provenance of an artifact exported from a fit (``source``
+    "fit", or "fit-stream" for the streamed export)."""
+    m, run = cfg.model, cfg.run
+    return {"source": source, "num_shards": m.num_shards,
+            "factors_per_shard": m.factors_per_shard, "prior": m.prior,
+            "estimator": m.estimator, "seed": run.seed,
+            "total_iters": run.total_iters}
+
+
+def _exportable(cfg: FitConfig, n: int, p: int) -> None:
+    """Refuse a checkpoint whose config the port cannot represent, naming
+    the knob's Queue A item: the checks and refusals of a fit of the
+    file's model, schedule and backend (``config.validate``).  What only
+    steered the run that wrote the file (resume, cadence, stream_artifact,
+    warm_start) is not the export's business."""
+    validate(FitConfig(model=cfg.model, run=cfg.run, backend=cfg.backend,
+                       permute=cfg.permute, standardize=cfg.standardize,
+                       pad_to_shards=cfg.pad_to_shards), n, p)
+
+
+def export_from_checkpoint(checkpoint_path: str, Y: np.ndarray,
+                           path: str) -> PosteriorArtifact:
+    """Export straight from a checkpoint - no refit, no random stream, so
+    a file of either package (the port's, or the JAX package's of a config
+    the port can represent).  Host NumPy throughout: the port of the JAX
+    package's ``export_from_checkpoint``.
+
+    ``Y`` (the original data matrix) is preprocessed again under the
+    file's config and its ``data_fingerprint`` verified before anything is
+    written.  A light file is read through its ``.full`` sidecar, or
+    refused; a window with no saved draws is refused.  The mean panels are
+    the chain mean of the sums times ``inv_count`` in the JAX package's
+    NumPy order (``acc.mean(axis=0)[:n_pairs] * inv_count``), quantized
+    with the quant8 rule; the SD panels (a file with ``sigma_sq_acc``) are
+    ``sqrt(max(m2 - mean * mean, 0) * bessel)``.  The divisor is the
+    window's (runtime/fetch.accumulator_window), with the file's elastic
+    bookkeeping (meta v7) when it holds any.  ``.procK-of-N`` sets are
+    refused (ROADMAP Queue A item 7)."""
+    refuse_multiprocess_sets(checkpoint_path)
+    if not os.path.exists(checkpoint_path):
+        raise FileNotFoundError(f"no checkpoint at {checkpoint_path}")
+    meta = read_checkpoint_meta(checkpoint_path)
+    if meta.get("state_only"):
+        side = checkpoint_path + ".full"
+        # only an absent sidecar is the refusal below: a corrupt one
+        # raises its own read error
+        smeta = (read_checkpoint_meta(side) if os.path.exists(side)
+                 else {"state_only": True})
+        if smeta.get("state_only"):
+            raise ArtifactError(
+                f"{checkpoint_path} is a state-only (light) checkpoint: it "
+                "stores no covariance accumulators and no .full sidecar "
+                "exists - export from a full checkpoint "
+                "(checkpoint_mode='full' or checkpoint_full_every)")
+        checkpoint_path, meta = side, smeta
+    cfg = config_from_checkpoint_meta(meta)
+    Y = np.asarray(Y)
+    _exportable(cfg, *Y.shape)
+    m, run = cfg.model, cfg.run
+    pre = preprocess(Y, m.num_shards, permute=cfg.permute,
+                     standardize=cfg.standardize,
+                     pad_to_shards=cfg.pad_to_shards, seed=run.seed)
+    if meta["fingerprint"] != data_fingerprint(pre.data):
+        raise ArtifactError(
+            "checkpoint data fingerprint mismatch - the data matrix passed "
+            "to export is not the one the checkpointed chain ran on")
+    C = run.num_chains
+    leaves, meta = load_checkpoint(checkpoint_path, carry_template(
+        m, n=pre.data.shape[1], P=pre.data.shape[2], num_chains=C))
+    it = int(meta["iteration"])
+    acc0 = int(meta.get("acc_start", 0))
+    starts, fold, _ = elastic_meta(meta, C)
+    uniform = not fold and len(set(starts)) <= 1
+    n_saved, inv_count, bessel = accumulator_window(
+        it, run.burnin, run.thin, acc0, C,
+        chain_acc_starts=None if uniform else starts,
+        fold_draws=0 if uniform else fold)
+    if n_saved <= 0 and not fold:
+        raise ArtifactError(
+            f"checkpoint at iteration {it} has no saved draws in its "
+            "accumulation window - nothing to export (burn-in only, or a "
+            "light resume restarted the window)")
+    n_pairs = num_upper_pairs(m.num_shards)
+
+    def mean_panels(acc):
+        acc = np.asarray(acc, np.float32)
+        if C > 1:
+            acc = acc.mean(axis=0)
+        return acc[:n_pairs] * inv_count
+
+    mean = mean_panels(leaves["sigma_acc"])
+    mean_q8, mean_scale = quantize_panels(mean)
+    sd_q8 = sd_scale = None
+    if "sigma_sq_acc" in leaves:
+        m2 = mean_panels(leaves["sigma_sq_acc"])
+        sd = np.sqrt(np.maximum(m2 - mean * mean, np.float32(0.0))
+                     * bessel)
+        sd_q8, sd_scale = quantize_panels(sd)
     provenance = {
-        "source": "fit",
+        "source": "checkpoint",
+        "checkpoint": os.path.abspath(checkpoint_path),
+        "iteration": it,
+        "n_saved": int(n_saved),
+        "num_chains": C,
         "num_shards": m.num_shards,
         "factors_per_shard": m.factors_per_shard,
         "prior": m.prior,
         "estimator": m.estimator,
         "seed": run.seed,
-        "total_iters": run.total_iters,
     }
     return write_artifact(path, mean_q8=mean_q8, mean_scale=mean_scale,
-                          pre=res.preprocess, provenance=provenance)
-
-
-def export_from_checkpoint(checkpoint_path: str, Y: np.ndarray,
-                           path: str) -> PosteriorArtifact:
-    """The JAX package's export straight from a checkpoint, with no refit:
-    refused until it is ported."""
-    raise NotImplementedError(
-        f"export_from_checkpoint is not ported to dcfm_tpu_torch yet: {_CKPT}")
+                          pre=pre, sd_q8=sd_q8, sd_scale=sd_scale,
+                          provenance=provenance)

@@ -11,18 +11,33 @@ recomputes it from the caller's Y and the fingerprint refuses other data).
 Format: the JAX package's v8 - one ``.npz`` with the leaves ``leaf_0``,
 ``leaf_1``, ... in the JAX ``ChainCarry``'s flatten order
 (:data:`FULL_LEAVES`: Lambda, Z, X, ps, the MGP prior's delta and psijh,
-sigma_acc, iteration, health; a light file drops sigma_acc and renumbers,
-:data:`LIGHT_LEAVES`), a leading chain axis on every leaf when there is
-more than one chain and none for one, and a JSON ``__meta__`` entry with
-the JAX package's keys, per-leaf CRC32s among them.  So the JAX package's
-``verify_checkpoint`` and ``load_checkpoint`` (with a ``jax.eval_shape``
-template) read a port file leaf for leaf.
+sigma_acc, iteration, health, and under ``ModelConfig.posterior_sd``
+sigma_sq_acc, :data:`FULL_LEAVES_SD`; a light file drops the accumulators
+and renumbers, :data:`LIGHT_LEAVES`), a leading chain axis on every leaf
+when there is more than one chain and none for one, and a JSON
+``__meta__`` entry with the JAX package's keys, per-leaf CRC32s among
+them.  The config in it carries every key the JAX package's reader
+requires: the knobs the port has no field for are written at the JAX
+package's defaults (:data:`_JAX_ONLY`).  So the JAX package's
+``verify_checkpoint``, ``config_from_checkpoint_meta`` and
+``load_checkpoint`` (with a ``jax.eval_shape`` template) read a port file
+leaf for leaf.
 
 One key is the port's own: ``"rng": "torch-philox"``, naming the random
 streams the chains were drawn from (``noise.TorchNoise``).  The port
-resumes only files that carry it: a chain the JAX package wrote came from
-threefry keys and cannot be continued on Philox streams as the same chain
-(and the JAX package cannot continue a port chain either).
+continues only files that carry it: a chain the JAX package wrote came
+from threefry keys and cannot be continued on Philox streams as the same
+chain.  The JAX package never reads the key: its own gates accept a
+compatible port file and continue the chain on threefry keys - a valid
+chain, bitwise equal to no run of either package.  Reading the sums
+needs no stream: :func:`dcfm_tpu_torch.serve.artifact.export_from_checkpoint`
+exports a file of either package.
+
+Elastic adoption (:func:`load_checkpoint_elastic`) reads a full file
+written at another chain count: a shrink folds the dropped chains'
+accumulators into chain 0, a grow splices in re-lineaged births; the meta
+v7 fields (``chain_acc_starts``, ``fold_draws``, ``elastic_lineage``)
+keep the divisor exact.
 
 Writes are atomic (tmp + rename), so a crash mid-save never corrupts the
 previous checkpoint; ``keep_last`` > 1 keeps older generations as
@@ -51,7 +66,8 @@ import numpy as np
 import torch
 
 from dcfm_tpu_torch.config import (
-    BackendConfig, FitConfig, MGPConfig, ModelConfig, RunConfig)
+    BackendConfig, FitConfig, MGPConfig, ModelConfig, RunConfig, WarmStart)
+from dcfm_tpu_torch.models.sampler import num_saved_draws
 from dcfm_tpu_torch.models.state import num_padded_pairs
 
 # the random streams a port chain is drawn from (meta["rng"])
@@ -64,11 +80,39 @@ _LOADABLE_VERSIONS = (_FORMAT_VERSION, 7, 6)
 # the leaves of a chain's carry in the JAX ChainCarry's flatten order
 STATE_LEAVES = ("Lambda", "Z", "X", "ps", "delta", "psijh")
 FULL_LEAVES = STATE_LEAVES + ("sigma_acc", "iteration", "health")
-# a light (state-only) file drops the accumulator: the JAX _slim carry
+# ModelConfig.posterior_sd: the second-moment sums follow health, as
+# sigma_sq_acc follows health in the JAX ChainCarry
+FULL_LEAVES_SD = FULL_LEAVES + ("sigma_sq_acc",)
+# a light (state-only) file drops the accumulators: the JAX _slim carry
 LIGHT_LEAVES = STATE_LEAVES + ("iteration", "health")
-_ACC_LEAF = FULL_LEAVES.index("sigma_acc")
+ACC_LEAVES = ("sigma_acc", "sigma_sq_acc")
 _TREEDEF = ("ChainCarry(state=SamplerState(Lambda, Z, X, ps, prior={delta, "
-            "psijh}), sigma_acc, iteration, health)")
+            "psijh}), sigma_acc, iteration, health")
+
+# The JAX package's FitConfig knobs the port has no field for, at the JAX
+# package's defaults (dcfm_tpu/config.py), each with the key it follows in
+# its section of the config JSON (None: first).  None of them changes a
+# chain the port can run: each one acts only under a knob the port
+# represents and refuses (prior, rank_adapt, early_stop) or names no
+# sampling at all (backend, profile_dir, obs).  Written so the JAX
+# package's reader finds every key it requires; dropped on reading.
+_JAX_ONLY = (
+    ("model", "mgp", {"horseshoe": {"global_scale": 1.0},
+                      "dl": {"a": 0.5},
+                      "adapt": {"a0": -1.0, "a1": -5e-4, "eps": 0.05,
+                                "prop": 0.95, "min_active": 1}}),
+    ("run", "early_stop", {"rhat_threshold": 1.01, "ess_target": 400.0}),
+    ("backend", None, {"backend": "auto"}),
+    ("backend", "upload_dtype", {"profile_dir": None}),
+    (None, "sentinel_max_rewinds", {"obs": "auto"}),
+)
+
+
+def file_leaves(state_only: bool, posterior_sd: bool) -> tuple:
+    """The leaf names of a file, in leaf order."""
+    if state_only:
+        return LIGHT_LEAVES
+    return FULL_LEAVES_SD if posterior_sd else FULL_LEAVES
 
 
 class CheckpointCorruptError(ValueError):
@@ -91,6 +135,8 @@ def carry_template(model: ModelConfig, *, n: int, P: int,
             "delta": (G, K), "psijh": (G, P, K),
             "sigma_acc": (num_padded_pairs(G), P, P), "iteration": (),
             "health": (G, 4)}
+    if model.posterior_sd:
+        core["sigma_sq_acc"] = core["sigma_acc"]
     lead = (num_chains,) if num_chains > 1 else ()
     return {k: (lead + s, np.dtype(np.int32 if k == "iteration"
                                    else np.float32))
@@ -104,6 +150,8 @@ def _chain_tensors(carry, state_only: bool) -> dict:
            "delta": st.prior["delta"], "psijh": st.prior["psijh"]}
     if not state_only:
         out["sigma_acc"] = carry.sigma_acc
+        if carry.sigma_sq_acc is not None:
+            out["sigma_sq_acc"] = carry.sigma_sq_acc
     out["health"] = carry.health
     return out
 
@@ -186,18 +234,58 @@ def data_fingerprint(data: np.ndarray) -> str:
     return h.hexdigest()[:16]
 
 
+def _with_after(d: dict, after: Optional[str], items: dict) -> dict:
+    """``d`` with ``items`` inserted after key ``after`` (None: first)."""
+    if after is None:
+        return {**items, **d}
+    out = {}
+    for k, v in d.items():
+        out[k] = v
+        if k == after:
+            out.update(items)
+    return out
+
+
 def _config_to_json(cfg: FitConfig) -> dict:
-    return dataclasses.asdict(cfg)
+    """The config as the JAX package's ``_config_to_json`` writes it: the
+    port's fields, and the JAX package's other knobs at their defaults
+    (:data:`_JAX_ONLY`), every key in the JAX package's place."""
+    d = dataclasses.asdict(cfg)
+    for section, after, items in _JAX_ONLY:
+        items = {k: (dict(v) if isinstance(v, dict) else v)
+                 for k, v in items.items()}
+        if section is None:
+            d = _with_after(d, after, items)
+        else:
+            d[section] = _with_after(d[section], after, items)
+    return d
+
+
+def _fields(cls, d: dict) -> dict:
+    names = {f.name for f in dataclasses.fields(cls)}
+    return {k: v for k, v in d.items() if k in names}
 
 
 def _config_from_json(d: dict) -> FitConfig:
-    model = dict(d["model"])
+    """The port's FitConfig from a config JSON of either package (before
+    and after the JAX-only keys were written): keys the port has no field
+    for are dropped (:data:`_JAX_ONLY`)."""
+    model = _fields(ModelConfig, d["model"])
     model["mgp"] = MGPConfig(**model["mgp"])
-    known = {f.name for f in dataclasses.fields(FitConfig)}
-    rest = {k: v for k, v in d.items()
-            if k in known and k not in ("model", "run", "backend")}
-    return FitConfig(model=ModelConfig(**model), run=RunConfig(**d["run"]),
-                     backend=BackendConfig(**d["backend"]), **rest)
+    rest = {k: v for k, v in _fields(FitConfig, d).items()
+            if k not in ("model", "run", "backend")}
+    if rest.get("warm_start"):
+        rest["warm_start"] = WarmStart(**rest["warm_start"])
+    return FitConfig(model=ModelConfig(**model),
+                     run=RunConfig(**_fields(RunConfig, d["run"])),
+                     backend=BackendConfig(**_fields(BackendConfig,
+                                                     d["backend"])),
+                     **rest)
+
+
+def config_from_checkpoint_meta(meta: dict) -> FitConfig:
+    """The FitConfig a checkpoint of either package was written under."""
+    return _config_from_json(meta["config"])
 
 
 def elastic_meta(meta: dict, num_chains: int) -> Tuple[list, int, int]:
@@ -311,19 +399,21 @@ def _atomic_savez(target: str, meta: dict, payload: dict, *,
 def save_checkpoint(path: str, leaves: dict, cfg: FitConfig, *,
                     fingerprint: str, state_only: bool = False,
                     acc_start: int = 0, keep_last: int = 1,
-                    chain_acc_starts=None, fold_draws: int = 0) -> None:
+                    chain_acc_starts=None, fold_draws: int = 0,
+                    elastic_lineage: int = 0) -> None:
     """Atomically write the chains' leaves (``{name: numpy array}``, a
     :class:`Snapshot`'s), the config and the data fingerprint, with the
     JAX package's v8 meta and the port's stream key.
 
-    ``state_only`` writes the light file (no accumulator: MBs instead of
+    ``state_only`` writes the light file (no accumulators: MBs instead of
     the p^2-sized full file); a light resume restarts accumulation at the
     saved iteration.  ``acc_start`` is the global iteration the current
     accumulators' window started at (0 for an uninterrupted run), so a
     full save after a light resume stays self-describing;
-    ``chain_acc_starts`` / ``fold_draws`` the v7 bookkeeping (None:
-    uniform starts at ``acc_start``)."""
-    names = LIGHT_LEAVES if state_only else FULL_LEAVES
+    ``chain_acc_starts`` / ``fold_draws`` / ``elastic_lineage`` the v7
+    bookkeeping of an elastic adoption (None: uniform starts at
+    ``acc_start``)."""
+    names = file_leaves(state_only, "sigma_sq_acc" in leaves)
     num_chains = int(cfg.run.num_chains)
     if _num_chains(leaves) != num_chains:
         raise ValueError(f"{_num_chains(leaves)} chains' leaves for a "
@@ -333,17 +423,19 @@ def save_checkpoint(path: str, leaves: dict, cfg: FitConfig, *,
     meta = {
         "version": _FORMAT_VERSION,
         "config": _config_to_json(cfg),
-        "treedef": _TREEDEF,
+        "treedef": _TREEDEF + (", sigma_sq_acc)" if "sigma_sq_acc" in names
+                               else ")"),
         "iteration": int(np.asarray(leaves["iteration"]).reshape(-1)[0]),
         "fingerprint": fingerprint,
         "state_only": bool(state_only),
         "acc_start": int(acc_start),
-        "acc_leaf_indices": [] if state_only else [_ACC_LEAF],
+        "acc_leaf_indices": [i for i, k in enumerate(names)
+                             if k in ACC_LEAVES],
         "chain_acc_starts": [int(a) for a in (
             chain_acc_starts if chain_acc_starts is not None
             else [acc_start] * num_chains)],
         "fold_draws": int(fold_draws),
-        "elastic_lineage": 0,
+        "elastic_lineage": int(elastic_lineage),
         "pod_hosts": 1,
         "pod_adoptions": 0,
         "topology": topology,
@@ -415,11 +507,12 @@ def load_checkpoint(path: str, template: dict) -> Tuple[dict, dict]:
     """``({leaf name: numpy array}, meta)``.  ``template`` is
     :func:`carry_template`'s: every leaf is CRC-checked, then its shape
     checked against the template, so a config/data mismatch fails loudly.
-    A light file has no ``sigma_acc``: the caller restarts the
-    accumulator at zero (accumulation restarts at ``meta["iteration"]``)."""
+    A light file has no accumulators: the caller restarts them at zero
+    (accumulation restarts at ``meta["iteration"]``)."""
     with _open(path) as z:
         meta = _read_meta(z, path)
-        names = LIGHT_LEAVES if meta.get("state_only") else FULL_LEAVES
+        names = file_leaves(bool(meta.get("state_only")),
+                            "sigma_sq_acc" in template)
         leaves = {}
         for i, name in enumerate(names):
             arr = _read_leaf(z, meta, f"leaf_{i}", path)
@@ -471,6 +564,111 @@ def checkpoint_compatible(meta: dict, cfg: FitConfig, fingerprint: str, *,
     if meta["fingerprint"] != fingerprint:
         return "data fingerprint mismatch - resuming on different data"
     return None
+
+
+def _donor_template(template: dict, run_chains: int,
+                    donor_chains: int) -> dict:
+    """A ``run_chains``-chain template rewritten to the donor's chain
+    count: a pure leading-axis edit (the chain-axis convention)."""
+    out = {}
+    for k, (shape, dtype) in template.items():
+        core = tuple(shape[1:]) if run_chains > 1 else tuple(shape)
+        out[k] = (((donor_chains,) + core) if donor_chains > 1 else core,
+                  dtype)
+    return out
+
+
+def load_checkpoint_elastic(path: str, template: dict, num_chains: int, *,
+                            births: Optional[list] = None
+                            ) -> Tuple[dict, dict, dict]:
+    """Adopt a full checkpoint written at another chain count onto
+    ``num_chains`` chains: the port of the JAX package's
+    ``load_checkpoint_elastic``, single-process.
+
+    A shrink C -> C' keeps the first C' chains' leaves verbatim and folds
+    the dropped chains' accumulators into chain 0 in the JAX package's
+    order, ``a[0] + a[C':].sum(axis=0)``; the draws they held are counted
+    in ``fold_draws``.  A grow keeps every donor chain verbatim and takes
+    the new chains' leaves from ``births`` (one ``{leaf: array}`` per new
+    chain, no chain axis: initial states on a fresh lineage), with zero
+    accumulators, the donor's iteration and the adoption iteration as
+    their window start.
+
+    ``template`` is :func:`carry_template`'s for ``num_chains`` chains.
+    Returns ``(leaves shaped for num_chains, meta, info)``; ``info`` holds
+    from/to chains, kept, dropped, birthed, ``fold_draws``,
+    ``chain_acc_starts``, the donor's ``elastic_lineage`` and topology.
+    Light donors and ``store_draws`` donors are refused (ValueError, the
+    JAX package's messages)."""
+    meta = read_checkpoint_meta(path)
+    saved = _config_from_json(meta["config"])
+    donor_chains = int(saved.run.num_chains)
+    new_c = int(num_chains)
+    if meta.get("state_only"):
+        raise ValueError(
+            "elastic resume needs a FULL checkpoint: a state-only (light) "
+            "file carries no accumulators, so a dropped chain's draws "
+            "cannot be folded into the pooled posterior - resume it at "
+            f"num_chains={donor_chains} first, or start fresh")
+    if saved.run.store_draws:
+        raise ValueError(
+            "elastic resume refuses store_draws=True checkpoints: the "
+            "per-draw buffers are statically sized per chain and cannot "
+            "be re-chained - resume at the original chain count "
+            f"({donor_chains}) instead")
+    leaves, meta = load_checkpoint(
+        path, _donor_template(template, new_c, donor_chains))
+    starts, fold, lineage = elastic_meta(meta, donor_chains)
+    it = int(meta["iteration"])
+    burnin, thin = int(saved.run.burnin), int(saved.run.thin)
+
+    def window(a):
+        return (num_saved_draws(it, burnin, thin)
+                - num_saved_draws(int(a), burnin, thin))
+
+    def chains(a):
+        return a[None] if donor_chains == 1 else a
+
+    if new_c < donor_chains:
+        out = {}
+        for k, a in leaves.items():
+            a = np.array(chains(np.asarray(a)), copy=True)
+            if k in ACC_LEAVES:
+                a[0] = a[0] + a[new_c:].sum(axis=0, dtype=a.dtype)
+            a = a[:new_c]
+            out[k] = a[0] if new_c == 1 else a
+        leaves = out
+        fold = fold + sum(window(starts[c])
+                          for c in range(new_c, donor_chains))
+        starts = starts[:new_c]
+    elif new_c > donor_chains:
+        if births is None or len(births) != new_c - donor_chains:
+            raise ValueError(
+                f"growing {donor_chains} -> {new_c} chains requires the "
+                f"{new_c - donor_chains} births' initial leaves")
+        out = {}
+        for k, a in leaves.items():
+            a = chains(np.asarray(a))
+            if k == "iteration":
+                born = [np.full((), it, a.dtype)] * len(births)
+            elif k in ACC_LEAVES:
+                born = [np.zeros(a.shape[1:], a.dtype)] * len(births)
+            else:
+                born = [np.asarray(b[k], a.dtype) for b in births]
+            out[k] = np.concatenate([a, np.stack(born)])
+        leaves = out
+        starts = starts + [it] * (new_c - donor_chains)
+    info = {
+        "from_chains": donor_chains, "to_chains": new_c,
+        "kept": min(donor_chains, new_c),
+        "dropped": max(0, donor_chains - new_c),
+        "birthed": max(0, new_c - donor_chains),
+        "fold_draws": int(fold),
+        "chain_acc_starts": [int(a) for a in starts],
+        "elastic_lineage": int(lineage),
+        "from_topology": meta.get("topology"),
+    }
+    return leaves, meta, info
 
 
 class AsyncCheckpointWriter:

@@ -14,6 +14,7 @@ flipped byte raises ``CheckpointCorruptError``, ``scan_generations``.
 import dataclasses
 import functools
 import os
+import shutil
 
 import numpy as np
 import pytest
@@ -340,3 +341,108 @@ def test_snapshot_leaves_follow_the_chain_axis_convention():
     assert sorted(light) == sorted(ck.LIGHT_LEAVES)
     assert pipeline.carries_from_leaves(light, 3, "cpu", (3, 1, 1))[2] \
         .sigma_acc.abs().sum() == 0
+
+
+# ---- fault C7: the config in a port file, read by the JAX package ----------
+
+def _field_pairs(port_obj, jax_obj, prefix=""):
+    """(name, port value, JAX value) for every field of the port's
+    dataclass, recursing into nested configs."""
+    out = []
+    for f in dataclasses.fields(port_obj):
+        a, b = getattr(port_obj, f.name), getattr(jax_obj, f.name)
+        if dataclasses.is_dataclass(a):
+            out += _field_pairs(a, b, f"{prefix}{f.name}.")
+        else:
+            out.append((prefix + f.name, a, b))
+    return out
+
+
+def test_the_jax_package_reads_the_config_of_a_port_checkpoint(tmp_path):
+    """Fault C7: the port wrote dataclasses.asdict of its own FitConfig,
+    which lacks keys the JAX package's reader requires (model.horseshoe,
+    .dl, .adapt; backend.backend, .profile_dir; obs; run.ess_target,
+    .rhat_threshold), so config_from_checkpoint_meta raised KeyError on
+    every port file.  Now it returns, field for field, the config the port
+    ran - except elastic and materialize_sigma, which the JAX package's
+    reader never reads back (its defaults come back; the file holds the
+    port's values)."""
+    path = str(tmp_path / "c7.npz")
+    cfg = dataclasses.replace(
+        _cfg(dt, 2), checkpoint_path=path, checkpoint_every_chunks=2,
+        checkpoint_mode="light", checkpoint_full_every=2,
+        checkpoint_keep_last=2, sentinel="abort", elastic=True,
+        materialize_sigma="never",
+        model=dataclasses.replace(_cfg(dt).model, lambda_kernel="pallas",
+                                  ridge_jitter=0.5, x_prior_precision=2.0),
+        backend=dt.BackendConfig(sse_mode="gram", fetch_dtype="quant8",
+                                 upload_dtype="bfloat16"))
+    dt.fit(_data(), cfg, device="cpu")
+    meta = jck.read_checkpoint_meta(path)
+    got = jck.config_from_checkpoint_meta(meta)
+    assert isinstance(got, dcfm_tpu.FitConfig)
+    unread = {"elastic", "materialize_sigma"}
+    for name, a, b in _field_pairs(cfg, got):
+        if name in unread:
+            assert b == getattr(dcfm_tpu.FitConfig(
+                model=got.model, run=got.run), name), name
+            assert meta["config"][name] == a, name
+        else:
+            assert a == b, (name, a, b)
+    # every key the JAX package writes, in its nesting and at its
+    # defaults where the port has no field; nothing the JAX package lacks
+    want = jck._config_to_json(got)
+    have = meta["config"]
+    assert list(have) == list(want)
+    for section in ("model", "run", "backend"):
+        assert list(have[section]) == list(want[section]), section
+    for section, key in (("model", "horseshoe"), ("model", "dl"),
+                         ("model", "adapt"), ("run", "rhat_threshold"),
+                         ("run", "ess_target"), ("backend", "backend"),
+                         ("backend", "profile_dir")):
+        assert have[section][key] == want[section][key]
+    assert have["obs"] == dcfm_tpu.FitConfig(model=got.model,
+                                             run=got.run).obs
+    # and the port reads both its own files and the JAX package's layout
+    assert ck.config_from_checkpoint_meta(meta) == cfg
+    legacy = dict(meta["config"])
+    legacy["model"] = {k: v for k, v in legacy["model"].items()
+                       if k not in ("horseshoe", "dl", "adapt")}
+    legacy["run"] = {k: v for k, v in legacy["run"].items()
+                     if k not in ("rhat_threshold", "ess_target")}
+    legacy["backend"] = {k: v for k, v in legacy["backend"].items()
+                         if k not in ("backend", "profile_dir")}
+    legacy.pop("obs")
+    assert ck._config_from_json(legacy) == cfg
+
+
+def test_the_jax_package_continues_a_port_checkpoint_on_its_own_keys(
+        tmp_path):
+    """What fixing C7 changes on the JAX side (pinned, not endorsed): the
+    JAX package never reads the port's "rng" key, so with the config
+    readable its own gates (config, seed, schedule, fingerprint) accept a
+    port file, and dcfm_tpu.fit(resume="auto") continues the port's chain
+    from the file's iteration on threefry keys - a valid chain, bitwise
+    equal to neither a fresh JAX fit nor the port's uninterrupted one.
+    The port itself keeps refusing a JAX file for continuation."""
+    path = str(tmp_path / "port.npz")
+    short = dataclasses.replace(_cfg(dt, 2, mcmc=2), checkpoint_path=path)
+    dt.fit(_data(), short, device="cpu")
+    assert jck.read_checkpoint_meta(path)["iteration"] == 8
+    strict = str(tmp_path / "strict.npz")
+    shutil.copy(path, strict)
+    jcfg = dataclasses.replace(_cfg(dcfm_tpu, 2), checkpoint_path=path,
+                               resume="auto")
+    cont = dcfm_tpu.fit(_data(), jcfg)
+    assert cont.traces.shape[:2] == (2, 14 - 8)       # continued at 8
+    fresh = dcfm_tpu.fit(_data(), _cfg(dcfm_tpu, 2))
+    assert fresh.traces.shape[:2] == (2, 14)
+    assert not np.array_equal(cont.Sigma, fresh.Sigma)
+    port_full = dt.fit(_data(), _cfg(dt, 2), device="cpu")
+    assert not np.array_equal(cont.Sigma, port_full.Sigma)
+    # resume=True is no refusal either: the same continuation
+    again = dcfm_tpu.fit(_data(), dataclasses.replace(
+        jcfg, checkpoint_path=strict, resume=True))
+    assert again.traces.shape[:2] == (2, 14 - 8)
+    np.testing.assert_array_equal(again.Sigma, cont.Sigma)
+    assert np.isfinite(cont.Sigma).all()

@@ -213,37 +213,23 @@ def _names_a_queue_a_item(message: str) -> bool:
 
 # the refusals: the fetch and upload dtypes (now ported) gave their places
 # to missing values and the DL prior, resume without a checkpoint (now a
-# ValueError) and the streamed fetch, checkpoint and resume (ported) to
-# what stays of their items: stream_artifact, adopting a checkpoint of
-# another chain count (elastic) and warm_start
+# ValueError); posterior_sd, stream_artifact and the adoption of a
+# checkpoint of another chain count (elastic) are ported and dropped out
 @pytest.mark.parametrize("model,run,backend,extra", [
     ({"prior": "horseshoe"}, {}, {}, {}),
     ({"rank_adapt": True}, {}, {}, {}),
     ({"combine_chunks": 2}, {}, {}, {}),
-    ({"posterior_sd": True}, {}, {}, {}),
     ({}, {"store_draws": True}, {}, {}),
     ({}, {"early_stop": "rhat"}, {}, {}),
-    ({}, {}, {"fetch_dtype": "quant8"}, {"stream_artifact": "art"}),
     ({"impute_missing": True}, {}, {}, {}),
     ({}, {}, {"mesh_devices": 2}, {}),
     ({"prior": "dl"}, {}, {}, {}),
-    ({}, {"num_chains": 2}, {}, {"checkpoint_path": "one_chain.npz",
-                                 "resume": True}),
     ({}, {}, {}, {"warm_start": dcfm_tpu_torch.config.WarmStart("w.npz")}),
 ])
-def test_knobs_outside_the_port_are_refused(model, run, backend, extra,
-                                            tmp_path):
+def test_knobs_outside_the_port_are_refused(model, run, backend, extra):
     """Every knob the port does not run raises, naming the ROADMAP Queue A
-    item that will port it (fault C1: the item must exist).  The elastic
-    case resumes, at two chains, a checkpoint written at one."""
+    item that will port it (fault C1: the item must exist)."""
     Y, _ = make_synthetic(30, 8, 2, seed=0)
-    if "checkpoint_path" in extra:
-        extra = extra | {"checkpoint_path": str(tmp_path / "one_chain.npz")}
-        fit(Y, FitConfig(model=ModelConfig(num_shards=2, factors_per_shard=2,
-                                           rho=0.5),
-                         run=RunConfig(burnin=2, mcmc=2),
-                         checkpoint_path=extra["checkpoint_path"]),
-            device="cpu")
     cfg = FitConfig(
         model=ModelConfig(num_shards=2, factors_per_shard=2, rho=0.5,
                           **model),

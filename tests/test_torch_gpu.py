@@ -4,7 +4,9 @@ fits whose main paths launch the kernels (f32 through K1, bf16 through K4,
 pallas-fused through K2; K5 in each) as CUDA graphs, the graphed chain
 against the eager chain bit for bit, the fetch (the pinned, sliced drain
 against a plain copy, the fetch prep against the CPU's, fits at every
-fetch_dtype), and a failed capture raising.
+fetch_dtype), the posterior SD (its accumulate inside the graphs, its
+fetch prep against the CPU's), the streamed artifact and the export from
+a checkpoint, an elastic resume, and a failed capture raising.
 
 They need an NVIDIA GPU with nvcc (the kernels are built on first use) and
 skip without one.  They import no JAX, so on the card they run without the
@@ -33,6 +35,7 @@ from dcfm_tpu_torch.ops.lam_update import lam_update, lam_update_plain  # noqa: 
 from dcfm_tpu_torch.ops.sse_gamma import sse_ps, sse_ps_plain  # noqa: E402
 from dcfm_tpu_torch.runtime import fetch  # noqa: E402
 from dcfm_tpu_torch.serve.artifact import PosteriorArtifact  # noqa: E402
+from dcfm_tpu_torch.serve.artifact import export_from_checkpoint  # noqa: E402
 from dcfm_tpu_torch.utils.preprocess import preprocess  # noqa: E402
 
 pytestmark = pytest.mark.gpu
@@ -344,7 +347,9 @@ def _run_chains(cuda, cfg, graphs):
             traces.append(tr.cpu())
         out.append([t.cpu() for t in sampler.state_leaves(carry.state)]
                    + [carry.sigma_acc.cpu(), carry.health.cpu(),
-                      torch.cat(traces)])
+                      torch.cat(traces)]
+                   + ([] if carry.sigma_sq_acc is None
+                      else [carry.sigma_sq_acc.cpu()]))
     counts = (runner.captured, runner.replays, runner.eager_trips)
     return out, cuda_lib.launch_counts(), counts
 
@@ -575,6 +580,145 @@ def test_a_streamed_quant8_fit_on_the_card_is_the_post_hoc_one(cuda):
     for k in ("Sigma", "_q8_panels", "_q8_scales"):
         np.testing.assert_array_equal(getattr(out["auto"], k),
                                       getattr(out["off"], k))
+
+
+@pytest.mark.parametrize("compute_dtype,lambda_kernel", [
+    ("f32", "pallas"), ("bf16", "auto"), ("f32", "pallas-fused")])
+def test_sd_graph_chain_equals_eager_chain_bitwise(cuda, compute_dtype,
+                                                   lambda_kernel):
+    """posterior_sd: the square and its add are graph nodes too; every
+    leaf, sigma_sq_acc included, bitwise the eager chain's."""
+    cfg = ModelConfig(num_shards=4, factors_per_shard=4, rho=0.9,
+                      sse_mode="gram", compute_dtype=compute_dtype,
+                      lambda_kernel=lambda_kernel, posterior_sd=True)
+    eager, n_eager, _ = _run_chains(cuda, cfg, graphs=False)
+    graph, n_graph, c_graph = _run_chains(cuda, cfg, graphs=True)
+    names = ["Lambda", "Z", "X", "ps", "delta", "psijh", "sigma_acc",
+             "health", "trace", "sigma_sq_acc"]
+    for c in range(2):
+        for name, a, b in zip(names, eager[c], graph[c], strict=True):
+            assert torch.equal(a, b), (c, name, float((a - b).abs().max()))
+        assert graph[c][-1].abs().sum() > 0
+    assert c_graph == (7, 11, 7) and n_graph == n_eager
+
+
+@pytest.mark.parametrize("mode", ["float32", "bfloat16", "float16",
+                                  "quant8"])
+@pytest.mark.parametrize("C", [1, 2])
+def test_sd_prep_on_the_card_is_the_cpus(cuda, mode, C):
+    """fetch_sd_prep on the card against the CPU's on the same sums: the
+    mean (fetch_prep) is the CPU's bits, the float32 SD within one float32
+    ulp (measured on an H100: 5.96e-8 at values up to 0.5, a last-bit
+    difference), so a link-cast SD within one unit of the link dtype's
+    last place (an entry whose float32 value straddles a rounding
+    boundary) and a quant8 SD within one int8 step, its scales within one
+    float32 ulp."""
+    g, P = 9, 157
+    rng = np.random.default_rng(10 + C)
+    centre = rng.standard_normal((45, P, P)).astype(np.float32)
+    accs, sqs = [], []
+    for _ in range(C):
+        d = centre + 0.3 * rng.standard_normal((5, 45, P, P)).astype(
+            np.float32)
+        accs.append(d.sum(axis=0))
+        sqs.append((d * d).sum(axis=0))
+    out = {}
+    for dev in ("cpu", cuda):
+        pooled = torch.as_tensor(accs[0], device=dev).clone()
+        sq = torch.as_tensor(sqs[0], device=dev).clone()
+        for c in range(1, C):
+            pooled += torch.as_tensor(accs[c], device=dev)
+            sq += torch.as_tensor(sqs[c], device=dev)
+        inv = np.float32(1 / 5)
+        mean = fetch.fetch_prep(pooled, C, g, inv, mode)
+        got = fetch.fetch_sd_prep(sq, pooled[:45], C, inv,
+                                  np.float32(5 * C / (5 * C - 1)), mode)
+        out[str(dev)] = [t.cpu() for t in (
+            (*mean, *got) if mode == "quant8" else (mean, got))]
+    cpu, card = out["cpu"], out[str(cuda)]
+    for a, b in zip(cpu[:len(cpu) // 2], card[:len(cpu) // 2], strict=True):
+        assert torch.equal(a, b)                        # the mean
+    eps = torch.finfo(torch.float32).eps
+    if mode == "quant8":
+        (q, s), (qc, sc) = cpu[2:], card[2:]
+        assert (q.int() - qc.int()).abs().max() <= 1
+        assert ((s - sc).abs() <= eps * s.abs()).all()
+        return
+    a, b = cpu[1].float(), card[1].float()
+    ulp = eps if mode == "float32" else {
+        "bfloat16": 2.0 ** -7, "float16": 2.0 ** -10}[mode]
+    assert ((a - b).abs() <= ulp * torch.maximum(a.abs(), b.abs())).all()
+
+
+def test_a_small_sd_fit_streams_and_exports_on_the_card(cuda, tmp_path):
+    """posterior_sd on the card: K1 and K5 once per sweep; a finite,
+    non-negative SD; the streamed artifact (SD panels beside the mean's)
+    is the post-hoc export byte for byte; the export of the fit's final
+    checkpoint is its own export (mean bytes, SD within one step)."""
+    Y, _ = _small_data()
+    base = dataclasses.replace(_ckpt_cfg(), model=dataclasses.replace(
+        _ckpt_cfg().model, posterior_sd=True))
+
+    def run(**kw):
+        cfg = dataclasses.replace(base, **kw)
+        cuda_lib.reset_launch_counts()
+        res = fit(Y, cfg, device=cuda)
+        torch.cuda.synchronize()
+        return res, cuda_lib.launch_counts()
+
+    q8 = BackendConfig(sse_mode="gram", fetch_dtype="quant8")
+    path = str(tmp_path / "ck.npz")
+    f32, launches = run(checkpoint_path=path)
+    assert launches == dict(dict.fromkeys(launches, 0), chol_sample=160,
+                            sse_ps=160)
+    assert np.isfinite(f32.Sigma_sd).all() and (f32.Sigma_sd >= 0).all()
+    streamed, _ = run(backend=q8, stream_artifact=str(tmp_path / "s"))
+    post, _ = run(backend=dataclasses.replace(q8, fetch_stream="off"))
+    post.export_artifact(str(tmp_path / "p"))
+    assert streamed.stream_stats["snapshots"] > 0
+    for name in ("mean_q8.bin", "sd_q8.bin"):
+        assert ((tmp_path / "s" / name).read_bytes()
+                == (tmp_path / "p" / name).read_bytes())
+    bound = post._sd_q8_scales[:, None, None] / 254
+    assert (np.abs(post.sd_upper_panels - f32.sd_upper_panels)
+            <= bound * (1 + 1e-5)).all()
+    art = export_from_checkpoint(path, Y, str(tmp_path / "e"))
+    own = f32.export_artifact(str(tmp_path / "o"))
+    assert art.mean_panels.tobytes() == own.mean_panels.tobytes()
+    step = np.maximum(art.sd_scale, own.sd_scale)[:, None, None] / 127
+    da = art.sd_panels * (art.sd_scale / 127)[:, None, None]
+    db = own.sd_panels * (own.sd_scale / 127)[:, None, None]
+    assert (np.abs(da - db) <= step * (1 + 1e-5)).all()
+
+
+@pytest.mark.parametrize("to", [1, 3])
+def test_an_elastic_resume_on_the_card(cuda, tmp_path, to):
+    """A 2-chain file at iteration 48 resumed at 1 and at 3 chains on the
+    card: the adoption's bookkeeping, the path's kernels once per executed
+    sweep, and a Sigma inside the quality rule."""
+    Y, St = _small_data()
+    path = str(tmp_path / "e.npz")
+    short = dataclasses.replace(_ckpt_cfg(checkpoint_path=path),
+                                run=RunConfig(burnin=40, mcmc=8, thin=2,
+                                              num_chains=2, chunk_size=16,
+                                              sweep_unroll=4))
+    fit(Y, short, device=cuda)
+    cfg = _ckpt_cfg(checkpoint_path=path, resume=True)
+    cfg = dataclasses.replace(cfg, run=dataclasses.replace(cfg.run,
+                                                           num_chains=to))
+    cuda_lib.reset_launch_counts()
+    res = fit(Y, cfg, device=cuda)
+    torch.cuda.synchronize()
+    el = res.elastic_resume
+    assert (el["from_chains"], el["to_chains"]) == (2, to)
+    assert el["fold_draws"] == (4 if to == 1 else 0)
+    assert el["chain_acc_starts"] == ((0,) if to == 1 else (0, 0, 48))
+    sweeps = to * (80 - 48)
+    assert res.kernel_launches == dict(
+        dict.fromkeys(res.kernel_launches, 0), chol_sample=sweeps,
+        sse_ps=sweeps)
+    assert np.isfinite(res.Sigma).all()
+    assert np.linalg.norm(res.Sigma - St) / np.linalg.norm(St) < 0.25
 
 
 def test_a_failed_capture_raises_and_is_not_hidden(cuda, monkeypatch):

@@ -13,6 +13,7 @@ import dataclasses
 import functools
 import math
 import os
+import shutil
 
 import numpy as np
 import pytest
@@ -511,15 +512,21 @@ def test_the_chunk_major_fit_is_the_chain_major_loop():
 
 
 def test_elastic_adoption_is_refused_unless_elastic_is_off(tmp_path, writer):
-    """A file written at another chain count: the JAX package adopts it
-    (elastic "auto"); the port refuses by name, and with elastic=False
-    refuses it as incompatible, as the JAX package does."""
+    """A full file written at another chain count is adopted when elastic
+    is True or "auto" (tests/test_torch_elastic.py holds the adoption to
+    the JAX package's); with elastic=False it is refused as incompatible,
+    as the JAX package refuses it, and resume="auto" then starts fresh.
+    (The port refused the adoption itself before it was ported; the test
+    keeps its name.)"""
     path = str(tmp_path / "e.npz")
     _fit(dataclasses.replace(_cfg(C=1), checkpoint_path=path))
     cfg = dataclasses.replace(_cfg(C=2), checkpoint_path=path, resume=True)
     for elastic in ("auto", True):
-        with pytest.raises(NotImplementedError, match="Queue A item 3"):
-            _fit(cfg, elastic=elastic)
+        shutil.copy(path, str(tmp_path / f"a_{elastic}.npz"))
+        res = _fit(cfg, elastic=elastic,
+                   checkpoint_path=str(tmp_path / f"a_{elastic}.npz"))
+        assert res.elastic_resume["birthed"] == 1
+        assert res.traces.shape[1] == 0       # the donor had finished
     with pytest.raises(ValueError, match="num_chains=1"):
         _fit(cfg, elastic=False)
     res = _fit(cfg, elastic=False, resume="auto")
@@ -534,7 +541,13 @@ def test_multiprocess_sets_are_refused_by_name(tmp_path):
 
 
 def test_export_from_a_checkpoint_is_refused_by_name(tmp_path):
+    """export_from_checkpoint is ported (tests/test_torch_export.py); what
+    stays refused by name is a multi-process .procK-of-N set (Queue A item
+    7), and a missing file is a FileNotFoundError."""
     from dcfm_tpu_torch.serve.artifact import export_from_checkpoint
-    with pytest.raises(NotImplementedError, match="Queue A item 3"):
-        export_from_checkpoint(str(tmp_path / "c.npz"), _data(),
-                               str(tmp_path / "art"))
+    path = str(tmp_path / "c.npz")
+    with pytest.raises(FileNotFoundError):
+        export_from_checkpoint(path, _data(), str(tmp_path / "art"))
+    open(path + ".proc0-of-2", "wb").close()
+    with pytest.raises(NotImplementedError, match="Queue A item 7"):
+        export_from_checkpoint(path, _data(), str(tmp_path / "art"))
