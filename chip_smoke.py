@@ -99,6 +99,35 @@
    save, resumed at 1 and at 3 chains in fresh processes: the adoption's
    bookkeeping and divisor, the kernels once per executed sweep, and the
    rel. Frobenius error inside the quality rule.
+12. Scenarios - the horseshoe and Dirichlet-Laplace priors and adaptive
+   rank truncation: (a) graph == eager at the north-star width on data of
+   true rank 4, 96 sweeps in trips of 8 with 64 of burn-in, on DL,
+   horseshoe + rank_adapt, MGP + rank_adapt and horseshoe + rank_adapt
+   under lambda_kernel="pallas-fused" (every rank_adapt path of this step
+   at eps = 0.1, prop = 0.8, where columns drop and return inside the
+   window; at the defaults no column of this data drops): every leaf
+   bitwise, the prior's and the column mask among them, the mask read
+   after every trip, the adaptations that fired printed (one must fire
+   and a trip after the first must change the mask); (b) the DL fit at
+   the north-star width (BASELINE config 4's prior on config 3's data),
+   under step 4's checks, its quality also summed block by block (which
+   must equal the dense figure), the graphed sweep's device time and the
+   prior update's (its GIG rounds) share of it; the same two for the
+   rank_adapt paths on the true-rank-4 data; (c)
+   BASELINE config 5 on one card: horseshoe + rank_adapt at g = 256,
+   P = 196, p = 50,176, n = 500, K = 8 on data of true rank 4, 2 chains of
+   200 + 200 (thin 2), fetch_dtype="quant8" and
+   materialize_sigma="never": K1 and K5 at its batch (50,176) against
+   their plain versions, the memory reckoned and measured, each kernel
+   once per sweep, the quality rule summed block by block on the card from
+   ``sigma_block`` (no 50,176^2 matrix anywhere), the effective ranks,
+   chain iterations/s and device busy per sweep; (d) horseshoe +
+   rank_adapt over 600 + 400 iterations, a child SIGKILLed mid burn-in and
+   resumed in a fresh process: Sigma and every state leaf, the mask
+   included, bitwise the uninterrupted fit's, and ``export_from_checkpoint``
+   of its file the resumed fit's own export byte for byte.
+   ``python3 chip_smoke.py --scenarios-only`` runs the kernel phase and
+   this step alone, with no result line.
 
 Any failed check exits non-zero before the last line.  The line before the
 last is the kernels' JSON record; the last line is
@@ -564,42 +593,72 @@ def chain_setup(torch, cfg, Y):
 
 # the leaves in the order the sweep writes them: the first of these that
 # differs names the conditional where graph and eager part
-SWEEP_ORDER = ("Z", "X", "Lambda", "delta", "psijh", "ps", "sigma_acc",
+SWEEP_ORDER = ("Z", "X", "Lambda", "delta", "psijh", "lam2", "nu", "tau2",
+               "xi", "phi", "tau", "psi", "ps", "active", "sigma_acc",
                "sigma_sq_acc", "health")
 
 
+def adapt_fires(m, burnin: int) -> int:
+    """How many of the first ``burnin`` iterations of chain 0 (seed 0)
+    adapt: the coin each one draws at the adaptation site (the first and
+    only draw of its stream) below p(t) = exp(a0 + a1 t)."""
+    import torch
+
+    from dcfm_tpu_torch.noise import SITE_ADAPT, TorchNoise
+    noise = TorchNoise(0, "cuda")
+    a = m.adapt
+    return sum(
+        float(noise.sweep(0, i).uniform(SITE_ADAPT, ()))
+        < float(torch.exp(a.a0 + a.a1 * torch.tensor(float(i + 1))))
+        for i in range(burnin))
+
+
 def graph_equality_phase(torch, cuda_lib, cfg, Y, card: str, label: str,
-                         T: int) -> None:
-    """One chain, one chunk of 10 trips of T sweeps (burn-in 2 trips, thin
-    3), eager and graphed from the same init: every leaf, the accumulator,
-    health, the trace and the launches bitwise."""
+                         T: int, trips: int = 10,
+                         burn_trips: int = 2) -> None:
+    """One chain, ``trips`` trips of T sweeps (burn-in ``burn_trips``
+    trips, thin 3), eager and graphed from the same init: every leaf (the
+    prior's and, under rank adaptation, the column mask), the
+    accumulator, health, the trace and the launches bitwise.  Under rank
+    adaptation each trip is a chunk of its own, so the mask is read after
+    every trip: the adaptations that fired and the trips that changed it
+    are printed."""
     from dcfm_tpu_torch.models.sampler import ChainRunner, state_leaves
     from dcfm_tpu_torch.noise import TorchNoise
+    from dcfm_tpu_torch.utils.checkpoint import state_leaf_names
     m, Yd, prior = chain_setup(torch, cfg, Y)
     label = f"{label}, T={T}"
-    got, peak = {}, {}
+    got, peak, masks = {}, {}, {}
+    chunks = [T] * trips if m.rank_adapt else [trips * T]
     for graphs in (False, True):
         torch.cuda.synchronize()
         base = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
         runner = ChainRunner(TorchNoise(0, "cuda"), Yd, m, prior,
-                             burnin=2 * T, thin=3, unroll=T, graphs=graphs)
+                             burnin=burn_trips * T, thin=3, unroll=T,
+                             graphs=graphs)
         carry = runner.init_chain(0)
         cuda_lib.reset_launch_counts()
         t = time.perf_counter()
-        carry, _, trace = runner.run_chunk(0, carry, 10 * T)
+        traces, masks[graphs] = [], []
+        for n in chunks:
+            carry, _, tr = runner.run_chunk(0, carry, n)
+            traces.append(tr)
+            if m.rank_adapt:
+                masks[graphs].append(carry.state.active.clone())
+        trace = torch.cat(traces)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
         peak[graphs] = torch.cuda.max_memory_allocated() - base
-        names = ["Lambda", "Z", "X", "ps", *sorted(carry.state.prior)]
-        got[graphs] = dict(zip(names, state_leaves(carry.state)),
+        got[graphs] = dict(zip(state_leaf_names(m),
+                               state_leaves(carry.state)),
                            sigma_acc=carry.sigma_acc, health=carry.health,
                            trace=trace, launches=cuda_lib.launch_counts())
         if carry.sigma_sq_acc is not None:
             got[graphs]["sigma_sq_acc"] = carry.sigma_sq_acc
         if graphs:
             pool = graph_pool_bytes(torch)
-            say(f"graphs [{label}]: {10 * T} sweeps in {wall:.3f} s, "
+            say(f"graphs [{label}]: {trips * T} sweeps in {wall:.3f} s, "
                 f"{runner.captured} graphs captured in "
                 f"{runner.capture_s:.3f} s, {runner.replays} replays, "
                 f"{runner.eager_trips} eager trips; graph pool "
@@ -614,6 +673,22 @@ def graph_equality_phase(torch, cuda_lib, cfg, Y, card: str, label: str,
     say(f"graph == eager [{label}]: max |graph - eager| "
         + ", ".join(f"{k} {v:g}" for k, v in diff.items())
         + f"; launches {json.dumps(g['launches'])}")
+    if m.rank_adapt:
+        fires = adapt_fires(m, burn_trips * T)
+        ranks = [int(x.sum()) for x in masks[True]]
+        changed = sum(not torch.equal(a, b) for a, b in
+                      zip(masks[True][1:], masks[True][:-1]))
+        same_masks = all(torch.equal(a, b) for a, b in
+                         zip(masks[True], masks[False]))
+        say(f"adapt [{label}]: adaptation fired {fires} times in "
+            f"{burn_trips * T} burn-in sweeps; active columns of all shards "
+            f"after each trip {ranks} ({changed} trips changed the mask "
+            f"after the first); graph masks == eager masks after every "
+            f"trip: {same_masks}")
+        check(fires >= 1 and changed >= 1, f"[{label}] adaptation fired "
+              f"{fires} times and changed the mask after the first trip "
+              f"{changed} times in the window")
+        check(same_masks, f"[{label}] a trip's mask differs under graphs")
     same = {k: bool(torch.equal(g[k], e[k])) for k in diff}
     if not all(same.values()):
         rows = (g["trace"] != e["trace"]).any(dim=1).nonzero()
@@ -921,27 +996,56 @@ def rel_errors(torch, S: np.ndarray, Y, L, noise) -> tuple:
             float(torch.linalg.norm(Ss - St) / norm))
 
 
+def state_digest(state) -> str:
+    """sha256 of every state leaf's bytes, the column mask included."""
+    from dcfm_tpu_torch.models.sampler import state_leaves
+    h = hashlib.sha256()
+    for t in state_leaves(state):
+        h.update(t.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
+def scenario_model(dt, model, knobs: dict):
+    """``model`` with the scenario knobs ``knobs`` (an ``adapt`` dict
+    becomes an AdaptConfig)."""
+    knobs = dict(knobs)
+    if "adapt" in knobs:
+        knobs["adapt"] = dt.AdaptConfig(**knobs["adapt"])
+    return dataclasses.replace(model, **knobs)
+
+
 def fit_child(spec: str) -> None:
     """``--fit-child SPEC``: one fit of ckpt_config(**SPEC) in this process
-    on the script's synthetic data; prints one JSON line (Sigma's digest,
-    phase seconds, executed iterations, rewinds, the elastic bookkeeping,
-    the kernel launches and the rel. Frobenius errors of Sigma and of the
-    sample covariance)."""
+    on the script's synthetic data (SPEC's "k_true" overrides the data's
+    rank, its "model" the scenario knobs); prints one JSON line (Sigma's
+    and the state's digests, phase seconds, executed iterations, rewinds,
+    the elastic bookkeeping, the kernel launches, the effective ranks and
+    the rel. Frobenius errors of Sigma and of the sample covariance).
+    With SPEC's "export", the fit's own serve artifact is written there."""
     import torch
     import dcfm_tpu_torch as dt
     check(torch.cuda.is_available(), "the fit child sees no CUDA device")
     spec = json.loads(spec)
     c = FIT
-    Y, L, noise = synthetic(c["n"], c["p"], c["k_true"])
-    res = dt.fit(Y, ckpt_config(dt, spec["path"], spec.get("run"),
-                                **spec.get("fit", {})))
+    Y, L, noise = synthetic(c["n"], c["p"], spec.get("k_true", c["k_true"]))
+    cfg = ckpt_config(dt, spec["path"], spec.get("run"),
+                      **spec.get("fit", {}))
+    if "model" in spec:
+        cfg = dataclasses.replace(cfg, model=scenario_model(
+            dt, cfg.model, spec["model"]))
+    res = dt.fit(Y, cfg)
     err, err_sample = rel_errors(torch, res.Sigma, Y, L, noise)
+    if "export" in spec:
+        res.export_artifact(spec["export"])
     say(json.dumps({"sigma": sigma_digest(res.Sigma),
+                    "state": state_digest(res.state),
                     "phase_seconds": res.phase_seconds,
                     "executed": int(res.traces.shape[1]),
                     "rewinds": res.sentinel_rewinds,
                     "elastic_resume": res.elastic_resume,
                     "kernel_launches": res.kernel_launches,
+                    "ranks": [res.stats.rank_min, res.stats.rank_mean,
+                              res.stats.rank_max],
                     "err": err, "err_sample": err_sample,
                     "nonfinite": res.stats.nonfinite_count}))
 
@@ -1463,6 +1567,347 @@ def elastic_phase(dt, card: str, work: str) -> None:
               "the quality rule")
 
 
+# ---------------------------------------------------------------------------
+# (12) the scenarios: the horseshoe and Dirichlet-Laplace priors and
+# adaptive rank truncation
+# ---------------------------------------------------------------------------
+
+# (label, ModelConfig knobs, the kernels that launch once per sweep)
+SCEN_PATHS = (
+    ("dl", {"prior": "dl", "lambda_kernel": "pallas"},
+     ("chol_sample", "sse_ps")),
+    ("horseshoe+adapt", {"prior": "horseshoe", "rank_adapt": True,
+                         "lambda_kernel": "pallas"},
+     ("chol_sample", "sse_ps")),
+    ("mgp+adapt", {"rank_adapt": True, "lambda_kernel": "pallas"},
+     ("chol_sample", "sse_ps")),
+    ("horseshoe+adapt fused", {"prior": "horseshoe", "rank_adapt": True,
+                               "lambda_kernel": "pallas-fused"},
+     ("lam_update", "sse_ps")),
+)
+# BASELINE.json config 5, "adaptive rank truncation + horseshoe, p=50000,
+# 256 shards (pod-scale)", at scripts/run_baseline_configs.py's full width
+# (P = 196 per shard) on one card; synthetic data of true rank 4 so the
+# truncation has columns to prune; the fits' schedule
+CONFIG5 = dict(p=256 * 196, n=500, k_true=4, g=256, K=8, rho=0.9, chains=2,
+               burnin=200, mcmc=200, thin=2)
+# the scenario kill: 600 burn-in iterations, so a file at KILL_AT or a few
+# deferred saves later is mid-burn-in, while the mask still adapts
+SCEN_KILL_RUN = {"burnin": 600, "mcmc": 400}
+# the adaptation thresholds of the rank_adapt paths: at the defaults (a
+# column is redundant when 95% of its |loadings| are below 0.05) neither
+# package prunes a column of this true-rank-4 data in 200 burn-in sweeps;
+# at these, both prune to about the true rank
+SCEN_ADAPT = {"eps": 0.1, "prop": 0.8}
+
+
+def blockwise_errors(torch, res, Y, L, noise, batch: int = 1024,
+                     dev: str = "cuda") -> tuple:
+    """(rel. Frobenius error of the fit's posterior mean against the truth
+    L L' + noise^2 I, the sample covariance's), summed block by block on
+    the card from ``FitResult.sigma_block`` - no (p, p) matrix is formed.
+    Blocks are in shard coordinates (the norms are permutation-invariant);
+    an off-diagonal pair counts twice, padding columns not at all."""
+    pre = res.preprocess
+    g, P = pre.num_shards, pre.shard_size
+    n = Y.shape[0]
+    check(pre.zero_cols.size == 0, "blockwise quality needs no zero columns")
+    dev = torch.device(dev)
+    p_kept = pre.p_used - pre.n_pad
+    real = pre.perm < p_kept                  # shard position -> not padding
+    cols = pre.kept_cols[np.where(real, pre.perm, 0)]   # -> caller column
+    mask = torch.as_tensor(real.reshape(g, P), device=dev,
+                           dtype=torch.float32)
+    Lp = torch.as_tensor(L[cols], device=dev).reshape(g, P, -1)
+    Yc = torch.as_tensor(Y[:, cols], device=dev)
+    Yc = Yc - Yc.mean(dim=0)
+    Ys = Yc.T.reshape(g, P, n).contiguous()
+    del Yc
+    eye = torch.eye(P, device=dev)
+    rows, colq = np.triu_indices(g)
+    sums = torch.zeros(3, dtype=torch.float64, device=dev)
+    for a in range(0, rows.size, batch):
+        r, c = rows[a:a + batch], colq[a:a + batch]
+        B = torch.as_tensor(np.stack([res.sigma_block(int(i), int(j))
+                                      for i, j in zip(r, c)]), device=dev)
+        rt = torch.as_tensor(r, device=dev)
+        ct = torch.as_tensor(c, device=dev)
+        diag = (rt == ct)
+        T = Lp[rt] @ Lp[ct].mT + (noise ** 2) * eye * diag[:, None, None]
+        S = Ys[rt] @ Ys[ct].mT / (n - 1)
+        w = (torch.where(diag, 1.0, 2.0)[:, None, None]
+             * mask[rt][:, :, None] * mask[ct][:, None, :])
+        sums += torch.stack([(w * (B - T) ** 2).double().sum(),
+                             (w * (S - T) ** 2).double().sum(),
+                             (w * T ** 2).double().sum()])
+    err2, samp2, tru2 = sums.tolist()
+    return math.sqrt(err2 / tru2), math.sqrt(samp2 / tru2)
+
+
+def prior_update_profile(torch, cfg, Y, card: str, label: str,
+                         sweep_busy_ms=None) -> float:
+    """Device time of one prior update at the chain's width, on chain 0's
+    state after 24 sweeps, its variates pre-drawn (the update alone, as the
+    graph runs it; for DL the GIG's 64 rounds of uniforms among them), and
+    the device time of drawing them (noise.draw_into, outside the graph);
+    with ``sweep_busy_ms`` its share of the sweep's device time."""
+    from dcfm_tpu_torch.models.sampler import ChainRunner
+    from dcfm_tpu_torch.noise import (
+        BufferedDraws, RecordingDraws, TorchNoise, draw_into)
+    m, Yd, prior = chain_setup(torch, cfg, Y)
+    runner = ChainRunner(TorchNoise(0, "cuda"), Yd, m, prior, burnin=0,
+                         thin=4, unroll=1)
+    carry = runner.init_chain(0)
+    runner.run_chunk(0, carry, 24)
+    st = carry.state
+    noise = TorchNoise(5, "cuda")
+    recipe: list = []
+    prior.update(RecordingDraws(noise.sweep(0, 0), recipe), st.prior,
+                 st.Lambda, st.active)
+    slots = [torch.empty(call.shape, device="cuda") for call in recipe]
+
+    def draw():
+        draw_into(noise.sweep(0, 1), recipe, slots)
+
+    def update():
+        prior.update(BufferedDraws(recipe, slots), st.prior, st.Lambda,
+                     st.active)
+
+    draw()
+    upd, drw = device_ms(update, 20), device_ms(draw, 20)
+    nbytes = sum(4 * t.numel() for t in slots)
+    share = ("" if not sweep_busy_ms else
+             f", {upd / sweep_busy_ms:.1%} of the sweep's device busy "
+             f"{sweep_busy_ms:.3f} ms")
+    say(f"prior update [{label}]: {upd * 1e3:.2f} us of device time per "
+        f"sweep{share}; its {len(recipe)} pre-drawn calls hold {nbytes} "
+        f"bytes, drawn outside the graph in {drw * 1e3:.2f} us of device "
+        f"time; {card}")
+    del runner, carry
+    torch.cuda.empty_cache()
+    return upd
+
+
+def config5_phase(torch, dt, cuda_lib, k1, k5, card: str) -> dict:
+    """(12c) BASELINE config 5 on one card: horseshoe + rank_adapt at g =
+    256, P = 196, p = 50,176, quant8 and no dense Sigma; K1 and K5 at its
+    batch against their plain versions, the memory reckoned before the
+    fit and measured, 800 launches of each, the quality rule block by
+    block on the card, the effective ranks, chain iterations/s, device
+    busy per sweep.  Returns the fit's launches."""
+    from dcfm_tpu_torch.models.state import num_padded_pairs
+    c = CONFIG5
+    g, K, P = c["g"], c["K"], c["p"] // c["g"]
+    B = g * P
+    t = time.perf_counter()
+    Y5, L5, noise = synthetic(c["n"], c["p"], c["k_true"])
+    say(f"config 5: synthetic data ({c['n']} x {c['p']}, true rank "
+        f"{c['k_true']}) in {time.perf_counter() - t:.1f} s")
+    rng = np.random.default_rng(55)
+    dev = torch.device("cuda")
+    args = [torch.as_tensor(spd(rng.standard_normal((B, K, K), np.float32)),
+                            device=dev)]
+    args += [torch.as_tensor(rng.standard_normal((B, K), np.float32),
+                             device=dev) for _ in range(2)]
+    compare(torch, f"K1 chol_sample (config 5) B={B} K={K}",
+            k1.chol_sample(*args), k1.chol_sample_plain(*args))
+    ops = sse_operands(torch, rng, B, K)
+    k5_compare(torch, "K5 sse_ps (config 5)", k5.sse_ps(*ops, bs=0.3), ops,
+               0.3)
+    del args, ops
+    Qp = num_padded_pairs(g)
+    acc = Qp * P * P * 4
+    n_pairs = g * (g + 1) // 2
+    reckon = 4 * acc + 2 * n_pairs * P * P * 4
+    say(f"config 5 memory, reckoned: one packed accumulator {Qp} panels x "
+        f"{P}^2 x 4 B = {acc} bytes ({Qp * P * P} elements, "
+        f"{'under' if Qp * P * P < 2 ** 31 else 'OVER'} 2^31); in the "
+        f"chain the static carry's, two chains' and the per-draw panel "
+        f"temporary: {4 * acc} bytes; at the last boundary the streamed "
+        f"fetch's chain sum takes the temporary's place and the quant8 "
+        f"cast adds two float32 temporaries of the {n_pairs} kept panels "
+        f"({2 * n_pairs * P * P * 4} bytes): peak ~{reckon} bytes")
+    cfg = dt.FitConfig(
+        model=dt.ModelConfig(num_shards=g, factors_per_shard=K,
+                             rho=c["rho"], prior="horseshoe",
+                             rank_adapt=True, lambda_kernel="pallas",
+                             adapt=dt.AdaptConfig(**SCEN_ADAPT)),
+        run=dt.RunConfig(burnin=c["burnin"], mcmc=c["mcmc"], thin=c["thin"],
+                         seed=0, num_chains=c["chains"]),
+        backend=dt.BackendConfig(sse_mode="auto", fetch_dtype="quant8"),
+        materialize_sigma="never")
+    dt.fit(Y5, dataclasses.replace(cfg, run=dt.RunConfig(burnin=2,
+                                                          mcmc=2)))
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    res, launches, wall = counted_fit(torch, dt, cuda_lib, cfg, Y5)
+    peak = torch.cuda.max_memory_allocated()
+    ph = res.phase_seconds
+    sweeps = c["chains"] * (c["burnin"] + c["mcmc"])
+    say(f"config 5 fit: {sweeps} sweeps in {ph['chain_s']:.3f} s chain "
+        f"time = {sweeps / ph['chain_s']:.2f} chain iterations/s (wall "
+        f"{wall:.3f} s); fetch_s {ph['fetch_s']:.4f}, exposed_fetch_s "
+        f"{ph['exposed_fetch_s']:.4f}; peak allocated {peak} bytes "
+        f"({peak / 2**30:.3f} GiB, reckoned ~{reckon}); {card}")
+    say("config 5 phase_seconds: " + json.dumps(ph))
+    say(f"config 5 graphs: {json.dumps(res.graphs)}; stream "
+        f"{json.dumps(res.stream_stats)}")
+    say(f"config 5 kernel launches: {json.dumps(launches)} (expected "
+        f"{sweeps} for chol_sample and sse_ps at B = {B}, 0 for the "
+        "others)")
+    for name, count in launches.items():
+        want = sweeps if name in ("chol_sample", "sse_ps") else 0
+        check(count == want, f"[config 5] {name} launched {count} times in "
+              f"{sweeps} sweeps, expected {want}")
+    check(res.Sigma is None and res.graphs["replays"] > 0,
+          "[config 5] a dense Sigma was formed, or no graph ran")
+    check(res.stats.nonfinite_count == 0 and res.stats.acc_nonfinite == 0,
+          f"[config 5] chain health: {res.stats}")
+    t = time.perf_counter()
+    err, err_s = blockwise_errors(torch, res, Y5, L5, noise)
+    say(f"config 5 rel Frobenius error vs truth (block by block on the "
+        f"card, {time.perf_counter() - t:.1f} s): {err:.6f} (sample "
+        f"covariance: {err_s:.6f}); effective rank min / mean / max "
+        f"{res.stats.rank_min:g} / {res.stats.rank_mean:.4f} / "
+        f"{res.stats.rank_max:g} of K = {K}; {card}")
+    check(err < 0.25 and err <= 2 * err_s, f"[config 5] rel Frobenius "
+          f"error {err:.4f} outside the quality rule (sample {err_s:.4f})")
+    check(1 <= res.stats.rank_min <= res.stats.rank_max <= K,
+          f"[config 5] ranks {res.stats}")
+    del res
+    torch.cuda.empty_cache()
+    sweep_profile(torch, cfg, Y5, card, "config 5 horseshoe+adapt")
+    return launches
+
+
+def scenario_kill_phase(torch, dt, cuda_lib, card: str, Y4, work: str
+                        ) -> None:
+    """(12d) horseshoe + rank_adapt over SCEN_KILL_RUN at the north-star
+    width: a child SIGKILLed once its file is at KILL_AT or more (mid
+    burn-in), resumed in a fresh process: Sigma and every state leaf, the
+    mask included, bitwise the uninterrupted fit's; then
+    export_from_checkpoint of its finished file is the resumed fit's own
+    export byte for byte."""
+    from dcfm_tpu_torch.serve.artifact import (
+        PosteriorArtifact, export_from_checkpoint)
+    from dcfm_tpu_torch.utils.checkpoint import (
+        carry_template, load_checkpoint, read_checkpoint_meta)
+    knobs = {"prior": "horseshoe", "rank_adapt": True, "adapt": SCEN_ADAPT}
+    cfg = ckpt_config(dt, "f32", SCEN_KILL_RUN)
+    cfg = dataclasses.replace(cfg, model=scenario_model(dt, cfg.model,
+                                                         knobs))
+    ref, _ = ckpt_fit(torch, dt, cuda_lib, cfg, Y4,
+                      "horseshoe+adapt (a) no checkpoint, "
+                      f"{sum(SCEN_KILL_RUN.values())} iterations", card)
+    ref_sigma, ref_state = sigma_digest(ref.Sigma), state_digest(ref.state)
+    del ref
+    path = os.path.join(work, "hs_adapt.npz")
+    spec = {"path": "f32", "run": SCEN_KILL_RUN, "model": knobs,
+            "k_true": 4, "fit": {"checkpoint_path": path,
+                                 "checkpoint_every_chunks": 1}}
+    killed = run_child(spec, work, "hs_adapt_killed", kill_at=KILL_AT,
+                       path=path)["killed_at"]
+    meta = read_checkpoint_meta(path)
+    check(meta["iteration"] < SCEN_KILL_RUN["burnin"],
+          f"[horseshoe+adapt] the file is at {meta['iteration']}, not mid "
+          "burn-in")
+    c = FIT
+    active = load_checkpoint(path, carry_template(
+        cfg.model, n=c["n"], P=-(-c["p"] // c["g"]),
+        num_chains=c["chains"]))[0]["active"]
+    art_fit = os.path.join(work, "hs_fit_art")
+    t = time.perf_counter()
+    out = run_child(dict(spec, fit=dict(spec["fit"], resume=True),
+                         export=art_fit), work, "hs_adapt_resumed")
+    resume_s = time.perf_counter() - t
+    say(f"kill [horseshoe+adapt]: killed with the file at iteration "
+        f"{killed} (meta {meta['iteration']}, burn-in "
+        f"{SCEN_KILL_RUN['burnin']}), active columns per chain there "
+        f"{active.reshape(active.shape[0], -1).sum(-1).tolist()}; resumed "
+        f"in a fresh process ({resume_s:.1f} s wall): executed "
+        f"{out['executed']}, init_s {out['phase_seconds']['init_s']:.4f}, "
+        f"ranks {out['ranks']}; Sigma "
+        f"{'=' if out['sigma'] == ref_sigma else '!='} uninterrupted, "
+        f"state (mask included) "
+        f"{'=' if out['state'] == ref_state else '!='} uninterrupted; "
+        f"{card}")
+    check(out["sigma"] == ref_sigma and out["state"] == ref_state,
+          "[horseshoe+adapt] the resumed fit is not the uninterrupted fit's "
+          "bits")
+    check(out["executed"] == sum(SCEN_KILL_RUN.values()) - meta["iteration"],
+          "[horseshoe+adapt] resumed from the wrong iteration")
+    art_ck = os.path.join(work, "hs_ck_art")
+    t = time.perf_counter()
+    export_from_checkpoint(path, Y4, art_ck)
+    export_s = time.perf_counter() - t
+    def mean_bytes(path):
+        scales = PosteriorArtifact.open(path).panels("mean")[1]
+        with open(os.path.join(path, "mean_q8.bin"), "rb") as f:
+            return f.read(), np.asarray(scales).tobytes()
+
+    same = mean_bytes(art_fit) == mean_bytes(art_ck)
+    say(f"export from checkpoint [horseshoe+adapt]: {export_s:.3f} s; mean "
+        f"panels and scales {'=' if same else '!='} the resumed fit's own "
+        f"export; {card}")
+    check(same, "[horseshoe+adapt] the export from the checkpoint is not "
+          "the fit's own export")
+
+
+def scenario_phase(torch, dt, cuda_lib, k1, k5, card: str, Y, L, noise,
+                   work: str) -> dict:
+    """(12) The scenario slice: (a) graph == eager on DL, horseshoe +
+    rank_adapt, MGP + rank_adapt and horseshoe + rank_adapt under the
+    fused Lambda kernel at the north-star width on true-rank-4 data; (b)
+    the DL fit at the north-star width (BASELINE config 4's prior on
+    config 3's data) with its prior update's device time; (c) config 5;
+    (d) the horseshoe + rank_adapt kill and resume.  Returns the launches
+    of each path's fit."""
+    c = FIT
+    t0 = time.perf_counter()
+    Y4, _, _ = synthetic(c["n"], c["p"], 4)
+    for label, model, _ in SCEN_PATHS:
+        cfg = path_config(dt, model, {})
+        if cfg.model.rank_adapt:
+            # columns drop and return within the window, so trips after
+            # the first (graph replays) change the mask
+            cfg = dataclasses.replace(cfg, model=dataclasses.replace(
+                cfg.model, adapt=dt.AdaptConfig(**SCEN_ADAPT)))
+        graph_equality_phase(torch, cuda_lib, cfg, Y4, card, label, 8,
+                             trips=12, burn_trips=8)
+    say(f"scenario graph phase done in {time.perf_counter() - t0:.1f} s")
+    label, model, kernels = SCEN_PATHS[0]
+    got, cfg, err, res = fit_phase(torch, dt, cuda_lib, card, label, model,
+                                   {}, kernels, Y, L, noise)
+    blk, blk_s = blockwise_errors(torch, res, Y, L, noise)
+    dense, dense_s = rel_errors(torch, res.Sigma, Y, L, noise)
+    say(f"fit [dl]: rel Frobenius error block by block {blk:.6f} (sample "
+        f"{blk_s:.6f}) against dense {dense:.6f} ({dense_s:.6f}); ranks "
+        f"{res.stats.rank_min:g} / {res.stats.rank_mean:g} / "
+        f"{res.stats.rank_max:g}")
+    check(abs(blk - dense) <= 1e-4 * dense
+          and abs(blk_s - dense_s) <= 1e-4 * dense_s,
+          "the blockwise quality check disagrees with the dense one")
+    del res
+    busy = sweep_profile(torch, cfg, Y, card, "dl")
+    prior_update_profile(torch, cfg, Y, card, "dl", busy)
+    for label, model, _ in SCEN_PATHS[1:]:
+        cfg = path_config(dt, model, {})
+        cfg = dataclasses.replace(cfg, model=dataclasses.replace(
+            cfg.model, adapt=dt.AdaptConfig(**SCEN_ADAPT)))
+        busy = sweep_profile(torch, cfg, Y4, card, label)
+        if label != "horseshoe+adapt fused":
+            prior_update_profile(torch, cfg, Y4, card, label, busy)
+    launches = {"dl": got}
+    say(f"scenario DL phase done in {time.perf_counter() - t0:.1f} s")
+    launches["config 5 horseshoe+adapt"] = config5_phase(
+        torch, dt, cuda_lib, k1, k5, card)
+    say(f"config 5 phase done in {time.perf_counter() - t0:.1f} s")
+    scenario_kill_phase(torch, dt, cuda_lib, card, Y4, work)
+    say(f"scenario phase done in {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def k3_path(torch, bs, cuda_lib, rng) -> dict:
     """K3's launches: one call of its public op at the fit's batch, the
     counters zeroed just before and read just after."""
@@ -1524,6 +1969,9 @@ def sweep_profile(torch, cfg, Y, card: str, label: str) -> None:
         + f"; {card}")
     for name, ms in rows[:12]:
         say(f"  {ms / n * 1e3:9.2f} us/sweep  {name[:160]}")
+    del runner, carry
+    torch.cuda.empty_cache()
+    return busy
 
 
 def _solver(div: str, sample: str) -> str:
@@ -1700,6 +2148,17 @@ def main() -> None:
 
     c = FIT
     Y, L, noise = synthetic(c["n"], c["p"], c["k_true"])
+    if "--scenarios-only" in sys.argv[1:]:
+        import shutil
+        import tempfile
+        work = tempfile.mkdtemp(prefix="dcfm_scen_")
+        try:
+            scenario_phase(torch, dt, cuda_lib, k1, k5, card, Y, L, noise,
+                           work)
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
+        say("scenario phase only: no result is printed")
+        return
     for label, model, backend, _ in FIT_PATHS:
         graph_equality_phase(torch, cuda_lib, path_config(dt, model, backend),
                              Y, card, label, 8)
@@ -1744,6 +2203,9 @@ def main() -> None:
             f"{time.perf_counter() - t_start:.1f} s")
         elastic_phase(dt, card, work)
         say(f"elastic_phase done at {time.perf_counter() - t_start:.1f} s")
+        scen = scenario_phase(torch, dt, cuda_lib, k1, k5, card, Y, L,
+                              noise, work)
+        say(f"scenario_phase done at {time.perf_counter() - t_start:.1f} s")
     finally:
         shutil.rmtree(work, ignore_errors=True)
     launches["cho_solve"] = k3_path(torch, bs, cuda_lib, rng)["cho_solve"]
@@ -1757,6 +2219,9 @@ def main() -> None:
             f"{(k['ms'] - k['bound_ms']) * 1e3:.2f} us above the bound, "
             f"{(k['ms'] - floor_ms) * 1e3:.2f} us above the K5-sized pass; "
             f"{k['launches']} launches on its path; {card}")
+    for path, got in scen.items():
+        say(f"scenario launches [{path}]: " + json.dumps(
+            {k: v for k, v in got.items() if v}))
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {
       "platform": "gpu", "kind": torch.cuda.get_device_name(0),

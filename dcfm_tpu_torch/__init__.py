@@ -8,7 +8,9 @@ kernels' plain PyTorch versions instead.
 
 from dcfm_tpu_torch.api import FitResult, divideconquer, fit
 from dcfm_tpu_torch.config import (
-    BackendConfig, FitConfig, MGPConfig, ModelConfig, RunConfig)
+    AdaptConfig, BackendConfig, DLConfig, FitConfig, HorseshoeConfig,
+    MGPConfig, ModelConfig, RunConfig)
 
-__all__ = ["BackendConfig", "FitConfig", "FitResult", "MGPConfig",
-           "ModelConfig", "RunConfig", "divideconquer", "fit"]
+__all__ = ["AdaptConfig", "BackendConfig", "DLConfig", "FitConfig",
+           "FitResult", "HorseshoeConfig", "MGPConfig", "ModelConfig",
+           "RunConfig", "divideconquer", "fit"]

@@ -42,6 +42,7 @@ import torch
 
 from dcfm_tpu_torch.config import (
     _INGEST, BackendConfig, FitConfig, ModelConfig, RunConfig, validate)
+from dcfm_tpu_torch.models.adapt import effective_ranks
 from dcfm_tpu_torch.models.priors import make_prior
 from dcfm_tpu_torch.models.sampler import (
     TRACE_SUMMARIES, ChainRunner, ChainStats)
@@ -270,16 +271,21 @@ def _stack_states(states: list) -> SamplerState:
         *(torch.stack([getattr(s, f) for s in states])
           for f in ("Lambda", "Z", "X", "ps")),
         prior={k: torch.stack([s.prior[k] for s in states])
-               for k in states[0].prior})
+               for k in states[0].prior},
+        active=(None if states[0].active is None
+                else torch.stack([s.active for s in states])))
 
 
 def _carried_stats(carries: list) -> ChainStats:
     """The chains' health panels and accumulators as ChainStats: a no-op
     resume ran no chunk to report them."""
     h = torch.stack([c.health for c in carries]).cpu()
+    ranks = torch.stack([effective_ranks(c.state) for c in carries]).cpu()
     return ChainStats(
         tau_log_max=float(h[..., 0].max()), ps_min=float(h[..., 1].min()),
         ps_max=float(h[..., 2].max()),
+        rank_min=float(ranks.min()), rank_max=float(ranks.max()),
+        rank_mean=float(ranks.mean()),
         nonfinite_count=float(h[..., 3].sum()),
         acc_nonfinite=float(sum((~torch.isfinite(c.sigma_acc)).sum()
                                 for c in carries)))

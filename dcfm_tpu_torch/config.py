@@ -3,7 +3,9 @@ port runs, copied (the port imports nothing of ``dcfm_tpu``).
 
 Field names, defaults and meanings are those of the JAX package, so a
 config written for one reads the same in the other.  The port runs one
-device, one process, the MGP prior; the sweep in float32 or mixed bf16
+device, one process, the MGP, horseshoe and Dirichlet-Laplace priors
+(``prior``) with or without adaptive rank truncation (``rank_adapt``);
+the sweep in float32 or mixed bf16
 (``compute_dtype``, ``combine_dtype``), with every ``lambda_kernel``; the
 accumulator fetch under every ``fetch_dtype`` (post hoc, or streamed at
 chunk boundaries under quant8, ``fetch_stream``) and the data upload
@@ -43,6 +45,38 @@ class MGPConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class HorseshoeConfig:
+    """Horseshoe prior on the loadings (Makalic & Schmidt 2016 auxiliary
+    parameterization: every conditional is inverse-gamma)."""
+
+    global_scale: float = 1.0
+
+
+@dataclasses.dataclass(frozen=True)
+class DLConfig:
+    """Dirichlet-Laplace prior (Bhattacharya et al. 2015), row-wise on the
+    loadings."""
+
+    a: float = 0.5      # Dirichlet concentration, in (0, 1]
+
+
+@dataclasses.dataclass(frozen=True)
+class AdaptConfig:
+    """Adaptive rank truncation (Bhattacharya & Dunson 2011, section 3.2):
+    at burn-in iteration t, with probability exp(a0 + a1 t), each shard
+    drops the loading columns with at least ``prop`` of their |entries|
+    below ``eps`` (never below ``min_active`` columns), or, with none
+    redundant, restores its first dropped column.  Columns are masked,
+    never removed (``SamplerState.active``)."""
+
+    a0: float = -1.0
+    a1: float = -5e-4
+    eps: float = 0.05
+    prop: float = 0.95
+    min_active: int = 1
+
+
+@dataclasses.dataclass(frozen=True)
 class ModelConfig:
     """Per shard m: Y_m = Lambda_m eta_m' + eps, eps ~ N(0, diag(1/ps_m)),
     eta_m = sqrt(rho) X + sqrt(1 - rho) Z_m with X shared across shards."""
@@ -72,6 +106,9 @@ class ModelConfig:
     combine_chunks: int = 1
     ridge_jitter: float = 0.0
     mgp: MGPConfig = MGPConfig()
+    horseshoe: HorseshoeConfig = HorseshoeConfig()
+    dl: DLConfig = DLConfig()
+    adapt: AdaptConfig = AdaptConfig()
 
     @property
     def total_factors(self) -> int:
@@ -339,12 +376,26 @@ def validate(cfg: FitConfig, n: int, p: int) -> None:
         raise ValueError(
             f"combine_chunks={m.combine_chunks} must be >= 1 and divide "
             f"num_shards={m.num_shards}")
+    if m.rank_adapt:
+        a = m.adapt
+        if a.a1 >= 0:
+            raise ValueError(
+                f"adapt.a1={a.a1} must be < 0 (adaptation probability "
+                "exp(a0 + a1*t) must decay, Bhattacharya-Dunson condition)")
+        if not 0.0 < a.prop <= 1.0:
+            raise ValueError(f"adapt.prop={a.prop} must be in (0, 1]")
+        if a.eps <= 0:
+            raise ValueError(f"adapt.eps={a.eps} must be > 0")
+        if not 1 <= a.min_active <= m.factors_per_shard:
+            raise ValueError(
+                f"adapt.min_active={a.min_active} must be in "
+                f"[1, factors_per_shard={m.factors_per_shard}]")
+    if m.prior == "dl" and not 0.0 < m.dl.a <= 1.0:
+        raise ValueError(
+            f"DL concentration a={m.dl.a} must be in (0, 1] "
+            "(1/K <= a <= 1/2 is the usual range)")
 
     # ---- knobs outside the port: refused, never ignored -----------------
-    if m.prior != "mgp":
-        _refuse(f"prior={m.prior!r}", _SCEN)
-    if m.rank_adapt:
-        _refuse("rank_adapt=True", _SCEN)
     if m.impute_missing:
         _refuse("impute_missing=True (NaN input)", _SCEN)
     if run.store_draws:

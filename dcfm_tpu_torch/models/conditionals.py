@@ -1,9 +1,10 @@
 """The Gibbs sweep: Z, X, Lambda, the prior and psi in turn.
 
-The port of ``dcfm_tpu/models/conditionals.py`` for one device and the
-MGP prior.  The shard axis is an explicit leading batch dimension
-(the JAX package vmaps over it), so the X update's cross-shard sums are
-plain sums over axis 0.  Every draw comes from ``draws`` (noise.py) at
+The port of ``dcfm_tpu/models/conditionals.py`` for one device, every
+prior (models/priors.py) and the column mask of adaptive rank truncation
+(``SamplerState.active``).  The shard axis is an explicit leading batch
+dimension (the JAX package vmaps over it), so the X update's cross-shard
+sums are plain sums over axis 0.  Every draw comes from ``draws`` (noise.py) at
 the JAX package's site ids, and every kernel's noise is drawn outside the
 kernel, as the JAX package's Pallas path does.
 
@@ -124,11 +125,20 @@ def gibbs_sweep(draws, Y: torch.Tensor, state: SamplerState,
     if jit_eps:
         plam = plam + jit_eps
     fused = cfg.lambda_kernel == "pallas-fused"
+    # under adaptive rank truncation the inactive columns are conditioned
+    # at Lambda_h = 0: masking eta's inactive columns before E and EY makes
+    # the precision block-diagonal between active and inactive
+    # coordinates, so the active ones are drawn from exactly their
+    # conditional; the inactive ones are zeroed after the solve.  The
+    # masked moments serve the Gram SSE too (every masked entry meets a
+    # zero loading there)
+    active = state.active
+    eta_lam = eta if active is None else eta * active[:, None, :]
     # the JAX fused path forms the moments with float32 einsums even under
     # bf16, except in Gram mode, where it reuses these mm moments
     mm_e = torch.matmul if fused and not sse_gram else mm
-    E = mm_e(_t(eta), eta)                                      # (G, K, K)
-    EY = mm_e(_t(eta), Y)                                       # (G, K, P)
+    E = mm_e(_t(eta_lam), eta_lam)                              # (G, K, K)
+    EY = mm_e(_t(eta_lam), Y)                                   # (G, K, P)
     EYt = _t(EY).contiguous()                                   # (G, P, K)
     Zn = draws.normal(SITE_LAM, (G, P, K))
     if fused:
@@ -145,9 +155,11 @@ def gibbs_sweep(draws, Y: torch.Tensor, state: SamplerState,
                               Zn.reshape(G * P, K)).reshape(G, P, K)
         else:
             Lam = sample_mvn_precision_linalg(Q, B, Zn)
+    if active is not None:
+        Lam = Lam * active[:, None, :]
 
     # ---- shrinkage prior ---------------------------------------------------
-    prior_state = prior.update(draws, state.prior, Lam)
+    prior_state = prior.update(draws, state.prior, Lam, active)
 
     # ---- residual precisions ps | rest -----------------------------------
     if sse_gram:
@@ -167,7 +179,8 @@ def gibbs_sweep(draws, Y: torch.Tensor, state: SamplerState,
         ps = gamma_rate(draws, SITE_PS, cfg.as_ + 0.5 * n,
                         cfg.bs + 0.5 * sse)
 
-    return SamplerState(Lambda=Lam, Z=Z, X=X, ps=ps, prior=prior_state), sse
+    return SamplerState(Lambda=Lam, Z=Z, X=X, ps=ps, prior=prior_state,
+                        active=active), sse
 
 
 def covariance_panels(Lam_all: torch.Tensor, ps_all: torch.Tensor,

@@ -22,6 +22,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import math
 import time
 from typing import NamedTuple, Optional
@@ -29,6 +30,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from dcfm_tpu_torch.config import ModelConfig
+from dcfm_tpu_torch.models.adapt import adapt_rank, effective_ranks
 from dcfm_tpu_torch.models.conditionals import covariance_panels, gibbs_sweep
 from dcfm_tpu_torch.models.state import (
     SamplerState, init_state, num_padded_pairs, packed_pair_indices)
@@ -79,6 +81,11 @@ class ChainStats(NamedTuple):
     tau_log_max: float
     ps_min: float
     ps_max: float
+    # effective rank (active loading columns per shard) at chunk end:
+    # factors_per_shard unless adaptive truncation pruned columns
+    rank_min: float
+    rank_max: float
+    rank_mean: float
     # (iteration, shard) pairs whose post-sweep state held a non-finite
     # value (a failed K x K Cholesky propagates NaN); 0 on a healthy chain
     nonfinite_count: float
@@ -154,7 +161,7 @@ def init_chain(draws, Y: torch.Tensor, cfg: ModelConfig, prior) -> ChainCarry:
     G, n, P = Y.shape
     state = init_state(draws, prior, G=G, n=n, P=P,
                        K=cfg.factors_per_shard, as_=cfg.as_, bs=cfg.bs,
-                       device=Y.device)
+                       device=Y.device, rank_adapt=cfg.rank_adapt)
     acc = torch.zeros((num_padded_pairs(G), P, P), dtype=torch.float32,
                       device=Y.device)
     return ChainCarry(state=state, sigma_acc=acc, iteration=0,
@@ -164,9 +171,11 @@ def init_chain(draws, Y: torch.Tensor, cfg: ModelConfig, prior) -> ChainCarry:
 
 
 def state_leaves(state: SamplerState) -> list:
-    """The state's tensors in a fixed order (the prior's by name)."""
+    """The state's tensors in the JAX SamplerState's flatten order: the
+    prior's by name, then the column mask under rank adaptation."""
     return [state.Lambda, state.Z, state.X, state.ps,
-            *(state.prior[k] for k in sorted(state.prior))]
+            *(state.prior[k] for k in sorted(state.prior)),
+            *([] if state.active is None else [state.active])]
 
 
 def save_pattern(start: int, length: int, burnin: int,
@@ -234,6 +243,12 @@ class ChainRunner:
                       else None)
         self._trace = torch.empty((unroll, len(TRACE_SUMMARIES)),
                                   dtype=torch.float32, device=Y.device)
+        # rank adaptation reads each sweep's 1-based global iteration: a
+        # device tensor written before every trip, never a constant baked
+        # into a capture
+        self._its = (torch.zeros((unroll,), dtype=torch.float32,
+                                 device=Y.device)
+                     if cfg.rank_adapt else None)
         self.carry = None
         self._recipe = None        # the sweep's draw calls, recorded once
         self._slots = None         # per call: (unroll, *shape) variates
@@ -264,7 +279,8 @@ class ChainRunner:
         state = init_state(self.noise.init(chain), self.prior, G=G, n=n,
                            P=P, K=self.cfg.factors_per_shard,
                            as_=self.cfg.as_, bs=self.cfg.bs,
-                           device=self.Y.device)
+                           device=self.Y.device,
+                           rank_adapt=self.cfg.rank_adapt)
         for dst, src in zip(state_leaves(self.carry.state),
                             state_leaves(state), strict=True):
             dst.copy_(src)
@@ -310,9 +326,12 @@ class ChainRunner:
                 work.iteration += length
                 pos += length
             h = work.health.cpu()
+            ranks = effective_ranks(work.state).cpu()
             stats = ChainStats(
                 tau_log_max=float(h[:, 0].max()), ps_min=float(h[:, 1].min()),
                 ps_max=float(h[:, 2].max()),
+                rank_min=float(ranks.min()), rank_max=float(ranks.max()),
+                rank_mean=float(ranks.mean()),
                 nonfinite_count=float(h[:, 3].sum()),
                 acc_nonfinite=float((~torch.isfinite(work.sigma_acc)).sum()))
             if own:
@@ -332,7 +351,9 @@ class ChainRunner:
                     *(torch.empty_like(getattr(carry.state, f))
                       for f in ("Lambda", "Z", "X", "ps")),
                     prior={k: torch.empty_like(v)
-                           for k, v in carry.state.prior.items()}),
+                           for k, v in carry.state.prior.items()},
+                    active=(None if carry.state.active is None
+                            else torch.empty_like(carry.state.active))),
                 sigma_acc=torch.empty_like(carry.sigma_acc), iteration=0,
                 health=torch.empty_like(carry.health),
                 sigma_sq_acc=(None if carry.sigma_sq_acc is None
@@ -343,6 +364,11 @@ class ChainRunner:
         self.carry.iteration = carry.iteration
 
     def _trip(self, chain: int, start: int, pattern: tuple) -> None:
+        if self._its is not None:
+            # the trip's iterations, start + 1 .. start + len(pattern), by a
+            # kernel on the runner's stream (no host-to-device copy)
+            torch.arange(start + 1, start + 1 + len(pattern),
+                         out=self._its[:len(pattern)])
         if self._recipe is None:
             # the runner's first trip: live draws, the first sweep's calls
             # recorded as the recipe every later trip is drawn from
@@ -376,15 +402,31 @@ class ChainRunner:
     def _capture(self, draws: list, pattern: tuple) -> tuple:
         graph = torch.cuda.CUDAGraph()
         t = time.perf_counter()
+        # Python's cyclic collector may run at any allocation, and a dead
+        # cycle can hold CUDA graphs, events or pinned buffers (an
+        # exception's traceback holds a killed fit's runner): destroyed
+        # inside a capture, they invalidate it.  So no automatic collection
+        # while a trip is captured
+        collecting = gc.isenabled()
+        gc.disable()
         try:
+            # thread_local: the checkpoint writer's and the stream drain's
+            # threads wait on side-stream events while a trip is captured,
+            # and under the default global mode such a wait in ANY thread
+            # invalidates the capture; the capturing thread itself still
+            # may not make an unsafe call
             with cuda_lib.capture_tally() as tally:
                 with torch.cuda.graph(graph, pool=self._pool,
-                                      stream=self._stream):
+                                      stream=self._stream,
+                                      capture_error_mode="thread_local"):
                     self._sweeps(draws, pattern)
         except RuntimeError as e:
             raise RuntimeError(
                 f"capturing a trip of {len(pattern)} sweeps (saves "
                 f"{pattern}) into a CUDA graph failed: {e}") from e
+        finally:
+            if collecting:
+                gc.enable()
         self.capture_s += time.perf_counter() - t
         self.captured += 1
         self._graphs[pattern] = (graph, tally)
@@ -399,6 +441,11 @@ class ChainRunner:
         state, health = carry.state, carry.health
         for j, d in enumerate(draws):
             state, sse = gibbs_sweep(d, self.Y, state, cfg, self.prior)
+            # the trace reads the sweep's own output; adaptation re-masks
+            # the carried state after it (the JAX package's order)
+            sweep_state = state
+            if self._its is not None:
+                state = adapt_rank(d, state, self._its[j], self.burnin, cfg)
             if isinstance(d, BufferedDraws):
                 d.finish()
             if pattern[j]:
@@ -415,7 +462,7 @@ class ChainRunner:
                     # no compiler can contract them into an FMA
                     carry.sigma_sq_acc += blocks.mul_(blocks)
             health = _health_update(health, _health_now(state, self.prior))
-            self._trace[j].copy_(_trace_now(state, sse, cfg.rho))
+            self._trace[j].copy_(_trace_now(sweep_state, sse, cfg.rho))
         for dst, src in zip(state_leaves(carry.state), state_leaves(state),
                             strict=True):
             dst.copy_(src)

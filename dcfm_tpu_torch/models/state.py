@@ -10,6 +10,7 @@ recomputed where needed, as in the JAX package.
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import numpy as np
 import torch
@@ -50,17 +51,24 @@ class SamplerState:
     Z: torch.Tensor        # (G, n, K) shard-specific factors
     X: torch.Tensor        # (n, K) factors shared by all shards
     ps: torch.Tensor       # (G, P) residual precisions
-    prior: dict            # {"psijh": (G, P, K), "delta": (G, K)}
+    prior: dict            # the prior's leaves (models/priors.py), (G, ...)
+    # (G, K) 0/1 column mask of adaptive rank truncation (models/adapt.py),
+    # or None with adaptation off (the JAX package's structure: None adds
+    # no leaf)
+    active: Optional[torch.Tensor] = None
 
 
 def init_state(draws, prior, *, G: int, n: int, P: int, K: int, as_: float,
-               bs: float, device) -> SamplerState:
+               bs: float, device, rank_adapt: bool = False) -> SamplerState:
     """Draw the initial state: Lambda = 0, Z and X standard normal,
-    ps ~ Gamma(as_, bs), the prior from its own init."""
+    ps ~ Gamma(as_, bs), the prior from its own init, and under
+    ``rank_adapt`` every column active."""
     X = draws.normal(SITE_X, (n, K))
     ps = gamma_rate(draws, SITE_PS, as_, bs, sample_shape=(G, P),
                     device=device)
     Z = draws.normal(SITE_Z, (G, n, K))
     return SamplerState(
         Lambda=torch.zeros((G, P, K), dtype=torch.float32, device=device),
-        Z=Z, X=X, ps=ps, prior=prior.init(draws, G, P, K, device=device))
+        Z=Z, X=X, ps=ps, prior=prior.init(draws, G, P, K, device=device),
+        active=(torch.ones((G, K), dtype=torch.float32, device=device)
+                if rank_adapt else None))

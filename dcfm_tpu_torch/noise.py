@@ -1,33 +1,53 @@
 """The noise seam: every random draw of the chain goes through one provider.
 
-A provider hands out RAW unit variates - standard normals, Exp(1) terms
-and standard-Gamma draws - and the samplers transform them themselves.
-That keeps the sampling math in the port, and lets a test swap the
-provider for one that replays the JAX package's own draws, so that one
-sweep of each package can be compared leaf by leaf from the same state.
+A provider hands out RAW unit variates - standard normals, Exp(1) terms,
+U(0, 1) uniforms and standard-Gamma draws - and the samplers transform
+them themselves.  That keeps the sampling math in the port, and lets a
+test swap the provider for one that replays the JAX package's own draws,
+so that one sweep of each package can be compared leaf by leaf from the
+same state.
 
-Draws are addressed by ``site`` (the JAX package's site ids 1-5, one per
-conditional, ``dcfm_tpu/models/conditionals.py``) and ``part`` (which
-child of the site's key split a JAX draw uses: the MGP prior update draws
-its psi normals from part 0 and its delta gammas from part 1; the Gram psi
-stage its Exp(1) terms from part 0 and its half normal from part 1).  A
-draw whose leading axis is the shard axis is per-shard at every site but
-``SITE_X`` (X is shared by all shards).
+Draws are addressed by ``site`` (the JAX package's site ids: 1-5, one per
+conditional, ``dcfm_tpu/models/conditionals.py``, and 6 for the rank
+adaptation's coin, ``dcfm_tpu/models/adapt.py``) and ``part``, the path
+from the site's per-shard key to the key a JAX draw uses.  ``part`` is
+None (the key itself), an int i (child i of a two-way split: the MGP
+prior update draws its psi normals from part 0 and its delta gammas from
+part 1), or a tuple of steps applied in order: an int i (child i of a
+two-way split), ``(n, i)`` (child i of an n-way split), ``("fold", d)``
+(the key folded with d) and ``("rounds", R)``, which gives the draw an
+axis of R rejection rounds after the shard axis, round r taking the key
+the JAX package's rejection loop splits off in its r-th trip (``k, sub =
+split(k)``, r + 1 times).  A draw whose leading axis is the shard axis is
+per-shard at every site but the :data:`SHARED_SITES` (X, and the
+adaptation coin, are shared by all shards).
 
 :class:`TorchNoise`, the default provider, seeds one ``torch.Generator``
 on the data's device per (seed, chain, global iteration, site) and takes
-that site's parts from it in order.  Keying on the GLOBAL iteration is
-what keeps host-level chunking from changing the chain.
+that site's parts from it in order (it reads no ``part``).  Keying on the
+GLOBAL iteration is what keeps host-level chunking from changing the
+chain.
 
 Draws a CUDA graph can consume.  Every variate a sweep draws is
-independent of the chain state (static shapes; the only Gamma shapes are
-constants of the config, n, P and K), so the chain driver takes the random
+independent of the chain state, so the chain driver takes the random
 numbers out of the graph: :class:`RecordingDraws` records the sweep's
 ordered calls (its draw *recipe*) once, during one eager sweep;
 :func:`draw_into` draws a later iteration's recipe from the unchanged
 :class:`TorchNoise` streams into static tensors before a replay; and
 :class:`BufferedDraws` hands those tensors to the sweep inside the graph in
-the recorded order, refusing any call that departs from the recipe.
+the recorded order, refusing any call that departs from the recipe.  Two
+kinds of site would break that rule, and each has its state-independent
+form:
+
+* a Gamma whose shape follows the chain state (under rank adaptation the
+  MGP delta shapes count the active columns, the horseshoe's tau2 shape
+  too) draws a *candidate table* (:meth:`Draws.gamma_candidates`): one
+  standard Gamma for every shape the site can take, a constant of the
+  config, from which the sampler picks the realised count's entry on the
+  device - an exact Gamma draw at the realised shape;
+* a rejection loop (the GIG sampler, ops/gig.py) draws all of its rounds'
+  uniforms up front (a ``("rounds", R)`` part) and takes each element's
+  first accepted round, which is the value the early-exit loop returns.
 """
 
 from __future__ import annotations
@@ -37,8 +57,11 @@ from typing import NamedTuple, Optional, Protocol
 import numpy as np
 import torch
 
-# site ids, as in dcfm_tpu/models/conditionals.py
+# site ids, as in dcfm_tpu/models/conditionals.py and models/adapt.py
 SITE_Z, SITE_X, SITE_LAM, SITE_PRIOR, SITE_PS = 1, 2, 3, 4, 5
+SITE_ADAPT = 6
+# the sites whose draws are shared by all shards (no shard axis)
+SHARED_SITES = (SITE_X, SITE_ADAPT)
 
 _INIT, _SWEEP = 0, 1
 
@@ -54,14 +77,32 @@ class Draws(Protocol):
     def exponential(self, site: int, shape, *, part=None,
                     out=None) -> torch.Tensor: ...
 
+    def uniform(self, site: int, shape, *, part=None,
+                out=None) -> torch.Tensor: ...
+
     def standard_gamma(self, site: int, alpha: torch.Tensor, *,
                        part=None, out=None) -> torch.Tensor: ...
+
+    def gamma_candidates(self, site: int, alphas: torch.Tensor, *,
+                         part=None, out=None) -> torch.Tensor:
+        """Independent standard-Gamma draws at every candidate shape
+        ``alphas[..., c]``; replaying the JAX package, entry c is the
+        variate its ``jax.random.gamma(key, alphas[..., c])`` gives."""
+        ...
 
 
 class NoiseProvider(Protocol):
     def init(self, chain: int, lineage: int = 0) -> Draws: ...
 
     def sweep(self, chain: int, iteration: int) -> Draws: ...
+
+
+def sub_part(part, *steps) -> tuple:
+    """The path ``part`` extended by ``steps`` (module docstring)."""
+    if part is None:
+        return tuple(steps)
+    head = part if isinstance(part, tuple) else (part,)
+    return head + tuple(steps)
 
 
 def stream_seed(*words: int) -> int:
@@ -101,9 +142,18 @@ class _SiteStreams:
                               dtype=torch.float32)
         return out.exponential_(generator=self._gen(site))
 
+    def uniform(self, site, shape, *, part=None, out=None):
+        if out is None:
+            out = torch.empty(tuple(shape), device=self._device,
+                              dtype=torch.float32)
+        return out.uniform_(generator=self._gen(site))
+
     def standard_gamma(self, site, alpha, *, part=None, out=None):
         g = torch._standard_gamma(alpha, generator=self._gen(site))
         return g if out is None else out.copy_(g)
+
+    # every candidate is an independent draw at its own shape
+    gamma_candidates = standard_gamma
 
 
 class TorchNoise:
@@ -137,10 +187,10 @@ class TorchNoise:
 class DrawCall(NamedTuple):
     """One call of a sweep on its provider."""
     site: int
-    part: Optional[int]
-    kind: str                      # "normal" | "exponential" | "standard_gamma"
+    part: object                   # None, an int or a tuple path
+    kind: str                      # a Draws method's name
     shape: tuple
-    alpha: Optional[torch.Tensor]  # standard_gamma's shape parameters
+    alpha: Optional[torch.Tensor]  # a Gamma's shape parameters
 
 
 class RecordingDraws:
@@ -158,10 +208,20 @@ class RecordingDraws:
             DrawCall(site, part, "exponential", tuple(shape), None))
         return self._draws.exponential(site, shape, part=part)
 
+    def uniform(self, site, shape, *, part=None):
+        self._recipe.append(
+            DrawCall(site, part, "uniform", tuple(shape), None))
+        return self._draws.uniform(site, shape, part=part)
+
     def standard_gamma(self, site, alpha, *, part=None):
         self._recipe.append(DrawCall(site, part, "standard_gamma",
                                      tuple(alpha.shape), alpha.clone()))
         return self._draws.standard_gamma(site, alpha, part=part)
+
+    def gamma_candidates(self, site, alphas, *, part=None):
+        self._recipe.append(DrawCall(site, part, "gamma_candidates",
+                                     tuple(alphas.shape), alphas.clone()))
+        return self._draws.gamma_candidates(site, alphas, part=part)
 
 
 def draw_into(draws: Draws, recipe: list, slots: list) -> None:
@@ -169,9 +229,9 @@ def draw_into(draws: Draws, recipe: list, slots: list) -> None:
     tensor per call, of the call's shape), in the recorded order: the
     variates the sweep would have drawn itself."""
     for call, out in zip(recipe, slots, strict=True):
-        if call.kind == "standard_gamma":
-            draws.standard_gamma(call.site, call.alpha, part=call.part,
-                                 out=out)
+        if call.alpha is not None:
+            getattr(draws, call.kind)(call.site, call.alpha, part=call.part,
+                                      out=out)
         else:
             getattr(draws, call.kind)(call.site, call.shape, part=call.part,
                                       out=out)
@@ -180,8 +240,8 @@ def draw_into(draws: Draws, recipe: list, slots: list) -> None:
 class BufferedDraws:
     """Hands out ``slots[i]`` for the sweep's i-th call, after checking the
     call against ``recipe[i]`` (site, part, kind, shape; on every call made
-    outside a capture, also standard_gamma's alpha by value, so an alpha
-    that came to depend on the chain state is refused by name).
+    outside a capture, also a Gamma's alpha by value, so an alpha that
+    came to depend on the chain state is refused by name).
     :meth:`finish` checks that the sweep made every recorded call."""
 
     def __init__(self, recipe: list, slots: list):
@@ -199,7 +259,7 @@ class BufferedDraws:
                 alpha.is_cuda and torch.cuda.is_current_stream_capturing()):
             if not torch.equal(alpha, self._recipe[i].alpha):
                 raise ValueError(
-                    f"draw {i} of the sweep (standard_gamma at site {site} "
+                    f"draw {i} of the sweep ({kind} at site {site} "
                     f"part {part}) has an alpha that differs from the "
                     "recorded one: it depends on the chain state, and a "
                     "pre-drawn variate cannot follow it")
@@ -212,8 +272,15 @@ class BufferedDraws:
     def exponential(self, site, shape, *, part=None):
         return self._next(site, part, "exponential", shape)
 
+    def uniform(self, site, shape, *, part=None):
+        return self._next(site, part, "uniform", shape)
+
     def standard_gamma(self, site, alpha, *, part=None):
         return self._next(site, part, "standard_gamma", alpha.shape, alpha)
+
+    def gamma_candidates(self, site, alphas, *, part=None):
+        return self._next(site, part, "gamma_candidates", alphas.shape,
+                          alphas)
 
     def finish(self) -> None:
         if self._i != len(self._recipe):

@@ -94,3 +94,12 @@ def gamma_rate_half_integer(draws, site: int, twice_shape: torch.Tensor,
     chi2 = torch.sum(torch.where(mask, z * z, torch.zeros((), device=z.device)),
                      dim=-1)
     return 0.5 * chi2 / rate
+
+
+def inverse_gamma_rate(draws, site: int, shape, scale, *, sample_shape=None,
+                       part=None, device=None) -> torch.Tensor:
+    """InvGamma(shape, scale): 1/x with x ~ Gamma(shape, rate=scale), the
+    horseshoe's auxiliary conditionals."""
+    return 1.0 / gamma_rate(draws, site, shape, scale,
+                            sample_shape=sample_shape, part=part,
+                            device=device)

@@ -81,11 +81,15 @@ def auto_cadence(last_save_seconds: float, chunk_secs: list) -> int:
 
 
 def pool_stats(stats: list) -> ChainStats:
-    """The chains' ChainStats reduced to one (max, min, max, sums)."""
+    """The chains' ChainStats reduced to one (max, min, max; min, max and
+    mean of the ranks; sums)."""
     return ChainStats(
         tau_log_max=max(s.tau_log_max for s in stats),
         ps_min=min(s.ps_min for s in stats),
         ps_max=max(s.ps_max for s in stats),
+        rank_min=min(s.rank_min for s in stats),
+        rank_max=max(s.rank_max for s in stats),
+        rank_mean=float(np.mean([s.rank_mean for s in stats])),
         nonfinite_count=sum(s.nonfinite_count for s in stats),
         acc_nonfinite=sum(s.acc_nonfinite for s in stats))
 
@@ -105,12 +109,17 @@ def carries_from_leaves(leaves: dict, num_chains: int, device,
                 else torch.zeros(acc_shape, dtype=torch.float32,
                                  device=device))
 
+    # every leaf that is not one of these is the prior's
+    others = {"Lambda", "Z", "X", "ps", "active", "sigma_acc",
+              "sigma_sq_acc", "iteration", "health"}
     out = []
     for c in range(num_chains):
         out.append(ChainCarry(
             state=SamplerState(
                 *(get(k, c) for k in ("Lambda", "Z", "X", "ps")),
-                prior={k: get(k, c) for k in ("delta", "psijh")}),
+                prior={k: get(k, c) for k in sorted(leaves)
+                       if k not in others},
+                active=get("active", c) if "active" in leaves else None),
             sigma_acc=acc("sigma_acc", c),
             iteration=int(np.asarray(leaves["iteration"]).reshape(-1)[c]),
             health=get("health", c),

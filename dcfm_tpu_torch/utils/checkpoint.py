@@ -10,10 +10,11 @@ recomputes it from the caller's Y and the fingerprint refuses other data).
 
 Format: the JAX package's v8 - one ``.npz`` with the leaves ``leaf_0``,
 ``leaf_1``, ... in the JAX ``ChainCarry``'s flatten order
-(:data:`FULL_LEAVES`: Lambda, Z, X, ps, the MGP prior's delta and psijh,
-sigma_acc, iteration, health, and under ``ModelConfig.posterior_sd``
-sigma_sq_acc, :data:`FULL_LEAVES_SD`; a light file drops the accumulators
-and renumbers, :data:`LIGHT_LEAVES`), a leading chain axis on every leaf
+(:func:`file_leaves`: Lambda, Z, X, ps, the prior's leaves by name - MGP
+delta and psijh, horseshoe lam2, nu, tau2 and xi, DL phi, psi and tau -,
+the column mask ``active`` under rank adaptation, sigma_acc, iteration,
+health, and under ``ModelConfig.posterior_sd`` sigma_sq_acc; a light file
+drops the accumulators and renumbers), a leading chain axis on every leaf
 when there is more than one chain and none for one, and a JSON
 ``__meta__`` entry with the JAX package's keys, per-leaf CRC32s among
 them.  The config in it carries every key the JAX package's reader
@@ -66,7 +67,8 @@ import numpy as np
 import torch
 
 from dcfm_tpu_torch.config import (
-    BackendConfig, FitConfig, MGPConfig, ModelConfig, RunConfig, WarmStart)
+    AdaptConfig, BackendConfig, DLConfig, FitConfig, HorseshoeConfig,
+    MGPConfig, ModelConfig, RunConfig, WarmStart)
 from dcfm_tpu_torch.models.sampler import num_saved_draws
 from dcfm_tpu_torch.models.state import num_padded_pairs
 
@@ -77,42 +79,60 @@ RNG_STREAMS = "torch-philox"
 _FORMAT_VERSION = 8
 _LOADABLE_VERSIONS = (_FORMAT_VERSION, 7, 6)
 
-# the leaves of a chain's carry in the JAX ChainCarry's flatten order
-STATE_LEAVES = ("Lambda", "Z", "X", "ps", "delta", "psijh")
+# the leaves of a chain's carry in the JAX ChainCarry's flatten order: the
+# SamplerState's (Lambda, Z, X, ps, the prior's leaves by name, the column
+# mask under rank adaptation), then sigma_acc, iteration, health, and
+# under posterior_sd sigma_sq_acc (it follows health in the JAX
+# ChainCarry).  The constants are the default model's (MGP, no adaptation)
+PRIOR_LEAVES = {"mgp": ("delta", "psijh"),
+                "horseshoe": ("lam2", "nu", "tau2", "xi"),
+                "dl": ("phi", "psi", "tau")}
+STATE_LEAVES = ("Lambda", "Z", "X", "ps") + PRIOR_LEAVES["mgp"]
 FULL_LEAVES = STATE_LEAVES + ("sigma_acc", "iteration", "health")
-# ModelConfig.posterior_sd: the second-moment sums follow health, as
-# sigma_sq_acc follows health in the JAX ChainCarry
 FULL_LEAVES_SD = FULL_LEAVES + ("sigma_sq_acc",)
 # a light (state-only) file drops the accumulators: the JAX _slim carry
 LIGHT_LEAVES = STATE_LEAVES + ("iteration", "health")
 ACC_LEAVES = ("sigma_acc", "sigma_sq_acc")
-_TREEDEF = ("ChainCarry(state=SamplerState(Lambda, Z, X, ps, prior={delta, "
-            "psijh}), sigma_acc, iteration, health")
+
+
+def state_leaf_names(model: ModelConfig) -> tuple:
+    """The sampler state's leaves under ``model``, in flatten order."""
+    return (("Lambda", "Z", "X", "ps") + PRIOR_LEAVES[model.prior]
+            + (("active",) if model.rank_adapt else ()))
+
+
+def file_leaves(model: ModelConfig, state_only: bool,
+                posterior_sd: bool) -> tuple:
+    """The leaf names of a file, in leaf order."""
+    state = state_leaf_names(model)
+    if state_only:
+        return state + ("iteration", "health")
+    return (state + ("sigma_acc", "iteration", "health")
+            + (("sigma_sq_acc",) if posterior_sd else ()))
+
+
+def _treedef(model: ModelConfig, names: tuple) -> str:
+    prior = ", ".join(PRIOR_LEAVES[model.prior])
+    active = ", active" if model.rank_adapt else ""
+    tail = [k for k in names if k in ("sigma_acc", "iteration", "health",
+                                      "sigma_sq_acc")]
+    return (f"ChainCarry(state=SamplerState(Lambda, Z, X, ps, prior={{"
+            f"{prior}}}{active}), {', '.join(tail)})")
+
 
 # The JAX package's FitConfig knobs the port has no field for, at the JAX
 # package's defaults (dcfm_tpu/config.py), each with the key it follows in
 # its section of the config JSON (None: first).  None of them changes a
 # chain the port can run: each one acts only under a knob the port
-# represents and refuses (prior, rank_adapt, early_stop) or names no
-# sampling at all (backend, profile_dir, obs).  Written so the JAX
-# package's reader finds every key it requires; dropped on reading.
+# represents and refuses (early_stop) or names no sampling at all
+# (backend, profile_dir, obs).  Written so the JAX package's reader finds
+# every key it requires; dropped on reading.
 _JAX_ONLY = (
-    ("model", "mgp", {"horseshoe": {"global_scale": 1.0},
-                      "dl": {"a": 0.5},
-                      "adapt": {"a0": -1.0, "a1": -5e-4, "eps": 0.05,
-                                "prop": 0.95, "min_active": 1}}),
     ("run", "early_stop", {"rhat_threshold": 1.01, "ess_target": 400.0}),
     ("backend", None, {"backend": "auto"}),
     ("backend", "upload_dtype", {"profile_dir": None}),
     (None, "sentinel_max_rewinds", {"obs": "auto"}),
 )
-
-
-def file_leaves(state_only: bool, posterior_sd: bool) -> tuple:
-    """The leaf names of a file, in leaf order."""
-    if state_only:
-        return LIGHT_LEAVES
-    return FULL_LEAVES_SD if posterior_sd else FULL_LEAVES
 
 
 class CheckpointCorruptError(ValueError):
@@ -131,12 +151,15 @@ def carry_template(model: ModelConfig, *, n: int, P: int,
     with the chain-axis convention (a leading ``num_chains`` axis when
     there is more than one chain)."""
     G, K = model.num_shards, model.factors_per_shard
-    core = {"Lambda": (G, P, K), "Z": (G, n, K), "X": (n, K), "ps": (G, P),
-            "delta": (G, K), "psijh": (G, P, K),
-            "sigma_acc": (num_padded_pairs(G), P, P), "iteration": (),
-            "health": (G, 4)}
-    if model.posterior_sd:
-        core["sigma_sq_acc"] = core["sigma_acc"]
+    shapes = {"Lambda": (G, P, K), "Z": (G, n, K), "X": (n, K),
+              "ps": (G, P), "delta": (G, K), "psijh": (G, P, K),
+              "lam2": (G, P, K), "nu": (G, P, K), "tau2": (G,), "xi": (G,),
+              "phi": (G, P, K), "psi": (G, P, K), "tau": (G, P),
+              "active": (G, K), "sigma_acc": (num_padded_pairs(G), P, P),
+              "sigma_sq_acc": (num_padded_pairs(G), P, P), "iteration": (),
+              "health": (G, 4)}
+    core = {k: shapes[k] for k in file_leaves(model, False,
+                                              model.posterior_sd)}
     lead = (num_chains,) if num_chains > 1 else ()
     return {k: (lead + s, np.dtype(np.int32 if k == "iteration"
                                    else np.float32))
@@ -147,7 +170,9 @@ def _chain_tensors(carry, state_only: bool) -> dict:
     """One chain's leaves as tensors (iteration stays a Python int)."""
     st = carry.state
     out = {"Lambda": st.Lambda, "Z": st.Z, "X": st.X, "ps": st.ps,
-           "delta": st.prior["delta"], "psijh": st.prior["psijh"]}
+           **st.prior}
+    if st.active is not None:
+        out["active"] = st.active
     if not state_only:
         out["sigma_acc"] = carry.sigma_acc
         if carry.sigma_sq_acc is not None:
@@ -271,7 +296,10 @@ def _config_from_json(d: dict) -> FitConfig:
     and after the JAX-only keys were written): keys the port has no field
     for are dropped (:data:`_JAX_ONLY`)."""
     model = _fields(ModelConfig, d["model"])
-    model["mgp"] = MGPConfig(**model["mgp"])
+    for key, cls in (("mgp", MGPConfig), ("horseshoe", HorseshoeConfig),
+                     ("dl", DLConfig), ("adapt", AdaptConfig)):
+        if key in model:
+            model[key] = cls(**model[key])
     rest = {k: v for k, v in _fields(FitConfig, d).items()
             if k not in ("model", "run", "backend")}
     if rest.get("warm_start"):
@@ -413,7 +441,7 @@ def save_checkpoint(path: str, leaves: dict, cfg: FitConfig, *,
     ``chain_acc_starts`` / ``fold_draws`` / ``elastic_lineage`` the v7
     bookkeeping of an elastic adoption (None: uniform starts at
     ``acc_start``)."""
-    names = file_leaves(state_only, "sigma_sq_acc" in leaves)
+    names = file_leaves(cfg.model, state_only, "sigma_sq_acc" in leaves)
     num_chains = int(cfg.run.num_chains)
     if _num_chains(leaves) != num_chains:
         raise ValueError(f"{_num_chains(leaves)} chains' leaves for a "
@@ -423,8 +451,7 @@ def save_checkpoint(path: str, leaves: dict, cfg: FitConfig, *,
     meta = {
         "version": _FORMAT_VERSION,
         "config": _config_to_json(cfg),
-        "treedef": _TREEDEF + (", sigma_sq_acc)" if "sigma_sq_acc" in names
-                               else ")"),
+        "treedef": _treedef(cfg.model, names),
         "iteration": int(np.asarray(leaves["iteration"]).reshape(-1)[0]),
         "fingerprint": fingerprint,
         "state_only": bool(state_only),
@@ -511,8 +538,9 @@ def load_checkpoint(path: str, template: dict) -> Tuple[dict, dict]:
     (accumulation restarts at ``meta["iteration"]``)."""
     with _open(path) as z:
         meta = _read_meta(z, path)
-        names = file_leaves(bool(meta.get("state_only")),
-                            "sigma_sq_acc" in template)
+        # the template is carry_template's: its keys in full-file order
+        names = [k for k in template if not (meta.get("state_only")
+                                             and k in ACC_LEAVES)]
         leaves = {}
         for i, name in enumerate(names):
             arr = _read_leaf(z, meta, f"leaf_{i}", path)

@@ -11,8 +11,9 @@ burn-in + 200 kept at thin 2, sse_mode="auto", no checkpoint) along the
 float32, bf16 and fused paths and the float32 path under
 fetch_dtype="quant8", each after a 4-sweep warm-up of the same path.  Per
 fit one JSON line: the sha256 of Sigma's float32 bytes, chain
-iterations/s (all chains' sweeps / chain_s), the phase seconds and the
-peak allocated device memory, with the card's name and power limit.  Two
+iterations/s (all chains' sweeps / chain_s), the phase seconds, the
+kernel launches and the peak allocated device memory, with the card's
+name and power limit.  Two
 trees whose lines carry the same digests computed the same Sigma bit for
 bit.
 """
@@ -90,6 +91,7 @@ def main() -> None:
                     res.Sigma, np.float32).view(np.uint8)).hexdigest(),
                 "chain_iters_per_s": sweeps / res.phase_seconds["chain_s"],
                 "wall_s": wall, "phase_seconds": res.phase_seconds,
+                "kernel_launches": res.kernel_launches,
                 "peak_allocated": torch.cuda.max_memory_allocated(),
                 "card": card}), flush=True)
             del res

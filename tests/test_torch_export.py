@@ -169,13 +169,13 @@ def test_export_refuses_what_the_jax_package_refuses(tmp_path):
 
 
 def test_export_refuses_a_config_the_port_cannot_represent(tmp_path):
-    """A JAX-written file of a knob the port does not run (the horseshoe
-    prior) is refused naming its Queue A item; a missing file is a
-    FileNotFoundError."""
-    path = str(tmp_path / "hs.npz")
+    """A JAX-written file of a knob the port does not run (draw storage,
+    ``store_draws``; the horseshoe prior this test used is ported, see
+    tests/test_torch_adapt.py) is refused naming its Queue A item; a
+    missing file is a FileNotFoundError."""
+    path = str(tmp_path / "sd.npz")
     dcfm_tpu.fit(_data(), dataclasses.replace(
-        _cfg(dcfm_tpu, sd=False, model={"prior": "horseshoe"}),
-        checkpoint_path=path))
+        _cfg(dcfm_tpu, sd=False, store_draws=True), checkpoint_path=path))
     with pytest.raises(NotImplementedError, match="Queue A item 5"):
         tart.export_from_checkpoint(path, _data(), str(tmp_path / "a"))
     with pytest.raises(FileNotFoundError):

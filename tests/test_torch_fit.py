@@ -214,16 +214,15 @@ def _names_a_queue_a_item(message: str) -> bool:
 # the refusals: the fetch and upload dtypes (now ported) gave their places
 # to missing values and the DL prior, resume without a checkpoint (now a
 # ValueError); posterior_sd, stream_artifact and the adoption of a
-# checkpoint of another chain count (elastic) are ported and dropped out
+# checkpoint of another chain count (elastic) are ported and dropped out,
+# and so are the horseshoe and DL priors and rank_adapt
+# (test_ported_scenario_knobs_fit below fits them)
 @pytest.mark.parametrize("model,run,backend,extra", [
-    ({"prior": "horseshoe"}, {}, {}, {}),
-    ({"rank_adapt": True}, {}, {}, {}),
     ({"combine_chunks": 2}, {}, {}, {}),
     ({}, {"store_draws": True}, {}, {}),
     ({}, {"early_stop": "rhat"}, {}, {}),
     ({"impute_missing": True}, {}, {}, {}),
     ({}, {}, {"mesh_devices": 2}, {}),
-    ({"prior": "dl"}, {}, {}, {}),
     ({}, {}, {}, {"warm_start": dcfm_tpu_torch.config.WarmStart("w.npz")}),
 ])
 def test_knobs_outside_the_port_are_refused(model, run, backend, extra):
@@ -238,6 +237,31 @@ def test_knobs_outside_the_port_are_refused(model, run, backend, extra):
     with pytest.raises(NotImplementedError, match="ROADMAP") as e:
         fit(Y, cfg, device="cpu")
     assert _names_a_queue_a_item(str(e.value)), str(e.value)
+
+
+@pytest.mark.parametrize("model", [
+    {"prior": "horseshoe"}, {"rank_adapt": True}, {"prior": "dl"},
+    {"prior": "dl", "rank_adapt": True}])
+def test_ported_scenario_knobs_fit(model):
+    """The knobs the refusal test above no longer lists: the horseshoe
+    and DL priors and adaptive rank truncation (with MGP and with DL) fit
+    to a finite, symmetric Sigma with the effective-rank statistics."""
+    Y, _ = make_synthetic(30, 8, 2, seed=0)
+    cfg = FitConfig(
+        model=ModelConfig(num_shards=2, factors_per_shard=2, rho=0.5,
+                          **model),
+        run=RunConfig(burnin=6, mcmc=6, num_chains=2))
+    res = fit(Y, cfg, device="cpu")
+    assert np.isfinite(res.Sigma).all()
+    np.testing.assert_array_equal(res.Sigma, res.Sigma.T)
+    assert res.stats.nonfinite_count == 0
+    assert 1 <= res.stats.rank_min <= res.stats.rank_mean \
+        <= res.stats.rank_max <= 2
+    if model.get("rank_adapt"):
+        assert res.state.active.shape == (2, 2, 2)
+    else:
+        assert res.state.active is None
+        assert res.stats.rank_min == res.stats.rank_max == 2
 
 
 def _refusal_messages() -> list:
@@ -266,20 +290,23 @@ def _refusal_messages() -> list:
 def test_every_refusal_names_a_queue_a_item():
     """Fault C1: refusals cited "'Still to port' item 8", which the ROADMAP
     never numbered.  Every ROADMAP citation in the package names a Queue A
-    item the ROADMAP lists, and the refusals outside config.validate (the
-    prior, missing values, streaming inputs) do too."""
+    item the ROADMAP lists, and the refusals outside config.validate
+    (missing values, streaming inputs; the priors are ported) do too."""
     cited = [(f, m) for f, m in _refusal_messages()
              if re.search(r"item \d", m)]
     assert len(cited) >= 4
     for name, message in cited:
         assert _names_a_queue_a_item(message), (name, message)
-    from dcfm_tpu_torch.models.priors import make_prior
+    import types
+
+    from dcfm_tpu_torch.api import _refuse_streaming_input
     from dcfm_tpu_torch.utils.preprocess import preprocess as tpreprocess
     Y, _ = make_synthetic(30, 8, 2, seed=0)
     Y[0, 0] = np.nan
-    for call in (lambda: make_prior(ModelConfig(
-                     num_shards=2, factors_per_shard=2, rho=0.5,
-                     prior="horseshoe")),
+    triple = types.SimpleNamespace(indptr=np.zeros(9, np.int64),
+                                   indices=np.zeros(0, np.int64),
+                                   data=np.zeros(0, np.float32))
+    for call in (lambda: _refuse_streaming_input(triple),
                  lambda: tpreprocess(Y, 2)):
         with pytest.raises(NotImplementedError) as e:
             call()

@@ -1,6 +1,7 @@
 """Geweke joint-distribution test of the PyTorch port's Gibbs sweep.
 
-The MGP case of tests/test_reference_semantics.py's Geweke test, run
+The three cases of tests/test_reference_semantics.py's Geweke test (MGP,
+horseshoe and Dirichlet-Laplace), run
 through ``dcfm_tpu_torch.models.conditionals.gibbs_sweep``: moments of
 independent prior draws (marginal-conditional) against the final states
 of many short successive-conditional chains (Y | state, then state | Y by
@@ -99,3 +100,83 @@ def test_port_geweke_joint_distribution():
                                                                          se2)
     print("port Geweke z:", {k: round(v, 3) for k, v in z.items()})
     assert max(z.values()) < 5.0, z
+
+
+def _scenario_prior_state(rng, cfg, prior) -> SamplerState:
+    """A full state drawn from the horseshoe or DL prior (the JAX test's
+    hierarchy draws: Makalic-Schmidt nu, xi ~ iG(1/2, 1), lam2 | nu ~
+    iG(1/2, 1/nu), tau2 | xi ~ iG(1/2, 1/xi); DL psi ~ Exp(1/2), phi ~
+    Dirichlet(a), tau ~ Gamma(K a, 1/2)), Lambda ~ N(0, 1/row precision)."""
+    f = lambda a: torch.as_tensor(a, dtype=torch.float32)  # noqa: E731
+    X = rng.standard_normal((_N, _K))
+    ps = rng.gamma(_AS, 1.0 / _BS, (_G, _P))
+    Z = rng.standard_normal((_G, _N, _K))
+    if cfg.prior == "horseshoe":
+        nu = 1.0 / rng.gamma(0.5, 1.0, (_G, _P, _K))
+        lam2 = 1.0 / rng.gamma(0.5, nu)
+        xi = 1.0 / rng.gamma(0.5, 1.0, (_G,))
+        tau2 = 1.0 / rng.gamma(0.5, xi)
+        st = {"lam2": lam2, "nu": nu, "tau2": tau2, "xi": xi}
+    else:
+        a = cfg.dl.a
+        d = rng.gamma(a, 1.0, (_G, _P, _K))
+        st = {"psi": 2.0 * rng.exponential(1.0, (_G, _P, _K)),
+              "phi": d / d.sum(axis=-1, keepdims=True),
+              "tau": rng.gamma(_K * a, 2.0, (_G, _P))}
+    st = {k: f(v) for k, v in st.items()}
+    plam = prior.row_precision(st).double().numpy()
+    Lam = rng.standard_normal((_G, _P, _K)) / np.sqrt(plam)
+    return SamplerState(Lambda=f(Lam), Z=f(Z), X=f(X), ps=f(ps), prior=st)
+
+
+def _scenario_stats(s: SamplerState, Y: torch.Tensor, prior: str) -> list:
+    """The JAX test's functionals: the horseshoe's on the log scale (its
+    half-Cauchy scales have no finite mean)."""
+    m = lambda t: float(torch.mean(t.double()))  # noqa: E731
+    out = [m(torch.log(s.ps)), m(s.Z ** 2), m(s.X ** 2)]
+    if prior == "horseshoe":
+        return out + [m(torch.log(s.prior[k]))
+                      for k in ("lam2", "nu", "tau2", "xi")] + [
+            m(torch.log(s.Lambda.double() ** 2)),
+            m(torch.log(Y.double() ** 2))]
+    return out + [m(torch.log(s.prior[k])) for k in ("psi", "phi", "tau")] \
+        + [m(s.Lambda ** 2), m(Y ** 2)]
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("prior_name", ["horseshoe", "dl"])
+def test_port_geweke_joint_distribution_scenario_priors(prior_name):
+    """The horseshoe and DL cases of the JAX test through the port's
+    sweep (its GIG rounds, inverse-Gaussian and inverse-gamma draws):
+    the JAX test's sizes and z < 5 bound."""
+    cfg = ModelConfig(num_shards=_G, factors_per_shard=_K, rho=_RHO,
+                      as_=_AS, bs=_BS, prior=prior_name)
+    prior = make_prior(cfg)
+    M_MARG, R_CHAINS, T_STEPS = 6000, 3000, 40
+    torch.set_num_threads(1)
+
+    rng = np.random.default_rng(0)
+    marg = []
+    for _ in range(M_MARG):
+        s = _scenario_prior_state(rng, cfg, prior)
+        marg.append(_scenario_stats(s, _sample_Y(rng, s), prior_name))
+
+    noise = TorchNoise(1, "cpu")
+    succ = []
+    for r in range(R_CHAINS):
+        rng = np.random.default_rng([1, r])
+        s = _scenario_prior_state(rng, cfg, prior)
+        for t in range(T_STEPS):
+            s, _ = gibbs_sweep(noise.sweep(r, t), _sample_Y(rng, s), s, cfg,
+                               prior)
+        succ.append(_scenario_stats(s, _sample_Y(rng, s), prior_name))
+
+    marg, succ = np.asarray(marg), np.asarray(succ)
+    z = []
+    for i in range(marg.shape[1]):
+        se1 = marg[:, i].std(ddof=1) / np.sqrt(len(marg))
+        se2 = succ[:, i].std(ddof=1) / np.sqrt(len(succ))
+        z.append(abs(marg[:, i].mean() - succ[:, i].mean())
+                 / np.hypot(se1, se2))
+    print(f"port Geweke z [{prior_name}]:", [round(float(v), 3) for v in z])
+    assert max(z) < 5.0, z

@@ -6,7 +6,9 @@ against the eager chain bit for bit, the fetch (the pinned, sliced drain
 against a plain copy, the fetch prep against the CPU's, fits at every
 fetch_dtype), the posterior SD (its accumulate inside the graphs, its
 fetch prep against the CPU's), the streamed artifact and the export from
-a checkpoint, an elastic resume, and a failed capture raising.
+a checkpoint, an elastic resume, a failed capture raising, and the
+scenario paths (the horseshoe and DL priors, rank adaptation) graphed
+bitwise the eager chain.
 
 They need an NVIDIA GPU with nvcc (the kernels are built on first use) and
 skip without one.  They import no JAX, so on the card they run without the
@@ -22,7 +24,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from dcfm_tpu_torch import BackendConfig, FitConfig, ModelConfig, RunConfig  # noqa: E402
+from dcfm_tpu_torch import AdaptConfig, BackendConfig, FitConfig  # noqa: E402
+from dcfm_tpu_torch import ModelConfig, RunConfig  # noqa: E402
 from dcfm_tpu_torch import fit  # noqa: E402
 from dcfm_tpu_torch.models import sampler  # noqa: E402
 from dcfm_tpu_torch.models.conditionals import mm_bf16  # noqa: E402
@@ -36,6 +39,7 @@ from dcfm_tpu_torch.ops.sse_gamma import sse_ps, sse_ps_plain  # noqa: E402
 from dcfm_tpu_torch.runtime import fetch  # noqa: E402
 from dcfm_tpu_torch.serve.artifact import PosteriorArtifact  # noqa: E402
 from dcfm_tpu_torch.serve.artifact import export_from_checkpoint  # noqa: E402
+from dcfm_tpu_torch.utils.checkpoint import state_leaf_names  # noqa: E402
 from dcfm_tpu_torch.utils.preprocess import preprocess  # noqa: E402
 
 pytestmark = pytest.mark.gpu
@@ -477,7 +481,10 @@ def test_a_killed_graphed_fit_resumes_bitwise_on_the_card(cuda, tmp_path,
     """The write-behind writer (snapshots on a side stream while the next
     chunk replays) until the second save lands, then a kill: the resumed
     graphed fit is the uninterrupted one's bits, and checkpointing on
-    changes no bit either."""
+    changes no bit either.  A save falls due at every boundary (16, 32,
+    ..., 80), but one the writer is still busy at is deferred, so the
+    second save lands at a boundary the card's timing picks: the kill
+    follows it wherever it lands before the last boundary."""
     from dcfm_tpu_torch.runtime import pipeline
     from dcfm_tpu_torch.utils import checkpoint as ck
     Y, _ = _small_data()
@@ -487,22 +494,26 @@ def test_a_killed_graphed_fit_resumes_bitwise_on_the_card(cuda, tmp_path,
     on = fit(Y, cfg, device=cuda)
     np.testing.assert_array_equal(on.Sigma, ref.Sigma)
     save = ck.save_checkpoint
+    landed = []
 
     def save_then_kill(p, leaves, c, **kw):
         # the writer thread stores the kill; the chunk loop raises it at a
         # later boundary, before any further save
         save(p, leaves, c, **kw)
-        if int(np.asarray(leaves["iteration"]).reshape(-1)[0]) == 32:
+        landed.append(int(np.asarray(leaves["iteration"]).reshape(-1)[0]))
+        if len(landed) == 2:
             raise _Killed()
 
     monkeypatch.setattr(pipeline, "save_checkpoint", save_then_kill)
     with pytest.raises(_Killed):
         fit(Y, cfg, device=cuda)
     monkeypatch.undo()
-    assert ck.read_checkpoint_meta(path)["iteration"] == 32
+    at = landed[-1]
+    assert landed[0] == 16 and 16 < at < 80, landed
+    assert ck.read_checkpoint_meta(path)["iteration"] == at
     res = fit(Y, dataclasses.replace(cfg, resume=True), device=cuda)
     np.testing.assert_array_equal(res.Sigma, ref.Sigma)
-    assert res.traces.shape == (2, 48, 4) and res.graphs["replays"] > 0
+    assert res.traces.shape == (2, 80 - at, 4) and res.graphs["replays"] > 0
 
 
 def test_a_resumed_graphed_chain_is_the_resumed_eager_chain(cuda, tmp_path):
@@ -735,3 +746,138 @@ def test_a_failed_capture_raises_and_is_not_hidden(cuda, monkeypatch):
     monkeypatch.setattr(sampler, "_trace_now", syncing_trace)
     with pytest.raises(RuntimeError, match="CUDA graph failed"):
         _small_fit(cuda)
+
+
+# the scenario paths: the horseshoe and DL priors, rank adaptation (firing
+# from the first sweep: a0 > 0), and the fused Lambda kernel with a mask
+_SCEN = {"dl": {"prior": "dl"},
+         "hs_adapt": {"prior": "horseshoe", "rank_adapt": True},
+         "mgp_adapt": {"rank_adapt": True},
+         "dl_adapt": {"prior": "dl", "rank_adapt": True},
+         "hs_adapt_fused": {"prior": "horseshoe", "rank_adapt": True,
+                            "lambda_kernel": "pallas-fused"}}
+_FIRE = AdaptConfig(a0=1.0, a1=-1e-3, eps=0.2, prop=0.6)
+
+
+@pytest.mark.parametrize("scen", sorted(_SCEN))
+def test_scenario_graph_chain_equals_eager_chain_bitwise(cuda, scen):
+    """Every leaf - the prior's, the column mask, the accumulator, health
+    and the trace - of the graphed chain bitwise the eager chain's, across
+    trips in which the mask changes (the candidate tables and the GIG
+    rounds drawn outside the graph, the iteration a device tensor)."""
+    knobs = {"lambda_kernel": "pallas"} | _SCEN[scen]
+    cfg = ModelConfig(num_shards=4, factors_per_shard=4, rho=0.9,
+                      sse_mode="gram", adapt=_FIRE, **knobs)
+    eager, n_eager, _ = _run_chains(cuda, cfg, graphs=False)
+    graph, n_graph, c_graph = _run_chains(cuda, cfg, graphs=True)
+    names = list(state_leaf_names(cfg)) + ["sigma_acc", "health", "trace"]
+    for c in range(2):
+        for name, a, b in zip(names, eager[c], graph[c], strict=True):
+            assert torch.equal(a, b), (c, name, float((a - b).abs().max()))
+    if cfg.rank_adapt:
+        assert (eager[0][names.index("active")] == 0).any()
+    assert c_graph == (7, 11, 7) and n_graph == n_eager
+
+
+@pytest.mark.parametrize("scen", ["dl", "hs_adapt"])
+def test_small_scenario_fits_run_their_kernels(cuda, scen):
+    """600 sweeps: K1 and K5 once each per sweep, the truth recovered."""
+    Y, St = _small_data()
+    cfg = FitConfig(
+        model=ModelConfig(num_shards=4, factors_per_shard=4, rho=0.9,
+                          lambda_kernel="pallas", **_SCEN[scen]),
+        run=RunConfig(burnin=150, mcmc=150, thin=2, num_chains=2),
+        backend=BackendConfig(sse_mode="gram"))
+    res = fit(Y, cfg, device=cuda)
+    assert np.isfinite(res.Sigma).all() and res.stats.nonfinite_count == 0
+    assert np.linalg.norm(res.Sigma - St) / np.linalg.norm(St) < 0.25
+    expected = dict.fromkeys(res.kernel_launches, 0)
+    expected.update({"chol_sample": 600, "sse_ps": 600})
+    assert res.kernel_launches == expected
+    assert 1 <= res.stats.rank_min <= res.stats.rank_max <= 4
+
+
+def test_a_capture_survives_event_waits_in_another_thread(cuda):
+    """The write-behind writer's thread (and the stream drain's) waits on
+    side-stream events while the chain captures its trips: under the
+    default global capture mode such a wait invalidated the capture
+    (CUBLAS_STATUS_INTERNAL_ERROR / cudaErrorStreamCaptureInvalidated in a
+    resumed checkpointed fit).  A thread that waits on an event in a loop
+    for the whole chunk must leave the graphed chain the eager chain."""
+    import threading
+    cfg = ModelConfig(num_shards=4, factors_per_shard=4, rho=0.9,
+                      sse_mode="gram", lambda_kernel="pallas")
+    side = torch.cuda.Stream(cuda)
+    with torch.cuda.stream(side):
+        torch.ones(1, device=cuda).add_(1)
+        ev = torch.cuda.Event()
+        ev.record(side)
+    stop = threading.Event()
+    waits = []
+
+    def waiter():
+        while not stop.is_set():
+            ev.synchronize()
+            waits.append(1)
+
+    thread = threading.Thread(target=waiter)
+    thread.start()
+    try:
+        graph, _, counts = _run_chains(cuda, cfg, graphs=True)
+    finally:
+        stop.set()
+        thread.join(timeout=60)
+    assert not thread.is_alive() and waits
+    eager, _, _ = _run_chains(cuda, cfg, graphs=False)
+    for c in range(2):
+        for a, b in zip(eager[c], graph[c], strict=True):
+            assert torch.equal(a, b)
+    assert counts == (7, 11, 7)
+
+
+def test_a_capture_survives_garbage_collected_inside_it(cuda, monkeypatch):
+    """A dead reference cycle can hold an earlier runner's CUDA graphs (an
+    exception's traceback holds a killed fit's runner), and Python's cyclic
+    collector may run at any allocation - inside a capture too, where
+    destroying them invalidated the capture (CUBLAS_STATUS_INTERNAL_ERROR
+    in the card's killed-fit test run after another).  The runner turns
+    automatic collection off while it captures: an earlier runner parked
+    in a cycle as the capture begins, then allocations that would trigger
+    collection, must leave the graphed chain the eager chain."""
+    import gc
+    cfg = ModelConfig(num_shards=4, factors_per_shard=4, rho=0.9,
+                      sse_mode="gram", lambda_kernel="pallas")
+    Y, _ = _small_data()
+    Yd = torch.as_tensor(preprocess(Y, 4, seed=0).data, device=cuda)
+    old = sampler.ChainRunner(TorchNoise(1, cuda), Yd, cfg, make_prior(cfg),
+                              burnin=4, thin=2, unroll=2)
+    old.run_chunk(0, old.init_chain(0), 12)
+    assert old.captured > 0
+    parked = [old]
+    del old
+    sweeps = sampler.ChainRunner._sweeps
+
+    def sweeps_with_garbage(self, draws, pattern):
+        if parked and torch.cuda.is_current_stream_capturing():
+            cycle = [parked.pop()]
+            cycle.append(cycle)
+            del cycle
+            for _ in range(5000):
+                [[], []]
+        return sweeps(self, draws, pattern)
+
+    monkeypatch.setattr(sampler.ChainRunner, "_sweeps", sweeps_with_garbage)
+    threshold = gc.get_threshold()
+    gc.set_threshold(10)
+    try:
+        graph, _, counts = _run_chains(cuda, cfg, graphs=True)
+    finally:
+        gc.set_threshold(*threshold)
+        monkeypatch.undo()
+    assert not parked
+    gc.collect()
+    eager, _, _ = _run_chains(cuda, cfg, graphs=False)
+    for c in range(2):
+        for a, b in zip(eager[c], graph[c], strict=True):
+            assert torch.equal(a, b)
+    assert counts == (7, 11, 7)
