@@ -128,6 +128,28 @@
    of its file the resumed fit's own export byte for byte.
    ``python3 chip_smoke.py --scenarios-only`` runs the kernel phase and
    this step alone, with no result line.
+13. The last scenario knobs, at the north-star width on the float32 path:
+   (a) 10% of Y missing completely at random (``mcar``): graph == eager
+   with the imputation sum ``y_imp_acc``; the fit with K1 and K5 once per
+   sweep, no non-finite state, the quality rule against the truth (and
+   the complete data's sample covariance), the imputation's RMSE at the
+   missing entries below the column means'; device busy per sweep, the
+   imputation's device time and share of it, the bytes of variates a
+   sweep draws outside the graph and their device time; peak allocated; a
+   child killed mid-run and resumed in a fresh process, Sigma, the state
+   and Y_imputed bitwise; (b) ``store_draws``: graph == eager with the
+   draw ring, Sigma bitwise the fit without it, the ring's bytes against
+   the reckoning, the draw mean of 64 sampled entries against the
+   accumulated mean, their 95% credible intervals bracketing it, the
+   device time of a saved draw's ring writes; (c) ``early_stop="rhat"``
+   (2 chains, burn-in 200, mcmc 800, chunks of 50), the thresholds picked
+   from the uninterrupted run's own trajectory: the stop at the boundary
+   picked, Sigma bitwise an early_stop="off" fit of that schedule, its
+   checkpoint resumed with early_stop="off" bitwise the uninterrupted
+   run; (d) the f32, bf16, fused and quant8 Sigma digests with every new
+   knob off (``scripts/torch_sigma_hashes.py`` holds them against another
+   tree).  ``python3 chip_smoke.py --knobs-only`` runs the kernel phase
+   and this step alone, with no result line.
 
 Any failed check exits non-zero before the last line.  The line before the
 last is the kernels' JSON record; the last line is
@@ -595,7 +617,8 @@ def chain_setup(torch, cfg, Y):
 # differs names the conditional where graph and eager part
 SWEEP_ORDER = ("Z", "X", "Lambda", "delta", "psijh", "lam2", "nu", "tau2",
                "xi", "phi", "tau", "psi", "ps", "active", "sigma_acc",
-               "sigma_sq_acc", "health")
+               "sigma_sq_acc", "y_imp_acc", "draws.Lambda", "draws.ps",
+               "draws.X", "draws.H", "health")
 
 
 def adapt_fires(m, burnin: int) -> int:
@@ -614,16 +637,18 @@ def adapt_fires(m, burnin: int) -> int:
 
 
 def graph_equality_phase(torch, cuda_lib, cfg, Y, card: str, label: str,
-                         T: int, trips: int = 10,
-                         burn_trips: int = 2) -> None:
+                         T: int, trips: int = 10, burn_trips: int = 2,
+                         num_stored_draws: int = 0) -> None:
     """One chain, ``trips`` trips of T sweeps (burn-in ``burn_trips``
     trips, thin 3), eager and graphed from the same init: every leaf (the
     prior's and, under rank adaptation, the column mask), the
-    accumulator, health, the trace and the launches bitwise.  Under rank
-    adaptation each trip is a chunk of its own, so the mask is read after
-    every trip: the adaptations that fired and the trips that changed it
-    are printed."""
-    from dcfm_tpu_torch.models.sampler import ChainRunner, state_leaves
+    accumulator, health, the trace, the imputation sum (NaN in Y), the
+    draw ring of ``num_stored_draws`` slots and the launches bitwise.
+    Under rank adaptation each trip is a chunk of its own, so the mask is
+    read after every trip: the adaptations that fired and the trips that
+    changed it are printed."""
+    from dcfm_tpu_torch.models.sampler import (
+        ChainRunner, DrawBuffers, state_leaves)
     from dcfm_tpu_torch.noise import TorchNoise
     from dcfm_tpu_torch.utils.checkpoint import state_leaf_names
     m, Yd, prior = chain_setup(torch, cfg, Y)
@@ -636,7 +661,8 @@ def graph_equality_phase(torch, cuda_lib, cfg, Y, card: str, label: str,
         torch.cuda.reset_peak_memory_stats()
         runner = ChainRunner(TorchNoise(0, "cuda"), Yd, m, prior,
                              burnin=burn_trips * T, thin=3, unroll=T,
-                             graphs=graphs)
+                             graphs=graphs,
+                             num_stored_draws=num_stored_draws)
         carry = runner.init_chain(0)
         cuda_lib.reset_launch_counts()
         t = time.perf_counter()
@@ -656,6 +682,13 @@ def graph_equality_phase(torch, cuda_lib, cfg, Y, card: str, label: str,
                            trace=trace, launches=cuda_lib.launch_counts())
         if carry.sigma_sq_acc is not None:
             got[graphs]["sigma_sq_acc"] = carry.sigma_sq_acc
+        if carry.y_imp_acc is not None:
+            got[graphs]["y_imp_acc"] = carry.y_imp_acc
+        if carry.draws is not None:
+            got[graphs].update(
+                (f"draws.{k}", t) for k, t in zip(DrawBuffers._fields,
+                                                  carry.draws)
+                if t is not None)
         if graphs:
             pool = graph_pool_bytes(torch)
             say(f"graphs [{label}]: {trips * T} sweeps in {wall:.3f} s, "
@@ -895,10 +928,11 @@ def quant8_bound(torch, q8, f32, card: str, kind: str = "mean") -> None:
           f"quant8 bound by {worst:.3e}")
 
 
-def fetch_phase(torch, dt, cuda_lib, card: str, Y, L, noise) -> None:
+def fetch_phase(torch, dt, cuda_lib, card: str, Y, L, noise) -> str:
     """The fetch at the north-star width on the float32 path: each
     fetch_dtype with Sigma assembled, float32 and quant8 packed too; the
-    quant8 bound; the exports and their round trip."""
+    quant8 bound; the exports and their round trip.  Returns the quant8
+    Sigma's digest."""
     import shutil
     import tempfile
 
@@ -954,6 +988,7 @@ def fetch_phase(torch, dt, cuda_lib, card: str, Y, L, noise) -> None:
             del back
     finally:
         shutil.rmtree(tmp)
+    return sigma_digest(q8.Sigma)
 
 
 # the checkpoint phase: the float32 path at the fits' width in chunks of
@@ -1017,28 +1052,33 @@ def scenario_model(dt, model, knobs: dict):
 def fit_child(spec: str) -> None:
     """``--fit-child SPEC``: one fit of ckpt_config(**SPEC) in this process
     on the script's synthetic data (SPEC's "k_true" overrides the data's
-    rank, its "model" the scenario knobs); prints one JSON line (Sigma's
-    and the state's digests, phase seconds, executed iterations, rewinds,
-    the elastic bookkeeping, the kernel launches, the effective ranks and
-    the rel. Frobenius errors of Sigma and of the sample covariance).
-    With SPEC's "export", the fit's own serve artifact is written there."""
+    rank, its "model" the scenario knobs, its "missing" the fraction of Y
+    masked as missing, ``mcar``); prints one JSON line (Sigma's, the
+    state's and Y_imputed's digests, phase seconds, executed iterations,
+    rewinds, the elastic bookkeeping, the kernel launches, the effective
+    ranks and the rel. Frobenius errors of Sigma and of the sample
+    covariance).  With SPEC's "export", the fit's own serve artifact is
+    written there."""
     import torch
     import dcfm_tpu_torch as dt
     check(torch.cuda.is_available(), "the fit child sees no CUDA device")
     spec = json.loads(spec)
     c = FIT
     Y, L, noise = synthetic(c["n"], c["p"], spec.get("k_true", c["k_true"]))
+    Yfit = mcar(Y, spec["missing"])[0] if "missing" in spec else Y
     cfg = ckpt_config(dt, spec["path"], spec.get("run"),
                       **spec.get("fit", {}))
     if "model" in spec:
         cfg = dataclasses.replace(cfg, model=scenario_model(
             dt, cfg.model, spec["model"]))
-    res = dt.fit(Y, cfg)
+    res = dt.fit(Yfit, cfg)
     err, err_sample = rel_errors(torch, res.Sigma, Y, L, noise)
     if "export" in spec:
         res.export_artifact(spec["export"])
     say(json.dumps({"sigma": sigma_digest(res.Sigma),
                     "state": state_digest(res.state),
+                    "y_imputed": (None if res.Y_imputed is None
+                                  else sigma_digest(res.Y_imputed)),
                     "phase_seconds": res.phase_seconds,
                     "executed": int(res.traces.shape[1]),
                     "rewinds": res.sentinel_rewinds,
@@ -1908,6 +1948,318 @@ def scenario_phase(torch, dt, cuda_lib, k1, k5, card: str, Y, L, noise,
     return launches
 
 
+# ---------------------------------------------------------------------------
+# (13) the last scenario knobs: missing values, stored draws, the R-hat
+# early stop
+# ---------------------------------------------------------------------------
+
+MISSING_FRAC = 0.10          # of Y's entries masked as missing (MCAR)
+
+
+def mcar(Y: np.ndarray, frac: float, seed: int = 13) -> tuple:
+    """Y with a ``frac`` of its entries missing completely at random (NaN),
+    and the mask (numpy seed ``seed``)."""
+    mask = np.random.default_rng(seed).random(Y.shape) < frac
+    Ym = Y.copy()
+    Ym[mask] = np.nan
+    return Ym, mask
+
+
+def impute_profile(torch, cfg, Ym, card: str, busy_ms: float) -> None:
+    """Device time of one imputation at the chain's width (on chain 0's
+    state after 24 sweeps, its normals pre-drawn, as the graph runs it)
+    and its share of the sweep's device busy; the bytes of every variate
+    a sweep draws (the recipe's slots) and their device time outside the
+    graph, with the imputation's part."""
+    from dcfm_tpu_torch.models.conditionals import impute_missing_y
+    from dcfm_tpu_torch.models.sampler import ChainRunner
+    from dcfm_tpu_torch.noise import (
+        BufferedDraws, RecordingDraws, TorchNoise, draw_into)
+    m, Yd, prior = chain_setup(torch, cfg, Ym)
+    runner = ChainRunner(TorchNoise(0, "cuda"), Yd, m, prior, burnin=0,
+                         thin=4, unroll=1)
+    carry = runner.init_chain(0)
+    runner.run_chunk(0, carry, 24)
+    st, mask = carry.state, torch.isnan(Yd)
+    noise = TorchNoise(5, "cuda")
+    recipe: list = []
+    impute_missing_y(RecordingDraws(noise.sweep(0, 0), recipe), Yd, st,
+                     m.rho, mask)
+    slots = [torch.empty(call.shape, device="cuda") for call in recipe]
+
+    def draw():
+        draw_into(noise.sweep(0, 1), recipe, slots)
+
+    def impute():
+        impute_missing_y(BufferedDraws(recipe, slots), Yd, st, m.rho, mask)
+
+    draw()
+    imp, drw = device_ms(impute, 20), device_ms(draw, 20)
+    all_bytes = sum(4 * t.numel() for t in runner._slots)
+
+    def draw_all():
+        draw_into(noise.sweep(0, 2), runner._recipe,
+                  [t[0] for t in runner._slots])
+
+    drw_all = device_ms(draw_all, 20)
+    say(f"impute [f32 missing]: {imp * 1e3:.2f} us of device time per "
+        f"sweep, {imp / busy_ms:.1%} of the sweep's device busy "
+        f"{busy_ms:.3f} ms; the sweep's {len(runner._recipe)} pre-drawn "
+        f"calls hold {all_bytes} bytes, drawn outside the graph in "
+        f"{drw_all * 1e3:.2f} us of device time, the imputation's normals "
+        f"{sum(4 * t.numel() for t in slots)} bytes of them in "
+        f"{drw * 1e3:.2f} us; {card}")
+    del runner, carry
+    torch.cuda.empty_cache()
+
+
+def missing_phase(torch, dt, cuda_lib, card: str, Y, L, noise,
+                  work: str) -> None:
+    """(13a) 10% of Y missing at random on the float32 path: graph ==
+    eager with the imputation sum; the fit (K1 and K5 once per sweep, the
+    quality rule against the truth, the imputation's RMSE at the missing
+    entries below the column means'); device busy per sweep and the
+    imputation's share; a child killed mid-run and resumed in a fresh
+    process, bitwise."""
+    c = FIT
+    Ym, mask = mcar(Y, MISSING_FRAC)
+    label0, model, backend, kernels = FIT_PATHS[0]
+    cfg = path_config(dt, model, backend)
+    # the model a fit on Ym runs (fit turns the imputation on itself)
+    icfg = dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, impute_missing=True))
+    graph_equality_phase(torch, cuda_lib, icfg, Ym, card, "f32 missing", 8)
+    dt.fit(Ym, dataclasses.replace(cfg, run=dt.RunConfig(burnin=2,
+                                                         mcmc=2)))
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    res, launches, wall = counted_fit(torch, dt, cuda_lib, cfg, Ym)
+    peak = torch.cuda.max_memory_allocated()
+    sweeps = c["chains"] * (c["burnin"] + c["mcmc"])
+    ph = res.phase_seconds
+    say(f"missing [f32]: {int(mask.sum())} of {mask.size} entries missing "
+        f"({MISSING_FRAC:.0%} MCAR), n_missing {res.preprocess.n_missing}; "
+        f"{sweeps} sweeps in {ph['chain_s']:.3f} s chain time = "
+        f"{sweeps / ph['chain_s']:.2f} chain iterations/s (wall "
+        f"{wall:.3f} s), peak allocated {peak} bytes "
+        f"({peak / 2**30:.3f} GiB); {card}")
+    check(res.preprocess.n_missing == int(mask.sum()), "n_missing")
+    check_fit(torch, res, launches, "f32 missing", kernels, Y, L, noise)
+    say(f"missing [f32]: nonfinite_count {res.stats.nonfinite_count:g}")
+    Yi = res.Y_imputed
+    check(Yi is not None and Yi.shape == Y.shape
+          and bool(np.isfinite(Yi).all())
+          and np.array_equal(Yi[~mask], Ym[~mask]),
+          "Y_imputed: not finite, or an observed entry changed")
+    rmse = float(np.sqrt(np.mean((Yi[mask] - Y[mask]) ** 2)))
+    col_mean = np.broadcast_to(np.nanmean(Ym, axis=0), Y.shape)
+    base = float(np.sqrt(np.mean((col_mean[mask] - Y[mask]) ** 2)))
+    say(f"missing [f32]: imputation RMSE at the missing entries {rmse:.6f} "
+        f"against the column means' {base:.6f} ({rmse / base:.3f}x)")
+    check(rmse < base, "the imputation is no better than the column means")
+    del res
+    busy = sweep_profile(torch, icfg, Ym, card, "f32 missing")
+    impute_profile(torch, icfg, Ym, card, busy)
+    # killed mid-run, resumed in a fresh process
+    ref = dt.fit(Ym, ckpt_config(dt, "f32", KILL_RUN))
+    want = {"sigma": sigma_digest(ref.Sigma),
+            "state": state_digest(ref.state),
+            "y_imputed": sigma_digest(ref.Y_imputed)}
+    del ref
+    path = os.path.join(work, "f32_missing.npz")
+    spec = {"path": "f32", "run": KILL_RUN, "missing": MISSING_FRAC,
+            "fit": {"checkpoint_path": path, "checkpoint_every_chunks": 1}}
+    killed = run_child(spec, work, "missing_killed", kill_at=KILL_AT,
+                       path=path)["killed_at"]
+    out = run_child(dict(spec, fit=dict(spec["fit"], resume=True)), work,
+                    "missing_resumed")
+    same = {k: out[k] == v for k, v in want.items()}
+    say(f"kill [f32 missing]: killed with the file at iteration {killed}, "
+        f"resumed in a fresh process: executed {out['executed']}; Sigma, "
+        f"state and Y_imputed equal to the uninterrupted fit's: "
+        f"{json.dumps(same)}; {card}")
+    check(all(same.values()) and out["executed"] < sum(KILL_RUN.values()),
+          "[f32 missing] the resumed fit is not the uninterrupted one")
+
+
+def draws_phase(torch, dt, cuda_lib, card: str, Y, L, noise,
+                f32_digest: str) -> None:
+    """(13b) store_draws on the float32 path: graph == eager with the
+    ring; the fit's Sigma bitwise the fit without it; the ring's bytes
+    against the reckoning; for 64 sampled entries the mean of the stored
+    draws' entries against the accumulated mean, and the 95% credible
+    interval around it; the device time a saved draw adds."""
+    from dcfm_tpu_torch.models.conditionals import cross_moments
+    from dcfm_tpu_torch.models.sampler import ChainRunner
+    from dcfm_tpu_torch.noise import TorchNoise
+    from dcfm_tpu_torch.utils.estimate import draw_covariance_entries
+    from dcfm_tpu_torch.utils.preprocess import caller_to_shard_index
+    c = FIT
+    label0, model, backend, kernels = FIT_PATHS[0]
+    base = path_config(dt, model, backend)
+    graph_equality_phase(torch, cuda_lib, base, Y, card, "f32 store_draws",
+                         8, num_stored_draws=(10 * 8 - 2 * 8) // 3)
+    if f32_digest is None:          # --knobs-only: the fit without the ring
+        f32_digest = sigma_digest(dt.fit(Y, base).Sigma)
+    cfg = dataclasses.replace(base, run=dataclasses.replace(
+        base.run, store_draws=True))
+    res, launches, wall = counted_fit(torch, dt, cuda_lib, cfg, Y)
+    check_fit(torch, res, launches, "f32 store_draws", kernels, Y, L, noise)
+    digest = sigma_digest(res.Sigma)
+    say(f"draws [f32]: Sigma sha256 {digest} "
+        f"{'=' if digest == f32_digest else '!='} the f32 fit's without "
+        f"store_draws ({f32_digest}); wall {wall:.3f} s")
+    check(digest == f32_digest, "storing draws changed Sigma")
+    C, S = c["chains"], res.config.run.num_saved
+    g, K, P, n = c["g"], c["K"], res.preprocess.shard_size, c["n"]
+    reckoned = {"Lambda": S * g * P * K * 4, "ps": S * g * P * 4,
+                "X": S * n * K * 4, "H": S * g * g * K * K * 4}
+    got = {k: v.nbytes // C for k, v in res.draws.items()}
+    say(f"draws [f32]: the ring per chain at S = {S}: {json.dumps(got)} = "
+        f"{sum(got.values())} bytes (reckoned {json.dumps(reckoned)} = "
+        f"{sum(reckoned.values())})")
+    check(got == reckoned, "the ring's bytes are not the reckoned ones")
+    rng = np.random.default_rng(17)
+    rows = rng.integers(0, c["p"], 64)
+    cols = np.concatenate([rows[:8], rng.integers(0, c["p"], 56)])
+    pre = res.preprocess
+    sr, sc = (caller_to_shard_index(pre, x) for x in (rows, cols))
+    vals = draw_covariance_entries(res.draws, sr, sc, rho=c["rho"])
+    s = np.asarray(pre.col_scale).reshape(-1)
+    vals = vals * (s[sr] * s[sc])[None, :]
+    mean = res.Sigma[rows, cols]
+    scale = float(np.abs(mean).max())
+    err = float(np.abs(vals.mean(axis=0) - mean).max()) / scale
+    say(f"draws [f32]: 64 entries (8 diagonal): the mean over {C * S} "
+        f"stored draws against the accumulated mean, max |diff| / max "
+        f"|entry| {err:.3e}")
+    check(err <= 1e-4, "the stored draws do not reproduce the accumulator")
+    lo, hi = res.covariance_credible_interval(rows, cols, alpha=0.05)
+    inside = (lo <= mean + 1e-6 * scale) & (mean <= hi + 1e-6 * scale)
+    say(f"draws [f32]: 95% credible intervals bracket the posterior mean "
+        f"for {int(inside.sum())} of 64 entries; median width "
+        f"{float(np.median(hi - lo)):.4e}")
+    check(bool(inside.all()), "a credible interval misses the mean")
+    del res
+    # what a saved draw adds: the ring's writes (H is the combine's own
+    # cross-moments, formed either way)
+    m, Yd, prior = chain_setup(torch, cfg, Y)
+    runner = ChainRunner(TorchNoise(0, "cuda"), Yd, m, prior, burnin=0,
+                         thin=1, unroll=1, num_stored_draws=S)
+    carry = runner.init_chain(0)
+    runner.run_chunk(0, carry, 4)
+    st = carry.state
+    eta = (math.sqrt(m.rho) * st.X[None]
+           + math.sqrt(1.0 - m.rho) * st.Z)
+    H = cross_moments(eta)
+    its = torch.full((1,), 3.0, device="cuda")
+    store = device_ms(lambda: runner._store(carry.draws, st, H, its[0]), 50)
+    h_ms = device_ms(lambda: cross_moments(eta), 50)
+    say(f"draws [f32]: a saved draw's ring writes take {store * 1e3:.2f} us "
+        f"of device time ({sum(reckoned.values()) // S} bytes); its H, "
+        f"{h_ms * 1e3:.2f} us, is the combine's own; {card}")
+    del runner, carry
+    torch.cuda.empty_cache()
+
+
+def early_stop_phase(torch, dt, cuda_lib, card: str, Y) -> None:
+    """(13c) early_stop="rhat" on the float32 path, 2 chains of KILL_RUN
+    in chunks of CKPT_CHUNK: the thresholds picked from the uninterrupted
+    run's own trajectory so that the stop fires at the last boundary
+    before the end that no earlier boundary dominates (none with an R-hat
+    as low and an ESS as high: the stop there passes both thresholds and
+    every earlier boundary fails one); the stopped fit bitwise an
+    early_stop="off" fit of the short schedule; its checkpoint resumed
+    with early_stop="off" to the full schedule bitwise the uninterrupted
+    run."""
+    import tempfile
+
+    from dcfm_tpu_torch.runtime.pipeline import early_stop_metrics
+    c = FIT
+    burnin, total = KILL_RUN["burnin"], sum(KILL_RUN.values())
+    cfg = ckpt_config(dt, "f32", KILL_RUN)
+    full = dt.fit(Y, cfg)
+    full_digest = sigma_digest(full.Sigma)
+    say("early stop: the uninterrupted run's diagnostics per trace summary "
+        "(post-burn-in): " + json.dumps(full.diagnostics))
+    chunks = [(s, full.traces[:, s:s + CKPT_CHUNK])
+              for s in range(0, total, CKPT_CHUNK)]
+    traj = [(s + CKPT_CHUNK,) + early_stop_metrics(
+        chunks[:i + 1], 0, burnin) for i, (s, _) in enumerate(chunks)]
+    del full
+    rows = [(it, rh, es) for it, rh, es in traj
+            if np.isfinite(rh) and np.isfinite(es)]
+    stop = None
+    for i, (it, rh, es) in enumerate(rows):
+        # the stop's own values as the thresholds: it passes them, and an
+        # earlier boundary passes them only if it dominates it
+        r_th, e_th = max(rh, 1.0) + 1e-6, es
+        if it < total and not any(r < r_th and e >= e_th
+                                  for _, r, e in rows[:i]):
+            stop, rhat_threshold, ess_target = it, r_th, e_th
+    check(stop is not None, f"no boundary to stop at in {traj}")
+    say(f"early stop: trajectory of the uninterrupted run (iteration, max "
+        f"split-R-hat, min pooled ESS): "
+        + ", ".join(f"({it}, {rh:.4f}, {es:.1f})" for it, rh, es in traj)
+        + f"; thresholds rhat < {rhat_threshold:.6f}, ess >= "
+        f"{ess_target:.4f} (stop expected at {stop})")
+    with tempfile.TemporaryDirectory(prefix="dcfm_es_") as d:
+        path = os.path.join(d, "es.npz")
+        es_cfg = dataclasses.replace(cfg, checkpoint_path=path,
+                                     run=dataclasses.replace(
+                                         cfg.run, early_stop="rhat",
+                                         rhat_threshold=rhat_threshold,
+                                         ess_target=ess_target))
+        res, launches, wall = counted_fit(torch, dt, cuda_lib, es_cfg, Y)
+        got = res.stopped_at_iter
+        sweeps = c["chains"] * (got or total)
+        say(f"early stop: stopped_at_iter {got}, rhat_trajectory "
+            f"{np.round(res.rhat_trajectory, 4).tolist()}; {sweeps} sweeps, "
+            f"chain_s {res.phase_seconds['chain_s']:.3f}, wall {wall:.3f} "
+            f"s; launches {json.dumps(launches)}; {card}")
+        check(got == stop, f"the stop fired at {got}, expected {stop}")
+        check(launches["chol_sample"] == sweeps
+              and launches["sse_ps"] == sweeps,
+              "the stopped fit's launches are not one per executed sweep")
+        stopped = sigma_digest(res.Sigma)
+        del res
+        short = dt.fit(Y, dataclasses.replace(cfg, run=dataclasses.replace(
+            cfg.run, mcmc=stop - burnin)))
+        say(f"early stop: Sigma {stopped[:16]} "
+            f"{'=' if sigma_digest(short.Sigma) == stopped else '!='} the "
+            f"early_stop='off' fit of {stop} iterations")
+        check(sigma_digest(short.Sigma) == stopped,
+              "the stopped fit is not the short schedule's")
+        del short
+        resumed = dt.fit(Y, dataclasses.replace(cfg, checkpoint_path=path,
+                                                resume=True))
+        say(f"early stop: the stopped file (iteration "
+            f"{total - resumed.traces.shape[1]}) resumed with "
+            f"early_stop='off' to {total}: Sigma "
+            f"{'=' if sigma_digest(resumed.Sigma) == full_digest else '!='}"
+            f" the uninterrupted run's")
+        check(sigma_digest(resumed.Sigma) == full_digest
+              and resumed.traces.shape[1] == total - stop,
+              "the resumed stopped file is not the uninterrupted run")
+
+
+def knobs_phase(torch, dt, cuda_lib, card: str, Y, L, noise, digests: dict,
+                work: str) -> None:
+    """(13) missing values, stored draws, the early stop; then (d) the
+    digests of every path with the new knobs off."""
+    t0 = time.perf_counter()
+    missing_phase(torch, dt, cuda_lib, card, Y, L, noise, work)
+    say(f"missing phase done in {time.perf_counter() - t0:.1f} s")
+    draws_phase(torch, dt, cuda_lib, card, Y, L, noise, digests["f32"])
+    say(f"draws phase done in {time.perf_counter() - t0:.1f} s")
+    early_stop_phase(torch, dt, cuda_lib, card, Y)
+    say(f"early stop phase done in {time.perf_counter() - t0:.1f} s")
+    say("new knobs off: Sigma sha256 " + json.dumps(digests)
+        + " (scripts/torch_sigma_hashes.py holds them against another "
+        "tree)")
+
+
 def k3_path(torch, bs, cuda_lib, rng) -> dict:
     """K3's launches: one call of its public op at the fit's batch, the
     counters zeroed just before and read just after."""
@@ -2159,6 +2511,17 @@ def main() -> None:
             shutil.rmtree(work, ignore_errors=True)
         say("scenario phase only: no result is printed")
         return
+    if "--knobs-only" in sys.argv[1:]:
+        import shutil
+        import tempfile
+        work = tempfile.mkdtemp(prefix="dcfm_knobs_")
+        try:
+            knobs_phase(torch, dt, cuda_lib, card, Y, L, noise,
+                        {"f32": None}, work)
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
+        say("knob phase only: no result is printed")
+        return
     for label, model, backend, _ in FIT_PATHS:
         graph_equality_phase(torch, cuda_lib, path_config(dt, model, backend),
                              Y, card, label, 8)
@@ -2186,7 +2549,8 @@ def main() -> None:
         f"|err_fused - err_f32| = {abs(errs['fused'] - errs['f32']):.3e}")
     upload_phase(torch, dt, cuda_lib, card, Y, L, noise)
     say(f"upload_phase done at {time.perf_counter() - t_start:.1f} s")
-    fetch_phase(torch, dt, cuda_lib, card, Y, L, noise)
+    digests["f32 quant8"] = fetch_phase(torch, dt, cuda_lib, card, Y, L,
+                                        noise)
     say(f"fetch_phase done at {time.perf_counter() - t_start:.1f} s")
     checkpoint_phase(torch, dt, cuda_lib, card, Y, L, noise)
     say(f"checkpoint_phase done at {time.perf_counter() - t_start:.1f} s")
@@ -2206,6 +2570,8 @@ def main() -> None:
         scen = scenario_phase(torch, dt, cuda_lib, k1, k5, card, Y, L,
                               noise, work)
         say(f"scenario_phase done at {time.perf_counter() - t_start:.1f} s")
+        knobs_phase(torch, dt, cuda_lib, card, Y, L, noise, digests, work)
+        say(f"knobs_phase done at {time.perf_counter() - t_start:.1f} s")
     finally:
         shutil.rmtree(work, ignore_errors=True)
     launches["cho_solve"] = k3_path(torch, bs, cuda_lib, rng)["cho_solve"]

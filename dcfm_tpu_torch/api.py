@@ -17,7 +17,12 @@ coordinates, zero columns reinserted - or the panels kept packed
 ``ModelConfig.posterior_sd`` the second-moment sums ride beside the mean's
 and the entrywise posterior SD is fetched beside it (``Sigma_sd``); under
 ``FitConfig.stream_artifact`` the streamed fetch lands its panels in the
-serve artifact, which ``fit`` finalizes.
+serve artifact, which ``fit`` finalizes.  NaN entries of Y are missing
+values, imputed every sweep (``FitResult.Y_imputed``); under
+``RunConfig.store_draws`` the draw ring comes back as ``FitResult.draws``
+(``covariance_credible_interval``); under ``RunConfig.early_stop="rhat"``
+the chain stops at the first converged chunk boundary
+(``stopped_at_iter``, ``rhat_trajectory``).
 
 Entry points run on the card (``device="cuda"``) unless the caller asks
 for the CPU.  On the card the chain always runs as CUDA graphs of
@@ -45,13 +50,14 @@ from dcfm_tpu_torch.config import (
 from dcfm_tpu_torch.models.adapt import effective_ranks
 from dcfm_tpu_torch.models.priors import make_prior
 from dcfm_tpu_torch.models.sampler import (
-    TRACE_SUMMARIES, ChainRunner, ChainStats)
+    TRACE_SUMMARIES, ChainRunner, ChainStats, DrawBuffers)
 from dcfm_tpu_torch.models.state import SamplerState
 from dcfm_tpu_torch.noise import TorchNoise
 from dcfm_tpu_torch.ops import cuda_lib
 from dcfm_tpu_torch.runtime.fetch import (
-    Drain, accumulator_window, assemble_q8_sigma, fetch_prep, fetch_sd_prep,
-    fetch_upper, quant8_fetch_assemble, quant8_start, upload_host_array)
+    Drain, accumulator_window, assemble_q8_sigma, elastic_pooled_draws,
+    fetch_prep, fetch_sd_prep, fetch_upper, quant8_fetch_assemble,
+    quant8_start, upload_host_array)
 from dcfm_tpu_torch.runtime.pipeline import StreamingFetcher, run_chain
 from dcfm_tpu_torch.serve.artifact import (
     PosteriorArtifact, begin_streamed_artifact, export_fit_result,
@@ -60,8 +66,9 @@ from dcfm_tpu_torch.utils.checkpoint import carry_template, data_fingerprint
 from dcfm_tpu_torch.utils.diagnostics import ess, split_rhat
 from dcfm_tpu_torch.utils.estimate import (
     assemble_from_q8, assemble_from_upper, dequantize_panels,
-    full_blocks_from_upper)
-from dcfm_tpu_torch.utils.preprocess import PreprocessResult, preprocess
+    draw_covariance_entries, full_blocks_from_upper)
+from dcfm_tpu_torch.utils.preprocess import (
+    PreprocessResult, caller_to_shard_index, preprocess, restore_data_matrix)
 
 # materialize_sigma="auto" assembles the dense (p, p) posterior mean only
 # up to this many used columns; past it fit() keeps the packed panels
@@ -129,6 +136,23 @@ class FitResult:
     # birthed, fold_draws, chain_acc_starts, elastic_lineage,
     # from_topology, to_topology; None otherwise
     elastic_resume: Optional[dict] = None
+    # the thinned draws (RunConfig.store_draws): {"Lambda": (C, S, g, P,
+    # K), "ps": (C, S, g, P), "X": (C, S, n, K), "H": (C, S, g, g, K, K)}
+    # in shard coordinates, always chain-major (one chain has a length-1
+    # axis); "H" (the per-draw factor cross-moments) under the scaled
+    # estimator only; else None
+    draws: Optional[dict] = None
+    # (n, p) posterior-mean completed data when the input had NaN entries:
+    # the caller's values where observed, the mean of the saved draws'
+    # imputations (chains pooled) at the NaN positions; else None
+    Y_imputed: Optional[np.ndarray] = None
+    # the R-hat early stop (RunConfig.early_stop="rhat"): the global
+    # iteration the run stopped at (None: it ran its schedule), and the
+    # (boundaries, 3) [iteration, max split-R-hat, min pooled ESS] rows it
+    # was decided on (None when early_stop is off); Sigma, the traces,
+    # the diagnostics and the checkpoint all end at the stop
+    stopped_at_iter: Optional[int] = None
+    rhat_trajectory: Optional[np.ndarray] = None
     # backing of .upper_panels: float32 panels (every fetch_dtype but
     # quant8), or the int8 panels and their per-panel scales (quant8);
     # the same for .sd_upper_panels
@@ -232,6 +256,35 @@ class FitResult:
             block *= scale[i][:, None] * scale[j][None, :]
         return block
 
+    def covariance_credible_interval(self, rows, cols, *, alpha=0.05,
+                                     destandardize=True) -> tuple:
+        """Entrywise equal-tailed (1 - alpha) posterior credible intervals
+        of covariance entries from the stored draws (``RunConfig(
+        store_draws=True)``), chains pooled: ``(lower, upper)`` shaped like
+        ``rows`` / ``cols`` (caller columns, as ``Sigma``'s).  Each draw's
+        entry is the estimator's own rule (:func:`draw_covariance_entries`);
+        entries of a dropped all-zero column are (0, 0)."""
+        if self.draws is None:
+            raise ValueError("run with RunConfig(store_draws=True)")
+        rows, cols = np.broadcast_arrays(np.asarray(rows, np.int64),
+                                         np.asarray(cols, np.int64))
+        shape = rows.shape
+        rows, cols = rows.reshape(-1), cols.reshape(-1)
+        sr = caller_to_shard_index(self.preprocess, rows)
+        sc = caller_to_shard_index(self.preprocess, cols)
+        valid = (sr >= 0) & (sc >= 0)
+        lo = np.zeros(rows.shape, np.float64)
+        hi = np.zeros(rows.shape, np.float64)
+        if valid.any():
+            vals = draw_covariance_entries(self.draws, sr[valid], sc[valid],
+                                           rho=self.config.model.rho)
+            if destandardize:
+                s = np.asarray(self.preprocess.col_scale).reshape(-1)
+                vals = vals * (s[sr[valid]] * s[sc[valid]])[None, :]
+            q = np.quantile(vals, [alpha / 2, 1.0 - alpha / 2], axis=0)
+            lo[valid], hi[valid] = q[0], q[1]
+        return lo.reshape(shape), hi.reshape(shape)
+
     def export_artifact(self, path: str) -> PosteriorArtifact:
         """Write the serve artifact (serve/artifact.py) - int8 panels (and
         SD panels under posterior_sd), per-panel scales and the preprocess
@@ -318,6 +371,31 @@ def _refuse_streaming_input(Y) -> None:
             f"ported to dcfm_tpu_torch yet: {_INGEST}")
 
 
+def _imputed(Y: np.ndarray, sums: list, pre: PreprocessResult,
+             run: RunConfig, end: int, n_saved: int, elastic) -> np.ndarray:
+    """``FitResult.Y_imputed`` from the chains' imputation sums, in the
+    JAX package's host arithmetic: the chain mean of the sums, divided by
+    the window's saved draws (after an elastic adoption, every draw the
+    pooled sums hold over the chains), restored to the caller's
+    coordinates; the caller's values wherever they were observed."""
+    C = len(sums)
+    yi = sums[0].cpu().numpy()
+    if C > 1:                       # the chains' posterior means, pooled
+        yi = np.stack([t.cpu().numpy() for t in sums]).mean(axis=0)
+    if elastic is not None:
+        total = elastic_pooled_draws(end, run.burnin, run.thin,
+                                     elastic.chain_acc_starts,
+                                     elastic.fold_draws)
+        y_div = max(total, 1) / C
+    else:
+        y_div = max(n_saved, 1)
+    rec = restore_data_matrix(yi / y_div, pre, destandardize=True)
+    out = np.array(Y, np.float32, copy=True)
+    miss = np.isnan(out)
+    out[miss] = rec[miss]
+    return out
+
+
 def fit(Y: np.ndarray, cfg: FitConfig, *, device="cuda") -> FitResult:
     """Fit the divide-and-conquer Bayesian factor model to (n, p) data on
     ``device``; every draw comes from Philox streams seeded from
@@ -346,6 +424,11 @@ def fit(Y: np.ndarray, cfg: FitConfig, *, device="cuda") -> FitResult:
                      standardize=cfg.standardize,
                      pad_to_shards=cfg.pad_to_shards, seed=run.seed)
     phase = {"preprocess_s": time.perf_counter() - t}
+    if pre.n_missing and not m.impute_missing:
+        # NaN entries: the per-sweep imputation, in the internal model
+        # only, so the config (and a checkpoint's) round-trips unchanged
+        m = dataclasses.replace(m, impute_missing=True)
+    S_draws = run.num_saved if run.store_draws else 0
     want_sigma = (cfg.materialize_sigma == "always"
                   or (cfg.materialize_sigma == "auto"
                       and pre.p_used <= _AUTO_MATERIALIZE_MAX_P))
@@ -363,19 +446,26 @@ def fit(Y: np.ndarray, cfg: FitConfig, *, device="cuda") -> FitResult:
     def make_runner(model: ModelConfig, lineage: tuple) -> ChainRunner:
         return ChainRunner(TorchNoise(run.seed, device, lineage), Yd, model,
                            make_prior(model), burnin=run.burnin,
-                           thin=run.thin, unroll=unroll)
+                           thin=run.thin, unroll=unroll,
+                           num_stored_draws=S_draws)
 
     g, C, mode = m.num_shards, run.num_chains, be.fetch_dtype
     P = pre.data.shape[2]
 
-    def window(acc_start: int, elastic) -> tuple:
-        # the one divisor (and Bessel factor) of the streamed and the
-        # post-hoc fetch; ``elastic``: runtime/resume.ElasticResume
+    def full_window(acc_start: int, elastic, total=None) -> tuple:
+        # the one (n_saved, divisor, Bessel factor) of the streamed and
+        # the post-hoc fetch, of the window ending at ``total`` (an early
+        # stop's iteration; default the schedule's end); ``elastic``:
+        # runtime/resume.ElasticResume
         return accumulator_window(
-            run.total_iters, run.burnin, run.thin, acc_start, C,
+            run.total_iters if total is None else total, run.burnin,
+            run.thin, acc_start, C,
             chain_acc_starts=(None if elastic is None
                               else elastic.chain_acc_starts),
-            fold_draws=0 if elastic is None else elastic.fold_draws)[1:]
+            fold_draws=0 if elastic is None else elastic.fold_draws)
+
+    def window(acc_start: int, elastic, total=None) -> tuple:
+        return full_window(acc_start, elastic, total)[1:]
 
     def make_streamer(acc_start: int, elastic) -> StreamingFetcher:
         land_mean = land_sd = None
@@ -392,7 +482,8 @@ def fit(Y: np.ndarray, cfg: FitConfig, *, device="cuda") -> FitResult:
         cfg=cfg, model=m, run=run, phase=phase,
         fingerprint=(data_fingerprint(pre.data) if cfg.checkpoint_path
                      else None),
-        template=carry_template(m, n=n, P=P, num_chains=C),
+        template=carry_template(m, n=n, P=P, num_chains=C,
+                                num_stored_draws=S_draws),
         make_runner=make_runner, device=device, window_fn=window,
         make_streamer=(make_streamer if mode == "quant8"
                        and be.fetch_stream != "off" else None))
@@ -402,13 +493,25 @@ def fit(Y: np.ndarray, cfg: FitConfig, *, device="cuda") -> FitResult:
     traces = (np.concatenate(rr.traces, axis=1) if rr.traces
               else np.zeros((C, 0, len(TRACE_SUMMARIES)), np.float32))
     state = _stack_states([c.state for c in carries])
+    end = rr.done + rr.executed         # an early stop's iteration too
+    n_saved, inv_count, bessel = full_window(rr.acc_start, rr.elastic, end)
+    draws = None
+    if carries[0].draws is not None:
+        # chain-major, one chain included, as the JAX package returns them
+        draws = {k: np.stack([getattr(c.draws, k).cpu().numpy()
+                              for c in carries])
+                 for k in DrawBuffers._fields
+                 if getattr(carries[0].draws, k) is not None}
+    Y_imputed = None
+    if carries[0].y_imp_acc is not None and pre.n_missing:
+        Y_imputed = _imputed(Y, [c.y_imp_acc for c in carries], pre, run,
+                             end, n_saved, rr.elastic)
 
     # raw sums -> posterior mean on the device (chain mean, padding
     # dropped, times 1/saved draws), the link cast, the drain and the
     # assembly (or not) - or, under the streamed fetch, the join of the
     # drain that already landed the final snapshot; the SD beside the
     # mean under posterior_sd
-    inv_count, bessel = window(rr.acc_start, rr.elastic)
     want_sd = m.posterior_sd
     upper = q8 = scales = Sigma = None
     sd_upper = sd_q8 = sd_scales = Sigma_sd = None
@@ -519,6 +622,10 @@ def fit(Y: np.ndarray, cfg: FitConfig, *, device="cuda") -> FitResult:
         Sigma_sd=Sigma_sd, artifact_path=artifact_path,
         elastic_resume=(None if rr.elastic is None
                         else dataclasses.asdict(rr.elastic)),
+        draws=draws, Y_imputed=Y_imputed,
+        stopped_at_iter=rr.stopped_at_iter,
+        rhat_trajectory=(None if rr.rhat_trajectory is None
+                         else np.asarray(rr.rhat_trajectory, np.float64)),
         _upper_f32=upper, _q8_panels=q8, _q8_scales=scales,
         _sd_upper_f32=sd_upper, _sd_q8_panels=sd_q8,
         _sd_q8_scales=sd_scales)

@@ -11,9 +11,11 @@ accumulator fetch under every ``fetch_dtype`` (post hoc, or streamed at
 chunk boundaries under quant8, ``fetch_stream``) and the data upload
 under every ``upload_dtype``, with Sigma assembled or kept packed
 (``materialize_sigma``); the entrywise posterior SD (``posterior_sd``);
-checkpoints, resume (elastic across chain counts too) and the divergence
-sentinel on one process; the streamed fetch landing in a serve artifact
-(``stream_artifact``).  Every other knob the JAX package has is either
+missing values (NaN input, imputed every sweep: ``impute_missing``), the
+thinned draw ring (``store_draws``) and the R-hat early stop
+(``early_stop``); checkpoints, resume (elastic across chain counts too)
+and the divergence sentinel on one process; the streamed fetch landing in
+a serve artifact (``stream_artifact``).  Every other knob the JAX package has is either
 absent here (passing it is a ``TypeError``) or present and refused by
 :func:`validate` with a ``NotImplementedError`` that names the ROADMAP
 Queue A item that will port it - a knob is never silently ignored.  An
@@ -28,7 +30,6 @@ from typing import Optional
 
 # ROADMAP items the refusals point at (ROADMAP.md, "Queue A")
 _MESH = "ROADMAP Queue A item 4 (multi-GPU shards)"
-_SCEN = "ROADMAP Queue A item 5 (scenarios)"
 _INGEST = "ROADMAP Queue A item 6 (scale-out ingest)"
 _OUTER = "ROADMAP Queue A item 7 (outer layers)"
 
@@ -132,8 +133,16 @@ class RunConfig:
     # iteration keeps its own draws, save condition and trace row).  Auto
     # is api.CUDA_AUTO_UNROLL on the card and 1 on the CPU
     sweep_unroll: int = 0
+    # keep every thinned post-burn-in draw of (Lambda, ps, X) and, under
+    # the scaled estimator, the factor cross-moments H on the device
+    # (FitResult.draws, covariance_credible_interval)
     store_draws: bool = False
+    # "rhat": stop at the first chunk boundary with chunks left where the
+    # worst trace summary's split-R-hat < rhat_threshold and its pooled
+    # ESS >= ess_target (runtime/pipeline.early_stop_metrics)
     early_stop: str = "off"
+    rhat_threshold: float = 1.01
+    ess_target: float = 400.0
 
     @property
     def total_iters(self) -> int:
@@ -361,8 +370,9 @@ def validate(cfg: FitConfig, n: int, p: int) -> None:
         raise ValueError(
             f"sentinel_max_rewinds must be >= 0, got "
             f"{cfg.sentinel_max_rewinds}")
-    # value checks of the knobs refused below, as the JAX package makes
-    # them: an invalid value is a ValueError, never "not ported yet"
+    # value checks of the scenario knobs and of those refused below, as
+    # the JAX package makes them: an invalid value of a refused knob is a
+    # ValueError, never "not ported yet"
     if m.prior not in ("mgp", "horseshoe", "dl"):
         raise ValueError(f"unknown prior {m.prior!r}")
     if run.early_stop not in ("off", "rhat"):
@@ -372,6 +382,27 @@ def validate(cfg: FitConfig, n: int, p: int) -> None:
         raise ValueError(
             "store_draws=True but the schedule saves no draws "
             f"(mcmc={run.mcmc}, thin={run.thin})")
+    if run.early_stop == "rhat":
+        if run.num_chains < 2:
+            raise ValueError(
+                "early_stop='rhat' requires num_chains >= 2 "
+                "(split-R-hat is undefined on one chain)")
+        if run.chunk_size < 1:
+            raise ValueError(
+                "early_stop='rhat' requires chunk_size >= 1: the stop is "
+                "a chunk-boundary decision, and chunk_size=0 runs the "
+                "whole schedule in one chunk with no boundaries")
+        if run.store_draws:
+            raise ValueError(
+                "early_stop='rhat' is incompatible with store_draws: the "
+                "draw ring is statically sized by the full schedule and a "
+                "truncated run would return zero-padded draws")
+        if not (run.rhat_threshold > 1.0):
+            raise ValueError(
+                f"rhat_threshold must be > 1.0, got {run.rhat_threshold}")
+        if not (run.ess_target > 0):
+            raise ValueError(
+                f"ess_target must be > 0, got {run.ess_target}")
     if m.combine_chunks < 1 or m.num_shards % m.combine_chunks != 0:
         raise ValueError(
             f"combine_chunks={m.combine_chunks} must be >= 1 and divide "
@@ -396,12 +427,6 @@ def validate(cfg: FitConfig, n: int, p: int) -> None:
             "(1/K <= a <= 1/2 is the usual range)")
 
     # ---- knobs outside the port: refused, never ignored -----------------
-    if m.impute_missing:
-        _refuse("impute_missing=True (NaN input)", _SCEN)
-    if run.store_draws:
-        _refuse("store_draws=True", _SCEN)
-    if run.early_stop != "off":
-        _refuse(f"early_stop={run.early_stop!r}", _SCEN)
     if cfg.warm_start is not None:
         _refuse("warm_start", _OUTER)
     if be.mesh_devices > 1:

@@ -35,7 +35,8 @@ import torch
 
 from dcfm_tpu_torch.config import ModelConfig
 from dcfm_tpu_torch.models.state import SamplerState
-from dcfm_tpu_torch.noise import SITE_LAM, SITE_PS, SITE_X, SITE_Z
+from dcfm_tpu_torch.noise import (
+    SITE_IMPUTE, SITE_LAM, SITE_PS, SITE_X, SITE_Z)
 from dcfm_tpu_torch.ops.batched_solve import chol_solve_sample_batched
 from dcfm_tpu_torch.ops.chol_sample import MAX_K, chol_sample
 from dcfm_tpu_torch.ops.gamma import gamma_rate, gamma_unit_static
@@ -76,6 +77,29 @@ def mm_bf16(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     b3 = b16.expand(*batch, *b.shape[-2:]).reshape(-1, *b.shape[-2:])
     return torch.bmm(a3, b3, out_dtype=torch.float32).reshape(
         *batch, a.shape[-2], b.shape[-1])
+
+
+def impute_missing_y(draws, Y: torch.Tensor, state: SamplerState,
+                     rho: float, mask: Optional[torch.Tensor] = None
+                     ) -> torch.Tensor:
+    """The data-augmentation site: Y completed by drawing its missing
+    entries (NaN, or ``mask`` where given: ``isnan(Y)`` formed once) from
+    their conditional given the incoming state, N((eta Lam')_ij, 1/ps_j),
+    with eta = sqrt(rho) X + sqrt(1 - rho) Z.  Run before the sweep, which
+    then reads the completed matrix in every conditional.
+
+    Full float32 under every ``compute_dtype``: the JAX package runs it
+    at matmul precision "highest", never through its bf16 ``mm``.  The
+    normals are site 7's, one (n, P) block per shard."""
+    G, n, P = Y.shape
+    if mask is None:
+        mask = torch.isnan(Y)
+    eta = (math.sqrt(rho) * state.X[None]
+           + math.sqrt(1.0 - rho) * state.Z)                    # (G, n, K)
+    mu = eta @ _t(state.Lambda)                                 # (G, n, P)
+    mu += draws.normal(SITE_IMPUTE, (G, n, P)) / torch.sqrt(
+        state.ps[:, None, :])
+    return torch.where(mask, mu, Y)
 
 
 def gibbs_sweep(draws, Y: torch.Tensor, state: SamplerState,
@@ -183,17 +207,26 @@ def gibbs_sweep(draws, Y: torch.Tensor, state: SamplerState,
                         active=active), sse
 
 
+def cross_moments(eta: torch.Tensor) -> torch.Tensor:
+    """(G, G, K, K) factor cross-moments H_rc = eta_r' eta_c / n of one
+    draw's (G, n, K) factors, in float32 (the scaled combine's H, and the
+    draw ring's)."""
+    return torch.einsum("rnk,cnj->rckj", eta, eta) / eta.shape[1]
+
+
 def covariance_panels(Lam_all: torch.Tensor, ps_all: torch.Tensor,
                       rho: float, pair_rows: torch.Tensor,
                       pair_cols: torch.Tensor, *,
                       eta_all: Optional[torch.Tensor] = None,
-                      compute_dtype: Optional[torch.dtype] = None
+                      compute_dtype: Optional[torch.dtype] = None,
+                      H_grid: Optional[torch.Tensor] = None
                       ) -> torch.Tensor:
     """Per-draw packed upper-triangle covariance panels (Q, P, P), panel q
     the block (pair_rows[q], pair_cols[q]).
 
     Scaled estimator (``eta_all`` given): Lam_r H_rc Lam_c' with the
-    draw's factor cross-moments H_rc = eta_r' eta_c / n.  Plain rule
+    draw's factor cross-moments H_rc = eta_r' eta_c / n (``H_grid``, when
+    the caller formed them: :func:`cross_moments` of ``eta_all``).  Plain rule
     (``eta_all`` None): rho Lam_r Lam_c' off the diagonal, Lam_r Lam_r' on
     it.  Diagonal pairs add diag(1/ps_r).
 
@@ -210,8 +243,8 @@ def covariance_panels(Lam_all: torch.Tensor, ps_all: torch.Tensor,
     Lam_c = Lam_all[pair_cols]
     diag = pair_rows == pair_cols                               # (Q,)
     if eta_all is not None:
-        n = eta_all.shape[1]
-        H_grid = torch.einsum("rnk,cnj->rckj", eta_all, eta_all) / n
+        if H_grid is None:
+            H_grid = cross_moments(eta_all)
         H = H_grid[pair_rows, pair_cols]                        # (Q, K, K)
         blocks = mm(mm(Lam_r, H), _t(Lam_c))
     else:

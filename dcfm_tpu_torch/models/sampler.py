@@ -16,6 +16,14 @@ noise.BufferedDraws), and every iteration keeps its own save condition and
 trace row.  Nothing inside a chunk reads a device value on the host: the
 save cadence is host arithmetic, and health and trace stay on the device
 until the chunk ends.
+
+Under ``ModelConfig.impute_missing`` each sweep first completes the data
+(``impute_missing_y``, from the static Y and its static NaN mask) and runs
+on the completed matrix, which saved draws also sum into ``y_imp_acc``;
+under ``RunConfig.store_draws`` saved draws are written into the draw ring
+(``DrawBuffers``) at a slot computed on the device from the iteration
+tensor ``ChainRunner._its``, never from a Python int a capture would bake
+in.
 """
 
 from __future__ import annotations
@@ -31,7 +39,8 @@ import torch
 
 from dcfm_tpu_torch.config import ModelConfig
 from dcfm_tpu_torch.models.adapt import adapt_rank, effective_ranks
-from dcfm_tpu_torch.models.conditionals import covariance_panels, gibbs_sweep
+from dcfm_tpu_torch.models.conditionals import (
+    covariance_panels, cross_moments, gibbs_sweep, impute_missing_y)
 from dcfm_tpu_torch.models.state import (
     SamplerState, init_state, num_padded_pairs, packed_pair_indices)
 from dcfm_tpu_torch.noise import BufferedDraws, RecordingDraws, draw_into
@@ -41,6 +50,19 @@ from dcfm_tpu_torch.ops import cuda_lib
 # variance, mean residual variance, their sum, average log-likelihood
 TRACE_SUMMARIES = ("signal_var_mean", "resid_var_mean", "sigma_diag_mean",
                    "avg_loglik")
+
+
+class DrawBuffers(NamedTuple):
+    """The thinned post-burn-in draws of one chain (RunConfig.store_draws):
+    ring slot s holds saved draw s, as in the JAX package's DrawBuffers.
+    ``H`` holds each draw's factor cross-moments eta_r' eta_c / n under
+    the scaled estimator (None under "plain"): with it a draw's covariance
+    entry is exactly the scaled rule's (utils/estimate.
+    draw_covariance_entries)."""
+    Lambda: torch.Tensor            # (S, G, P, K)
+    ps: torch.Tensor                # (S, G, P)
+    X: torch.Tensor                 # (S, n, K)
+    H: Optional[torch.Tensor] = None    # (S, G, G, K, K)
 
 
 @dataclasses.dataclass
@@ -55,17 +77,31 @@ class ChainCarry:
     # (Q, P, P) packed running SUM of the panels' squares over saved draws
     # (ModelConfig.posterior_sd: the entrywise second moment), else None
     sigma_sq_acc: Optional[torch.Tensor] = None
+    # the draw ring (RunConfig.store_draws), else None
+    draws: Optional[DrawBuffers] = None
+    # (G, n, P) running SUM over saved draws of the completed data matrix
+    # (ModelConfig.impute_missing), else None
+    y_imp_acc: Optional[torch.Tensor] = None
     # CUDA events of copies that still read these tensors on a side
     # stream (a checkpoint snapshot, a streamed-fetch sum): whatever writes
     # the carry next waits for them first (wait_readers)
     readers: list = dataclasses.field(default_factory=list)
 
 
+def draw_leaves(draws: Optional[DrawBuffers]) -> list:
+    """The ring's tensors in the JAX DrawBuffers' order (none without a
+    ring; no H under the plain estimator)."""
+    return [] if draws is None else [t for t in draws if t is not None]
+
+
 def carry_tensors(carry: ChainCarry) -> list:
-    """The carry's tensors in a fixed order: the state's leaves, the
-    accumulator, health and, under posterior_sd, the second moment."""
-    sq = [] if carry.sigma_sq_acc is None else [carry.sigma_sq_acc]
-    return [*state_leaves(carry.state), carry.sigma_acc, carry.health, *sq]
+    """The carry's tensors in the JAX ChainCarry's order: the state's
+    leaves, the accumulator, health, then where present the second
+    moment, the draw ring and the imputation sum."""
+    opt = [] if carry.sigma_sq_acc is None else [carry.sigma_sq_acc]
+    opt += draw_leaves(carry.draws)
+    opt += [] if carry.y_imp_acc is None else [carry.y_imp_acc]
+    return [*state_leaves(carry.state), carry.sigma_acc, carry.health, *opt]
 
 
 def wait_readers(carry: ChainCarry, stream) -> None:
@@ -156,18 +192,34 @@ def _health_init(G: int, device) -> torch.Tensor:
                         device=device).expand(G, 4).clone()
 
 
-def init_chain(draws, Y: torch.Tensor, cfg: ModelConfig, prior) -> ChainCarry:
-    """Initial state, zero packed accumulators and a fresh health panel."""
+def init_chain(draws, Y: torch.Tensor, cfg: ModelConfig, prior,
+               num_stored_draws: int = 0) -> ChainCarry:
+    """Initial state, zero packed accumulators, a fresh health panel and,
+    where configured, a zero draw ring of ``num_stored_draws`` slots
+    (RunConfig.num_saved under store_draws) and a zero imputation sum."""
     G, n, P = Y.shape
-    state = init_state(draws, prior, G=G, n=n, P=P,
-                       K=cfg.factors_per_shard, as_=cfg.as_, bs=cfg.bs,
-                       device=Y.device, rank_adapt=cfg.rank_adapt)
-    acc = torch.zeros((num_padded_pairs(G), P, P), dtype=torch.float32,
-                      device=Y.device)
+    K = cfg.factors_per_shard
+    state = init_state(draws, prior, G=G, n=n, P=P, K=K, as_=cfg.as_,
+                       bs=cfg.bs, device=Y.device,
+                       rank_adapt=cfg.rank_adapt)
+
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=torch.float32, device=Y.device)
+
+    acc = zeros(num_padded_pairs(G), P, P)
+    S = num_stored_draws
+    ring = None
+    if S:
+        ring = DrawBuffers(
+            Lambda=zeros(S, G, P, K), ps=zeros(S, G, P), X=zeros(S, n, K),
+            H=zeros(S, G, G, K, K) if cfg.estimator == "scaled" else None)
     return ChainCarry(state=state, sigma_acc=acc, iteration=0,
                       health=_health_init(G, Y.device),
                       sigma_sq_acc=(torch.zeros_like(acc)
-                                    if cfg.posterior_sd else None))
+                                    if cfg.posterior_sd else None),
+                      draws=ring,
+                      y_imp_acc=zeros(G, n, P) if cfg.impute_missing
+                      else None)
 
 
 def state_leaves(state: SamplerState) -> list:
@@ -203,7 +255,8 @@ class ChainRunner:
     launch; each replay adds the launches its capture counted
     (cuda_lib.capture_tally).  All graphs share one memory pool and replay
     serially on the runner's stream, which also runs the eager trips and
-    the draws.  ``graphs=False`` on the card is the eager chain the card
+    the draws.  ``num_stored_draws`` sizes the draw ring (0: none).
+    ``graphs=False`` on the card is the eager chain the card
     tests and chip_smoke.py hold the graphs against; a failed capture or
     replay raises, never falls back to it.
 
@@ -221,7 +274,8 @@ class ChainRunner:
     """
 
     def __init__(self, noise, Y: torch.Tensor, cfg: ModelConfig, prior, *,
-                 burnin: int, thin: int, unroll: int = 1, graphs=None):
+                 burnin: int, thin: int, unroll: int = 1, graphs=None,
+                 num_stored_draws: int = 0):
         if unroll < 1:
             raise ValueError(f"unroll must be >= 1, got {unroll}")
         cuda = Y.device.type == "cuda"
@@ -230,6 +284,7 @@ class ChainRunner:
             raise ValueError("CUDA graphs need Y on a CUDA device")
         self.noise, self.Y, self.cfg, self.prior = noise, Y, cfg, prior
         self.burnin, self.thin, self.unroll = burnin, thin, unroll
+        self.num_stored_draws = num_stored_draws
         rows, cols = packed_pair_indices(Y.shape[0])
         self._rows = torch.as_tensor(rows, dtype=torch.long, device=Y.device)
         self._cols = torch.as_tensor(cols, dtype=torch.long, device=Y.device)
@@ -243,12 +298,14 @@ class ChainRunner:
                       else None)
         self._trace = torch.empty((unroll, len(TRACE_SUMMARIES)),
                                   dtype=torch.float32, device=Y.device)
-        # rank adaptation reads each sweep's 1-based global iteration: a
-        # device tensor written before every trip, never a constant baked
-        # into a capture
+        # rank adaptation and the draw ring's slot read each sweep's
+        # 1-based global iteration: a device tensor written before every
+        # trip, never a constant baked into a capture
         self._its = (torch.zeros((unroll,), dtype=torch.float32,
                                  device=Y.device)
-                     if cfg.rank_adapt else None)
+                     if cfg.rank_adapt or num_stored_draws else None)
+        # the missing entries, once: every sweep completes the static Y
+        self._mask = torch.isnan(Y) if cfg.impute_missing else None
         self.carry = None
         self._recipe = None        # the sweep's draw calls, recorded once
         self._slots = None         # per call: (unroll, *shape) variates
@@ -273,7 +330,8 @@ class ChainRunner:
         first call creates it) and return it."""
         if self.carry is None:
             self.carry = init_chain(self.noise.init(chain), self.Y,
-                                    self.cfg, self.prior)
+                                    self.cfg, self.prior,
+                                    self.num_stored_draws)
             return self.carry
         G, n, P = self.Y.shape
         state = init_state(self.noise.init(chain), self.prior, G=G, n=n,
@@ -285,8 +343,10 @@ class ChainRunner:
                             state_leaves(state), strict=True):
             dst.copy_(src)
         self.carry.sigma_acc.zero_()
-        if self.carry.sigma_sq_acc is not None:
-            self.carry.sigma_sq_acc.zero_()
+        for t in ([self.carry.sigma_sq_acc, self.carry.y_imp_acc]
+                  + draw_leaves(self.carry.draws)):
+            if t is not None:
+                t.zero_()
         self.carry.health.copy_(_health_init(G, self.Y.device))
         self.carry.iteration = 0
         return self.carry
@@ -297,7 +357,8 @@ class ChainRunner:
         draws it on a fresh lineage (an elastic birth)."""
         draws = (self.noise.init(chain, lineage) if lineage
                  else self.noise.init(chain))
-        return init_chain(draws, self.Y, self.cfg, self.prior)
+        return init_chain(draws, self.Y, self.cfg, self.prior,
+                          self.num_stored_draws)
 
     def run_chunk(self, chain: int, carry: ChainCarry, num_iters: int
                   ) -> tuple[ChainCarry, ChainStats, torch.Tensor]:
@@ -346,6 +407,8 @@ class ChainRunner:
         """Copy a chain's own carry into the static one (created on first
         use with the chain's shapes)."""
         if self.carry is None:
+            def like(t):
+                return None if t is None else torch.empty_like(t)
             self.carry = ChainCarry(
                 state=SamplerState(
                     *(torch.empty_like(getattr(carry.state, f))
@@ -356,8 +419,10 @@ class ChainRunner:
                             else torch.empty_like(carry.state.active))),
                 sigma_acc=torch.empty_like(carry.sigma_acc), iteration=0,
                 health=torch.empty_like(carry.health),
-                sigma_sq_acc=(None if carry.sigma_sq_acc is None
-                              else torch.empty_like(carry.sigma_sq_acc)))
+                sigma_sq_acc=like(carry.sigma_sq_acc),
+                draws=(None if carry.draws is None
+                       else DrawBuffers(*(like(t) for t in carry.draws))),
+                y_imp_acc=like(carry.y_imp_acc))
         for dst, src in zip(carry_tensors(self.carry), carry_tensors(carry),
                             strict=True):
             dst.copy_(src)
@@ -440,20 +505,27 @@ class ChainRunner:
         sq_r, sq_1mr = math.sqrt(cfg.rho), math.sqrt(1.0 - cfg.rho)
         state, health = carry.state, carry.health
         for j, d in enumerate(draws):
-            state, sse = gibbs_sweep(d, self.Y, state, cfg, self.prior)
+            # the completed data: the incoming state's imputation of the
+            # missing entries, read by every conditional of the sweep
+            Yc = (self.Y if self._mask is None else impute_missing_y(
+                d, self.Y, state, cfg.rho, self._mask))
+            state, sse = gibbs_sweep(d, Yc, state, cfg, self.prior)
             # the trace reads the sweep's own output; adaptation re-masks
             # the carried state after it (the JAX package's order)
             sweep_state = state
-            if self._its is not None:
+            if cfg.rank_adapt:
                 state = adapt_rank(d, state, self._its[j], self.burnin, cfg)
             if isinstance(d, BufferedDraws):
                 d.finish()
             if pattern[j]:
                 eta = (sq_r * state.X[None] + sq_1mr * state.Z
                        if cfg.estimator == "scaled" else None)
+                # the combine's cross-moments, kept for the ring too
+                H_grid = None if eta is None else cross_moments(eta)
                 blocks = covariance_panels(
                     state.Lambda, state.ps, cfg.rho, self._rows, self._cols,
-                    eta_all=eta, compute_dtype=self._c_dtype)
+                    eta_all=eta, compute_dtype=self._c_dtype,
+                    H_grid=H_grid)
                 carry.sigma_acc += blocks
                 if carry.sigma_sq_acc is not None:
                     # the JAX package's acc_sq + blocks * blocks: the
@@ -461,9 +533,26 @@ class ChainRunner:
                     # second temporary), then the add - two kernels, so
                     # no compiler can contract them into an FMA
                     carry.sigma_sq_acc += blocks.mul_(blocks)
+                if carry.y_imp_acc is not None:
+                    carry.y_imp_acc += Yc
+                if carry.draws is not None:
+                    self._store(carry.draws, state, H_grid, self._its[j])
             health = _health_update(health, _health_now(state, self.prior))
             self._trace[j].copy_(_trace_now(sweep_state, sse, cfg.rho))
         for dst, src in zip(state_leaves(carry.state), state_leaves(state),
                             strict=True):
             dst.copy_(src)
         carry.health.copy_(health)
+
+    def _store(self, ring: DrawBuffers, state: SamplerState,
+               H_grid: Optional[torch.Tensor], it: torch.Tensor) -> None:
+        """Write a saved draw into ring slot (it - burnin) // thin - 1, on
+        the device from the iteration tensor ``it`` and clamped to the ring
+        as the JAX package's ``dynamic_update_slice`` clamps."""
+        slot = (torch.div(it.long() - self.burnin, self.thin,
+                          rounding_mode="floor") - 1).clamp_(
+            0, self.num_stored_draws - 1).view(1)
+        for buf, val in ((ring.Lambda, state.Lambda), (ring.ps, state.ps),
+                         (ring.X, state.X), (ring.H, H_grid)):
+            if buf is not None:
+                buf.index_copy_(0, slot, val[None])

@@ -8,8 +8,9 @@ so that one sweep of each package can be compared leaf by leaf from the
 same state.
 
 Draws are addressed by ``site`` (the JAX package's site ids: 1-5, one per
-conditional, ``dcfm_tpu/models/conditionals.py``, and 6 for the rank
-adaptation's coin, ``dcfm_tpu/models/adapt.py``) and ``part``, the path
+conditional, ``dcfm_tpu/models/conditionals.py``, 6 for the rank
+adaptation's coin, ``dcfm_tpu/models/adapt.py``, and 7 for the missing-data
+imputation's normals, drawn only when imputation is on) and ``part``, the path
 from the site's per-shard key to the key a JAX draw uses.  ``part`` is
 None (the key itself), an int i (child i of a two-way split: the MGP
 prior update draws its psi normals from part 0 and its delta gammas from
@@ -60,6 +61,7 @@ import torch
 # site ids, as in dcfm_tpu/models/conditionals.py and models/adapt.py
 SITE_Z, SITE_X, SITE_LAM, SITE_PRIOR, SITE_PS = 1, 2, 3, 4, 5
 SITE_ADAPT = 6
+SITE_IMPUTE = 7
 # the sites whose draws are shared by all shards (no shard axis)
 SHARED_SITES = (SITE_X, SITE_ADAPT)
 

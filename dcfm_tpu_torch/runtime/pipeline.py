@@ -9,8 +9,11 @@ The port of ``dcfm_tpu/runtime/pipeline.py`` for one process:
   (utils/checkpoint.AsyncCheckpointWriter) at the cadence
   ``checkpoint_every_chunks`` sets, light saves with periodic full
   sidecars; the save-failure policy; the divergence sentinel
-  (resilience/sentinel.py) with its rewind; and a snapshot of the pooled
-  accumulator for the stream below at every boundary.
+  (resilience/sentinel.py) with its rewind; the R-hat early stop
+  (``RunConfig.early_stop="rhat"``, :func:`early_stop_metrics`: a host
+  decision on the chunk's trace rows, after which the boundary is the
+  last one); and a snapshot of the pooled accumulator for the stream
+  below at every boundary.
 * :class:`StreamingFetcher` - the double-buffered device->host stream of
   quant8 accumulator snapshots.  Each boundary after the first saved draw
   sums the chains' accumulators in chain order into a device buffer and
@@ -47,7 +50,7 @@ import numpy as np
 import torch
 
 from dcfm_tpu_torch.models.sampler import (
-    ChainCarry, ChainStats, num_saved_draws)
+    ChainCarry, ChainStats, DrawBuffers, num_saved_draws)
 from dcfm_tpu_torch.models.state import SamplerState
 from dcfm_tpu_torch.resilience.sentinel import (
     ChainDivergedError, DivergenceSentinel)
@@ -56,7 +59,8 @@ from dcfm_tpu_torch.runtime.fetch import (
 from dcfm_tpu_torch.runtime.resume import (
     ElasticResume, ResumeContext, resume_state, rewind_source)
 from dcfm_tpu_torch.utils.checkpoint import (
-    AsyncCheckpointWriter, Snapshot, save_checkpoint)
+    DRAW_LEAVES, AsyncCheckpointWriter, Snapshot, save_checkpoint)
+from dcfm_tpu_torch.utils.diagnostics import ess, split_rhat
 
 
 def chunk_schedule(num_iters: int, chunk: int) -> list:
@@ -94,24 +98,56 @@ def pool_stats(stats: list) -> ChainStats:
         acc_nonfinite=sum(s.acc_nonfinite for s in stats))
 
 
+def early_stop_metrics(traces: list, trace0: int, burnin: int) -> tuple:
+    """``(rhat_max, ess_min)`` over the post-burn-in slice of the chunks'
+    trace rows - the convergence check of ``early_stop="rhat"`` at each
+    boundary (the JAX package's, bit for bit).
+
+    ``traces`` is run_chain's ``(start iteration, (C, ni, 4) host array)``
+    list, covering global iterations ``trace0 + 1 ..``.  NaN while the
+    post-burn-in window is shorter than 4 draws or holds one chain: NaN
+    never stops a chain.  The worst summary decides: its R-hat must clear
+    the threshold and its pooled ESS the target, and ``np.max`` /
+    ``np.min`` let a NaN diagnostic keep the chain sampling."""
+    arr = np.concatenate([t if t.ndim == 3 else t[None] for _, t in traces],
+                         axis=1)
+    post = arr[:, max(burnin - trace0, 0):, :]
+    if post.shape[0] < 2 or post.shape[1] < 4:
+        return float("nan"), float("nan")
+    rhat_max = float(np.max([split_rhat(post[:, :, i])
+                             for i in range(post.shape[2])]))
+    ess_min = float(np.min([ess(post[:, :, i])
+                            for i in range(post.shape[2])]))
+    return rhat_max, ess_min
+
+
 def carries_from_leaves(leaves: dict, num_chains: int, device,
                         acc_shape: tuple, *,
-                        posterior_sd: bool = False) -> list:
+                        posterior_sd: bool = False,
+                        y_imp_shape: Optional[tuple] = None) -> list:
     """The chains' carries on ``device`` from checkpoint leaves (a light
-    file's accumulators restart at zero)."""
+    file's accumulators restart at zero: the covariance sums of
+    ``acc_shape``, the imputation sum of ``y_imp_shape`` when the fit
+    imputes); the draw ring where the file holds one."""
     def get(name, c):
         a = leaves[name]
         return torch.as_tensor(np.array(a[c] if num_chains > 1 else a,
                                         copy=True), device=device)
 
-    def acc(name, c):
+    def acc(name, c, shape=acc_shape):
         return (get(name, c) if name in leaves
-                else torch.zeros(acc_shape, dtype=torch.float32,
-                                 device=device))
+                else torch.zeros(shape, dtype=torch.float32, device=device))
+
+    def ring(c):
+        if "draws_Lambda" not in leaves:
+            return None
+        return DrawBuffers(*(get(k, c) if k in leaves else None
+                             for k in DRAW_LEAVES))
 
     # every leaf that is not one of these is the prior's
     others = {"Lambda", "Z", "X", "ps", "active", "sigma_acc",
-              "sigma_sq_acc", "iteration", "health"}
+              "sigma_sq_acc", "iteration", "health", "y_imp_acc",
+              *DRAW_LEAVES}
     out = []
     for c in range(num_chains):
         out.append(ChainCarry(
@@ -123,7 +159,10 @@ def carries_from_leaves(leaves: dict, num_chains: int, device,
             sigma_acc=acc("sigma_acc", c),
             iteration=int(np.asarray(leaves["iteration"]).reshape(-1)[c]),
             health=get("health", c),
-            sigma_sq_acc=acc("sigma_sq_acc", c) if posterior_sd else None))
+            sigma_sq_acc=acc("sigma_sq_acc", c) if posterior_sd else None,
+            draws=ring(c),
+            y_imp_acc=(None if y_imp_shape is None
+                       else acc("y_imp_acc", c, y_imp_shape))))
     return out
 
 
@@ -182,6 +221,12 @@ class StreamingFetcher:
         """A sentinel rewind moved the window: its new divisor (snapshots
         already queued are superseded by the final one)."""
         self._inv_count, self._bessel = inv_count, bessel
+
+    def truncate(self, inv_count, bessel=None) -> None:
+        """An early stop moved the window's END: the divisor of the
+        truncated window, before the stop boundary's final submit
+        quantizes with it (every landing queued before is superseded)."""
+        self.reset_window(inv_count, bessel)
 
     @staticmethod
     def _sum(buf, accs):
@@ -317,6 +362,11 @@ class ChainRunResult:
     trace0: int                    # global iteration the traces start at
     streamer: Optional[StreamingFetcher]
     graphs: dict                   # the runners' graph counts, summed
+    # the R-hat early stop: the global iteration the run stopped at (None:
+    # it ran its schedule), and the [iteration, rhat_max, ess_min] row of
+    # every boundary it was evaluated at (None when early_stop is off)
+    stopped_at_iter: Optional[int] = None
+    rhat_trajectory: Optional[list] = None
 
 
 def _sync(device: torch.device) -> None:
@@ -334,8 +384,9 @@ def run_chain(*, cfg, model, run, phase: dict, fingerprint, template: dict,
     """The host-side chunk loop.  ``make_runner(model, lineage)`` builds a
     ``models/sampler.ChainRunner`` for ``model`` (the base ModelConfig, or
     the sentinel's jitter-escalated one after a rewind) on streams of the
-    given lineage; ``window_fn(acc_start, elastic)`` is the fetch divisor
-    and Bessel factor (``elastic``: ResumeContext.elastic);
+    given lineage; ``window_fn(acc_start, elastic, total=None)`` is the
+    fetch divisor and Bessel factor of the window ending at ``total``
+    (default: the schedule's end; ``elastic``: ResumeContext.elastic);
     ``make_streamer(acc_start, elastic)`` builds the
     :class:`StreamingFetcher`, once the resume point is known and only if
     a chunk will run."""
@@ -359,9 +410,11 @@ def run_chain(*, cfg, model, run, phase: dict, fingerprint, template: dict,
                         state_only=False).wait()
 
     def from_leaves(leaves):
-        return carries_from_leaves(leaves, C, device,
-                                   template["sigma_acc"][0][-3:],
-                                   posterior_sd=model.posterior_sd)
+        return carries_from_leaves(
+            leaves, C, device, template["sigma_acc"][0][-3:],
+            posterior_sd=model.posterior_sd,
+            y_imp_shape=(template["y_imp_acc"][0][-3:]
+                         if "y_imp_acc" in template else None))
 
     rctx = ResumeContext(cfg=cfg, fingerprint=fingerprint, template=template,
                          birth=birth)
@@ -409,6 +462,11 @@ def run_chain(*, cfg, model, run, phase: dict, fingerprint, template: dict,
                 if make_streamer is not None and executed else None)
     queue_ = chunk_schedule(executed, chunk)
     qi = 0
+    # the R-hat early stop: a host decision on the trace rows each chunk
+    # fetches anyway, at boundaries only (the chain's work never changes)
+    es_on = run.early_stop == "rhat"
+    stopped_at = None
+    rhat_traj = [] if es_on else None
     try:
         while qi < len(queue_):
             ni = queue_[qi]
@@ -426,6 +484,22 @@ def run_chain(*, cfg, model, run, phase: dict, fingerprint, template: dict,
             it_now += ni
             traces.append((it_now - ni, np.stack(chain_traces)))
             stats = pool_stats(chain_stats)
+            if es_on:
+                rhat_max, ess_min = early_stop_metrics(traces, trace0,
+                                                       run.burnin)
+                rhat_traj.append([it_now, rhat_max, ess_min])
+                if (qi < len(queue_)
+                        and np.isfinite(rhat_max) and np.isfinite(ess_min)
+                        and rhat_max < run.rhat_threshold
+                        and ess_min >= run.ess_target):
+                    # converged: this boundary becomes the last one, so
+                    # the final stream submit, the final save and the
+                    # divisor all take the truncated window
+                    queue_ = queue_[:qi]
+                    stopped_at = it_now
+                    if streamer is not None:
+                        streamer.truncate(*window_fn(acc_start, rctx.elastic,
+                                                     it_now))
             last = qi == len(queue_)
             if sentinel is not None and sentinel.tripped(stats):
                 reloaded = None
@@ -461,6 +535,11 @@ def run_chain(*, cfg, model, run, phase: dict, fingerprint, template: dict,
                 runner = make_runner(m_active, lineage)
                 trace0 = min(trace0, it_now)
                 traces = [(s, tr) for s, tr in traces if s < it_now]
+                if es_on:
+                    # a rewind voids a stop decided on the dropped chunks,
+                    # and the trajectory keeps the boundaries before it
+                    stopped_at = None
+                    rhat_traj = [r for r in rhat_traj if r[0] <= it_now]
                 if streamer is not None:
                     # the rewound file carries its own elastic record
                     streamer.reset_window(*window_fn(acc_start,
@@ -543,10 +622,14 @@ def run_chain(*, cfg, model, run, phase: dict, fingerprint, template: dict,
             streamer.abort()
         raise
     retire(runner)
+    if stopped_at is not None:
+        # the truncated count: the divisor's window end, iters_per_sec
+        executed = it_now - done
     return ChainRunResult(
         carries=carries, stats=stats, executed=executed,
         traces=[tr for _, tr in traces], chunk_seconds=chunk_secs,
         done=done, acc_start=acc_start, elastic=rctx.elastic,
         checkpoint_error=ck_error,
         rewinds=sentinel.rewinds if sentinel is not None else 0,
-        trace0=trace0, streamer=streamer, graphs=graphs)
+        trace0=trace0, streamer=streamer, graphs=graphs,
+        stopped_at_iter=stopped_at, rhat_trajectory=rhat_traj)

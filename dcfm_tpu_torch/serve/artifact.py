@@ -482,8 +482,11 @@ def export_from_checkpoint(checkpoint_path: str, Y: np.ndarray,
     with the quant8 rule; the SD panels (a file with ``sigma_sq_acc``) are
     ``sqrt(max(m2 - mean * mean, 0) * bessel)``.  The divisor is the
     window's (runtime/fetch.accumulator_window), with the file's elastic
-    bookkeeping (meta v7) when it holds any.  ``.procK-of-N`` sets are
-    refused (ROADMAP Queue A item 7)."""
+    bookkeeping (meta v7) when it holds any.  A ``store_draws`` file's
+    draw ring is sized from the file's schedule and skipped, and an
+    imputation file's ``y_imp_acc`` (its last leaf) is not read: neither
+    enters the panels.  ``.procK-of-N`` sets are refused (ROADMAP Queue A
+    item 7)."""
     refuse_multiprocess_sets(checkpoint_path)
     if not os.path.exists(checkpoint_path):
         raise FileNotFoundError(f"no checkpoint at {checkpoint_path}")
@@ -514,7 +517,8 @@ def export_from_checkpoint(checkpoint_path: str, Y: np.ndarray,
             "to export is not the one the checkpointed chain ran on")
     C = run.num_chains
     leaves, meta = load_checkpoint(checkpoint_path, carry_template(
-        m, n=pre.data.shape[1], P=pre.data.shape[2], num_chains=C))
+        m, n=pre.data.shape[1], P=pre.data.shape[2], num_chains=C,
+        num_stored_draws=run.num_saved if run.store_draws else 0))
     it = int(meta["iteration"])
     acc0 = int(meta.get("acc_start", 0))
     starts, fold, _ = elastic_meta(meta, C)

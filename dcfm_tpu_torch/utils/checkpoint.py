@@ -13,8 +13,11 @@ Format: the JAX package's v8 - one ``.npz`` with the leaves ``leaf_0``,
 (:func:`file_leaves`: Lambda, Z, X, ps, the prior's leaves by name - MGP
 delta and psijh, horseshoe lam2, nu, tau2 and xi, DL phi, psi and tau -,
 the column mask ``active`` under rank adaptation, sigma_acc, iteration,
-health, and under ``ModelConfig.posterior_sd`` sigma_sq_acc; a light file
-drops the accumulators and renumbers), a leading chain axis on every leaf
+health, and where present sigma_sq_acc (``ModelConfig.posterior_sd``), the
+draw ring's Lambda, ps, X and H (``RunConfig.store_draws``; no H under the
+plain estimator) and y_imp_acc (missing-data imputation); a light file
+drops the accumulators - sigma_acc, sigma_sq_acc, y_imp_acc, never the
+ring - and renumbers), a leading chain axis on every leaf
 when there is more than one chain and none for one, and a JSON
 ``__meta__`` entry with the JAX package's keys, per-leaf CRC32s among
 them.  The config in it carries every key the JAX package's reader
@@ -82,8 +85,9 @@ _LOADABLE_VERSIONS = (_FORMAT_VERSION, 7, 6)
 # the leaves of a chain's carry in the JAX ChainCarry's flatten order: the
 # SamplerState's (Lambda, Z, X, ps, the prior's leaves by name, the column
 # mask under rank adaptation), then sigma_acc, iteration, health, and
-# under posterior_sd sigma_sq_acc (it follows health in the JAX
-# ChainCarry).  The constants are the default model's (MGP, no adaptation)
+# where present sigma_sq_acc, the draw ring and y_imp_acc (they follow
+# health in the JAX ChainCarry, in that order).  The constants are the
+# default model's (MGP, no adaptation, no ring, complete data)
 PRIOR_LEAVES = {"mgp": ("delta", "psijh"),
                 "horseshoe": ("lam2", "nu", "tau2", "xi"),
                 "dl": ("phi", "psi", "tau")}
@@ -92,7 +96,10 @@ FULL_LEAVES = STATE_LEAVES + ("sigma_acc", "iteration", "health")
 FULL_LEAVES_SD = FULL_LEAVES + ("sigma_sq_acc",)
 # a light (state-only) file drops the accumulators: the JAX _slim carry
 LIGHT_LEAVES = STATE_LEAVES + ("iteration", "health")
-ACC_LEAVES = ("sigma_acc", "sigma_sq_acc")
+# the accumulators a light file drops and a light resume restarts at zero
+ACC_LEAVES = ("sigma_acc", "sigma_sq_acc", "y_imp_acc")
+# the draw ring's leaves, the JAX DrawBuffers' fields in order
+DRAW_LEAVES = ("draws_Lambda", "draws_ps", "draws_X", "draws_H")
 
 
 def state_leaf_names(model: ModelConfig) -> tuple:
@@ -102,20 +109,30 @@ def state_leaf_names(model: ModelConfig) -> tuple:
 
 
 def file_leaves(model: ModelConfig, state_only: bool,
-                posterior_sd: bool) -> tuple:
-    """The leaf names of a file, in leaf order."""
+                posterior_sd: bool, *, draws: bool = False,
+                impute: bool = False) -> tuple:
+    """The leaf names of a file, in leaf order: ``draws`` with the draw
+    ring (its H under the scaled estimator), ``impute`` with the
+    imputation sum."""
     state = state_leaf_names(model)
+    ring = (tuple(k for k in DRAW_LEAVES
+                  if k != "draws_H" or model.estimator == "scaled")
+            if draws else ())
     if state_only:
-        return state + ("iteration", "health")
+        return state + ("iteration", "health") + ring
     return (state + ("sigma_acc", "iteration", "health")
-            + (("sigma_sq_acc",) if posterior_sd else ()))
+            + (("sigma_sq_acc",) if posterior_sd else ()) + ring
+            + (("y_imp_acc",) if impute else ()))
 
 
 def _treedef(model: ModelConfig, names: tuple) -> str:
     prior = ", ".join(PRIOR_LEAVES[model.prior])
     active = ", active" if model.rank_adapt else ""
+    ring = [k[len("draws_"):] for k in names if k in DRAW_LEAVES]
     tail = [k for k in names if k in ("sigma_acc", "iteration", "health",
                                       "sigma_sq_acc")]
+    tail += [f"draws=DrawBuffers({', '.join(ring)})"] if ring else []
+    tail += ["y_imp_acc"] if "y_imp_acc" in names else []
     return (f"ChainCarry(state=SamplerState(Lambda, Z, X, ps, prior={{"
             f"{prior}}}{active}), {', '.join(tail)})")
 
@@ -123,12 +140,10 @@ def _treedef(model: ModelConfig, names: tuple) -> str:
 # The JAX package's FitConfig knobs the port has no field for, at the JAX
 # package's defaults (dcfm_tpu/config.py), each with the key it follows in
 # its section of the config JSON (None: first).  None of them changes a
-# chain the port can run: each one acts only under a knob the port
-# represents and refuses (early_stop) or names no sampling at all
-# (backend, profile_dir, obs).  Written so the JAX package's reader finds
-# every key it requires; dropped on reading.
+# chain: they name no sampling at all (backend, profile_dir, obs).
+# Written so the JAX package's reader finds every key it requires; dropped
+# on reading.
 _JAX_ONLY = (
-    ("run", "early_stop", {"rhat_threshold": 1.01, "ess_target": 400.0}),
     ("backend", None, {"backend": "auto"}),
     ("backend", "upload_dtype", {"profile_dir": None}),
     (None, "sentinel_max_rewinds", {"obs": "auto"}),
@@ -146,20 +161,25 @@ class CheckpointCorruptError(ValueError):
 
 
 def carry_template(model: ModelConfig, *, n: int, P: int,
-                   num_chains: int) -> dict:
+                   num_chains: int, num_stored_draws: int = 0) -> dict:
     """``{leaf: (shape, numpy dtype)}`` of a fit's checkpoint, full form,
     with the chain-axis convention (a leading ``num_chains`` axis when
-    there is more than one chain)."""
-    G, K = model.num_shards, model.factors_per_shard
+    there is more than one chain).  ``model`` is the fit's internal model
+    (its ``impute_missing`` set when the data has NaN: the file then holds
+    y_imp_acc); ``num_stored_draws`` sizes the draw ring (0: none)."""
+    G, K, S = model.num_shards, model.factors_per_shard, num_stored_draws
     shapes = {"Lambda": (G, P, K), "Z": (G, n, K), "X": (n, K),
               "ps": (G, P), "delta": (G, K), "psijh": (G, P, K),
               "lam2": (G, P, K), "nu": (G, P, K), "tau2": (G,), "xi": (G,),
               "phi": (G, P, K), "psi": (G, P, K), "tau": (G, P),
               "active": (G, K), "sigma_acc": (num_padded_pairs(G), P, P),
               "sigma_sq_acc": (num_padded_pairs(G), P, P), "iteration": (),
-              "health": (G, 4)}
-    core = {k: shapes[k] for k in file_leaves(model, False,
-                                              model.posterior_sd)}
+              "health": (G, 4), "draws_Lambda": (S, G, P, K),
+              "draws_ps": (S, G, P), "draws_X": (S, n, K),
+              "draws_H": (S, G, G, K, K), "y_imp_acc": (G, n, P)}
+    core = {k: shapes[k] for k in file_leaves(
+        model, False, model.posterior_sd, draws=bool(S),
+        impute=model.impute_missing)}
     lead = (num_chains,) if num_chains > 1 else ()
     return {k: (lead + s, np.dtype(np.int32 if k == "iteration"
                                    else np.float32))
@@ -167,7 +187,8 @@ def carry_template(model: ModelConfig, *, n: int, P: int,
 
 
 def _chain_tensors(carry, state_only: bool) -> dict:
-    """One chain's leaves as tensors (iteration stays a Python int)."""
+    """One chain's leaves as tensors (iteration stays a Python int); a
+    light snapshot keeps the draw ring, as the JAX package's does."""
     st = carry.state
     out = {"Lambda": st.Lambda, "Z": st.Z, "X": st.X, "ps": st.ps,
            **st.prior}
@@ -177,6 +198,11 @@ def _chain_tensors(carry, state_only: bool) -> dict:
         out["sigma_acc"] = carry.sigma_acc
         if carry.sigma_sq_acc is not None:
             out["sigma_sq_acc"] = carry.sigma_sq_acc
+        if carry.y_imp_acc is not None:
+            out["y_imp_acc"] = carry.y_imp_acc
+    if carry.draws is not None:
+        out.update((k, t) for k, t in zip(DRAW_LEAVES, carry.draws)
+                   if t is not None)
     out["health"] = carry.health
     return out
 
@@ -441,7 +467,9 @@ def save_checkpoint(path: str, leaves: dict, cfg: FitConfig, *,
     ``chain_acc_starts`` / ``fold_draws`` / ``elastic_lineage`` the v7
     bookkeeping of an elastic adoption (None: uniform starts at
     ``acc_start``)."""
-    names = file_leaves(cfg.model, state_only, "sigma_sq_acc" in leaves)
+    names = file_leaves(cfg.model, state_only, "sigma_sq_acc" in leaves,
+                        draws="draws_Lambda" in leaves,
+                        impute="y_imp_acc" in leaves)
     num_chains = int(cfg.run.num_chains)
     if _num_chains(leaves) != num_chains:
         raise ValueError(f"{_num_chains(leaves)} chains' leaves for a "
@@ -577,10 +605,17 @@ def checkpoint_compatible(meta: dict, cfg: FitConfig, fingerprint: str, *,
         return (f"checkpoint is at iteration {meta['iteration']} but the "
                 f"schedule ends at {cfg.run.total_iters} - a chain cannot "
                 "be shrunk (saved draws are already summed in)")
+    if saved.run.store_draws and saved.run.num_saved != cfg.run.num_saved:
+        return ("mcmc length changed with store_draws=True (the draw "
+                "buffers are statically sized by num_saved)")
     if not ignore_chains and saved.run.num_chains != cfg.run.num_chains:
         return (f"checkpoint has num_chains={saved.run.num_chains}, run "
                 f"configured {cfg.run.num_chains}; pass "
                 f"num_chains={saved.run.num_chains} to match the checkpoint")
+    if saved.run.store_draws != cfg.run.store_draws:
+        return (f"store_draws changed: {saved.run.store_draws} != "
+                f"{cfg.run.store_draws} (the carry gains/loses the "
+                "draw-buffer leaves)")
     # one accumulated posterior must come from one sweep precision
     if saved.backend.compute_dtype != cfg.backend.compute_dtype:
         return (f"compute_dtype changed: checkpoint ran "

@@ -9,7 +9,9 @@ covariance in the caller's coordinates.  The native one-pass assembler
 computes every entry in the native order - the diagonal blocks averaged
 with their transpose, the panel's dequantization scale, then one multiply
 by the product of the two column scales, ``v * ps * (s_row * s_col)`` - so
-Sigma is the same bits with or without the native library.
+Sigma is the same bits with or without the native library.  Stored draws
+(``RunConfig.store_draws``) give per-draw covariance entries
+(:func:`draw_covariance_entries`), the JAX package's rule for them.
 """
 
 from __future__ import annotations
@@ -165,3 +167,50 @@ def assemble_from_q8(
     out = np.zeros((p_out, p_out), np.float32)  # dcfm: ignore[DCFM1501] - q8 assembly output; callers gate on materialize_sigma
     native.assemble_q8(q_panels, panel_scale, scale, out_map, out)
     return out
+
+
+def _pool_chain_axis(draws: dict) -> dict:
+    """(C, S, ...) chain-major draw buffers -> (C*S, ...) pooled draws
+    (chains are independent equal-weight posterior samples); draws
+    without a chain axis pass through."""
+    Lam = np.asarray(draws["Lambda"])
+    if Lam.ndim == 4:
+        return draws
+    return {k: np.asarray(v).reshape((-1,) + np.asarray(v).shape[2:])
+            for k, v in draws.items()}
+
+
+def draw_covariance_entries(draws: dict, rows: np.ndarray, cols: np.ndarray,
+                            *, rho: Optional[float] = None) -> np.ndarray:
+    """Per-draw covariance entries, (S, m), in SHARD coordinates (rows and
+    cols index the g * P shard columns).
+
+    ``draws`` is FitResult.draws (a chain axis is pooled).  With the
+    cross-moments ``H`` (estimator="scaled") each draw's entry is the
+    scaled rule's Lam_i' H_rc Lam_j (+ 1/ps_i on the diagonal), so the
+    draw mean reproduces the accumulated mean; without ``H`` the plain
+    rule, which needs ``rho``."""
+    draws = _pool_chain_axis(draws)
+    Lam, ps = draws["Lambda"], draws["ps"]          # (S, g, P, K), (S, g, P)
+    P = Lam.shape[2]
+    rows = np.asarray(rows, np.int64)
+    cols = np.asarray(cols, np.int64)
+    r_s, r_l = np.divmod(rows, P)
+    c_s, c_l = np.divmod(cols, P)
+    lam_r = Lam[:, r_s, r_l, :]                     # (S, m, K)
+    lam_c = Lam[:, c_s, c_l, :]
+    H = draws.get("H")
+    if H is not None:
+        Hrc = H[:, r_s, c_s]                        # (S, m, K, K)
+        vals = np.einsum("smk,smkj,smj->sm", lam_r, Hrc, lam_c)
+    else:
+        if rho is None:
+            raise ValueError(
+                "draws carry no factor cross-moments H (estimator='plain'); "
+                "pass rho for the plain combine rule")
+        scale = np.where(r_s == c_s, 1.0, rho)
+        vals = scale[None, :] * np.einsum("smk,smk->sm", lam_r, lam_c)
+    diag = rows == cols
+    if diag.any():
+        vals[:, diag] += 1.0 / ps[:, r_s[diag], r_l[diag]]
+    return vals

@@ -5,8 +5,13 @@ zero-column removal, padding to a multiple of g with N(0, 1) dummy
 columns, a random feature permutation, the (g, n, P) shard-major layout
 and per-shard column standardization - with the same random stream and
 the same operation order, so the shard data is bitwise the JAX package's
-for the same (Y, g, seed).  Everything here is NumPy on the host; it runs
-once per fit.  The sparse / out-of-core ingest is not ported.
+for the same (Y, g, seed), NaN payloads included.  NaN marks a missing
+entry: the column statistics come from the observed entries, and NaN
+flows through the permutation, the padding and the standardization to the
+device, where the sweep imputes it (models/conditionals.impute_missing_y);
+:func:`restore_data_matrix` maps a shard-layout data matrix back to the
+caller's coordinates.  Everything here is NumPy on the host; it runs once
+per fit.  The sparse / out-of-core ingest is not ported.
 """
 
 from __future__ import annotations
@@ -14,8 +19,6 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
-
-from dcfm_tpu_torch.config import _SCEN
 
 
 @dataclasses.dataclass
@@ -31,6 +34,7 @@ class PreprocessResult:
     zero_cols: np.ndarray       # dropped all-zero columns
     n_pad: int                  # dummy padding columns appended
     p_original: int             # caller's p
+    n_missing: int = 0          # NaN entries in the kept data (0: complete)
 
     @property
     def num_shards(self) -> int:
@@ -63,14 +67,23 @@ def preprocess(
     if Y.ndim != 2:
         raise ValueError(f"Y must be (n, p), got shape {Y.shape}")
     n, p = Y.shape
-    if np.isnan(Y).any():
-        raise NotImplementedError(
-            "NaN (missing) entries (impute_missing_y) are not ported to "
-            f"dcfm_tpu_torch yet: {_SCEN}")
+    nan_mask = np.isnan(Y)
+    n_missing = int(nan_mask.sum())
     if np.isinf(Y).any():
-        raise ValueError("Y contains infinite entries")
+        raise ValueError(
+            "Y contains infinite entries (NaN marks a missing value and is "
+            "imputed; inf is unrepresentable data and must be cleaned)")
+    if n_missing:
+        obs = n - nan_mask.sum(axis=0)
+        too_few = obs < (2 if standardize else 1)
+        if too_few.any():
+            raise ValueError(
+                f"columns {np.flatnonzero(too_few).tolist()[:10]} have "
+                f"fewer than {2 if standardize else 1} observed entries - "
+                "nothing to standardize or anchor imputation on; drop "
+                "them first")
 
-    # zero-column filter
+    # zero-column filter (NaN != 0, so a column of NaNs and zeros is kept)
     nonzero = np.any(Y != 0, axis=0)
     kept_cols = np.flatnonzero(nonzero)
     zero_cols = np.flatnonzero(~nonzero)
@@ -103,8 +116,13 @@ def preprocess(
         Yk[:, perm].reshape(n, g, P).transpose(1, 0, 2))
 
     if standardize:
-        col_mean = data.mean(axis=1)
-        col_var = data.var(axis=1, ddof=1)
+        # with missing entries, from the observed values only
+        if n_missing:
+            col_mean = np.nanmean(data, axis=1)
+            col_var = np.nanvar(data, axis=1, ddof=1)
+        else:
+            col_mean = data.mean(axis=1)
+            col_var = data.var(axis=1, ddof=1)
         col_scale = np.sqrt(np.maximum(col_var, 1e-12))
         data = (data - col_mean[:, None, :]) / col_scale[:, None, :]
     else:
@@ -121,7 +139,32 @@ def preprocess(
         zero_cols=zero_cols,
         n_pad=n_pad,
         p_original=p,
+        n_missing=n_missing,
     )
+
+
+def restore_data_matrix(data_shard: np.ndarray, pre: PreprocessResult, *,
+                        destandardize: bool = True) -> np.ndarray:
+    """(g, n, P) shard-major data-space matrix -> (n, p_original) caller
+    coordinates: de-standardize, undo the shard layout and the permutation,
+    drop the padding columns, zero-fill the dropped all-zero columns (the
+    row-space inverse of :func:`preprocess`)."""
+    g, n, P = data_shard.shape
+    if (g, P) != (pre.num_shards, pre.shard_size):
+        raise ValueError(
+            f"expected ({pre.num_shards}, n, {pre.shard_size}), got "
+            f"{data_shard.shape}")
+    arr = data_shard
+    if destandardize:
+        arr = (arr * pre.col_scale[:, None, :]
+               + pre.col_mean[:, None, :])
+    arr = np.ascontiguousarray(
+        np.transpose(arr, (1, 0, 2))).reshape(n, pre.p_used)
+    arr = arr[:, pre.inv_perm]          # permuted -> kept (+ padding) order
+    p_kept = pre.p_used - pre.n_pad
+    out = np.zeros((n, pre.p_original), arr.dtype)
+    out[:, pre.kept_cols] = arr[:, :p_kept]
+    return out
 
 
 def caller_to_shard_index(pre: PreprocessResult, idx) -> np.ndarray:

@@ -107,7 +107,7 @@ def test_the_adopted_leaves_are_the_jax_packages(tmp_path, donor, to):
     assert info["fold_draws"] == (donor - to) * 2     # 2 draws at 10 each
     # the fold is the donor's chain 0 plus the dropped chains' sums
     raw, _ = ck.load_checkpoint(path, _template(donor))
-    for name in ck.ACC_LEAVES:
+    for name in (k for k in ck.ACC_LEAVES if k in raw):
         a = raw[name]
         c0 = leaves[name][0] if to > 1 else leaves[name]
         np.testing.assert_array_equal(c0, a[0] + a[to:].sum(axis=0))

@@ -216,12 +216,17 @@ def _names_a_queue_a_item(message: str) -> bool:
 # ValueError); posterior_sd, stream_artifact and the adoption of a
 # checkpoint of another chain count (elastic) are ported and dropped out,
 # and so are the horseshoe and DL priors and rank_adapt
-# (test_ported_scenario_knobs_fit below fits them)
+# (test_ported_scenario_knobs_fit below fits them).  store_draws,
+# early_stop and impute_missing are ported too: their cases pair each with
+# a knob still refused, which is refused naming its own item - a ported
+# knob never masks a refusal (their invalid values are
+# test_scenario_knob_values_are_refused_as_in_the_jax_package's)
 @pytest.mark.parametrize("model,run,backend,extra", [
     ({"combine_chunks": 2}, {}, {}, {}),
-    ({}, {"store_draws": True}, {}, {}),
-    ({}, {"early_stop": "rhat"}, {}, {}),
-    ({"impute_missing": True}, {}, {}, {}),
+    ({}, {"store_draws": True}, {"mesh_devices": 2}, {}),
+    ({}, {"early_stop": "rhat", "num_chains": 2, "chunk_size": 1}, {},
+     {"warm_start": dcfm_tpu_torch.config.WarmStart("w.npz")}),
+    ({"impute_missing": True, "combine_chunks": 2}, {}, {}, {}),
     ({}, {}, {"mesh_devices": 2}, {}),
     ({}, {}, {}, {"warm_start": dcfm_tpu_torch.config.WarmStart("w.npz")}),
 ])
@@ -237,6 +242,32 @@ def test_knobs_outside_the_port_are_refused(model, run, backend, extra):
     with pytest.raises(NotImplementedError, match="ROADMAP") as e:
         fit(Y, cfg, device="cpu")
     assert _names_a_queue_a_item(str(e.value)), str(e.value)
+    assert "item 5" not in str(e.value)
+
+
+# the JAX package's refusals of the scenario knobs the port now runs
+@pytest.mark.parametrize("run,match", [
+    ({"early_stop": "rhat", "chunk_size": 2}, "num_chains >= 2"),
+    ({"early_stop": "rhat", "num_chains": 2}, "chunk_size >= 1"),
+    ({"early_stop": "rhat", "num_chains": 2, "chunk_size": 2,
+      "store_draws": True}, "incompatible with store_draws"),
+    ({"early_stop": "rhat", "num_chains": 2, "chunk_size": 2,
+      "rhat_threshold": 1.0}, "rhat_threshold must be > 1.0"),
+    ({"early_stop": "rhat", "num_chains": 2, "chunk_size": 2,
+      "ess_target": 0.0}, "ess_target must be > 0"),
+    ({"early_stop": "rhat", "num_chains": 2, "chunk_size": 2,
+      "rhat_threshold": float("nan")}, "rhat_threshold must be > 1.0")])
+def test_scenario_knob_values_are_refused_as_in_the_jax_package(run, match):
+    """Each a ValueError in both packages, saying the same thing."""
+    Y, _ = make_synthetic(30, 8, 2, seed=0)
+    run = {"burnin": 2, "mcmc": 2} | run
+    for pkg, kw in ((dcfm_tpu, {}), (dcfm_tpu_torch, {"device": "cpu"})):
+        cfg = pkg.FitConfig(
+            model=pkg.ModelConfig(num_shards=2, factors_per_shard=2,
+                                  rho=0.5),
+            run=pkg.RunConfig(**run))
+        with pytest.raises(ValueError, match=match):
+            pkg.fit(Y, cfg, **kw)
 
 
 @pytest.mark.parametrize("model", [
@@ -291,23 +322,28 @@ def test_every_refusal_names_a_queue_a_item():
     """Fault C1: refusals cited "'Still to port' item 8", which the ROADMAP
     never numbered.  Every ROADMAP citation in the package names a Queue A
     item the ROADMAP lists, and the refusals outside config.validate
-    (missing values, streaming inputs; the priors are ported) do too."""
+    (streaming inputs, multi-process checkpoint sets; missing values and
+    the priors are ported) do too."""
     cited = [(f, m) for f, m in _refusal_messages()
              if re.search(r"item \d", m)]
-    assert len(cited) >= 4
+    # items 4, 6 and 7 are still to port (item 5 is ported: none cites it)
+    assert {int(re.search(r"item (\d+)", m).group(1))
+            for _, m in cited} == {4, 6, 7}
     for name, message in cited:
         assert _names_a_queue_a_item(message), (name, message)
+    import tempfile
     import types
 
     from dcfm_tpu_torch.api import _refuse_streaming_input
-    from dcfm_tpu_torch.utils.preprocess import preprocess as tpreprocess
-    Y, _ = make_synthetic(30, 8, 2, seed=0)
-    Y[0, 0] = np.nan
+    from dcfm_tpu_torch.runtime.resume import refuse_multiprocess_sets
     triple = types.SimpleNamespace(indptr=np.zeros(9, np.int64),
                                    indices=np.zeros(0, np.int64),
                                    data=np.zeros(0, np.float32))
+    d = tempfile.mkdtemp()
+    open(os.path.join(d, "ck.npz.proc0-of-2"), "wb").close()
     for call in (lambda: _refuse_streaming_input(triple),
-                 lambda: tpreprocess(Y, 2)):
+                 lambda: refuse_multiprocess_sets(os.path.join(d,
+                                                               "ck.npz"))):
         with pytest.raises(NotImplementedError) as e:
             call()
         assert _names_a_queue_a_item(str(e.value)), str(e.value)
@@ -386,12 +422,21 @@ def test_model_config_validation(model, match):
 
 
 def test_missing_values_are_refused():
+    """NaN is a missing value the fit imputes (tests/test_torch_missing.py);
+    what the JAX package refuses of missing data the port refuses too: a
+    column with fewer than 2 observed entries, and inf."""
     Y, _ = make_synthetic(30, 8, 2, seed=0)
     Y[0, 0] = np.nan
     cfg = FitConfig(model=ModelConfig(num_shards=2, factors_per_shard=2,
                                       rho=0.5),
                     run=RunConfig(burnin=2, mcmc=2))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    assert fit(Y, cfg, device="cpu").Y_imputed.shape == Y.shape
+    Y[1:, 3] = np.nan
+    with pytest.raises(ValueError, match="fewer than 2 observed"):
+        fit(Y, cfg, device="cpu")
+    Y[1:, 3] = 0.5
+    Y[2, 2] = np.inf
+    with pytest.raises(ValueError, match="infinite entries"):
         fit(Y, cfg, device="cpu")
 
 

@@ -6,9 +6,11 @@ against the eager chain bit for bit, the fetch (the pinned, sliced drain
 against a plain copy, the fetch prep against the CPU's, fits at every
 fetch_dtype), the posterior SD (its accumulate inside the graphs, its
 fetch prep against the CPU's), the streamed artifact and the export from
-a checkpoint, an elastic resume, a failed capture raising, and the
-scenario paths (the horseshoe and DL priors, rank adaptation) graphed
-bitwise the eager chain.
+a checkpoint, an elastic resume, a failed capture raising, the scenario
+paths (the horseshoe and DL priors, rank adaptation) graphed bitwise the
+eager chain, and the last knobs: missing values (the imputation inside
+the graphs on the f32, bf16 and fused paths) and the draw ring (its slot
+a device tensor) graphed bitwise the eager chain.
 
 They need an NVIDIA GPU with nvcc (the kernels are built on first use) and
 skip without one.  They import no JAX, so on the card they run without the
@@ -331,16 +333,22 @@ _GRAPH_PATHS = [(sse, dt, lk) for sse in ("resid", "gram")
                                ("f32", "pallas-fused"))]
 
 
-def _run_chains(cuda, cfg, graphs):
+def _run_chains(cuda, cfg, graphs, *, num_stored_draws=0, missing=0.0):
     """Both chains through a runner; per chain the state leaves, the
-    accumulator, health and the trace, copied to the host, and the
-    launches and the runner's counts."""
+    accumulator, health and the trace, copied to the host (then the
+    second moment, the draw ring of ``num_stored_draws`` slots and the
+    imputation sum where present), and the launches and the runner's
+    counts.  ``missing``: a fraction of Y set to NaN at random."""
     Y, _ = _small_data()
+    if missing:
+        Y = Y.copy()
+        Y[np.random.default_rng(2).random(Y.shape) < missing] = np.nan
     Yd = torch.as_tensor(preprocess(Y, cfg.num_shards, seed=0).data,
                          device=cuda)
     runner = sampler.ChainRunner(TorchNoise(0, cuda), Yd, cfg,
                                  make_prior(cfg), burnin=11, thin=3,
-                                 unroll=5, graphs=graphs)
+                                 unroll=5, graphs=graphs,
+                                 num_stored_draws=num_stored_draws)
     out = []
     cuda_lib.reset_launch_counts()
     for c in range(2):
@@ -353,7 +361,10 @@ def _run_chains(cuda, cfg, graphs):
                    + [carry.sigma_acc.cpu(), carry.health.cpu(),
                       torch.cat(traces)]
                    + ([] if carry.sigma_sq_acc is None
-                      else [carry.sigma_sq_acc.cpu()]))
+                      else [carry.sigma_sq_acc.cpu()])
+                   + [t.cpu() for t in sampler.draw_leaves(carry.draws)]
+                   + ([] if carry.y_imp_acc is None
+                      else [carry.y_imp_acc.cpu()]))
     counts = (runner.captured, runner.replays, runner.eager_trips)
     return out, cuda_lib.launch_counts(), counts
 
@@ -881,3 +892,91 @@ def test_a_capture_survives_garbage_collected_inside_it(cuda, monkeypatch):
         for a, b in zip(eager[c], graph[c], strict=True):
             assert torch.equal(a, b)
     assert counts == (7, 11, 7)
+
+
+# the last knobs: missing values on every Lambda path (bf16: the float32
+# imputation inside a bf16 sweep, K4), the draw ring (with missing values
+# under the plain estimator: no H)
+_KNOBS = {"f32_missing": ({"lambda_kernel": "pallas"}, 0, 0.1),
+          "bf16_missing": ({"compute_dtype": "bf16"}, 0, 0.1),
+          "fused_missing": ({"lambda_kernel": "pallas-fused"}, 0, 0.1),
+          "f32_draws": ({"lambda_kernel": "pallas"}, 9, 0.0),
+          "plain_draws_missing": ({"lambda_kernel": "pallas",
+                                   "estimator": "plain"}, 9, 0.1)}
+
+
+@pytest.mark.parametrize("knob", sorted(_KNOBS))
+def test_knob_graph_chain_equals_eager_chain_bitwise(cuda, knob):
+    """Every leaf, the imputation sum and the draw ring included, of the
+    graphed chain bitwise the eager chain's (38 sweeps in trips of 5,
+    burn-in 11, thin 3: 9 saved draws fill the ring); the ring's slots
+    all written, the completed data finite."""
+    knobs, S, missing = _KNOBS[knob]
+    cfg = ModelConfig(num_shards=4, factors_per_shard=4, rho=0.9,
+                      sse_mode="gram", impute_missing=missing > 0, **knobs)
+    eager, n_eager, _ = _run_chains(cuda, cfg, False, num_stored_draws=S,
+                                    missing=missing)
+    graph, n_graph, c_graph = _run_chains(cuda, cfg, True,
+                                          num_stored_draws=S,
+                                          missing=missing)
+    n_ring = 0 if not S else 3 + (cfg.estimator == "scaled")
+    for c in range(2):
+        assert len(graph[c]) == 9 + n_ring + (missing > 0)
+        for i, (a, b) in enumerate(zip(eager[c], graph[c], strict=True)):
+            assert torch.equal(a, b), (c, i, float((a - b).abs().max()))
+        if S:
+            ring = graph[c][9]
+            assert (ring.abs().sum(dim=(1, 2, 3)) > 0).all()
+        if missing:
+            assert torch.isfinite(graph[c][-1]).all()
+    assert c_graph == (7, 11, 7) and n_graph == n_eager
+
+
+def test_two_replays_of_one_pattern_land_in_two_slots(cuda):
+    """Trips of one sweep, every sweep saved (burn-in 0, thin 1): the
+    same captured graph replays for every trip after the first, and
+    each replay writes the next ring slot - slot s holds the state after
+    sweep s + 1, all six distinct."""
+    cfg = ModelConfig(num_shards=4, factors_per_shard=4, rho=0.9,
+                      sse_mode="gram", lambda_kernel="pallas")
+    Y, _ = _small_data()
+    Yd = torch.as_tensor(preprocess(Y, 4, seed=0).data, device=cuda)
+    runner = sampler.ChainRunner(TorchNoise(0, cuda), Yd, cfg,
+                                 make_prior(cfg), burnin=0, thin=1,
+                                 unroll=1, num_stored_draws=6)
+    carry = runner.init_chain(0)
+    after = []
+    for _ in range(6):
+        carry, _, _ = runner.run_chunk(0, carry, 1)
+        after.append(carry.state.Lambda.clone())
+    assert runner.captured == 1 and runner.replays == 5
+    ring = carry.draws.Lambda
+    for s in range(6):
+        assert torch.equal(ring[s], after[s]), s
+        for t in range(s):
+            assert not torch.equal(ring[s], ring[t]), (s, t)
+
+
+def test_small_missing_and_draws_fits_run_their_kernels(cuda):
+    """A fit on data with 10% missing and a draw ring: K1 and K5 once per
+    sweep, the truth recovered, Y_imputed finite with the observed
+    entries the caller's, the ring chain-major."""
+    Y, St = _small_data()
+    Ym = Y.copy()
+    mask = np.random.default_rng(3).random(Y.shape) < 0.1
+    Ym[mask] = np.nan
+    cfg = FitConfig(
+        model=ModelConfig(num_shards=4, factors_per_shard=4, rho=0.9,
+                          lambda_kernel="pallas"),
+        run=RunConfig(burnin=150, mcmc=150, thin=2, num_chains=2,
+                      store_draws=True),
+        backend=BackendConfig(sse_mode="gram"))
+    res = fit(Ym, cfg, device=cuda)
+    assert np.isfinite(res.Sigma).all() and res.stats.nonfinite_count == 0
+    assert np.linalg.norm(res.Sigma - St) / np.linalg.norm(St) < 0.25
+    expected = dict.fromkeys(res.kernel_launches, 0)
+    expected.update({"chol_sample": 600, "sse_ps": 600})
+    assert res.kernel_launches == expected
+    assert np.isfinite(res.Y_imputed).all()
+    np.testing.assert_array_equal(res.Y_imputed[~mask], Ym[~mask])
+    assert res.draws["Lambda"].shape == (2, 75, 4, 24, 4)

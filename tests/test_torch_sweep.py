@@ -323,10 +323,21 @@ def test_assembly_matches_jax():
 
 
 def test_preprocess_refuses_missing_values():
+    """Of missing values, what the JAX package refuses: a column left with
+    fewer than 2 observed entries (1 unstandardized) and inf; a NaN entry
+    is a missing value, carried as NaN (tests/test_torch_missing.py)."""
     Y = _raw_y()
     Y[2, 3] = np.nan
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tpre.preprocess(Y, 4)
+    assert tpre.preprocess(Y, 4).n_missing == 1
+    Y[1:, 3] = np.nan
+    for mod in (tpre, jpre):
+        with pytest.raises(ValueError, match="fewer than 2 observed"):
+            mod.preprocess(Y, 4)
+    Y[1:, 3] = 1.0
+    Y[5, 6] = -np.inf
+    for mod in (tpre, jpre):
+        with pytest.raises(ValueError, match="infinite entries"):
+            mod.preprocess(Y, 4)
 
 
 def test_config_mirrors_jax_defaults():
