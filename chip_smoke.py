@@ -150,6 +150,31 @@
    knob off (``scripts/torch_sigma_hashes.py`` holds them against another
    tree).  ``python3 chip_smoke.py --knobs-only`` runs the kernel phase
    and this step alone, with no result line.
+14. Scale on one card, the streaming ingest and the chunked combine:
+   (a) config 5's data (step 12(c)) written as a float32 .npy and fitted
+   from its np.memmap under step 12(c)'s config with
+   materialize_sigma="auto" (packed: the input is lazy): the int8 panels
+   and scales bitwise the dense fit's (step 12(c)'s digest, or a dense
+   fit here), no Sigma and covariance() refused, K1 and K5 once per
+   sweep, the quality rule block by block, chain iterations/s,
+   preprocess_s and upload_s against the dense fit's, and the host peak
+   of preprocess + upload in a fresh ``--fit-child`` process (VmRSS
+   sampled from outside while the child ingests; its own ru_maxrss,
+   which CUDA's start-up may already have set higher, beside it) - it
+   must stay below half the dense (g, n, P) tensor; the dense array's
+   beside it, and the reckoning); (b) the
+   same with combine_chunks=16: graph == eager on one chain for 10
+   trips, that chain's float32 accumulator against the unchunked
+   chain's, the fit's int8 panels against (a)'s, peak allocated against
+   (a)'s, one saved sweep's transient chunked and unchunked, device busy
+   per sweep against the unchunked chain's with the add and GEMM
+   kernels' times; (c) step 4's Y made sparse (|y| below its 90th
+   percentile zeroed, 0.5% stored NaN, one all-zero column) fitted as a
+   SparseMatrix CSR on the f32 path: the upper panels and, under
+   materialize_sigma="always", Sigma bitwise the dense fit of the
+   densified array, Y_imputed None, n_missing equal, K1 and K5 once per
+   sweep.  ``python3 chip_smoke.py --ingest-only`` runs the kernel phase
+   and this step alone, with no result line.
 
 Any failed check exits non-zero before the last line.  The line before the
 last is the kernels' JSON record; the last line is
@@ -638,7 +663,7 @@ def adapt_fires(m, burnin: int) -> int:
 
 def graph_equality_phase(torch, cuda_lib, cfg, Y, card: str, label: str,
                          T: int, trips: int = 10, burn_trips: int = 2,
-                         num_stored_draws: int = 0) -> None:
+                         num_stored_draws: int = 0):
     """One chain, ``trips`` trips of T sweeps (burn-in ``burn_trips``
     trips, thin 3), eager and graphed from the same init: every leaf (the
     prior's and, under rank adaptation, the column mask), the
@@ -646,7 +671,7 @@ def graph_equality_phase(torch, cuda_lib, cfg, Y, card: str, label: str,
     draw ring of ``num_stored_draws`` slots and the launches bitwise.
     Under rank adaptation each trip is a chunk of its own, so the mask is
     read after every trip: the adaptations that fired and the trips that
-    changed it are printed."""
+    changed it are printed.  Returns the graphed chain's accumulator."""
     from dcfm_tpu_torch.models.sampler import (
         ChainRunner, DrawBuffers, state_leaves)
     from dcfm_tpu_torch.noise import TorchNoise
@@ -731,8 +756,10 @@ def graph_equality_phase(torch, cuda_lib, cfg, Y, card: str, label: str,
              f"differing trace row at sweep {first}, first differing leaf "
              f"in sweep order {leaf} (differing: "
              f"{[k for k, v in same.items() if not v]})")
+    acc = g["sigma_acc"]
     del got, e, g
     torch.cuda.empty_cache()
+    return acc
 
 
 def unroll_phase(torch, cfg, Y, card: str) -> None:
@@ -1058,11 +1085,15 @@ def fit_child(spec: str) -> None:
     rewinds, the elastic bookkeeping, the kernel launches, the effective
     ranks and the rel. Frobenius errors of Sigma and of the sample
     covariance).  With SPEC's "export", the fit's own serve artifact is
-    written there."""
+    written there.  With SPEC's "rss_probe", the host-peak probe of step
+    14 (``rss_probe``) instead."""
+    spec = json.loads(spec)
+    if "rss_probe" in spec:
+        rss_probe(spec)
+        return
     import torch
     import dcfm_tpu_torch as dt
     check(torch.cuda.is_available(), "the fit child sees no CUDA device")
-    spec = json.loads(spec)
     c = FIT
     Y, L, noise = synthetic(c["n"], c["p"], spec.get("k_true", c["k_true"]))
     Yfit = mcar(Y, spec["missing"])[0] if "missing" in spec else Y
@@ -1728,13 +1759,37 @@ def prior_update_profile(torch, cfg, Y, card: str, label: str,
     return upd
 
 
-def config5_phase(torch, dt, cuda_lib, k1, k5, card: str) -> dict:
+def config5_config(dt, **model):
+    """Step 12(c)'s fit config of BASELINE config 5 (ModelConfig knobs
+    ``model`` on top)."""
+    c = CONFIG5
+    return dt.FitConfig(
+        model=dt.ModelConfig(num_shards=c["g"], factors_per_shard=c["K"],
+                             rho=c["rho"], prior="horseshoe",
+                             rank_adapt=True, lambda_kernel="pallas",
+                             adapt=dt.AdaptConfig(**SCEN_ADAPT), **model),
+        run=dt.RunConfig(burnin=c["burnin"], mcmc=c["mcmc"], thin=c["thin"],
+                         seed=0, num_chains=c["chains"]),
+        backend=dt.BackendConfig(sse_mode="auto", fetch_dtype="quant8"),
+        materialize_sigma="never")
+
+
+def q8_digest(res) -> str:
+    """sha256 of a quant8 fit's int8 panels and per-panel scales: two fits
+    hold the same panels bit for bit iff their digests agree."""
+    h = hashlib.sha256(np.ascontiguousarray(res._q8_panels).view(np.uint8))
+    h.update(np.ascontiguousarray(res._q8_scales, np.float32).tobytes())
+    return h.hexdigest()
+
+
+def config5_phase(torch, dt, cuda_lib, k1, k5, card: str) -> tuple:
     """(12c) BASELINE config 5 on one card: horseshoe + rank_adapt at g =
     256, P = 196, p = 50,176, quant8 and no dense Sigma; K1 and K5 at its
     batch against their plain versions, the memory reckoned before the
     fit and measured, 800 launches of each, the quality rule block by
     block on the card, the effective ranks, chain iterations/s, device
-    busy per sweep.  Returns the fit's launches."""
+    busy per sweep.  Returns the fit's launches and its reference for step
+    14 (the int8 panels' digest, the phase seconds, the peak)."""
     from dcfm_tpu_torch.models.state import num_padded_pairs
     c = CONFIG5
     g, K, P = c["g"], c["K"], c["p"] // c["g"]
@@ -1767,15 +1822,7 @@ def config5_phase(torch, dt, cuda_lib, k1, k5, card: str) -> dict:
         f"fetch's chain sum takes the temporary's place and the quant8 "
         f"cast adds two float32 temporaries of the {n_pairs} kept panels "
         f"({2 * n_pairs * P * P * 4} bytes): peak ~{reckon} bytes")
-    cfg = dt.FitConfig(
-        model=dt.ModelConfig(num_shards=g, factors_per_shard=K,
-                             rho=c["rho"], prior="horseshoe",
-                             rank_adapt=True, lambda_kernel="pallas",
-                             adapt=dt.AdaptConfig(**SCEN_ADAPT)),
-        run=dt.RunConfig(burnin=c["burnin"], mcmc=c["mcmc"], thin=c["thin"],
-                         seed=0, num_chains=c["chains"]),
-        backend=dt.BackendConfig(sse_mode="auto", fetch_dtype="quant8"),
-        materialize_sigma="never")
+    cfg = config5_config(dt)
     dt.fit(Y5, dataclasses.replace(cfg, run=dt.RunConfig(burnin=2,
                                                           mcmc=2)))
     torch.cuda.synchronize()
@@ -1784,6 +1831,8 @@ def config5_phase(torch, dt, cuda_lib, k1, k5, card: str) -> dict:
     res, launches, wall = counted_fit(torch, dt, cuda_lib, cfg, Y5)
     peak = torch.cuda.max_memory_allocated()
     ph = res.phase_seconds
+    ref = {"q8": q8_digest(res), "phase": ph, "peak": peak}
+    say(f"config 5 int8 panels and scales sha256 {ref['q8']}")
     sweeps = c["chains"] * (c["burnin"] + c["mcmc"])
     say(f"config 5 fit: {sweeps} sweeps in {ph['chain_s']:.3f} s chain "
         f"time = {sweeps / ph['chain_s']:.2f} chain iterations/s (wall "
@@ -1818,7 +1867,7 @@ def config5_phase(torch, dt, cuda_lib, k1, k5, card: str) -> dict:
     del res
     torch.cuda.empty_cache()
     sweep_profile(torch, cfg, Y5, card, "config 5 horseshoe+adapt")
-    return launches
+    return launches, ref
 
 
 def scenario_kill_phase(torch, dt, cuda_lib, card: str, Y4, work: str
@@ -1902,7 +1951,7 @@ def scenario_phase(torch, dt, cuda_lib, k1, k5, card: str, Y, L, noise,
     the DL fit at the north-star width (BASELINE config 4's prior on
     config 3's data) with its prior update's device time; (c) config 5;
     (d) the horseshoe + rank_adapt kill and resume.  Returns the launches
-    of each path's fit."""
+    of each path's fit and config 5's reference for step 14."""
     c = FIT
     t0 = time.perf_counter()
     Y4, _, _ = synthetic(c["n"], c["p"], 4)
@@ -1940,12 +1989,12 @@ def scenario_phase(torch, dt, cuda_lib, k1, k5, card: str, Y, L, noise,
             prior_update_profile(torch, cfg, Y4, card, label, busy)
     launches = {"dl": got}
     say(f"scenario DL phase done in {time.perf_counter() - t0:.1f} s")
-    launches["config 5 horseshoe+adapt"] = config5_phase(
+    launches["config 5 horseshoe+adapt"], c5 = config5_phase(
         torch, dt, cuda_lib, k1, k5, card)
     say(f"config 5 phase done in {time.perf_counter() - t0:.1f} s")
     scenario_kill_phase(torch, dt, cuda_lib, card, Y4, work)
     say(f"scenario phase done in {time.perf_counter() - t0:.1f} s")
-    return launches
+    return launches, c5
 
 
 # ---------------------------------------------------------------------------
@@ -2260,6 +2309,434 @@ def knobs_phase(torch, dt, cuda_lib, card: str, Y, L, noise, digests: dict,
         "tree)")
 
 
+# ---------------------------------------------------------------------------
+# (14) scale on one card: the streaming ingest and the chunked combine
+# ---------------------------------------------------------------------------
+
+# the chunked combine's ranges at config 5 (16 divides g = 256)
+CONFIG5_CHUNKS = 16
+
+
+def vm_kb(status: str, field: str) -> int:
+    """A kB field (VmRSS, VmHWM) of a /proc/<pid>/status text."""
+    for line in status.splitlines():
+        if line.startswith(field + ":"):
+            return int(line.split()[1])
+    fail(f"no {field} in a /proc status")
+
+
+def rss_probe(spec: dict) -> None:
+    """``--fit-child '{"rss_probe": PATH, "g": G}'``: the preprocess and the
+    upload to the card of a config-5 fit of the .npy at PATH (an
+    np.memmap, or with "dense" the array read whole before the baseline)
+    in this fresh process.  It says "ready" once CUDA is up and the input
+    open, and waits for a line on stdin, so that the parent can sample
+    its resident set from outside; then prints the two phases' seconds,
+    whether the ingest was lazy, and its own ru_maxrss growth (which
+    CUDA's start-up may already have set above anything the ingest
+    reaches)."""
+    import resource
+
+    import torch
+
+    from dcfm_tpu_torch.runtime.fetch import upload_data
+    from dcfm_tpu_torch.utils.preprocess import preprocess
+    check(torch.cuda.is_available(), "the probe child sees no CUDA device")
+    torch.ones(1 << 18).to("cuda")           # 1 MB: the context, the copy
+    torch.cuda.synchronize()
+    Y = np.load(spec["rss_probe"],
+                mmap_mode=None if spec.get("dense") else "r")
+    say("ready")
+    sys.stdin.readline()
+    before = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
+    t = time.perf_counter()
+    pre = preprocess(Y, spec["g"], seed=0)
+    t_pre = time.perf_counter() - t
+    t = time.perf_counter()
+    Yd = upload_data(pre.data, "float32", "cuda")
+    torch.cuda.synchronize()
+    t_up = time.perf_counter() - t
+    after = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
+    say(json.dumps({"ru_maxrss_growth_bytes": (after - before) * 1024,
+                    "preprocess_s": t_pre, "upload_s": t_up,
+                    "lazy": pre.is_lazy, "shape": list(Yd.shape),
+                    "shards_per_chunk": (pre.data.shards_per_chunk
+                                         if pre.is_lazy else None)}))
+
+
+def sampled_rss_probe(spec: dict, workdir: str, name: str,
+                      timeout: float = 300.0) -> dict:
+    """An ``rss_probe`` child whose resident set this process samples from
+    /proc/<pid>/status while it ingests (every ~0.2 ms: a lower bound of
+    its peak); returns the child's JSON line with "sampled_growth_bytes"
+    (the largest VmRSS seen minus the VmRSS at its "ready") and "samples".
+    """
+    log_path = os.path.join(workdir, name + ".out")
+    proc = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--fit-child",
+         json.dumps(spec)], stdin=subprocess.PIPE,
+        stdout=subprocess.PIPE, stderr=open(log_path, "w"), text=True)
+    try:
+        line = proc.stdout.readline().strip()
+        check(line == "ready", f"[{name}] the probe child said {line!r}: "
+              f"{open(log_path).read()[-2000:]}")
+        status = f"/proc/{proc.pid}/status"
+        base = peak = vm_kb(open(status).read(), "VmRSS")
+        proc.stdin.write("go\n")
+        proc.stdin.flush()
+        samples = 0
+        deadline = time.perf_counter() + timeout
+        while proc.poll() is None and time.perf_counter() < deadline:
+            try:
+                text = open(status).read()
+            except OSError:
+                break
+            if "VmRSS" not in text:
+                break                        # exiting: its mm is gone
+            peak = max(peak, vm_kb(text, "VmRSS"))
+            samples += 1
+            time.sleep(0.0002)
+        out, _ = proc.communicate(timeout=max(1.0, deadline
+                                              - time.perf_counter()))
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    check(proc.returncode == 0, f"[{name}] the probe child failed "
+          f"({proc.returncode}): {open(log_path).read()[-2000:]}")
+    res = json.loads(out.strip().splitlines()[-1])
+    res.update(sampled_growth_bytes=(peak - base) * 1024, samples=samples)
+    return res
+
+
+def check_path_launches(launches: dict, sweeps: int, label: str) -> None:
+    """K1 and K5 once per sweep, every other kernel not at all."""
+    say(f"{label} kernel launches: {json.dumps(launches)} (expected "
+        f"{sweeps} for chol_sample and sse_ps, 0 for the others)")
+    for name, count in launches.items():
+        want = sweeps if name in ("chol_sample", "sse_ps") else 0
+        check(count == want, f"[{label}] {name} launched {count} times in "
+              f"{sweeps} sweeps, expected {want}")
+
+
+def memmap_phase(torch, dt, cuda_lib, card: str, work: str, c5) -> dict:
+    """(14a) config 5 fitted from an np.memmap of its float32 .npy under
+    step 12(c)'s config with materialize_sigma="auto" (packed: the input
+    is lazy): the int8 panels and scales bitwise the dense fit's (step
+    12(c)'s, or one made here when ``c5`` is None), no Sigma and
+    covariance() refused, K1 and K5 once per sweep, the quality rule block
+    by block, chain iterations/s, preprocess_s and upload_s against the
+    dense fit's, and the host peak of the preprocess and upload in fresh
+    processes (the memmap's and, for reference, the dense array's)."""
+    from dcfm_tpu_torch.utils.preprocess import LazyMaterializationError
+    c = CONFIG5
+    g, P, n = c["g"], c["p"] // c["g"], c["n"]
+    sweeps = c["chains"] * (c["burnin"] + c["mcmc"])
+    Y5, L5, noise = synthetic(n, c["p"], c["k_true"])
+    path = os.path.join(work, "Y5.npy")
+    np.save(path, Y5)
+    Ymm = np.load(path, mmap_mode="r")
+    say(f"(14a) config 5 data as a float32 .npy: {os.path.getsize(path)} "
+        f"bytes on disk ({Y5.nbytes} of data), opened as an np.memmap")
+    cfg = config5_config(dt)
+    if c5 is None:                  # --ingest-only: the dense twin here
+        dt.fit(Y5, dataclasses.replace(cfg, run=dt.RunConfig(burnin=2,
+                                                              mcmc=2)))
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        res, launches, _ = counted_fit(torch, dt, cuda_lib, cfg, Y5)
+        c5 = {"q8": q8_digest(res), "phase": res.phase_seconds,
+              "peak": torch.cuda.max_memory_allocated()}
+        check_path_launches(launches, sweeps, "(14a) dense twin")
+        del res
+        torch.cuda.empty_cache()
+    dense_bytes = g * n * P * 4
+    probes = [sampled_rss_probe({"rss_probe": path, "g": g} | kind, work,
+                                f"rss_{i}")
+              for i, kind in enumerate(({}, {"dense": True}))]
+    mm_p, dense_p = probes
+    check(mm_p["lazy"] and not dense_p["lazy"], "[14a] the probes' kinds")
+    spc = mm_p["shards_per_chunk"]
+    say(f"(14a) host peak of preprocess + upload in a fresh process, "
+        f"VmRSS sampled from outside ({mm_p['samples']} / "
+        f"{dense_p['samples']} samples): memmap "
+        f"{mm_p['sampled_growth_bytes']} bytes, dense "
+        f"{dense_p['sampled_growth_bytes']} bytes of growth, against half "
+        f"the dense (g, n, P) tensor, {dense_bytes // 2} bytes (the "
+        f"children's own ru_maxrss growth: {mm_p['ru_maxrss_growth_bytes']}"
+        f" / {dense_p['ru_maxrss_growth_bytes']}); reckoned for the memmap:"
+        f" a 4,194,304-byte row buffer of positioned reads plus a block of "
+        f"{spc} shards twice ({2 * spc * n * P * 4} bytes: the gathered "
+        f"columns and the shard-major block); preprocess / upload s: "
+        f"memmap {mm_p['preprocess_s']:.3f} / {mm_p['upload_s']:.3f}, "
+        f"dense {dense_p['preprocess_s']:.3f} / {dense_p['upload_s']:.3f}; "
+        f"{card}")
+    check(mm_p["sampled_growth_bytes"] < dense_bytes // 2,
+          f"[14a] the memmap ingest's host peak "
+          f"{mm_p['sampled_growth_bytes']} bytes is not below half the "
+          f"dense tensor ({dense_bytes // 2})")
+    lazy_cfg = dataclasses.replace(cfg, materialize_sigma="auto")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    res, launches, wall = counted_fit(torch, dt, cuda_lib, lazy_cfg, Ymm)
+    peak = torch.cuda.max_memory_allocated()
+    ph = res.phase_seconds
+    check_path_launches(launches, sweeps, "(14a) memmap")
+    check(res.preprocess.is_lazy and res.Sigma is None
+          and res.graphs["replays"] > 0,
+          "[14a] the memmap fit was not lazy, formed a Sigma or ran no graph")
+    check(res.stats.nonfinite_count == 0 and res.stats.acc_nonfinite == 0,
+          f"[14a] chain health: {res.stats}")
+    try:
+        res.covariance()
+        refused = False
+    except LazyMaterializationError:
+        refused = True
+    check(refused, "[14a] covariance() of the lazy fit did not refuse")
+    digest = q8_digest(res)
+    say(f"(14a) memmap fit int8 panels and scales sha256 {digest}; dense "
+        f"fit {c5['q8']}: {'bitwise equal' if digest == c5['q8'] else 'DIFFER'}")
+    check(digest == c5["q8"], "[14a] the memmap fit's panels are not the "
+          "dense fit's")
+    d = c5["phase"]
+    say(f"(14a) memmap fit: {sweeps} sweeps in {ph['chain_s']:.3f} s chain "
+        f"time = {sweeps / ph['chain_s']:.2f} chain iterations/s (wall "
+        f"{wall:.3f} s); preprocess_s {ph['preprocess_s']:.3f} (dense "
+        f"{d['preprocess_s']:.3f}), upload_s {ph['upload_s']:.4f} (dense "
+        f"{d['upload_s']:.4f}); peak allocated {peak} bytes (dense fit "
+        f"{c5['peak']}); Sigma None, covariance() refused; {card}")
+    say("(14a) memmap phase_seconds: " + json.dumps(ph))
+    t = time.perf_counter()
+    err, err_s = blockwise_errors(torch, res, Y5, L5, noise)
+    say(f"(14a) memmap fit rel Frobenius error vs truth (block by block, "
+        f"{time.perf_counter() - t:.1f} s): {err:.6f} (sample covariance: "
+        f"{err_s:.6f}); ranks {res.stats.rank_min:g} / "
+        f"{res.stats.rank_mean:.4f} / {res.stats.rank_max:g}")
+    check(err < 0.25 and err <= 2 * err_s, f"[14a] rel Frobenius error "
+          f"{err:.4f} outside the quality rule (sample {err_s:.4f})")
+    out = {"Y5": Y5, "Ymm": Ymm, "peak": peak, "launches": launches,
+           "q8": np.asarray(res._q8_panels), "scales": np.asarray(
+               res._q8_scales, np.float32)}
+    del res
+    torch.cuda.empty_cache()
+    return out
+
+
+def max_panel_diff(torch, q_a, s_a, q_b, s_b, batch: int = 2048) -> tuple:
+    """(max |a - b| over the dequantized panels, int8 entries that differ,
+    panels whose scales differ), on the card in batches of panels."""
+    dev = torch.device("cuda")
+    worst, entries = 0.0, 0
+    for i in range(0, q_a.shape[0], batch):
+        sa = torch.as_tensor(s_a[i:i + batch], device=dev) / 127.0
+        sb = torch.as_tensor(s_b[i:i + batch], device=dev) / 127.0
+        a = torch.as_tensor(np.ascontiguousarray(q_a[i:i + batch]),
+                            device=dev)
+        b = torch.as_tensor(np.ascontiguousarray(q_b[i:i + batch]),
+                            device=dev)
+        entries += int((a != b).sum())
+        diff = (a.float() * sa[:, None, None]
+                - b.float() * sb[:, None, None]).abs().max()
+        worst = max(worst, float(diff))
+    return worst, entries, int((s_a != s_b).sum())
+
+
+def saved_trip_peak(torch, cfg, Y) -> int:
+    """Peak allocated above its start of one saved sweep of one eager chain
+    (after a burn-in sweep): the transient a saved draw's combine adds on
+    top of the carry."""
+    from dcfm_tpu_torch.models.sampler import ChainRunner
+    from dcfm_tpu_torch.noise import TorchNoise
+    m, Yd, prior = chain_setup(torch, cfg, Y)
+    runner = ChainRunner(TorchNoise(0, "cuda"), Yd, m, prior, burnin=1,
+                         thin=1, unroll=1, graphs=False)
+    runner.init_chain(0)
+    runner._trip(0, 0, (False,))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    runner._trip(0, 1, (True,))
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - before
+    del runner, Yd
+    torch.cuda.empty_cache()
+    return peak
+
+
+def chunked_phase(torch, dt, cuda_lib, card: str, a: dict) -> dict:
+    """(14b) (14a) with combine_chunks=CONFIG5_CHUNKS: graph == eager on
+    one chain for 10 trips (the accumulators included) and that chain's
+    float32 accumulator against the unchunked chain's, the fit from the
+    memmap with K1 and K5 once per sweep, the max |chunked - unchunked|
+    of its int8 panels, peak allocated against (14a)'s, one saved sweep's
+    transient chunked and unchunked, and device busy per sweep against
+    the unchunked chain's with the add and GEMM kernels' times (the
+    accumulator add and the combine)."""
+    c = CONFIG5
+    sweeps = c["chains"] * (c["burnin"] + c["mcmc"])
+    cfg = config5_config(dt, combine_chunks=CONFIG5_CHUNKS)
+    label = f"config 5 combine_chunks={CONFIG5_CHUNKS}"
+    acc = graph_equality_phase(torch, cuda_lib, cfg, a["Y5"], card, label,
+                               8, trips=10, burn_trips=4)
+    flat = graph_equality_phase(torch, cuda_lib, config5_config(dt),
+                                a["Y5"], card, "config 5 unchunked", 8,
+                                trips=10, burn_trips=4)
+    top = float(flat.abs().max())
+    worst = float((acc - flat).abs().max())
+    say(f"(14b) the same chain's float32 accumulator after 10 trips, "
+        f"chunked against unchunked: max |difference| {worst:.6g} of a "
+        f"largest entry {top:.6g} ({worst / top:.3g} relative); "
+        f"bitwise {bool(torch.equal(acc, flat))}")
+    # float32: the chunked GEMMs may take other cuBLAS algorithms, whose
+    # K-term sums round in another order (the tolerance of the CPU tests)
+    check(worst <= 1e-5 * top, f"[14b] chunked accumulator off by {worst} "
+          f"(> 1e-5 of {top})")
+    del acc, flat
+    torch.cuda.empty_cache()
+    from dcfm_tpu_torch.models.state import num_padded_pairs
+    g, P, K = c["g"], c["p"] // c["g"], c["K"]
+    Qp = num_padded_pairs(g)
+    trips = {x: saved_trip_peak(torch, config5_config(dt, combine_chunks=x),
+                                a["Y5"]) for x in (1, CONFIG5_CHUNKS)}
+    say(f"(14b) one saved sweep's transient above the carry (peak "
+        f"allocated above its start, eager): unchunked {trips[1]} bytes, "
+        f"combine_chunks={CONFIG5_CHUNKS} {trips[CONFIG5_CHUNKS]} bytes; "
+        f"reckoned: the panel temporary {Qp * P * P * 4} / "
+        f"{(Qp // CONFIG5_CHUNKS) * P * P * 4} bytes plus three (Q, P, K) "
+        f"gathers of {Qp * P * K * 4} / {(Qp // CONFIG5_CHUNKS) * P * K * 4} "
+        f"bytes; {card}")
+    check(trips[CONFIG5_CHUNKS] < trips[1], "[14b] the chunked combine did "
+          "not shrink a saved sweep's transient")
+    lazy_cfg = dataclasses.replace(cfg, materialize_sigma="auto")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    res, launches, wall = counted_fit(torch, dt, cuda_lib, lazy_cfg,
+                                      a["Ymm"])
+    peak = torch.cuda.max_memory_allocated()
+    ph = res.phase_seconds
+    check_path_launches(launches, sweeps, "(14b) chunked")
+    check(res.Sigma is None and res.graphs["replays"] > 0
+          and res.stats.nonfinite_count == 0
+          and res.stats.acc_nonfinite == 0,
+          f"[14b] the chunked fit: Sigma formed, no graph, or {res.stats}")
+    worst, entries, scales = max_panel_diff(
+        torch, np.asarray(res._q8_panels),
+        np.asarray(res._q8_scales, np.float32), a["q8"], a["scales"])
+    top = float(np.abs(a["scales"]).max())
+    say(f"(14b) the fits' int8 panels: max |chunked - unchunked| of the "
+        f"dequantized panels {worst:.6g} (largest panel scale {top:.6g}; "
+        f"one int8 step of it {top / 127:.6g}), {entries} int8 entries "
+        f"and {scales} panel scales differ")
+    # the f32 tolerance carried through the quant8 link: a panel entry may
+    # round to the neighbouring int8 step when its float32 sum differs in
+    # the last places
+    check(worst <= 1.01 * top / 127, f"[14b] the chunked panels differ by "
+          f"{worst} > one int8 step of the largest scale")
+    say(f"(14b) chunked fit: {sweeps} sweeps in {ph['chain_s']:.3f} s chain "
+        f"time = {sweeps / ph['chain_s']:.2f} chain iterations/s (wall "
+        f"{wall:.3f} s); peak allocated {peak} bytes ({peak / 2**30:.3f} "
+        f"GiB) against the unchunked {a['peak']} bytes "
+        f"({a['peak'] / 2**30:.3f} GiB); {card}")
+    say("(14b) chunked phase_seconds: " + json.dumps(ph))
+    del res
+    torch.cuda.empty_cache()
+    busy = {}
+    for name, cfgx in (("unchunked", config5_config(dt)), ("chunked", cfg)):
+        rows: list = []
+        b = sweep_profile(torch, cfgx, a["Y5"], card, f"config 5 {name}",
+                          rows)
+        adds = sum(us for k, us in rows if "Functor_add" in k)
+        gemms = sum(us for k, us in rows if "gemm" in k.lower())
+        busy[name] = b
+        say(f"(14b) config 5 {name}: device busy {b:.4f} ms per sweep; the "
+            f"add kernels (the accumulator's among them) {adds:.2f} us, the "
+            f"GEMM kernels (the combine's among them) {gemms:.2f} us per "
+            f"sweep; {card}")
+    say(f"(14b) device busy per sweep chunked / unchunked: "
+        f"{busy['chunked'] / busy['unchunked']:.4f}")
+    return launches
+
+
+def csr_phase(torch, dt, cuda_lib, card: str, Y) -> dict:
+    """(14c) step 4's Y at the north-star width made sparse (|y| below its
+    90th percentile zeroed), 0.5% stored NaN and one all-zero column,
+    fitted as a SparseMatrix CSR on the f32 path under
+    materialize_sigma="always" against the dense fit of the densified
+    array: upper panels and Sigma bitwise, Y_imputed None on the lazy fit,
+    n_missing equal, K1 and K5 once per sweep in both."""
+    from dcfm_tpu_torch.utils.preprocess import SparseMatrix
+    c = FIT
+    sweeps = c["chains"] * (c["burnin"] + c["mcmc"])
+    Ys = np.array(Y, np.float32, copy=True)
+    Ys[np.abs(Ys) < np.percentile(np.abs(Ys), 90)] = 0.0
+    Ys[np.random.default_rng(14).random(Ys.shape) < 0.005] = np.nan
+    Ys[:, 17] = 0.0
+    keep = (Ys != 0) | np.isnan(Ys)
+    rows, cols = np.nonzero(keep)
+    indptr = np.zeros(Ys.shape[0] + 1, np.int64)
+    np.cumsum(np.bincount(rows, minlength=Ys.shape[0]), out=indptr[1:])
+    csr = SparseMatrix(indptr, cols, Ys[rows, cols], Ys.shape)
+    say(f"(14c) CSR at the north-star width: {Ys.shape}, {rows.size} "
+        f"stored entries (density {keep.mean():.4f}), "
+        f"{int(np.isnan(Ys).sum())} stored NaN, column 17 all zero")
+    cfg = path_config(dt, *FIT_PATHS[0][1:3])
+    got, got_launches = {}, {}
+    for label, inp, kw in (("dense", Ys, {}),
+                           ("csr", csr, {"materialize_sigma": "always"})):
+        torch.cuda.synchronize()
+        res, launches, wall = counted_fit(
+            torch, dt, cuda_lib, dataclasses.replace(cfg, **kw), inp)
+        check_path_launches(launches, sweeps, f"(14c) {label}")
+        check(res.stats.nonfinite_count == 0
+              and res.stats.acc_nonfinite == 0,
+              f"[14c] {label} chain health: {res.stats}")
+        ph = res.phase_seconds
+        say(f"(14c) {label} fit: {sweeps / ph['chain_s']:.2f} chain "
+            f"iterations/s, preprocess_s {ph['preprocess_s']:.4f}, "
+            f"upload_s {ph['upload_s']:.4f}, wall {wall:.3f} s; {card}")
+        got[label], got_launches[label] = res, launches
+    d, s = got["dense"], got["csr"]
+    check(s.preprocess.is_lazy and not d.preprocess.is_lazy
+          and 17 in s.preprocess.zero_cols,
+          "[14c] the CSR ingest was not lazy or kept the zero column")
+    check(s.preprocess.n_missing == d.preprocess.n_missing > 0,
+          f"[14c] n_missing {s.preprocess.n_missing} != "
+          f"{d.preprocess.n_missing}")
+    check(s.Y_imputed is None and d.Y_imputed is not None,
+          "[14c] Y_imputed: the lazy fit must have none, the dense one one")
+    same_panels = bool(np.array_equal(s.upper_panels, d.upper_panels))
+    same_sigma = sigma_digest(s.Sigma) == sigma_digest(d.Sigma)
+    say(f"(14c) CSR against dense: upper panels bitwise {same_panels}, "
+        f"Sigma sha256 {sigma_digest(s.Sigma)} / {sigma_digest(d.Sigma)} "
+        f"(bitwise {same_sigma}); n_missing {s.preprocess.n_missing}; "
+        f"Y_imputed None on the CSR fit")
+    check(same_panels and same_sigma,
+          "[14c] the CSR fit is not the dense fit bit for bit")
+    return got_launches
+
+
+def scale_phase(torch, dt, cuda_lib, card: str, Y, work: str,
+                c5=None) -> dict:
+    """(14) the streaming ingest and the chunked combine on one card.
+    Returns the launches of each of its fits."""
+    t0 = time.perf_counter()
+    a = memmap_phase(torch, dt, cuda_lib, card, work, c5)
+    launches = {"config 5 memmap": a["launches"]}
+    say(f"(14a) done in {time.perf_counter() - t0:.1f} s")
+    launches["config 5 memmap combine_chunks=16"] = chunked_phase(
+        torch, dt, cuda_lib, card, a)
+    del a
+    torch.cuda.empty_cache()
+    say(f"(14b) done in {time.perf_counter() - t0:.1f} s")
+    csr = csr_phase(torch, dt, cuda_lib, card, Y)
+    launches["north-star CSR"] = csr["csr"]
+    say(f"(14c) done in {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def k3_path(torch, bs, cuda_lib, rng) -> dict:
     """K3's launches: one call of its public op at the fit's batch, the
     counters zeroed just before and read just after."""
@@ -2278,7 +2755,11 @@ def k3_path(torch, bs, cuda_lib, rng) -> dict:
     return launches
 
 
-def sweep_profile(torch, cfg, Y, card: str, label: str) -> None:
+def sweep_profile(torch, cfg, Y, card: str, label: str,
+                  rows_out: list | None = None) -> float:
+    """Device busy ms per sweep of one graphed chain at the fit's save mix
+    (printed with the host ms and the top kernels); ``rows_out`` receives
+    every kernel's (name, us per sweep)."""
     from torch.profiler import ProfilerActivity, profile
 
     from dcfm_tpu_torch.api import CUDA_AUTO_UNROLL
@@ -2321,6 +2802,8 @@ def sweep_profile(torch, cfg, Y, card: str, label: str) -> None:
         + f"; {card}")
     for name, ms in rows[:12]:
         say(f"  {ms / n * 1e3:9.2f} us/sweep  {name[:160]}")
+    if rows_out is not None:
+        rows_out.extend((name, ms / n * 1e3) for name, ms in rows)
     del runner, carry
     torch.cuda.empty_cache()
     return busy
@@ -2522,6 +3005,16 @@ def main() -> None:
             shutil.rmtree(work, ignore_errors=True)
         say("knob phase only: no result is printed")
         return
+    if "--ingest-only" in sys.argv[1:]:
+        import shutil
+        import tempfile
+        work = tempfile.mkdtemp(prefix="dcfm_ingest_")
+        try:
+            scale_phase(torch, dt, cuda_lib, card, Y, work)
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
+        say("ingest phase only: no result is printed")
+        return
     for label, model, backend, _ in FIT_PATHS:
         graph_equality_phase(torch, cuda_lib, path_config(dt, model, backend),
                              Y, card, label, 8)
@@ -2567,11 +3060,13 @@ def main() -> None:
             f"{time.perf_counter() - t_start:.1f} s")
         elastic_phase(dt, card, work)
         say(f"elastic_phase done at {time.perf_counter() - t_start:.1f} s")
-        scen = scenario_phase(torch, dt, cuda_lib, k1, k5, card, Y, L,
-                              noise, work)
+        scen, c5 = scenario_phase(torch, dt, cuda_lib, k1, k5, card, Y, L,
+                                  noise, work)
         say(f"scenario_phase done at {time.perf_counter() - t_start:.1f} s")
         knobs_phase(torch, dt, cuda_lib, card, Y, L, noise, digests, work)
         say(f"knobs_phase done at {time.perf_counter() - t_start:.1f} s")
+        scale = scale_phase(torch, dt, cuda_lib, card, Y, work, c5)
+        say(f"scale_phase done at {time.perf_counter() - t_start:.1f} s")
     finally:
         shutil.rmtree(work, ignore_errors=True)
     launches["cho_solve"] = k3_path(torch, bs, cuda_lib, rng)["cho_solve"]
@@ -2587,6 +3082,9 @@ def main() -> None:
             f"{k['launches']} launches on its path; {card}")
     for path, got in scen.items():
         say(f"scenario launches [{path}]: " + json.dumps(
+            {k: v for k, v in got.items() if v}))
+    for path, got in scale.items():
+        say(f"scale launches [{path}]: " + json.dumps(
             {k: v for k, v in got.items() if v}))
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {

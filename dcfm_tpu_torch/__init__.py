@@ -3,7 +3,12 @@
 The public API mirrors the JAX package's: ``fit(Y, FitConfig)`` and the
 reference-shaped ``divideconquer(Y, g, k, burnin, mcmc, thin, rho)``.
 Both run on the card by default and take ``device="cpu"`` to run the
-kernels' plain PyTorch versions instead.
+kernels' plain PyTorch versions instead.  The sparse and out-of-core
+ingest is ported: ``Y`` may be a ``utils.preprocess.SparseMatrix`` (CSR
+or CSC), a scipy.sparse matrix or an ``np.memmap``, streamed with the JAX
+package's semantics (the streaming names live in ``utils.preprocess``, as
+in the JAX package), and ``ModelConfig.combine_chunks`` splits the
+saved-draw combine on one device.
 """
 
 from dcfm_tpu_torch.api import FitResult, divideconquer, fit

@@ -22,7 +22,12 @@ values, imputed every sweep (``FitResult.Y_imputed``); under
 ``RunConfig.store_draws`` the draw ring comes back as ``FitResult.draws``
 (``covariance_credible_interval``); under ``RunConfig.early_stop="rhat"``
 the chain stops at the first converged chunk boundary
-(``stopped_at_iter``, ``rhat_trajectory``).
+(``stopped_at_iter``, ``rhat_trajectory``).  ``Y`` may be sparse
+(``utils.preprocess.SparseMatrix`` CSR/CSC, a scipy.sparse matrix) or
+out of core (``np.memmap``): preprocessing streams it, the upload moves
+it block of shards by block of shards, and the panels are bitwise those
+of the dense fit of the same data; such a fit keeps Sigma packed unless
+``materialize_sigma="always"`` and returns no ``Y_imputed``.
 
 Entry points run on the card (``device="cuda"``) unless the caller asks
 for the CPU.  On the card the chain always runs as CUDA graphs of
@@ -46,7 +51,7 @@ import numpy as np
 import torch
 
 from dcfm_tpu_torch.config import (
-    _INGEST, BackendConfig, FitConfig, ModelConfig, RunConfig, validate)
+    BackendConfig, FitConfig, ModelConfig, RunConfig, validate)
 from dcfm_tpu_torch.models.adapt import effective_ranks
 from dcfm_tpu_torch.models.priors import make_prior
 from dcfm_tpu_torch.models.sampler import (
@@ -57,7 +62,7 @@ from dcfm_tpu_torch.ops import cuda_lib
 from dcfm_tpu_torch.runtime.fetch import (
     Drain, accumulator_window, assemble_q8_sigma, elastic_pooled_draws,
     fetch_prep, fetch_sd_prep, fetch_upper, quant8_fetch_assemble,
-    quant8_start, upload_host_array)
+    quant8_start, upload_data)
 from dcfm_tpu_torch.runtime.pipeline import StreamingFetcher, run_chain
 from dcfm_tpu_torch.serve.artifact import (
     PosteriorArtifact, begin_streamed_artifact, export_fit_result,
@@ -68,7 +73,8 @@ from dcfm_tpu_torch.utils.estimate import (
     assemble_from_q8, assemble_from_upper, dequantize_panels,
     draw_covariance_entries, full_blocks_from_upper)
 from dcfm_tpu_torch.utils.preprocess import (
-    PreprocessResult, caller_to_shard_index, preprocess, restore_data_matrix)
+    PreprocessResult, caller_to_shard_index, is_streaming_input, preprocess,
+    restore_data_matrix)
 
 # materialize_sigma="auto" assembles the dense (p, p) posterior mean only
 # up to this many used columns; past it fit() keeps the packed panels
@@ -201,15 +207,19 @@ class FitResult:
                    reinsert_zero_cols: bool = False) -> np.ndarray:
         """The dense covariance from the panels; with both options on it
         is ``Sigma``, bit for bit (under quant8 it is assembled from the
-        int8 panels, as Sigma is)."""
+        int8 panels, as Sigma is).  A lazily-ingested fit refuses it
+        (``LazyMaterializationError``) unless its config opted in
+        (``materialize_sigma="always"``)."""
+        force = self.config.materialize_sigma == "always"
         if self._q8_panels is not None:
             return assemble_from_q8(
                 self._q8_panels, self._q8_scales, self.preprocess,
                 destandardize=destandardize,
-                reinsert_zero_cols=reinsert_zero_cols)
+                reinsert_zero_cols=reinsert_zero_cols, force=force)
         return assemble_from_upper(self.upper_panels, self.preprocess,
                                    destandardize=destandardize,
-                                   reinsert_zero_cols=reinsert_zero_cols)
+                                   reinsert_zero_cols=reinsert_zero_cols,
+                                   force=force)
 
     def posterior_sd(self, *, destandardize: bool = True,
                      reinsert_zero_cols: bool = False) -> np.ndarray:
@@ -219,14 +229,16 @@ class FitResult:
         for bit."""
         if self.sd_upper_panels is None:
             raise ValueError("run with ModelConfig(posterior_sd=True)")
+        force = self.config.materialize_sigma == "always"
         if self._sd_q8_panels is not None:
             return assemble_from_q8(
                 self._sd_q8_panels, self._sd_q8_scales, self.preprocess,
                 destandardize=destandardize,
-                reinsert_zero_cols=reinsert_zero_cols)
+                reinsert_zero_cols=reinsert_zero_cols, force=force)
         return assemble_from_upper(self.sd_upper_panels, self.preprocess,
                                    destandardize=destandardize,
-                                   reinsert_zero_cols=reinsert_zero_cols)
+                                   reinsert_zero_cols=reinsert_zero_cols,
+                                   force=force)
 
     def sigma_block(self, i: int, j: int, *,
                     destandardize: bool = True) -> np.ndarray:
@@ -359,18 +371,6 @@ def _diagnose(traces: np.ndarray, trace0: int, run: RunConfig) -> dict:
     return out
 
 
-def _refuse_streaming_input(Y) -> None:
-    """Sparse and out-of-core inputs, which the JAX package streams
-    (``dcfm_tpu/utils/preprocess.is_streaming_input``), are refused by name
-    before ``np.asarray`` would densify or mangle them."""
-    if (isinstance(Y, np.memmap)
-            or (hasattr(Y, "tocsc") and hasattr(Y, "shape"))
-            or all(hasattr(Y, a) for a in ("indptr", "indices", "data"))):
-        raise NotImplementedError(
-            f"sparse and out-of-core inputs ({type(Y).__name__}) are not "
-            f"ported to dcfm_tpu_torch yet: {_INGEST}")
-
-
 def _imputed(Y: np.ndarray, sums: list, pre: PreprocessResult,
              run: RunConfig, end: int, n_saved: int, elastic) -> np.ndarray:
     """``FitResult.Y_imputed`` from the chains' imputation sums, in the
@@ -399,16 +399,27 @@ def _imputed(Y: np.ndarray, sums: list, pre: PreprocessResult,
 def fit(Y: np.ndarray, cfg: FitConfig, *, device="cuda") -> FitResult:
     """Fit the divide-and-conquer Bayesian factor model to (n, p) data on
     ``device``; every draw comes from Philox streams seeded from
-    ``cfg.run.seed`` (noise.TorchNoise)."""
+    ``cfg.run.seed`` (noise.TorchNoise).  ``Y`` is a dense array or a
+    streaming input (``utils.preprocess.is_streaming_input``)."""
     if torch.backends.cuda.matmul.allow_tf32:
         raise RuntimeError(
             "torch.backends.cuda.matmul.allow_tf32 is on: the sweep's "
             "float32 matmuls must run in full float32")
-    _refuse_streaming_input(Y)
-    Y = np.asarray(Y)
-    if Y.ndim != 2:
-        raise ValueError(f"Y must be an (n, p) matrix, got shape {Y.shape}")
-    n, p = Y.shape
+    if is_streaming_input(Y):
+        # sparse / out-of-core ingest (utils/preprocess.SparseMatrix,
+        # scipy.sparse, np.memmap): never densified here - preprocess
+        # streams it column-wise, and the upload holds one block of shards
+        # at a time
+        if len(Y.shape) != 2:
+            raise ValueError(
+                f"Y must be an (n, p) matrix, got shape {tuple(Y.shape)}")
+        n, p = (int(d) for d in Y.shape)
+    else:
+        Y = np.asarray(Y)
+        if Y.ndim != 2:
+            raise ValueError(
+                f"Y must be an (n, p) matrix, got shape {Y.shape}")
+        n, p = Y.shape
     validate(cfg, n, p)
     device = torch.device(device)
     m, run, be = cfg.model, cfg.run, cfg.backend
@@ -429,14 +440,14 @@ def fit(Y: np.ndarray, cfg: FitConfig, *, device="cuda") -> FitResult:
         # only, so the config (and a checkpoint's) round-trips unchanged
         m = dataclasses.replace(m, impute_missing=True)
     S_draws = run.num_saved if run.store_draws else 0
+    # a lazily-ingested fit keeps its panels packed unless the config asks
+    # for the dense Sigma ("always")
     want_sigma = (cfg.materialize_sigma == "always"
-                  or (cfg.materialize_sigma == "auto"
+                  or (cfg.materialize_sigma == "auto" and not pre.is_lazy
                       and pre.p_used <= _AUTO_MATERIALIZE_MAX_P))
 
     t = time.perf_counter()
-    Yd = upload_host_array(pre.data, be.upload_dtype).to(device)
-    if Yd.dtype != torch.float32:
-        Yd = Yd.float()             # the device casts back on arrival
+    Yd = upload_data(pre.data, be.upload_dtype, device)
     _sync(device)
     phase["upload_s"] = time.perf_counter() - t
 
@@ -503,7 +514,10 @@ def fit(Y: np.ndarray, cfg: FitConfig, *, device="cuda") -> FitResult:
                  for k in DrawBuffers._fields
                  if getattr(carries[0].draws, k) is not None}
     Y_imputed = None
-    if carries[0].y_imp_acc is not None and pre.n_missing:
+    # never on a lazy ingest: the completed (n, p) matrix is the dense
+    # allocation the streaming path exists to avoid
+    if (carries[0].y_imp_acc is not None and pre.n_missing
+            and not pre.is_lazy):
         Y_imputed = _imputed(Y, [c.y_imp_acc for c in carries], pre, run,
                              end, n_saved, rr.elastic)
 
@@ -596,10 +610,12 @@ def fit(Y: np.ndarray, cfg: FitConfig, *, device="cuda") -> FitResult:
             if want_sigma:
                 t = time.perf_counter()
                 Sigma = assemble_from_upper(upper, pre,
-                                            reinsert_zero_cols=True)
+                                            reinsert_zero_cols=True,
+                                            force=True)
                 if want_sd:
                     Sigma_sd = assemble_from_upper(sd_upper, pre,
-                                                   reinsert_zero_cols=True)
+                                                   reinsert_zero_cols=True,
+                                                   force=True)
                 phase["assemble_s"] = time.perf_counter() - t
         # after a failed stream its join is exposed too
         phase["exposed_fetch_s"] = exposed0 + phase["fetch_s"]
@@ -644,7 +660,9 @@ def divideconquer(Y: np.ndarray, g: int, k: int, BURNIN: int, MCMC: int,
                   device="cuda") -> np.ndarray:
     """Reference-compatible entry point (``divideconquer.m:1``): returns the
     (p, p) posterior-mean covariance in the caller's column order and
-    scale, zero rows/cols at all-zero input columns."""
+    scale, zero rows/cols at all-zero input columns - what ``fit(...)
+    .Sigma`` is, so None for a sparse or out-of-core ``Y`` (the packed
+    panels are the result there: call ``fit`` and ``sigma_block``)."""
     if k % g != 0:
         raise ValueError(f"k={k} must be divisible by g={g} (K = k/g factors "
                          "per shard)")

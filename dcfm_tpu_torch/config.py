@@ -15,7 +15,8 @@ missing values (NaN input, imputed every sweep: ``impute_missing``), the
 thinned draw ring (``store_draws``) and the R-hat early stop
 (``early_stop``); checkpoints, resume (elastic across chain counts too)
 and the divergence sentinel on one process; the streamed fetch landing in
-a serve artifact (``stream_artifact``).  Every other knob the JAX package has is either
+a serve artifact (``stream_artifact``); the chunked combine on one device
+(``combine_chunks``).  Every other knob the JAX package has is either
 absent here (passing it is a ``TypeError``) or present and refused by
 :func:`validate` with a ``NotImplementedError`` that names the ROADMAP
 Queue A item that will port it - a knob is never silently ignored.  An
@@ -30,7 +31,6 @@ from typing import Optional
 
 # ROADMAP items the refusals point at (ROADMAP.md, "Queue A")
 _MESH = "ROADMAP Queue A item 4 (multi-GPU shards)"
-_INGEST = "ROADMAP Queue A item 6 (scale-out ingest)"
 _OUTER = "ROADMAP Queue A item 7 (outer layers)"
 
 
@@ -431,5 +431,3 @@ def validate(cfg: FitConfig, n: int, p: int) -> None:
         _refuse("warm_start", _OUTER)
     if be.mesh_devices > 1:
         _refuse(f"mesh_devices={be.mesh_devices}", _MESH)
-    if m.combine_chunks != 1:
-        _refuse(f"combine_chunks={m.combine_chunks}", _MESH)

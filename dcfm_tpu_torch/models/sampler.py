@@ -23,7 +23,9 @@ on the completed matrix, which saved draws also sum into ``y_imp_acc``;
 under ``RunConfig.store_draws`` saved draws are written into the draw ring
 (``DrawBuffers``) at a slot computed on the device from the iteration
 tensor ``ChainRunner._its``, never from a Python int a capture would bake
-in.
+in.  Under ``ModelConfig.combine_chunks`` a saved draw's panels are formed
+and added range by range of the packed-pair axis (:func:`add_panels`), so
+the per-draw temporary is one range's.
 """
 
 from __future__ import annotations
@@ -245,6 +247,42 @@ def trip_lengths(num_iters: int, unroll: int) -> list:
     return [unroll] * full + ([rest] if rest else [])
 
 
+def pair_chunks(Q: int, chunks: int) -> list:
+    """The chunked combine's split of the packed-pair axis of length ``Q``
+    into ``chunks`` contiguous ranges (c0, c1) at (i * Q) // chunks, the
+    JAX package's bounds (ModelConfig.combine_chunks)."""
+    bounds = [(i * Q) // chunks for i in range(chunks + 1)]
+    return list(zip(bounds[:-1], bounds[1:]))
+
+
+def add_panels(sigma_acc: torch.Tensor, sigma_sq_acc: Optional[torch.Tensor],
+               state: SamplerState, rho: float, rows: torch.Tensor,
+               cols: torch.Tensor, chunks: list, *,
+               eta: Optional[torch.Tensor] = None,
+               H_grid: Optional[torch.Tensor] = None,
+               compute_dtype: Optional[torch.dtype] = None) -> None:
+    """A saved draw's packed panels added to the accumulators in place,
+    range by range of ``chunks`` (:func:`pair_chunks`): the panels of pairs
+    [c0, c1) from ``covariance_panels`` on those pairs' slices, then
+    ``sigma_acc[c0:c1] += blocks`` (and the squares into ``sigma_sq_acc``)
+    - the single-device body of the JAX package's chunked combine, whose
+    per-draw temporary is one range's panels.  The ranges are Python ints,
+    fixed in every captured graph; the JAX package's mesh rendezvous token
+    has no counterpart on one device."""
+    for c0, c1 in chunks:
+        blocks = covariance_panels(
+            state.Lambda, state.ps, rho, rows[c0:c1], cols[c0:c1],
+            eta_all=eta, compute_dtype=compute_dtype, H_grid=H_grid)
+        sigma_acc[c0:c1].add_(blocks)
+        if sigma_sq_acc is not None:
+            # the JAX package's acc_sq + blocks * blocks: the square
+            # rounded on its own (an in-place multiply, no second
+            # temporary), then the add - two kernels, so no compiler can
+            # contract them into an FMA
+            sigma_sq_acc[c0:c1].add_(blocks.mul_(blocks))
+        del blocks
+
+
 class ChainRunner:
     """Runs the chains of one fit on ``Y`` in trips of ``unroll`` sweeps.
 
@@ -288,6 +326,9 @@ class ChainRunner:
         rows, cols = packed_pair_indices(Y.shape[0])
         self._rows = torch.as_tensor(rows, dtype=torch.long, device=Y.device)
         self._cols = torch.as_tensor(cols, dtype=torch.long, device=Y.device)
+        # the chunked combine's ranges of the packed-pair axis
+        # (ModelConfig.combine_chunks; one range when it is 1)
+        self._pair_chunks = pair_chunks(rows.size, cfg.combine_chunks)
         # the combine's input dtype: the combine_dtype knob, or the
         # sweep-wide bf16 policy; the accumulator stays float32 either way
         self._c_dtype = (torch.bfloat16 if (cfg.combine_dtype == "bfloat16"
@@ -520,19 +561,13 @@ class ChainRunner:
             if pattern[j]:
                 eta = (sq_r * state.X[None] + sq_1mr * state.Z
                        if cfg.estimator == "scaled" else None)
-                # the combine's cross-moments, kept for the ring too
+                # the combine's cross-moments, formed once per saved draw
+                # for every chunk and kept for the ring too
                 H_grid = None if eta is None else cross_moments(eta)
-                blocks = covariance_panels(
-                    state.Lambda, state.ps, cfg.rho, self._rows, self._cols,
-                    eta_all=eta, compute_dtype=self._c_dtype,
-                    H_grid=H_grid)
-                carry.sigma_acc += blocks
-                if carry.sigma_sq_acc is not None:
-                    # the JAX package's acc_sq + blocks * blocks: the
-                    # square rounded on its own (an in-place multiply, no
-                    # second temporary), then the add - two kernels, so
-                    # no compiler can contract them into an FMA
-                    carry.sigma_sq_acc += blocks.mul_(blocks)
+                add_panels(carry.sigma_acc, carry.sigma_sq_acc, state,
+                           cfg.rho, self._rows, self._cols,
+                           self._pair_chunks, eta=eta, H_grid=H_grid,
+                           compute_dtype=self._c_dtype)
                 if carry.y_imp_acc is not None:
                     carry.y_imp_acc += Yc
                 if carry.draws is not None:

@@ -255,9 +255,33 @@ def quant8_fetch_assemble(started: tuple, pre: PreprocessResult,
 def assemble_q8_sigma(q8: np.ndarray, scales: np.ndarray,
                       pre: PreprocessResult) -> np.ndarray:
     """int8 panels -> the caller-coordinate Sigma (de-standardized, zero
-    columns reinserted)."""
+    columns reinserted); the fit calls it only where it wants the dense
+    Sigma (``materialize_sigma``), so a lazy ingest's refusal is lifted."""
     return assemble_from_q8(q8, scales, pre, destandardize=True,
-                            reinsert_zero_cols=True)
+                            reinsert_zero_cols=True, force=True)
+
+
+def upload_data(data, upload_dtype: str, device) -> torch.Tensor:
+    """The (g, n, P) standardized data on ``device`` as float32, having
+    crossed the link in ``upload_dtype`` (:func:`upload_host_array`; the
+    device widens it on arrival).  A lazy shard source
+    (``utils.preprocess.LazyShardData``, streaming ingest) is uploaded
+    block of shards by block of shards into one device tensor allocated
+    up front, so the host holds one block (``shards_per_chunk``) at a
+    time, never the dense (g, n, P) array; its bytes on the device are
+    the dense upload's, bit for bit."""
+    device = torch.device(device)
+    if isinstance(data, np.ndarray):
+        Yd = upload_host_array(data, upload_dtype).to(device)
+        return Yd if Yd.dtype == torch.float32 else Yd.float()
+    g = data.shape[0]
+    Yd = torch.empty(tuple(data.shape), dtype=torch.float32, device=device)
+    step = data.shards_per_chunk
+    for lo in range(0, g, step):
+        hi = min(lo + step, g)
+        Yd[lo:hi].copy_(upload_host_array(data.chunk(lo, hi),
+                                          upload_dtype).to(device))
+    return Yd
 
 
 def upload_host_array(data: np.ndarray, upload_dtype: str) -> torch.Tensor:

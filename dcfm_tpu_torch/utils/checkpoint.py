@@ -275,13 +275,33 @@ def _num_chains(leaves: dict) -> int:
     return int(it.shape[0]) if it.ndim else 1
 
 
-def data_fingerprint(data: np.ndarray) -> str:
-    """Cheap content hash of the dense sharded (g, n, P) data: its shape
-    and a strided sample (the JAX package's, dense branch)."""
+def data_fingerprint(data) -> str:
+    """Cheap content hash of the sharded (g, n, P) data: its shape and a
+    strided sample (the JAX package's).
+
+    Accepts the dense array or a lazy shard source
+    (utils.preprocess.LazyShardData): the lazy walk samples the same
+    C-order flat indices block of shards by block of shards, so both forms
+    of the same data hash identically and a sparse-ingested refit can
+    resume a dense checkpoint (and vice versa)."""
     h = hashlib.sha256()
     h.update(str(tuple(data.shape)).encode())
-    flat = np.ascontiguousarray(data).reshape(-1)
-    h.update(flat[:: max(1, flat.size // 65536)].tobytes())
+    if isinstance(data, np.ndarray):
+        flat = np.ascontiguousarray(data).reshape(-1)
+        h.update(flat[:: max(1, flat.size // 65536)].tobytes())
+        return h.hexdigest()[:16]
+    g, n, P = data.shape
+    size = g * n * P
+    idx = np.arange(0, size, max(1, size // 65536), dtype=np.int64)
+    step = data.shards_per_chunk
+    for lo in range(0, g, step):
+        hi = min(lo + step, g)
+        a, b = lo * n * P, hi * n * P
+        sel = idx[(idx >= a) & (idx < b)]
+        if sel.size:
+            # hashing is sequential: per-block updates hash the same
+            # bytes as the dense branch's one update
+            h.update(data.chunk(lo, hi).reshape(-1)[sel - a].tobytes())
     return h.hexdigest()[:16]
 
 

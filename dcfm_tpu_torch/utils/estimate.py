@@ -21,7 +21,8 @@ from typing import Optional
 import numpy as np
 
 from dcfm_tpu_torch import native
-from dcfm_tpu_torch.utils.preprocess import PreprocessResult, restore_covariance
+from dcfm_tpu_torch.utils.preprocess import (
+    LazyMaterializationError, PreprocessResult, restore_covariance)
 
 
 def upper_pair_indices(g: int) -> tuple[np.ndarray, np.ndarray]:
@@ -94,6 +95,7 @@ def assemble_numpy(
     *,
     destandardize: bool = True,
     reinsert_zero_cols: bool = False,
+    force: bool = False,
 ) -> np.ndarray:
     """The NumPy path of the assembly, entry for entry the native one:
     float32 ``panels`` with ``panel_scale=None``, or int8 panels with one
@@ -113,7 +115,16 @@ def assemble_numpy(
         blocks *= grid[:, :, None, None]
     return restore_covariance(stitch_blocks(blocks, symmetrize=False), pre,
                               destandardize=destandardize,
-                              reinsert_zero_cols=reinsert_zero_cols)
+                              reinsert_zero_cols=reinsert_zero_cols,
+                              force=force)
+
+
+def _refuse_lazy(pre: PreprocessResult, force: bool) -> None:
+    if pre.is_lazy and not force:
+        raise LazyMaterializationError(
+            "refusing the dense (p, p) assembly for a lazily-ingested "
+            "(sparse/out-of-core) fit; set FitConfig.materialize_sigma="
+            "'always' or query FitResult.sigma_block / the serve artifact")
 
 
 def assemble_from_upper(
@@ -122,9 +133,14 @@ def assemble_from_upper(
     *,
     destandardize: bool = True,
     reinsert_zero_cols: bool = False,
+    force: bool = False,
 ) -> np.ndarray:
     """Float32 upper block panels -> covariance in caller coordinates: the
-    native one-pass assembler, else the NumPy path (the same bits)."""
+    native one-pass assembler, else the NumPy path (the same bits).
+    Refuses a lazily-ingested ``pre`` unless ``force`` (what
+    ``materialize_sigma="always"`` sets): the output is the dense O(p^2)
+    matrix the streaming path exists to avoid."""
+    _refuse_lazy(pre, force)
     n_pairs, P, _ = upper.shape
     scale, out_map, p_out = assembly_maps(
         pre, g_from_pairs(n_pairs), P, destandardize=destandardize,
@@ -133,7 +149,7 @@ def assemble_from_upper(
     if out is not None:
         return out
     return assemble_numpy(upper, None, pre, destandardize=destandardize,
-                          reinsert_zero_cols=reinsert_zero_cols)
+                          reinsert_zero_cols=reinsert_zero_cols, force=True)
 
 
 def dequantize_panels(q_panels: np.ndarray,
@@ -152,14 +168,18 @@ def assemble_from_q8(
     *,
     destandardize: bool = True,
     reinsert_zero_cols: bool = False,
+    force: bool = False,
 ) -> np.ndarray:
     """Covariance STRAIGHT from int8-quantized panels: the native pass
     folds the dequantization in, so the float32 panels never materialize;
-    without the native library the NumPy path computes the same bits."""
+    without the native library the NumPy path computes the same bits.
+    Refuses a lazily-ingested ``pre`` unless ``force``."""
+    _refuse_lazy(pre, force)
     if not native.available():
         return assemble_numpy(q_panels, panel_scale, pre,
                               destandardize=destandardize,
-                              reinsert_zero_cols=reinsert_zero_cols)
+                              reinsert_zero_cols=reinsert_zero_cols,
+                              force=True)
     n_pairs, P, _ = q_panels.shape
     scale, out_map, p_out = assembly_maps(
         pre, g_from_pairs(n_pairs), P, destandardize=destandardize,

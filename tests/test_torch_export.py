@@ -169,14 +169,15 @@ def test_export_refuses_what_the_jax_package_refuses(tmp_path):
 
 
 def test_export_refuses_a_config_the_port_cannot_represent(tmp_path):
-    """A JAX-written file of a knob the port does not run (the chunked
-    combine, ``combine_chunks``; the horseshoe prior and draw storage this
-    test used are ported, see tests/test_torch_adapt.py and
-    tests/test_torch_draws.py) is refused naming its Queue A item; a
-    missing file is a FileNotFoundError."""
+    """A JAX-written file of a knob the port does not run (the shard mesh,
+    ``mesh_devices``; the horseshoe prior, draw storage and the chunked
+    combine this test used are ported, see tests/test_torch_adapt.py,
+    tests/test_torch_draws.py and tests/test_torch_combine_chunks.py) is
+    refused naming its Queue A item; a missing file is a
+    FileNotFoundError."""
     path = str(tmp_path / "cc.npz")
     dcfm_tpu.fit(_data(), dataclasses.replace(
-        _cfg(dcfm_tpu, sd=False, model={"combine_chunks": 2}),
+        _cfg(dcfm_tpu, sd=False, backend={"mesh_devices": 2}),
         checkpoint_path=path))
     with pytest.raises(NotImplementedError, match="Queue A item 4"):
         tart.export_from_checkpoint(path, _data(), str(tmp_path / "a"))

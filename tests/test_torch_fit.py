@@ -217,16 +217,18 @@ def _names_a_queue_a_item(message: str) -> bool:
 # checkpoint of another chain count (elastic) are ported and dropped out,
 # and so are the horseshoe and DL priors and rank_adapt
 # (test_ported_scenario_knobs_fit below fits them).  store_draws,
-# early_stop and impute_missing are ported too: their cases pair each with
-# a knob still refused, which is refused naming its own item - a ported
-# knob never masks a refusal (their invalid values are
-# test_scenario_knob_values_are_refused_as_in_the_jax_package's)
+# early_stop, impute_missing and combine_chunks are ported too: their cases
+# pair each with a knob still refused, which is refused naming its own
+# item - a ported knob never masks a refusal (their invalid values are
+# test_scenario_knob_values_are_refused_as_in_the_jax_package's and
+# test_invalid_values_are_value_errors_in_both_packages's)
 @pytest.mark.parametrize("model,run,backend,extra", [
-    ({"combine_chunks": 2}, {}, {}, {}),
+    ({"combine_chunks": 2}, {}, {"mesh_devices": 2}, {}),
     ({}, {"store_draws": True}, {"mesh_devices": 2}, {}),
     ({}, {"early_stop": "rhat", "num_chains": 2, "chunk_size": 1}, {},
      {"warm_start": dcfm_tpu_torch.config.WarmStart("w.npz")}),
-    ({"impute_missing": True, "combine_chunks": 2}, {}, {}, {}),
+    ({"impute_missing": True, "combine_chunks": 2}, {}, {},
+     {"warm_start": dcfm_tpu_torch.config.WarmStart("w.npz")}),
     ({}, {}, {"mesh_devices": 2}, {}),
     ({}, {}, {}, {"warm_start": dcfm_tpu_torch.config.WarmStart("w.npz")}),
 ])
@@ -321,32 +323,25 @@ def _refusal_messages() -> list:
 def test_every_refusal_names_a_queue_a_item():
     """Fault C1: refusals cited "'Still to port' item 8", which the ROADMAP
     never numbered.  Every ROADMAP citation in the package names a Queue A
-    item the ROADMAP lists, and the refusals outside config.validate
-    (streaming inputs, multi-process checkpoint sets; missing values and
-    the priors are ported) do too."""
+    item the ROADMAP lists, and the refusal outside config.validate
+    (multi-process checkpoint sets; missing values, the priors, the
+    streaming ingest and the chunked combine are ported) does too."""
     cited = [(f, m) for f, m in _refusal_messages()
              if re.search(r"item \d", m)]
-    # items 4, 6 and 7 are still to port (item 5 is ported: none cites it)
+    # items 4 and 7 are still to port (items 5 and 6 are ported: none
+    # cites them)
     assert {int(re.search(r"item (\d+)", m).group(1))
-            for _, m in cited} == {4, 6, 7}
+            for _, m in cited} == {4, 7}
     for name, message in cited:
         assert _names_a_queue_a_item(message), (name, message)
     import tempfile
-    import types
 
-    from dcfm_tpu_torch.api import _refuse_streaming_input
     from dcfm_tpu_torch.runtime.resume import refuse_multiprocess_sets
-    triple = types.SimpleNamespace(indptr=np.zeros(9, np.int64),
-                                   indices=np.zeros(0, np.int64),
-                                   data=np.zeros(0, np.float32))
     d = tempfile.mkdtemp()
     open(os.path.join(d, "ck.npz.proc0-of-2"), "wb").close()
-    for call in (lambda: _refuse_streaming_input(triple),
-                 lambda: refuse_multiprocess_sets(os.path.join(d,
-                                                               "ck.npz"))):
-        with pytest.raises(NotImplementedError) as e:
-            call()
-        assert _names_a_queue_a_item(str(e.value)), str(e.value)
+    with pytest.raises(NotImplementedError) as e:
+        refuse_multiprocess_sets(os.path.join(d, "ck.npz"))
+    assert _names_a_queue_a_item(str(e.value)), str(e.value)
 
 
 # fault C3: invalid values of knobs the port refuses are the JAX package's
@@ -381,30 +376,52 @@ def test_invalid_values_are_value_errors_in_both_packages(model, run,
     assert errors == [ValueError, ValueError]
 
 
-@pytest.mark.parametrize("kind", ["memmap", "scipy", "triple"])
-def test_streaming_inputs_are_refused_by_name(kind, tmp_path):
-    """Fault C4: np.memmap, scipy sparse matrices and any object with
-    indptr/indices/data (the JAX package streams all three) are refused
-    naming Queue A item 6, before np.asarray densifies or mangles them."""
+@pytest.mark.parametrize("kind", ["memmap", "scipy", "sparsematrix",
+                                  "triple"])
+def test_streaming_inputs_fit_as_their_dense_twin(kind, tmp_path):
+    """np.memmap, scipy sparse matrices and the port's SparseMatrix (the
+    streaming inputs of the JAX package) fit with panels bitwise the dense
+    fit's (fault C4 was their refusal before np.asarray mangled them; the
+    ingest is ported).  A bare object with indptr/indices/data/shape is no
+    streaming input in the JAX package: both packages raise its
+    ValueError."""
     Y, _ = make_synthetic(30, 8, 2, seed=0)
-    if kind == "memmap":
-        path = str(tmp_path / "Y.npy")
-        np.save(path, Y)
-        Y = np.load(path, mmap_mode="r")
-    elif kind == "scipy":
-        sparse = pytest.importorskip("scipy.sparse")
-        Y = sparse.csr_matrix(Y)
-    else:
-        import types
-        Y = types.SimpleNamespace(indptr=np.zeros(9, np.int64),
-                                  indices=np.zeros(0, np.int64),
-                                  data=np.zeros(0, np.float32),
-                                  shape=(30, 8))
     cfg = FitConfig(model=ModelConfig(num_shards=2, factors_per_shard=2,
                                       rho=0.5),
                     run=RunConfig(burnin=2, mcmc=2))
-    with pytest.raises(NotImplementedError, match="Queue A item 6"):
-        fit(Y, cfg, device="cpu")
+    if kind == "triple":
+        import types
+        Y = types.SimpleNamespace(indptr=np.zeros(31, np.int64),
+                                  indices=np.zeros(0, np.int64),
+                                  data=np.zeros(0, np.float32),
+                                  shape=(30, 8))
+        messages = []
+        for pkg, kw in ((dcfm_tpu, {}), (dcfm_tpu_torch, {"device": "cpu"})):
+            with pytest.raises(ValueError) as e:
+                pkg.fit(Y, pkg.FitConfig(
+                    model=pkg.ModelConfig(num_shards=2, factors_per_shard=2,
+                                          rho=0.5),
+                    run=pkg.RunConfig(burnin=2, mcmc=2)), **kw)
+            messages.append(str(e.value))
+        assert messages[0] == messages[1]
+        return
+    if kind == "memmap":
+        path = str(tmp_path / "Y.npy")
+        np.save(path, Y)
+        inp = np.load(path, mmap_mode="r")
+    elif kind == "scipy":
+        sparse = pytest.importorskip("scipy.sparse")
+        inp = sparse.csr_matrix(Y)
+    else:
+        from dcfm_tpu_torch.utils.preprocess import SparseMatrix
+        rows, cols = np.nonzero(Y)
+        indptr = np.zeros(31, np.int64)
+        np.cumsum(np.bincount(rows, minlength=30), out=indptr[1:])
+        inp = SparseMatrix(indptr, cols, Y[rows, cols], Y.shape)
+    res = fit(inp, cfg, device="cpu")
+    ref = fit(Y, cfg, device="cpu")
+    assert res.preprocess.is_lazy and res.Sigma is None
+    np.testing.assert_array_equal(res.upper_panels, ref.upper_panels)
 
 
 @pytest.mark.parametrize("model,match", [
@@ -455,13 +472,14 @@ def test_tf32_matmuls_are_refused():
 
 _GUARD = r"""
 import importlib, importlib.abc, pkgutil, sys
+REFUSED = ("jax", "jaxlib", "dcfm_tpu", "flax", "scipy")
 for name in list(sys.modules):
-    if name.split(".")[0] in ("jax", "jaxlib", "dcfm_tpu", "flax"):
+    if name.split(".")[0] in REFUSED:
         del sys.modules[name]
 
 class Refuse(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path, target=None):
-        if name.split(".")[0] in ("jax", "jaxlib", "dcfm_tpu", "flax"):
+        if name.split(".")[0] in REFUSED:
             raise ImportError("refused import of " + name)
         return None
 
@@ -471,16 +489,18 @@ mods = ["chip_smoke"] + [m.name for m in pkgutil.walk_packages(
     dcfm_tpu_torch.__path__, "dcfm_tpu_torch.")]
 for m in mods:
     importlib.import_module(m)
-bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "dcfm_tpu")]
+bad = [m for m in sys.modules
+       if m.split(".")[0] in ("jax", "dcfm_tpu", "scipy")]
 assert not bad, bad
 print(" ".join(mods))
 """
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
-    """Every module of dcfm_tpu_torch, and chip_smoke.py, imports with jax
-    and dcfm_tpu refused - the fetch, artifact, checkpoint, resume,
-    pipeline and sentinel modules among them."""
+    """Every module of dcfm_tpu_torch, and chip_smoke.py, imports with jax,
+    dcfm_tpu and scipy refused (scipy sparse inputs are duck-typed, as in
+    the JAX package) - the fetch, artifact, checkpoint, resume, pipeline,
+    sentinel and preprocess modules among them."""
     out = subprocess.run([sys.executable, "-c", _GUARD], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
@@ -492,4 +512,5 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "dcfm_tpu_torch.utils.checkpoint",
             "dcfm_tpu_torch.runtime.resume",
             "dcfm_tpu_torch.runtime.pipeline",
-            "dcfm_tpu_torch.resilience.sentinel"} <= set(mods)
+            "dcfm_tpu_torch.resilience.sentinel",
+            "dcfm_tpu_torch.utils.preprocess"} <= set(mods)

@@ -10,7 +10,9 @@ a checkpoint, an elastic resume, a failed capture raising, the scenario
 paths (the horseshoe and DL priors, rank adaptation) graphed bitwise the
 eager chain, and the last knobs: missing values (the imputation inside
 the graphs on the f32, bf16 and fused paths) and the draw ring (its slot
-a device tensor) graphed bitwise the eager chain.
+a device tensor) graphed bitwise the eager chain; the chunked combine
+graphed bitwise the eager chain, the lazy (sparse, memmap) upload bitwise
+the dense one, and a memmap fit's panels bitwise its dense twin's.
 
 They need an NVIDIA GPU with nvcc (the kernels are built on first use) and
 skip without one.  They import no JAX, so on the card they run without the
@@ -980,3 +982,81 @@ def test_small_missing_and_draws_fits_run_their_kernels(cuda):
     assert np.isfinite(res.Y_imputed).all()
     np.testing.assert_array_equal(res.Y_imputed[~mask], Ym[~mask])
     assert res.draws["Lambda"].shape == (2, 75, 4, 24, 4)
+
+
+@pytest.mark.parametrize("combine_chunks,posterior_sd", [(2, False),
+                                                         (4, True)])
+def test_chunked_combine_graph_equals_eager_bitwise(cuda, combine_chunks,
+                                                    posterior_sd):
+    """combine_chunks: the ranges are Python ints fixed at capture, so the
+    graphed chain is the eager one bit for bit - the accumulators (and
+    under posterior_sd the second moment) and the draw ring included - and
+    the chunked accumulator lies within float32 rounding of the unchunked
+    one (a smaller batched GEMM may take another cuBLAS algorithm)."""
+    cfg = ModelConfig(num_shards=4, factors_per_shard=4, rho=0.9,
+                      lambda_kernel="pallas", combine_chunks=combine_chunks,
+                      posterior_sd=posterior_sd)
+    eager, n_eager, _ = _run_chains(cuda, cfg, graphs=False,
+                                    num_stored_draws=9)
+    graph, n_graph, c_graph = _run_chains(cuda, cfg, graphs=True,
+                                          num_stored_draws=9)
+    for c in range(2):
+        for i, (a, b) in enumerate(zip(eager[c], graph[c], strict=True)):
+            assert torch.equal(a, b), (c, i, float((a - b).abs().max()))
+    assert n_graph == n_eager and c_graph[1] > 0
+    flat, _, _ = _run_chains(cuda, dataclasses.replace(cfg, combine_chunks=1),
+                             graphs=True, num_stored_draws=9)
+    n_leaves = len(state_leaf_names(cfg))
+    for c in range(2):
+        acc, ref = graph[c][n_leaves], flat[c][n_leaves]
+        torch.testing.assert_close(acc, ref, rtol=1e-5,
+                                   atol=1e-5 * float(ref.abs().max()))
+
+
+@pytest.mark.parametrize("upload_dtype", ["float32", "bfloat16", "float16"])
+@pytest.mark.parametrize("kind", ["csr", "memmap"])
+def test_chunked_lazy_upload_is_the_dense_upload(cuda, kind, upload_dtype,
+                                                 tmp_path, monkeypatch):
+    """A lazy ingest's upload, block of shards by block of shards into one
+    device tensor, holds the dense upload's bytes (NaN included)."""
+    from dcfm_tpu_torch.utils import preprocess as tpre
+    monkeypatch.setattr(tpre.LazyShardData, "_CHUNK_ELEMS", 3 * 150 * 4)
+    Y, _ = _small_data()
+    Y = Y.copy()
+    Y[np.abs(Y) < 0.3] = 0.0
+    Y[3, 5] = np.nan
+    if kind == "memmap":
+        np.save(str(tmp_path / "Y.npy"), Y)
+        inp = np.load(str(tmp_path / "Y.npy"), mmap_mode="r")
+    else:
+        rows, cols = np.nonzero((Y != 0) | np.isnan(Y))
+        indptr = np.zeros(Y.shape[0] + 1, np.int64)
+        np.cumsum(np.bincount(rows, minlength=Y.shape[0]), out=indptr[1:])
+        inp = tpre.SparseMatrix(indptr, cols, Y[rows, cols], Y.shape)
+    lazy = tpre.preprocess(inp, 24, seed=0)
+    dense = tpre.preprocess(Y, 24, seed=0)
+    assert lazy.data.shards_per_chunk == 3
+    a = fetch.upload_data(lazy.data, upload_dtype, cuda)
+    b = fetch.upload_data(dense.data, upload_dtype, cuda)
+    assert a.device.type == "cuda" and a.dtype == torch.float32
+    assert a.cpu().numpy().tobytes() == b.cpu().numpy().tobytes()
+
+
+def test_streaming_fit_on_the_card_is_its_dense_twin(cuda, tmp_path):
+    """A memmap fit on the card: K1 and K5 once per sweep, the panels the
+    dense fit's bit for bit, Sigma kept packed."""
+    Y, _ = _small_data()
+    np.save(str(tmp_path / "Y.npy"), Y)
+    cfg = FitConfig(
+        model=ModelConfig(num_shards=4, factors_per_shard=4, rho=0.9,
+                          lambda_kernel="pallas"),
+        run=RunConfig(burnin=20, mcmc=20, thin=2),
+        backend=BackendConfig(sse_mode="gram", fetch_dtype="quant8"))
+    res = fit(np.load(str(tmp_path / "Y.npy"), mmap_mode="r"), cfg,
+              device=cuda)
+    ref = fit(Y, cfg, device=cuda)
+    assert res.Sigma is None and ref.Sigma is not None
+    np.testing.assert_array_equal(res._q8_panels, ref._q8_panels)
+    np.testing.assert_array_equal(res._q8_scales, ref._q8_scales)
+    assert res.kernel_launches["chol_sample"] == 40
+    assert res.kernel_launches["sse_ps"] == 40
