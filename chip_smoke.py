@@ -175,6 +175,31 @@
    densified array, Y_imputed None, n_missing equal, K1 and K5 once per
    sweep.  ``python3 chip_smoke.py --ingest-only`` runs the kernel phase
    and this step alone, with no result line.
+15. The outer layers, at the north-star width on the float32 path with
+   quant8 streamed, chunks of 50 and unpermuted columns: (a) after a
+   warm-up, a fit not recorded, one recorded into a directory, one under
+   ``obs="auto"`` (landing in ``<checkpoint_path>.obs``) and one not
+   recorded again, all checkpointed: Sigma bitwise across them,
+   ``events_path``, the event log (``fit_start`` first, ``fit_done`` last,
+   one fresh ``resume_decision``, one ``chunk`` per boundary summing to
+   400 iterations, stream snapshots and drains, ``checkpoint_save`` up to
+   iteration 400, ``fit_done``'s stream summary = ``stream_stats``), the
+   gauges, the Chrome trace and ``summarize``; chain iterations/s recorded
+   and not, the log's bytes and the boundary fsyncs' count and seconds;
+   (d) ``backend="torch_cuda"`` bitwise the default fit, and a ``device=``
+   contradicting ``backend`` (or a JAX backend name) refused before any
+   card work; (b) ``profile_dir``: Sigma bitwise (a)'s, K1 and K5 among the
+   trace's kernels once per sweep, the trip ranges, chain iterations/s
+   against (d)'s unprofiled fit; (c) warm starts from (a)'s checkpoint
+   (20 burn-in + 200): 100 appended rows and 8 new shards (p = 72 x 157),
+   each decided warm with the donor's bytes in the first 64 shards'
+   Lambda and psi, held to the quality rule beside a cold fit of the same
+   schedule; graph == eager on two warm-started chains for one chunk; a
+   K = 4 donor decided cold with the JAX reason, its initial state a plain
+   fit's; a warm refit SIGKILLed in a child and resumed in a fresh one
+   (decision resume, no re-graft) bitwise the uninterrupted warm refit.
+   ``python3 chip_smoke.py --outer-only`` runs the kernel phase and this
+   step alone, with no result line.
 
 Any failed check exits non-zero before the last line.  The line before the
 last is the kernels' JSON record; the last line is
@@ -1084,9 +1109,11 @@ def fit_child(spec: str) -> None:
     state's and Y_imputed's digests, phase seconds, executed iterations,
     rewinds, the elastic bookkeeping, the kernel launches, the effective
     ranks and the rel. Frobenius errors of Sigma and of the sample
-    covariance).  With SPEC's "export", the fit's own serve artifact is
-    written there.  With SPEC's "rss_probe", the host-peak probe of step
-    14 (``rss_probe``) instead."""
+    covariance).  SPEC's "backend" changes BackendConfig fields, and a
+    "warm_start" dict among its "fit" fields is a WarmStart.  With SPEC's
+    "export", the fit's own serve artifact is written there.  With SPEC's
+    "rss_probe", the host-peak probe of step 14 (``rss_probe``)
+    instead."""
     spec = json.loads(spec)
     if "rss_probe" in spec:
         rss_probe(spec)
@@ -1097,8 +1124,14 @@ def fit_child(spec: str) -> None:
     c = FIT
     Y, L, noise = synthetic(c["n"], c["p"], spec.get("k_true", c["k_true"]))
     Yfit = mcar(Y, spec["missing"])[0] if "missing" in spec else Y
-    cfg = ckpt_config(dt, spec["path"], spec.get("run"),
-                      **spec.get("fit", {}))
+    fit_kw = dict(spec.get("fit", {}))
+    if "warm_start" in fit_kw:
+        from dcfm_tpu_torch.config import WarmStart
+        fit_kw["warm_start"] = WarmStart(**fit_kw["warm_start"])
+    cfg = ckpt_config(dt, spec["path"], spec.get("run"), **fit_kw)
+    if "backend" in spec:
+        cfg = dataclasses.replace(cfg, backend=dataclasses.replace(
+            cfg.backend, **spec["backend"]))
     if "model" in spec:
         cfg = dataclasses.replace(cfg, model=scenario_model(
             dt, cfg.model, spec["model"]))
@@ -2737,6 +2770,450 @@ def scale_phase(torch, dt, cuda_lib, card: str, Y, work: str,
     return launches
 
 
+# ---------------------------------------------------------------------------
+# step 15: the outer layers - the flight recorder, the profiler trace, warm
+# starts and the backend switch
+# ---------------------------------------------------------------------------
+
+OUTER_WARM_RUN = {"burnin": 20, "mcmc": 200}
+# the killed warm refit: long enough that write-behind saves land well
+# before its end (a full save outlasts several chunks at this width)
+WARM_KILL_RUN = {"burnin": 20, "mcmc": 800}
+# K1 (no division-order flag, with noise) and K5 among a trace's kernel
+# names, demangled or not
+K1_NAME = re.compile(r"chol_group_kernel(<\d+, \d+, false, true"
+                     r"|ILi\d+ELi\d+ELb0ELb1)")
+K5_NAME = re.compile(r"sse_ps_(fixed|any)")
+
+
+def outer_config(dt, *, run=None, backend=None, model=None, **fit_kw):
+    """The north-star float32 path in chunks of CKPT_CHUNK with the
+    streamed quant8 fetch, columns unpermuted; ``run``, ``backend`` and
+    ``model`` change RunConfig, BackendConfig and ModelConfig fields,
+    ``fit_kw`` FitConfig fields.
+
+    ``permute=False``: a warm start grafts shard by shard, and only an
+    unpermuted layout keeps a donor shard's columns in that shard when
+    columns are added (the permutation of p columns is not a prefix of
+    the permutation of more)."""
+    cfg = ckpt_config(dt, "f32", run, permute=False)
+    return dataclasses.replace(
+        cfg, model=dataclasses.replace(cfg.model, **(model or {})),
+        backend=dataclasses.replace(cfg.backend, fetch_dtype="quant8",
+                                    **(backend or {})), **fit_kw)
+
+
+class FsyncLog:
+    """Times every durable flush of the flight recorder (the chunk
+    boundaries' fsyncs): the script's instrumentation around
+    obs/recorder.FlightRecorder.flush, removed on exit."""
+
+    def __enter__(self):
+        from dcfm_tpu_torch.obs import recorder
+        self._cls, self._flush = recorder.FlightRecorder, \
+            recorder.FlightRecorder.flush
+        self.seconds, self.count = 0.0, 0
+        log, flush = self, self._flush
+
+        def timed(rec, fsync=False):
+            t = time.perf_counter()
+            flush(rec, fsync=fsync)
+            if fsync:
+                log.seconds += time.perf_counter() - t
+                log.count += 1
+
+        self._cls.flush = timed
+        return self
+
+    def __exit__(self, *exc):
+        self._cls.flush = self._flush
+
+
+class InitialStates:
+    """Each chain's state leaves as its first chunk starts, read off its
+    carry before the chain's first trip: the script's instrumentation
+    around ChainRunner.run_chunk, removed on exit.  ``leaves(i)``: leaf i
+    of every chain, stacked (the chain-axis convention)."""
+
+    def __enter__(self):
+        from dcfm_tpu_torch.models import sampler
+        self._sampler, self._run = sampler, sampler.ChainRunner.run_chunk
+        self.states = {}
+        run, states = self._run, self.states
+
+        def capture(runner, c, carry, n):
+            if carry.iteration == 0 and c not in states:
+                states[c] = [t.detach().cpu().numpy().copy()
+                             for t in sampler.state_leaves(carry.state)]
+            return run(runner, c, carry, n)
+
+        sampler.ChainRunner.run_chunk = capture
+        return self
+
+    def __exit__(self, *exc):
+        self._sampler.ChainRunner.run_chunk = self._run
+
+    def leaves(self, i: int) -> np.ndarray:
+        return np.stack([self.states[c][i] for c in sorted(self.states)])
+
+    def digest(self) -> str:
+        h = hashlib.sha256()
+        for c in sorted(self.states):
+            for a in self.states[c]:
+                h.update(a.tobytes())
+        return h.hexdigest()
+
+
+def donor_leaf(path: str, i: int) -> np.ndarray:
+    """Leaf i of a checkpoint, the file CRC-checked first."""
+    from dcfm_tpu_torch.utils.checkpoint import verify_checkpoint
+    verify_checkpoint(path)
+    with np.load(path) as z:
+        return z[f"leaf_{i}"]
+
+
+def outer_events(obs_dir: str, kind: str) -> list:
+    from dcfm_tpu_torch.obs import run_events
+    return [e for e in run_events(obs_dir) if e["event"] == kind]
+
+
+def truth_errors(torch, S, Y, L, noise) -> tuple:
+    """(rel. Frobenius error of S against L L' + noise^2 I, the sample
+    covariance's), on the card, at Y's own n and p."""
+    dev = torch.device("cuda")
+    n, p = Y.shape
+    Sd = torch.as_tensor(S, device=dev)
+    Lt = torch.as_tensor(L, device=dev)
+    St = Lt @ Lt.T
+    St.diagonal().add_(noise ** 2)
+    Yc = torch.as_tensor(Y, device=dev)
+    Yc = Yc - Yc.mean(dim=0)
+    norm = torch.linalg.norm(St)
+    err = float(torch.linalg.norm(Sd - St) / norm)
+    del Sd
+    Ss = Yc.T @ Yc / (n - 1)
+    return err, float(torch.linalg.norm(Ss - St) / norm)
+
+
+def warm_data(Y, L, noise, g2: int, seed: int = 15) -> tuple:
+    """(Y with 100 rows appended from the same model; a data set of ``g2``
+    shards of Y's shard width P (10,048 / 64 = 157 at the north-star
+    width) whose first columns' loadings are L's, with its loadings)."""
+    r = np.random.default_rng(seed)
+    k = L.shape[1]
+    P = -(-L.shape[0] // FIT["g"])
+    F = r.normal(size=(100, k))
+    Y600 = np.vstack([Y, (F @ L.T + noise * r.normal(size=(100, L.shape[0])))
+                      .astype(np.float32)])
+    L2 = np.vstack([L, (r.normal(size=(g2 * P - L.shape[0], k))
+                        / np.sqrt(k)).astype(np.float32)])
+    F = r.normal(size=(Y.shape[0], k))
+    Y2 = (F @ L2.T + noise * r.normal(size=(Y.shape[0], L2.shape[0]))
+          ).astype(np.float32)
+    return Y600, Y2, L2
+
+
+def recorded_phase(torch, dt, cuda_lib, card: str, Y, L, noise,
+                   work: str) -> dict:
+    """(15a) the recorded fit and (15b) the profiled one; (15d) the
+    backend switch.  Returns the fits' launches, the donor checkpoint and
+    the digest."""
+    from dcfm_tpu_torch.obs import overlap_fraction, run_events
+    from dcfm_tpu_torch.obs.cli import summarize
+    from dcfm_tpu_torch.obs.metrics import default_registry
+    from dcfm_tpu_torch.obs.spans import write_chrome_trace
+    kernels = FIT_PATHS[0][3]
+    c = FIT
+    total = c["burnin"] + c["mcmc"]
+    sweeps = c["chains"] * total
+    os.environ.pop("DCFM_OBS_DIR", None)
+    ck = os.path.join(work, "outer.npz")
+    obs_a = os.path.join(work, "outer_events")
+    ck_auto = os.path.join(work, "outer_auto.npz")
+    ck_off = os.path.join(work, "outer_off.npz")
+    fits, launches, rates = {}, {}, {"on": [], "off": []}
+    # warm-up: a short fit of the same path and width, so that no timed fit
+    # pays a first-use cost (as fit_phase does); then off and on in turns
+    dt.fit(Y, outer_config(dt, run={"burnin": 2, "mcmc": 2}, obs="off"))
+    for label, cfg in (
+            ("off", outer_config(dt, checkpoint_path=ck_off, obs="off")),
+            ("recorded", outer_config(dt, checkpoint_path=ck, obs=obs_a)),
+            ("auto", outer_config(dt, checkpoint_path=ck_auto)),
+            ("off again", outer_config(dt, checkpoint_path=ck_off,
+                                       obs="off"))):
+        with FsyncLog() as fs:
+            res, got, wall = counted_fit(torch, dt, cuda_lib, cfg, Y)
+        check_fit(torch, res, got, f"(15a) {label}", kernels, Y, L, noise)
+        fits[label], launches[f"recorded fit ({label})"] = res, got
+        rate = sweeps / res.phase_seconds["chain_s"]
+        rates["off" if label.startswith("off") else "on"].append(rate)
+        say(f"(15a) [{label}]: {sweeps} sweeps in "
+            f"{res.phase_seconds['chain_s']:.4f} s chain time = "
+            f"{rate:.2f} chain iterations/s, wall {wall:.3f} s, "
+            f"checkpoint_s {res.phase_seconds['checkpoint_s']:.4f}, "
+            f"{fs.count} durable flushes in {fs.seconds:.6f} s; "
+            f"events_path {res.events_path}; {card}")
+        if label in ("recorded", "auto"):
+            check(fs.count == total // CKPT_CHUNK, f"(15a) {fs.count} "
+                  f"fsyncs, expected one per boundary")
+    on, off = np.mean(rates["on"]), np.mean(rates["off"])
+    say(f"(15a) chain iterations/s recorded {on:.2f} (mean of "
+        f"{len(rates['on'])}), not recorded {off:.2f} (mean of "
+        f"{len(rates['off'])}): {on / off - 1:+.4f}; {card}")
+    digest = sigma_digest(fits["recorded"].Sigma)
+    check(all(sigma_digest(f.Sigma) == digest for f in fits.values()),
+          "(15a) recording changed Sigma's bits")
+    check(fits["recorded"].events_path == os.path.abspath(obs_a)
+          and fits["auto"].events_path == os.path.abspath(ck_auto + ".obs")
+          and fits["off"].events_path is None
+          and not os.path.exists(ck_off + ".obs"),
+          "(15a) events_path: " + str([f.events_path
+                                        for f in fits.values()]))
+    evs = run_events(obs_a)
+    kinds = [e["event"] for e in evs]
+    chunks = [e for e in evs if e["event"] == "chunk"]
+    saves = [e["iteration"] for e in evs if e["event"] == "checkpoint_save"]
+    say(f"(15a) events: {len(evs)} - " + json.dumps(
+        {k: kinds.count(k) for k in dict.fromkeys(kinds)}))
+    check(kinds[0] == "fit_start" and kinds[-1] == "fit_done",
+          f"(15a) first/last events {kinds[0]}, {kinds[-1]}")
+    check([e["decision"] for e in evs if e["event"] == "resume_decision"]
+          == ["fresh"], "(15a) resume decisions")
+    check(len(chunks) == total // CKPT_CHUNK
+          and sum(e["end"] - e["start"] for e in chunks) == total
+          and all(e["dur_s"] > 0 for e in chunks), "(15a) chunk events")
+    check("stream_snapshot" in kinds and "stream_drain" in kinds,
+          "(15a) no stream events")
+    check(saves and max(saves) == total, f"(15a) saves at {saves}")
+    check(evs[-1]["stream"] == fits["recorded"].stream_stats,
+          "(15a) fit_done's stream summary is not FitResult.stream_stats")
+    reg = default_registry()
+    it_g = reg.gauge("dcfm_fit_iteration").value()
+    ch_g = reg.gauge("dcfm_fit_chunk_seconds").value()
+    check(it_g == total and ch_g > 0, f"(15a) gauges {it_g}, {ch_g}")
+    trace = os.path.join(work, "outer_trace.json")
+    write_chrome_trace(evs, trace)
+    with open(trace) as f:
+        slices = [e for e in json.load(f)["traceEvents"] if e["ph"] == "X"]
+    s = summarize(obs_a)
+    check(s["chunks"] == len(chunks) and s["checkpoint_saves"] == len(saves)
+          and s["last_checkpoint_iteration"] == saves[-1],
+          f"(15a) summarize: {s}")
+    nbytes = sum(os.path.getsize(os.path.join(obs_a, f))
+                 for f in os.listdir(obs_a))
+    say(f"(15a) event log {nbytes} bytes; saves at {saves}; gauges "
+        f"iteration {it_g}, chunk_seconds {ch_g:.4f}; Chrome trace "
+        f"{len(slices)} slices; overlap_fraction "
+        f"{overlap_fraction(evs)}; summarize: {s['chunks']} chunks, "
+        f"{s['checkpoint_saves']} saves, phases {s['phases']}")
+
+    # (15d) the backend switch (before 15b: its fit is 15b's yardstick)
+    cfg = outer_config(dt, obs="off", backend={"backend": "torch_cuda"})
+    d, got, wall = counted_fit(torch, dt, cuda_lib, cfg, Y)
+    check_path_launches(got, sweeps, "(15d) torch_cuda")
+    launches["backend torch_cuda"] = got
+    check(d.device.startswith("cuda"), f"(15d) backend='torch_cuda' ran "
+          f"on {d.device}")
+    check(sigma_digest(d.Sigma) == digest,
+          "(15d) backend='torch_cuda' is not the default fit's bits")
+    rate_d = sweeps / d.phase_seconds["chain_s"]
+    for bad, device in (("torch_cuda", "cpu"), ("torch_cpu", "cuda"),
+                        ("jax_tpu", None)):
+        bad_cfg = outer_config(dt, obs="off", backend={"backend": bad})
+        torch.cuda.synchronize()
+        mem, n0 = torch.cuda.memory_allocated(), cuda_lib.launch_counts()
+        t = time.perf_counter()
+        try:
+            dt.fit(Y, bad_cfg, device=device)
+            fail(f"(15d) backend={bad!r}, device={device!r} did not raise")
+        except ValueError as e:
+            msg = str(e)
+        check(torch.cuda.memory_allocated() == mem
+              and cuda_lib.launch_counts() == n0,
+              f"(15d) backend={bad!r} touched the card before refusing")
+        say(f"(15d) backend={bad!r} device={device!r}: ValueError after "
+            f"{time.perf_counter() - t:.4f} s, no card work ({msg})")
+    say(f"(15d) backend='torch_cuda': Sigma = the default fit's bits; "
+        f"{rate_d:.2f} chain iterations/s; {card}")
+
+    # (15b) profile_dir
+    prof_dir = os.path.join(work, "outer_profile")
+    cfg = outer_config(dt, obs="off", backend={"profile_dir": prof_dir})
+    prof, got, wall = counted_fit(torch, dt, cuda_lib, cfg, Y)
+    check_path_launches(got, sweeps, "(15b) profiled")
+    launches["profiled fit"] = got
+    check(sigma_digest(prof.Sigma) == digest,
+          "(15b) the profiler changed Sigma's bits")
+    files = [f for f in os.listdir(prof_dir) if f.endswith(".json")]
+    check(len(files) == 1, f"(15b) trace files {files}")
+    path = os.path.join(prof_dir, files[0])
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    names = [e["name"] for e in events if e.get("cat") == "kernel"]
+    k1 = sum(1 for k in names if K1_NAME.search(k))
+    k5 = sum(1 for k in names if K5_NAME.search(k))
+    trips = sum(1 for e in events if e.get("name") == "trip"
+                and e.get("cat") == "user_annotation")
+    check(k1 > 0 and k5 > 0, f"(15b) K1 ({k1}) or K5 ({k5}) missing from "
+          "the trace's kernels: " + str(sorted(set(names))[:40]))
+    check(k1 == k5 == sweeps, f"(15b) the trace holds {k1} K1 and {k5} K5 "
+          f"kernels, expected one each per sweep ({sweeps})")
+    rate_p = sweeps / prof.phase_seconds["chain_s"]
+    say(f"(15b) profiled fit: {rate_p:.2f} chain iterations/s (unprofiled "
+        f"{rate_d:.2f}: overhead {rate_d / rate_p - 1:+.4f}), wall "
+        f"{wall:.3f} s; trace {os.path.getsize(path)} bytes, "
+        f"{len(names)} kernel events ({k1} K1, {k5} K5, {len(set(names))} "
+        f"names), {trips} trip ranges ({prof.graphs['replays']} replays); "
+        f"Sigma = (a)'s bits; {card}")
+    return {"launches": launches, "donor": ck, "digest": digest}
+
+
+def warm_phase(torch, dt, cuda_lib, card: str, Y, L, noise, work: str,
+               donor: str) -> dict:
+    """(15c) warm starts from (15a)'s checkpoint (2 chains at iteration
+    400): appended rows, new shards, graph == eager for one chunk, a K = 4
+    donor's cold start, a warm refit killed and resumed."""
+    import functools
+
+    from dcfm_tpu_torch import api
+    from dcfm_tpu_torch.config import WarmStart
+    from dcfm_tpu_torch.models import sampler
+    c = FIT
+    g = c["g"]
+    sweeps = c["chains"] * sum(OUTER_WARM_RUN.values())
+    Y600, Y72, L72 = warm_data(Y, L, noise, g + 8)
+    launches = {}
+    for label, Yw, Lw, model in (("appended rows", Y600, L, {}),
+                                 ("new shards", Y72, L72,
+                                  {"num_shards": g + 8})):
+        obs = os.path.join(work, f"warm_{model.get('num_shards', g)}")
+        with InitialStates() as init:
+            warm, got, wall = counted_fit(torch, dt, cuda_lib, outer_config(
+                dt, run=OUTER_WARM_RUN, model=model, obs=obs,
+                warm_start=WarmStart(donor)), Yw)
+        check_path_launches(got, sweeps, f"(15c) warm, {label}")
+        launches[f"warm, {label}"] = got
+        (ev,) = outer_events(obs, "warm_start")
+        check(ev["decision"] == "warm", f"(15c) {label}: decision {ev}")
+        lam, ps = init.leaves(0), init.leaves(3)
+        d_lam, d_ps = donor_leaf(donor, 0), donor_leaf(donor, 3)
+        check(np.array_equal(lam[:, :g], d_lam)
+              and np.array_equal(ps[:, :g], d_ps),
+              f"(15c) {label}: the first {g} shards' Lambda / psi are not "
+              "the donor's bytes")
+        cold, got, _ = counted_fit(torch, dt, cuda_lib, outer_config(
+            dt, run=OUTER_WARM_RUN, model=model, obs="off"), Yw)
+        check_path_launches(got, sweeps, f"(15c) cold, {label}")
+        err, err_s = truth_errors(torch, warm.Sigma, Yw, Lw, noise)
+        err_c, _ = truth_errors(torch, cold.Sigma, Yw, Lw, noise)
+        say(f"(15c) {label} {Yw.shape}: decision warm, {ev['leaves']} "
+            f"leaves grafted, {ev['verbatim_leaves']} verbatim, donor "
+            f"iteration {ev['donor_iteration']}, relineage "
+            f"{ev['relineage']}; rel Frobenius warm {err:.6f}, cold "
+            f"{err_c:.6f} (same {OUTER_WARM_RUN} schedule), sample "
+            f"covariance {err_s:.6f}; warm "
+            f"{sweeps / warm.phase_seconds['chain_s']:.2f} chain "
+            f"iterations/s, init_s {warm.phase_seconds['init_s']:.4f}; "
+            f"{card}")
+        check(err < 0.25 and err <= 2 * err_s,
+              f"(15c) {label}: warm rel Frobenius {err:.4f} (sample "
+              f"{err_s:.4f})")
+        del warm, cold
+
+    # graph == eager on warm-started chains, one chunk
+    one = outer_config(dt, run={"burnin": 20, "mcmc": 30}, obs="off",
+                       warm_start=WarmStart(donor))
+    graphed = dt.fit(Y600, one)
+    runner = api.ChainRunner
+    api.ChainRunner = functools.partial(runner, graphs=False)
+    try:
+        eager = dt.fit(Y600, one)
+    finally:
+        api.ChainRunner = runner
+    check(graphed.graphs["replays"] > 0 and eager.graphs["replays"] == 0,
+          f"(15c) graphs {graphed.graphs} / {eager.graphs}")
+    same = (sigma_digest(graphed.Sigma) == sigma_digest(eager.Sigma)
+            and state_digest(graphed.state) == state_digest(eager.state))
+    say(f"(15c) graph == eager on 2 warm-started chains, one chunk of 50: "
+        f"Sigma and state {'bitwise' if same else 'DIFFER'}; graphs "
+        f"{json.dumps(graphed.graphs)}")
+    check(same, "(15c) the graphed warm chain is not the eager one")
+
+    # a K = 4 donor: a recorded cold start from a plain fit's state
+    ck4 = os.path.join(work, "outer_k4.npz")
+    short = {"burnin": 4, "mcmc": 4}
+    dt.fit(Y, outer_config(dt, run=short, model={"factors_per_shard": 4},
+                           obs="off", checkpoint_path=ck4))
+    obs4 = os.path.join(work, "warm_k4")
+    with InitialStates() as cold_init:
+        dt.fit(Y, outer_config(dt, run=short, obs=obs4,
+                               warm_start=WarmStart(ck4)))
+    with InitialStates() as plain_init:
+        dt.fit(Y, outer_config(dt, run=short, obs="off"))
+    (ev,) = outer_events(obs4, "warm_start")
+    check(ev["decision"] == "cold" and ev["reason"] == (
+        "donor model config differs beyond num_shards - the state pytrees "
+        "are not graft-compatible"), f"(15c) K = 4 donor: {ev}")
+    check([e["decision"] for e in outer_events(obs4, "resume_decision")]
+          == ["fresh"], "(15c) K = 4 donor: no fresh decision")
+    check(cold_init.digest() == plain_init.digest(),
+          "(15c) the cold fallback's initial state is not a plain fit's")
+    say(f"(15c) K = 4 donor: decision cold ({ev['reason']}); initial "
+        "state bitwise a plain fit's of the same seed")
+
+    # a warm refit killed mid-run in a child and resumed in a fresh one
+    kpath = os.path.join(work, "warm_killed.npz")
+    fit_kw = {"checkpoint_path": kpath, "checkpoint_every_chunks": 1,
+              "warm_start": {"checkpoint": donor}}
+    ref = dt.fit(Y, outer_config(
+        dt, run=WARM_KILL_RUN, obs="off", checkpoint_every_chunks=1,
+        checkpoint_path=os.path.join(work, "warm_ref.npz"),
+        warm_start=WarmStart(donor)))
+    spec = {"path": "f32", "run": WARM_KILL_RUN,
+            "backend": {"fetch_dtype": "quant8"},
+            "fit": dict(fit_kw, permute=False,
+                        obs=os.path.join(work, "warm_kill_1"))}
+    total = sum(WARM_KILL_RUN.values())
+    killed = run_child(spec, work, "warm_killed", kill_at=KILL_AT,
+                       path=kpath)["killed_at"]
+    from dcfm_tpu_torch.utils.checkpoint import read_checkpoint_meta
+    check(read_checkpoint_meta(kpath)["iteration"] < total,
+          "(15c) the killed warm refit's file reached the end")
+    out = run_child(dict(spec, fit=dict(
+        spec["fit"], resume=True, obs=os.path.join(work, "warm_kill_2"))),
+        work, "warm_resumed")
+    first = outer_events(os.path.join(work, "warm_kill_1"), "warm_start")
+    second = outer_events(os.path.join(work, "warm_kill_2"),
+                          "resume_decision")
+    check([e["decision"] for e in first] == ["warm"]
+          and [e["decision"] for e in second] == ["resume"]
+          and not outer_events(os.path.join(work, "warm_kill_2"),
+                               "warm_start"),
+          f"(15c) kill: decisions {first} / {second}")
+    check(out["sigma"] == sigma_digest(ref.Sigma)
+          and out["executed"] == total - second[0]["iteration"],
+          "(15c) the resumed warm refit is not the uninterrupted one's bits")
+    say(f"(15c) warm refit SIGKILLed with its file at iteration {killed}, "
+        f"resumed in a fresh process at {second[0]['iteration']} (decision "
+        f"resume, no re-graft): Sigma bitwise the uninterrupted warm "
+        f"refit's; {card}")
+    return launches
+
+
+def outer_phase(torch, dt, cuda_lib, card: str, Y, L, noise,
+                work: str) -> dict:
+    """(15) the outer layers at the north-star width.  Returns the
+    launches of each of its fits."""
+    t0 = time.perf_counter()
+    a = recorded_phase(torch, dt, cuda_lib, card, Y, L, noise, work)
+    say(f"(15a, b, d) done in {time.perf_counter() - t0:.1f} s")
+    launches = dict(a["launches"])
+    launches.update(warm_phase(torch, dt, cuda_lib, card, Y, L, noise,
+                               work, a["donor"]))
+    say(f"(15c) done in {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def k3_path(torch, bs, cuda_lib, rng) -> dict:
     """K3's launches: one call of its public op at the fit's batch, the
     counters zeroed just before and read just after."""
@@ -3005,6 +3482,16 @@ def main() -> None:
             shutil.rmtree(work, ignore_errors=True)
         say("knob phase only: no result is printed")
         return
+    if "--outer-only" in sys.argv[1:]:
+        import shutil
+        import tempfile
+        work = tempfile.mkdtemp(prefix="dcfm_outer_")
+        try:
+            outer_phase(torch, dt, cuda_lib, card, Y, L, noise, work)
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
+        say("outer phase only: no result is printed")
+        return
     if "--ingest-only" in sys.argv[1:]:
         import shutil
         import tempfile
@@ -3067,6 +3554,8 @@ def main() -> None:
         say(f"knobs_phase done at {time.perf_counter() - t_start:.1f} s")
         scale = scale_phase(torch, dt, cuda_lib, card, Y, work, c5)
         say(f"scale_phase done at {time.perf_counter() - t_start:.1f} s")
+        outer = outer_phase(torch, dt, cuda_lib, card, Y, L, noise, work)
+        say(f"outer_phase done at {time.perf_counter() - t_start:.1f} s")
     finally:
         shutil.rmtree(work, ignore_errors=True)
     launches["cho_solve"] = k3_path(torch, bs, cuda_lib, rng)["cho_solve"]
@@ -3085,6 +3574,9 @@ def main() -> None:
             {k: v for k, v in got.items() if v}))
     for path, got in scale.items():
         say(f"scale launches [{path}]: " + json.dumps(
+            {k: v for k, v in got.items() if v}))
+    for path, got in outer.items():
+        say(f"outer launches [{path}]: " + json.dumps(
             {k: v for k, v in got.items() if v}))
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {

@@ -29,9 +29,15 @@ it block of shards by block of shards, and the panels are bitwise those
 of the dense fit of the same data; such a fit keeps Sigma packed unless
 ``materialize_sigma="always"`` and returns no ``Y_imputed``.
 
-Entry points run on the card (``device="cuda"``) unless the caller asks
-for the CPU.  On the card the chain always runs as CUDA graphs of
-``RunConfig.sweep_unroll`` sweeps (models/sampler.ChainRunner); the CPU
+Entry points run on the card unless the caller asks for the CPU
+(``device="cpu"``, or ``BackendConfig.backend="torch_cpu"``;
+``"torch_cuda"`` demands the card and never falls back).  Observability:
+``FitConfig.obs`` keeps a flight-recorder event log of the fit
+(obs/recorder.py; ``FitResult.events_path``), and
+``BackendConfig.profile_dir`` wraps the chain in a ``torch.profiler``
+trace.  ``FitConfig.warm_start`` seeds the chains from another run's
+checkpoint on re-lineaged streams.  On the card the chain always runs as
+CUDA graphs of ``RunConfig.sweep_unroll`` sweeps (models/sampler.ChainRunner); the CPU
 runs the same trips eagerly.  Float32 matmuls run in full float32: the
 sweep's products are numerically load-bearing (the JAX package measured a
 prior bias under single-pass reduced precision), so ``fit`` refuses to run
@@ -40,6 +46,7 @@ while ``torch.backends.cuda.matmul.allow_tf32`` is on.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import os
@@ -51,13 +58,14 @@ import numpy as np
 import torch
 
 from dcfm_tpu_torch.config import (
-    BackendConfig, FitConfig, ModelConfig, RunConfig, validate)
+    BackendConfig, FitConfig, ModelConfig, RunConfig, validate, validate_obs)
 from dcfm_tpu_torch.models.adapt import effective_ranks
 from dcfm_tpu_torch.models.priors import make_prior
 from dcfm_tpu_torch.models.sampler import (
     TRACE_SUMMARIES, ChainRunner, ChainStats, DrawBuffers)
 from dcfm_tpu_torch.models.state import SamplerState
-from dcfm_tpu_torch.noise import TorchNoise
+from dcfm_tpu_torch.noise import TorchNoise, warm_lineage
+from dcfm_tpu_torch.obs import recorder as obs_recorder
 from dcfm_tpu_torch.ops import cuda_lib
 from dcfm_tpu_torch.runtime.fetch import (
     Drain, accumulator_window, assemble_q8_sigma, elastic_pooled_draws,
@@ -159,6 +167,12 @@ class FitResult:
     # the diagnostics and the checkpoint all end at the stop
     stopped_at_iter: Optional[int] = None
     rhat_trajectory: Optional[np.ndarray] = None
+    # the flight-recorder run directory of this fit (FitConfig.obs;
+    # obs/recorder.py): its append-only JSONL event log - chunk
+    # boundaries, stream snapshots and drains, checkpoint saves, sentinel
+    # rewinds, the resume and warm-start decisions; None when recording
+    # was off
+    events_path: Optional[str] = None
     # backing of .upper_panels: float32 panels (every fetch_dtype but
     # quant8), or the int8 panels and their per-panel scales (quant8);
     # the same for .sd_upper_panels
@@ -396,11 +410,125 @@ def _imputed(Y: np.ndarray, sums: list, pre: PreprocessResult,
     return out
 
 
-def fit(Y: np.ndarray, cfg: FitConfig, *, device="cuda") -> FitResult:
+# BackendConfig.backend -> the device type it runs on (None: the card,
+# unless fit's ``device`` asks for the CPU)
+_BACKENDS = {"auto": None, "torch_cuda": "cuda", "torch_cpu": "cpu"}
+
+
+def _resolve_device(backend: BackendConfig, device) -> torch.device:
+    """``fit``'s device from ``BackendConfig.backend`` and its ``device``
+    argument: "auto" keeps the card unless ``device`` asks for the CPU;
+    "torch_cuda" / "torch_cpu" name the device type, and a ``device`` of
+    the other type is a ValueError; "torch_cuda" without a card raises
+    (no fallback).  The JAX package's values are refused here, where the
+    device is resolved - never when a checkpoint's config is read."""
+    if backend.backend not in _BACKENDS:
+        raise ValueError(
+            f"unknown backend {backend.backend!r} (the JAX backends live "
+            "in dcfm_tpu; here: auto | torch_cuda | torch_cpu)")
+    want = _BACKENDS[backend.backend]
+    if device is None:
+        device = torch.device(want or "cuda")
+    else:
+        device = torch.device(device)
+        if want is not None and device.type != want:
+            raise ValueError(
+                f"device={str(device)!r} contradicts "
+                f"backend={backend.backend!r}")
+    if want == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "backend='torch_cuda' but torch.cuda.is_available() is false "
+            "(there is no fallback to the CPU)")
+    return device
+
+
+def _resolve_obs_dir(cfg: FitConfig) -> Optional[str]:
+    """FitConfig.obs -> the flight-recorder directory, or None (off):
+    "auto" records only where a destination is configured, the
+    ``DCFM_OBS_DIR`` environment variable, else ``<checkpoint_path>.obs``
+    - so a throwaway fit stays file-free (the JAX package's rule)."""
+    validate_obs(cfg.obs)
+    if cfg.obs == "off":
+        return None
+    if cfg.obs != "auto":
+        return cfg.obs
+    env = os.environ.get(obs_recorder.OBS_DIR_ENV_VAR)
+    if env:
+        return env
+    if cfg.checkpoint_path:
+        return cfg.checkpoint_path + ".obs"
+    return None
+
+
+def _profiler(profile_dir: Optional[str], device: torch.device):
+    """BackendConfig.profile_dir: a torch.profiler over the chain (CPU
+    activity, and CUDA activity on the card) writing its Chrome trace into
+    ``profile_dir`` (``tensorboard_trace_handler``); else nothing."""
+    if not profile_dir:
+        return contextlib.nullcontext()
+    from torch.profiler import (
+        ProfilerActivity, profile, tensorboard_trace_handler)
+    activities = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    return profile(activities=activities,
+                   on_trace_ready=tensorboard_trace_handler(profile_dir))
+
+
+def fit(Y: np.ndarray, cfg: FitConfig, *, device=None) -> FitResult:
     """Fit the divide-and-conquer Bayesian factor model to (n, p) data on
-    ``device``; every draw comes from Philox streams seeded from
-    ``cfg.run.seed`` (noise.TorchNoise).  ``Y`` is a dense array or a
-    streaming input (``utils.preprocess.is_streaming_input``)."""
+    the device ``BackendConfig.backend`` and ``device`` name
+    (:func:`_resolve_device`: the card by default); every draw comes from
+    Philox streams seeded from ``cfg.run.seed`` (noise.TorchNoise).  ``Y``
+    is a dense array or a streaming input
+    (``utils.preprocess.is_streaming_input``).
+
+    With a flight-recorder destination (``FitConfig.obs``) the fit is one
+    recorder session: ``fit_start``, the runtime's events, then
+    ``fit_failed`` (fsynced) on a raise or ``fit_done`` with the phases,
+    the stream summary, rewinds, the checkpoint error and the early stop;
+    ``FitResult.events_path`` names the directory.  Recording is
+    host-side only: ``obs="off"`` gives the same Sigma bit for bit."""
+    obs_dir = _resolve_obs_dir(cfg)
+    if obs_dir is None:
+        return _fit(Y, cfg, device)
+    rec = obs_recorder.install(obs_recorder.FlightRecorder(obs_dir))
+    try:
+        rec.emit("fit_start", shards=cfg.model.num_shards,
+                 factors_per_shard=cfg.model.factors_per_shard,
+                 total_iters=cfg.run.total_iters,
+                 burnin=cfg.run.burnin, thin=cfg.run.thin,
+                 chunk_size=cfg.run.chunk_size, seed=cfg.run.seed,
+                 num_chains=cfg.run.num_chains,
+                 fetch_dtype=cfg.backend.fetch_dtype,
+                 compute_dtype=cfg.backend.compute_dtype,
+                 sse_mode=cfg.backend.sse_mode,
+                 checkpoint=bool(cfg.checkpoint_path),
+                 resume=str(cfg.resume))
+        try:
+            res = _fit(Y, cfg, device)
+        except BaseException as e:
+            # a SIGKILL never reaches here - the per-line writes already
+            # landed; this covers raised errors
+            rec.emit("fit_failed", error=repr(e))
+            rec.flush(fsync=True)
+            raise
+        ph = res.phase_seconds or {}
+        rec.emit("fit_done", seconds=round(res.seconds, 4),
+                 phases={k: round(v, 4) for k, v in ph.items()},
+                 stream=res.stream_stats,
+                 sentinel_rewinds=res.sentinel_rewinds,
+                 checkpoint_error=res.checkpoint_error,
+                 stopped_at_iter=res.stopped_at_iter)
+        res.events_path = rec.directory
+        return res
+    finally:
+        obs_recorder.uninstall(rec)
+        rec.close()
+
+
+def _fit(Y: np.ndarray, cfg: FitConfig, device) -> FitResult:
+    """The fit body (``fit`` wraps it in the flight-recorder session)."""
     if torch.backends.cuda.matmul.allow_tf32:
         raise RuntimeError(
             "torch.backends.cuda.matmul.allow_tf32 is on: the sweep's "
@@ -421,7 +549,7 @@ def fit(Y: np.ndarray, cfg: FitConfig, *, device="cuda") -> FitResult:
                 f"Y must be an (n, p) matrix, got shape {Y.shape}")
         n, p = Y.shape
     validate(cfg, n, p)
-    device = torch.device(device)
+    device = _resolve_device(cfg.backend, device)
     m, run, be = cfg.model, cfg.run, cfg.backend
     # thread the backend's sweep knobs into the internal model config, as
     # the JAX package does
@@ -453,10 +581,17 @@ def fit(Y: np.ndarray, cfg: FitConfig, *, device="cuda") -> FitResult:
 
     unroll = run.sweep_unroll or (CUDA_AUTO_UNROLL if device.type == "cuda"
                                   else 1)
+    # a warm start re-lineages the chain's sweep streams (never the init's,
+    # so a cold fallback starts from a plain fit's state): the warm chain
+    # never replays its donor's draws, and a relaunched warm refit rebuilds
+    # the same streams, so it resumes bitwise; a sentinel rewind's lineage
+    # extends it
+    base = (() if cfg.warm_start is None
+            else warm_lineage(cfg.warm_start.relineage))
 
     def make_runner(model: ModelConfig, lineage: tuple) -> ChainRunner:
-        return ChainRunner(TorchNoise(run.seed, device, lineage), Yd, model,
-                           make_prior(model), burnin=run.burnin,
+        return ChainRunner(TorchNoise(run.seed, device, base + lineage), Yd,
+                           model, make_prior(model), burnin=run.burnin,
                            thin=run.thin, unroll=unroll,
                            num_stored_draws=S_draws)
 
@@ -489,15 +624,16 @@ def fit(Y: np.ndarray, cfg: FitConfig, *, device="cuda") -> FitResult:
         return StreamingFetcher(inv_count, C, g, bessel=bessel,
                                 land_mean=land_mean, land_sd=land_sd)
 
-    rr = run_chain(
-        cfg=cfg, model=m, run=run, phase=phase,
-        fingerprint=(data_fingerprint(pre.data) if cfg.checkpoint_path
-                     else None),
-        template=carry_template(m, n=n, P=P, num_chains=C,
-                                num_stored_draws=S_draws),
-        make_runner=make_runner, device=device, window_fn=window,
-        make_streamer=(make_streamer if mode == "quant8"
-                       and be.fetch_stream != "off" else None))
+    with _profiler(be.profile_dir, device):
+        rr = run_chain(
+            cfg=cfg, model=m, run=run, phase=phase,
+            fingerprint=(data_fingerprint(pre.data) if cfg.checkpoint_path
+                         else None),
+            template=carry_template(m, n=n, P=P, num_chains=C,
+                                    num_stored_draws=S_draws),
+            make_runner=make_runner, device=device, window_fn=window,
+            make_streamer=(make_streamer if mode == "quant8"
+                           and be.fetch_stream != "off" else None))
     carries, streamer = rr.carries, rr.streamer
     phase["chain_s"] = float(sum(rr.chunk_seconds))
     stats = rr.stats or _carried_stats(carries)
@@ -654,10 +790,10 @@ def fit(Y: np.ndarray, cfg: FitConfig, *, device="cuda") -> FitResult:
 
 
 def divideconquer(Y: np.ndarray, g: int, k: int, BURNIN: int, MCMC: int,
-                  thin: int, rho: float, *, seed: int = 0,
-                  prior: str = "mgp", estimator: str = "scaled",
-                  x_prior_precision: float = 1.0,
-                  device="cuda") -> np.ndarray:
+                  thin: int, rho: float, *, backend: str = "auto",
+                  seed: int = 0, prior: str = "mgp",
+                  estimator: str = "scaled", x_prior_precision: float = 1.0,
+                  device=None) -> np.ndarray:
     """Reference-compatible entry point (``divideconquer.m:1``): returns the
     (p, p) posterior-mean covariance in the caller's column order and
     scale, zero rows/cols at all-zero input columns - what ``fit(...)
@@ -671,5 +807,5 @@ def divideconquer(Y: np.ndarray, g: int, k: int, BURNIN: int, MCMC: int,
                           prior=prior, estimator=estimator,
                           x_prior_precision=x_prior_precision),
         run=RunConfig(burnin=BURNIN, mcmc=MCMC, thin=thin, seed=seed),
-        backend=BackendConfig())
+        backend=BackendConfig(backend=backend))
     return fit(Y, cfg, device=device).Sigma

@@ -14,12 +14,16 @@ under every ``upload_dtype``, with Sigma assembled or kept packed
 missing values (NaN input, imputed every sweep: ``impute_missing``), the
 thinned draw ring (``store_draws``) and the R-hat early stop
 (``early_stop``); checkpoints, resume (elastic across chain counts too)
-and the divergence sentinel on one process; the streamed fetch landing in
-a serve artifact (``stream_artifact``); the chunked combine on one device
-(``combine_chunks``).  Every other knob the JAX package has is either
-absent here (passing it is a ``TypeError``) or present and refused by
-:func:`validate` with a ``NotImplementedError`` that names the ROADMAP
-Queue A item that will port it - a knob is never silently ignored.  An
+and the divergence sentinel on one process; warm starts from another
+run's checkpoint (``warm_start``); the streamed fetch landing in a serve
+artifact (``stream_artifact``); the chunked combine on one device
+(``combine_chunks``); the flight recorder (``obs``), the profiler trace
+(``profile_dir``) and the device switch (``backend``, the port's values
+"auto" | "torch_cuda" | "torch_cpu").  Every other knob the JAX package
+has is either absent here (passing it is a ``TypeError``) or present and
+refused by :func:`validate` with a ``NotImplementedError`` that names the
+ROADMAP Queue A item that will port it - a knob is never silently
+ignored.  An
 invalid value of a refused knob is a ``ValueError`` first, as in the JAX
 package.
 """
@@ -155,11 +159,24 @@ class RunConfig:
 
 @dataclasses.dataclass(frozen=True)
 class BackendConfig:
-    """How the chain runs.  The device is an argument of ``fit``."""
+    """How the chain runs, in the JAX package's field order (a checkpoint's
+    config JSON lists them in it)."""
 
+    # "auto" (the card unless fit's ``device`` asks for the CPU) |
+    # "torch_cuda" | "torch_cpu"; resolved by api.fit, which refuses the
+    # JAX package's values ("jax_cpu", "jax_tpu") there - never when a
+    # checkpoint's config is read
+    backend: str = "auto"
     mesh_devices: int = 0
     fetch_dtype: str = "float32"
     upload_dtype: str = "float32"
+    # if set, fit() wraps the chain in a torch.profiler trace (CPU
+    # activity, and CUDA activity on the card) and writes its Chrome trace
+    # here; the per-conditional record_function ranges (z_update,
+    # x_update, lambda_update, prior_update, ps_update, combine,
+    # health_trace, impute_missing) mark the eager sweeps, one "trip"
+    # range each CUDA-graph replay
+    profile_dir: Optional[str] = None
     fetch_stream: str = "auto"
     compute_dtype: str = "f32"
     sse_mode: str = "resid"
@@ -168,8 +185,13 @@ class BackendConfig:
 @dataclasses.dataclass(frozen=True)
 class WarmStart:
     """Seed a fresh chain from a prior run's checkpoint (the JAX package's
-    online loop).  Present so a config names it as the JAX package does;
-    refused by :func:`validate` (ROADMAP Queue A item 7)."""
+    online loop; runtime/resume._try_warm_start): the donor's sampler
+    state is grafted into the new run's initial state - appended rows and
+    new shards keep their fresh init in the grown region - and the chain's
+    streams are re-lineaged by ``relineage``, so the warm chain never
+    replays the donor's draws.  Either package's file may be the donor.
+    An incompatible or unreadable donor falls back to a cold start,
+    recorded as a ``warm_start`` flight-recorder event with the reason."""
 
     checkpoint: str
     relineage: int = 1
@@ -210,17 +232,32 @@ class FitConfig:
     # with a checkpoint, abort without), or "off"
     sentinel: str = "auto"
     sentinel_max_rewinds: int = 3
+    # the flight recorder (obs/recorder.py): "auto" records when a
+    # destination is configured - the DCFM_OBS_DIR environment variable,
+    # else "<checkpoint_path>.obs" - "off" never, any other string into
+    # that directory (FitResult.events_path)
+    obs: str = "auto"
     # a serve artifact directory the streamed quant8 fetch lands its
     # panels in (serve/artifact.begin_streamed_artifact); fit finalizes
     # it, or exports post hoc when nothing landed
     stream_artifact: Optional[str] = None
-    # refused (ROADMAP Queue A item 7)
+    # seed this run's chains from another run's checkpoint state; resume
+    # takes precedence (a relaunched warm refit resumes its own file)
     warm_start: Optional[WarmStart] = None
     # the dense (p, p) posterior mean: "always", "never" (FitResult.Sigma
     # is None; blocks through FitResult.sigma_block, or the serve
     # artifact), or "auto" - assembled up to api._AUTO_MATERIALIZE_MAX_P
     # used columns
     materialize_sigma: str = "auto"
+
+
+def validate_obs(obs) -> None:
+    """The obs knob's check, shared by :func:`validate` and
+    ``api._resolve_obs_dir`` (which runs first, at recorder setup)."""
+    if not isinstance(obs, str) or not obs:
+        raise ValueError(
+            f"obs must be 'auto', 'off', or a directory path, got "
+            f"{obs!r}")
 
 
 def _refuse(what: str, item: str) -> None:
@@ -370,6 +407,7 @@ def validate(cfg: FitConfig, n: int, p: int) -> None:
         raise ValueError(
             f"sentinel_max_rewinds must be >= 0, got "
             f"{cfg.sentinel_max_rewinds}")
+    validate_obs(cfg.obs)
     # value checks of the scenario knobs and of those refused below, as
     # the JAX package makes them: an invalid value of a refused knob is a
     # ValueError, never "not ported yet"
@@ -427,7 +465,5 @@ def validate(cfg: FitConfig, n: int, p: int) -> None:
             "(1/K <= a <= 1/2 is the usual range)")
 
     # ---- knobs outside the port: refused, never ignored -----------------
-    if cfg.warm_start is not None:
-        _refuse("warm_start", _OUTER)
     if be.mesh_devices > 1:
         _refuse(f"mesh_devices={be.mesh_devices}", _MESH)

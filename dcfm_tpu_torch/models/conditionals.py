@@ -28,6 +28,7 @@ take bfloat16 inputs with float32 accumulation and output
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Optional
 
@@ -44,6 +45,18 @@ from dcfm_tpu_torch.ops.gaussian import (
     sample_mvn_precision_linalg, sample_mvn_precision_shared)
 from dcfm_tpu_torch.ops.lam_update import lam_update
 from dcfm_tpu_torch.ops.sse_gamma import sse_ps
+
+
+def scope(name: str):
+    """A ``torch.profiler`` range named as the JAX package's named scope
+    (z_update, x_update, lambda_update, prior_update, ps_update, combine,
+    health_trace, impute_missing) while a profiler records
+    (``BackendConfig.profile_dir``); nothing otherwise.  A host-side
+    marker: it launches nothing, so a CUDA graph captured through it is
+    the graph captured without it, and a replay shows none of it."""
+    if torch.autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return contextlib.nullcontext()
 
 
 def resolve_sse_mode(mode: str, *, n: int, K: int) -> str:
@@ -121,87 +134,93 @@ def gibbs_sweep(draws, Y: torch.Tensor, state: SamplerState,
 
     # precision-weighted loadings and their K x K moment, shared by the
     # Z and X updates (both read the incoming Lambda and ps)
-    W = Lam * ps[..., None]                                     # (G, P, K)
-    LtW = mm(_t(Lam), W)                                        # (G, K, K)
+    with scope("z_update"):
+        W = Lam * ps[..., None]                                     # (G, P, K)
+        LtW = mm(_t(Lam), W)                                        # (G, K, K)
 
-    # ---- Z_m | rest ------------------------------------------------------
-    Qz = eye + (1.0 - rho) * LtW
-    if jit_eps:
-        Qz = Qz + jit_eps * eye
-    R = Y - sq_r * mm(state.X, _t(Lam))                         # (G, n, P)
-    Bz = sq_1mr * mm(R, W)                                      # (G, n, K)
-    Z = sample_mvn_precision_shared(draws.normal(SITE_Z, (G, n, K)), Qz, Bz)
+        # ---- Z_m | rest -----------------------------------------------------
+        Qz = eye + (1.0 - rho) * LtW
+        if jit_eps:
+            Qz = Qz + jit_eps * eye
+        R = Y - sq_r * mm(state.X, _t(Lam))                         # (G, n, P)
+        Bz = sq_1mr * mm(R, W)                                      # (G, n, K)
+        Z = sample_mvn_precision_shared(draws.normal(SITE_Z, (G, n, K)),
+                                        Qz, Bz)
 
     # ---- X | rest: the one cross-shard update ----------------------------
-    R = Y - sq_1mr * mm(Z, _t(Lam))
-    S1 = torch.sum(LtW, dim=0)                                  # (K, K)
-    S2 = torch.sum(mm(R, W), dim=0)                             # (n, K)
-    Qx = cfg.x_prior_precision * eye + rho * S1
-    if jit_eps:
-        Qx = Qx + jit_eps * eye
-    X = sample_mvn_precision_shared(draws.normal(SITE_X, (n, K)), Qx,
-                                    sq_r * S2)
+    with scope("x_update"):
+        R = Y - sq_1mr * mm(Z, _t(Lam))
+        S1 = torch.sum(LtW, dim=0)                                  # (K, K)
+        S2 = torch.sum(mm(R, W), dim=0)                             # (n, K)
+        Qx = cfg.x_prior_precision * eye + rho * S1
+        if jit_eps:
+            Qx = Qx + jit_eps * eye
+        X = sample_mvn_precision_shared(draws.normal(SITE_X, (n, K)), Qx,
+                                        sq_r * S2)
 
-    eta = sq_r * X[None] + sq_1mr * Z                           # (G, n, K)
+        eta = sq_r * X[None] + sq_1mr * Z                           # (G, n, K)
 
     # ---- Lambda | rest: G * P independent K x K systems ------------------
-    plam = prior.row_precision(state.prior)                     # (G, P, K)
-    if jit_eps:
-        plam = plam + jit_eps
-    fused = cfg.lambda_kernel == "pallas-fused"
-    # under adaptive rank truncation the inactive columns are conditioned
-    # at Lambda_h = 0: masking eta's inactive columns before E and EY makes
-    # the precision block-diagonal between active and inactive
-    # coordinates, so the active ones are drawn from exactly their
-    # conditional; the inactive ones are zeroed after the solve.  The
-    # masked moments serve the Gram SSE too (every masked entry meets a
-    # zero loading there)
-    active = state.active
-    eta_lam = eta if active is None else eta * active[:, None, :]
-    # the JAX fused path forms the moments with float32 einsums even under
-    # bf16, except in Gram mode, where it reuses these mm moments
-    mm_e = torch.matmul if fused and not sse_gram else mm
-    E = mm_e(_t(eta_lam), eta_lam)                              # (G, K, K)
-    EY = mm_e(_t(eta_lam), Y)                                   # (G, K, P)
-    EYt = _t(EY).contiguous()                                   # (G, P, K)
-    Zn = draws.normal(SITE_LAM, (G, P, K))
-    if fused:
-        Lam = lam_update(E, plam, ps, EYt, Zn)
-    else:
-        Q = torch.diag_embed(plam) + ps[..., None, None] * E[:, None]
-        B = ps[..., None] * EYt                                 # (G, P, K)
-        if cfg.compute_dtype == "bf16" and cfg.lambda_kernel != "pallas":
-            Lam = chol_solve_sample_batched(
-                Q.reshape(G * P, K, K), B.reshape(G * P, K),
-                Zn.reshape(G * P, K)).reshape(G, P, K)
-        elif K <= MAX_K:
-            Lam = chol_sample(Q.reshape(G * P, K, K), B.reshape(G * P, K),
-                              Zn.reshape(G * P, K)).reshape(G, P, K)
+    with scope("lambda_update"):
+        plam = prior.row_precision(state.prior)                     # (G, P, K)
+        if jit_eps:
+            plam = plam + jit_eps
+        fused = cfg.lambda_kernel == "pallas-fused"
+        # under adaptive rank truncation the inactive columns are conditioned
+        # at Lambda_h = 0: masking eta's inactive columns before E and EY makes
+        # the precision block-diagonal between active and inactive
+        # coordinates, so the active ones are drawn from exactly their
+        # conditional; the inactive ones are zeroed after the solve.  The
+        # masked moments serve the Gram SSE too (every masked entry meets a
+        # zero loading there)
+        active = state.active
+        eta_lam = eta if active is None else eta * active[:, None, :]
+        # the JAX fused path forms the moments with float32 einsums even under
+        # bf16, except in Gram mode, where it reuses these mm moments
+        mm_e = torch.matmul if fused and not sse_gram else mm
+        E = mm_e(_t(eta_lam), eta_lam)                              # (G, K, K)
+        EY = mm_e(_t(eta_lam), Y)                                   # (G, K, P)
+        EYt = _t(EY).contiguous()                                   # (G, P, K)
+        Zn = draws.normal(SITE_LAM, (G, P, K))
+        if fused:
+            Lam = lam_update(E, plam, ps, EYt, Zn)
         else:
-            Lam = sample_mvn_precision_linalg(Q, B, Zn)
-    if active is not None:
-        Lam = Lam * active[:, None, :]
+            Q = torch.diag_embed(plam) + ps[..., None, None] * E[:, None]
+            B = ps[..., None] * EYt                                 # (G, P, K)
+            if cfg.compute_dtype == "bf16" and cfg.lambda_kernel != "pallas":
+                Lam = chol_solve_sample_batched(
+                    Q.reshape(G * P, K, K), B.reshape(G * P, K),
+                    Zn.reshape(G * P, K)).reshape(G, P, K)
+            elif K <= MAX_K:
+                Lam = chol_sample(Q.reshape(G * P, K, K), B.reshape(G * P, K),
+                                  Zn.reshape(G * P, K)).reshape(G, P, K)
+            else:
+                Lam = sample_mvn_precision_linalg(Q, B, Zn)
+        if active is not None:
+            Lam = Lam * active[:, None, :]
 
     # ---- shrinkage prior ---------------------------------------------------
-    prior_state = prior.update(draws, state.prior, Lam, active)
+    with scope("prior_update"):
+        prior_state = prior.update(draws, state.prior, Lam, active)
 
     # ---- residual precisions ps | rest -----------------------------------
-    if sse_gram:
-        # SSE_j = Y_j'Y_j - 2 Lam_j'(EY)_j + Lam_j' E Lam_j on the Lambda
-        # stage's moments; the rejection-free Exp-sum Gamma draw
-        yty = torch.sum(Y * Y, dim=1)                           # (G, P)
-        M = Lam @ E                                             # (G, P, K)
-        gunit = gamma_unit_static(draws, SITE_PS, cfg.as_ + 0.5 * n, (G, P),
-                                  device=Y.device)
-        ps, sse = sse_ps(Lam.reshape(G * P, K), M.reshape(G * P, K),
-                         EYt.reshape(G * P, K), yty.reshape(G * P),
-                         gunit.reshape(G * P), bs=float(cfg.bs))
-        ps, sse = ps.reshape(G, P), sse.reshape(G, P)
-    else:
-        resid = Y - eta @ _t(Lam)                               # (G, n, P)
-        sse = torch.sum(resid * resid, dim=1)                   # (G, P)
-        ps = gamma_rate(draws, SITE_PS, cfg.as_ + 0.5 * n,
-                        cfg.bs + 0.5 * sse)
+    with scope("ps_update"):
+        if sse_gram:
+            # SSE_j = Y_j'Y_j - 2 Lam_j'(EY)_j + Lam_j' E Lam_j on the Lambda
+            # stage's moments; the rejection-free Exp-sum Gamma draw
+            yty = torch.sum(Y * Y, dim=1)                           # (G, P)
+            M = Lam @ E                                             # (G, P, K)
+            gunit = gamma_unit_static(draws, SITE_PS, cfg.as_ + 0.5 * n,
+                                      (G, P), device=Y.device)
+            ps, sse = sse_ps(Lam.reshape(G * P, K), M.reshape(G * P, K),
+                             EYt.reshape(G * P, K), yty.reshape(G * P),
+                             gunit.reshape(G * P), bs=float(cfg.bs))
+            ps, sse = ps.reshape(G, P), sse.reshape(G, P)
+        else:
+            resid = Y - eta @ _t(Lam)                               # (G, n, P)
+            sse = torch.sum(resid * resid, dim=1)                   # (G, P)
+            ps = gamma_rate(draws, SITE_PS, cfg.as_ + 0.5 * n,
+                            cfg.bs + 0.5 * sse)
 
     return SamplerState(Lambda=Lam, Z=Z, X=X, ps=ps, prior=prior_state,
                         active=active), sse

@@ -42,7 +42,7 @@ import torch
 from dcfm_tpu_torch.config import ModelConfig
 from dcfm_tpu_torch.models.adapt import adapt_rank, effective_ranks
 from dcfm_tpu_torch.models.conditionals import (
-    covariance_panels, cross_moments, gibbs_sweep, impute_missing_y)
+    covariance_panels, cross_moments, gibbs_sweep, impute_missing_y, scope)
 from dcfm_tpu_torch.models.state import (
     SamplerState, init_state, num_padded_pairs, packed_pair_indices)
 from dcfm_tpu_torch.noise import BufferedDraws, RecordingDraws, draw_into
@@ -501,7 +501,8 @@ class ChainRunner:
             self.eager_trips += 1
             return
         graph = self._graphs.get(pattern) or self._capture(draws, pattern)
-        graph[0].replay()
+        with scope("trip"):         # the profiler's range of one replay
+            graph[0].replay()
         cuda_lib.add_launches(graph[1])
         self.replays += 1
 
@@ -548,8 +549,11 @@ class ChainRunner:
         for j, d in enumerate(draws):
             # the completed data: the incoming state's imputation of the
             # missing entries, read by every conditional of the sweep
-            Yc = (self.Y if self._mask is None else impute_missing_y(
-                d, self.Y, state, cfg.rho, self._mask))
+            Yc = self.Y
+            if self._mask is not None:
+                with scope("impute_missing"):
+                    Yc = impute_missing_y(d, self.Y, state, cfg.rho,
+                                          self._mask)
             state, sse = gibbs_sweep(d, Yc, state, cfg, self.prior)
             # the trace reads the sweep's own output; adaptation re-masks
             # the carried state after it (the JAX package's order)
@@ -559,21 +563,25 @@ class ChainRunner:
             if isinstance(d, BufferedDraws):
                 d.finish()
             if pattern[j]:
-                eta = (sq_r * state.X[None] + sq_1mr * state.Z
-                       if cfg.estimator == "scaled" else None)
-                # the combine's cross-moments, formed once per saved draw
-                # for every chunk and kept for the ring too
-                H_grid = None if eta is None else cross_moments(eta)
-                add_panels(carry.sigma_acc, carry.sigma_sq_acc, state,
-                           cfg.rho, self._rows, self._cols,
-                           self._pair_chunks, eta=eta, H_grid=H_grid,
-                           compute_dtype=self._c_dtype)
-                if carry.y_imp_acc is not None:
-                    carry.y_imp_acc += Yc
-                if carry.draws is not None:
-                    self._store(carry.draws, state, H_grid, self._its[j])
-            health = _health_update(health, _health_now(state, self.prior))
-            self._trace[j].copy_(_trace_now(sweep_state, sse, cfg.rho))
+                with scope("combine"):
+                    eta = (sq_r * state.X[None] + sq_1mr * state.Z
+                           if cfg.estimator == "scaled" else None)
+                    # the combine's cross-moments, formed once per saved
+                    # draw for every chunk and kept for the ring too
+                    H_grid = None if eta is None else cross_moments(eta)
+                    add_panels(carry.sigma_acc, carry.sigma_sq_acc, state,
+                               cfg.rho, self._rows, self._cols,
+                               self._pair_chunks, eta=eta, H_grid=H_grid,
+                               compute_dtype=self._c_dtype)
+                    if carry.y_imp_acc is not None:
+                        carry.y_imp_acc += Yc
+                    if carry.draws is not None:
+                        self._store(carry.draws, state, H_grid,
+                                    self._its[j])
+            with scope("health_trace"):
+                health = _health_update(health,
+                                        _health_now(state, self.prior))
+                self._trace[j].copy_(_trace_now(sweep_state, sse, cfg.rho))
         for dst, src in zip(state_leaves(carry.state), state_leaves(state),
                             strict=True):
             dst.copy_(src)

@@ -158,6 +158,15 @@ class _SiteStreams:
     gamma_candidates = standard_gamma
 
 
+def warm_lineage(relineage: int) -> tuple:
+    """The sweep lineage of a warm start (``WarmStart.relineage``): a
+    leading 0, which no rewind lineage has (rewind counts start at 1), so
+    a warm chain never replays the draws of its donor, of a plain run of
+    the same seed, or of a rewound one; successive relineage values give
+    disjoint streams.  The init streams are not lineaged."""
+    return (0, int(relineage))
+
+
 class TorchNoise:
     """Default provider: Philox streams keyed on (seed, chain, global
     iteration, site) on ``device`` (an init has its own key space).
@@ -169,7 +178,9 @@ class TorchNoise:
     streams exactly as before it existed.  ``init(chain, lineage)`` with a
     lineage > 0 is an elastic birth's initial state (the JAX package's
     ``fold_in(k_init, elastic_lineage)``): never the state any chain of
-    another lineage started from."""
+    another lineage started from.  A warm start's chains run on
+    :func:`warm_lineage` (the JAX package's ``fold_in(k_chain,
+    relineage)``), extended by the sentinel's rewinds."""
 
     def __init__(self, seed: int, device, lineage: tuple = ()):
         self.seed = int(seed)

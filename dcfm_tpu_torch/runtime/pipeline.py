@@ -34,6 +34,16 @@ chain's carry on a side stream after waiting for the runner's work, and
 appends its end event to the carry's ``readers``; the runner waits for
 those events before it writes the carry again.  No snapshot runs inside a
 capture: they all run between chunks.
+
+Flight recorder (obs/): the loop emits the JAX package's events at each
+boundary - ``chunk`` (one per boundary for all the chains, its ``dur_s``
+the boundary's existing host clock), ``early_stop``, ``sentinel_trip``,
+``chain_diverged``, ``sentinel_rewind``, ``stream_snapshot`` /
+``stream_skip`` / ``stream_refused`` - and the drain thread a
+``stream_drain`` span per landed snapshot; it sets the fit gauges of the
+process default registry and fsyncs the event log after the boundary's
+save.  All of it is host-side file and dict work between chunks: nothing
+records inside a trip or a capture, and nothing adds a sync.
 """
 
 from __future__ import annotations
@@ -52,15 +62,60 @@ import torch
 from dcfm_tpu_torch.models.sampler import (
     ChainCarry, ChainStats, DrawBuffers, num_saved_draws)
 from dcfm_tpu_torch.models.state import SamplerState
+from dcfm_tpu_torch.obs import metrics as obs_metrics
+from dcfm_tpu_torch.obs.recorder import active as obs_active, record
 from dcfm_tpu_torch.resilience.sentinel import (
     ChainDivergedError, DivergenceSentinel)
 from dcfm_tpu_torch.runtime.fetch import (
     _fetch_stream, fetch_prep, fetch_sd_prep, quant8_drain, quant8_start)
 from dcfm_tpu_torch.runtime.resume import (
-    ElasticResume, ResumeContext, resume_state, rewind_source)
+    ElasticResume, ResumeContext, graft_into, resume_state, rewind_source)
 from dcfm_tpu_torch.utils.checkpoint import (
     DRAW_LEAVES, AsyncCheckpointWriter, Snapshot, save_checkpoint)
 from dcfm_tpu_torch.utils.diagnostics import ess, split_rhat
+
+
+# the fit's progress gauges in the process default metrics registry
+# (obs/metrics.py), set at every chunk boundary - host-side dict writes,
+# never device work - as the JAX package's are
+_REG = obs_metrics.default_registry()
+_G_ITER = _REG.gauge(
+    "dcfm_fit_iteration",
+    "global Gibbs iteration at the last completed chunk boundary")
+_G_CHUNK_S = _REG.gauge(
+    "dcfm_fit_chunk_seconds",
+    "wall-clock seconds of the last completed chunk")
+_G_STREAM_SKIPS = _REG.gauge(
+    "dcfm_fit_stream_skips",
+    "chunk boundaries skipped by the streamed fetch (both double-buffer "
+    "slots busy)")
+_G_REWINDS = _REG.gauge(
+    "dcfm_fit_sentinel_rewinds",
+    "divergence-sentinel rewinds performed by the current fit")
+_G_CK_GEN = _REG.gauge(
+    "dcfm_fit_checkpoint_generation",
+    "checkpoint saves completed by the current fit (the write-behind "
+    "generation counter)")
+# The JAX package counts chunk boundaries whose carry came back with
+# another placement than it went in (a relayout copy of the donated
+# carry).  The port's carry is one static tensor set the runner writes in
+# place, so there is no relayout: the gauge stays 0, and the
+# ``carry_relayout`` event waits for the multi-GPU mesh (ROADMAP Queue A
+# item 4), where a carry's placement can change.
+_G_RELAYOUTS = _REG.gauge(
+    "dcfm_fit_carry_relayouts",
+    "steady-state chunk boundaries where the carry came back with a "
+    "different placement (sharding/layout) than it went in - each one "
+    "is a per-chunk relayout copy of the biggest buffers on the device; "
+    "MUST read 0 once the chunk program is warm")
+
+
+def _flush_events() -> None:
+    """The boundary's durability point of the flight recorder: the event
+    log up to here survives a kill."""
+    rec = obs_active()
+    if rec is not None:
+        rec.flush(fsync=True)
 
 
 def chunk_schedule(num_iters: int, chunk: int) -> list:
@@ -210,6 +265,7 @@ class StreamingFetcher:
         self._slots = threading.Semaphore(max_inflight)
         self._queue: "queue.Queue" = queue.Queue()
         self._error: Optional[BaseException] = None
+        self.failed = False          # the drain died: refusals from here on
         self._finished = False
         # non-daemon: finish()/abort() join it, and the interpreter joins
         # an abandoned one at exit
@@ -244,7 +300,7 @@ class StreamingFetcher:
         quant8 preps and the start of their drains.  A non-final submit
         never blocks: with every slot busy the boundary is skipped (False).
         The final submit waits for a slot."""
-        if self._error is not None:
+        if self.failed:
             return False
         if final:
             t = time.perf_counter()
@@ -337,9 +393,15 @@ class StreamingFetcher:
                         self.sd_q8 = self._land(q8, self.land_sd)
                     if job.final:
                         self.final_landed = True
-                    self.chunk_fetch_s.append(time.perf_counter() - t)
+                    dur = time.perf_counter() - t
+                    self.chunk_fetch_s.append(dur)
+                    # the drain's span (obs/spans.py draws it beside the
+                    # chunk slices it overlaps): a file write, no card call
+                    record("stream_drain", final=bool(job.final), dur_s=dur,
+                           with_sd=job.sd_started is not None)
             except BaseException as e:      # surfaced by finish()
                 self._error = e
+                self.failed = True
             finally:
                 job.sources = None
                 self._slots.release()
@@ -416,12 +478,26 @@ def run_chain(*, cfg, model, run, phase: dict, fingerprint, template: dict,
             y_imp_shape=(template["y_imp_acc"][0][-3:]
                          if "y_imp_acc" in template else None))
 
+    fresh: list = []
+
+    def new_chains():
+        # the chains' initial carries, made once: a warm start grafts its
+        # donor's state into these
+        if not fresh:
+            fresh.extend(runner.new_chain(c) for c in range(C))
+        return fresh
+
     rctx = ResumeContext(cfg=cfg, fingerprint=fingerprint, template=template,
-                         birth=birth)
+                         birth=birth, fresh=new_chains)
     leaves, done, acc_start = resume_state(rctx)
-    carries = ([runner.new_chain(c) for c in range(C)] if leaves is None
-               else from_leaves(leaves))
+    if leaves is None:
+        carries = list(new_chains())
+        if rctx.warm is not None:
+            graft_into(carries, rctx.warm)
+    else:
+        carries = from_leaves(leaves)
     del leaves
+    fresh.clear()       # a rewind must be able to free the first carries
     _sync(device)
     phase["init_s"] = time.perf_counter() - t_init
     executed = run.total_iters - done
@@ -500,8 +576,23 @@ def run_chain(*, cfg, model, run, phase: dict, fingerprint, template: dict,
                     if streamer is not None:
                         streamer.truncate(*window_fn(acc_start, rctx.elastic,
                                                      it_now))
+                    record("early_stop", iteration=it_now,
+                           rhat=round(rhat_max, 5), ess=round(ess_min, 2),
+                           rhat_threshold=run.rhat_threshold,
+                           ess_target=run.ess_target,
+                           total_iters=run.total_iters)
             last = qi == len(queue_)
+            record("chunk", start=it_now - ni, end=it_now, iters=ni,
+                   dur_s=chunk_secs[-1], final=last)
+            _G_ITER.set(it_now)
+            _G_CHUNK_S.set(chunk_secs[-1])
+            _G_RELAYOUTS.set(0)
+            if streamer is not None:
+                _G_STREAM_SKIPS.set(streamer.skipped)
+            if sentinel is not None:
+                _G_REWINDS.set(sentinel.rewinds)
             if sentinel is not None and sentinel.tripped(stats):
+                record("sentinel_trip", iteration=it_now, mode=sentinel.mode)
                 reloaded = None
                 if sentinel.mode == "rewind":
                     if writer is not None:
@@ -511,6 +602,8 @@ def run_chain(*, cfg, model, run, phase: dict, fingerprint, template: dict,
                             pass
                     reloaded = rewind_source(rctx)
                 if reloaded is None:
+                    record("chain_diverged", iteration=it_now,
+                           mode=sentinel.mode, rewinds=sentinel.rewinds)
                     raise ChainDivergedError(
                         "chain produced non-finite values in the chunk "
                         f"ending at iteration {it_now}"
@@ -518,8 +611,17 @@ def run_chain(*, cfg, model, run, phase: dict, fingerprint, template: dict,
                            if sentinel.mode == "rewind"
                            else " (sentinel mode 'abort')"),
                         iteration=it_now, rewinds=sentinel.rewinds)
-                sentinel.record_rewind(it_now)  # raises past the budget
+                try:
+                    sentinel.record_rewind(it_now)  # raises past the budget
+                except ChainDivergedError:
+                    record("chain_diverged", iteration=it_now,
+                           mode=sentinel.mode, rewinds=sentinel.rewinds)
+                    raise
+                it_tripped = it_now
                 leaves, it_now, acc_start = reloaded
+                record("sentinel_rewind", iteration=it_tripped,
+                       to_iteration=it_now, acc_start=acc_start,
+                       rewinds=sentinel.rewinds)
                 # the rewound chains restart from the file on fresh
                 # streams (the rewind count folded into their lineage) and
                 # a 10x ridge jitter, which every captured graph has baked
@@ -560,7 +662,15 @@ def run_chain(*, cfg, model, run, phase: dict, fingerprint, template: dict,
                     draws += rctx.elastic.fold_draws
                 if last or draws > 0:
                     try:
-                        streamer.submit(carries, final=last)
+                        if streamer.submit(carries, final=last):
+                            record("stream_snapshot", iteration=it_now,
+                                   final=last)
+                        elif streamer.failed:
+                            # the drain died: "stream dead since k", never
+                            # "double buffer saturated"
+                            record("stream_refused", iteration=it_now)
+                        else:
+                            record("stream_skip", iteration=it_now)
                     except Exception as e:  # the stream is an optimization: the post-hoc fetch serves
                         warnings.warn(
                             f"streamed fetch dispatch failed ({e!r}); "
@@ -570,6 +680,7 @@ def run_chain(*, cfg, model, run, phase: dict, fingerprint, template: dict,
                         streamer.abort()
                         streamer = None
             if writer is None:
+                _flush_events()
                 continue
             if writer.poll_error() is not None and not last:
                 writer.wait()       # re-raises the stored failure
@@ -609,6 +720,8 @@ def run_chain(*, cfg, model, run, phase: dict, fingerprint, template: dict,
                 phase["checkpoint_s"] += time.perf_counter() - t
                 since_save = 0
                 saves_done += 1
+                _G_CK_GEN.set(saves_done)
+            _flush_events()
         if writer is not None:
             # the last save must be durable before fit returns
             t = time.perf_counter()

@@ -10,15 +10,23 @@ The port of the single-process part of ``dcfm_tpu/runtime/resume.py``:
   file is refused: there is nothing to report), and the ``.full`` sidecar
   of ``checkpoint_full_every`` wins whenever it keeps more saved draws; a
   full file whose only mismatch is the chain count is adopted elastically
-  when ``FitConfig.elastic`` allows (:func:`_try_elastic`);
+  when ``FitConfig.elastic`` allows (:func:`_try_elastic`); a fresh start
+  under ``FitConfig.warm_start`` seeds the chains' state from another
+  run's checkpoint (:func:`_try_warm_start`), strictly below resume: a
+  relaunched warm refit resumes its own file and never re-grafts;
 * :func:`rewind_source` - the divergence sentinel's rewind target: the
   newest compatible, CRC-clean retained generation.
 
 Both return host leaves (``utils/checkpoint.load_checkpoint``'s), which
 the chunk loop (runtime/pipeline.py) copies into the chains' carries, and
 leave in ``ResumeContext.elastic`` the elastic bookkeeping the run must
-thread into its divisor and its saves.  Still refused: multi-process
-``.procK-of-N`` sets (ROADMAP Queue A item 7).
+thread into its divisor and its saves (and in ``ResumeContext.warm`` the
+grafted state of a warm start).  Every decision is a flight-recorder event
+(obs/recorder.py), as in the JAX package: ``resume_decision`` (fresh,
+resume, light, sidecar, elastic), ``elastic_resume`` (elastic, refused)
+and ``warm_start`` (warm, or cold with the reason).  Still refused:
+multi-process ``.procK-of-N`` sets, whose collective decision events come
+with them (ROADMAP Queue A item 7).
 """
 
 from __future__ import annotations
@@ -28,12 +36,17 @@ import os
 import re
 from typing import Callable, Optional
 
+import numpy as np
+import torch
+
 from dcfm_tpu_torch.config import _OUTER, FitConfig
 from dcfm_tpu_torch.models.sampler import num_saved_draws
+from dcfm_tpu_torch.obs.recorder import record
 from dcfm_tpu_torch.utils.checkpoint import (
-    checkpoint_compatible, config_from_checkpoint_meta, elastic_meta,
-    load_checkpoint, load_checkpoint_elastic, read_checkpoint_meta,
-    retained_checkpoints)
+    _chain_tensors, _open, _read_leaf, checkpoint_compatible,
+    config_from_checkpoint_meta, elastic_meta, load_checkpoint,
+    load_checkpoint_elastic, read_checkpoint_meta, retained_checkpoints,
+    state_leaf_names)
 
 
 @dataclasses.dataclass
@@ -60,17 +73,24 @@ class ElasticResume:
 class ResumeContext:
     """What the gates need of a fit: the config, the data fingerprint the
     checkpoint must match, the carry template
-    (``utils/checkpoint.carry_template``) and ``birth(chain, lineage)``,
-    an elastic grow's initial leaves of a new chain (no chain axis).
+    (``utils/checkpoint.carry_template``), ``birth(chain, lineage)``, an
+    elastic grow's initial leaves of a new chain (no chain axis), and
+    ``fresh()``, the chains' initial carries on the fit's device (the
+    same carries on every call: a warm start grafts into them).
 
-    ``elastic`` is an OUT field: the resumed file's elastic bookkeeping (a
-    fresh adoption, or a file saved after one), else None."""
+    ``elastic`` and ``warm`` are OUT fields: the resumed file's elastic
+    bookkeeping (a fresh adoption, or a file saved after one), else None;
+    the grafted state leaves of a warm start (``{leaf: host array}``, the
+    chain-axis convention), which the caller writes into ``fresh()``'s
+    carries, else None."""
 
     cfg: FitConfig
     fingerprint: Optional[str]
     template: dict
     birth: Optional[Callable[[int, int], dict]] = None
+    fresh: Optional[Callable[[], list]] = None
     elastic: Optional[ElasticResume] = None
+    warm: Optional[dict] = None
 
 
 def run_topology(cfg: FitConfig) -> dict:
@@ -160,7 +180,17 @@ def _try_elastic(ctx: ResumeContext, meta: dict):
         chain_acc_starts=tuple(starts), elastic_lineage=lineage,
         from_topology=info["from_topology"], to_topology=run_topology(cfg))
     it = int(meta["iteration"])
-    return leaves, it, min(starts) if starts else it
+    acc0 = min(starts) if starts else it
+    record("elastic_resume", decision="elastic",
+           from_chains=info["from_chains"], to_chains=info["to_chains"],
+           kept=info["kept"], dropped=info["dropped"],
+           birthed=info["birthed"], fold_draws=info["fold_draws"],
+           elastic_lineage=lineage, iteration=it, acc_start=acc0,
+           from_topology=info["from_topology"],
+           to_topology=run_topology(cfg))
+    record("resume_decision", decision="elastic", iteration=it,
+           acc_start=acc0)
+    return leaves, it, acc0
 
 
 def _try_full_sidecar(ctx: ResumeContext, light_kept: int):
@@ -197,7 +227,10 @@ def _load(ctx: ResumeContext, meta: dict):
     it = int(meta["iteration"])
     if not meta.get("state_only"):
         ctx.elastic = _elastic_carryover(meta, cfg)
-        return leaves, it, int(meta.get("acc_start", 0))
+        acc0 = int(meta.get("acc_start", 0))
+        record("resume_decision", decision="resume", kind="plain",
+               iteration=it, acc_start=acc0)
+        return leaves, it, acc0
     # light file: accumulation restarts here, keeping only the restarted
     # window's draws - unless the sidecar keeps more (including the
     # window = 0 case, where a light resume would report Sigma = 0)
@@ -205,6 +238,8 @@ def _load(ctx: ResumeContext, meta: dict):
               - num_saved_draws(it, run.burnin, run.thin))
     side = _try_full_sidecar(ctx, max(window, 0))
     if side is not None:
+        record("resume_decision", decision="sidecar", iteration=side[1],
+               acc_start=side[2])
         return side
     if window <= 0:
         raise ValueError(
@@ -215,23 +250,158 @@ def _load(ctx: ResumeContext, meta: dict):
             "checkpoint_mode='full' / checkpoint_full_every for "
             "recoverable accumulators")
     ctx.elastic = _light_carryover(meta, cfg, it)
+    record("resume_decision", decision="light", kind="plain", iteration=it,
+           acc_start=it)
     return leaves, it, it
 
 
-def resume_state(ctx: ResumeContext):
-    """``(leaves or None, done, acc_start)``: None means a fresh start at
-    iteration 0."""
-    cfg = ctx.cfg
+def _warm_incompatible(meta: dict, cfg: FitConfig) -> Optional[str]:
+    """Why the donor checkpoint cannot seed this run's chains, or None
+    (the JAX package's rule and reasons).
+
+    Looser than :func:`checkpoint_compatible`: a warm start is a new run
+    whose data grew, so seed, schedule, fingerprint and the random
+    streams (``meta["rng"]``) may all differ.  What must hold is the graft
+    geometry: the chain axis present in both or in neither, and the same
+    model up to ``num_shards`` (the field that grows with a new shard)."""
+    if int(meta["version"]) not in (6, 7, 8):
+        return (f"donor checkpoint is format v{meta['version']}, "
+                "warm start requires v6/v7/v8")
+    old = config_from_checkpoint_meta(meta)
+    if old.run.num_chains != cfg.run.num_chains and (
+            old.run.num_chains == 1 or cfg.run.num_chains == 1):
+        return (f"donor ran {old.run.num_chains} chains, this run "
+                f"{cfg.run.num_chains} - the chain axis appears/"
+                "disappears at num_chains=1, no graft geometry")
+    if dataclasses.replace(old.model,
+                           num_shards=cfg.model.num_shards) != cfg.model:
+        return ("donor model config differs beyond num_shards - the "
+                "state pytrees are not graft-compatible")
+    return None
+
+
+def _graft_state_leaf(old: np.ndarray, fresh: np.ndarray) -> np.ndarray:
+    """One donor state leaf grafted into its fresh-init counterpart (the
+    JAX package's rule): equal shapes give the donor's bytes verbatim; a
+    fresh leaf grown along some axes (appended rows grow n, new shards
+    grow G) takes the donor in its origin block and keeps its fresh init
+    in the grown region; a shrunk or reshaped leaf raises (the caller's
+    cold fallback)."""
+    f_shape = tuple(np.shape(fresh))
+    dtype = np.dtype(fresh.dtype)
+    if old.shape == f_shape:
+        return np.asarray(old, dtype=dtype)  # dcfm: ignore[DCFM801] - donor npz bytes already on the host, not a device fetch
+    if (old.ndim != len(f_shape)
+            or any(o > f for o, f in zip(old.shape, f_shape))):
+        raise ValueError(
+            f"donor state leaf {old.shape} does not embed in fresh "
+            f"{f_shape} - data shrank or layout changed")
+    out = np.array(fresh, dtype=dtype)  # dcfm: ignore[DCFM801] - the fresh leaf is a host array (host_state), not a device fetch
+    out[tuple(slice(0, s) for s in old.shape)] = old.astype(dtype)
+    return out
+
+
+def host_state(carries: list, names: tuple) -> dict:
+    """The chains' state leaves ``names`` as host arrays, with the
+    chain-axis convention (a leading chain axis for more than one
+    chain)."""
+    per = [_chain_tensors(c, True) for c in carries]
+    return {k: (np.stack([p[k].cpu().numpy() for p in per])
+                if len(per) > 1 else per[0][k].cpu().numpy())
+            for k in names}
+
+
+def graft_into(carries: list, leaves: dict) -> None:
+    """Write host state leaves (the chain-axis convention) into the
+    chains' own carries, in place: before the chain's first trip, so every
+    capture reads them from the device."""
+    for c, carry in enumerate(carries):
+        tensors = _chain_tensors(carry, True)
+        for k, a in leaves.items():
+            tensors[k].copy_(torch.from_numpy(np.ascontiguousarray(
+                a[c] if len(carries) > 1 else a)))
+
+
+def _try_warm_start(ctx: ResumeContext) -> bool:
+    """The warm-start seam (``FitConfig.warm_start``): graft the donor
+    checkpoint's sampler state into the fresh chains' state, into
+    ``ctx.warm``; True when it did.  Never raises: any failure is a
+    recorded cold start (False).
+
+    Only the state grafts - accumulators, iteration and health start
+    fresh (a new run over new data).  The state leaves are the first
+    leaves of a full and of a light file alike, each CRC-checked before
+    it is grafted.  A donor with more chains seeds from its first rows; a
+    donor with fewer leaves the extra chains on their fresh init (the
+    origin-block graft).  Lambda's (P, K) must agree (per-shard width and
+    rank never graft); n and G may grow."""
+    cfg, ws = ctx.cfg, ctx.cfg.warm_start
+    try:
+        meta = read_checkpoint_meta(ws.checkpoint)
+        reason = _warm_incompatible(meta, cfg)
+        if reason is not None:
+            record("warm_start", decision="cold", reason=reason,
+                   checkpoint=ws.checkpoint)
+            return False
+        names = state_leaf_names(cfg.model)
+        fresh = host_state(ctx.fresh(), names)
+        donor_chains = config_from_checkpoint_meta(meta).run.num_chains
+        C = cfg.run.num_chains
+        chain_slice = C if donor_chains > C else None
+        grafted, verbatim = {}, 0
+        with _open(ws.checkpoint) as z:
+            lam, f_lam = z["leaf_0"], fresh["Lambda"]
+            if lam.ndim != f_lam.ndim or lam.shape[-2:] != f_lam.shape[-2:]:
+                record("warm_start", decision="cold",
+                       reason=(f"donor Lambda {lam.shape} vs fresh "
+                               f"{f_lam.shape}: per-shard feature width / "
+                               "rank mismatch"),
+                       checkpoint=ws.checkpoint)
+                return False
+            for i, name in enumerate(names):
+                arr = _read_leaf(z, meta, f"leaf_{i}", ws.checkpoint)
+                if chain_slice is not None:
+                    arr = arr[:chain_slice]
+                grafted[name] = _graft_state_leaf(arr, fresh[name])
+                verbatim += int(arr.shape == fresh[name].shape)
+        ctx.warm = grafted
+        record("warm_start", decision="warm", checkpoint=ws.checkpoint,
+               donor_iteration=int(meta["iteration"]),
+               relineage=ws.relineage, leaves=len(grafted),
+               verbatim_leaves=verbatim)
+        return True
+    except Exception as e:
+        # a warm start is best-effort by contract: any failure is a
+        # recorded cold start
+        record("warm_start", decision="cold",
+               reason=f"{type(e).__name__}: {e}", checkpoint=ws.checkpoint)
+        return False
+
+
+def _fresh(ctx: ResumeContext):
+    """A start at iteration 0: warm from ``FitConfig.warm_start`` when the
+    donor grafts, else recorded as the fresh decision."""
     ctx.elastic = None
-    if not cfg.resume:
+    if ctx.cfg.warm_start is not None and _try_warm_start(ctx):
         return None, 0, 0
+    record("resume_decision", decision="fresh", iteration=0, acc_start=0)
+    return None, 0, 0
+
+
+def resume_state(ctx: ResumeContext):
+    """``(leaves or None, done, acc_start)``: None means a start at
+    iteration 0 (``ctx.warm`` holds the grafted state of a warm one)."""
+    cfg = ctx.cfg
+    ctx.elastic = ctx.warm = None
+    if not cfg.resume:
+        return _fresh(ctx)
     auto = cfg.resume == "auto"
     path = cfg.checkpoint_path
     refuse_multiprocess_sets(path)
     if not os.path.exists(path):
         if not auto:
             raise FileNotFoundError(f"resume=True but no checkpoint at {path}")
-        return None, 0, 0
+        return _fresh(ctx)
     try:
         meta = read_checkpoint_meta(path)
         reason = checkpoint_compatible(meta, cfg, ctx.fingerprint)
@@ -240,21 +410,22 @@ def resume_state(ctx: ResumeContext):
         # start fresh
         if not auto:
             raise
-        return None, 0, 0
+        return _fresh(ctx)
     if reason is not None:
         try:
             adopted = _try_elastic(ctx, meta)
         except (OSError, ValueError, KeyError) as e:
-            ctx.elastic = None
+            record("elastic_resume", decision="refused",
+                   reason=f"{type(e).__name__}: {e}")
             if not auto:
                 raise ValueError(f"refusing to resume: {reason} (elastic "
                                  f"adoption refused: {e})") from e
-            return None, 0, 0
+            return _fresh(ctx)
         if adopted is not None:
             return adopted
         if not auto:
             raise ValueError(f"refusing to resume: {reason}")
-        return None, 0, 0
+        return _fresh(ctx)
     try:
         return _load(ctx, meta)
     except (OSError, ValueError, KeyError):
@@ -262,8 +433,7 @@ def resume_state(ctx: ResumeContext):
         # a ValueError), a finished light file
         if not auto:
             raise
-        ctx.elastic = None
-        return None, 0, 0
+        return _fresh(ctx)
 
 
 def rewind_source(ctx: ResumeContext):

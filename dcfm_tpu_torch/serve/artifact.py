@@ -23,10 +23,11 @@ Three export sources, no refit: :func:`export_fit_result` (a FitResult),
 the streamed export (:func:`begin_streamed_artifact` hands the streamed
 fetch its landing memmaps, :func:`finalize_streamed_artifact` completes
 the artifact) and :func:`export_from_checkpoint` (a checkpoint file of
-either package and the data matrix).  Not ported (ROADMAP Queue A item 7):
+either package and the data matrix).  Each finished artifact is an
+``artifact_write`` flight-recorder event (obs/recorder.py; ``source``
+"export" or "stream").  Not ported (ROADMAP Queue A item 7):
 ``.procK-of-N`` checkpoint sets, the cooperative exports, the
-fault-injection and flight-recorder seams, the query engine and the
-server.
+fault-injection seam, the query engine and the server.
 """
 
 from __future__ import annotations
@@ -42,6 +43,7 @@ import numpy as np
 
 from dcfm_tpu_torch.config import FitConfig, validate
 from dcfm_tpu_torch.models.state import num_upper_pairs
+from dcfm_tpu_torch.obs.recorder import record
 from dcfm_tpu_torch.runtime.fetch import accumulator_window
 from dcfm_tpu_torch.runtime.resume import refuse_multiprocess_sets
 from dcfm_tpu_torch.utils.checkpoint import (
@@ -371,7 +373,10 @@ def finalize_streamed_artifact(
         crc["sd"] = [int(panel_crc32(q)) for q in sd_mm]
     np.savez(os.path.join(path, MAPS_FILE),
              **_build_maps(pre, mean_scale, sd_scale))
-    _write_meta_last(path, _meta(pre, P, crc, sd_mm is not None, provenance))
+    meta = _meta(pre, P, crc, sd_mm is not None, provenance)
+    _write_meta_last(path, meta)
+    record("artifact_write", path=os.path.basename(path), source="stream",
+           fingerprint=meta["fingerprint"])
     return PosteriorArtifact.open(path)
 
 
@@ -419,7 +424,10 @@ def write_artifact(
         _write_panels(path, SD_PANELS_FILE, sd_q8)
     np.savez(os.path.join(path, MAPS_FILE),
              **_build_maps(pre, mean_scale, sd_scale))
-    _write_meta_last(path, _meta(pre, P, crc, sd_q8 is not None, provenance))
+    meta = _meta(pre, P, crc, sd_q8 is not None, provenance)
+    _write_meta_last(path, meta)
+    record("artifact_write", path=os.path.basename(path), source="export",
+           fingerprint=meta["fingerprint"])
     return PosteriorArtifact.open(path)
 
 

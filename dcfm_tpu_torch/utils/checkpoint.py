@@ -20,12 +20,12 @@ drops the accumulators - sigma_acc, sigma_sq_acc, y_imp_acc, never the
 ring - and renumbers), a leading chain axis on every leaf
 when there is more than one chain and none for one, and a JSON
 ``__meta__`` entry with the JAX package's keys, per-leaf CRC32s among
-them.  The config in it carries every key the JAX package's reader
-requires: the knobs the port has no field for are written at the JAX
-package's defaults (:data:`_JAX_ONLY`).  So the JAX package's
-``verify_checkpoint``, ``config_from_checkpoint_meta`` and
-``load_checkpoint`` (with a ``jax.eval_shape`` template) read a port file
-leaf for leaf.
+them.  The config in it is the port's FitConfig, whose fields are the
+JAX package's, in its nesting and key order (a port file names its own
+``backend``, e.g. "torch_cuda", which the JAX package's reader reads as
+it reads any string).  So the JAX package's ``verify_checkpoint``,
+``config_from_checkpoint_meta`` and ``load_checkpoint`` (with a
+``jax.eval_shape`` template) read a port file leaf for leaf.
 
 One key is the port's own: ``"rng": "torch-philox"``, naming the random
 streams the chains were drawn from (``noise.TorchNoise``).  The port
@@ -45,9 +45,10 @@ keep the divisor exact.
 
 Writes are atomic (tmp + rename), so a crash mid-save never corrupts the
 previous checkpoint; ``keep_last`` > 1 keeps older generations as
-``.bakK`` files.  The fault-injection and flight-recorder seams of the
-JAX writer (``fault_plan``, ``record``) are not ported (ROADMAP Queue A
-item 7).
+``.bakK`` files.  Every durable write is a ``checkpoint_save``
+flight-recorder event (obs/recorder.py), emitted from the writer's thread
+after the rename: a file write, no card call.  The fault-injection seam of
+the JAX writer (``fault_plan``) is not ported (ROADMAP Queue A item 7).
 """
 
 from __future__ import annotations
@@ -74,6 +75,7 @@ from dcfm_tpu_torch.config import (
     MGPConfig, ModelConfig, RunConfig, WarmStart)
 from dcfm_tpu_torch.models.sampler import num_saved_draws
 from dcfm_tpu_torch.models.state import num_padded_pairs
+from dcfm_tpu_torch.obs.recorder import record
 
 # the random streams a port chain is drawn from (meta["rng"])
 RNG_STREAMS = "torch-philox"
@@ -135,19 +137,6 @@ def _treedef(model: ModelConfig, names: tuple) -> str:
     tail += ["y_imp_acc"] if "y_imp_acc" in names else []
     return (f"ChainCarry(state=SamplerState(Lambda, Z, X, ps, prior={{"
             f"{prior}}}{active}), {', '.join(tail)})")
-
-
-# The JAX package's FitConfig knobs the port has no field for, at the JAX
-# package's defaults (dcfm_tpu/config.py), each with the key it follows in
-# its section of the config JSON (None: first).  None of them changes a
-# chain: they name no sampling at all (backend, profile_dir, obs).
-# Written so the JAX package's reader finds every key it requires; dropped
-# on reading.
-_JAX_ONLY = (
-    ("backend", None, {"backend": "auto"}),
-    ("backend", "upload_dtype", {"profile_dir": None}),
-    (None, "sentinel_max_rewinds", {"obs": "auto"}),
-)
 
 
 class CheckpointCorruptError(ValueError):
@@ -305,31 +294,11 @@ def data_fingerprint(data) -> str:
     return h.hexdigest()[:16]
 
 
-def _with_after(d: dict, after: Optional[str], items: dict) -> dict:
-    """``d`` with ``items`` inserted after key ``after`` (None: first)."""
-    if after is None:
-        return {**items, **d}
-    out = {}
-    for k, v in d.items():
-        out[k] = v
-        if k == after:
-            out.update(items)
-    return out
-
-
 def _config_to_json(cfg: FitConfig) -> dict:
     """The config as the JAX package's ``_config_to_json`` writes it: the
-    port's fields, and the JAX package's other knobs at their defaults
-    (:data:`_JAX_ONLY`), every key in the JAX package's place."""
-    d = dataclasses.asdict(cfg)
-    for section, after, items in _JAX_ONLY:
-        items = {k: (dict(v) if isinstance(v, dict) else v)
-                 for k, v in items.items()}
-        if section is None:
-            d = _with_after(d, after, items)
-        else:
-            d[section] = _with_after(d[section], after, items)
-    return d
+    port's dataclasses have the JAX package's fields in its order, so
+    ``asdict`` is every key in its place."""
+    return dataclasses.asdict(cfg)
 
 
 def _fields(cls, d: dict) -> dict:
@@ -338,9 +307,12 @@ def _fields(cls, d: dict) -> dict:
 
 
 def _config_from_json(d: dict) -> FitConfig:
-    """The port's FitConfig from a config JSON of either package (before
-    and after the JAX-only keys were written): keys the port has no field
-    for are dropped (:data:`_JAX_ONLY`)."""
+    """The port's FitConfig from a config JSON of either package, of any
+    version: a key the port has no field for is dropped, a field the file
+    lacks (older port files had no ``backend``, ``profile_dir`` or
+    ``obs``) takes its default.  No value is checked here: a JAX file's
+    ``backend="jax_tpu"`` reads as it is (export, warm starts), and only
+    ``fit`` refuses it."""
     model = _fields(ModelConfig, d["model"])
     for key, cls in (("mgp", MGPConfig), ("horseshoe", HorseshoeConfig),
                      ("dl", DLConfig), ("adapt", AdaptConfig)):
@@ -452,7 +424,9 @@ def _rotate_retained(target: str, keep_last: int) -> None:
 def _atomic_savez(target: str, meta: dict, payload: dict, *,
                   keep_last: int = 1) -> None:
     """Atomic npz write (tmp + rename) with every payload entry's CRC32 in
-    ``meta["leaf_crc"]`` and the ``keep_last`` rotation first."""
+    ``meta["leaf_crc"]`` and the ``keep_last`` rotation first; one
+    ``checkpoint_save`` event per durable write."""
+    t0 = time.perf_counter()
     d = os.path.dirname(os.path.abspath(target)) or "."
     os.makedirs(d, exist_ok=True)
     meta = dict(meta)
@@ -468,6 +442,11 @@ def _atomic_savez(target: str, meta: dict, payload: dict, *,
     finally:
         if os.path.exists(tmp):
             os.unlink(tmp)
+    record("checkpoint_save", path=os.path.basename(target),
+           target="checkpoint", iteration=meta.get("iteration", -1),
+           state_only=bool(meta.get("state_only")),
+           acc_start=meta.get("acc_start", 0),
+           dur_s=time.perf_counter() - t0)
 
 
 def save_checkpoint(path: str, leaves: dict, cfg: FitConfig, *,

@@ -366,17 +366,22 @@ def test_the_jax_package_reads_the_config_of_a_port_checkpoint(tmp_path):
     every port file.  Now it returns, field for field, the config the port
     ran - except elastic and materialize_sigma, which the JAX package's
     reader never reads back (its defaults come back; the file holds the
-    port's values)."""
+    port's values).  The three knobs the port once wrote at the JAX
+    defaults (backend, profile_dir, obs) are the port's own fields now:
+    their non-default values round-trip through both readers, the port's
+    backend name ("torch_cpu") included."""
     path = str(tmp_path / "c7.npz")
     cfg = dataclasses.replace(
         _cfg(dt, 2), checkpoint_path=path, checkpoint_every_chunks=2,
         checkpoint_mode="light", checkpoint_full_every=2,
         checkpoint_keep_last=2, sentinel="abort", elastic=True,
-        materialize_sigma="never",
+        materialize_sigma="never", obs=str(tmp_path / "events"),
         model=dataclasses.replace(_cfg(dt).model, lambda_kernel="pallas",
                                   ridge_jitter=0.5, x_prior_precision=2.0),
         backend=dt.BackendConfig(sse_mode="gram", fetch_dtype="quant8",
-                                 upload_dtype="bfloat16"))
+                                 upload_dtype="bfloat16",
+                                 backend="torch_cpu",
+                                 profile_dir=str(tmp_path / "trace")))
     dt.fit(_data(), cfg, device="cpu")
     meta = jck.read_checkpoint_meta(path)
     got = jck.config_from_checkpoint_meta(meta)
@@ -389,8 +394,8 @@ def test_the_jax_package_reads_the_config_of_a_port_checkpoint(tmp_path):
             assert meta["config"][name] == a, name
         else:
             assert a == b, (name, a, b)
-    # every key the JAX package writes, in its nesting and at its
-    # defaults where the port has no field; nothing the JAX package lacks
+    # every key the JAX package writes, in its nesting and order; nothing
+    # the JAX package lacks
     want = jck._config_to_json(got)
     have = meta["config"]
     assert list(have) == list(want)
@@ -401,8 +406,9 @@ def test_the_jax_package_reads_the_config_of_a_port_checkpoint(tmp_path):
                          ("run", "ess_target"), ("backend", "backend"),
                          ("backend", "profile_dir")):
         assert have[section][key] == want[section][key]
-    assert have["obs"] == dcfm_tpu.FitConfig(model=got.model,
-                                             run=got.run).obs
+    assert (have["obs"], have["backend"]["backend"],
+            have["backend"]["profile_dir"]) == (
+        cfg.obs, "torch_cpu", cfg.backend.profile_dir)
     # and the port reads both its own files and the JAX package's layout
     assert ck.config_from_checkpoint_meta(meta) == cfg
     legacy = dict(meta["config"])
@@ -413,7 +419,9 @@ def test_the_jax_package_reads_the_config_of_a_port_checkpoint(tmp_path):
     legacy["backend"] = {k: v for k, v in legacy["backend"].items()
                          if k not in ("backend", "profile_dir")}
     legacy.pop("obs")
-    assert ck._config_from_json(legacy) == cfg
+    assert ck._config_from_json(legacy) == dataclasses.replace(
+        cfg, obs="auto", backend=dataclasses.replace(
+            cfg.backend, backend="auto", profile_dir=None))
 
 
 def test_the_jax_package_continues_a_port_checkpoint_on_its_own_keys(

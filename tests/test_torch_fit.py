@@ -217,20 +217,21 @@ def _names_a_queue_a_item(message: str) -> bool:
 # checkpoint of another chain count (elastic) are ported and dropped out,
 # and so are the horseshoe and DL priors and rank_adapt
 # (test_ported_scenario_knobs_fit below fits them).  store_draws,
-# early_stop, impute_missing and combine_chunks are ported too: their cases
-# pair each with a knob still refused, which is refused naming its own
-# item - a ported knob never masks a refusal (their invalid values are
-# test_scenario_knob_values_are_refused_as_in_the_jax_package's and
-# test_invalid_values_are_value_errors_in_both_packages's)
+# early_stop, impute_missing and combine_chunks are ported too, and so is
+# warm_start: their cases pair each with a knob still refused, which is
+# refused naming its own item - a ported knob never masks a refusal (their
+# invalid values are test_scenario_knob_values_are_refused_as_in_the_jax_
+# package's and test_invalid_values_are_value_errors_in_both_packages's)
 @pytest.mark.parametrize("model,run,backend,extra", [
     ({"combine_chunks": 2}, {}, {"mesh_devices": 2}, {}),
     ({}, {"store_draws": True}, {"mesh_devices": 2}, {}),
-    ({}, {"early_stop": "rhat", "num_chains": 2, "chunk_size": 1}, {},
-     {"warm_start": dcfm_tpu_torch.config.WarmStart("w.npz")}),
-    ({"impute_missing": True, "combine_chunks": 2}, {}, {},
-     {"warm_start": dcfm_tpu_torch.config.WarmStart("w.npz")}),
+    ({}, {"early_stop": "rhat", "num_chains": 2, "chunk_size": 1},
+     {"mesh_devices": 2}, {}),
+    ({"impute_missing": True, "combine_chunks": 2}, {}, {"mesh_devices": 2},
+     {}),
     ({}, {}, {"mesh_devices": 2}, {}),
-    ({}, {}, {}, {"warm_start": dcfm_tpu_torch.config.WarmStart("w.npz")}),
+    ({"prior": "horseshoe"}, {}, {"mesh_devices": 4},
+     {"warm_start": dcfm_tpu_torch.config.WarmStart("w.npz")}),
 ])
 def test_knobs_outside_the_port_are_refused(model, run, backend, extra):
     """Every knob the port does not run raises, naming the ROADMAP Queue A
@@ -500,7 +501,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     """Every module of dcfm_tpu_torch, and chip_smoke.py, imports with jax,
     dcfm_tpu and scipy refused (scipy sparse inputs are duck-typed, as in
     the JAX package) - the fetch, artifact, checkpoint, resume, pipeline,
-    sentinel and preprocess modules among them."""
+    sentinel and preprocess modules among them, and the port's own copy
+    of the observability package (recorder, metrics, spans, cli)."""
     out = subprocess.run([sys.executable, "-c", _GUARD], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
@@ -513,4 +515,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "dcfm_tpu_torch.runtime.resume",
             "dcfm_tpu_torch.runtime.pipeline",
             "dcfm_tpu_torch.resilience.sentinel",
-            "dcfm_tpu_torch.utils.preprocess"} <= set(mods)
+            "dcfm_tpu_torch.utils.preprocess", "dcfm_tpu_torch.obs",
+            "dcfm_tpu_torch.obs.recorder", "dcfm_tpu_torch.obs.metrics",
+            "dcfm_tpu_torch.obs.spans", "dcfm_tpu_torch.obs.cli",
+            "chip_smoke"} <= set(mods)

@@ -12,7 +12,9 @@ eager chain, and the last knobs: missing values (the imputation inside
 the graphs on the f32, bf16 and fused paths) and the draw ring (its slot
 a device tensor) graphed bitwise the eager chain; the chunked combine
 graphed bitwise the eager chain, the lazy (sparse, memmap) upload bitwise
-the dense one, and a memmap fit's panels bitwise its dense twin's.
+the dense one, and a memmap fit's panels bitwise its dense twin's; a
+warm-started fit graphed bitwise the eager one, and a recorded and
+profiled fit bitwise the plain one, its trace naming K1 and K5.
 
 They need an NVIDIA GPU with nvcc (the kernels are built on first use) and
 skip without one.  They import no JAX, so on the card they run without the
@@ -22,6 +24,7 @@ repo's conftest:
 """
 
 import dataclasses
+import functools
 
 import numpy as np
 import pytest
@@ -1060,3 +1063,85 @@ def test_streaming_fit_on_the_card_is_its_dense_twin(cuda, tmp_path):
     np.testing.assert_array_equal(res._q8_scales, ref._q8_scales)
     assert res.kernel_launches["chol_sample"] == 40
     assert res.kernel_launches["sse_ps"] == 40
+
+
+# ---- the outer layers: warm starts, the flight recorder, the profiler ----
+
+def _outer_cfg(**run):
+    return FitConfig(
+        model=ModelConfig(num_shards=4, factors_per_shard=4, rho=0.9,
+                          lambda_kernel="pallas"),
+        run=RunConfig(**({"burnin": 40, "mcmc": 40, "thin": 2,
+                          "num_chains": 2, "sweep_unroll": 8,
+                          "chunk_size": 20} | run)),
+        backend=BackendConfig(sse_mode="gram", fetch_dtype="quant8"))
+
+
+def _path_launches(sweeps: int) -> dict:
+    want = dict.fromkeys(cuda_lib.launch_counts(), 0)
+    want.update(chol_sample=sweeps, sse_ps=sweeps)
+    return want
+
+
+def test_a_warm_started_graphed_fit_is_the_eager_one(cuda, tmp_path,
+                                                     monkeypatch):
+    """Appended rows: a warm start from a card fit's checkpoint, run as
+    CUDA graphs and again on the eager runner - Sigma and every state
+    leaf bit for bit (the grafted state reaches the captures from the
+    device, never as a host value), K1 and K5 once per sweep."""
+    from dcfm_tpu_torch import api
+    from dcfm_tpu_torch.config import WarmStart
+    from dcfm_tpu_torch.obs import run_events
+    Y, St = _small_data()
+    ck = str(tmp_path / "donor.npz")
+    fit(Y[:120], dataclasses.replace(_outer_cfg(), checkpoint_path=ck),
+        device=cuda)
+    cfg = dataclasses.replace(_outer_cfg(burnin=10), warm_start=WarmStart(ck),
+                              obs=str(tmp_path / "events"))
+    graphed = fit(Y, cfg, device=cuda)
+    monkeypatch.setattr(api, "ChainRunner", functools.partial(
+        sampler.ChainRunner, graphs=False))
+    eager = fit(Y, dataclasses.replace(cfg, obs="off"), device=cuda)
+    assert graphed.graphs["replays"] > 0 and eager.graphs["replays"] == 0
+    np.testing.assert_array_equal(graphed.Sigma, eager.Sigma)
+    for a, b in zip(sampler.state_leaves(graphed.state),
+                    sampler.state_leaves(eager.state), strict=True):
+        assert torch.equal(a.cpu(), b.cpu())
+    assert graphed.kernel_launches == eager.kernel_launches \
+        == _path_launches(2 * 50)
+    assert [e["decision"] for e in run_events(str(tmp_path / "events"))
+            if e["event"] == "warm_start"] == ["warm"]
+    assert np.linalg.norm(graphed.Sigma - St) / np.linalg.norm(St) < 0.25
+
+
+def test_a_recorded_and_profiled_fit_on_the_card(cuda, tmp_path):
+    """Recording and the profiler change no bit; the event log holds the
+    fit's chunks and stream; the trace names K1 and K5 among its kernels
+    and one "trip" range per replay."""
+    import json
+    import os
+    import re
+
+    from dcfm_tpu_torch.obs import run_events
+    Y, _ = _small_data()
+    cfg = _outer_cfg()
+    plain = fit(Y, dataclasses.replace(cfg, obs="off"), device=cuda)
+    obs_dir, prof = str(tmp_path / "events"), str(tmp_path / "trace")
+    res = fit(Y, dataclasses.replace(
+        cfg, obs=obs_dir, backend=dataclasses.replace(
+            cfg.backend, profile_dir=prof)), device=cuda)
+    np.testing.assert_array_equal(res.Sigma, plain.Sigma)
+    assert res.kernel_launches == _path_launches(2 * 80)
+    kinds = [e["event"] for e in run_events(obs_dir)]
+    assert kinds[0] == "fit_start" and kinds[-1] == "fit_done"
+    assert kinds.count("chunk") == 4 and "stream_drain" in kinds
+    (name,) = [f for f in os.listdir(prof) if f.endswith(".pt.trace.json")]
+    with open(os.path.join(prof, name)) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = {e["name"] for e in events if e.get("cat") == "kernel"}
+    assert any(re.search(r"chol_group_kernel(<\d+, \d+, false, true"
+                         r"|ILi\d+ELi\d+ELb0ELb1)", k) for k in kernels)
+    assert any("sse_ps_" in k for k in kernels)
+    trips = [e for e in events if e.get("name") == "trip"
+             and e.get("cat") == "user_annotation"]
+    assert len(trips) == res.graphs["replays"]
