@@ -200,6 +200,28 @@
    (decision resume, no re-graft) bitwise the uninterrupted warm refit.
    ``python3 chip_smoke.py --outer-only`` runs the kernel phase and this
    step alone, with no result line.
+16. The serving plane on the card: (a) two short posterior-SD quant8
+   fits at the north-star width exported (generations 1 and 2) and a
+   delta of 64 changed mean panels against generation 2 (generation 3);
+   (b) ``python -m dcfm_tpu_torch.cli serve`` on the card over a
+   promotion root - /healthz names the card; 20,000 seeded entries, 50
+   blocks, 20 full rows and 200 intervals over HTTP, every value bitwise
+   ``PosteriorArtifact.assemble()`` (mean and SD); a 64-thread
+   ``run_load`` (requests/s, p50/p99 per route, statuses, no untyped
+   answer), the server's cache counters; the device bytes of a fully warm
+   cache against the 410,159,360 B reckoning; (d) generation 2 promoted
+   and then the delta, under a 64-thread storm: generation headers
+   monotone per client, every answer its generation's assembly, each
+   swap's seconds and adopted panels from the server's events; (c) BASELINE
+   config 5's width (p = 50,176, g = 256, P = 196) as a sparse artifact
+   filled from a seeded generator (1,263,732,736 B), stormed by 64
+   threads under a 1 GiB cache (evictions > 0), every answer bitwise a
+   CPU engine's; (e) a 2-worker fleet on the one card: each worker's
+   start-up seconds, one SIGKILLed under load and respawned with no
+   request dropped, SIGTERM draining both with exit 0; (f) the kernel
+   launch counters read zero across the serving steps.
+   ``python3 chip_smoke.py --serve-only`` runs the kernel phase and this
+   step alone, with no result line.
 
 Any failed check exits non-zero before the last line.  The line before the
 last is the kernels' JSON record; the last line is
@@ -3405,6 +3427,522 @@ def sass_report(cuda_lib, lib_path: str) -> None:
     flush()
 
 
+# -- step 16: the serving plane on the card ---------------------------------
+
+SERVE_P5 = dict(g=256, P=196)           # BASELINE config 5's width
+SERVE_DEVICE = "cuda"                   # where step 16's engines run
+SERVE_C5_CACHE_MB = 1024                # config 5's cache: < its panels
+
+
+def serve_fit(dt, Y, seed: int):
+    """A short posterior-SD quant8 fit of the north-star width (the f32
+    path): the artifact step 16 serves."""
+    label, model, backend, _ = FIT_PATHS[0]
+    cfg = path_config(dt, model | {"posterior_sd": True},
+                      backend | {"fetch_dtype": "quant8"})
+    return dt.fit(Y, dataclasses.replace(
+        cfg, run=dataclasses.replace(cfg.run, burnin=20, mcmc=20,
+                                     seed=seed)))
+
+
+def perturbed_copy(src: str, dst: str, pairs) -> str:
+    """``src`` copied with ``pairs``' mean panels XOR-perturbed (diagonal
+    pairs stay symmetric), its CRCs and fingerprint re-recorded: a
+    candidate whose change is localized, as a delta is for."""
+    import shutil
+
+    from dcfm_tpu_torch.serve.artifact import (
+        artifact_fingerprint, panel_crc32)
+    shutil.copytree(src, dst)
+    with open(os.path.join(dst, "meta.json"), encoding="utf-8") as f:
+        meta = json.load(f)
+    n_pairs = meta["g"] * (meta["g"] + 1) // 2
+    q = np.memmap(os.path.join(dst, "mean_q8.bin"), dtype=np.int8,
+                  mode="r+", shape=(n_pairs, meta["P"], meta["P"]))
+    for pair in pairs:
+        q[pair] ^= 0x55
+    q.flush()
+    meta["panel_crc"]["mean"] = [int(panel_crc32(np.asarray(p))) for p in q]
+    del q
+    meta["fingerprint"] = artifact_fingerprint(meta)
+    with open(os.path.join(dst, "meta.json"), "w", encoding="utf-8") as f:
+        json.dump(meta, f)
+    return dst
+
+
+def serve_proc(args: list, env: dict | None = None):
+    """``python -m dcfm_tpu_torch.cli serve ...`` from this checkout; returns
+    (process, its startup JSON line)."""
+    proc = subprocess.Popen(
+        [sys.executable, "-u", "-m", "dcfm_tpu_torch.cli", "serve", *args],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        cwd=os.path.dirname(os.path.abspath(__file__)),
+        env=dict(os.environ, **(env or {})))
+    line = proc.stdout.readline()
+    if not line:
+        proc.kill()
+        fail(f"serve {args} printed no startup line: "
+             f"{proc.communicate()[1][-3000:]}")
+    return proc, json.loads(line)
+
+
+def stop_proc(proc, label: str) -> str:
+    """SIGTERM, a bounded drain, exit 0; returns the last stdout line."""
+    proc.send_signal(signal.SIGTERM)
+    try:
+        out, err = proc.communicate(timeout=120)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        fail(f"[{label}] did not drain within 120 s of SIGTERM")
+    check(proc.returncode == 0, f"[{label}] exited {proc.returncode}: "
+          f"{err[-3000:]}")
+    last = json.loads(out.strip().splitlines()[-1])
+    check(last.get("drained") is True, f"[{label}] last line {last}")
+    return last
+
+
+def http_json(conn, path: str) -> tuple:
+    """One GET on a persistent connection: (status, body, headers)."""
+    conn.request("GET", path)
+    r = conn.getresponse()
+    return r.status, json.loads(r.read()), dict(r.getheaders())
+
+
+def bits_of(x) -> np.ndarray:
+    return np.asarray(x, np.float32).view(np.int32)
+
+
+def http_bitwise(base: str, refs: dict, rng, n_entries: int,
+                 n_blocks: int, n_rows: int, n_intervals: int,
+                 threads: int = 32) -> dict:
+    """Seeded entries, blocks, full rows and intervals over HTTP (one
+    persistent connection per client thread), every answer held to the
+    offline assembly bit for bit; returns counts and seconds."""
+    import http.client
+    import threading
+
+    from dcfm_tpu_torch.serve.engine import _norm_ppf
+    mean, sd = refs["mean"], refs["sd"]
+    p = mean.shape[0]
+    jobs = [("entry", int(i), int(j)) for i, j in
+            rng.integers(0, p, (n_entries, 2))]
+    for _ in range(n_blocks):
+        rows = rng.integers(0, p, int(rng.integers(1, 40)))
+        lo = int(rng.integers(0, p - 64))
+        jobs.append(("block", rows, np.arange(lo, lo + 64)))
+    jobs += [("row", int(i), None) for i in rng.integers(0, p, n_rows)]
+    jobs += [("interval", int(i), int(j)) for i, j in
+             rng.integers(0, p, (n_intervals, 2))]
+    z = _norm_ppf(1.0 - 0.05 / 2.0)
+    host, port = base.split("//", 1)[1].rsplit(":", 1)
+    bad, counts, lock = [], {}, threading.Lock()
+
+    def run(part):
+        conn = http.client.HTTPConnection(host, int(port), timeout=120)
+        try:
+            for kind, a, b in part:
+                if kind == "entry":
+                    st, body, _ = http_json(conn, f"/v1/entry?i={a}&j={b}")
+                    ok = st == 200 and bits_of(body["value"]) == \
+                        bits_of(mean[a, b])
+                elif kind == "interval":
+                    st, body, _ = http_json(conn,
+                                            f"/v1/interval?i={a}&j={b}")
+                    m, s = float(mean[a, b]), float(sd[a, b])
+                    ok = (st == 200 and body["mean"] == m
+                          and body["sd"] == s and body["lo"] == m - z * s
+                          and body["hi"] == m + z * s)
+                else:
+                    rows = [a] if kind == "row" else list(a)
+                    cols = (f"0:{p}" if kind == "row"
+                            else f"{int(b[0])}:{int(b[-1]) + 1}")
+                    st, body, _ = http_json(conn, "/v1/block?rows=" + ",".join(
+                        str(int(r)) for r in rows) + f"&cols={cols}")
+                    want = (mean[a] if kind == "row"
+                            else mean[np.ix_(np.asarray(a), b)])
+                    ok = st == 200 and np.array_equal(
+                        bits_of(body["values"]).reshape(-1),
+                        bits_of(want).reshape(-1))
+                with lock:
+                    counts[kind] = counts.get(kind, 0) + 1
+                    if not ok:
+                        bad.append((kind, a if kind != "block" else "...",
+                                    st))
+        finally:
+            conn.close()
+
+    order = rng.permutation(len(jobs))
+    parts = [[jobs[k] for k in order[t::threads]] for t in range(threads)]
+    pool = [threading.Thread(target=run, args=(part,)) for part in parts]
+    t0 = time.perf_counter()
+    for t in pool:
+        t.start()
+    for t in pool:
+        t.join(timeout=600)
+    secs = time.perf_counter() - t0
+    check(not any(t.is_alive() for t in pool), "bitwise clients hung")
+    check(not bad, f"{len(bad)} answers differ from assemble(): {bad[:5]}")
+    check(sum(counts.values()) == len(jobs), f"answered {counts} of "
+          f"{len(jobs)}")
+    return {"counts": counts, "seconds": secs}
+
+
+def load_report(res: dict, card: str, label: str) -> None:
+    """A run_load result's numbers, and its classification checks."""
+    check(res["untyped"] == [], f"[{label}] untyped answers: "
+          f"{res['untyped'][:3]}")
+    check(res["dropped"] == 0, f"[{label}] {res['dropped']} dropped")
+    check(res["value_errors"] == [], f"[{label}] value errors: "
+          f"{res['value_errors'][:3]}")
+    check(res["generation"]["violations"] == 0,
+          f"[{label}] generation regressions: {res['generation']}")
+    routes = ", ".join(
+        f"{k} {v['requests']} requests p50 {v['p50_ms']} ms p99 "
+        f"{v['p99_ms']} ms" for k, v in res["by_route"].items())
+    say(f"(16) [{label}] {res['requests']} requests in "
+        f"{res['elapsed_s']} s = {res['qps']} requests/s (p50 "
+        f"{res['p50_ms']} ms, p99 {res['p99_ms']} ms); {routes}; ok "
+        f"{res['ok']}, typed {res['typed']}, untyped 0, dropped 0, retries "
+        f"{res['retries']}, generations {res['generation']}; {card}")
+
+
+def fleet_events(run_dir: str, kind: str) -> list:
+    from dcfm_tpu_torch.obs.recorder import read_events
+    path = os.path.join(run_dir, "events-fleet.jsonl")
+    if not os.path.exists(path):
+        return []
+    return [e for e in read_events(path) if e["event"] == kind]
+
+
+def await_events(run_dir: str, kind: str, n: int,
+                 timeout: float = 180.0) -> list:
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        got = fleet_events(run_dir, kind)
+        if len(got) >= n:
+            return got
+        time.sleep(0.05)
+    fail(f"the fleet recorded fewer than {n} {kind} events")
+
+
+def serve_phase(torch, dt, cuda_lib, card: str, Y, work: str) -> None:
+    """(16) The serving plane on the card: (a) a north-star artifact with
+    SD panels; (b) ``cli serve`` on the card - every answer of a seeded
+    set bitwise ``assemble()``, a 64-thread load, the warm cache's device
+    bytes; (c) config 5's width under a 1 GiB cache, every answer bitwise
+    a CPU engine's; (d) a full and a delta hot swap under load; (e) a
+    2-worker fleet, a worker SIGKILLed under load, respawned, drained;
+    (f) no Gibbs kernel launched by the serving path."""
+    import threading
+    import urllib.parse
+
+    from dcfm_tpu_torch.serve.artifact import (
+        PosteriorArtifact, create_sparse_artifact, export_fit_result)
+    from dcfm_tpu_torch.serve.delta import write_delta_artifact
+    from dcfm_tpu_torch.serve.engine import QueryEngine, _norm_ppf
+    from dcfm_tpu_torch.serve.loadgen import run_load
+    from dcfm_tpu_torch.serve.promote import promote_artifact, promote_delta
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    say(f"(16) at entry: allocated {torch.cuda.memory_allocated()} B, "
+        f"reserved {torch.cuda.memory_reserved()} B; {card}")
+    # (a) the artifacts: generation 1 and 2 from two fits, generation 3 a
+    # delta against 2 (64 mean panels changed)
+    root = os.path.join(work, "serve_root")
+    stage = os.path.join(work, "serve_stage")
+    os.makedirs(root)
+    os.makedirs(stage)
+    t = time.perf_counter()
+    for seed, path in ((0, os.path.join(root, "v1")),
+                       (1, os.path.join(stage, "v2"))):
+        res = serve_fit(dt, Y, seed)
+        check(res.Sigma_sd is not None, "(16a) the fit has no SD")
+        export_fit_result(res, path)
+        del res
+    n_pairs = FIT["g"] * (FIT["g"] + 1) // 2
+    changed = tuple(range(0, n_pairs, n_pairs // 64))[:64]
+    perturbed_copy(os.path.join(stage, "v2"), os.path.join(stage, "v3"),
+                   changed)
+    d = write_delta_artifact(os.path.join(stage, "v3"),
+                             PosteriorArtifact.open(os.path.join(
+                                 stage, "v2")),
+                             os.path.join(root, "v3.delta"))
+    import shutil
+    shutil.copytree(os.path.join(stage, "v2"), os.path.join(root, "v2"))
+    arts = {g: PosteriorArtifact.open(p) for g, p in (
+        (1, os.path.join(root, "v1")), (2, os.path.join(root, "v2")),
+        (3, os.path.join(stage, "v3")))}
+    a1 = arts[1]
+    check((a1.g, a1.p_original, a1.has_sd, a1.n_pairs)
+          == (FIT["g"], FIT["p"], True, n_pairs),
+          f"(16a) artifact shape {(a1.g, a1.P, a1.p_original)}")
+    refs = {g: {"mean": a.assemble(), "sd": a.assemble(kind="sd")}
+            for g, a in arts.items()}
+    say(f"(16a) two fits at p={FIT['p']}, g={FIT['g']}, K={FIT['K']}, "
+        f"{FIT['chains']} chains (20 + 20 "
+        f"sweeps, posterior SD, quant8) exported, a delta of "
+        f"{d.panels_changed} panels ({d.bytes_shipped} of {d.full_bytes} "
+        f"bytes) and three references assembled in "
+        f"{time.perf_counter() - t:.1f} s; {card}")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    cuda_lib.reset_launch_counts()
+    # (b) one server on the card
+    promote_artifact(root, "v1")
+    obs = os.path.join(work, "serve_obs")
+    t = time.perf_counter()
+    proc, info = serve_proc([root, "--port", "0", "--cache-mb", "1024",
+                             "--max-queue", "4096", "--request-timeout",
+                             "60", "--swap-poll", "0.05", "--device",
+                             SERVE_DEVICE], {"DCFM_OBS_DIR": obs})
+    try:
+        base = info["serving"]
+        label = (f"cuda:0 ({torch.cuda.get_device_name(0)})"
+                 if SERVE_DEVICE == "cuda" else SERVE_DEVICE)
+        check(info["device"] == label, f"(16b) {info}")
+        import urllib.request
+        with urllib.request.urlopen(base + "/healthz", timeout=60) as r:
+            h = json.loads(r.read())
+        check(h["device"] == label and h["status"] == "ok",
+              f"(16b) /healthz {h}")
+        say(f"(16b) serve on the card up in {time.perf_counter() - t:.2f} s "
+            f"(interpreter, torch, CUDA, artifact), /healthz device "
+            f"{h['device']!r}; {card}")
+        rng = np.random.default_rng(16)
+        got = http_bitwise(base, refs[1], rng, 20_000, 50, 20, 200)
+        say(f"(16b) {got['counts']} answers bitwise assemble() (mean and "
+            f"SD) in {got['seconds']:.2f} s over 32 keep-alive clients; "
+            f"{card}")
+        res = run_load(base, threads=64, requests_per_thread=100, seed=16,
+                       p=a1.p_original, retries=2, timeout=60.0)
+        load_report(res, card, "64-thread load, north star")
+        with urllib.request.urlopen(base + "/metrics", timeout=60) as r:
+            m = json.loads(r.read())
+        lat = {k: (v.get("p50_ms"), v.get("p99_ms"))
+               for k, v in m["latency"].items()}
+        say(f"(16b) server side: statuses {m['statuses']}, cache "
+            f"{m['cache']}, batcher max batch "
+            f"{m['batcher']['max_batch_seen']}, p50/p99 ms by route "
+            f"{lat}; {card}")
+        check(not any(s.startswith("5") and s != "503"
+                      for s in m["statuses"]), f"(16b) 5xx: {m['statuses']}")
+        # the warm cache's device bytes, in process
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        eng = QueryEngine(a1, cache_bytes=1 << 30, device=SERVE_DEVICE)
+        keys = [(k, pr) for k in ("mean", "sd") for pr in range(a1.n_pairs)]
+        t = time.perf_counter()
+        check(eng.prewarm(keys) == 2 * a1.n_pairs, "(16b) prewarm")
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+        st = eng.stats()
+        grown = torch.cuda.memory_allocated() - before
+        want = 2 * a1.n_pairs * a1.P * a1.P * 4
+        check(st["bytes"] == want and st["evictions"] == 0,
+              f"(16b) warm cache {st}")
+        check(grown >= st["bytes"], f"(16b) allocated grew {grown} B only")
+        # the in-process engine's batched entries and blocks, bitwise
+        r16 = np.random.default_rng(160)
+        qs = [(int(i), int(j), True) for i, j in
+              r16.integers(0, a1.p_original, (2000, 2))]
+        check(np.array_equal(bits_of(eng.entries(qs)), bits_of(
+            [refs[1]["mean"][i, j] for i, j, _ in qs])),
+            "(16b) in-process entries differ from assemble()")
+        for _ in range(10):
+            rows = r16.integers(0, a1.p_original, 64)
+            cols = r16.integers(0, a1.p_original, 64)
+            check(np.array_equal(bits_of(eng.block(rows, cols, kind="sd")),
+                                 bits_of(refs[1]["sd"][np.ix_(rows, cols)])),
+                  "(16b) in-process SD block differs from assemble()")
+        say(f"(16b) fully warm cache: {st['panels']} panels, "
+            f"{st['bytes']} device bytes (reckoning {want:,} B = 2 x "
+            f"{a1.n_pairs} x {a1.P}^2 x 4), memory_allocated +{grown} B, "
+            f"reserved "
+            f"{torch.cuda.memory_reserved()} B, warmed in {secs:.2f} s "
+            f"({2 * a1.n_pairs / secs:.0f} panels/s: CRC, copy, dequant); "
+            f"{card}")
+        del eng
+        torch.cuda.empty_cache()
+        # (d) a full swap then a delta swap under a 64-thread storm
+        seen, lock, swaps = {"n": 0}, threading.Lock(), {}
+        z = _norm_ppf(1.0 - 0.05 / 2.0)
+
+        def expect(kind, path, body, gen):
+            with lock:
+                seen["n"] += 1
+                n = seen["n"]
+            if n == 800:
+                swaps["full"] = time.perf_counter()
+                promote_artifact(root, "v2")
+            elif n == 2400:
+                swaps["delta"] = time.perf_counter()
+                promote_delta(root, "v3.delta")
+            ref = refs[gen]
+            if kind == "healthz":
+                return None
+            q = urllib.parse.parse_qs(urllib.parse.urlparse(path).query)
+            if kind == "block":
+                lo, hi = (int(v) for v in q["rows"][0].split(":"))
+                return (None if np.array_equal(
+                    bits_of(body["values"]),
+                    bits_of(ref["mean"][lo:hi, lo:hi])) else f"block {gen}")
+            i, j = int(q["i"][0]), int(q["j"][0])
+            if kind == "interval":
+                m, s = float(ref["mean"][i, j]), float(ref["sd"][i, j])
+                ok = body["mean"] == m and body["sd"] == s \
+                    and body["lo"] == m - z * s
+                return None if ok else f"interval {gen} ({i},{j})"
+            return (None if bits_of(body["value"]) == bits_of(
+                ref["mean"][i, j]) else f"entry {gen} ({i},{j})")
+
+        res = run_load(base, threads=64, requests_per_thread=60, seed=17,
+                       p=a1.p_original, retries=2, timeout=60.0,
+                       expect=expect)
+        load_report(res, card, "hot swaps under load")
+        check((res["generation"]["min"], res["generation"]["max"]) == (1, 3),
+              f"(16d) generations {res['generation']}")
+        last = stop_proc(proc, "serve")
+        from dcfm_tpu_torch.obs import run_events
+        sw = [e for e in run_events(obs) if e["event"] == "serve_swap"]
+        check(len(sw) == 2 and sw[1]["panels_adopted"] == 2 * n_pairs - 64,
+              f"(16d) swaps {sw}")
+        for e in sw:
+            say(f"(16d) swap to generation {e['generation']}: "
+                f"{e['swap_s']:.4f} s in the server (verify all panels' "
+                f"CRCs, build the engine, prewarm {e['prewarm_panels']} "
+                f"panels), {e['panels_adopted']} panels adopted, "
+                f"{e['cache_seeded']} device panels carried, "
+                f"{e['bytes_shipped']} bytes shipped; {card}")
+        say(f"(16b) drained: {last}")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    # (c) config 5's width: 1,263,732,736 B of seeded mean panels
+    g5, P5 = SERVE_P5["g"], SERVE_P5["P"]
+    t = time.perf_counter()
+    path5 = create_sparse_artifact(os.path.join(work, "c5"), g=g5, P=P5)
+    n5 = g5 * (g5 + 1) // 2
+    mm = np.memmap(os.path.join(path5, "mean_q8.bin"), dtype=np.int8,
+                   mode="r+", shape=(n5, P5, P5))
+    r5 = np.random.default_rng(5)
+    for lo in range(0, n5, 2048):
+        hi = min(n5, lo + 2048)
+        mm[lo:hi] = np.frombuffer(r5.bytes((hi - lo) * P5 * P5),
+                                  np.int8).reshape(hi - lo, P5, P5)
+    mm.flush()
+    del mm
+    a5 = PosteriorArtifact.open(path5)
+    b5 = os.path.getsize(os.path.join(path5, "mean_q8.bin"))
+    check(b5 == n5 * P5 * P5, "(16c) config-5 panel bytes")
+    say(f"(16c) config 5's artifact (p={g5 * P5:,}, g={g5}, P={P5}, {n5} "
+        f"panels, {b5:,} B) filled in {time.perf_counter() - t:.1f} s; "
+        f"{card}")
+    cpu_eng = QueryEngine(a5, device="cpu", cache_bytes=512 << 20)
+    proc, info = serve_proc([path5, "--port", "0", "--cache-mb",
+                             str(SERVE_C5_CACHE_MB), "--max-queue", "4096",
+                             "--request-timeout", "60", "--device",
+                             SERVE_DEVICE])
+    try:
+        def expect5(kind, path, body, gen):
+            q = urllib.parse.parse_qs(urllib.parse.urlparse(path).query)
+            if kind == "block":
+                lo, hi = (int(v) for v in q["rows"][0].split(":"))
+                want = cpu_eng.block(np.arange(lo, hi), np.arange(lo, hi))
+                return (None if np.array_equal(bits_of(body["values"]),
+                                               bits_of(want)) else "block")
+            i, j = int(q["i"][0]), int(q["j"][0])
+            want = cpu_eng.entry(i, j)
+            return (None if bits_of(body["value"]) == bits_of(want)
+                    else f"entry ({i},{j})")
+
+        res = run_load(info["serving"], threads=64,
+                       requests_per_thread=200, seed=18, p=g5 * P5,
+                       retries=2, timeout=60.0, expect=expect5,
+                       route_mix=(("entry", 6), ("block", 1)))
+        load_report(res, card, "config 5, 1 GiB cache")
+        import urllib.request
+        with urllib.request.urlopen(info["serving"] + "/metrics",
+                                    timeout=60) as r:
+            st = json.loads(r.read())["cache"]
+        check(st["evictions"] > 0
+              and st["bytes"] <= SERVE_C5_CACHE_MB << 20,
+              f"(16c) cache {st}")
+        say(f"(16c) cache {st}, every one of {res['ok']} answers bitwise "
+            f"the CPU engine's; {card}")
+        stop_proc(proc, "serve config 5")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    del cpu_eng
+    # (e) a 2-worker fleet on the one card; first, where a worker's
+    # start-up goes, in a fresh process as a worker is one
+    probe = subprocess.run(
+        [sys.executable, "-c", "import time; t0 = time.perf_counter()\n"
+         "import torch; t1 = time.perf_counter()\n"
+         f"torch.zeros(1, device={SERVE_DEVICE!r}).cpu(); "
+         "t2 = time.perf_counter()\n"
+         "import dcfm_tpu_torch.serve.server; t3 = time.perf_counter()\n"
+         "print(t1 - t0, t2 - t1, t3 - t2)"],
+        capture_output=True, text=True, timeout=300,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    check(probe.returncode == 0, f"(16e) start-up probe: {probe.stderr}")
+    t_torch, t_ctx, t_pkg = (float(v) for v in probe.stdout.split())
+    say(f"(16e) a fresh process: import torch {t_torch:.3f} s, the first "
+        f"device tensor (CUDA context) {t_ctx:.3f} s, import the serving "
+        f"plane {t_pkg:.3f} s; {card}")
+    run_dir = os.path.join(work, "fleet_obs")
+    t = time.perf_counter()
+    fproc, finfo = serve_proc([root, "--workers", "2", "--port", "0",
+                               "--run-dir", run_dir, "--cache-mb", "512",
+                               "--request-timeout", "60",
+                               "--fleet-backoff", "0.1", "--device",
+                               SERVE_DEVICE])
+    try:
+        check(finfo["ready"] is True, f"(16e) fleet {finfo}")
+        ready = await_events(run_dir, "worker_ready", 2)
+        say(f"(16e) fleet up in {time.perf_counter() - t:.2f} s; worker "
+            f"start-up (interpreter, torch, CUDA context, artifact, bind): "
+            + ", ".join(f"w{e['worker']} {e['startup_s']} s" for e in ready)
+            + f"; {card}")
+        box = {}
+        loader = threading.Thread(target=lambda: box.update(run_load(
+            finfo["serving"], threads=16, requests_per_thread=150, seed=19,
+            p=a1.p_original, retries=20, timeout=60.0)))
+        loader.start()
+        time.sleep(1.0)
+        os.kill(ready[0]["pid"], signal.SIGKILL)
+        relaunch = await_events(run_dir, "worker_ready", 3)[2]
+        loader.join(timeout=600)
+        check(not loader.is_alive() and box, "(16e) the load hung")
+        load_report(box, card, "fleet, one worker SIGKILLed")
+        deaths = fleet_events(run_dir, "worker_death")
+        check(len(deaths) == 1 and not deaths[0]["instant"],
+              f"(16e) deaths {deaths}")
+        say(f"(16e) worker {relaunch['worker']} SIGKILLed after "
+            f"{deaths[0]['uptime_s']} s, respawned (launch "
+            f"{relaunch['launch']}) serving again after "
+            f"{relaunch['startup_s']} s; no request dropped; {card}")
+        last = stop_proc(fproc, "fleet")
+        check(fleet_events(run_dir, "fleet_drained")[0]["exits"] == [0, 0],
+              "(16e) a worker did not drain cleanly")
+        say(f"(16e) SIGTERM drained the fleet: {last}")
+    finally:
+        if fproc.poll() is None:
+            fproc.kill()
+            fproc.communicate()
+    # (f) no Gibbs kernel on the serving path (this process's engines and
+    # server; the served processes run the same code)
+    launched = cuda_lib.launch_counts()
+    check(not any(launched.values()), f"(16f) kernels launched: {launched}")
+    say(f"(16f) kernel launches across the serving steps: "
+        f"{json.dumps(launched)}")
+    say(f"(16) done in {time.perf_counter() - t_phase:.1f} s; {card}")
+
+
 def main() -> None:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     if sys.argv[1:2] == ["--fit-child"]:
@@ -3492,6 +4030,16 @@ def main() -> None:
             shutil.rmtree(work, ignore_errors=True)
         say("outer phase only: no result is printed")
         return
+    if "--serve-only" in sys.argv[1:]:
+        import shutil
+        import tempfile
+        work = tempfile.mkdtemp(prefix="dcfm_serve_")
+        try:
+            serve_phase(torch, dt, cuda_lib, card, Y, work)
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
+        say("serve phase only: no result is printed")
+        return
     if "--ingest-only" in sys.argv[1:]:
         import shutil
         import tempfile
@@ -3556,6 +4104,8 @@ def main() -> None:
         say(f"scale_phase done at {time.perf_counter() - t_start:.1f} s")
         outer = outer_phase(torch, dt, cuda_lib, card, Y, L, noise, work)
         say(f"outer_phase done at {time.perf_counter() - t_start:.1f} s")
+        serve_phase(torch, dt, cuda_lib, card, Y, work)
+        say(f"serve_phase done at {time.perf_counter() - t_start:.1f} s")
     finally:
         shutil.rmtree(work, ignore_errors=True)
     launches["cho_solve"] = k3_path(torch, bs, cuda_lib, rng)["cho_solve"]

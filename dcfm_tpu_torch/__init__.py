@@ -8,7 +8,11 @@ ingest is ported: ``Y`` may be a ``utils.preprocess.SparseMatrix`` (CSR
 or CSC), a scipy.sparse matrix or an ``np.memmap``, streamed with the JAX
 package's semantics (the streaming names live in ``utils.preprocess``, as
 in the JAX package), and ``ModelConfig.combine_chunks`` splits the
-saved-draw combine on one device.
+saved-draw combine on one device.  The serving plane
+(``dcfm_tpu_torch.serve``: the query engine on the card, the HTTP server,
+the fleet, promotion and deltas) and the command line
+(``python -m dcfm_tpu_torch.cli``, ``dcfm-tpu-torch``) are the JAX
+package's, over the same artifacts.
 """
 
 from dcfm_tpu_torch.api import FitResult, divideconquer, fit

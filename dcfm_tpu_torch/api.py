@@ -67,6 +67,7 @@ from dcfm_tpu_torch.models.state import SamplerState
 from dcfm_tpu_torch.noise import TorchNoise, warm_lineage
 from dcfm_tpu_torch.obs import recorder as obs_recorder
 from dcfm_tpu_torch.ops import cuda_lib
+from dcfm_tpu_torch.resilience.faults import refuse_fit_faults
 from dcfm_tpu_torch.runtime.fetch import (
     Drain, accumulator_window, assemble_q8_sigma, elastic_pooled_draws,
     fetch_prep, fetch_sd_prep, fetch_upper, quant8_fetch_assemble,
@@ -549,6 +550,7 @@ def _fit(Y: np.ndarray, cfg: FitConfig, device) -> FitResult:
                 f"Y must be an (n, p) matrix, got shape {Y.shape}")
         n, p = Y.shape
     validate(cfg, n, p)
+    refuse_fit_faults()
     device = _resolve_device(cfg.backend, device)
     m, run, be = cfg.model, cfg.run, cfg.backend
     # thread the backend's sweep knobs into the internal model config, as

@@ -13,6 +13,16 @@ under a name of its own and renames the finished library into place, so
 concurrent processes never load a half-written object.  Without a compiler,
 or when the build fails, :func:`available` is false and callers take the
 NumPy path, which computes the same bits (utils/estimate.py).
+
+Two switches, the JAX package's: ``DCFM_NATIVE_DISABLE=1`` turns the
+library off (every caller takes the NumPy path; the server's ``/healthz``
+then reports ``degraded``), and ``DCFM_NATIVE_SANITIZE=1`` selects a
+separate ASan+UBSan build (``-O1 -g -fsanitize=address,undefined``, its own
+hash, so the two builds never replace each other).  The sanitized library
+loads only when the ASan runtime is already in the process
+(``LD_PRELOAD=$(gcc -print-file-name=libasan.so)``): loading it without
+one aborts the process, so without it the module degrades to the NumPy
+path instead.
 """
 
 from __future__ import annotations
@@ -31,22 +41,46 @@ _DIR = os.path.dirname(os.path.abspath(__file__))
 SOURCE = os.path.join(_DIR, "assemble.cpp")
 BUILD = os.path.join(os.path.dirname(_DIR), "build")
 CXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17", "-Wall", "-Wextra")
+SANITIZE_FLAGS = ("-O1", "-g", "-fno-omit-frame-pointer",
+                  "-fsanitize=address,undefined", "-shared", "-fPIC",
+                  "-std=c++17", "-Wall", "-Wextra")
 
 _lock = threading.Lock()
 _lib = None
 _build_failed = False
 
 
+def sanitize_requested() -> bool:
+    """True when DCFM_NATIVE_SANITIZE=1 selects the ASan/UBSan build."""
+    return os.environ.get("DCFM_NATIVE_SANITIZE") == "1"
+
+
+def _flags() -> tuple:
+    return SANITIZE_FLAGS if sanitize_requested() else CXX_FLAGS
+
+
+def _asan_runtime_loaded() -> bool:
+    """True when the ASan runtime is already in this process (LD_PRELOAD):
+    loading the sanitized library without it terminates the process at
+    ``dlopen`` instead of raising, so the loader checks first."""
+    try:
+        with open("/proc/self/maps", "r") as f:
+            return "libasan" in f.read()
+    except OSError:
+        return False
+
+
 def library_path() -> str:
     """Where the library of the current source and flags lives."""
-    h = hashlib.sha256(" ".join(CXX_FLAGS).encode())
+    h = hashlib.sha256(" ".join(_flags()).encode())
     with open(SOURCE, "rb") as f:
         h.update(f.read())
     return os.path.join(BUILD, f"libdcfm_assemble_{h.hexdigest()[:16]}.so")
 
 
 def build() -> str:
-    """Compile the assembler if its library is missing; returns its path.
+    """Compile the assembler (the sanitized build under
+    DCFM_NATIVE_SANITIZE=1) if its library is missing; returns its path.
     Raises when no g++ is found or the compile fails."""
     path = library_path()
     if os.path.exists(path):
@@ -58,7 +92,7 @@ def build() -> str:
     os.makedirs(BUILD, exist_ok=True)
     tmp = f"{path}.tmp{os.getpid()}"
     try:
-        out = subprocess.run([cxx, *CXX_FLAGS, "-o", tmp, SOURCE],
+        out = subprocess.run([cxx, *_flags(), "-o", tmp, SOURCE],
                              capture_output=True, text=True)
         if out.returncode:
             raise RuntimeError(f"g++ failed on assemble.cpp:\n{out.stderr}")
@@ -74,6 +108,12 @@ def _load() -> Optional[ctypes.CDLL]:
     with _lock:
         if _lib is not None or _build_failed:
             return _lib
+        if os.environ.get("DCFM_NATIVE_DISABLE") == "1" or (
+                sanitize_requested() and not _asan_runtime_loaded()):
+            # the kill switch, or a sanitized build that would abort the
+            # process at load: every caller takes the NumPy path
+            _build_failed = True
+            return None
         try:
             lib = ctypes.CDLL(build())
         except (OSError, RuntimeError):

@@ -14,8 +14,9 @@ The summary covers: launches and deaths (exit codes + checkpoint
 iterations), promoted/demoted/orphaned checkpoint generations, resume
 decisions per launch, sentinel rewinds, injected faults, per-phase
 walls of the newest completed fit, the stream overlap fraction and the
-warm-start decisions.  The port's command line (ROADMAP Queue A item 7
-(d)) will call :func:`events_main` as its ``events`` subcommand.
+warm-start decisions, and the serving fleet's workers, swaps and drains.
+The port's CLI (``python -m dcfm_tpu_torch.cli events``) calls
+:func:`events_main`.
 """
 
 from __future__ import annotations

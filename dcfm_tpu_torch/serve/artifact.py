@@ -23,11 +23,13 @@ Three export sources, no refit: :func:`export_fit_result` (a FitResult),
 the streamed export (:func:`begin_streamed_artifact` hands the streamed
 fetch its landing memmaps, :func:`finalize_streamed_artifact` completes
 the artifact) and :func:`export_from_checkpoint` (a checkpoint file of
-either package and the data matrix).  Each finished artifact is an
+either package and the data matrix); :func:`export_main` is the CLI's
+``export``.  :func:`create_sparse_artifact` synthesizes a hole-backed
+artifact for capacity tests.  Each finished artifact is an
 ``artifact_write`` flight-recorder event (obs/recorder.py; ``source``
-"export" or "stream").  Not ported (ROADMAP Queue A item 7):
-``.procK-of-N`` checkpoint sets, the cooperative exports, the
-fault-injection seam, the query engine and the server.
+"export" or "stream").  :func:`write_artifact` carries the fault plan's
+``artifact`` seam (resilience/faults.py).  Not ported (ROADMAP Queue A
+item 7): ``.procK-of-N`` checkpoint sets and the cooperative exports.
 """
 
 from __future__ import annotations
@@ -44,6 +46,7 @@ import numpy as np
 from dcfm_tpu_torch.config import FitConfig, validate
 from dcfm_tpu_torch.models.state import num_upper_pairs
 from dcfm_tpu_torch.obs.recorder import record
+from dcfm_tpu_torch.resilience.faults import fault_plan
 from dcfm_tpu_torch.runtime.fetch import accumulator_window
 from dcfm_tpu_torch.runtime.resume import refuse_multiprocess_sets
 from dcfm_tpu_torch.utils.checkpoint import (
@@ -233,15 +236,18 @@ class PosteriorArtifact:
         return np.memmap(fp, dtype=np.int8, mode="r",
                          shape=(n_pairs, P, P))
 
-    def verify_panel(self, kind: str, pair: int) -> None:
-        """Check one panel's bytes against the CRC32 recorded at export
-        (a no-op without recorded CRCs); raises
+    def verify_panel(self, kind: str, pair: int,
+                     data: Optional[np.ndarray] = None) -> None:
+        """Check one panel's bytes - the memmapped ones, or ``data``, a
+        copy of them the caller goes on to use - against the CRC32
+        recorded at export (a no-op without recorded CRCs); raises
         :class:`ArtifactCorruptError` on a mismatch."""
         crcs = self.panel_crc.get(kind)
         if crcs is None:
             return
-        raw, _ = self.panels(kind)
-        got = panel_crc32(raw[pair])
+        if data is None:
+            data = self.panels(kind)[0][pair]
+        got = panel_crc32(data)
         if got != int(crcs[pair]):
             raise ArtifactCorruptError(
                 f"{self.path}: {kind} panel {pair} fails its CRC32 "
@@ -411,15 +417,31 @@ def write_artifact(
         raise ValueError(f"sd panels {np.shape(sd_q8)} != mean panels "
                          f"({n_pairs}, {P}, {P})")
     os.makedirs(path, exist_ok=True)
+    # chaos seam (resilience/faults.py, target "artifact"): failing or
+    # delayed I/O before any byte lands, bit-flips AFTER the per-panel
+    # CRCs are computed (the corruption lazy verification catches), a
+    # torn panel file after the write
+    plan = fault_plan()
+    count = plan.on_write("artifact", path) if plan else 0
     crc = {"mean": [int(panel_crc32(q)) for q in np.asarray(mean_q8)]}
     if sd_q8 is not None:
         crc["sd"] = [int(panel_crc32(q)) for q in np.asarray(sd_q8)]
+    if plan:
+        payload = {MEAN_PANELS_FILE: mean_q8}
+        if sd_q8 is not None:
+            payload[SD_PANELS_FILE] = sd_q8
+        mutated = plan.mutate_payload("artifact", path, count, payload)
+        mean_q8 = mutated[MEAN_PANELS_FILE]
+        sd_q8 = mutated.get(SD_PANELS_FILE, sd_q8)
     meta_path = os.path.join(path, META_FILE)
     if os.path.exists(meta_path):
         os.unlink(meta_path)
     if sd_q8 is None and os.path.exists(os.path.join(path, SD_PANELS_FILE)):
         os.unlink(os.path.join(path, SD_PANELS_FILE))   # stale SD panels
     _write_panels(path, MEAN_PANELS_FILE, mean_q8)
+    if plan:
+        plan.after_replace("artifact", os.path.join(path, MEAN_PANELS_FILE),
+                           count)
     if sd_q8 is not None:
         _write_panels(path, SD_PANELS_FILE, sd_q8)
     np.savez(os.path.join(path, MAPS_FILE),
@@ -429,6 +451,45 @@ def write_artifact(
     record("artifact_write", path=os.path.basename(path), source="export",
            fingerprint=meta["fingerprint"])
     return PosteriorArtifact.open(path)
+
+
+def create_sparse_artifact(path: str, *, g: int, P: int,
+                           has_sd: bool = False) -> str:
+    """Synthesize an artifact with ZERO-filled sparse panel files.
+
+    The panel files are created with ``truncate`` (filesystem holes), so a
+    p=50k-scale artifact costs kilobytes of disk and opens in milliseconds
+    - for serving capacity tests; real panel bytes can be patched in
+    afterwards with ``np.memmap(mode='r+')`` (the meta records no panel
+    CRCs, so the engine serves them unverified).  Scales are 1, the maps
+    the identity, standardization none."""
+    n_pairs = _num_pairs(g)
+    p_used = g * P
+    os.makedirs(path, exist_ok=True)
+    names = [MEAN_PANELS_FILE] + ([SD_PANELS_FILE] if has_sd else [])
+    for name in names:
+        with open(os.path.join(path, name), "wb") as f:
+            f.truncate(n_pairs * P * P)
+    maps = dict(
+        mean_scale=np.ones(n_pairs, np.float32),
+        col_scale=np.ones((g, P), np.float32),
+        col_mean=np.zeros((g, P), np.float32),
+        perm=np.arange(p_used, dtype=np.int64),
+        inv_perm=np.arange(p_used, dtype=np.int64),
+        kept_cols=np.arange(p_used, dtype=np.int64),
+    )
+    if has_sd:
+        maps["sd_scale"] = np.ones(n_pairs, np.float32)
+    np.savez(os.path.join(path, MAPS_FILE), **maps)
+    meta = {
+        "format": ARTIFACT_FORMAT, "version": ARTIFACT_VERSION,
+        "g": int(g), "P": int(P), "p_original": int(p_used), "n_pad": 0,
+        "has_sd": bool(has_sd), "provenance": {"source": "synthesized"},
+    }
+    meta["fingerprint"] = artifact_fingerprint(meta)
+    with open(os.path.join(path, META_FILE), "w", encoding="utf-8") as f:
+        json.dump(meta, f, indent=1)
+    return path
 
 
 def export_fit_result(res, path: str) -> PosteriorArtifact:
@@ -571,3 +632,45 @@ def export_from_checkpoint(checkpoint_path: str, Y: np.ndarray,
     return write_artifact(path, mean_q8=mean_q8, mean_scale=mean_scale,
                           pre=pre, sd_q8=sd_q8, sd_scale=sd_scale,
                           provenance=provenance)
+
+
+def export_main(args) -> int:
+    """The CLI's ``export`` (an argparse Namespace from cli.py): from a
+    checkpoint (no refit), or a quant8 fit on ``args.device`` exported
+    whole.  Prints one JSON line."""
+    from dcfm_tpu_torch.cli import _load
+    Y = _load(args.data)
+    if args.from_checkpoint:
+        art = export_from_checkpoint(args.from_checkpoint, Y, args.out)
+    else:
+        if not args.shards or not args.factors:
+            raise SystemExit(
+                "export without --from-checkpoint runs a fit: --shards and "
+                "--factors are required")
+        if args.factors % args.shards:
+            raise SystemExit(
+                f"--factors {args.factors} must be divisible by --shards "
+                f"{args.shards}")
+        from dcfm_tpu_torch.api import fit
+        from dcfm_tpu_torch.config import (
+            BackendConfig, ModelConfig, RunConfig)
+        cfg = FitConfig(
+            model=ModelConfig(
+                num_shards=args.shards,
+                factors_per_shard=args.factors // args.shards,
+                rho=args.rho, prior=args.prior,
+                posterior_sd=args.posterior_sd),
+            run=RunConfig(burnin=args.burnin, mcmc=args.mcmc,
+                          thin=args.thin, seed=args.seed),
+            backend=BackendConfig(fetch_dtype="quant8"),
+        )
+        art = export_fit_result(fit(Y, cfg, device=args.device), args.out)
+    size = sum(
+        os.path.getsize(os.path.join(args.out, f))
+        for f in os.listdir(args.out))
+    print(json.dumps({  # dcfm: ignore[DCFM901] - the export CLI's stdout JSON protocol
+        "out": args.out, "g": art.g, "P": art.P, "p": art.p_original,
+        "has_sd": art.has_sd, "bytes": int(size),
+        "source": art.meta["provenance"].get("source"),
+    }))
+    return 0

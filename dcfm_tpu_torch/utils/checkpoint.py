@@ -48,7 +48,9 @@ previous checkpoint; ``keep_last`` > 1 keeps older generations as
 ``.bakK`` files.  Every durable write is a ``checkpoint_save``
 flight-recorder event (obs/recorder.py), emitted from the writer's thread
 after the rename: a file write, no card call.  The fault-injection seam of
-the JAX writer (``fault_plan``) is not ported (ROADMAP Queue A item 7).
+the JAX writer (``fault_plan``) comes with the fit's other fault seams
+(ROADMAP Queue A item 7); until then ``api.fit`` refuses a plan that
+targets it.  :func:`strip_checkpoint` rewrites a full file as a light one.
 """
 
 from __future__ import annotations
@@ -498,6 +500,32 @@ def save_checkpoint(path: str, leaves: dict, cfg: FitConfig, *,
     _atomic_savez(path, meta, {f"leaf_{i}": np.asarray(leaves[k])
                                for i, k in enumerate(names)},
                   keep_last=keep_last)
+
+
+def strip_checkpoint(src: str, dst: str) -> None:
+    """Rewrite a FULL checkpoint as a state-only (light) one: drop the
+    accumulator leaves its meta records (renumbering the kept leaves into
+    the light file's order), turning a p^2-sized snapshot into MBs.  The
+    result resumes like any light checkpoint: the chain state exact,
+    accumulation restarted at the saved iteration.  Every kept leaf is
+    CRC-checked on the way through; the port's stream key is kept."""
+    with _open(src) as z:
+        meta = _read_meta(z, src)
+        if meta.get("state_only"):
+            raise ValueError("checkpoint is already state-only")
+        drop = set(meta.get("acc_leaf_indices", []))
+        if not drop:
+            raise ValueError(
+                "checkpoint records no accumulator leaves to strip "
+                "(written by an older version?)")
+        n_full = sum(1 for k in z.files if k != "__meta__")
+        kept = [i for i in range(n_full) if i not in drop]
+        payload = {f"leaf_{j}": _read_leaf(z, meta, f"leaf_{i}", src)
+                   for j, i in enumerate(kept)}
+    meta["state_only"] = True
+    meta["acc_start"] = meta["iteration"]
+    meta["acc_leaf_indices"] = []
+    _atomic_savez(dst, meta, payload)
 
 
 @contextlib.contextmanager

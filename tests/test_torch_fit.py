@@ -501,13 +501,15 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     """Every module of dcfm_tpu_torch, and chip_smoke.py, imports with jax,
     dcfm_tpu and scipy refused (scipy sparse inputs are duck-typed, as in
     the JAX package) - the fetch, artifact, checkpoint, resume, pipeline,
-    sentinel and preprocess modules among them, and the port's own copy
-    of the observability package (recorder, metrics, spans, cli)."""
+    sentinel and preprocess modules among them, the port's own copy of
+    the observability package (recorder, metrics, spans, cli), the
+    serving plane (engine, batcher, server, fleet, promote, delta,
+    loadgen), the fault plan, the supervisor's helpers and the CLI."""
     out = subprocess.run([sys.executable, "-c", _GUARD], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     mods = out.stdout.split()
-    assert len(mods) >= 19
+    assert len(mods) >= 29
     assert {"dcfm_tpu_torch.native", "dcfm_tpu_torch.runtime.fetch",
             "dcfm_tpu_torch.serve.artifact",
             "dcfm_tpu_torch.utils.diagnostics",
@@ -518,4 +520,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "dcfm_tpu_torch.utils.preprocess", "dcfm_tpu_torch.obs",
             "dcfm_tpu_torch.obs.recorder", "dcfm_tpu_torch.obs.metrics",
             "dcfm_tpu_torch.obs.spans", "dcfm_tpu_torch.obs.cli",
+            "dcfm_tpu_torch.serve.engine", "dcfm_tpu_torch.serve.batcher",
+            "dcfm_tpu_torch.serve.server", "dcfm_tpu_torch.serve.fleet",
+            "dcfm_tpu_torch.serve.promote", "dcfm_tpu_torch.serve.delta",
+            "dcfm_tpu_torch.serve.loadgen",
+            "dcfm_tpu_torch.resilience.faults",
+            "dcfm_tpu_torch.resilience.supervisor", "dcfm_tpu_torch.cli",
             "chip_smoke"} <= set(mods)

@@ -14,7 +14,10 @@ a device tensor) graphed bitwise the eager chain; the chunked combine
 graphed bitwise the eager chain, the lazy (sparse, memmap) upload bitwise
 the dense one, and a memmap fit's panels bitwise its dense twin's; a
 warm-started fit graphed bitwise the eager one, and a recorded and
-profiled fit bitwise the plain one, its trace naming K1 and K5.
+profiled fit bitwise the plain one, its trace naming K1 and K5; the query
+engine on the card bitwise the one on the CPU (entries, blocks, rows,
+intervals, an evicting budget) and one request served by ``serve
+--device cuda``.
 
 They need an NVIDIA GPU with nvcc (the kernels are built on first use) and
 skip without one.  They import no JAX, so on the card they run without the
@@ -1145,3 +1148,104 @@ def test_a_recorded_and_profiled_fit_on_the_card(cuda, tmp_path):
     trips = [e for e in events if e.get("name") == "trip"
              and e.get("cat") == "user_annotation"]
     assert len(trips) == res.graphs["replays"]
+
+
+def _serve_artifact(path, *, p=24, g=2, seed=0):
+    """A small CRC'd artifact of random int8 mean and SD panels (symmetric
+    diagonal panels, one all-zero input column), written without a fit;
+    tests/test_torch_serve_server.py's make_artifact, here without its JAX
+    imports."""
+    from dcfm_tpu_torch.serve.artifact import write_artifact
+    rng = np.random.default_rng(seed)
+    Y = rng.standard_normal((40, p)).astype(np.float32)
+    Y[:, 5] = 0.0
+    pre = preprocess(Y, g)
+    n_pairs, P = g * (g + 1) // 2, pre.shard_size
+    q = rng.integers(-127, 128, size=(n_pairs, P, P)).astype(np.int8)
+    scale = rng.uniform(0.5, 1.5, n_pairs).astype(np.float32)
+    sd_q = rng.integers(1, 128, size=(n_pairs, P, P)).astype(np.int8)
+    for r in range(g):
+        d = r * g - (r * (r - 1)) // 2
+        for panels in (q, sd_q):
+            panels[d] = np.triu(panels[d]) + np.triu(panels[d], 1).T
+    sd_scale = rng.uniform(0.5, 1.5, n_pairs).astype(np.float32)
+    return write_artifact(path, mean_q8=q, mean_scale=scale, pre=pre,
+                          sd_q8=sd_q, sd_scale=sd_scale).path
+
+
+def test_the_card_engine_is_bitwise_the_cpu_engine(cuda, tmp_path):
+    """Every answer of the engine whose panels live on the card equals
+    the CPU engine's bit for bit, with the same cache counters under a
+    budget that evicts, and the cache's bytes are device bytes."""
+    from dcfm_tpu_torch.serve.engine import QueryEngine
+
+    art = PosteriorArtifact.open(_serve_artifact(str(tmp_path / "a"), p=40,
+                                                 g=4, seed=2))
+    budget = 3 * art.P * art.P * 4
+    dev = QueryEngine(art, cache_bytes=budget)       # the default: cuda
+    host = QueryEngine(art, cache_bytes=budget, device="cpu")
+    assert dev.device.type == "cuda"
+    rng = np.random.default_rng(0)
+
+    def bits(x):
+        return np.asarray(x, np.float32).view(np.int32)
+
+    for _ in range(5):
+        qs = [(int(i), int(j), bool(d)) for i, j, d in zip(
+            rng.integers(0, 40, 64), rng.integers(0, 40, 64),
+            rng.integers(0, 2, 64))]
+        np.testing.assert_array_equal(bits(dev.entries(qs)),
+                                      bits(host.entries(qs)))
+        rows, cols = rng.integers(0, 40, 9), rng.integers(0, 40, 11)
+        for kind in ("mean", "sd"):
+            for d in (True, False):
+                np.testing.assert_array_equal(
+                    bits(dev.block(rows, cols, kind=kind, destandardize=d)),
+                    bits(host.block(rows, cols, kind=kind,
+                                    destandardize=d)))
+        i, j = (int(v) for v in rng.integers(0, 40, 2))
+        assert bits(dev.entry(i, j, kind="sd")) == \
+            bits(host.entry(i, j, kind="sd"))
+        assert dev.interval(i, j, alpha=0.1) == host.interval(i, j,
+                                                              alpha=0.1)
+        np.testing.assert_array_equal(bits(dev.row(i)), bits(host.row(i)))
+        assert dev.stats() == host.stats()
+    assert dev.stats()["evictions"] > 0
+    ref = art.assemble()
+    np.testing.assert_array_equal(bits(dev.block(np.arange(40),
+                                                 np.arange(40))), bits(ref))
+    assert all(p.device.type == "cuda" for _, p in dev.cache.snapshot())
+
+
+def test_one_request_served_from_the_card(cuda, tmp_path):
+    import json
+    import os
+    import signal
+    import subprocess
+    import sys
+    import urllib.request
+
+    path = _serve_artifact(str(tmp_path / "a"), seed=3)
+    ref = PosteriorArtifact.open(path).assemble()
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.Popen(
+        [sys.executable, "-u", "-m", "dcfm_tpu_torch.cli", "serve", path,
+         "--port", "0"], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True, cwd=repo)
+    try:
+        info = json.loads(proc.stdout.readline())
+        card = f"cuda:0 ({torch.cuda.get_device_name(0)})"
+        assert info["device"] == card
+        with urllib.request.urlopen(info["serving"] + "/v1/entry?i=3&j=17",
+                                    timeout=60) as r:
+            assert np.float32(json.loads(r.read())["value"]) == ref[3, 17]
+        with urllib.request.urlopen(info["serving"] + "/healthz",
+                                    timeout=60) as r:
+            assert json.loads(r.read())["device"] == card
+        proc.send_signal(signal.SIGTERM)
+        out, err = proc.communicate(timeout=60)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    assert proc.returncode == 0, err
