@@ -75,8 +75,8 @@
    to the quant8 Sigma bit for bit.
 7. Checkpoint phase, on the float32 path in chunks of 50: full, light and
    "auto" saves bitwise no checkpoint, a finished file resumed as a
-   no-op, the divergence sentinel's abort and rewind on a chain the script
-   poisons, quant8 streamed against post hoc; then on each path a child
+   no-op, the divergence sentinel's abort and rewind on chains a
+   ``poison_state`` fault plan poisons, quant8 streamed against post hoc; then on each path a child
    process SIGKILLed once its file reaches iteration 200 of 1,000 and
    resumed in a fresh one (``--fit-child SPEC``), Sigma bitwise the
    uninterrupted fit's (f32 also in light mode through its sidecar).
@@ -222,6 +222,35 @@
    launch counters read zero across the serving steps.
    ``python3 chip_smoke.py --serve-only`` runs the kernel phase and this
    step alone, with no result line.
+17. The crash supervisor, the fit's fault seams and the online loop, at
+   the north-star width over 20 burn-in + 200 in chunks of 20 (2 chains,
+   every boundary saved, 2 generations kept): (a) ``supervise()`` under a
+   plan that SIGKILLs launch 1 after a save, kills launch 2 inside the
+   resume gate and bit-flips launch 1's second save: 3 launches, deaths
+   -9 and -9, one corrupt fallback, Sigma bitwise the unsupervised fit's,
+   the seconds from each death to the next launch's first boundary;
+   ``fit --supervise`` under the same plan, its Sigma file bitwise too;
+   (b) a ``poison_state`` plan under sentinel="rewind": one rewind, the
+   quality rule; the poison drill (a pre-save kill at one iteration in
+   every launch) ends in exit 3 and a PoisonedRunError; (c) ``watch``
+   on the card: a cold generation 1; 100 appended rows and SIGUSR1 give a
+   warm generation 2 whose first refit launch a plan SIGKILLs (the
+   supervisor relaunches it), promoted as a delta (panels and bytes,
+   cycle_s, refit_s, drift); the server's generation flips to 2 and 2,000
+   entries over HTTP are bitwise its ``assemble()``; its quality rule
+   beside a cold fit of the same schedule; 8 new shards (p = 11,304), only
+   reported - promoted or refused typed (the refit's permute=True grafts
+   a donor's shards onto other columns); a torn pointer write refused with
+   a typed PointerError while the generation serving keeps serving;
+   SIGTERM ends the daemon with 0.  Every supervised child - of
+   ``supervise()``, of the ``fit --supervise`` runs, and the daemon's
+   refits - runs this script's wrapper (``--supervised-child``; the CLI
+   runs start as ``--counted``, which routes their children there), which
+   writes each launch's kernel launch counts and chunk sweeps: K1 (and K5
+   where the fit's sse_mode is "auto"; the daemon's refit config keeps
+   "resid" and one chain, as the JAX package's does) launched chains x
+   sweeps in every launch.  ``python3 chip_smoke.py --online-only`` runs the kernel phase
+   and this step alone, with no result line.
 
 Any failed check exits non-zero before the last line.  The line before the
 last is the kernels' JSON record; the last line is
@@ -1259,29 +1288,6 @@ class SaveLog:
         p.save_checkpoint, p.AsyncCheckpointWriter = self._save, self._writer
 
 
-def poison_chain0(at: int):
-    """The sentinel's test double: before the chunk that starts at global
-    iteration ``at``, chain 0's Lambda becomes NaN (rebound, so a
-    snapshot still reading the old tensor is untouched), once.  Returns
-    the undo."""
-    from dcfm_tpu_torch.models import sampler
-    run_chunk = sampler.ChainRunner.run_chunk
-    left = [1]
-
-    def poisoned(self, c, carry, n):
-        if c == 0 and carry.iteration == at and left[0]:
-            left[0] -= 1
-            carry.state = dataclasses.replace(
-                carry.state, Lambda=carry.state.Lambda * float("nan"))
-        return run_chunk(self, c, carry, n)
-
-    sampler.ChainRunner.run_chunk = poisoned
-
-    def undo():
-        sampler.ChainRunner.run_chunk = run_chunk
-    return undo
-
-
 def ckpt_fit(torch, dt, cuda_lib, cfg, Y, label: str, card: str,
              log: SaveLog | None = None):
     """One in-process fit of the checkpoint phase, its peak memory and,
@@ -1311,17 +1317,18 @@ def checkpoint_phase(torch, dt, cuda_lib, card: str, Y, L, noise) -> None:
     """Checkpoint, resume, the sentinel and the streamed fetch at the
     north-star width: (a) the float32 path uninterrupted; (b) full saves
     at every boundary, Sigma bitwise (a), and the "auto" cadence; light
-    saves; (e) a finished file resumed as a no-op; (f) the sentinel on a
-    chain the script poisons: "abort" raises ChainDivergedError, "rewind"
-    finishes with one rewind inside the quality rule; (g) quant8 streamed
-    against post hoc, bitwise, at least one snapshot; then, on each path
-    (f32, bf16, fused) over KILL_RUN: (c) a child SIGKILLed once its file
-    reaches iteration KILL_AT, resumed in a fresh process: Sigma bitwise
-    the uninterrupted fit's; and for f32 (d), as (c) in light mode with a
-    full sidecar every 2nd save, the sidecar used."""
+    saves; (e) a finished file resumed as a no-op; (f) the sentinel on
+    chains a poison_state plan poisons: "abort" raises ChainDivergedError,
+    "rewind" finishes with one rewind inside the quality rule; (g) quant8
+    streamed against post hoc, bitwise, at least one snapshot; then, on
+    each path (f32, bf16, fused) over KILL_RUN: (c) a child SIGKILLed once
+    its file reaches iteration KILL_AT, resumed in a fresh process: Sigma
+    bitwise the uninterrupted fit's; and for f32 (d), as (c) in light mode
+    with a full sidecar every 2nd save, the sidecar used."""
     import shutil
     import tempfile
 
+    from dcfm_tpu_torch.resilience import faults
     from dcfm_tpu_torch.resilience.sentinel import ChainDivergedError
     kernels = FIT_PATHS[0][3]
     total = FIT["burnin"] + FIT["mcmc"]
@@ -1366,8 +1373,11 @@ def checkpoint_phase(torch, dt, cuda_lib, card: str, Y, L, noise) -> None:
         check(sigma_digest(e.Sigma) == ref and e.traces.shape[1] == 0,
               "(e) the no-op resume is not the finished fit")
         del b, e
-        # (f) the sentinel on a chain poisoned at iteration 200
-        undo = poison_chain0(total // 2)
+        # (f) the sentinel on chains a poison_state plan poisons at the
+        # boundary of iteration 200
+        poison = {"faults": [{"op": "poison_state",
+                              "at_iteration": total // 2}]}
+        faults.install(poison)
         try:
             try:
                 dt.fit(Y, ckpt_config(dt, "f32", sentinel="abort"))
@@ -1376,17 +1386,17 @@ def checkpoint_phase(torch, dt, cuda_lib, card: str, Y, L, noise) -> None:
                 check(err.iteration == total // 2 + CKPT_CHUNK,
                       f"(f) diverged at {err.iteration}")
                 say(f"sentinel [abort]: ChainDivergedError at iteration "
-                    f"{err.iteration} (poisoned before {total // 2})")
+                    f"{err.iteration} (poisoned at {total // 2})")
         finally:
-            undo()
-        undo = poison_chain0(total // 2)
+            faults.install(None)
+        faults.install(poison)
         try:
             f, _ = ckpt_fit(torch, dt, cuda_lib, ckpt_config(
                 dt, "f32", checkpoint_path=os.path.join(work, "f.npz"),
                 checkpoint_every_chunks=1, sentinel="rewind"), Y,
                 "f32 (f) sentinel rewind", card)
         finally:
-            undo()
+            faults.install(None)
         check(f.sentinel_rewinds == 1, f"(f) {f.sentinel_rewinds} rewinds")
         err = check_quality(torch, f, "f32 (f) rewound", Y, L, noise)
         say(f"sentinel [rewind]: {f.sentinel_rewinds} rewind, rel Frobenius "
@@ -1422,20 +1432,47 @@ def checkpoint_phase(torch, dt, cuda_lib, card: str, Y, L, noise) -> None:
         # a full save (~420 MB) takes about as long as the 400-iteration
         # chain, so there a kill at iteration >= 200 would land after the
         # last save
+        refs = {}
         for label in ("f32", "bf16", "fused"):
             r, _ = ckpt_fit(torch, dt, cuda_lib,
                             ckpt_config(dt, label, KILL_RUN), Y,
                             f"{label} (a) no checkpoint, "
                             f"{sum(KILL_RUN.values())} iterations", card)
-            ref = sigma_digest(r.Sigma)
+            refs[label] = sigma_digest(r.Sigma)
             del r
-            kill_resume(dt, label, {}, ref, work, "full", card)
-            if label == "f32":
-                kill_resume(dt, label, {"checkpoint_mode": "light",
-                                        "checkpoint_full_every": 2},
-                            ref, work, "light", card)
+        # the kills and resumes are child processes: the four pairs run
+        # side by side, each pair in its order (a process's start-up, not
+        # the card, is most of a pair's wall)
+        light = {"checkpoint_mode": "light", "checkpoint_full_every": 2}
+        side_by_side([
+            (lambda lb=lb, kw=kw, tag=tag: kill_resume(
+                dt, lb, kw, refs[lb], work, tag, card))
+            for lb, kw, tag in (("f32", {}, "full"), ("f32", light, "light"),
+                                ("bf16", {}, "full"),
+                                ("fused", {}, "full"))])
     finally:
         shutil.rmtree(work, ignore_errors=True)
+
+
+def side_by_side(jobs: list) -> None:
+    """Run the callables ``jobs`` on threads at once and wait for all; the
+    first failure among them (a failed check included) is raised here."""
+    import threading
+    errors = []
+
+    def run(job):
+        try:
+            job()
+        except BaseException as e:  # a failed check exits its thread only
+            errors.append(e)
+
+    threads = [threading.Thread(target=run, args=(j,)) for j in jobs]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        raise errors[0]
 
 
 def kill_resume(dt, label: str, fit_kw: dict, ref: str, work: str,
@@ -1465,7 +1502,8 @@ def kill_resume(dt, label: str, fit_kw: dict, ref: str, work: str,
                     f"{label}_{tag}_resumed")
     resume_s = time.perf_counter() - t
     say(f"kill [{label}, {tag}]: killed with the file at iteration "
-        f"{killed} ({kill_s:.1f} s child wall), light file "
+        f"{killed}, {total - killed} before the end ({kill_s:.1f} s child "
+        f"wall), light file "
         f"{meta.get('state_only')}, sidecar at {side_it}; resumed in a "
         f"fresh process ({resume_s:.1f} s wall): executed "
         f"{out['executed']}, init_s (the load) "
@@ -3943,10 +3981,650 @@ def serve_phase(torch, dt, cuda_lib, card: str, Y, work: str) -> None:
     say(f"(16) done in {time.perf_counter() - t_phase:.1f} s; {card}")
 
 
+# -- step 17: the crash supervisor, the fit's fault seams and the online
+# loop ----------------------------------------------------------------------
+
+# a short schedule at the north-star width, so relaunches dominate: 20
+# burn-in + 200 (thin 2) in chunks of 20, 2 chains, every boundary a save
+ONLINE = dict(burnin=20, mcmc=200, chunk=20)
+# the environment variable naming the directory where the supervised
+# child wrapper (``--supervised-child``) writes each launch's counts
+LAUNCH_DIR_ENV = "DCFM_SMOKE_LAUNCH_DIR"
+# the iteration (17b)'s kills and poison aim at: the middle of the chain
+ONLINE_MID = (ONLINE["burnin"] + ONLINE["mcmc"]) // 2
+# the supervised plan of (17a): launch 1 killed after its 2nd save (the
+# first boundary saves at once, so the first saving boundary at or past
+# the 2nd is the 2nd save), which is bit-flipped - the relaunch falls back
+# to the 1st; launch 2 killed inside the resume gate; launch 3 finishes
+SUPERVISE_PLAN = {"faults": [
+    {"op": "kill", "at_iteration": 2 * ONLINE["chunk"], "when": "post_save",
+     "at_launch": 1},
+    {"op": "kill_event", "event": "resume_gate", "at_launch": 2},
+    {"op": "bit_flip", "target": "checkpoint", "at_write": 2,
+     "at_launch": 1}]}
+
+
+def supervised_child(argv: list) -> None:
+    """``--supervised-child MODULE ARGS``: a supervised child, ``python -m
+    MODULE ARGS`` (the ``_child`` runner or the CLI's ``fit``), then this
+    launch's kernel launch counts and the sweeps its chunk boundaries
+    report written to ``$DCFM_SMOKE_LAUNCH_DIR/<checkpoint>.launch<N>.json``
+    - also just before an injected SIGKILL, which ends the process."""
+    import importlib
+
+    from dcfm_tpu_torch.ops import cuda_lib
+    from dcfm_tpu_torch.runtime import pipeline
+    mod, args = argv[0], argv[1:]
+    if mod.endswith("._child"):
+        with open(args[0]) as f:
+            ck = json.load(f)["checkpoint_path"]
+    else:
+        ck = args[args.index("--checkpoint") + 1]
+    launch = int(os.environ.get("DCFM_FAULT_LAUNCH", "1"))
+    out = os.path.join(os.environ[LAUNCH_DIR_ENV],
+                       f"{os.path.basename(ck)}.launch{launch}.json")
+    sweeps = [0]
+    real_record = pipeline.record
+
+    def record(event, **fields):
+        if event == "chunk":
+            sweeps[0] += fields["iters"]
+        real_record(event, **fields)
+
+    def dump():
+        with open(out, "w") as f:
+            json.dump({"checkpoint": os.path.basename(ck), "launch": launch,
+                       "sweeps": sweeps[0],
+                       "launches": cuda_lib.launch_counts()}, f)
+
+    real_kill = os.kill
+
+    def kill(pid, sig):
+        if pid == os.getpid():
+            dump()
+        real_kill(pid, sig)
+
+    pipeline.record = record
+    os.kill = kill
+    rc = importlib.import_module(mod).main(args)
+    dump()
+    sys.exit(rc)
+
+
+def count_children() -> None:
+    """Start every child this process supervises as ``--supervised-child``
+    (the same module and arguments, through the counting wrapper)."""
+    from dcfm_tpu_torch.resilience import supervisor as sup
+    real = sup.supervise_command
+    me = os.path.abspath(__file__)
+
+    def wrapped(argv, **kw):
+        check(argv[1] == "-m" and argv[2] in (
+            "dcfm_tpu_torch.resilience._child", "dcfm_tpu_torch.cli"),
+            f"a supervised child runs {argv}")
+        return real([argv[0], me, "--supervised-child"] + argv[2:], **kw)
+
+    sup.supervise_command = wrapped
+
+
+def counted(argv: list) -> None:
+    """``--counted MODULE ARGS``: ``python -m MODULE ARGS`` (the CLI's
+    ``fit --supervise`` or ``watch``) with its supervised children counted
+    (``count_children``)."""
+    import importlib
+    count_children()
+    sys.exit(importlib.import_module(argv[0]).main(argv[1:]))
+
+
+def child_launches(ldir: str, label: str, kernels: tuple,
+                   chains: int = FIT["chains"]) -> tuple:
+    """Every launch file ``supervised_child`` wrote to ``ldir``: the
+    kernels ``kernels`` launched ``chains`` x the launch's sweeps, the
+    others none.  Returns (the counts summed, {checkpoint: [(launch,
+    sweeps, K1, K5), ...]})."""
+    C = chains
+    total, per = {}, {}
+    for name in sorted(os.listdir(ldir)):
+        with open(os.path.join(ldir, name)) as f:
+            rec = json.load(f)
+        got, n = rec["launches"], rec["sweeps"]
+        want = {k: (C * n if k in kernels else 0) for k in got}
+        check(got == want, f"({label}) {rec['checkpoint']} launch "
+              f"{rec['launch']} ran {n} sweeps of {C} chains but launched "
+              f"{got}")
+        per.setdefault(rec["checkpoint"], []).append(
+            (rec["launch"], n, got["chol_sample"], got["sse_ps"]))
+        for k, v in got.items():
+            total[k] = total.get(k, 0) + v
+    for runs in per.values():
+        runs.sort()
+    check(per, f"({label}) no supervised child wrote its launches")
+    return total, per
+
+
+def online_config(dt, checkpoint_path=None, **fit_kw):
+    """The north-star fit the CLI's flags below (``online_cli``) describe:
+    the f32 path (lambda_kernel "auto" picks K1), sse_mode "auto", 2
+    chains over ONLINE's schedule, every boundary saved, 2 generations
+    kept."""
+    c = FIT
+    return dt.FitConfig(
+        model=dt.ModelConfig(num_shards=c["g"], factors_per_shard=c["K"],
+                             rho=c["rho"]),
+        run=dt.RunConfig(burnin=ONLINE["burnin"], mcmc=ONLINE["mcmc"],
+                         thin=c["thin"], seed=0, num_chains=c["chains"],
+                         chunk_size=ONLINE["chunk"]),
+        backend=dt.BackendConfig(sse_mode="auto"),
+        checkpoint_path=checkpoint_path, checkpoint_every_chunks=1,
+        checkpoint_keep_last=2, **fit_kw)
+
+
+def online_cli(data: str, ck: str, out: str) -> list:
+    """``online_config``'s fit as CLI arguments."""
+    c = FIT
+    return ["fit", data, "--shards", str(c["g"]), "--factors",
+            str(c["g"] * c["K"]), "--rho", str(c["rho"]), "--burnin",
+            str(ONLINE["burnin"]), "--mcmc", str(ONLINE["mcmc"]), "--thin",
+            str(c["thin"]), "--chains", str(c["chains"]), "--chunk-size",
+            str(ONLINE["chunk"]), "--sse-mode", "auto", "--checkpoint", ck,
+            "--checkpoint-every", "1", "--keep-last", "2", "--out", out]
+
+
+def cli_proc(args: list, env: dict | None = None, **kw):
+    """``python -m dcfm_tpu_torch.cli ARGS`` from this checkout, its
+    supervised children counted (``--counted``; ``env`` names their
+    LAUNCH_DIR_ENV), in a process group of its own (``kill_group`` ends it
+    with its children)."""
+    full = dict(os.environ, **(env or {}))
+    for k in [k for k, v in full.items() if v is None]:
+        full.pop(k)
+    check(LAUNCH_DIR_ENV in full, f"cli_proc {args[:1]} without "
+          f"{LAUNCH_DIR_ENV}")
+    return subprocess.Popen(
+        [sys.executable, "-u", os.path.abspath(__file__), "--counted",
+         "dcfm_tpu_torch.cli", *args],
+        cwd=os.path.dirname(os.path.abspath(__file__)), env=full, text=True,
+        start_new_session=True, **kw)
+
+
+def kill_group(proc) -> None:
+    """SIGKILL a ``cli_proc`` and every process it started (a supervisor's
+    child fit, a daemon's refit), and reap it."""
+    try:
+        os.killpg(proc.pid, signal.SIGKILL)
+    except ProcessLookupError:
+        pass
+    proc.wait()
+
+
+def supervise_json(err: str) -> dict:
+    """The supervision protocol's stderr JSON (its last line)."""
+    return json.loads(err.strip().splitlines()[-1])
+
+
+def relaunch_seconds(events: list) -> list:
+    """For each supervised death: seconds from it to the next launch's
+    first chunk boundary (None when that launch died before one)."""
+    out = []
+    deaths = [e for e in events if e["event"] == "supervisor_death"]
+    for d in deaths:
+        nxt = f"L{d['launch'] + 1}.p0"
+        first = [e["t"] for e in events if e["event"] == "chunk"
+                 and e["role"] == nxt]
+        out.append(None if not first else round(first[0] - d["t"], 3))
+    return out
+
+
+def supervised_api(torch, dt, cuda_lib, card: str, Y, L, noise, work: str,
+                   ref: str) -> dict:
+    """(17a) ``supervise()`` under SUPERVISE_PLAN, its children this
+    script's wrapper: the report, Sigma bitwise ``ref``, K1 and K5 chains x
+    sweeps in every launch, the seconds from each death to the next
+    launch's first boundary.  Returns the launches summed over them."""
+    from dcfm_tpu_torch.obs.recorder import run_events
+    from dcfm_tpu_torch.resilience import supervisor as sup
+    ldir = os.path.join(work, "launches-api")
+    os.makedirs(ldir)
+    ck = os.path.join(work, "api.ck.npz")
+    real = sup.supervise_command
+    os.environ[LAUNCH_DIR_ENV] = ldir
+    os.environ["DCFM_FAULT_PLAN"] = json.dumps(SUPERVISE_PLAN)
+    count_children()
+    t = time.perf_counter()
+    try:
+        res = sup.supervise(Y, online_config(dt, ck), backoff_base=0.05)
+    finally:
+        sup.supervise_command = real
+        os.environ.pop("DCFM_FAULT_PLAN")
+        os.environ.pop(LAUNCH_DIR_ENV)
+    wall = time.perf_counter() - t
+    rep = res.supervise_report
+    check(sigma_digest(res.Sigma) == ref, "(17a) the supervised Sigma is "
+          "not the unsupervised fit's")
+    check(rep.launches == 3 and rep.corrupt_fallbacks == 1
+          and [d[0] for d in rep.deaths] == [-9, -9]
+          and rep.deaths[1][1] == ONLINE["chunk"]
+          and rep.final_iteration == ONLINE["burnin"] + ONLINE["mcmc"],
+          f"(17a) report {rep}")
+    total, per = child_launches(ldir, "17a supervise()", FIT_PATHS[0][3])
+    per = per["api.ck.npz"]
+    check([r[0] for r in per] == [1, 2, 3] and per[0][1] > 0
+          and per[-1][1] > 0, f"(17a) (launch, sweeps, K1, K5) {per}")
+    events = run_events(res.events_path)
+    backoffs = [e["seconds"] for e in events
+                if e["event"] == "supervisor_backoff"]
+    say(f"(17a) supervise(): {rep.launches} launches, deaths {rep.deaths}, "
+        f"corrupt_fallbacks {rep.corrupt_fallbacks}, final_iteration "
+        f"{rep.final_iteration}, {wall:.1f} s wall ({rep.elapsed_s:.1f} s "
+        f"supervised); Sigma = the unsupervised fit's; per launch (launch, "
+        f"sweeps, K1, K5) {per}; death -> next launch's first boundary "
+        f"{relaunch_seconds(events)} s (backoffs {backoffs} s); {card}")
+    return total
+
+
+def start_cli_runs(work: str, data: str) -> dict:
+    """(17a) ``fit --supervise`` under SUPERVISE_PLAN and (17b) the poison
+    drill (a pre-save kill at ONLINE_MID in every launch), started as
+    child processes: they run beside (17a)'s ``supervise()``."""
+    runs = {}
+    for name, plan in (
+            ("cli", SUPERVISE_PLAN),
+            ("poison", {"faults": [{"op": "kill", "at_iteration": ONLINE_MID,
+                                    "when": "pre_save"}]})):
+        ck = os.path.join(work, f"{name}.ck.npz")
+        out = os.path.join(work, f"{name}_S.npy")
+        ldir = os.path.join(work, f"launches-{name}")
+        os.makedirs(ldir)
+        proc = cli_proc(online_cli(data, ck, out) + [
+            "--supervise", "--supervise-backoff", "0.05"],
+            {"DCFM_FAULT_PLAN": json.dumps(plan), LAUNCH_DIR_ENV: ldir},
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+        runs[name] = (proc, time.perf_counter(), ck, out)
+    return runs
+
+
+def finish_cli_runs(runs: dict, ref: str, card: str) -> dict:
+    """The CLI runs' checks: (17a) the report on stderr and the Sigma file
+    bitwise ``ref``; (17b) exit 3 with a PoisonedRunError naming the
+    checkpoint; in both, K1 and K5 chains x sweeps in every launch.
+    Returns the launches summed over their children."""
+    from dcfm_tpu_torch.obs.recorder import run_events
+    total = {}
+
+    def launches(name, ck, label):
+        got, per = child_launches(
+            os.path.join(os.path.dirname(ck), f"launches-{name}"), label,
+            FIT_PATHS[0][3])
+        for k, v in got.items():
+            total[k] = total.get(k, 0) + v
+        return per[os.path.basename(ck)]
+
+    proc, t0, ck, out = runs["cli"]
+    _, err = proc.communicate(timeout=900)
+    wall = time.perf_counter() - t0
+    check(proc.returncode == 0, f"(17a) fit --supervise exited "
+          f"{proc.returncode}: {err[-3000:]}")
+    rep = supervise_json(err)
+    check(rep["supervised"] and rep["launches"] == 3
+          and rep["corrupt_fallbacks"] == 1
+          and [d[0] for d in rep["deaths"]] == [-9, -9], f"(17a) {rep}")
+    check(sigma_digest(np.load(out)) == ref, "(17a) fit --supervise wrote "
+          "another Sigma than the unsupervised fit's")
+    per = launches("cli", ck, "17a fit --supervise")
+    check([r[0] for r in per] == [1, 2, 3] and per[-1][1] > 0,
+          f"(17a) fit --supervise (launch, sweeps, K1, K5) {per}")
+    events = run_events(ck + ".obs")
+    say(f"(17a) fit --supervise: {json.dumps(rep)}, {wall:.1f} s wall "
+        f"(beside supervise()); Sigma = the unsupervised fit's; per launch "
+        f"(launch, sweeps, K1, K5) {per}; death -> next launch's first "
+        f"boundary {relaunch_seconds(events)} s; {card}")
+    proc, t0, ck, _ = runs["poison"]
+    _, err = proc.communicate(timeout=900)
+    wall = time.perf_counter() - t0
+    check(proc.returncode == 3, f"(17b) the poison drill exited "
+          f"{proc.returncode}: {err[-3000:]}")
+    rep = supervise_json(err)
+    check(rep["error"] == "PoisonedRunError" and rep["checkpoint"] == ck,
+          f"(17b) {rep}")
+    per = launches("poison", ck, "17b poison drill")
+    check(len(per) >= 2 and all(r[1] > 0 for r in per),
+          f"(17b) poison drill (launch, sweeps, K1, K5) {per}")
+    say(f"(17b) poison drill (pre-save kill at iteration {ONLINE_MID} in "
+        f"every launch): exit 3, {rep['error']} at checkpoint iteration "
+        f"{rep['iteration']}, {wall:.1f} s wall (beside supervise()); per "
+        f"launch (launch, sweeps, K1, K5) {per}; {card}")
+    return total
+
+
+def poison_rewind(torch, dt, cuda_lib, card: str, Y, L, noise,
+                  work: str) -> dict:
+    """(17b) a poison_state plan at ONLINE_MID under sentinel="rewind": one
+    rewind, a finite Sigma within the quality rule."""
+    from dcfm_tpu_torch.resilience import faults
+    faults.install({"faults": [{"op": "poison_state",
+                                "at_iteration": ONLINE_MID}]})
+    try:
+        res, launches, wall = counted_fit(torch, dt, cuda_lib, online_config(
+            dt, os.path.join(work, "rewind.ck.npz"), sentinel="rewind"), Y)
+    finally:
+        faults.install(None)
+    check(res.sentinel_rewinds == 1, f"(17b) {res.sentinel_rewinds} rewinds")
+    err = check_quality(torch, res, f"(17b) poisoned at {ONLINE_MID}, "
+                        "rewound", Y, L, noise)
+    say(f"(17b) poison_state at iteration {ONLINE_MID}: "
+        f"{res.sentinel_rewinds} rewind, rel Frobenius error {err:.6f}, {wall:.1f} s; {card}")
+    return launches
+
+
+class LineReader:
+    """A child's text stream read line by line on a thread, which ends
+    with the stream (``join`` it once the child is gone)."""
+
+    def __init__(self, stream):
+        import threading
+        self.lines = []
+        self._t = threading.Thread(target=self._run, args=(stream,))
+        self._t.start()
+
+    def join(self) -> None:
+        self._t.join()
+
+    def _run(self, stream):
+        for line in stream:
+            self.lines.append(line.rstrip("\n"))
+
+    def wait_for(self, text, proc, timeout: float) -> str:
+        """The first line holding ``text`` (or one of a tuple of texts)."""
+        texts = (text,) if isinstance(text, str) else tuple(text)
+        deadline = time.monotonic() + timeout
+        while time.monotonic() < deadline:
+            for line in self.lines:
+                if any(t in line for t in texts):
+                    return line
+            if proc.poll() is not None:
+                break
+            time.sleep(0.05)
+        fail(f"no line with {text!r} (exit {proc.poll()}): "
+             + "\n".join(self.lines[-40:]))
+
+
+def save_atomic(path: str, arr: np.ndarray) -> None:
+    tmp = path + ".tmp.npy"
+    np.save(tmp, arr)
+    os.replace(tmp, path)
+
+
+def daemon_phase(torch, dt, card: str, Y, L, noise, work: str) -> dict:
+    """(17c) ``watch`` over a data directory beside ``serve`` on the card:
+    a cold generation 1; 100 appended rows and SIGUSR1 give a warm
+    generation 2 whose first refit launch is SIGKILLed and relaunched,
+    promoted as a delta; the server flips to it and answers 2,000 entries
+    bitwise its ``assemble()``; its quality beside a cold fit; 8 new
+    shards, reported (promoted, or refused typed); a torn pointer refused
+    typed while the generation serving keeps serving; SIGTERM ends the
+    daemon with 0.  Every refit launch ran K1 once per chain and sweep
+    (the refit config's one chain) and no K5 (its sse_mode is "resid", as
+    the JAX package's);
+    returns the launches summed over the refits."""
+    import urllib.request
+
+    from dcfm_tpu_torch.obs.recorder import run_events
+    from dcfm_tpu_torch.resilience import faults
+    from dcfm_tpu_torch.serve.artifact import PosteriorArtifact
+    from dcfm_tpu_torch.serve.promote import (
+        PointerError, promote_artifact, read_pointer)
+    c = FIT
+    data, root = os.path.join(work, "data"), os.path.join(work, "root")
+    os.makedirs(data)
+    os.makedirs(root)
+    plan = os.path.join(work, "plan.json")
+    with open(plan, "w") as f:
+        json.dump({"faults": []}, f)
+    save_atomic(os.path.join(data, "Y.npy"), Y)
+    ldir = os.path.join(work, "launches-watch")
+    os.makedirs(ldir)
+    burnin, warm_burnin = 5 * ONLINE["burnin"], ONLINE["burnin"]
+    t0 = time.perf_counter()
+    watch = cli_proc(
+        ["watch", data, root, "--shard-width", str(-(-c["p"] // c["g"])),
+         "--factors", str(c["K"]), "--rho", str(c["rho"]), "--burnin",
+         str(burnin), "--mcmc", str(ONLINE["mcmc"]), "--warm-burnin",
+         str(warm_burnin), "--chunk-size", str(ONLINE["chunk"]),
+         "--interval", "3600", "--max-retries", "3"],
+        # every refit child reads the plan file anew: cycle 2's kill is
+        # written there before its data lands
+        {"DCFM_FAULT_PLAN": "@" + plan, "DCFM_OBS_DIR": None,
+         LAUNCH_DIR_ENV: ldir},
+        stderr=subprocess.PIPE)
+    server = None
+    log = LineReader(watch.stderr)
+    try:
+        line = log.wait_for("promoted generation 1", watch, 600)
+        say(f"(17c) watch: {line.split('] ', 1)[-1]} "
+            f"({time.perf_counter() - t0:.1f} s after the daemon started); "
+            f"{card}")
+        server, hello = serve_proc([root, "--port", "0", "--swap-poll",
+                                    "0.05"], {"DCFM_FAULT_PLAN": ""})
+        base = hello["serving"]
+
+        def entry(i, j):
+            with urllib.request.urlopen(f"{base}/v1/entry?i={i}&j={j}",
+                                        timeout=60) as r:
+                return (int(r.headers["X-DCFM-Artifact-Generation"]),
+                        json.loads(r.read())["value"])
+
+        check(entry(0, 1)[0] == 1, "(17c) the server does not serve "
+              "generation 1")
+        Y600, _, _ = warm_data(Y, L, noise, c["g"])
+        with open(plan, "w") as f:
+            json.dump({"faults": [{"op": "kill_event",
+                                   "event": "stream_submit",
+                                   "at_occurrence": 3, "at_launch": 1}]}, f)
+        save_atomic(os.path.join(data, "Y.npy"), Y600)
+        watch.send_signal(signal.SIGUSR1)
+        line = log.wait_for("promoted generation 2", watch, 600)
+        t_flip = time.perf_counter()
+        while entry(0, 1)[0] != 2:
+            check(time.perf_counter() - t_flip < 60, "(17c) the server "
+                  "never served generation 2")
+            time.sleep(0.01)
+        flip_s = time.perf_counter() - t_flip
+        obs = os.path.join(root, ".watch", "obs")
+        evs = run_events(obs)
+        prom = [e for e in evs if e["event"] == "online_promote"]
+        detect = [e for e in evs if e["event"] == "online_detect"]
+        dprom = [e for e in evs if e["event"] == "delta_promote"]
+        deaths = [e for e in evs if e["event"] == "supervisor_death"]
+        check(len(prom) == 2 and prom[1]["generation"] == 2
+              and prom[1]["warm"] and prom[1]["delta"]
+              and detect[1]["kind"] == "appended_rows", f"(17c) cycles "
+              f"{detect} -> {prom}")
+        check(len(deaths) == 1 and deaths[0]["exit"] == -9, f"(17c) the "
+              f"warm refit's deaths {deaths}")
+        st = read_pointer(root)
+        check(st.generation == 2, f"(17c) pointer {st}")
+        S2 = PosteriorArtifact.open(st.path).assemble()
+        d = dprom[-1] if dprom else {}
+        shipped = {k: d.get(k) for k in ("panels_changed", "panels_total",
+                                         "bytes_shipped", "full_bytes")}
+        say(f"(17c) generation 2 ({detect[1]['kind']}, warm, first refit "
+            f"launch SIGKILLed: {deaths[0]['exit']} at checkpoint iteration "
+            f"{deaths[0]['iteration']}, relaunched): cycle_s "
+            f"{prom[1]['cycle_s']:.3f}, refit_s {prom[1]['refit_s']:.3f}, "
+            f"drift {prom[1]['drift']:.6f}, delta "
+            f"{json.dumps(shipped)}; "
+            f"generation 1 cycle_s {prom[0]['cycle_s']:.3f}, refit_s "
+            f"{prom[0]['refit_s']:.3f}; {card}")
+        say(f"(17c) serve flip: the server answered generation 2 "
+            f"{flip_s:.3f} s after the daemon's promotion line; {card}")
+        rng = np.random.default_rng(17)
+        got = http_bitwise(base, {"mean": S2, "sd": None}, rng, 2000, 0, 0,
+                           0)
+        say(f"(17c) 2,000 entries over HTTP in {got['seconds']:.3f} s, "
+            f"every one bitwise generation 2's assemble(); {card}")
+        err, err_s = truth_errors(torch, S2, Y600, L, noise)
+        check(err < 0.25 and err <= 2 * err_s, f"(17c) warm generation 2: "
+              f"rel Frobenius {err:.4f} (sample {err_s:.4f})")
+        cold = dt.fit(Y600, dt.FitConfig(
+            model=dt.ModelConfig(num_shards=c["g"],
+                                 factors_per_shard=c["K"], rho=c["rho"]),
+            run=dt.RunConfig(burnin=warm_burnin, mcmc=ONLINE["mcmc"],
+                             chunk_size=ONLINE["chunk"]),
+            backend=dt.BackendConfig(fetch_dtype="quant8")))
+        err_c, _ = truth_errors(torch, cold.Sigma, Y600, L, noise)
+        del cold
+        say(f"(17c) quality at n = 600: warm generation 2 rel Frobenius "
+            f"{err:.6f}, a cold fit of the same schedule "
+            f"({warm_burnin} + {ONLINE['mcmc']}) {err_c:.6f}, the sample "
+            f"covariance {err_s:.6f}; {card}")
+        # 8 new shards (p = 10,000 -> 11,304, 600 rows): decided warm, but
+        # under the refit's default permute=True the donor's shards graft
+        # onto other columns (ROADMAP, reference-side), so the cycle is
+        # only reported - promoted, or refused typed by a gate
+        _, _, L2 = warm_data(Y, L, noise, c["g"] + max(1, c["g"] // 8))
+        r3 = np.random.default_rng(16)
+        Y3 = (r3.normal(size=(600, L2.shape[1])) @ L2.T + noise * r3.normal(
+            size=(600, L2.shape[0]))).astype(np.float32)
+        save_atomic(os.path.join(data, "Y.npy"), Y3)
+        watch.send_signal(signal.SIGUSR1)
+        line = log.wait_for(("promoted generation 3", "cycle refused"),
+                            watch, 600)
+        evs = run_events(obs)
+        detect = [e for e in evs if e["event"] == "online_detect"]
+        warm = [e for e in evs if e["event"] == "warm_start"]
+        check(detect[-1]["kind"] == "new_shards", f"(17c) {detect[-1]}")
+        serving, S_serving = 2, S2
+        if "promoted generation 3" in line:
+            prom = [e for e in evs if e["event"] == "online_promote"][-1]
+            st = read_pointer(root)
+            check(st.generation == 3, f"(17c) pointer {st}")
+            S_serving = PosteriorArtifact.open(st.path).assemble()
+            t_flip = time.perf_counter()
+            while entry(0, 1)[0] != 3:
+                check(time.perf_counter() - t_flip < 60, "(17c) the server "
+                      "never served generation 3")
+                time.sleep(0.01)
+            serving = 3
+            err3, err3_s = truth_errors(torch, S_serving, Y3, L2, noise)
+            outcome = (f"promoted generation 3: cycle_s "
+                       f"{prom['cycle_s']:.3f}, refit_s "
+                       f"{prom['refit_s']:.3f}, drift {prom['drift']:.6f}, "
+                       f"rel Frobenius {err3:.6f} (sample {err3_s:.6f})")
+        else:
+            ref = [e for e in evs if e["event"] == "online_refused"][-1]
+            check(read_pointer(root).generation == 2, "(17c) a refused "
+                  "cycle moved the pointer")
+            outcome = (f"refused at {ref['stage']} ({ref['reason'][:160]}),"
+                       f" generation 2 serving")
+        say(f"(17c) new shards (p = {Y3.shape[1]}, warm_start "
+            f"{warm[-1].get('decision') if warm else None}): {outcome}; "
+            f"{card}")
+        # (6) a torn pointer: refused typed, the generation serving keeps
+        # serving
+        faults.install({"faults": [{"op": "torn_write", "target": "pointer",
+                                    "at_write": 1}]})
+        try:
+            promote_artifact(root, os.path.basename(
+                read_pointer(root).path), verify=False)
+        finally:
+            faults.install(None)
+        try:
+            read_pointer(root)
+            fail("(17c) a torn pointer was read")
+        except PointerError as e:
+            why = type(e).__name__
+        time.sleep(1.0)            # 20 swap polls of the torn pointer
+        for i, j in rng.integers(0, S_serving.shape[0], (50, 2)):
+            gen, v = entry(int(i), int(j))
+            check(gen == serving and bits_of(v) == bits_of(S_serving[i, j]),
+                  f"(17c) after the torn pointer: generation {gen}")
+        say(f"(17c) torn pointer: read_pointer raised {why}; the server "
+            f"kept serving generation {serving} (50 entries bitwise); "
+            f"{card}")
+        watch.send_signal(signal.SIGTERM)
+        check(watch.wait(timeout=120) == 0, f"(17c) the daemon exited "
+              f"{watch.returncode} on SIGTERM")
+        log.wait_for("stopped", watch, 10)
+        say(f"(17c) SIGTERM: the daemon stopped with exit 0; {card}")
+        stop_proc(server, "17c serve")
+        server = None
+    finally:
+        kill_group(watch)
+        if server is not None and server.poll() is None:
+            server.kill()
+            server.wait()
+        log.join()
+    # the refit config sets no chain count: RunConfig's default
+    chains = dt.RunConfig(burnin=1, mcmc=1).num_chains
+    total, per = child_launches(ldir, "17c watch", ("chol_sample",), chains)
+    g2 = per.get("gen2.ckpt.npz", [])
+    check("gen1.ckpt.npz" in per and [r[0] for r in g2] == [1, 2]
+          and all(r[1] > 0 for r in g2), f"(17c) the refits' (launch, "
+          f"sweeps, K1, K5) {per}")
+    say(f"(17c) the daemon's refits, per checkpoint (launch, sweeps, K1, "
+        f"K5): {json.dumps(per)}; K1 = {chains} chain(s) x sweeps in "
+        f"every launch, K5 none (the refit config's sse_mode 'resid'); "
+        f"{card}")
+    return total
+
+
+def online_phase(torch, dt, cuda_lib, card: str, Y, L, noise,
+                 work: str) -> dict:
+    """(17) The crash supervisor, the fit's fault seams and the online
+    loop at the north-star width: (a) ``supervise()`` and ``fit
+    --supervise`` through two SIGKILLs and a bit-flipped save, bitwise
+    the unsupervised fit; (b) a poison_state plan rewound, and the poison
+    drill refused typed; (c) the ``watch`` daemon and ``serve`` on the
+    card.  Returns the path's launches: the in-process fits' and the
+    supervised children's."""
+    from dcfm_tpu_torch.resilience import faults
+    t_phase = time.perf_counter()
+    faults.install(None)          # this process fires no fault by accident
+    data = os.path.join(work, "Y.npy")
+    np.save(data, Y)
+    res, launches, wall = counted_fit(torch, dt, cuda_lib,
+                                      online_config(dt), Y)
+    ref = sigma_digest(res.Sigma)
+    sweeps = FIT["chains"] * (ONLINE["burnin"] + ONLINE["mcmc"])
+    check(launches == {k: (sweeps if k in FIT_PATHS[0][3] else 0)
+                       for k in launches},
+          f"(17) the unsupervised fit launched {launches} in {sweeps} sweeps")
+    check_quality(torch, res, "17 unsupervised", Y, L, noise)
+    del res
+    say(f"(17) the unsupervised fit ({ONLINE['burnin']} + {ONLINE['mcmc']},"
+        f" {FIT['chains']} chains): {wall:.1f} s, sigma {ref[:16]}; {card}")
+    total = dict(launches)
+    runs = start_cli_runs(work, data)
+    try:
+        for k, v in supervised_api(torch, dt, cuda_lib, card, Y, L, noise,
+                                   work, ref).items():
+            total[k] += v
+        say(f"(17a) done at {time.perf_counter() - t_phase:.1f} s")
+        for k, v in finish_cli_runs(runs, ref, card).items():
+            total[k] += v
+    finally:
+        for proc, *_ in runs.values():
+            kill_group(proc)
+    say(f"(17a, b) CLI done at {time.perf_counter() - t_phase:.1f} s")
+    for k, v in poison_rewind(torch, dt, cuda_lib, card, Y, L, noise,
+                              work).items():
+        total[k] += v
+    for k, v in daemon_phase(torch, dt, card, Y, L, noise, work).items():
+        total[k] += v
+    say(f"(17) online phase: {time.perf_counter() - t_phase:.1f} s")
+    return {"17": total}
+
+
 def main() -> None:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     if sys.argv[1:2] == ["--fit-child"]:
         fit_child(sys.argv[2])
+        return
+    if sys.argv[1:2] == ["--supervised-child"]:
+        supervised_child(sys.argv[2:])
+        return
+    if sys.argv[1:2] == ["--counted"]:
+        counted(sys.argv[2:])
         return
     try:
         import torch
@@ -4040,6 +4718,20 @@ def main() -> None:
             shutil.rmtree(work, ignore_errors=True)
         say("serve phase only: no result is printed")
         return
+    if "--online-only" in sys.argv[1:]:
+        import shutil
+        import tempfile
+        work = tempfile.mkdtemp(prefix="dcfm_online_")
+        try:
+            online = online_phase(torch, dt, cuda_lib, card, Y, L, noise,
+                                  work)
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
+        for path, got in online.items():
+            say(f"online launches [{path}]: " + json.dumps(
+                {k: v for k, v in got.items() if v}))
+        say("online phase only: no result is printed")
+        return
     if "--ingest-only" in sys.argv[1:]:
         import shutil
         import tempfile
@@ -4106,6 +4798,8 @@ def main() -> None:
         say(f"outer_phase done at {time.perf_counter() - t_start:.1f} s")
         serve_phase(torch, dt, cuda_lib, card, Y, work)
         say(f"serve_phase done at {time.perf_counter() - t_start:.1f} s")
+        online = online_phase(torch, dt, cuda_lib, card, Y, L, noise, work)
+        say(f"online_phase done at {time.perf_counter() - t_start:.1f} s")
     finally:
         shutil.rmtree(work, ignore_errors=True)
     launches["cho_solve"] = k3_path(torch, bs, cuda_lib, rng)["cho_solve"]
@@ -4127,6 +4821,11 @@ def main() -> None:
             {k: v for k, v in got.items() if v}))
     for path, got in outer.items():
         say(f"outer launches [{path}]: " + json.dumps(
+            {k: v for k, v in got.items() if v}))
+    for path, got in online.items():
+        check(got["chol_sample"] > 0 and got["sse_ps"] > 0,
+              f"step {path} launched no K1 or K5: {got}")
+        say(f"online launches [{path}]: " + json.dumps(
             {k: v for k, v in got.items() if v}))
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {

@@ -67,7 +67,6 @@ from dcfm_tpu_torch.models.state import SamplerState
 from dcfm_tpu_torch.noise import TorchNoise, warm_lineage
 from dcfm_tpu_torch.obs import recorder as obs_recorder
 from dcfm_tpu_torch.ops import cuda_lib
-from dcfm_tpu_torch.resilience.faults import refuse_fit_faults
 from dcfm_tpu_torch.runtime.fetch import (
     Drain, accumulator_window, assemble_q8_sigma, elastic_pooled_draws,
     fetch_prep, fetch_sd_prep, fetch_upper, quant8_fetch_assemble,
@@ -168,6 +167,10 @@ class FitResult:
     # the diagnostics and the checkpoint all end at the stop
     stopped_at_iter: Optional[int] = None
     rhat_trajectory: Optional[np.ndarray] = None
+    # the supervision telemetry (launches, deaths, corrupt fallbacks,
+    # final iteration) when the fit ran under resilience.supervise(); None
+    # for a plain fit
+    supervise_report: Optional[object] = None
     # the flight-recorder run directory of this fit (FitConfig.obs;
     # obs/recorder.py): its append-only JSONL event log - chunk
     # boundaries, stream snapshots and drains, checkpoint saves, sentinel
@@ -550,7 +553,6 @@ def _fit(Y: np.ndarray, cfg: FitConfig, device) -> FitResult:
                 f"Y must be an (n, p) matrix, got shape {Y.shape}")
         n, p = Y.shape
     validate(cfg, n, p)
-    refuse_fit_faults()
     device = _resolve_device(cfg.backend, device)
     m, run, be = cfg.model, cfg.run, cfg.backend
     # thread the backend's sweep knobs into the internal model config, as

@@ -10,19 +10,24 @@ installed as ``dcfm-tpu-torch``:
     python -m dcfm_tpu_torch.cli promote root root/v2 [--delta]
     python -m dcfm_tpu_torch.cli delta root/v2 --base root --out v2.delta
     python -m dcfm_tpu_torch.cli events run_dir
+    python -m dcfm_tpu_torch.cli fit Y.npy ... --checkpoint ck.npz \
+        --keep-last 2 --supervise                 # crash-only, resumed
+    python -m dcfm_tpu_torch.cli supervise -- fit Y.npy ... --checkpoint ck
+    python -m dcfm_tpu_torch.cli watch data/ root/ --shard-width 40 \
+        --factors 8 --burnin 400 --mcmc 400       # the online loop
 
-``fit`` runs on the card unless ``--backend torch_cpu``; ``serve`` and
-``export`` take ``--device`` (default ``cuda``).  What the port does not
-run is refused by name: ``fit --supervise``, ``supervise`` and ``watch``
-(ROADMAP Queue A item 7), a mesh or a multi-process rendezvous (item 4,
-as ``config.validate`` refuses it), and ``lint`` / ``test-isolated``,
-which analyse the JAX package and belong to its CLI.
+``fit`` (supervised or not) and ``watch`` run on the card unless
+``--backend torch_cpu``; ``serve`` and ``export`` take ``--device``
+(default ``cuda``).  What the port does not run is refused by name:
+``supervise --pod N`` with N > 1 (ROADMAP Queue A item 7), a mesh or a
+multi-process rendezvous (item 4, as ``config.validate`` refuses it), and
+``lint`` / ``test-isolated``, which analyse the JAX package and belong to
+its CLI.
 """
 
 from __future__ import annotations
 
 import argparse
-import glob
 import json
 import os
 import sys
@@ -32,8 +37,9 @@ import numpy as np
 # the JAX CLI's multi-process rendezvous variables
 _MULTIPROCESS_ENV = ("DCFM_COORDINATOR", "DCFM_NUM_PROCESSES",
                      "DCFM_PROCESS_ID")
-_SUPERVISOR = ("is not ported to dcfm_tpu_torch yet: ROADMAP Queue A "
-               "item 7 (the supervisor and the online loop)")
+# fit --supervise's own flags: the child command runs without them
+_SUPERVISE_FLAGS = ("--supervise-max-retries", "--supervise-backoff",
+                    "--supervise-poison-deaths", "--supervise-watchdog")
 
 
 def _load(path: str, *, sparse: bool = False, mmap: bool = False):
@@ -71,8 +77,9 @@ def build_parser() -> argparse.ArgumentParser:
     sub = p.add_subparsers(dest="command", required=True)
 
     # HELP-ONLY entries: main() dispatches them before argparse runs (the
-    # events reader's flags belong to its own parser; the others are
-    # refusals), so `--help` lists every subcommand of the JAX CLI
+    # events reader's, the supervisor's and the daemon's flags belong to
+    # their own parsers; lint and test-isolated are refusals), so `--help`
+    # lists every subcommand of the JAX CLI
     sub.add_parser(
         "lint", add_help=False,
         help="not in this CLI: the static analysis reads the JAX package "
@@ -83,7 +90,10 @@ def build_parser() -> argparse.ArgumentParser:
              "JAX package (python -m dcfm_tpu.cli test-isolated)")
     sub.add_parser(
         "supervise", add_help=False,
-        help="the crash supervisor - not ported yet (refused)")
+        help="run any dcfm-tpu-torch command under the crash supervisor "
+             "(auto-resume with backoff, checkpoint integrity fallback, "
+             "poison-iteration abort); see `dcfm-tpu-torch supervise "
+             "--help`")
     sub.add_parser(
         "events", add_help=False,
         help="summarize a run's flight-recorder event log "
@@ -94,7 +104,12 @@ def build_parser() -> argparse.ArgumentParser:
              "see `dcfm-tpu-torch events --help`")
     sub.add_parser(
         "watch", add_help=False,
-        help="the online fit->serve daemon - not ported yet (refused)")
+        help="online fit->serve daemon: poll a data directory (SIGUSR1 "
+             "wakes immediately), refit on appended rows / new shards "
+             "(warm-started from the previous run's checkpoint, "
+             "supervised), and promote each validated artifact "
+             "generation to a serving fleet's promotion root; see "
+             "`dcfm-tpu-torch watch --help`")
 
     # Posterior-serving subsystem (dcfm_tpu_torch/serve): export a
     # completed fit to a memory-mapped artifact, then serve
@@ -475,10 +490,6 @@ def _refused(raw: list) -> str:
     if cmd in ("lint", "test-isolated"):
         return (f"`{cmd}` analyses the JAX package and is not part of "
                 f"this CLI: run `python -m dcfm_tpu.cli {cmd}`")
-    if cmd in ("supervise", "watch"):
-        return f"`{cmd}` {_SUPERVISOR}"
-    if cmd == "fit" and "--supervise" in raw:
-        return f"`fit --supervise` {_SUPERVISOR}"
     if cmd == "fit" and any(os.environ.get(k) for k in _MULTIPROCESS_ENV):
         return ("a multi-process fit (DCFM_COORDINATOR / "
                 "DCFM_NUM_PROCESSES / DCFM_PROCESS_ID) is not ported to "
@@ -496,7 +507,15 @@ def main(argv=None) -> int:
         # the reader's own flags belong to its parser
         from dcfm_tpu_torch.obs.cli import events_main
         return events_main(raw[1:])
+    if raw and raw[0] == "supervise":
+        from dcfm_tpu_torch.resilience.supervisor import supervise_cli
+        return supervise_cli(raw[1:])
+    if raw and raw[0] == "watch":
+        from dcfm_tpu_torch.online.watch import watch_main
+        return watch_main(raw[1:])
     args = build_parser().parse_args(raw)
+    if args.command == "fit" and args.supervise:
+        return _fit_supervised(args, raw)
     if args.command == "serve":
         if args.workers > 1:
             from dcfm_tpu_torch.serve.fleet import fleet_main
@@ -511,6 +530,37 @@ def main(argv=None) -> int:
     if args.command == "delta":
         return _delta(args)
     return _fit(args)
+
+
+def _fit_supervised(args, raw: list) -> int:
+    """``fit --supervise``: this CLI's ``fit`` (minus the supervise flags,
+    plus ``--resume``) in supervised child processes; the parent runs no
+    fit and touches no card."""
+    if not args.checkpoint:
+        raise SystemExit("--supervise requires --checkpoint (the "
+                         "resume substrate)")
+    from dcfm_tpu_torch.resilience.supervisor import run_supervised_cli
+    child, skip = [], 0
+    for tok in raw:
+        if skip:
+            skip -= 1
+            continue
+        if tok == "--supervise":
+            continue
+        if tok in _SUPERVISE_FLAGS:
+            skip = 1
+            continue
+        if tok.startswith(tuple(f + "=" for f in _SUPERVISE_FLAGS)):
+            continue
+        child.append(tok)
+    if "--resume" not in child:
+        child.append("--resume")
+    return run_supervised_cli(
+        child, checkpoint=args.checkpoint,
+        max_retries=args.supervise_max_retries,
+        backoff_base=args.supervise_backoff,
+        poison_deaths=args.supervise_poison_deaths,
+        launch_timeout=args.supervise_watchdog or None)
 
 
 def _promote(args) -> int:
@@ -571,7 +621,7 @@ def _fit(args) -> int:
     from dcfm_tpu_torch.api import fit
     from dcfm_tpu_torch.config import (
         BackendConfig, FitConfig, ModelConfig, RunConfig)
-    from dcfm_tpu_torch.utils.checkpoint import retained_checkpoints
+    from dcfm_tpu_torch.utils.checkpoint import checkpoint_discoverable
 
     Y = _load(args.data, sparse=args.sparse, mmap=args.mmap)
     if args.imputed_out and (args.sparse or args.mmap):
@@ -589,9 +639,7 @@ def _fit(args) -> int:
     # resume when a checkpoint exists - a plain file, a retained .bakK or
     # a .procK-of-N set (which the resume refuses by name) - strictly: an
     # incompatible one is a refusal, never a silent fresh start
-    resume = bool(args.resume and (
-        retained_checkpoints(args.checkpoint)
-        or glob.glob(glob.escape(args.checkpoint) + ".proc*-of-*")))
+    resume = bool(args.resume and checkpoint_discoverable(args.checkpoint))
     cfg = FitConfig(
         model=ModelConfig(
             num_shards=args.shards,

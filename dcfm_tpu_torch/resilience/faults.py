@@ -2,13 +2,13 @@
 
 The port's copy of ``dcfm_tpu/resilience/faults.py``: the same plans, env
 gates and seeded spec streams, recording through the port's
-``obs/recorder.py``.  The port's serving plane fires the serve-side
-faults as the JAX package does (targets ``artifact``, ``panel``,
-``pointer`` and ``delta``; the :data:`SERVE_EVENTS`).  The fit has no
-fault seams yet (the chunk loop, resume and checkpoint writer: ROADMAP
-Queue A item 7 (e)), so a plan with faults that could only fire inside a
-fit is refused by ``api.fit`` at its start (:func:`refuse_fit_faults`),
-never silently ignored.
+``obs/recorder.py``.  Every seam of the JAX package that one process
+reaches fires in the port: the fit's boundary kills and ``poison_state``
+(runtime/pipeline.run_chain), its code-path events (``stream_submit``,
+the resume and elastic windows of runtime/resume.py), the checkpoint
+writer's write faults (utils/checkpoint._atomic_savez), and the serving
+plane's (targets ``artifact``, ``panel``, ``pointer`` and ``delta``, the
+:data:`SERVE_FUZZ_EVENTS` and the promoter's events).
 
 Crash-recovery code that is only ever exercised by real crashes is
 untested code.  This module turns the failure modes the resilience layer
@@ -567,46 +567,6 @@ def pod_fuzz_spec(seed: int, index: int, *,
 # emits ``promote_pointer`` / ``promote_pointer_post`` around the
 # atomic rename (serve/promote.py).
 SERVE_FUZZ_EVENTS = ("serve_request", "swap_begin", "swap_commit")
-
-# every event the port emits through fault_event (the server, the
-# promoter, the delta materializer) and every write target it counts; a
-# fault naming anything else could only fire inside a fit
-SERVE_EVENTS = SERVE_FUZZ_EVENTS + ("promote_pointer", "promote_pointer_post",
-                                    "delta_materialize")
-SERVE_TARGETS = ("artifact", "panel", "pointer", "delta")
-
-
-def fit_faults(plan: Optional[FaultPlan]) -> list:
-    """The faults of ``plan`` that only a fit could fire: ``kill`` and
-    ``poison_state`` (chunk boundaries), write faults on any target but
-    the serving plane's (``checkpoint`` is the default target), and
-    ``kill_event`` on any event but :data:`SERVE_EVENTS`."""
-    if plan is None:
-        return []
-    out = []
-    for f in plan.faults:
-        op = f["op"]
-        if op in ("kill", "poison_state"):
-            out.append(f)
-        elif op == "kill_event":
-            if f["event"] not in SERVE_EVENTS:
-                out.append(f)
-        elif f.get("target", "checkpoint") not in SERVE_TARGETS:
-            out.append(f)
-    return out
-
-
-def refuse_fit_faults() -> None:
-    """Raise when the installed plan (or ``DCFM_FAULT_PLAN``) holds faults
-    only a fit could fire: the port's fit has no fault seams yet, and a
-    plan is never silently ignored."""
-    bad = fit_faults(fault_plan())
-    if bad:
-        raise NotImplementedError(
-            f"fault plan entries {bad} target the fit (boundary kills, "
-            "state poisoning, checkpoint writes, resume-window events), "
-            "whose fault seams are not ported to dcfm_tpu_torch yet: "
-            "ROADMAP Queue A item 7 (the supervisor and the fit's seams)")
 
 
 def serve_fuzz_spec(seed: int, index: int, *,

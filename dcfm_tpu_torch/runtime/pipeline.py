@@ -44,6 +44,14 @@ the boundary's existing host clock), ``early_stop``, ``sentinel_trip``,
 process default registry and fsyncs the event log after the boundary's
 save.  All of it is host-side file and dict work between chunks: nothing
 records inside a trip or a capture, and nothing adds a sync.
+
+Fault seams (resilience/faults.py, ``DCFM_FAULT_PLAN``), at the JAX
+package's places: ``stream_submit`` / ``stream_submit_post`` around each
+boundary's streamed dispatch; boundary kills ``pre_save`` before the
+boundary's save and ``post_save`` after the write-behind writer made that
+save durable (only on a boundary that saved); ``poison_state`` NaNs every
+chain's Lambda after the boundary, so the next one trips the sentinel.
+Without a plan each seam is one truthiness check.
 """
 
 from __future__ import annotations
@@ -64,6 +72,7 @@ from dcfm_tpu_torch.models.sampler import (
 from dcfm_tpu_torch.models.state import SamplerState
 from dcfm_tpu_torch.obs import metrics as obs_metrics
 from dcfm_tpu_torch.obs.recorder import active as obs_active, record
+from dcfm_tpu_torch.resilience.faults import fault_event, fault_plan
 from dcfm_tpu_torch.resilience.sentinel import (
     ChainDivergedError, DivergenceSentinel)
 from dcfm_tpu_torch.runtime.fetch import (
@@ -436,6 +445,19 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def _poison(carries: list) -> None:
+    """The fault plan's ``poison_state``: every chain's Lambda becomes NaN,
+    simulating a divergence on the card, so the next chunk's health
+    reduction trips the sentinel as a real blow-up would.  The tensor is
+    rebound, never written in place: a snapshot of this boundary may still
+    be reading the old one on its side stream, and the runner copies the
+    chain's carry into the static carry its graphs read at the start of
+    every chunk (``ChainRunner.run_chunk``), so the NaN reaches the graph."""
+    for c in carries:
+        c.state = dataclasses.replace(
+            c.state, Lambda=c.state.Lambda * float("nan"))
+
+
 _GRAPH_KEYS = ("captured", "capture_s", "replays", "eager_trips")
 
 
@@ -523,6 +545,9 @@ def run_chain(*, cfg, model, run, phase: dict, fingerprint, template: dict,
                       RuntimeWarning)
         ck_error = repr(e)
 
+    # the fault plan (resilience/faults.py): None outside chaos runs, and
+    # then every seam below is one truthiness check
+    plan = fault_plan()
     s_mode = cfg.sentinel
     if s_mode == "auto":
         s_mode = "rewind" if cfg.checkpoint_path else "abort"
@@ -661,6 +686,7 @@ def run_chain(*, cfg, model, run, phase: dict, fingerprint, template: dict,
                     # accumulator before this run saves any
                     draws += rctx.elastic.fold_draws
                 if last or draws > 0:
+                    fault_event("stream_submit")
                     try:
                         if streamer.submit(carries, final=last):
                             record("stream_snapshot", iteration=it_now,
@@ -679,16 +705,27 @@ def run_chain(*, cfg, model, run, phase: dict, fingerprint, template: dict,
                             RuntimeWarning)
                         streamer.abort()
                         streamer = None
+                    fault_event("stream_submit_post")
             if writer is None:
                 _flush_events()
+                if plan is not None:
+                    plan.maybe_kill(it_now, done, "pre_save")
+                    plan.maybe_kill(it_now, done, "post_save")
+                    if plan.poison_due(it_now, done):
+                        _poison(carries)
                 continue
             if writer.poll_error() is not None and not last:
                 writer.wait()       # re-raises the stored failure
             if auto and writer.last_save_seconds is not None:
                 cadence = auto_cadence(writer.last_save_seconds, chunk_secs)
             since_save += 1
+            if plan is not None:
+                # a pre-save kill lands before this boundary's save, so the
+                # checkpoint never passes the trigger: the poison drill
+                plan.maybe_kill(it_now, done, "pre_save")
             # the last boundary always saves; a still-running save defers
             # a non-final due save to the next boundary
+            saved_this_boundary = False
             if (since_save >= cadence and not writer.busy()) or last:
                 full_due = (light_mode and cfg.checkpoint_full_every > 0
                             and (saves_done + 1)
@@ -715,6 +752,7 @@ def run_chain(*, cfg, model, run, phase: dict, fingerprint, template: dict,
                                   state_only=state_only,
                                   acc_start=acc_start,
                                   keep_last=cfg.checkpoint_keep_last, **kw)
+                    saved_this_boundary = True
                 except Exception as e:  # the save-failure policy
                     save_failure(e, last)
                 phase["checkpoint_s"] += time.perf_counter() - t
@@ -722,6 +760,20 @@ def run_chain(*, cfg, model, run, phase: dict, fingerprint, template: dict,
                 saves_done += 1
                 _G_CK_GEN.set(saves_done)
             _flush_events()
+            if plan is not None:
+                # a post-save kill must see a durable save: it arms only on
+                # a boundary that saved (with a cadence above 1 it lands on
+                # the next one that does), after the write-behind writer has
+                # finished it - a failed write surfaces here as it would at
+                # poll_error, downgraded on the last boundary only
+                if saved_this_boundary:
+                    try:
+                        writer.wait()
+                    except Exception as e:  # the save-failure policy
+                        save_failure(e, last)
+                    plan.maybe_kill(it_now, done, "post_save")
+                if plan.poison_due(it_now, done):
+                    _poison(carries)
         if writer is not None:
             # the last save must be durable before fit returns
             t = time.perf_counter()

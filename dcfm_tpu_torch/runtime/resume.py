@@ -25,8 +25,22 @@ grafted state of a warm start).  Every decision is a flight-recorder event
 (obs/recorder.py), as in the JAX package: ``resume_decision`` (fresh,
 resume, light, sidecar, elastic), ``elastic_resume`` (elastic, refused)
 and ``warm_start`` (warm, or cold with the reason).  Still refused:
-multi-process ``.procK-of-N`` sets, whose collective decision events come
-with them (ROADMAP Queue A item 7).
+multi-process ``.procK-of-N`` sets (ROADMAP Queue A item 7).
+
+Fault seams (resilience/faults.py ``kill_event``): the elastic window's
+``elastic_gate`` / ``elastic_fold`` / ``elastic_fold_post`` where the JAX
+package's one-process resume has them, and the resume windows that the
+JAX package opens around the collectives of its pod resume, at the same
+places of the one-process resume here, each pair around the step that
+stands in for the JAX collective: ``resume_gate`` / ``resume_gate_post``
+around the decision on a loaded file (a full file's bookkeeping adopted,
+or a light restart), ``sidecar_gate`` after the ``.full`` sidecar's
+eligibility, ``sidecar_load`` before its load, ``sidecar_commit`` /
+``sidecar_commit_post`` around the adoption of its bookkeeping (both
+fire on a failed load too, as the JAX vote does, with nothing
+committed).  A kill anywhere in them leaves the files as they were: the
+gates only read.  ``supervise --no-elastic`` (DCFM_NO_ELASTIC=1) vetoes
+the elastic adoption of ``elastic="auto"`` (:func:`_elastic_allowed`).
 """
 
 from __future__ import annotations
@@ -42,6 +56,7 @@ import torch
 from dcfm_tpu_torch.config import _OUTER, FitConfig
 from dcfm_tpu_torch.models.sampler import num_saved_draws
 from dcfm_tpu_torch.obs.recorder import record
+from dcfm_tpu_torch.resilience.faults import fault_event
 from dcfm_tpu_torch.utils.checkpoint import (
     _chain_tensors, _open, _read_leaf, checkpoint_compatible,
     config_from_checkpoint_meta, elastic_meta, load_checkpoint,
@@ -145,10 +160,21 @@ def refuse_multiprocess_sets(path: str) -> None:
             f"ported to dcfm_tpu_torch yet: {_OUTER}")
 
 
+def _elastic_allowed(cfg: FitConfig) -> bool:
+    """May this run adopt a chain-count-mismatched checkpoint?  True,
+    or "auto" without the supervisor's DCFM_NO_ELASTIC=1 veto."""
+    el = getattr(cfg, "elastic", "auto")
+    if el is True:
+        return True
+    return el == "auto" and os.environ.get("DCFM_NO_ELASTIC") != "1"
+
+
 def _try_elastic(ctx: ResumeContext, meta: dict):
     """Elastic adoption of a file whose only mismatch is the chain count,
     as ``(leaves, done, acc_start)`` with ``ctx.elastic`` set; None when
-    ``FitConfig.elastic`` is False or more than the chain count differs.
+    :func:`_elastic_allowed` says no (``FitConfig.elastic`` False, or
+    "auto" under ``supervise --no-elastic``'s DCFM_NO_ELASTIC=1) or more
+    than the chain count differs.
     A refused adoption (a light donor, a store_draws donor) raises its
     ValueError.
 
@@ -157,7 +183,7 @@ def _try_elastic(ctx: ResumeContext, meta: dict):
     from a previous birth's state); the lineage is bumped on a shrink
     too, as the JAX package does."""
     cfg, run = ctx.cfg, ctx.cfg.run
-    if cfg.elastic is False:
+    if not _elastic_allowed(cfg):
         return None
     if checkpoint_compatible(meta, cfg, ctx.fingerprint,
                              ignore_chains=True) is not None:
@@ -165,13 +191,18 @@ def _try_elastic(ctx: ResumeContext, meta: dict):
     donor_chains = int(config_from_checkpoint_meta(meta).run.num_chains)
     if donor_chains == run.num_chains:
         return None
+    # the crash seams: before the adoption commits to anything, between
+    # the births and the donor's fold, after the fold
+    fault_event("elastic_gate")
     lineage = elastic_meta(meta, donor_chains)[2] + 1
     births = None
     if run.num_chains > donor_chains:
         births = [ctx.birth(c, lineage)
                   for c in range(donor_chains, run.num_chains)]
+    fault_event("elastic_fold")
     leaves, meta, info = load_checkpoint_elastic(
         cfg.checkpoint_path, ctx.template, run.num_chains, births=births)
+    fault_event("elastic_fold_post")
     starts = info["chain_acc_starts"]
     ctx.elastic = ElasticResume(
         from_chains=info["from_chains"], to_chains=info["to_chains"],
@@ -198,8 +229,34 @@ def _try_full_sidecar(ctx: ResumeContext, light_kept: int):
     acc_start)`` iff it is full, compatible, loads clean and keeps MORE
     saved draws than ``light_kept`` (the light restart window); None
     otherwise."""
-    cfg, run = ctx.cfg, ctx.cfg.run
+    cfg = ctx.cfg
     side = cfg.checkpoint_path + ".full"
+    s_acc0 = _sidecar_eligible(ctx, side, light_kept)
+    fault_event("sidecar_gate")
+    if s_acc0 is None:
+        return None
+    fault_event("sidecar_load")
+    try:
+        leaves, smeta = load_checkpoint(side, ctx.template)
+    except (OSError, ValueError, KeyError):
+        leaves = None        # not usable: the light resume stands
+    # the commit (the sidecar's bookkeeping adopted) between the pair; a
+    # failed load commits nothing and keeps the light resume
+    fault_event("sidecar_commit")
+    if leaves is not None:
+        ctx.elastic = _elastic_carryover(smeta, cfg)
+    fault_event("sidecar_commit_post")
+    if leaves is None:
+        return None
+    return leaves, int(smeta["iteration"]), s_acc0
+
+
+def _sidecar_eligible(ctx: ResumeContext, side: str,
+                      light_kept: int) -> Optional[int]:
+    """The sidecar's accumulation start iff it exists, is full and
+    compatible and keeps more saved draws than ``light_kept``; else
+    None."""
+    cfg, run = ctx.cfg, ctx.cfg.run
     if not os.path.exists(side):
         return None
     try:
@@ -208,25 +265,27 @@ def _try_full_sidecar(ctx: ResumeContext, light_kept: int):
                 or checkpoint_compatible(smeta, cfg, ctx.fingerprint)
                 is not None):
             return None
-        s_acc0 = int(smeta.get("acc_start", 0))
-        s_kept = (num_saved_draws(run.total_iters, run.burnin, run.thin)
-                  - num_saved_draws(s_acc0, run.burnin, run.thin))
-        if s_kept <= light_kept:
-            return None
-        leaves, smeta = load_checkpoint(side, ctx.template)
     except (OSError, ValueError, KeyError):
-        return None          # not usable: the light resume stands
-    ctx.elastic = _elastic_carryover(smeta, cfg)
-    return leaves, int(smeta["iteration"]), s_acc0
+        return None
+    s_acc0 = int(smeta.get("acc_start", 0))
+    s_kept = (num_saved_draws(run.total_iters, run.burnin, run.thin)
+              - num_saved_draws(s_acc0, run.burnin, run.thin))
+    return s_acc0 if s_kept > light_kept else None
 
 
 def _load(ctx: ResumeContext, meta: dict):
     """The compatible plain file's ``(leaves, done, acc_start)``."""
     cfg, run = ctx.cfg, ctx.cfg.run
     leaves, meta = load_checkpoint(cfg.checkpoint_path, ctx.template)
+    # the decision (a full file's bookkeeping adopted, or a light file's
+    # restart) between the pair
+    fault_event("resume_gate")
     it = int(meta["iteration"])
-    if not meta.get("state_only"):
+    light = bool(meta.get("state_only"))
+    if not light:
         ctx.elastic = _elastic_carryover(meta, cfg)
+    fault_event("resume_gate_post")
+    if not light:
         acc0 = int(meta.get("acc_start", 0))
         record("resume_decision", decision="resume", kind="plain",
                iteration=it, acc_start=acc0)

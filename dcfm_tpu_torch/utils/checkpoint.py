@@ -47,10 +47,10 @@ Writes are atomic (tmp + rename), so a crash mid-save never corrupts the
 previous checkpoint; ``keep_last`` > 1 keeps older generations as
 ``.bakK`` files.  Every durable write is a ``checkpoint_save``
 flight-recorder event (obs/recorder.py), emitted from the writer's thread
-after the rename: a file write, no card call.  The fault-injection seam of
-the JAX writer (``fault_plan``) comes with the fit's other fault seams
-(ROADMAP Queue A item 7); until then ``api.fit`` refuses a plan that
-targets it.  :func:`strip_checkpoint` rewrites a full file as a light one.
+after the rename: a file write, no card call.  The write is the fault
+plan's ``checkpoint`` target (resilience/faults.py: failing or delayed
+I/O, bit flips after the CRCs, torn writes after the rename), as in the
+JAX writer.  :func:`strip_checkpoint` rewrites a full file as a light one.
 """
 
 from __future__ import annotations
@@ -78,6 +78,7 @@ from dcfm_tpu_torch.config import (
 from dcfm_tpu_torch.models.sampler import num_saved_draws
 from dcfm_tpu_torch.models.state import num_padded_pairs
 from dcfm_tpu_torch.obs.recorder import record
+from dcfm_tpu_torch.resilience.faults import fault_plan
 
 # the random streams a port chain is drawn from (meta["rng"])
 RNG_STREAMS = "torch-philox"
@@ -402,6 +403,20 @@ def retained_checkpoints(path: str) -> list:
     return out
 
 
+def checkpoint_discoverable(path: str) -> bool:
+    """Whether a resume of ``path`` has a source: the live file, a
+    retained ``.bakK`` or a ``.procK-of-N`` set member (which the resume
+    refuses by name).  The one-process discovery of the CLI's
+    ``--resume`` and the supervised child: a discoverable checkpoint is
+    resumed strictly, and only a run with none starts fresh."""
+    if retained_checkpoints(path):
+        return True
+    d = os.path.dirname(os.path.abspath(path)) or "."
+    pat = re.compile(re.escape(os.path.basename(path))
+                     + r"\.proc\d+-of-\d+$")
+    return os.path.isdir(d) and any(pat.match(f) for f in os.listdir(d))
+
+
 def _rotate_retained(target: str, keep_last: int) -> None:
     """Shift the retention chain before a new save lands on ``target``:
     bak(K-1) -> bakK, ..., then a hard link target -> bak1 (so there is
@@ -424,16 +439,24 @@ def _rotate_retained(target: str, keep_last: int) -> None:
 
 
 def _atomic_savez(target: str, meta: dict, payload: dict, *,
-                  keep_last: int = 1) -> None:
+                  keep_last: int = 1,
+                  fault_target: str = "checkpoint") -> None:
     """Atomic npz write (tmp + rename) with every payload entry's CRC32 in
     ``meta["leaf_crc"]`` and the ``keep_last`` rotation first; one
-    ``checkpoint_save`` event per durable write."""
+    ``checkpoint_save`` event per durable write.  The fault plan
+    (resilience/faults.py) hooks every stage, as in the JAX writer: the
+    write is counted (and failed or delayed) before the CRCs, bits flip
+    after them, and a torn write truncates the file after the rename."""
     t0 = time.perf_counter()
     d = os.path.dirname(os.path.abspath(target)) or "."
     os.makedirs(d, exist_ok=True)
+    plan = fault_plan()
+    count = plan.on_write(fault_target, target) if plan else 0
     meta = dict(meta)
     meta["leaf_crc"] = {k: _leaf_crc(np.asarray(v))
                         for k, v in payload.items()}
+    if plan:
+        payload = plan.mutate_payload(fault_target, target, count, payload)
     fd, tmp = tempfile.mkstemp(dir=d, suffix=".npz.tmp")
     try:
         with os.fdopen(fd, "wb") as f:
@@ -441,11 +464,13 @@ def _atomic_savez(target: str, meta: dict, payload: dict, *,
                                                dtype=np.uint8), **payload)
         _rotate_retained(target, keep_last)
         os.replace(tmp, target)
+        if plan:
+            plan.after_replace(fault_target, target, count)
     finally:
         if os.path.exists(tmp):
             os.unlink(tmp)
     record("checkpoint_save", path=os.path.basename(target),
-           target="checkpoint", iteration=meta.get("iteration", -1),
+           target=fault_target, iteration=meta.get("iteration", -1),
            state_only=bool(meta.get("state_only")),
            acc_start=meta.get("acc_start", 0),
            dur_s=time.perf_counter() - t0)
@@ -573,7 +598,7 @@ def scan_generations(path: str) -> list:
         try:
             meta = verify_checkpoint(p)
             out.append((p, int(meta["iteration"]), None))
-        except (OSError, ValueError, KeyError) as e:
+        except Exception as e:  # a CRC mismatch, a torn npz, an old format
             out.append((p, -1, e))
     return out
 
@@ -637,8 +662,10 @@ def checkpoint_compatible(meta: dict, cfg: FitConfig, fingerprint: str, *,
                 "buffers are statically sized by num_saved)")
     if not ignore_chains and saved.run.num_chains != cfg.run.num_chains:
         return (f"checkpoint has num_chains={saved.run.num_chains}, run "
-                f"configured {cfg.run.num_chains}; pass "
-                f"num_chains={saved.run.num_chains} to match the checkpoint")
+                f"configured {cfg.run.num_chains}; pass --elastic (or "
+                f"FitConfig.elastic=True) to adopt it on the new chain "
+                f"count, or --chains {saved.run.num_chains} to match the "
+                "checkpoint")
     if saved.run.store_draws != cfg.run.store_draws:
         return (f"store_draws changed: {saved.run.store_draws} != "
                 f"{cfg.run.store_draws} (the carry gains/loses the "

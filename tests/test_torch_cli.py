@@ -3,7 +3,8 @@
 The ``fit`` -> ``export`` -> ``serve`` -> ``promote`` -> ``delta`` round
 trip on the CPU; the ``fit`` JSON has the JAX CLI's keys; the parsers of
 the two CLIs accept the same flags (the port adds ``--device`` to
-``serve`` and ``export``); what the port does not run is refused by
+``serve`` and ``export`` and ``--backend`` to ``watch``); ``supervise``
+and the ``watch`` daemon run; what the port does not run is refused by
 name; and ``strip_checkpoint`` of a port file resumes like a light
 checkpoint.
 """
@@ -81,9 +82,8 @@ def test_parsers_accept_the_same_flags():
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["supervise", "--", "fit", "Y.npy"], 7),
-    (["watch", "data", "root"], 7),
-    (["fit", "Y.npy", "-g", "2", "-k", "4", "--supervise"], 7),
+    (["supervise", "--pod", "2", "--", "fit", "Y.npy", "--checkpoint",
+      "ck.npz"], 7),
     (["lint", "--list-rules"], None),
     (["test-isolated"], None),
 ])
@@ -96,6 +96,83 @@ def test_what_the_port_does_not_run_is_refused_by_name(argv, item):
         assert "ROADMAP" not in msg
     else:
         assert _names_a_queue_a_item(msg) and f"item {item}" in msg, msg
+
+
+def test_supervise_runs_a_command_through_a_kill(tmp_path):
+    """``supervise -- fit ...``: the supervisor adds ``--resume``, the
+    child is SIGKILLed after a save, and the relaunch finishes bitwise the
+    uninterrupted fit."""
+    Y, _ = make_synthetic(24, 8, 2, seed=0)
+    data = str(tmp_path / "Y.npy")
+    np.save(data, Y)
+    fit = ["fit", data, "-g", "2", "-k", "4", "--burnin", "4", "--mcmc",
+           "8", "--chunk-size", "4", "--backend", "torch_cpu"]
+    _json(_cli(*fit, "--out", str(tmp_path / "ref.npy")))
+    # the first boundary always saves: the kill lands there
+    plan = json.dumps({"faults": [{"op": "kill", "at_iteration": 4,
+                                   "when": "post_save"}]})
+    cp = _cli("supervise", "--backoff", "0.05", "--", *fit, "--out",
+              str(tmp_path / "S.npy"), "--checkpoint",
+              str(tmp_path / "ck.npz"), "--checkpoint-every", "1",
+              env={"DCFM_FAULT_PLAN": plan})
+    assert cp.returncode == 0, cp.stderr[-3000:]
+    rep = json.loads(cp.stderr.strip().splitlines()[-1])
+    assert (rep["launches"], rep["deaths"], rep["final_iteration"]) == \
+        (2, [[-9, 4]], 12)
+    np.testing.assert_array_equal(np.load(tmp_path / "S.npy"),
+                                  np.load(tmp_path / "ref.npy"))
+
+
+def test_watch_flags_are_the_jax_daemons_and_backend():
+    def flags(main):
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out), pytest.raises(SystemExit):
+            main(["watch", "--help"])
+        return sorted(set(re.findall(r"(?<![\w-])--[a-z][a-z-]*",
+                                     out.getvalue())))
+
+    assert flags(port_cli.main) == sorted(flags(jax_cli.main)
+                                          + ["--backend"])
+
+
+def test_watch_daemon_promotes_wakes_and_stops(tmp_path):
+    """The daemon on the CPU: generation 1 from a cold refit, appended rows
+    and SIGUSR1 give a warm generation 2 (the poll is far longer than the
+    test), and SIGTERM ends it with 0."""
+    rng = np.random.default_rng(0)
+    Y = rng.standard_normal((30, 24)).astype(np.float32)
+    data, root = tmp_path / "data", tmp_path / "root"
+    data.mkdir()
+    np.save(data / "Y.npy", Y)
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "dcfm_tpu_torch.cli", "watch", str(data),
+         str(root), "--shard-width", "12", "--factors", "2", "--burnin",
+         "8", "--mcmc", "8", "--warm-burnin", "2", "--interval", "600",
+         "--no-supervise", "--backend", "torch_cpu", "--max-drift", "10"],
+        cwd=REPO, stderr=subprocess.PIPE, text=True)
+    try:
+        lines = []
+
+        def until(text):
+            for line in proc.stderr:
+                lines.append(line)
+                if text in line:
+                    return
+            raise AssertionError("".join(lines))
+
+        until("promoted generation 1 (cold")
+        np.save(data / "Y.npy", np.vstack(
+            [Y, rng.standard_normal((6, 24)).astype(np.float32)]))
+        proc.send_signal(signal.SIGUSR1)
+        until("promoted generation 2 (warm")
+        proc.send_signal(signal.SIGTERM)
+        assert proc.wait(timeout=60) == 0
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    st = json.loads((root / ".watch" / "state.json").read_text())
+    assert st["generation"] == 2 and st["manifest"]["n"] == 36
 
 
 def test_mesh_and_multiprocess_fits_are_refused_citing_item_4(tmp_path,

@@ -504,7 +504,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     sentinel and preprocess modules among them, the port's own copy of
     the observability package (recorder, metrics, spans, cli), the
     serving plane (engine, batcher, server, fleet, promote, delta,
-    loadgen), the fault plan, the supervisor's helpers and the CLI."""
+    loadgen), the fault plan, the supervisor and its child runner, the
+    online loop (cycle, watch) and the CLI."""
     out = subprocess.run([sys.executable, "-c", _GUARD], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
@@ -525,5 +526,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "dcfm_tpu_torch.serve.promote", "dcfm_tpu_torch.serve.delta",
             "dcfm_tpu_torch.serve.loadgen",
             "dcfm_tpu_torch.resilience.faults",
-            "dcfm_tpu_torch.resilience.supervisor", "dcfm_tpu_torch.cli",
-            "chip_smoke"} <= set(mods)
+            "dcfm_tpu_torch.resilience.supervisor",
+            "dcfm_tpu_torch.resilience._child", "dcfm_tpu_torch.online",
+            "dcfm_tpu_torch.online.cycle", "dcfm_tpu_torch.online.watch",
+            "dcfm_tpu_torch.cli", "chip_smoke"} <= set(mods)

@@ -188,18 +188,24 @@ def test_corrupt_panel_is_the_same_typed_503(art, tmp_path):
 def test_backpressure_is_the_same_429(art):
     """The batch worker gated shut, the bounded queue full: both servers
     answer the overflow with 429 + retry (the jittered Retry-After aside)
-    and the held requests with the same 200s."""
+    and the held requests with the same 200s.
+
+    The test waits on conditions, never on a clock: the request deadline
+    is far beyond any hold (a held request that expired while a loaded
+    machine compiled the engine's first batch would answer 504), and the
+    gate opens only after the 429 was seen."""
     a, ref, _ = art
     outcomes = []
     for cls, kw in ((PosteriorServer, {"device": "cpu"}), (JaxServer, {})):
-        srv = cls(a.path, port=0, max_queue=2, max_batch=1, **kw)
+        srv = cls(a.path, port=0, max_queue=2, max_batch=1,
+                  request_timeout=600.0, **kw)
         gate, holding = threading.Event(), threading.Event()
         real = srv.batcher.engine
 
         class Gated:
             def entries(self, queries):
                 holding.set()
-                gate.wait(10.0)
+                gate.wait()
                 return real.entries(queries)
 
         srv.batcher.engine = Gated()
@@ -212,23 +218,27 @@ def test_backpressure_is_the_same_429(art):
         threads = [threading.Thread(target=one)]
         threads[0].start()
         try:
-            assert holding.wait(10.0)
+            assert holding.wait(600.0)
             for _ in range(2):
                 threads.append(threading.Thread(target=one))
                 threads[-1].start()
-            deadline = time.monotonic() + 10.0
-            while (srv.batcher.stats()["queue_depth"] < 2
-                   and time.monotonic() < deadline):
+            # both held requests are queued behind the gated batch (the
+            # bound only stops a broken batcher from hanging the run)
+            give_up = time.monotonic() + 600.0
+            while srv.batcher.stats()["queue_depth"] < 2:
+                assert time.monotonic() < give_up
                 time.sleep(0.005)
             st, body, hdrs = srv.handle("/v1/entry",
                                         {"i": ["1"], "j": ["2"]})
             assert st == 429 and body["retry"] is True
-            assert 0.05 <= float(hdrs["Retry-After"]) < 0.1
+            # [base, 2 * base) printed to the millisecond: a draw in
+            # [0.0995, 0.1) prints as 0.100
+            assert 0.05 <= float(hdrs["Retry-After"]) <= 0.1
             body.pop("retry_after")
         finally:
             gate.set()
             for t in threads:
-                t.join(timeout=30)
+                t.join()
             srv._httpd.server_close()
             srv.batcher.close()
         outcomes.append((st, body, sorted(
