@@ -251,6 +251,19 @@
    "resid" and one chain, as the JAX package's does) launched chains x
    sweeps in every launch.  ``python3 chip_smoke.py --online-only`` runs the kernel phase
    and this step alone, with no result line.
+18. The shard mesh (dcfm_tpu_torch/parallel/) on this one card, as a
+   world of one NCCL rank running the mesh's rank program (the
+   multi-rank mesh needs a card per rank; tier-1 runs it on 4 gloo ranks
+   of the CPU): graph == eager on the mesh's runner, whose all-reduces and
+   all-gathers are issued inside the CUDA graphs; the f32, bf16 and fused
+   fits as a one-rank mesh, each Sigma bitwise the one-device fit's,
+   the path's kernels once per sweep and the collectives counted (3
+   all-reduces per sweep, 3 all-gathers per saved draw), chain
+   iterations/s printed; a checkpointed mesh fit SIGKILLed in a child and
+   resumed on one device in a fresh one, bitwise the uninterrupted fit;
+   ``mesh_devices=2`` refused with the ValueError.  ``python3
+   chip_smoke.py --mesh-only`` runs the kernel phase and this step alone
+   (with the one-device fits it compares against), with no result line.
 
 Any failed check exits non-zero before the last line.  The line before the
 last is the kernels' JSON record; the last line is
@@ -739,7 +752,7 @@ def adapt_fires(m, burnin: int) -> int:
 
 def graph_equality_phase(torch, cuda_lib, cfg, Y, card: str, label: str,
                          T: int, trips: int = 10, burn_trips: int = 2,
-                         num_stored_draws: int = 0):
+                         num_stored_draws: int = 0, mesh=None):
     """One chain, ``trips`` trips of T sweeps (burn-in ``burn_trips``
     trips, thin 3), eager and graphed from the same init: every leaf (the
     prior's and, under rank adaptation, the column mask), the
@@ -747,7 +760,10 @@ def graph_equality_phase(torch, cuda_lib, cfg, Y, card: str, label: str,
     draw ring of ``num_stored_draws`` slots and the launches bitwise.
     Under rank adaptation each trip is a chunk of its own, so the mask is
     read after every trip: the adaptations that fired and the trips that
-    changed it are printed.  Returns the graphed chain's accumulator."""
+    changed it are printed.  With ``mesh`` (parallel/shard.RankMesh), the
+    chain is the shard mesh's rank program and its sweep collectives (the
+    all-reduces and all-gathers inside the graphs) are held equal too.
+    Returns the graphed chain's accumulator."""
     from dcfm_tpu_torch.models.sampler import (
         ChainRunner, DrawBuffers, state_leaves)
     from dcfm_tpu_torch.noise import TorchNoise
@@ -763,9 +779,10 @@ def graph_equality_phase(torch, cuda_lib, cfg, Y, card: str, label: str,
         runner = ChainRunner(TorchNoise(0, "cuda"), Yd, m, prior,
                              burnin=burn_trips * T, thin=3, unroll=T,
                              graphs=graphs,
-                             num_stored_draws=num_stored_draws)
+                             num_stored_draws=num_stored_draws, mesh=mesh)
         carry = runner.init_chain(0)
         cuda_lib.reset_launch_counts()
+        cuda_lib.reset_collective_counts()
         t = time.perf_counter()
         traces, masks[graphs] = [], []
         for n in chunks:
@@ -780,7 +797,8 @@ def graph_equality_phase(torch, cuda_lib, cfg, Y, card: str, label: str,
         got[graphs] = dict(zip(state_leaf_names(m),
                                state_leaves(carry.state)),
                            sigma_acc=carry.sigma_acc, health=carry.health,
-                           trace=trace, launches=cuda_lib.launch_counts())
+                           trace=trace, launches=cuda_lib.launch_counts()
+                           | cuda_lib.collective_counts())
         if carry.sigma_sq_acc is not None:
             got[graphs]["sigma_sq_acc"] = carry.sigma_sq_acc
         if carry.y_imp_acc is not None:
@@ -1164,7 +1182,8 @@ def fit_child(spec: str) -> None:
     "warm_start" dict among its "fit" fields is a WarmStart.  With SPEC's
     "export", the fit's own serve artifact is written there.  With SPEC's
     "rss_probe", the host-peak probe of step 14 (``rss_probe``)
-    instead."""
+    instead.  SPEC's "one_rank_mesh" runs the fit as the shard mesh's rank
+    program in a world of one rank (step 18)."""
     spec = json.loads(spec)
     if "rss_probe" in spec:
         rss_probe(spec)
@@ -1186,7 +1205,8 @@ def fit_child(spec: str) -> None:
     if "model" in spec:
         cfg = dataclasses.replace(cfg, model=scenario_model(
             dt, cfg.model, spec["model"]))
-    res = dt.fit(Yfit, cfg)
+    res = (dt.api._fit(Yfit, cfg, None, one_rank_mesh=True)
+           if spec.get("one_rank_mesh") else dt.fit(Yfit, cfg))
     err, err_sample = rel_errors(torch, res.Sigma, Y, L, noise)
     if "export" in spec:
         res.export_artifact(spec["export"])
@@ -1313,7 +1333,7 @@ def ckpt_fit(torch, dt, cuda_lib, cfg, Y, label: str, card: str,
     return res, launches
 
 
-def checkpoint_phase(torch, dt, cuda_lib, card: str, Y, L, noise) -> None:
+def checkpoint_phase(torch, dt, cuda_lib, card: str, Y, L, noise) -> dict:
     """Checkpoint, resume, the sentinel and the streamed fetch at the
     north-star width: (a) the float32 path uninterrupted; (b) full saves
     at every boundary, Sigma bitwise (a), and the "auto" cadence; light
@@ -1324,7 +1344,8 @@ def checkpoint_phase(torch, dt, cuda_lib, card: str, Y, L, noise) -> None:
     each path (f32, bf16, fused) over KILL_RUN: (c) a child SIGKILLed once
     its file reaches iteration KILL_AT, resumed in a fresh process: Sigma
     bitwise the uninterrupted fit's; and for f32 (d), as (c) in light mode
-    with a full sidecar every 2nd save, the sidecar used."""
+    with a full sidecar every 2nd save, the sidecar used.  Returns the
+    uninterrupted KILL_RUN fits' Sigma digests by path."""
     import shutil
     import tempfile
 
@@ -1452,6 +1473,7 @@ def checkpoint_phase(torch, dt, cuda_lib, card: str, Y, L, noise) -> None:
                                 ("fused", {}, "full"))])
     finally:
         shutil.rmtree(work, ignore_errors=True)
+    return refs
 
 
 def side_by_side(jobs: list) -> None:
@@ -4615,6 +4637,114 @@ def online_phase(torch, dt, cuda_lib, card: str, Y, L, noise,
     return {"17": total}
 
 
+def mesh_phase(torch, dt, cuda_lib, card: str, Y, L, noise, digests: dict,
+               kill_ref, work: str) -> dict:
+    """(18) The shard mesh (parallel/shard.py) at the north-star width, as
+    a world of one NCCL rank on the one card: (a) graph == eager on the
+    mesh's runner, its collectives inside the graphs; (b) a one-rank mesh
+    fit (``api._fit(..., one_rank_mesh=True)``: ``mesh_devices`` of 1 is
+    the one-device path) on the f32, bf16 and fused paths: Sigma bitwise the
+    one-device fit's (``digests``, computed here where missing), the
+    path's kernels once per sweep, 3 all-reduces per sweep (the X update's
+    two, the trace's) and 3 all-gathers per saved draw counted, chain
+    iterations/s beside the one-device fit's; (c) a checkpointed mesh fit
+    of KILL_RUN SIGKILLed at iteration >= KILL_AT in a child process and
+    resumed on one device in a fresh one: Sigma bitwise the uninterrupted
+    one-device fit's (``kill_ref``, step 7's digest; computed here where
+    None); (d) mesh_devices=2 on this one card: the ValueError.  Returns
+    the paths' launches."""
+    from dcfm_tpu_torch.parallel import shard
+    t_step = time.perf_counter()
+    c = FIT
+    sweeps = c["chains"] * (c["burnin"] + c["mcmc"])
+    saved = c["chains"] * c["mcmc"] // c["thin"]
+    mesh = shard.start_mesh(1, torch.device("cuda"), c["g"], 1, None, None)
+    try:
+        graph_equality_phase(torch, cuda_lib,
+                             path_config(dt, *FIT_PATHS[0][1:3]), Y, card,
+                             "mesh f32", 8, mesh=mesh)
+    finally:
+        mesh.close()
+    launches = {}
+    for label, model, backend, path_kernels in FIT_PATHS:
+        cfg = path_config(dt, model, backend)
+        one_ips = None
+        if digests.get(label) is None:      # --mesh-only: the reference
+            ref, _, _ = counted_fit(torch, dt, cuda_lib, cfg, Y)
+            digests[label] = sigma_digest(ref.Sigma)
+            one_ips = sweeps / ref.phase_seconds["chain_s"]
+            del ref
+        torch.cuda.synchronize()
+        cuda_lib.reset_collective_counts()
+        cuda_lib.reset_launch_counts()
+        t = time.perf_counter()
+        res = dt.api._fit(Y, cfg, None, one_rank_mesh=True)
+        wall = time.perf_counter() - t
+        got, coll = cuda_lib.launch_counts(), cuda_lib.collective_counts()
+        digest = sigma_digest(res.Sigma)
+        ips = sweeps / res.phase_seconds["chain_s"]
+        say(f"mesh [{label}]: a 1-rank NCCL world, {sweeps} sweeps in "
+            f"{res.phase_seconds['chain_s']:.3f} s chain time = {ips:.2f} "
+            f"chain iterations/s"
+            + ("" if one_ips is None else
+               f" (one device {one_ips:.2f})")
+            + f", wall {wall:.3f} s; graphs {json.dumps(res.graphs)}; "
+            f"sigma {digest[:16]} "
+            f"{'=' if digest == digests[label] else '!='} one-device "
+            f"{digests[label][:16]}; launches "
+            f"{json.dumps({k: v for k, v in got.items() if v})}; "
+            f"collectives {json.dumps(coll)} (expected all_reduce "
+            f"{3 * sweeps}, all_gather {3 * saved}); {card}")
+        check(digest == digests[label], f"[mesh {label}] Sigma is not the "
+              "one-device fit's bits")
+        check(res.graphs["captured"] > 0 and res.graphs["replays"] > 0,
+              f"[mesh {label}] no CUDA graph ran: {res.graphs}")
+        for name, count in got.items():
+            want = sweeps if name in path_kernels else 0
+            check(count == want, f"[mesh {label}] {name} launched {count} "
+                  f"times in {sweeps} sweeps, expected {want}")
+        check(coll == {"all_reduce": 3 * sweeps, "all_gather": 3 * saved},
+              f"[mesh {label}] collectives {coll}")
+        check_quality(torch, res, f"mesh {label}", Y, L, noise)
+        launches[label] = got
+        del res
+    # (c) killed on the mesh, resumed on one device, in fresh processes,
+    # against the uninterrupted one-device fit of the same config
+    if kill_ref is None:                    # --mesh-only
+        ref, _, _ = counted_fit(torch, dt, cuda_lib,
+                                ckpt_config(dt, "f32", KILL_RUN), Y)
+        kill_ref = sigma_digest(ref.Sigma)
+        del ref
+    path = os.path.join(work, "mesh_kill.npz")
+    spec = {"path": "f32", "run": KILL_RUN, "one_rank_mesh": True,
+            "fit": {"checkpoint_path": path, "checkpoint_every_chunks": 1}}
+    killed = run_child(spec, work, "mesh_killed", kill_at=KILL_AT,
+                       path=path)["killed_at"]
+    out = run_child({"path": "f32", "run": KILL_RUN,
+                     "fit": dict(spec["fit"], resume=True)}, work,
+                    "mesh_resumed_on_one_device")
+    total = sum(KILL_RUN.values())
+    say(f"mesh kill: a 1-rank mesh fit killed with its file at iteration "
+        f"{killed}, resumed on one device: executed {out['executed']}, "
+        f"Sigma {'=' if out['sigma'] == kill_ref else '!='} the "
+        f"uninterrupted fit's; {card}")
+    check(out["executed"] == total - killed and out["sigma"] == kill_ref,
+          "(18c) the mesh file resumed on one device is not the "
+          "uninterrupted fit")
+    # (d) the mesh is never wider than the cards, and never falls back
+    try:
+        dt.fit(Y, dataclasses.replace(path_config(dt, *FIT_PATHS[0][1:3]),
+                                      backend=dt.BackendConfig(
+                                          mesh_devices=2)))
+        fail("(18d) mesh_devices=2 ran on one card")
+    except ValueError as e:
+        check("no silent fallback" in str(e), f"(18d) {e}")
+        say(f"mesh refusal: mesh_devices=2 on {torch.cuda.device_count()} "
+            f"card: ValueError({e})")
+    say(f"(18) mesh step: {time.perf_counter() - t_step:.1f} s; {card}")
+    return launches
+
+
 def main() -> None:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     if sys.argv[1:2] == ["--fit-child"]:
@@ -4732,6 +4862,17 @@ def main() -> None:
                 {k: v for k, v in got.items() if v}))
         say("online phase only: no result is printed")
         return
+    if "--mesh-only" in sys.argv[1:]:
+        import shutil
+        import tempfile
+        work = tempfile.mkdtemp(prefix="dcfm_mesh_")
+        try:
+            mesh_phase(torch, dt, cuda_lib, card, Y, L, noise, {}, None,
+                       work)
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
+        say("mesh phase only: no result is printed")
+        return
     if "--ingest-only" in sys.argv[1:]:
         import shutil
         import tempfile
@@ -4772,7 +4913,7 @@ def main() -> None:
     digests["f32 quant8"] = fetch_phase(torch, dt, cuda_lib, card, Y, L,
                                         noise)
     say(f"fetch_phase done at {time.perf_counter() - t_start:.1f} s")
-    checkpoint_phase(torch, dt, cuda_lib, card, Y, L, noise)
+    kill_refs = checkpoint_phase(torch, dt, cuda_lib, card, Y, L, noise)
     say(f"checkpoint_phase done at {time.perf_counter() - t_start:.1f} s")
     sd_phase(torch, dt, cuda_lib, card, Y, L, noise, digests["f32"])
     say(f"sd_phase done at {time.perf_counter() - t_start:.1f} s")
@@ -4800,6 +4941,9 @@ def main() -> None:
         say(f"serve_phase done at {time.perf_counter() - t_start:.1f} s")
         online = online_phase(torch, dt, cuda_lib, card, Y, L, noise, work)
         say(f"online_phase done at {time.perf_counter() - t_start:.1f} s")
+        mesh = mesh_phase(torch, dt, cuda_lib, card, Y, L, noise, digests,
+                          kill_refs["f32"], work)
+        say(f"mesh_phase done at {time.perf_counter() - t_start:.1f} s")
     finally:
         shutil.rmtree(work, ignore_errors=True)
     launches["cho_solve"] = k3_path(torch, bs, cuda_lib, rng)["cho_solve"]
@@ -4826,6 +4970,9 @@ def main() -> None:
         check(got["chol_sample"] > 0 and got["sse_ps"] > 0,
               f"step {path} launched no K1 or K5: {got}")
         say(f"online launches [{path}]: " + json.dumps(
+            {k: v for k, v in got.items() if v}))
+    for path, got in mesh.items():
+        say(f"mesh launches [{path}]: " + json.dumps(
             {k: v for k, v in got.items() if v}))
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {

@@ -58,18 +58,22 @@ import numpy as np
 import torch
 
 from dcfm_tpu_torch.config import (
-    BackendConfig, FitConfig, ModelConfig, RunConfig, validate, validate_obs)
+    BackendConfig, FitConfig, ModelConfig, RunConfig, validate, validate_mesh,
+    validate_obs)
 from dcfm_tpu_torch.models.adapt import effective_ranks
 from dcfm_tpu_torch.models.priors import make_prior
 from dcfm_tpu_torch.models.sampler import (
     TRACE_SUMMARIES, ChainRunner, ChainStats, DrawBuffers)
-from dcfm_tpu_torch.models.state import SamplerState
+from dcfm_tpu_torch.models.state import SamplerState, num_upper_pairs
 from dcfm_tpu_torch.noise import TorchNoise, warm_lineage
 from dcfm_tpu_torch.obs import recorder as obs_recorder
 from dcfm_tpu_torch.ops import cuda_lib
+from dcfm_tpu_torch.parallel.mesh import make_layout
+from dcfm_tpu_torch.parallel.shard import (
+    check_mesh_devices, rank_block, start_mesh)
 from dcfm_tpu_torch.runtime.fetch import (
     Drain, accumulator_window, assemble_q8_sigma, elastic_pooled_draws,
-    fetch_prep, fetch_sd_prep, fetch_upper, quant8_fetch_assemble,
+    fetch_prep, fetch_sd_prep, quant8_fetch_assemble,
     quant8_start, upload_data)
 from dcfm_tpu_torch.runtime.pipeline import StreamingFetcher, run_chain
 from dcfm_tpu_torch.serve.artifact import (
@@ -492,7 +496,13 @@ def fit(Y: np.ndarray, cfg: FitConfig, *, device=None) -> FitResult:
     ``fit_failed`` (fsynced) on a raise or ``fit_done`` with the phases,
     the stream summary, rewinds, the checkpoint error and the early stop;
     ``FitResult.events_path`` names the directory.  Recording is
-    host-side only: ``obs="off"`` gives the same Sigma bit for bit."""
+    host-side only: ``obs="off"`` gives the same Sigma bit for bit.
+
+    ``BackendConfig.mesh_devices = N > 1`` runs the chain on the shard
+    mesh (parallel/shard.py): N rank processes, this one rank 0, each on
+    its block of g / N shards (cards 0 .. N-1 over NCCL, or the CPU over
+    gloo), and returns the one result here; ``mesh_devices`` of 0 or 1 is
+    the one-device path, as in the JAX package."""
     obs_dir = _resolve_obs_dir(cfg)
     if obs_dir is None:
         return _fit(Y, cfg, device)
@@ -531,8 +541,98 @@ def fit(Y: np.ndarray, cfg: FitConfig, *, device=None) -> FitResult:
         rec.close()
 
 
-def _fit(Y: np.ndarray, cfg: FitConfig, device) -> FitResult:
-    """The fit body (``fit`` wraps it in the flight-recorder session)."""
+def _fetch_window(run: RunConfig, acc_start: int, elastic,
+                  total=None) -> tuple:
+    """The one (n_saved, divisor, Bessel factor) of the streamed and the
+    post-hoc fetch, of the window ending at ``total`` (an early stop's
+    iteration; default the schedule's end); ``elastic``:
+    runtime/resume.ElasticResume."""
+    return accumulator_window(
+        run.total_iters if total is None else total, run.burnin, run.thin,
+        acc_start, run.num_chains,
+        chain_acc_starts=(None if elastic is None
+                          else elastic.chain_acc_starts),
+        fold_draws=0 if elastic is None else elastic.fold_draws)
+
+
+@dataclasses.dataclass
+class _RankJob:
+    """What every rank of a fit runs (:func:`_run_rank`): the config, the
+    internal model, the shapes, the chain's knobs and the checkpoint's
+    fingerprint and template.  Picklable: started mesh ranks receive it."""
+
+    cfg: FitConfig
+    model: ModelConfig
+    n: int
+    P: int
+    num_stored_draws: int
+    unroll: int
+    fingerprint: Optional[str]
+    template: dict
+
+
+def _run_rank(job: _RankJob, mesh, data, device: torch.device, *,
+              phase: Optional[dict] = None, window_fn=None,
+              make_streamer=None):
+    """Upload ``data`` (the rank's block of shards, or all of them on one
+    device) and run the chunk loop on it (runtime/pipeline.run_chain);
+    returns ``(run result, carries, fetched)``.  On one device the carries
+    are the chains' and ``fetched`` is None.  On the shard mesh every rank
+    runs the post-hoc fetch on its pair slice (parallel/shard.RankMesh.
+    fetch), and rank 0 gets every chain's carry without its packed
+    accumulators and ``fetched``, the gathered link panels (None on the
+    other ranks)."""
+    cfg, m, run = job.cfg, job.model, job.cfg.run
+    phase = {} if phase is None else phase
+    t = time.perf_counter()
+    Yd = upload_data(data, cfg.backend.upload_dtype, device)
+    _sync(device)
+    phase["upload_s"] = time.perf_counter() - t
+    # a warm start re-lineages the chain's sweep streams (never the init's,
+    # so a cold fallback starts from a plain fit's state): the warm chain
+    # never replays its donor's draws, and a relaunched warm refit rebuilds
+    # the same streams, so it resumes bitwise; a sentinel rewind's lineage
+    # extends it
+    base = (() if cfg.warm_start is None
+            else warm_lineage(cfg.warm_start.relineage))
+
+    def make_runner(model: ModelConfig, lineage: tuple) -> ChainRunner:
+        return ChainRunner(TorchNoise(run.seed, device, base + lineage), Yd,
+                           model, make_prior(model), burnin=run.burnin,
+                           thin=run.thin, unroll=job.unroll,
+                           num_stored_draws=job.num_stored_draws, mesh=mesh)
+
+    rr = run_chain(
+        cfg=cfg, model=m, run=run, phase=phase, fingerprint=job.fingerprint,
+        template=job.template, make_runner=make_runner, device=device,
+        window_fn=window_fn, make_streamer=make_streamer, mesh=mesh)
+    if mesh is None:
+        return rr, rr.carries, None
+    if rr.stats is None:    # a no-op resume: the carries' own, reduced
+        rr.stats = mesh.reduce_stats(_carried_stats(rr.carries))
+    # (the mesh never streams its fetch: fit's ``streaming``)
+    _, inv_count, bessel = _fetch_window(run, rr.acc_start, rr.elastic,
+                                         rr.done + rr.executed)
+    fetched = mesh.fetch(rr.carries, inv_count, bessel,
+                         cfg.backend.fetch_dtype, m.posterior_sd)
+    carries = mesh.gather_carries(rr.carries, pairs=False)
+    counts = mesh.gather_counts(cuda_lib.launch_counts(),
+                                cuda_lib.collective_counts())
+    if mesh.rank == 0:
+        # every rank's kernel launches and sweep collectives so far in its
+        # process (rank 0's own are FitResult.kernel_launches' source)
+        obs_recorder.record("mesh_ranks", ranks=mesh.world,
+                            chain_rows=mesh.layout.rows, counts=counts)
+    return rr, carries, fetched
+
+
+def _fit(Y: np.ndarray, cfg: FitConfig, device, *,
+         one_rank_mesh: bool = False) -> FitResult:
+    """The fit body (``fit`` wraps it in the flight-recorder session).
+    ``one_rank_mesh`` runs the shard mesh's rank program as a world of
+    one rank (its collectives identities), which no ``mesh_devices`` does:
+    the check that the mesh's program is the one-device fit's, bit for
+    bit, on a machine with one card."""
     if torch.backends.cuda.matmul.allow_tf32:
         raise RuntimeError(
             "torch.backends.cuda.matmul.allow_tf32 is on: the sweep's "
@@ -555,6 +655,14 @@ def _fit(Y: np.ndarray, cfg: FitConfig, device) -> FitResult:
     validate(cfg, n, p)
     device = _resolve_device(cfg.backend, device)
     m, run, be = cfg.model, cfg.run, cfg.backend
+    # the shard mesh's ranks (0: the one-device path); a mesh wider than
+    # the visible devices is refused before any work
+    ranks = (1 if one_rank_mesh
+             else (be.mesh_devices if be.mesh_devices > 1 else 0))
+    if ranks:
+        validate_mesh(cfg)
+        check_mesh_devices(ranks, device)
+        make_layout(ranks, 0, m.num_shards, run.num_chains)
     # thread the backend's sweep knobs into the internal model config, as
     # the JAX package does
     m = dataclasses.replace(m, sse_mode=be.sse_mode,
@@ -578,44 +686,13 @@ def _fit(Y: np.ndarray, cfg: FitConfig, device) -> FitResult:
                   or (cfg.materialize_sigma == "auto" and not pre.is_lazy
                       and pre.p_used <= _AUTO_MATERIALIZE_MAX_P))
 
-    t = time.perf_counter()
-    Yd = upload_data(pre.data, be.upload_dtype, device)
-    _sync(device)
-    phase["upload_s"] = time.perf_counter() - t
-
     unroll = run.sweep_unroll or (CUDA_AUTO_UNROLL if device.type == "cuda"
                                   else 1)
-    # a warm start re-lineages the chain's sweep streams (never the init's,
-    # so a cold fallback starts from a plain fit's state): the warm chain
-    # never replays its donor's draws, and a relaunched warm refit rebuilds
-    # the same streams, so it resumes bitwise; a sentinel rewind's lineage
-    # extends it
-    base = (() if cfg.warm_start is None
-            else warm_lineage(cfg.warm_start.relineage))
-
-    def make_runner(model: ModelConfig, lineage: tuple) -> ChainRunner:
-        return ChainRunner(TorchNoise(run.seed, device, base + lineage), Yd,
-                           model, make_prior(model), burnin=run.burnin,
-                           thin=run.thin, unroll=unroll,
-                           num_stored_draws=S_draws)
-
     g, C, mode = m.num_shards, run.num_chains, be.fetch_dtype
     P = pre.data.shape[2]
 
-    def full_window(acc_start: int, elastic, total=None) -> tuple:
-        # the one (n_saved, divisor, Bessel factor) of the streamed and
-        # the post-hoc fetch, of the window ending at ``total`` (an early
-        # stop's iteration; default the schedule's end); ``elastic``:
-        # runtime/resume.ElasticResume
-        return accumulator_window(
-            run.total_iters if total is None else total, run.burnin,
-            run.thin, acc_start, C,
-            chain_acc_starts=(None if elastic is None
-                              else elastic.chain_acc_starts),
-            fold_draws=0 if elastic is None else elastic.fold_draws)
-
     def window(acc_start: int, elastic, total=None) -> tuple:
-        return full_window(acc_start, elastic, total)[1:]
+        return _fetch_window(run, acc_start, elastic, total)[1:]
 
     def make_streamer(acc_start: int, elastic) -> StreamingFetcher:
         land_mean = land_sd = None
@@ -628,24 +705,49 @@ def _fit(Y: np.ndarray, cfg: FitConfig, device) -> FitResult:
         return StreamingFetcher(inv_count, C, g, bessel=bessel,
                                 land_mean=land_mean, land_sd=land_sd)
 
+    job = _RankJob(
+        cfg=cfg, model=m, n=n, P=P, num_stored_draws=S_draws, unroll=unroll,
+        fingerprint=(data_fingerprint(pre.data) if cfg.checkpoint_path
+                     else None),
+        template=carry_template(m, n=n, P=P, num_chains=C,
+                                num_stored_draws=S_draws))
+    # the streamed fetch runs on one device; on the mesh "auto" keeps the
+    # post-hoc fetch, as the JAX package's pods do
+    streaming = mode == "quant8" and be.fetch_stream != "off" and not ranks
+    mesh = None
+    threads = torch.get_num_threads()
+    if ranks > 1 and device.type == "cpu":
+        torch.set_num_threads(1)        # the ranks share the cores, one each
     with _profiler(be.profile_dir, device):
-        rr = run_chain(
-            cfg=cfg, model=m, run=run, phase=phase,
-            fingerprint=(data_fingerprint(pre.data) if cfg.checkpoint_path
-                         else None),
-            template=carry_template(m, n=n, P=P, num_chains=C,
-                                    num_stored_draws=S_draws),
-            make_runner=make_runner, device=device, window_fn=window,
-            make_streamer=(make_streamer if mode == "quant8"
-                           and be.fetch_stream != "off" else None))
-    carries, streamer = rr.carries, rr.streamer
+        try:
+            data = pre.data
+            if ranks:
+                mesh = start_mesh(ranks, device, g, C, job, data)
+                data = rank_block(data, mesh.layout)
+            rr, carries, fetched = _run_rank(
+                job, mesh, data, device if mesh is None else mesh.device,
+                phase=phase, window_fn=window,
+                make_streamer=make_streamer if streaming else None)
+        except BaseException as e:
+            if mesh is not None:
+                err = mesh.failure(e)
+                mesh.close(kill=True)
+                if err is not None:
+                    raise err from e
+            raise
+        finally:
+            torch.set_num_threads(threads)
+        if mesh is not None:
+            mesh.close()
+    streamer = rr.streamer
     phase["chain_s"] = float(sum(rr.chunk_seconds))
     stats = rr.stats or _carried_stats(carries)
     traces = (np.concatenate(rr.traces, axis=1) if rr.traces
               else np.zeros((C, 0, len(TRACE_SUMMARIES)), np.float32))
     state = _stack_states([c.state for c in carries])
     end = rr.done + rr.executed         # an early stop's iteration too
-    n_saved, inv_count, bessel = full_window(rr.acc_start, rr.elastic, end)
+    n_saved, inv_count, bessel = _fetch_window(run, rr.acc_start,
+                                               rr.elastic, end)
     draws = None
     if carries[0].draws is not None:
         # chain-major, one chain included, as the JAX package returns them
@@ -716,23 +818,33 @@ def _fit(Y: np.ndarray, cfg: FitConfig, device) -> FitResult:
     else:
         exposed0 = phase.get("exposed_fetch_s", 0.0)
         t = time.perf_counter()
-        pooled = carries[0].sigma_acc   # summed in place, in chain order
-        for c in carries[1:]:
-            pooled += c.sigma_acc
-        pooled_sq = None
-        if want_sd:
-            pooled_sq = carries[0].sigma_sq_acc
+        if fetched is None:
+            pooled = carries[0].sigma_acc   # summed in place, chain order
             for c in carries[1:]:
-                pooled_sq += c.sigma_sq_acc
-        if mode == "quant8":
-            q_dev, s_dev = fetch_prep(pooled, C, g, inv_count, mode)
-            started = quant8_start(q_dev, s_dev)
-            sd_started = None
+                pooled += c.sigma_acc
+            pooled_sq = None
             if want_sd:
-                sd_started = quant8_start(*fetch_sd_prep(
-                    pooled_sq, pooled[:q_dev.shape[0]], C, inv_count,
-                    bessel, mode))
-            del pooled, pooled_sq
+                pooled_sq = carries[0].sigma_sq_acc
+                for c in carries[1:]:
+                    pooled_sq += c.sigma_sq_acc
+            n_upper = num_upper_pairs(g)
+
+            def mean_prep():
+                return fetch_prep(pooled, C, g, inv_count, mode)
+
+            def sd_prep():
+                return fetch_sd_prep(pooled_sq, pooled[:n_upper], C,
+                                     inv_count, bessel, mode)
+        else:       # the shard mesh's, each rank's slice gathered here
+            def mean_prep():
+                return fetched[0]
+
+            def sd_prep():
+                return fetched[1]
+        if mode == "quant8":
+            started = quant8_start(*mean_prep())
+            sd_started = quant8_start(*sd_prep()) if want_sd else None
+            pooled = pooled_sq = fetched = None
             phase["fetch_s"] = time.perf_counter() - t
             Sigma, q8, scales = quant8_fetch_assemble(
                 started, pre, phase, assemble=want_sigma)
@@ -740,12 +852,10 @@ def _fit(Y: np.ndarray, cfg: FitConfig, device) -> FitResult:
                 Sigma_sd, sd_q8, sd_scales = quant8_fetch_assemble(
                     sd_started, pre, phase, assemble=want_sigma)
         else:
-            upper = fetch_upper(pooled, C, g, inv_count, mode)
+            upper = Drain(mean_prep()).wait()
             if want_sd:
-                sd_upper = Drain(fetch_sd_prep(
-                    pooled_sq, pooled[:upper.shape[0]], C, inv_count,
-                    bessel, mode)).wait()
-            del pooled, pooled_sq
+                sd_upper = Drain(sd_prep()).wait()
+            pooled = pooled_sq = fetched = None
             phase["fetch_s"] = time.perf_counter() - t
             if want_sigma:
                 t = time.perf_counter()

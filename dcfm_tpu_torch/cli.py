@@ -19,10 +19,11 @@ installed as ``dcfm-tpu-torch``:
 ``fit`` (supervised or not) and ``watch`` run on the card unless
 ``--backend torch_cpu``; ``serve`` and ``export`` take ``--device``
 (default ``cuda``).  What the port does not run is refused by name:
-``supervise --pod N`` with N > 1 (ROADMAP Queue A item 7), a mesh or a
-multi-process rendezvous (item 4, as ``config.validate`` refuses it), and
-``lint`` / ``test-isolated``, which analyse the JAX package and belong to
-its CLI.
+``supervise --pod N`` with N > 1 and a multi-process rendezvous (ROADMAP
+Queue A item 7), and ``lint`` / ``test-isolated``, which analyse the JAX
+package and belong to its CLI.  ``fit --mesh-devices N`` runs the shard
+mesh (parallel/shard.py): N rank processes, one card each, or gloo ranks
+of the CPU under ``--backend torch_cpu``.
 """
 
 from __future__ import annotations
@@ -493,8 +494,8 @@ def _refused(raw: list) -> str:
     if cmd == "fit" and any(os.environ.get(k) for k in _MULTIPROCESS_ENV):
         return ("a multi-process fit (DCFM_COORDINATOR / "
                 "DCFM_NUM_PROCESSES / DCFM_PROCESS_ID) is not ported to "
-                "dcfm_tpu_torch yet: ROADMAP Queue A item 4 (multi-GPU "
-                "shards)")
+                "dcfm_tpu_torch yet: ROADMAP Queue A item 7 (outer "
+                "layers: (f) the multi-process layers)")
     return ""
 
 

@@ -3,7 +3,9 @@ port runs, copied (the port imports nothing of ``dcfm_tpu``).
 
 Field names, defaults and meanings are those of the JAX package, so a
 config written for one reads the same in the other.  The port runs one
-device, one process, the MGP, horseshoe and Dirichlet-Laplace priors
+device in one process, or the shard mesh (``mesh_devices`` > 1: one rank
+process per card, or gloo ranks of the CPU; parallel/shard.py); the MGP,
+horseshoe and Dirichlet-Laplace priors
 (``prior``) with or without adaptive rank truncation (``rank_adapt``);
 the sweep in float32 or mixed bf16
 (``compute_dtype``, ``combine_dtype``), with every ``lambda_kernel``; the
@@ -22,8 +24,9 @@ artifact (``stream_artifact``); the chunked combine on one device
 "auto" | "torch_cuda" | "torch_cpu").  Every other knob the JAX package
 has is either absent here (passing it is a ``TypeError``) or present and
 refused by :func:`validate` with a ``NotImplementedError`` that names the
-ROADMAP Queue A item that will port it - a knob is never silently
-ignored.  An
+ROADMAP Queue A item that will port it (on the mesh, :func:`validate_mesh`
+refuses ``warm_start`` and the forced streamed fetch) - a knob is never
+silently ignored.  An
 invalid value of a refused knob is a ``ValueError`` first, as in the JAX
 package.
 """
@@ -464,6 +467,19 @@ def validate(cfg: FitConfig, n: int, p: int) -> None:
             f"DL concentration a={m.dl.a} must be in (0, 1] "
             "(1/K <= a <= 1/2 is the usual range)")
 
+    if be.mesh_devices < 0:
+        raise ValueError(
+            f"mesh_devices must be >= 0, got {be.mesh_devices}")
     # ---- knobs outside the port: refused, never ignored -----------------
     if be.mesh_devices > 1:
-        _refuse(f"mesh_devices={be.mesh_devices}", _MESH)
+        validate_mesh(cfg)
+
+
+def validate_mesh(cfg: FitConfig) -> None:
+    """The knobs the shard mesh (parallel/shard.py) does not run yet,
+    refused by name on the mesh only."""
+    if cfg.warm_start is not None:
+        _refuse("warm_start on the shard mesh", _MESH)
+    if cfg.backend.fetch_stream == "on":
+        _refuse("fetch_stream='on' on the shard mesh (its quant8 fetch is "
+                "post hoc)", _MESH)

@@ -4,7 +4,8 @@ The port of ``dcfm_tpu/models/conditionals.py`` for one device, every
 prior (models/priors.py) and the column mask of adaptive rank truncation
 (``SamplerState.active``).  The shard axis is an explicit leading batch
 dimension (the JAX package vmaps over it), so the X update's cross-shard
-sums are plain sums over axis 0.  Every draw comes from ``draws`` (noise.py) at
+sums are sums over axis 0 - through ``reduce_fn``, which on the shard
+mesh adds the other ranks' shards.  Every draw comes from ``draws`` (noise.py) at
 the JAX package's site ids, and every kernel's noise is drawn outside the
 kernel, as the JAX package's Pallas path does.
 
@@ -115,13 +116,22 @@ def impute_missing_y(draws, Y: torch.Tensor, state: SamplerState,
     return torch.where(mask, mu, Y)
 
 
-def gibbs_sweep(draws, Y: torch.Tensor, state: SamplerState,
-                cfg: ModelConfig, prior) -> tuple[SamplerState, torch.Tensor]:
-    """One Gibbs iteration over all G shards.
+def local_sum(x: torch.Tensor) -> torch.Tensor:
+    """The X update's sum over the shard axis on one device."""
+    return torch.sum(x, dim=0)
 
-    Y: (G, n, P) standardized shard data.  Returns ``(state, sse)`` with
-    sse the (G, P) per-feature residual sum of squares the psi stage
-    formed (the chain trace reads it)."""
+
+def gibbs_sweep(draws, Y: torch.Tensor, state: SamplerState,
+                cfg: ModelConfig, prior, *,
+                reduce_fn=local_sum) -> tuple[SamplerState, torch.Tensor]:
+    """One Gibbs iteration over the G shards of ``Y``.
+
+    Y: (G, n, P) standardized shard data.  ``reduce_fn`` sums a (G, ...)
+    tensor over ALL shards of the chain: the local sum by default, the
+    local sum and an all-reduce over the chain's ranks on the shard mesh
+    (parallel/shard.py; the JAX package's ``reduce_fn`` seam).  Returns
+    ``(state, sse)`` with sse the (G, P) per-feature residual sum of
+    squares the psi stage formed (the chain trace reads it)."""
     G, n, P = Y.shape
     K = state.Lambda.shape[-1]
     rho = cfg.rho
@@ -150,8 +160,8 @@ def gibbs_sweep(draws, Y: torch.Tensor, state: SamplerState,
     # ---- X | rest: the one cross-shard update ----------------------------
     with scope("x_update"):
         R = Y - sq_1mr * mm(Z, _t(Lam))
-        S1 = torch.sum(LtW, dim=0)                                  # (K, K)
-        S2 = torch.sum(mm(R, W), dim=0)                             # (n, K)
+        S1 = reduce_fn(LtW)                                         # (K, K)
+        S2 = reduce_fn(mm(R, W))                                    # (n, K)
         Qx = cfg.x_prior_precision * eye + rho * S1
         if jit_eps:
             Qx = Qx + jit_eps * eye

@@ -25,7 +25,13 @@ under ``RunConfig.store_draws`` saved draws are written into the draw ring
 tensor ``ChainRunner._its``, never from a Python int a capture would bake
 in.  Under ``ModelConfig.combine_chunks`` a saved draw's panels are formed
 and added range by range of the packed-pair axis (:func:`add_panels`), so
-the per-draw temporary is one range's.
+the per-draw temporary is one range's.  On the shard mesh
+(``ChainRunner(..., mesh=)``, parallel/shard.py) the runner holds the
+rank's block of shards and packed panels, draws its slice of the
+one-device chain's variates (noise.ShardSliceNoise), sums the X update's
+and the trace's shard sums through the mesh's all-reduce, and reads a
+saved draw's loadings, residual precisions and factors through its
+all-gather - inside the graphs.
 """
 
 from __future__ import annotations
@@ -42,10 +48,12 @@ import torch
 from dcfm_tpu_torch.config import ModelConfig
 from dcfm_tpu_torch.models.adapt import adapt_rank, effective_ranks
 from dcfm_tpu_torch.models.conditionals import (
-    covariance_panels, cross_moments, gibbs_sweep, impute_missing_y, scope)
+    covariance_panels, cross_moments, gibbs_sweep, impute_missing_y,
+    local_sum, scope)
 from dcfm_tpu_torch.models.state import (
     SamplerState, init_state, num_padded_pairs, packed_pair_indices)
-from dcfm_tpu_torch.noise import BufferedDraws, RecordingDraws, draw_into
+from dcfm_tpu_torch.noise import (
+    BufferedDraws, RecordingDraws, ShardSliceNoise, draw_into)
 from dcfm_tpu_torch.ops import cuda_lib
 
 # per-iteration chain summaries, in the JAX package's order: mean signal
@@ -106,6 +114,43 @@ def carry_tensors(carry: ChainCarry) -> list:
     return [*state_leaves(carry.state), carry.sigma_acc, carry.health, *opt]
 
 
+def carry_shard_axes(carry: ChainCarry) -> list:
+    """Per tensor of :func:`carry_tensors`, the axis the shard mesh splits
+    it along (parallel/shard.py): the shard axis of the per-shard leaves,
+    the packed-pair axis of the accumulators, axis 1 of the draw ring's
+    per-shard leaves, None for X (every rank of a chain holds it whole)."""
+    st = carry.state
+    axes = [0, 0, None, 0, *([0] * len(st.prior)),
+            *([] if st.active is None else [0]), 0, 0]
+    axes += [] if carry.sigma_sq_acc is None else [0]
+    if carry.draws is not None:
+        axes += [ax for ax, t in zip((1, 1, None, 1), carry.draws)
+                 if t is not None]
+    axes += [] if carry.y_imp_acc is None else [0]
+    return axes
+
+
+def carry_like(carry: ChainCarry, tensors: list) -> ChainCarry:
+    """A carry of ``carry``'s structure and iteration holding ``tensors``
+    (in :func:`carry_tensors`' order)."""
+    it = iter(tensors)
+    st = carry.state
+    state = SamplerState(
+        Lambda=next(it), Z=next(it), X=next(it), ps=next(it),
+        prior={k: next(it) for k in sorted(st.prior)},
+        active=None if st.active is None else next(it))
+    acc, health = next(it), next(it)
+    sq = None if carry.sigma_sq_acc is None else next(it)
+    draws = None
+    if carry.draws is not None:
+        draws = DrawBuffers(*(None if t is None else next(it)
+                              for t in carry.draws))
+    y_imp = None if carry.y_imp_acc is None else next(it)
+    return ChainCarry(state=state, sigma_acc=acc, iteration=carry.iteration,
+                      health=health, sigma_sq_acc=sq, draws=draws,
+                      y_imp_acc=y_imp)
+
+
 def wait_readers(carry: ChainCarry, stream) -> None:
     """Make ``stream`` wait for every side-stream copy still reading
     ``carry``, before it writes the carry (a CPU carry has no readers)."""
@@ -154,13 +199,16 @@ def _health_update(running: torch.Tensor, now: torch.Tensor) -> torch.Tensor:
                         running[:, 3] + now[:, 3]], dim=-1)
 
 
-def _trace_now(state: SamplerState, sse: torch.Tensor,
-               rho: float) -> torch.Tensor:
+def _trace_now(state: SamplerState, sse: torch.Tensor, rho: float,
+               reduce_fn=local_sum,
+               num_global_shards: Optional[int] = None) -> torch.Tensor:
     """(4,) summaries of one sweep's output, from the (G, P) SSE the psi
-    stage already formed (no data-sized contraction)."""
+    stage already formed (no data-sized contraction), summed over all
+    ``num_global_shards`` shards of the chain by one ``reduce_fn`` (the
+    sweep's; an all-reduce on the shard mesh)."""
     G, P = state.ps.shape
     n = state.X.shape[0]
-    p_total = G * P
+    p_total = (num_global_shards or G) * P
     eta = math.sqrt(rho) * state.X[None] + math.sqrt(1.0 - rho) * state.Z
     E = torch.einsum("gnk,gnj->gkj", eta, eta) / n
     M = torch.einsum("gpk,gkj->gpj", state.Lambda, E)
@@ -168,9 +216,9 @@ def _trace_now(state: SamplerState, sse: torch.Tensor,
     loglik = 0.5 * torch.sum(
         n * (torch.log(state.ps) - math.log(2.0 * math.pi))
         - state.ps * sse, dim=-1)                               # (G,)
-    signal, rvar, ll = torch.sum(torch.stack(
+    signal, rvar, ll = reduce_fn(torch.stack(
         [torch.sum(sig_j, dim=-1), torch.sum(1.0 / state.ps, dim=1),
-         loglik], dim=-1), dim=0)
+         loglik], dim=-1))
     return torch.stack([signal / p_total, rvar / p_total,
                         (signal + rvar) / p_total, ll / (p_total * n)])
 
@@ -195,11 +243,17 @@ def _health_init(G: int, device) -> torch.Tensor:
 
 
 def init_chain(draws, Y: torch.Tensor, cfg: ModelConfig, prior,
-               num_stored_draws: int = 0) -> ChainCarry:
+               num_stored_draws: int = 0, *,
+               num_local_pairs: Optional[int] = None,
+               num_global_shards: Optional[int] = None) -> ChainCarry:
     """Initial state, zero packed accumulators, a fresh health panel and,
     where configured, a zero draw ring of ``num_stored_draws`` slots
-    (RunConfig.num_saved under store_draws) and a zero imputation sum."""
+    (RunConfig.num_saved under store_draws) and a zero imputation sum.
+    On the shard mesh ``Y`` is the rank's block of shards, the
+    accumulators its ``num_local_pairs`` packed panels and the ring's H
+    its rows of the ``num_global_shards`` x ``num_global_shards`` grid."""
     G, n, P = Y.shape
+    G_all = num_global_shards or G
     K = cfg.factors_per_shard
     state = init_state(draws, prior, G=G, n=n, P=P, K=K, as_=cfg.as_,
                        bs=cfg.bs, device=Y.device,
@@ -208,13 +262,14 @@ def init_chain(draws, Y: torch.Tensor, cfg: ModelConfig, prior,
     def zeros(*shape):
         return torch.zeros(shape, dtype=torch.float32, device=Y.device)
 
-    acc = zeros(num_padded_pairs(G), P, P)
+    acc = zeros(num_local_pairs or num_padded_pairs(G), P, P)
     S = num_stored_draws
     ring = None
     if S:
         ring = DrawBuffers(
             Lambda=zeros(S, G, P, K), ps=zeros(S, G, P), X=zeros(S, n, K),
-            H=zeros(S, G, G, K, K) if cfg.estimator == "scaled" else None)
+            H=(zeros(S, G, G_all, K, K) if cfg.estimator == "scaled"
+               else None))
     return ChainCarry(state=state, sigma_acc=acc, iteration=0,
                       health=_health_init(G, Y.device),
                       sigma_sq_acc=(torch.zeros_like(acc)
@@ -313,17 +368,31 @@ class ChainRunner:
 
     def __init__(self, noise, Y: torch.Tensor, cfg: ModelConfig, prior, *,
                  burnin: int, thin: int, unroll: int = 1, graphs=None,
-                 num_stored_draws: int = 0):
+                 num_stored_draws: int = 0, mesh=None):
         if unroll < 1:
             raise ValueError(f"unroll must be >= 1, got {unroll}")
         cuda = Y.device.type == "cuda"
         self.use_graphs = cuda if graphs is None else bool(graphs)
         if self.use_graphs and not cuda:
             raise ValueError("CUDA graphs need Y on a CUDA device")
+        # the shard mesh (parallel/shard.RankMesh): Y is the rank's block
+        # of shards, the X update's and the trace's sums all-reduce over
+        # the chain's ranks, a saved draw's combine reads the all-gathered
+        # loadings and the accumulators hold the rank's packed panels
+        self.mesh = mesh
+        if mesh is None:
+            rows, cols = packed_pair_indices(Y.shape[0])
+            self._reduce, self._gather = local_sum, None
+            self._g_all, self._off = Y.shape[0], 0
+        else:
+            rows, cols = mesh.pair_rows, mesh.pair_cols
+            self._reduce, self._gather = mesh.reduce_fn, mesh.gather_fn
+            self._g_all, self._off = mesh.num_shards, mesh.shard_offset
+            noise = ShardSliceNoise(noise, self._off, Y.shape[0],
+                                    self._g_all)
         self.noise, self.Y, self.cfg, self.prior = noise, Y, cfg, prior
         self.burnin, self.thin, self.unroll = burnin, thin, unroll
         self.num_stored_draws = num_stored_draws
-        rows, cols = packed_pair_indices(Y.shape[0])
         self._rows = torch.as_tensor(rows, dtype=torch.long, device=Y.device)
         self._cols = torch.as_tensor(cols, dtype=torch.long, device=Y.device)
         # the chunked combine's ranges of the packed-pair axis
@@ -370,9 +439,7 @@ class ChainRunner:
         """Reset the static carry to chain ``chain``'s initial state (the
         first call creates it) and return it."""
         if self.carry is None:
-            self.carry = init_chain(self.noise.init(chain), self.Y,
-                                    self.cfg, self.prior,
-                                    self.num_stored_draws)
+            self.carry = self._init(self.noise.init(chain))
             return self.carry
         G, n, P = self.Y.shape
         state = init_state(self.noise.init(chain), self.prior, G=G, n=n,
@@ -398,8 +465,13 @@ class ChainRunner:
         draws it on a fresh lineage (an elastic birth)."""
         draws = (self.noise.init(chain, lineage) if lineage
                  else self.noise.init(chain))
+        return self._init(draws)
+
+    def _init(self, draws) -> ChainCarry:
         return init_chain(draws, self.Y, self.cfg, self.prior,
-                          self.num_stored_draws)
+                          self.num_stored_draws,
+                          num_local_pairs=int(self._rows.shape[0]),
+                          num_global_shards=self._g_all)
 
     def run_chunk(self, chain: int, carry: ChainCarry, num_iters: int
                   ) -> tuple[ChainCarry, ChainStats, torch.Tensor]:
@@ -448,22 +520,8 @@ class ChainRunner:
         """Copy a chain's own carry into the static one (created on first
         use with the chain's shapes)."""
         if self.carry is None:
-            def like(t):
-                return None if t is None else torch.empty_like(t)
-            self.carry = ChainCarry(
-                state=SamplerState(
-                    *(torch.empty_like(getattr(carry.state, f))
-                      for f in ("Lambda", "Z", "X", "ps")),
-                    prior={k: torch.empty_like(v)
-                           for k, v in carry.state.prior.items()},
-                    active=(None if carry.state.active is None
-                            else torch.empty_like(carry.state.active))),
-                sigma_acc=torch.empty_like(carry.sigma_acc), iteration=0,
-                health=torch.empty_like(carry.health),
-                sigma_sq_acc=like(carry.sigma_sq_acc),
-                draws=(None if carry.draws is None
-                       else DrawBuffers(*(like(t) for t in carry.draws))),
-                y_imp_acc=like(carry.y_imp_acc))
+            self.carry = carry_like(carry, [torch.empty_like(t) for t in
+                                            carry_tensors(carry)])
         for dst, src in zip(carry_tensors(self.carry), carry_tensors(carry),
                             strict=True):
             dst.copy_(src)
@@ -554,7 +612,8 @@ class ChainRunner:
                 with scope("impute_missing"):
                     Yc = impute_missing_y(d, self.Y, state, cfg.rho,
                                           self._mask)
-            state, sse = gibbs_sweep(d, Yc, state, cfg, self.prior)
+            state, sse = gibbs_sweep(d, Yc, state, cfg, self.prior,
+                                     reduce_fn=self._reduce)
             # the trace reads the sweep's own output; adaptation re-masks
             # the carried state after it (the JAX package's order)
             sweep_state = state
@@ -566,22 +625,36 @@ class ChainRunner:
                 with scope("combine"):
                     eta = (sq_r * state.X[None] + sq_1mr * state.Z
                            if cfg.estimator == "scaled" else None)
+                    # every shard's loadings, residual precisions and
+                    # factors: all-gathered over the chain's ranks on the
+                    # mesh (the rank's panels pair its shards with all)
+                    every = state
+                    if self._gather is not None:
+                        every = dataclasses.replace(
+                            state, Lambda=self._gather(state.Lambda),
+                            ps=self._gather(state.ps))
+                        eta = None if eta is None else self._gather(eta)
                     # the combine's cross-moments, formed once per saved
                     # draw for every chunk and kept for the ring too
                     H_grid = None if eta is None else cross_moments(eta)
-                    add_panels(carry.sigma_acc, carry.sigma_sq_acc, state,
+                    add_panels(carry.sigma_acc, carry.sigma_sq_acc, every,
                                cfg.rho, self._rows, self._cols,
                                self._pair_chunks, eta=eta, H_grid=H_grid,
                                compute_dtype=self._c_dtype)
                     if carry.y_imp_acc is not None:
                         carry.y_imp_acc += Yc
                     if carry.draws is not None:
+                        if H_grid is not None and self._gather is not None:
+                            # the rank's rows of the grid
+                            H_grid = H_grid[self._off:
+                                            self._off + state.ps.shape[0]]
                         self._store(carry.draws, state, H_grid,
                                     self._its[j])
             with scope("health_trace"):
                 health = _health_update(health,
                                         _health_now(state, self.prior))
-                self._trace[j].copy_(_trace_now(sweep_state, sse, cfg.rho))
+                self._trace[j].copy_(_trace_now(
+                    sweep_state, sse, cfg.rho, self._reduce, self._g_all))
         for dst, src in zip(state_leaves(carry.state), state_leaves(state),
                             strict=True):
             dst.copy_(src)

@@ -300,3 +300,84 @@ class BufferedDraws:
             raise RuntimeError(
                 f"the sweep made {self._i} draws, the recorded recipe has "
                 f"{len(self._recipe)}")
+
+
+class ShardSliceNoise:
+    """A mesh rank's provider (parallel/shard.py): the draws of ``base``
+    over all ``total`` shards, of which the rank keeps its block ``[offset,
+    offset + local)``.
+
+    A per-shard site (every site but :data:`SHARED_SITES`) draws the
+    GLOBAL shape - the shard axis leads every such draw - and keeps the
+    rank's rows, so rank r holds exactly the slice of what the one-device
+    chain draws at that (chain, iteration, site, part), in every provider
+    (:class:`TorchNoise` draws a site's parts from one generator in call
+    order, so a local shape would draw another stream).  A Gamma's
+    per-shard shapes are constants of the config expanded over the shard
+    axis, so the global shapes are the local ones tiled.  The recipe of a
+    trip (:class:`RecordingDraws`) records the calls the sweep makes, with
+    local shapes, and :func:`draw_into` replays them through this provider,
+    so a pre-drawn slot holds the rank's slice too.  Each rank draws every
+    shard's variates: its cost grows with g, not with g / N."""
+
+    def __init__(self, base, offset: int, local: int, total: int):
+        self.base = base
+        self.offset, self.local, self.total = int(offset), int(local), int(
+            total)
+
+    def init(self, chain: int, lineage: int = 0) -> Draws:
+        d = self.base.init(chain, lineage) if lineage else self.base.init(
+            chain)
+        return _SliceDraws(d, self)
+
+    def sweep(self, chain: int, iteration: int) -> Draws:
+        return _SliceDraws(self.base.sweep(chain, iteration), self)
+
+
+class _SliceDraws:
+    def __init__(self, draws: Draws, sl: ShardSliceNoise):
+        self._draws, self._sl = draws, sl
+
+    def _global(self, site: int, shape: tuple):
+        if site in SHARED_SITES:
+            return None
+        if not shape or shape[0] != self._sl.local:
+            raise ValueError(
+                f"a per-shard draw at site {site} has shape {shape}, whose "
+                f"leading axis is not the rank's {self._sl.local} shards")
+        return (self._sl.total,) + shape[1:]
+
+    def _keep(self, full: torch.Tensor, out) -> torch.Tensor:
+        block = full[self._sl.offset:self._sl.offset + self._sl.local]
+        return block if out is None else out.copy_(block)
+
+    def _plain(self, kind, site, shape, part, out):
+        fn = getattr(self._draws, kind)
+        gshape = self._global(site, tuple(shape))
+        if gshape is None:
+            return (fn(site, shape, part=part) if out is None
+                    else fn(site, shape, part=part, out=out))
+        return self._keep(fn(site, gshape, part=part), out)
+
+    def _gamma(self, kind, site, alpha, part, out):
+        fn = getattr(self._draws, kind)
+        if self._global(site, tuple(alpha.shape)) is None:
+            return (fn(site, alpha, part=part) if out is None
+                    else fn(site, alpha, part=part, out=out))
+        reps = (self._sl.total // self._sl.local,) + (1,) * (alpha.dim() - 1)
+        return self._keep(fn(site, alpha.repeat(reps), part=part), out)
+
+    def normal(self, site, shape, *, part=None, out=None):
+        return self._plain("normal", site, shape, part, out)
+
+    def exponential(self, site, shape, *, part=None, out=None):
+        return self._plain("exponential", site, shape, part, out)
+
+    def uniform(self, site, shape, *, part=None, out=None):
+        return self._plain("uniform", site, shape, part, out)
+
+    def standard_gamma(self, site, alpha, *, part=None, out=None):
+        return self._gamma("standard_gamma", site, alpha, part, out)
+
+    def gamma_candidates(self, site, alphas, *, part=None, out=None):
+        return self._gamma("gamma_candidates", site, alphas, part, out)

@@ -13,6 +13,10 @@ adds one where it launches its kernel and nowhere else.  Under CUDA graphs
 a launch made while a graph is captured runs nothing, so it is counted into
 that graph's own tally (:func:`capture_tally`), and each replay of the
 graph adds the tally to ``LAUNCHES`` (:func:`add_launches`).
+``COLLECTIVES`` counts the shard mesh's collectives in the sweep
+(parallel/shard.py: the X update's and the trace's all-reduces, the
+combine's all-gathers) the same way, so a graph replay counts the
+collectives it issues.
 """
 
 from __future__ import annotations
@@ -37,6 +41,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 LAUNCHES = {"chol_sample": 0, "chol_solve_sample": 0, "cho_solve": 0,
             "lam_update": 0, "sse_ps": 0}
+COLLECTIVES = {"all_reduce": 0, "all_gather": 0}
 
 _lock = threading.Lock()
 _lib = None
@@ -54,12 +59,22 @@ def reset_launch_counts() -> None:
         LAUNCHES[name] = 0
 
 
+def collective_counts() -> dict:
+    return dict(COLLECTIVES)
+
+
+def reset_collective_counts() -> None:
+    for name in COLLECTIVES:
+        COLLECTIVES[name] = 0
+
+
 @contextlib.contextmanager
 def capture_tally():
-    """Count the launches made inside the block into a tally of their own
-    (yielded), not into ``LAUNCHES``: wrap a CUDA graph's capture in it."""
+    """Count the launches (and collectives) made inside the block into a
+    tally of their own (yielded), not into ``LAUNCHES``: wrap a CUDA
+    graph's capture in it."""
     global _tally
-    outer, _tally = _tally, dict.fromkeys(LAUNCHES, 0)
+    outer, _tally = _tally, dict.fromkeys((*LAUNCHES, *COLLECTIVES), 0)
     try:
         yield _tally
     finally:
@@ -69,7 +84,21 @@ def capture_tally():
 def add_launches(tally: dict) -> None:
     """Count a replay of a graph whose capture counted ``tally``."""
     for name, count in tally.items():
-        LAUNCHES[name] += count
+        (LAUNCHES if name in LAUNCHES else COLLECTIVES)[name] += count
+
+
+def count_collective(name: str) -> None:
+    """Count one collective ``name`` where it is issued: into the tally of
+    the graph being captured, if any, else into ``COLLECTIVES``."""
+    if _tally is not None:
+        _tally[name] += 1
+    elif (torch.cuda.is_available()
+          and torch.cuda.is_current_stream_capturing()):
+        raise RuntimeError(
+            f"{name} was captured into a CUDA graph outside "
+            "cuda_lib.capture_tally(): its replays would not be counted")
+    else:
+        COLLECTIVES[name] += 1
 
 
 def nvcc_path() -> str:

@@ -1,0 +1,2 @@
+"""The shard mesh: one fit over N rank processes (parallel/shard.py), laid
+out by parallel/mesh.py."""

@@ -32,6 +32,7 @@ the "copy" is the tensor itself.  No fetch runs inside a captured graph.
 from __future__ import annotations
 
 import time
+from typing import Optional
 
 import numpy as np
 import torch
@@ -101,11 +102,13 @@ def _chain_factor(num_chains: int, inv_count) -> float:
 
 
 def fetch_prep(acc: torch.Tensor, num_chains: int, g: int, inv_count,
-               mode: str):
+               mode: str, *, keep: Optional[int] = None):
     """The posterior-mean panels for the link, from ``acc``: the packed
     accumulators of the ``num_chains`` chains summed in chain order (the
     sum JAX's ``acc.mean(axis=0)`` reduces), which this CONSUMES - it is
-    scaled in place.
+    scaled in place.  ``keep``: the leading panels kept (default the
+    g(g+1)/2 of g shards; a shard-mesh rank keeps all of its pair slice,
+    parallel/shard.RankMesh.fetch).
 
     The arithmetic is that of the JAX package's fetch jit on the same
     sums (``(acc.mean(axis=0)[:n_pairs]) * inv_count``) as XLA compiles
@@ -114,7 +117,7 @@ def fetch_prep(acc: torch.Tensor, num_chains: int, g: int, inv_count,
     g(g+1)/2 kept panels (the padding past them dropped) take ONE float32
     multiply by ``inv_count * (1/num_chains)``; then
     :func:`cast_for_link`."""
-    u = acc[:num_upper_pairs(g)]
+    u = acc[:num_upper_pairs(g) if keep is None else keep]
     u.mul_(_chain_factor(num_chains, inv_count))
     return cast_for_link(u, mode)
 

@@ -67,6 +67,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from dcfm_tpu_torch.config import _MESH, _refuse
 from dcfm_tpu_torch.models.sampler import (
     ChainCarry, ChainStats, DrawBuffers, num_saved_draws)
 from dcfm_tpu_torch.models.state import SamplerState
@@ -107,10 +108,12 @@ _G_CK_GEN = _REG.gauge(
     "generation counter)")
 # The JAX package counts chunk boundaries whose carry came back with
 # another placement than it went in (a relayout copy of the donated
-# carry).  The port's carry is one static tensor set the runner writes in
-# place, so there is no relayout: the gauge stays 0, and the
-# ``carry_relayout`` event waits for the multi-GPU mesh (ROADMAP Queue A
-# item 4), where a carry's placement can change.
+# carry).  The port's carry is one static tensor set per rank that the
+# runner writes in place, on the shard mesh too (parallel/shard.py: each
+# rank's block never moves), so the gauge reads 0 on every boundary; the
+# ``carry_relayout`` event marks the one boundary where a rank's carry
+# tensors moved: a mesh resume, which scatters the file's global leaves
+# into the ranks' blocks.
 _G_RELAYOUTS = _REG.gauge(
     "dcfm_fit_carry_relayouts",
     "steady-state chunk boundaries where the carry came back with a "
@@ -463,18 +466,29 @@ _GRAPH_KEYS = ("captured", "capture_s", "replays", "eager_trips")
 
 def run_chain(*, cfg, model, run, phase: dict, fingerprint, template: dict,
               make_runner: Callable, device: torch.device,
-              window_fn: Callable,
-              make_streamer: Optional[Callable] = None) -> ChainRunResult:
+              window_fn: Optional[Callable] = None,
+              make_streamer: Optional[Callable] = None,
+              mesh=None) -> ChainRunResult:
     """The host-side chunk loop.  ``make_runner(model, lineage)`` builds a
     ``models/sampler.ChainRunner`` for ``model`` (the base ModelConfig, or
     the sentinel's jitter-escalated one after a rewind) on streams of the
     given lineage; ``window_fn(acc_start, elastic, total=None)`` is the
     fetch divisor and Bessel factor of the window ending at ``total``
-    (default: the schedule's end; ``elastic``: ResumeContext.elastic);
-    ``make_streamer(acc_start, elastic)`` builds the
-    :class:`StreamingFetcher`, once the resume point is known and only if
-    a chunk will run."""
+    (default: the schedule's end; ``elastic``: ResumeContext.elastic),
+    which only the stream reads; ``make_streamer(acc_start, elastic)``
+    builds the :class:`StreamingFetcher`, once the resume point is known
+    and only if a chunk will run.
+
+    On the shard mesh (``mesh``: parallel/shard.RankMesh) every rank runs
+    this loop over its own chains and block: a resume scatters the file's
+    leaves (``RankMesh.local_leaves``), each boundary reduces the health
+    statistics and gathers the trace rows over the ranks, so every rank
+    takes the same early-stop and sentinel decisions, rank 0 decides the
+    saves and writes each from every chain's carry gathered to it.  The
+    returned carries are the rank's own."""
     C = run.num_chains
+    chains = list(range(C)) if mesh is None else list(mesh.layout.chains)
+    leader = mesh is None or mesh.rank == 0
     chunk = run.chunk_size or run.total_iters
     graphs = dict.fromkeys(_GRAPH_KEYS, 0)
 
@@ -490,15 +504,30 @@ def run_chain(*, cfg, model, run, phase: dict, fingerprint, template: dict,
     def birth(c, elastic_lineage):
         # an elastic grow's new chain: its initial state on the bumped
         # lineage, as host leaves
+        if mesh is not None:
+            _refuse("an elastic resume that grows the chain count on the "
+                    "shard mesh", _MESH)
         return Snapshot([runner.new_chain(c, elastic_lineage)],
                         state_only=False).wait()
 
+    acc_shape = template["sigma_acc"][0][-3:]
+    y_imp_shape = (template["y_imp_acc"][0][-3:] if "y_imp_acc" in template
+                   else None)
+    if mesh is not None:
+        # the rank's packed panels and block of shards
+        acc_shape = (mesh.layout.local_pairs,) + tuple(acc_shape[1:])
+        if y_imp_shape is not None:
+            y_imp_shape = (mesh.layout.local_shards,) + tuple(
+                y_imp_shape[1:])
+
     def from_leaves(leaves):
+        if mesh is not None:
+            leaves = mesh.local_leaves(leaves)
+            record("carry_relayout", iteration=int(np.asarray(
+                leaves["iteration"]).reshape(-1)[0]), ranks=mesh.world)
         return carries_from_leaves(
-            leaves, C, device, template["sigma_acc"][0][-3:],
-            posterior_sd=model.posterior_sd,
-            y_imp_shape=(template["y_imp_acc"][0][-3:]
-                         if "y_imp_acc" in template else None))
+            leaves, len(chains), device, acc_shape,
+            posterior_sd=model.posterior_sd, y_imp_shape=y_imp_shape)
 
     fresh: list = []
 
@@ -506,7 +535,7 @@ def run_chain(*, cfg, model, run, phase: dict, fingerprint, template: dict,
         # the chains' initial carries, made once: a warm start grafts its
         # donor's state into these
         if not fresh:
-            fresh.extend(runner.new_chain(c) for c in range(C))
+            fresh.extend(runner.new_chain(c) for c in chains)
         return fresh
 
     rctx = ResumeContext(cfg=cfg, fingerprint=fingerprint, template=template,
@@ -525,7 +554,9 @@ def run_chain(*, cfg, model, run, phase: dict, fingerprint, template: dict,
     executed = run.total_iters - done
     stats, traces, chunk_secs = None, [], []
     phase["checkpoint_s"] = 0.0
-    writer = AsyncCheckpointWriter() if cfg.checkpoint_path else None
+    saving = bool(cfg.checkpoint_path)
+    # on the mesh rank 0 writes, every rank takes part in the gathers
+    writer = AsyncCheckpointWriter() if saving and leader else None
     light_mode = cfg.checkpoint_mode == "light"
     cadence = cfg.checkpoint_every_chunks
     auto = cadence == "auto"
@@ -553,11 +584,12 @@ def run_chain(*, cfg, model, run, phase: dict, fingerprint, template: dict,
         s_mode = "rewind" if cfg.checkpoint_path else "abort"
     sentinel = None
     if s_mode in ("abort", "rewind") and executed:
+        baseline = sum(float(c.health[..., 3].sum()) for c in carries)
+        if mesh is not None:
+            baseline = mesh.total(baseline)
         sentinel = DivergenceSentinel(
             s_mode, max_rewinds=cfg.sentinel_max_rewinds,
-            baseline_nonfinite=sum(float(c.health[..., 3].sum())
-                                   for c in carries),
-            base_jitter=model.ridge_jitter)
+            baseline_nonfinite=baseline, base_jitter=model.ridge_jitter)
     trace0 = it_now = done
     streamer = (make_streamer(acc_start, rctx.elastic)
                 if make_streamer is not None and executed else None)
@@ -574,17 +606,21 @@ def run_chain(*, cfg, model, run, phase: dict, fingerprint, template: dict,
             qi += 1
             t = time.perf_counter()
             chain_stats, chain_traces = [], []
-            for c in range(C):
+            for i, c in enumerate(chains):
                 # (the returned carry is not kept: a rewind must be able
                 # to free every chain's old carry)
-                st, tr = runner.run_chunk(c, carries[c], ni)[1:]
+                st, tr = runner.run_chunk(c, carries[i], ni)[1:]
                 chain_stats.append(st)
                 chain_traces.append(tr.cpu().numpy())
+            chain_traces = np.stack(chain_traces)
+            stats = pool_stats(chain_stats)
+            if mesh is not None:
+                chain_traces = mesh.gather_traces(chain_traces)
+                stats = mesh.reduce_stats(stats)
             _sync(device)
             chunk_secs.append(time.perf_counter() - t)
             it_now += ni
-            traces.append((it_now - ni, np.stack(chain_traces)))
-            stats = pool_stats(chain_stats)
+            traces.append((it_now - ni, chain_traces))
             if es_on:
                 rhat_max, ess_min = early_stop_metrics(traces, trace0,
                                                        run.burnin)
@@ -625,6 +661,8 @@ def run_chain(*, cfg, model, run, phase: dict, fingerprint, template: dict,
                             writer.wait()    # no racing an in-flight save
                         except Exception:  # dcfm: ignore[DCFM601] - a failed save of a diverged carry is moot mid-rewind
                             pass
+                    if mesh is not None:
+                        mesh.total(0.0)      # rank 0's save has landed
                     reloaded = rewind_source(rctx)
                 if reloaded is None:
                     record("chain_diverged", iteration=it_now,
@@ -706,7 +744,7 @@ def run_chain(*, cfg, model, run, phase: dict, fingerprint, template: dict,
                         streamer.abort()
                         streamer = None
                     fault_event("stream_submit_post")
-            if writer is None:
+            if not saving:
                 _flush_events()
                 if plan is not None:
                     plan.maybe_kill(it_now, done, "pre_save")
@@ -714,22 +752,30 @@ def run_chain(*, cfg, model, run, phase: dict, fingerprint, template: dict,
                     if plan.poison_due(it_now, done):
                         _poison(carries)
                 continue
-            if writer.poll_error() is not None and not last:
-                writer.wait()       # re-raises the stored failure
-            if auto and writer.last_save_seconds is not None:
-                cadence = auto_cadence(writer.last_save_seconds, chunk_secs)
-            since_save += 1
-            if plan is not None:
-                # a pre-save kill lands before this boundary's save, so the
-                # checkpoint never passes the trigger: the poison drill
-                plan.maybe_kill(it_now, done, "pre_save")
-            # the last boundary always saves; a still-running save defers
-            # a non-final due save to the next boundary
+            due = full_due = False
+            if writer is not None:
+                if writer.poll_error() is not None and not last:
+                    writer.wait()       # re-raises the stored failure
+                if auto and writer.last_save_seconds is not None:
+                    cadence = auto_cadence(writer.last_save_seconds,
+                                           chunk_secs)
+                since_save += 1
+                if plan is not None:
+                    # a pre-save kill lands before this boundary's save, so
+                    # the checkpoint never passes the trigger: the poison
+                    # drill
+                    plan.maybe_kill(it_now, done, "pre_save")
+                # the last boundary always saves; a still-running save
+                # defers a non-final due save to the next boundary
+                due = (since_save >= cadence and not writer.busy()) or last
+                full_due = due and (light_mode
+                                    and cfg.checkpoint_full_every > 0
+                                    and (saves_done + 1)
+                                    % cfg.checkpoint_full_every == 0)
+            if mesh is not None:
+                due, full_due = mesh.decide(due, full_due)
             saved_this_boundary = False
-            if (since_save >= cadence and not writer.busy()) or last:
-                full_due = (light_mode and cfg.checkpoint_full_every > 0
-                            and (saves_done + 1)
-                            % cfg.checkpoint_full_every == 0)
+            if due:
                 # light mode's full saves go to the sidecar (the next light
                 # save replaces checkpoint_path), except the last one
                 target = (cfg.checkpoint_path + ".full"
@@ -746,15 +792,24 @@ def run_chain(*, cfg, model, run, phase: dict, fingerprint, template: dict,
                             rctx.elastic.chain_acc_starts),
                             fold_draws=rctx.elastic.fold_draws)
                 t = time.perf_counter()
-                try:
-                    writer.submit(save_checkpoint, target, carries, cfg,
-                                  fingerprint=fingerprint,
-                                  state_only=state_only,
-                                  acc_start=acc_start,
-                                  keep_last=cfg.checkpoint_keep_last, **kw)
-                    saved_this_boundary = True
-                except Exception as e:  # the save-failure policy
-                    save_failure(e, last)
+                to_save = carries
+                if mesh is not None:
+                    # every chain's global carry, on rank 0: the one file
+                    # a one-device fit writes
+                    kw["num_devices"] = mesh.world
+                    to_save = mesh.gather_carries(carries)
+                if writer is not None:
+                    try:
+                        writer.submit(save_checkpoint, target, to_save, cfg,
+                                      fingerprint=fingerprint,
+                                      state_only=state_only,
+                                      acc_start=acc_start,
+                                      keep_last=cfg.checkpoint_keep_last,
+                                      **kw)
+                        saved_this_boundary = True
+                    except Exception as e:  # the save-failure policy
+                        save_failure(e, last)
+                del to_save
                 phase["checkpoint_s"] += time.perf_counter() - t
                 since_save = 0
                 saves_done += 1

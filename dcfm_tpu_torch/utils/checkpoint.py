@@ -480,7 +480,7 @@ def save_checkpoint(path: str, leaves: dict, cfg: FitConfig, *,
                     fingerprint: str, state_only: bool = False,
                     acc_start: int = 0, keep_last: int = 1,
                     chain_acc_starts=None, fold_draws: int = 0,
-                    elastic_lineage: int = 0) -> None:
+                    elastic_lineage: int = 0, num_devices: int = 1) -> None:
     """Atomically write the chains' leaves (``{name: numpy array}``, a
     :class:`Snapshot`'s), the config and the data fingerprint, with the
     JAX package's v8 meta and the port's stream key.
@@ -492,7 +492,9 @@ def save_checkpoint(path: str, leaves: dict, cfg: FitConfig, *,
     full save after a light resume stays self-describing;
     ``chain_acc_starts`` / ``fold_draws`` / ``elastic_lineage`` the v7
     bookkeeping of an elastic adoption (None: uniform starts at
-    ``acc_start``)."""
+    ``acc_start``); ``num_devices`` the ranks of a shard mesh that wrote
+    the leaves gathered from them (the topology record only: the file is
+    the one a one-device fit writes)."""
     names = file_leaves(cfg.model, state_only, "sigma_sq_acc" in leaves,
                         draws="draws_Lambda" in leaves,
                         impute="y_imp_acc" in leaves)
@@ -500,7 +502,7 @@ def save_checkpoint(path: str, leaves: dict, cfg: FitConfig, *,
     if _num_chains(leaves) != num_chains:
         raise ValueError(f"{_num_chains(leaves)} chains' leaves for a "
                          f"config of {num_chains} chains")
-    topology = {"num_chains": num_chains, "num_devices": 1,
+    topology = {"num_chains": num_chains, "num_devices": int(num_devices),
                 "num_processes": 1}
     meta = {
         "version": _FORMAT_VERSION,

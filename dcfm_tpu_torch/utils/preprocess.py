@@ -193,6 +193,22 @@ class _DenseSource:
                     got += r
                 yield lo, buf[:k]
 
+    def __getstate__(self):
+        # a shard-mesh rank (parallel/shard.py) reopens a file-backed
+        # memmap by name and reads its own shards' columns from the file:
+        # the matrix is never pickled with its source
+        state = dict(self.__dict__)
+        if self._file is not None:
+            state["Y"] = (self.Y.offset, self.Y.shape, self.Y.dtype.str)
+        return state
+
+    def __setstate__(self, state):
+        if isinstance(state["Y"], tuple):
+            offset, shape, dtype = state["Y"]
+            state["Y"] = np.memmap(state["_file"], dtype=np.dtype(dtype),
+                                   mode="r", offset=offset, shape=shape)
+        self.__dict__.update(state)
+
     def scan(self):
         nonzero = np.zeros(self.p, bool)
         nan_per_col = np.zeros(self.p, np.int64)

@@ -222,14 +222,20 @@ def _names_a_queue_a_item(message: str) -> bool:
 # refused naming its own item - a ported knob never masks a refusal (their
 # invalid values are test_scenario_knob_values_are_refused_as_in_the_jax_
 # package's and test_invalid_values_are_value_errors_in_both_packages's)
+#
+# The shard mesh (mesh_devices > 1) is ported too: each case now pairs its
+# ported knobs with a knob the mesh still refuses - the forced streamed
+# fetch or a warm start - which is refused on the mesh only, naming item 4
+_ON_MESH = {"mesh_devices": 2, "fetch_dtype": "quant8", "fetch_stream": "on"}
+
+
 @pytest.mark.parametrize("model,run,backend,extra", [
-    ({"combine_chunks": 2}, {}, {"mesh_devices": 2}, {}),
-    ({}, {"store_draws": True}, {"mesh_devices": 2}, {}),
+    ({"combine_chunks": 2}, {}, _ON_MESH, {}),
+    ({}, {"store_draws": True}, _ON_MESH, {}),
     ({}, {"early_stop": "rhat", "num_chains": 2, "chunk_size": 1},
-     {"mesh_devices": 2}, {}),
-    ({"impute_missing": True, "combine_chunks": 2}, {}, {"mesh_devices": 2},
-     {}),
-    ({}, {}, {"mesh_devices": 2}, {}),
+     _ON_MESH, {}),
+    ({"impute_missing": True, "combine_chunks": 2}, {}, _ON_MESH, {}),
+    ({}, {}, _ON_MESH, {}),
     ({"prior": "horseshoe"}, {}, {"mesh_devices": 4},
      {"warm_start": dcfm_tpu_torch.config.WarmStart("w.npz")}),
 ])
@@ -505,7 +511,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     the observability package (recorder, metrics, spans, cli), the
     serving plane (engine, batcher, server, fleet, promote, delta,
     loadgen), the fault plan, the supervisor and its child runner, the
-    online loop (cycle, watch) and the CLI."""
+    online loop (cycle, watch), the CLI and the shard mesh (parallel/:
+    the rank layout, the rank program and its entry)."""
     out = subprocess.run([sys.executable, "-c", _GUARD], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
@@ -529,4 +536,6 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "dcfm_tpu_torch.resilience.supervisor",
             "dcfm_tpu_torch.resilience._child", "dcfm_tpu_torch.online",
             "dcfm_tpu_torch.online.cycle", "dcfm_tpu_torch.online.watch",
-            "dcfm_tpu_torch.cli", "chip_smoke"} <= set(mods)
+            "dcfm_tpu_torch.cli", "dcfm_tpu_torch.parallel",
+            "dcfm_tpu_torch.parallel.mesh", "dcfm_tpu_torch.parallel.shard",
+            "dcfm_tpu_torch.parallel._rank", "chip_smoke"} <= set(mods)

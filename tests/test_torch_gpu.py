@@ -17,7 +17,8 @@ warm-started fit graphed bitwise the eager one, and a recorded and
 profiled fit bitwise the plain one, its trace naming K1 and K5; the query
 engine on the card bitwise the one on the CPU (entries, blocks, rows,
 intervals, an evicting budget) and one request served by ``serve
---device cuda``.
+--device cuda``; the shard mesh's rank program as a 1-rank NCCL world,
+bitwise the one-device fit on the f32, bf16 and fused paths.
 
 They need an NVIDIA GPU with nvcc (the kernels are built on first use) and
 skip without one.  They import no JAX, so on the card they run without the
@@ -36,7 +37,7 @@ torch = pytest.importorskip("torch")
 
 from dcfm_tpu_torch import AdaptConfig, BackendConfig, FitConfig  # noqa: E402
 from dcfm_tpu_torch import ModelConfig, RunConfig  # noqa: E402
-from dcfm_tpu_torch import fit  # noqa: E402
+from dcfm_tpu_torch import api, fit  # noqa: E402
 from dcfm_tpu_torch.models import sampler  # noqa: E402
 from dcfm_tpu_torch.models.conditionals import mm_bf16  # noqa: E402
 from dcfm_tpu_torch.models.priors import make_prior  # noqa: E402
@@ -314,6 +315,83 @@ def _small_fit(cuda, **knobs):
     assert res.graphs == dict(res.graphs, unroll=8, captured=4,
                               replays=2 * 38 - 4, eager_trips=4)
     return res.kernel_launches
+
+
+# each path with another link dtype (the fused one with the posterior SD
+# beside the mean): the mesh's fetch gathers each rank's link panels
+_MESH_PATHS = {"f32": {"fetch_dtype": "float32"},
+               "bf16": {"compute_dtype": "bf16", "lambda_kernel": "auto",
+                        "fetch_dtype": "bfloat16"},
+               "fused": {"lambda_kernel": "pallas-fused",
+                         "fetch_dtype": "quant8", "posterior_sd": True}}
+
+
+@pytest.mark.parametrize("path", sorted(_MESH_PATHS))
+def test_a_one_rank_nccl_mesh_is_bitwise_the_one_device_fit(cuda, path):
+    """The shard mesh's rank program as a world of one NCCL rank
+    (``api._fit(..., one_rank_mesh=True)``): its all-reduces and
+    all-gathers run inside the CUDA graphs and are counted per replay (3
+    all-reduces a sweep, 3 all-gathers a saved draw), the path's kernels
+    once per sweep, and Sigma (the SD too), the fetched panels and the
+    state are the one-device fit's bits; a mesh wider than the cards is
+    the JAX package's ValueError."""
+    knobs = _MESH_PATHS[path]
+    Y, _ = _small_data()
+    cfg = FitConfig(
+        model=ModelConfig(num_shards=4, factors_per_shard=4, rho=0.9,
+                          lambda_kernel=knobs.get("lambda_kernel", "pallas"),
+                          posterior_sd=knobs.get("posterior_sd", False)),
+        run=RunConfig(burnin=40, mcmc=40, thin=2, num_chains=2,
+                      sweep_unroll=8),
+        backend=BackendConfig(sse_mode="gram",
+                              compute_dtype=knobs.get("compute_dtype",
+                                                      "f32"),
+                              fetch_dtype=knobs["fetch_dtype"]))
+    one = fit(Y, cfg, device=cuda)
+    cuda_lib.reset_collective_counts()
+    mesh = api._fit(Y, cfg, cuda, one_rank_mesh=True)
+    np.testing.assert_array_equal(mesh.Sigma, one.Sigma)
+    np.testing.assert_array_equal(mesh.upper_panels, one.upper_panels)
+    if knobs.get("posterior_sd"):
+        np.testing.assert_array_equal(mesh.Sigma_sd, one.Sigma_sd)
+        np.testing.assert_array_equal(mesh._sd_q8_panels,
+                                      one._sd_q8_panels)
+    for a, b in zip(sampler.state_leaves(mesh.state),
+                    sampler.state_leaves(one.state), strict=True):
+        assert torch.equal(a, b)
+    assert mesh.kernel_launches == one.kernel_launches
+    assert mesh.graphs["replays"] > 0
+    assert cuda_lib.collective_counts() == {"all_reduce": 3 * 160,
+                                            "all_gather": 3 * 40}
+    with pytest.raises(ValueError, match="no silent fallback"):
+        fit(Y, dataclasses.replace(cfg, backend=BackendConfig(
+            mesh_devices=torch.cuda.device_count() + 1)), device=cuda)
+
+
+def test_the_mesh_runs_on_the_card_the_caller_named(cuda, monkeypatch):
+    """A one-rank mesh fit asked for on the last card runs its rank there
+    (rank r on the r-th card from the caller's), and a mesh one rank wider
+    than the cards from there is the JAX package's ValueError."""
+    from dcfm_tpu_torch.parallel import shard
+    last = torch.device("cuda", torch.cuda.device_count() - 1)
+    started = []
+
+    def spy(*a, **kw):
+        started.append(shard.start_mesh(*a, **kw))
+        return started[-1]
+
+    monkeypatch.setattr(api, "start_mesh", spy)
+    Y, _ = _small_data()
+    cfg = FitConfig(model=ModelConfig(num_shards=4, factors_per_shard=4,
+                                      rho=0.9),
+                    run=RunConfig(burnin=8, mcmc=8, thin=2),
+                    backend=BackendConfig(sse_mode="gram"))
+    res = api._fit(Y, cfg, last, one_rank_mesh=True)
+    assert [m.device for m in started] == [last]
+    assert np.isfinite(res.Sigma).all()
+    with pytest.raises(ValueError, match="but only 1 devices visible"):
+        fit(Y, dataclasses.replace(cfg, backend=BackendConfig(
+            mesh_devices=2)), device=last)
 
 
 def test_small_fit_runs_both_kernels(cuda):
@@ -757,8 +835,8 @@ def test_a_failed_capture_raises_and_is_not_hidden(cuda, monkeypatch):
     chain.  Kept last in the file: the failed capture is left behind."""
     trace_now = sampler._trace_now
 
-    def syncing_trace(state, sse, rho):
-        out = trace_now(state, sse, rho)
+    def syncing_trace(*args):
+        out = trace_now(*args)
         out[0].item()
         return out
 
