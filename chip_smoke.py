@@ -3151,10 +3151,11 @@ def recorded_phase(torch, dt, cuda_lib, card: str, Y, L, noise,
 
 
 def warm_phase(torch, dt, cuda_lib, card: str, Y, L, noise, work: str,
-               donor: str) -> dict:
+               donor: str, refs: dict | None = None) -> dict:
     """(15c) warm starts from (15a)'s checkpoint (2 chains at iteration
     400): appended rows, new shards, graph == eager for one chunk, a K = 4
-    donor's cold start, a warm refit killed and resumed."""
+    donor's cold start, a warm refit killed and resumed.  ``refs`` gets
+    each warm fit's Sigma digest (step 18f's references)."""
     import functools
 
     from dcfm_tpu_torch import api
@@ -3175,6 +3176,8 @@ def warm_phase(torch, dt, cuda_lib, card: str, Y, L, noise, work: str,
                 warm_start=WarmStart(donor)), Yw)
         check_path_launches(got, sweeps, f"(15c) warm, {label}")
         launches[f"warm, {label}"] = got
+        if refs is not None:
+            refs[f"warm, {label}"] = sigma_digest(warm.Sigma)
         (ev,) = outer_events(obs, "warm_start")
         check(ev["decision"] == "warm", f"(15c) {label}: decision {ev}")
         lam, ps = init.leaves(0), init.leaves(3)
@@ -3283,15 +3286,18 @@ def warm_phase(torch, dt, cuda_lib, card: str, Y, L, noise, work: str,
 
 
 def outer_phase(torch, dt, cuda_lib, card: str, Y, L, noise,
-                work: str) -> dict:
+                work: str, refs: dict | None = None) -> dict:
     """(15) the outer layers at the north-star width.  Returns the
-    launches of each of its fits."""
+    launches of each of its fits; ``refs`` gets (15a)'s donor checkpoint
+    and (15c)'s warm digests (step 18's references)."""
     t0 = time.perf_counter()
     a = recorded_phase(torch, dt, cuda_lib, card, Y, L, noise, work)
     say(f"(15a, b, d) done in {time.perf_counter() - t0:.1f} s")
+    if refs is not None:
+        refs["donor"], refs["outer"] = a["donor"], a["digest"]
     launches = dict(a["launches"])
     launches.update(warm_phase(torch, dt, cuda_lib, card, Y, L, noise,
-                               work, a["donor"]))
+                               work, a["donor"], refs))
     say(f"(15c) done in {time.perf_counter() - t0:.1f} s")
     return launches
 
@@ -4637,8 +4643,211 @@ def online_phase(torch, dt, cuda_lib, card: str, Y, L, noise,
     return {"17": total}
 
 
+def one_rank_fit(torch, dt, cuda_lib, cfg, Y) -> tuple:
+    """``cfg``'s fit through ``dt.fit`` (its flight recorder included) as
+    the shard mesh's rank program in a world of one NCCL rank, the launch
+    and collective counters zeroed just before and read just after;
+    returns (result, launches, collectives, wall seconds)."""
+    import functools
+    from unittest import mock
+    torch.cuda.synchronize()
+    cuda_lib.reset_collective_counts()
+    cuda_lib.reset_launch_counts()
+    t = time.perf_counter()
+    with mock.patch.object(dt.api, "_fit", functools.partial(
+            dt.api._fit, one_rank_mesh=True)):
+        res = dt.fit(Y, cfg)
+    wall = time.perf_counter() - t
+    return (res, cuda_lib.launch_counts(), cuda_lib.collective_counts(),
+            wall)
+
+
+def check_mesh_counts(got: dict, coll: dict, chains: int, run: dict,
+                      label: str) -> None:
+    """K1 and K5 once a sweep and no other kernel; 3 all-reduces a sweep
+    and 3 all-gathers a saved draw, over ``chains`` chains running the
+    ``run`` schedule's iterations (``{"burnin", "mcmc"}``; a resumed
+    fit's executed ones)."""
+    sweeps = chains * (run["burnin"] + run["mcmc"])
+    saved = chains * (run["mcmc"] // FIT["thin"])
+    want = {"all_reduce": 3 * sweeps, "all_gather": 3 * saved}
+    check_path_launches(got, sweeps, label)
+    say(f"{label} collectives {json.dumps(coll)} (expected "
+        f"{json.dumps(want)})")
+    check(coll == want, f"[{label}] collectives {coll}, expected {want}")
+
+
+def stream_summary(res) -> str:
+    ph, st = res.phase_seconds, res.stream_stats
+    return (f"fetch_s {ph['fetch_s']:.4f}, exposed_fetch_s "
+            f"{ph['exposed_fetch_s']:.4f}, stream_stats "
+            f"{json.dumps(st and {k: st[k] for k in ('snapshots', 'skipped', 'overlap_fraction')})}")
+
+
+def mesh_stream_phase(torch, dt, cuda_lib, card: str, Y, work: str,
+                      refs: dict) -> dict:
+    """(18e) the streamed quant8 fetch on a 1-rank NCCL mesh (the f32
+    path in chunks of CKPT_CHUNK, unpermuted: outer_config), landing in a
+    serve artifact: the int8 panels, scales and Sigma the one-device post-
+    hoc fit's bits, at least one snapshot, the artifact's ``assemble()``
+    those bits; its fetch seconds and stream telemetry beside the one-
+    device streamed fit's; (15a)'s digest of the same config, where it
+    ran, is the post-hoc fit's too.  Returns its launches."""
+    from dcfm_tpu_torch.serve.artifact import PosteriorArtifact
+    post, _, _ = counted_fit(torch, dt, cuda_lib, outer_config(
+        dt, obs="off", backend={"fetch_stream": "off"}), Y)
+    check(post.stream_stats is None, "(18e) the post-hoc fit streamed")
+    ref_q8, ref_sigma = q8_digest(post), sigma_digest(post.Sigma)
+    del post
+    if refs.get("outer") is not None:
+        check(refs["outer"] == ref_sigma,
+              "(18e) the post-hoc fit is not (15a)'s streamed fit's Sigma")
+    one, _, _ = counted_fit(torch, dt, cuda_lib, outer_config(
+        dt, obs="off", backend={"fetch_stream": "on"}), Y)
+    one_line = stream_summary(one)
+    check(q8_digest(one) == ref_q8, "(18e) the one-device stream is not "
+          "the post-hoc fetch's bits")
+    del one
+    art = os.path.join(work, "mesh_stream")
+    res, got, coll, wall = one_rank_fit(torch, dt, cuda_lib, outer_config(
+        dt, obs="off", backend={"fetch_stream": "on"},
+        stream_artifact=art), Y)
+    st = res.stream_stats
+    same = (q8_digest(res) == ref_q8 and sigma_digest(res.Sigma) == ref_sigma)
+    back = PosteriorArtifact.open(art).assemble()
+    say(f"(18e) streamed quant8 mesh fit (1-rank NCCL world, chunks of "
+        f"{CKPT_CHUNK}, stream_artifact): panels, scales and Sigma "
+        f"{'=' if same else '!='} the one-device post-hoc fit's "
+        f"(q8 {ref_q8[:16]}, sigma {ref_sigma[:16]}); artifact assemble() "
+        f"{'=' if np.array_equal(back, res.Sigma) else '!='} Sigma; mesh "
+        f"{stream_summary(res)}; one device {one_line}; wall {wall:.3f} s; "
+        f"{card}")
+    check(same, "(18e) the mesh's streamed panels are not the post-hoc "
+          "fit's bits")
+    check(st is not None and st["snapshots"] >= 1 and res.artifact_path
+          == art, f"(18e) the mesh did not stream: {st}")
+    check(np.array_equal(back, res.Sigma), "(18e) the streamed artifact's "
+          "assemble() is not Sigma")
+    del back, res
+    check_mesh_counts(got, coll, FIT["chains"],
+                      {"burnin": FIT["burnin"], "mcmc": FIT["mcmc"]},
+                      "(18e) streamed mesh")
+    return got
+
+
+def mesh_warm_phase(torch, dt, cuda_lib, card: str, Y, L, noise,
+                    work: str, refs: dict) -> dict:
+    """(18f) warm starts on a 1-rank NCCL mesh from step 15's donor (2
+    chains at iteration 400; made here under ``--mesh-only``) on step
+    15c's schedule: appended rows (n 500 -> 600) and new shards (g 64 ->
+    72), unpermuted; decision warm, recorded once, Sigma the one-device
+    warm fit's bits (15c's digests, computed here where missing); graph ==
+    eager on the warm mesh runner for one chunk.  Returns the launches."""
+    import functools
+
+    from dcfm_tpu_torch import api
+    from dcfm_tpu_torch.config import WarmStart
+    donor = refs.get("donor")
+    if donor is None:                   # --mesh-only: step 15's donor
+        donor = os.path.join(work, "mesh_donor.npz")
+        dt.fit(Y, outer_config(dt, checkpoint_path=donor, obs="off"))
+    g = FIT["g"]
+    Y600, Y72, _ = warm_data(Y, L, noise, g + 8)
+    launches = {}
+    for label, Yw, model in (("appended rows", Y600, {}),
+                             ("new shards", Y72, {"num_shards": g + 8})):
+        cfg = outer_config(dt, run=OUTER_WARM_RUN, model=model,
+                           warm_start=WarmStart(donor))
+        key = f"warm, {label}"
+        if refs.get(key) is None:       # --mesh-only: the one-device fit
+            one = dt.fit(Yw, dataclasses.replace(cfg, obs="off"))
+            refs[key] = sigma_digest(one.Sigma)
+            del one
+        obs = os.path.join(work, f"mesh_warm_{model.get('num_shards', g)}")
+        res, got, coll, wall = one_rank_fit(
+            torch, dt, cuda_lib, dataclasses.replace(cfg, obs=obs), Yw)
+        evs = outer_events(obs, "warm_start")
+        digest = sigma_digest(res.Sigma)
+        say(f"(18f) warm mesh fit, {label} {Yw.shape}: decisions "
+            f"{[e['decision'] for e in evs]} ({evs[0].get('leaves')} leaves, "
+            f"{evs[0].get('verbatim_leaves')} verbatim); sigma "
+            f"{digest[:16]} {'=' if digest == refs[key] else '!='} the "
+            f"one-device warm fit's {refs[key][:16]}; chain iterations/s "
+            f"{FIT['chains'] * sum(OUTER_WARM_RUN.values()) / res.phase_seconds['chain_s']:.2f}"
+            f", wall {wall:.3f} s; {card}")
+        check([e["decision"] for e in evs] == ["warm"],
+              f"(18f) {label}: decisions {evs}")
+        check(digest == refs[key], f"(18f) {label}: the warm mesh fit is "
+              "not the one-device warm fit's bits")
+        check_mesh_counts(got, coll, FIT["chains"], OUTER_WARM_RUN,
+                          f"(18f) warm mesh, {label}")
+        launches[f"warm mesh, {label}"] = got
+        del res
+    # graph == eager on the warm mesh runner, one chunk
+    one = outer_config(dt, run={"burnin": 20, "mcmc": 30}, obs="off",
+                       warm_start=WarmStart(donor))
+    graphed = one_rank_fit(torch, dt, cuda_lib, one, Y600)[0]
+    runner = api.ChainRunner
+    api.ChainRunner = functools.partial(runner, graphs=False)
+    try:
+        eager = one_rank_fit(torch, dt, cuda_lib, one, Y600)[0]
+    finally:
+        api.ChainRunner = runner
+    same = (sigma_digest(graphed.Sigma) == sigma_digest(eager.Sigma)
+            and state_digest(graphed.state) == state_digest(eager.state))
+    say(f"(18f) graph == eager on the warm mesh runner, 2 chains, one chunk"
+        f" of 50: Sigma and state {'bitwise' if same else 'DIFFER'}; graphs "
+        f"{json.dumps(graphed.graphs)} / {json.dumps(eager.graphs)}")
+    check(graphed.graphs["replays"] > 0 and eager.graphs["replays"] == 0,
+          f"(18f) graphs {graphed.graphs} / {eager.graphs}")
+    check(same, "(18f) the graphed warm mesh chain is not the eager one")
+    return launches
+
+
+def mesh_grow_phase(torch, dt, cuda_lib, card: str, Y, work: str) -> dict:
+    """(18g) a 1-chain mesh file saved at the burn-in boundary (iteration
+    20) resumed at 2 chains on the mesh and on one device (each from a
+    copy): the ``elastic_resume`` fields and Sigma bitwise the one-device
+    grow's; the mesh grow's kernels and collectives counted over its 2
+    chains' executed sweeps.  Returns the launches."""
+    import shutil
+    burn = {"burnin": OUTER_WARM_RUN["burnin"], "mcmc": 0, "num_chains": 1}
+    src = os.path.join(work, "mesh_grow.npz")
+    one_rank_fit(torch, dt, cuda_lib, outer_config(
+        dt, run=burn, obs="off", checkpoint_path=src), Y)
+    grown = {}
+    for where in ("one device", "mesh"):
+        path = os.path.join(work, f"mesh_grow_{where[0]}.npz")
+        shutil.copy(src, path)
+        cfg = outer_config(dt, run=dict(OUTER_WARM_RUN, num_chains=2),
+                           obs="off", checkpoint_path=path, resume=True,
+                           checkpoint_every_chunks=1)
+        if where == "mesh":
+            res, got, coll, wall = one_rank_fit(torch, dt, cuda_lib, cfg, Y)
+        else:
+            res, got, wall = counted_fit(torch, dt, cuda_lib, cfg, Y)
+        grown[where] = (res.elastic_resume, sigma_digest(res.Sigma))
+        del res
+    el, digest = grown["mesh"]
+    same = grown["mesh"] == grown["one device"]
+    say(f"(18g) 1 -> 2 chains from a mesh file at iteration "
+        f"{burn['burnin']}, resumed on the mesh: kept {el['kept']}, "
+        f"dropped {el['dropped']}, birthed {el['birthed']}, chain_acc_starts"
+        f" {list(el['chain_acc_starts'])}, lineage {el['elastic_lineage']}, "
+        f"fold_draws {el['fold_draws']}; elastic_resume and sigma "
+        f"{digest[:16]} {'=' if same else '!='} the one-device grow's; wall "
+        f"{wall:.3f} s; {card}")
+    check((el["from_chains"], el["to_chains"], el["birthed"]) == (1, 2, 1),
+          f"(18g) {el}")
+    check(same, f"(18g) the mesh grow is not the one-device grow: {grown}")
+    check_mesh_counts(got, coll, 2, {"burnin": 0,
+                                     "mcmc": OUTER_WARM_RUN["mcmc"]},
+                      "(18g) mesh grow")
+    return {"mesh grow": got}
+
+
 def mesh_phase(torch, dt, cuda_lib, card: str, Y, L, noise, digests: dict,
-               kill_ref, work: str) -> dict:
+               kill_ref, work: str, refs: dict | None = None) -> dict:
     """(18) The shard mesh (parallel/shard.py) at the north-star width, as
     a world of one NCCL rank on the one card: (a) graph == eager on the
     mesh's runner, its collectives inside the graphs; (b) a one-rank mesh
@@ -4651,8 +4860,12 @@ def mesh_phase(torch, dt, cuda_lib, card: str, Y, L, noise, digests: dict,
     of KILL_RUN SIGKILLed at iteration >= KILL_AT in a child process and
     resumed on one device in a fresh one: Sigma bitwise the uninterrupted
     one-device fit's (``kill_ref``, step 7's digest; computed here where
-    None); (d) mesh_devices=2 on this one card: the ValueError.  Returns
-    the paths' launches."""
+    None); (d) mesh_devices=2 on this one card: the ValueError; (e) the
+    streamed quant8 fetch into a serve artifact (:func:`mesh_stream_phase`),
+    (f) warm starts (:func:`mesh_warm_phase`, from ``refs``: step 15's
+    donor and warm digests) and (g) a grow of the chain count
+    (:func:`mesh_grow_phase`) on the 1-rank mesh, each its one-device
+    counterpart's bits.  Returns the paths' launches."""
     from dcfm_tpu_torch.parallel import shard
     t_step = time.perf_counter()
     c = FIT
@@ -4741,6 +4954,14 @@ def mesh_phase(torch, dt, cuda_lib, card: str, Y, L, noise, digests: dict,
         check("no silent fallback" in str(e), f"(18d) {e}")
         say(f"mesh refusal: mesh_devices=2 on {torch.cuda.device_count()} "
             f"card: ValueError({e})")
+    refs = {} if refs is None else refs
+    launches["stream"] = mesh_stream_phase(torch, dt, cuda_lib, card, Y,
+                                           work, refs)
+    say(f"(18e) done at {time.perf_counter() - t_step:.1f} s")
+    launches.update(mesh_warm_phase(torch, dt, cuda_lib, card, Y, L, noise,
+                                    work, refs))
+    say(f"(18f) done at {time.perf_counter() - t_step:.1f} s")
+    launches.update(mesh_grow_phase(torch, dt, cuda_lib, card, Y, work))
     say(f"(18) mesh step: {time.perf_counter() - t_step:.1f} s; {card}")
     return launches
 
@@ -4935,14 +5156,16 @@ def main() -> None:
         say(f"knobs_phase done at {time.perf_counter() - t_start:.1f} s")
         scale = scale_phase(torch, dt, cuda_lib, card, Y, work, c5)
         say(f"scale_phase done at {time.perf_counter() - t_start:.1f} s")
-        outer = outer_phase(torch, dt, cuda_lib, card, Y, L, noise, work)
+        outer_refs: dict = {}
+        outer = outer_phase(torch, dt, cuda_lib, card, Y, L, noise, work,
+                            outer_refs)
         say(f"outer_phase done at {time.perf_counter() - t_start:.1f} s")
         serve_phase(torch, dt, cuda_lib, card, Y, work)
         say(f"serve_phase done at {time.perf_counter() - t_start:.1f} s")
         online = online_phase(torch, dt, cuda_lib, card, Y, L, noise, work)
         say(f"online_phase done at {time.perf_counter() - t_start:.1f} s")
         mesh = mesh_phase(torch, dt, cuda_lib, card, Y, L, noise, digests,
-                          kill_refs["f32"], work)
+                          kill_refs["f32"], work, outer_refs)
         say(f"mesh_phase done at {time.perf_counter() - t_start:.1f} s")
     finally:
         shutil.rmtree(work, ignore_errors=True)

@@ -58,8 +58,7 @@ import numpy as np
 import torch
 
 from dcfm_tpu_torch.config import (
-    BackendConfig, FitConfig, ModelConfig, RunConfig, validate, validate_mesh,
-    validate_obs)
+    BackendConfig, FitConfig, ModelConfig, RunConfig, validate, validate_obs)
 from dcfm_tpu_torch.models.adapt import effective_ranks
 from dcfm_tpu_torch.models.priors import make_prior
 from dcfm_tpu_torch.models.sampler import (
@@ -76,6 +75,7 @@ from dcfm_tpu_torch.runtime.fetch import (
     fetch_prep, fetch_sd_prep, quant8_fetch_assemble,
     quant8_start, upload_data)
 from dcfm_tpu_torch.runtime.pipeline import StreamingFetcher, run_chain
+from dcfm_tpu_torch.runtime.resume import refuse_multiprocess_sets
 from dcfm_tpu_torch.serve.artifact import (
     PosteriorArtifact, begin_streamed_artifact, export_fit_result,
     finalize_streamed_artifact, fit_provenance)
@@ -558,8 +558,9 @@ def _fetch_window(run: RunConfig, acc_start: int, elastic,
 @dataclasses.dataclass
 class _RankJob:
     """What every rank of a fit runs (:func:`_run_rank`): the config, the
-    internal model, the shapes, the chain's knobs and the checkpoint's
-    fingerprint and template.  Picklable: started mesh ranks receive it."""
+    internal model, the shapes, the chain's knobs, whether the quant8
+    fetch streams, and the checkpoint's fingerprint and template.
+    Picklable: started mesh ranks receive it."""
 
     cfg: FitConfig
     model: ModelConfig
@@ -567,21 +568,44 @@ class _RankJob:
     P: int
     num_stored_draws: int
     unroll: int
+    streaming: bool
     fingerprint: Optional[str]
     template: dict
 
 
+def _streamer_factory(job: _RankJob, mesh):
+    """``make_streamer(acc_start, elastic)`` of the chunk loop: the
+    :class:`StreamingFetcher` of the window the resume point gives; under
+    ``FitConfig.stream_artifact`` the one that lands the panels (one
+    device, or rank 0 of the mesh) lands them in the serve artifact's
+    panel files, whose meta.json is invalidated until the fit finalizes
+    it."""
+    cfg, g, C = job.cfg, job.model.num_shards, job.cfg.run.num_chains
+
+    def make_streamer(acc_start: int, elastic) -> StreamingFetcher:
+        land_mean = land_sd = None
+        if cfg.stream_artifact and (mesh is None or mesh.rank == 0):
+            land_mean, land_sd = begin_streamed_artifact(
+                cfg.stream_artifact, g=g, P=job.P,
+                has_sd=job.model.posterior_sd)
+        _, inv_count, bessel = _fetch_window(cfg.run, acc_start, elastic)
+        return StreamingFetcher(inv_count, C, g, bessel=bessel,
+                                land_mean=land_mean, land_sd=land_sd,
+                                mesh=mesh)
+    return make_streamer
+
+
 def _run_rank(job: _RankJob, mesh, data, device: torch.device, *,
-              phase: Optional[dict] = None, window_fn=None,
-              make_streamer=None):
+              phase: Optional[dict] = None):
     """Upload ``data`` (the rank's block of shards, or all of them on one
     device) and run the chunk loop on it (runtime/pipeline.run_chain);
     returns ``(run result, carries, fetched)``.  On one device the carries
-    are the chains' and ``fetched`` is None.  On the shard mesh every rank
-    runs the post-hoc fetch on its pair slice (parallel/shard.RankMesh.
-    fetch), and rank 0 gets every chain's carry without its packed
-    accumulators and ``fetched``, the gathered link panels (None on the
-    other ranks)."""
+    are the chains' and ``fetched`` is None.  On the shard mesh rank 0
+    gets every chain's carry without its packed accumulators, and
+    ``fetched``, the link panels every rank's post-hoc fetch of its pair
+    slice gathered (parallel/shard.RankMesh.fetch), or None where the
+    fetch streamed (rank 0's streamer holds the panels) and on the other
+    ranks."""
     cfg, m, run = job.cfg, job.model, job.cfg.run
     phase = {} if phase is None else phase
     t = time.perf_counter()
@@ -602,19 +626,29 @@ def _run_rank(job: _RankJob, mesh, data, device: torch.device, *,
                            thin=run.thin, unroll=job.unroll,
                            num_stored_draws=job.num_stored_draws, mesh=mesh)
 
+    def window_fn(acc_start: int, elastic, total=None) -> tuple:
+        return _fetch_window(run, acc_start, elastic, total)[1:]
+
     rr = run_chain(
         cfg=cfg, model=m, run=run, phase=phase, fingerprint=job.fingerprint,
         template=job.template, make_runner=make_runner, device=device,
-        window_fn=window_fn, make_streamer=make_streamer, mesh=mesh)
+        window_fn=window_fn,
+        make_streamer=(_streamer_factory(job, mesh) if job.streaming
+                       else None), mesh=mesh)
     if mesh is None:
         return rr, rr.carries, None
     if rr.stats is None:    # a no-op resume: the carries' own, reduced
         rr.stats = mesh.reduce_stats(_carried_stats(rr.carries))
-    # (the mesh never streams its fetch: fit's ``streaming``)
-    _, inv_count, bessel = _fetch_window(run, rr.acc_start, rr.elastic,
-                                         rr.done + rr.executed)
-    fetched = mesh.fetch(rr.carries, inv_count, bessel,
-                         cfg.backend.fetch_dtype, m.posterior_sd)
+    fetched = None
+    if rr.streamer is None:
+        _, inv_count, bessel = _fetch_window(run, rr.acc_start, rr.elastic,
+                                             rr.done + rr.executed)
+        fetched = mesh.fetch(rr.carries, inv_count, bessel,
+                             cfg.backend.fetch_dtype, m.posterior_sd)
+    elif mesh.rank:
+        # the final snapshot's collectives are behind every rank: the
+        # other ranks' streamers queued nothing (rank 0's joins in fit)
+        rr.streamer.finish()
     carries = mesh.gather_carries(rr.carries, pairs=False)
     counts = mesh.gather_counts(cuda_lib.launch_counts(),
                                 cuda_lib.collective_counts())
@@ -659,8 +693,10 @@ def _fit(Y: np.ndarray, cfg: FitConfig, device, *,
     # the visible devices is refused before any work
     ranks = (1 if one_rank_mesh
              else (be.mesh_devices if be.mesh_devices > 1 else 0))
+    if cfg.resume and cfg.checkpoint_path:
+        # before any work, on the mesh before its ranks start
+        refuse_multiprocess_sets(cfg.checkpoint_path)
     if ranks:
-        validate_mesh(cfg)
         check_mesh_devices(ranks, device)
         make_layout(ranks, 0, m.num_shards, run.num_chains)
     # thread the backend's sweep knobs into the internal model config, as
@@ -691,29 +727,15 @@ def _fit(Y: np.ndarray, cfg: FitConfig, device, *,
     g, C, mode = m.num_shards, run.num_chains, be.fetch_dtype
     P = pre.data.shape[2]
 
-    def window(acc_start: int, elastic, total=None) -> tuple:
-        return _fetch_window(run, acc_start, elastic, total)[1:]
-
-    def make_streamer(acc_start: int, elastic) -> StreamingFetcher:
-        land_mean = land_sd = None
-        if cfg.stream_artifact:
-            # land in the serve artifact's panel files (its meta.json is
-            # invalidated until the fit finalizes it)
-            land_mean, land_sd = begin_streamed_artifact(
-                cfg.stream_artifact, g=g, P=P, has_sd=m.posterior_sd)
-        inv_count, bessel = window(acc_start, elastic)
-        return StreamingFetcher(inv_count, C, g, bessel=bessel,
-                                land_mean=land_mean, land_sd=land_sd)
-
     job = _RankJob(
         cfg=cfg, model=m, n=n, P=P, num_stored_draws=S_draws, unroll=unroll,
+        # the quant8 fetch streams under "auto" and "on", on one device
+        # and on the shard mesh, as on the JAX package's one-process mesh
+        streaming=mode == "quant8" and be.fetch_stream != "off",
         fingerprint=(data_fingerprint(pre.data) if cfg.checkpoint_path
                      else None),
         template=carry_template(m, n=n, P=P, num_chains=C,
                                 num_stored_draws=S_draws))
-    # the streamed fetch runs on one device; on the mesh "auto" keeps the
-    # post-hoc fetch, as the JAX package's pods do
-    streaming = mode == "quant8" and be.fetch_stream != "off" and not ranks
     mesh = None
     threads = torch.get_num_threads()
     if ranks > 1 and device.type == "cpu":
@@ -726,8 +748,7 @@ def _fit(Y: np.ndarray, cfg: FitConfig, device, *,
                 data = rank_block(data, mesh.layout)
             rr, carries, fetched = _run_rank(
                 job, mesh, data, device if mesh is None else mesh.device,
-                phase=phase, window_fn=window,
-                make_streamer=make_streamer if streaming else None)
+                phase=phase)
         except BaseException as e:
             if mesh is not None:
                 err = mesh.failure(e)
@@ -780,9 +801,14 @@ def _fit(Y: np.ndarray, cfg: FitConfig, device, *,
             if not streamed["final_landed"]:
                 streamed = None
         except Exception as e:  # the reference's policy: warn, fetch post hoc
+            if ranks:
+                raise   # the mesh's accumulators were never gathered here
             warnings.warn(f"streamed accumulator fetch failed ({e!r}); "
                           "falling back to the post-hoc fetch",
                           RuntimeWarning)
+        if streamed is None and ranks:
+            raise RuntimeError("the mesh's streamed fetch landed no final "
+                               "snapshot")
         phase["exposed_fetch_s"] = time.perf_counter() - t
     if streamed is not None:
         phase["exposed_fetch_s"] += streamed["final_wait_s"]

@@ -21,14 +21,12 @@ run's checkpoint (``warm_start``); the streamed fetch landing in a serve
 artifact (``stream_artifact``); the chunked combine on one device
 (``combine_chunks``); the flight recorder (``obs``), the profiler trace
 (``profile_dir``) and the device switch (``backend``, the port's values
-"auto" | "torch_cuda" | "torch_cpu").  Every other knob the JAX package
-has is either absent here (passing it is a ``TypeError``) or present and
-refused by :func:`validate` with a ``NotImplementedError`` that names the
-ROADMAP Queue A item that will port it (on the mesh, :func:`validate_mesh`
-refuses ``warm_start`` and the forced streamed fetch) - a knob is never
-silently ignored.  An
-invalid value of a refused knob is a ``ValueError`` first, as in the JAX
-package.
+"auto" | "torch_cuda" | "torch_cpu").  Every knob runs on the shard mesh
+too: warm starts, the streamed fetch and ``stream_artifact``, and elastic
+resumes that grow or shrink the chain count.  Every other knob the JAX
+package has is absent here (passing it is a ``TypeError``), so a knob is
+never silently ignored; what the port still refuses - the multi-process
+layers, ROADMAP Queue A item 7 - is refused where it is met, by name.
 """
 
 from __future__ import annotations
@@ -36,8 +34,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional
 
-# ROADMAP items the refusals point at (ROADMAP.md, "Queue A")
-_MESH = "ROADMAP Queue A item 4 (multi-GPU shards)"
+# the ROADMAP item the refusals point at (ROADMAP.md, "Queue A")
 _OUTER = "ROADMAP Queue A item 7 (outer layers)"
 
 
@@ -263,14 +260,9 @@ def validate_obs(obs) -> None:
             f"{obs!r}")
 
 
-def _refuse(what: str, item: str) -> None:
-    raise NotImplementedError(
-        f"{what} is not ported to dcfm_tpu_torch yet: {item}")
-
-
 def validate(cfg: FitConfig, n: int, p: int) -> None:
-    """The JAX package's checks for the fields the port reads, then the
-    refusals of every knob outside the port."""
+    """The JAX package's checks for the fields the port reads (every
+    field the port has, it runs)."""
     m, run, be = cfg.model, cfg.run, cfg.backend
     if m.num_shards < 1:
         raise ValueError(f"num_shards must be >= 1, got {m.num_shards}")
@@ -470,16 +462,3 @@ def validate(cfg: FitConfig, n: int, p: int) -> None:
     if be.mesh_devices < 0:
         raise ValueError(
             f"mesh_devices must be >= 0, got {be.mesh_devices}")
-    # ---- knobs outside the port: refused, never ignored -----------------
-    if be.mesh_devices > 1:
-        validate_mesh(cfg)
-
-
-def validate_mesh(cfg: FitConfig) -> None:
-    """The knobs the shard mesh (parallel/shard.py) does not run yet,
-    refused by name on the mesh only."""
-    if cfg.warm_start is not None:
-        _refuse("warm_start on the shard mesh", _MESH)
-    if cfg.backend.fetch_stream == "on":
-        _refuse("fetch_stream='on' on the shard mesh (its quant8 fetch is "
-                "post hoc)", _MESH)

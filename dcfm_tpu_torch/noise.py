@@ -318,7 +318,10 @@ class ShardSliceNoise:
     trip (:class:`RecordingDraws`) records the calls the sweep makes, with
     local shapes, and :func:`draw_into` replays them through this provider,
     so a pre-drawn slot holds the rank's slice too.  Each rank draws every
-    shard's variates: its cost grows with g, not with g / N."""
+    shard's variates: its cost grows with g, not with g / N.  ``base``'s
+    lineages carry through: a warm start's re-lineaged sweeps and an
+    elastic birth's ``init(chain, lineage)`` slice the one-device draws of
+    the same lineage."""
 
     def __init__(self, base, offset: int, local: int, total: int):
         self.base = base

@@ -17,13 +17,19 @@ runs the one-device chain program on it (models/sampler.ChainRunner with a
 
 and, at chunk boundaries, over all ranks: the chunk's health statistics
 (max / min / sums, the rank mean a mean of equal-sized means), the chains'
-trace rows, rank 0's checkpoint decisions, and the gather of every chain's
-carry to rank 0 (:meth:`RankMesh.gather_carries`) for a save and for the
-result; at the end, the post-hoc fetch on each rank's pair slice, its link
-panels gathered to rank 0 (:meth:`RankMesh.fetch`).  On the card the sweep's collectives are issued inside the CUDA
-graphs of the trips (NCCL ops are capturable; the trips' first meeting is
-eager, which creates the communicators) and each is counted into
-``ops/cuda_lib.COLLECTIVES`` as a kernel launch is.
+trace rows, rank 0's checkpoint and stream decisions, a streamed quant8
+snapshot (runtime/pipeline.StreamingFetcher: each rank's pair slice pooled
+over the chain rows, quantized and gathered to rank 0,
+:meth:`RankMesh.link_panels`), and the gather of every chain's carry to
+rank 0 (:meth:`RankMesh.gather_carries`) for a save and for the result;
+at the end, unless the fetch streamed, the post-hoc fetch on each rank's
+pair slice, its link panels gathered to rank 0 (:meth:`RankMesh.fetch`).
+A resume scatters the one file's global leaves into each rank's block
+(:meth:`RankMesh.local_leaves`); a warm start grafts the donor's global
+leaves into it (:func:`leaf_block`).  On the card the sweep's collectives
+are issued inside the CUDA graphs of the trips (NCCL ops are capturable;
+the trips' first meeting is eager, which creates the communicators) and
+each is counted into ``ops/cuda_lib.COLLECTIVES`` as a kernel launch is.
 
 Process hygiene: every rank dies with its parent (``PR_SET_PDEATHSIG``),
 runs one thread of intra-op parallelism (the CPU mesh shares its cores),
@@ -242,15 +248,13 @@ class RankMesh:
                         carry, [v[r] for v in leaves])
         return out if self.rank == 0 else None
 
-    def _pool(self, accs: list) -> Optional[torch.Tensor]:
-        """This rank's pair slice of ``accs`` (its chains' accumulators)
-        summed over every chain in chain order, as the one-device fetch
-        sums them, on the chain row 0 rank of its shard block (consumed:
-        summed in place); None on the ranks of the other rows.  A packed
-        grid holds one chain a row, so the rows fold in chain order."""
-        acc = accs[0]
-        for a in accs[1:]:
-            acc += a
+    def _pool_rows(self, acc: torch.Tensor) -> Optional[torch.Tensor]:
+        """``acc``, this rank's pair slice summed over its own chains in
+        chain order, summed over the chain rows in row order, as the
+        one-device fetch sums every chain, on the chain row 0 rank of its
+        shard block (consumed: summed in place); None on the ranks of the
+        other rows.  A packed grid holds one chain a row, so the rows fold
+        in chain order."""
         lay = self.layout
         if lay.rows == 1:
             return acc
@@ -279,22 +283,25 @@ class RankMesh:
                     group=self._row)
         return out[:keep]
 
-    def fetch(self, carries: list, inv_count, bessel, mode: str,
-              want_sd: bool) -> Optional[tuple]:
-        """The post-hoc fetch of the mesh's posterior panels: each shard
-        block's pair slice pooled over the chains (:meth:`_pool`), scaled
-        and cast for the link there by runtime/fetch.fetch_prep and
-        fetch_sd_prep (whose arithmetic is per panel, so a slice gives the
-        one-device fetch's bytes), and the slices gathered to rank 0 in
-        pair order, the padding past the g(g+1)/2 kept panels dropped.
-        Returns on rank 0 ``(mean, sd or None)`` as the one-device fetch
-        forms them on its device - ``(int8 panels, scales)`` under quant8,
-        else the link-dtype panels; None on the other ranks.  Consumes
-        the carries' accumulators."""
+    def link_panels(self, acc: torch.Tensor, acc_sq: Optional[torch.Tensor],
+                    inv_count, bessel, mode: str) -> Optional[tuple]:
+        """The mesh's posterior panels for the link from ``acc`` (and the
+        second moments ``acc_sq``, or None), each this rank's pair slice
+        summed over its own chains: pooled over the chain rows
+        (:meth:`_pool_rows`), scaled and cast for the link on each shard
+        block's row 0 rank by runtime/fetch.fetch_prep and fetch_sd_prep
+        (whose arithmetic is per panel, so a slice gives the one-device
+        fetch's bytes), and the slices gathered to rank 0 in pair order,
+        the padding past the g(g+1)/2 kept panels dropped.  Returns on
+        rank 0 ``(mean, sd or None)`` as the one-device fetch forms them
+        on its device - ``(int8 panels, scales)`` under quant8, else the
+        link-dtype panels; None on the other ranks.  Consumes ``acc`` and
+        ``acc_sq``.  Every rank calls it at the same place: the post-hoc
+        fetch after the chain, and each streamed snapshot at its boundary,
+        from the main thread."""
         lay = self.layout
-        acc = self._pool([c.sigma_acc for c in carries])
-        acc_sq = (self._pool([c.sigma_sq_acc for c in carries])
-                  if want_sd else None)
+        acc = self._pool_rows(acc)
+        acc_sq = None if acc_sq is None else self._pool_rows(acc_sq)
         if acc is None:
             return None
         C, ql = lay.num_chains, lay.local_pairs
@@ -312,6 +319,22 @@ class RankMesh:
         mean = gather(mean)
         sd = None if sd is None else gather(sd)
         return None if self.rank else (mean, sd)
+
+    def fetch(self, carries: list, inv_count, bessel, mode: str,
+              want_sd: bool) -> Optional[tuple]:
+        """The post-hoc fetch of the mesh's posterior panels
+        (:meth:`link_panels`) from the carries' accumulators, which it
+        consumes: each rank's chains are summed in place into the first
+        chain's."""
+        def summed(accs):
+            for a in accs[1:]:
+                accs[0] += a
+            return accs[0]
+
+        return self.link_panels(
+            summed([c.sigma_acc for c in carries]),
+            summed([c.sigma_sq_acc for c in carries]) if want_sd else None,
+            inv_count, bessel, mode)
 
     def local_leaves(self, leaves: dict) -> dict:
         """A checkpoint's global leaves (the chain-axis convention of C
@@ -395,6 +418,31 @@ class RankMesh:
             dist.destroy_process_group()
         if self.tmpdir:
             shutil.rmtree(self.tmpdir, ignore_errors=True)
+
+
+def leaf_block(layout: RankLayout, name: str, local: np.ndarray) -> tuple:
+    """A rank's block of the global state leaf ``name`` (the chain-axis
+    convention of C chains): ``(block, origin, shape)``, where ``block``
+    is ``local`` (the convention of the rank's c_loc chains) with the
+    global leaf's axes - a length-1 chain axis where the global leaf has
+    one and the rank runs one chain - ``origin`` its first index in the
+    global leaf and ``shape`` the global leaf's shape.
+    :meth:`RankMesh.local_leaves` takes this block out of a global leaf;
+    a warm start grafts a donor's global leaf into it
+    (runtime/resume.graft_block)."""
+    block, origin, shape = np.asarray(local), [], []
+    if layout.num_chains > 1:
+        if len(layout.chains) == 1:
+            block = block[None]
+        origin.append(layout.chains.start)
+        shape.append(layout.num_chains)
+    rest = list(block.shape[len(origin):])
+    if name not in _REPLICATED:
+        origin.append(layout.shard_offset)
+        shape.append(layout.num_shards)
+        rest = rest[1:]
+    return (block, tuple(origin) + (0,) * len(rest),
+            tuple(shape) + tuple(rest))
 
 
 def _init_group(device: torch.device, store_path: str, rank: int,

@@ -35,6 +35,14 @@ appends its end event to the carry's ``readers``; the runner waits for
 those events before it writes the carry again.  No snapshot runs inside a
 capture: they all run between chunks.
 
+On the shard mesh (parallel/shard.RankMesh) every rank runs the loop on
+its own chains and block, and every decision that changes what the ranks
+do next is one for all of them: the resume's (each rank reads the same
+file), the warm start's (runtime/resume), the sentinel's and the early
+stop's (reduced statistics, gathered traces), the saves' and each streamed
+boundary's (rank 0's, broadcast).  An elastic grow's new chains are drawn
+by each rank on its own block once the adopted file is scattered.
+
 Flight recorder (obs/): the loop emits the JAX package's events at each
 boundary - ``chunk`` (one per boundary for all the chains, its ``dur_s``
 the boundary's existing host clock), ``early_stop``, ``sentinel_trip``,
@@ -67,7 +75,6 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from dcfm_tpu_torch.config import _MESH, _refuse
 from dcfm_tpu_torch.models.sampler import (
     ChainCarry, ChainStats, DrawBuffers, num_saved_draws)
 from dcfm_tpu_torch.models.state import SamplerState
@@ -253,14 +260,32 @@ class StreamingFetcher:
     / ``land_sd`` are landing buffers for the drained int8 panels (the
     serve artifact's writable memmaps, serve/artifact.
     begin_streamed_artifact); without them the drain's own host arrays
-    are kept."""
+    are kept.
+
+    On the shard mesh (``mesh``: parallel/shard.RankMesh) every rank
+    keeps one: each boundary's decision is rank 0's, broadcast
+    (:meth:`RankMesh.decide`: only rank 0 drains, so only its slots
+    count); a snapshot sums the rank's chains into the streamer's own
+    buffers, and :meth:`RankMesh.link_panels` pools them over the chain
+    rows, quantizes each pair slice and gathers the int8 slices and
+    scales to rank 0 in pair order - the post-hoc mesh fetch's
+    computation on the same sums, so the panels are its bytes.  Those
+    collectives are issued by the main thread at the boundary, on the
+    chain's stream (NCCL orders a communicator's work, the sweep's
+    captured collectives included, by its issue on each rank); the drain
+    thread only copies rank 0's panels to the host and lands them, and
+    the other ranks never queue a job.  A stream that fails on the mesh
+    raises: the post-hoc fetch is collective, so no rank falls back to it
+    alone."""
 
     def __init__(self, inv_count, num_chains: int, g: int, *,
                  bessel=None, land_mean: Optional[np.ndarray] = None,
                  land_sd: Optional[np.ndarray] = None,
-                 max_inflight: int = 2):
+                 max_inflight: int = 2, mesh=None):
         self._inv_count, self._bessel = inv_count, bessel
         self._C, self._g = num_chains, g
+        self._mesh = mesh
+        self._leader = mesh is None or mesh.rank == 0
         self._buf: Optional[torch.Tensor] = None
         self._buf_sq: Optional[torch.Tensor] = None
         self.land_mean, self.land_sd = land_mean, land_sd
@@ -307,19 +332,35 @@ class StreamingFetcher:
             buf += a
         return buf
 
+    def _take_slot(self, final: bool) -> bool:
+        """A slot for this boundary's snapshot, or False (skipped).  A
+        non-final boundary never blocks; the final one waits for a slot.
+        On the mesh rank 0 takes the slot and its decision is every
+        rank's."""
+        if self._mesh is not None and self.failed:
+            raise RuntimeError("the streamed fetch's drain failed on the "
+                               "mesh") from self._error
+        if self.failed:
+            return False
+        if final:
+            if self._leader:
+                t = time.perf_counter()
+                self._slots.acquire()
+                self.final_wait_s = time.perf_counter() - t
+            return True
+        got = self._leader and self._slots.acquire(blocking=False)
+        if self._mesh is not None:
+            (got,) = self._mesh.decide(got)
+        if not got:
+            self.skipped += 1
+        return got
+
     def submit(self, carries: list, *, final: bool = False) -> bool:
         """Dispatch one boundary's snapshot: the chain-order sums, the
         quant8 preps and the start of their drains.  A non-final submit
         never blocks: with every slot busy the boundary is skipped (False).
         The final submit waits for a slot."""
-        if self.failed:
-            return False
-        if final:
-            t = time.perf_counter()
-            self._slots.acquire()
-            self.final_wait_s = time.perf_counter() - t
-        elif not self._slots.acquire(blocking=False):
-            self.skipped += 1
+        if not self._take_slot(final):
             return False
         try:
             accs = [c.sigma_acc for c in carries]
@@ -327,7 +368,7 @@ class StreamingFetcher:
             sqs = None if sqs[0] is None else sqs
             dev = accs[0].device
             side = None
-            if dev.type == "cuda":
+            if dev.type == "cuda" and self._mesh is None:
                 side = _fetch_stream(dev)
                 side.wait_stream(torch.cuda.current_stream(dev))
             with (torch.cuda.stream(side) if side is not None
@@ -340,19 +381,30 @@ class StreamingFetcher:
                     read.record(side)
                     for c in carries:
                         c.readers.append(read)
-                q, scale = fetch_prep(self._buf, self._C, self._g,
-                                      self._inv_count, "quant8")
-                started = quant8_start(q, scale)
-                sd_started = None
-                if sqs is not None:
-                    sd_started = quant8_start(*fetch_sd_prep(
-                        self._buf_sq, self._buf[:q.shape[0]], self._C,
-                        self._inv_count, self._bessel, "quant8"))
+                started = sd_started = None
+                if self._mesh is None:
+                    q, scale = fetch_prep(self._buf, self._C, self._g,
+                                          self._inv_count, "quant8")
+                    started = quant8_start(q, scale)
+                    if sqs is not None:
+                        sd_started = quant8_start(*fetch_sd_prep(
+                            self._buf_sq, self._buf[:q.shape[0]], self._C,
+                            self._inv_count, self._bessel, "quant8"))
+                else:
+                    link = self._mesh.link_panels(
+                        self._buf, self._buf_sq, self._inv_count,
+                        self._bessel, "quant8")
+                    if link is not None:            # rank 0
+                        started = quant8_start(*link[0])
+                        if link[1] is not None:
+                            sd_started = quant8_start(*link[1])
         except BaseException:
-            self._slots.release()      # a later final submit waits on it
+            if self._leader:
+                self._slots.release()   # a later final submit waits on it
             raise
         self.snapshots += 1
-        self._queue.put(_StreamJob(started, final, accs, sd_started))
+        if self._leader:
+            self._queue.put(_StreamJob(started, final, accs, sd_started))
         return True
 
     def finish(self) -> dict:
@@ -501,14 +553,24 @@ def run_chain(*, cfg, model, run, phase: dict, fingerprint, template: dict,
     m_active = model
     runner = make_runner(m_active, lineage)
 
+    # an elastic grow's new chains on the mesh: {global chain: lineage},
+    # drawn by each rank on its own block once the file is scattered
+    born: dict = {}
+
     def birth(c, elastic_lineage):
         # an elastic grow's new chain: its initial state on the bumped
-        # lineage, as host leaves
-        if mesh is not None:
-            _refuse("an elastic resume that grows the chain count on the "
-                    "shard mesh", _MESH)
-        return Snapshot([runner.new_chain(c, elastic_lineage)],
-                        state_only=False).wait()
+        # lineage, as host leaves.  On the mesh a rank holds only its
+        # block of a chain, so the adoption takes zeros of the global
+        # shapes here, and every rank replaces its block of each birth
+        # with its own runner.new_chain draw after the scatter (below):
+        # noise.ShardSliceNoise makes that block the slice of the
+        # one-device birth
+        if mesh is None:
+            return Snapshot([runner.new_chain(c, elastic_lineage)],
+                            state_only=False).wait()
+        born[c] = elastic_lineage
+        return {k: np.zeros(shape[1:], dtype)
+                for k, (shape, dtype) in template.items()}
 
     acc_shape = template["sigma_acc"][0][-3:]
     y_imp_shape = (template["y_imp_acc"][0][-3:] if "y_imp_acc" in template
@@ -539,7 +601,7 @@ def run_chain(*, cfg, model, run, phase: dict, fingerprint, template: dict,
         return fresh
 
     rctx = ResumeContext(cfg=cfg, fingerprint=fingerprint, template=template,
-                         birth=birth, fresh=new_chains)
+                         birth=birth, fresh=new_chains, mesh=mesh)
     leaves, done, acc_start = resume_state(rctx)
     if leaves is None:
         carries = list(new_chains())
@@ -547,6 +609,12 @@ def run_chain(*, cfg, model, run, phase: dict, fingerprint, template: dict,
             graft_into(carries, rctx.warm)
     else:
         carries = from_leaves(leaves)
+        for i, c in enumerate(chains):
+            if c in born:
+                # the birth's initial carry with the adopted file's
+                # iteration (its accumulators start at zero either way)
+                carries[i] = dataclasses.replace(
+                    runner.new_chain(c, born[c]), iteration=done)
     del leaves
     fresh.clear()       # a rewind must be able to free the first carries
     _sync(device)
@@ -736,6 +804,8 @@ def run_chain(*, cfg, model, run, phase: dict, fingerprint, template: dict,
                         else:
                             record("stream_skip", iteration=it_now)
                     except Exception as e:  # the stream is an optimization: the post-hoc fetch serves
+                        if mesh is not None:
+                            raise   # collective: no rank falls back alone
                         warnings.warn(
                             f"streamed fetch dispatch failed ({e!r}); "
                             "disabling streaming for this run - the "

@@ -24,8 +24,10 @@ thread into its divisor and its saves (and in ``ResumeContext.warm`` the
 grafted state of a warm start).  Every decision is a flight-recorder event
 (obs/recorder.py), as in the JAX package: ``resume_decision`` (fresh,
 resume, light, sidecar, elastic), ``elastic_resume`` (elastic, refused)
-and ``warm_start`` (warm, or cold with the reason).  Still refused:
-multi-process ``.procK-of-N`` sets (ROADMAP Queue A item 7).
+and ``warm_start`` (warm, or cold with the reason).  On the shard mesh
+every rank runs the gates (``ResumeContext.mesh``).  Still refused:
+multi-process ``.procK-of-N`` sets (ROADMAP Queue A item 7,
+:func:`refuse_multiprocess_sets`).
 
 Fault seams (resilience/faults.py ``kill_event``): the elastic window's
 ``elastic_gate`` / ``elastic_fold`` / ``elastic_fold_post`` where the JAX
@@ -56,6 +58,7 @@ import torch
 from dcfm_tpu_torch.config import _OUTER, FitConfig
 from dcfm_tpu_torch.models.sampler import num_saved_draws
 from dcfm_tpu_torch.obs.recorder import record
+from dcfm_tpu_torch.parallel.shard import leaf_block
 from dcfm_tpu_torch.resilience.faults import fault_event
 from dcfm_tpu_torch.utils.checkpoint import (
     _chain_tensors, _open, _read_leaf, checkpoint_compatible,
@@ -93,17 +96,23 @@ class ResumeContext:
     ``fresh()``, the chains' initial carries on the fit's device (the
     same carries on every call: a warm start grafts into them).
 
+    ``mesh`` is the shard mesh's rank (parallel/shard.RankMesh) when the
+    fit runs on one: every rank runs the gates on the same files, so they
+    decide alike, and a warm start's graft is the rank's block of the
+    global graft, decided once for the mesh.
+
     ``elastic`` and ``warm`` are OUT fields: the resumed file's elastic
     bookkeeping (a fresh adoption, or a file saved after one), else None;
     the grafted state leaves of a warm start (``{leaf: host array}``, the
-    chain-axis convention), which the caller writes into ``fresh()``'s
-    carries, else None."""
+    chain-axis convention of the chains ``fresh()`` returns), which the
+    caller writes into ``fresh()``'s carries, else None."""
 
     cfg: FitConfig
     fingerprint: Optional[str]
     template: dict
     birth: Optional[Callable[[int, int], dict]] = None
     fresh: Optional[Callable[[], list]] = None
+    mesh: Optional[object] = None
     elastic: Optional[ElasticResume] = None
     warm: Optional[dict] = None
 
@@ -147,7 +156,8 @@ def _light_carryover(meta: dict, cfg: FitConfig,
 
 def refuse_multiprocess_sets(path: str) -> None:
     """Refuse ``path``'s ``.procK-of-N`` sets by name (resume and export
-    read single-process files only)."""
+    read single-process files only): ``api.fit`` calls it before any work
+    when it resumes, and ``serve/artifact.export_from_checkpoint``."""
     d = os.path.dirname(os.path.abspath(path)) or "."
     if not os.path.isdir(d):
         return
@@ -339,25 +349,41 @@ def _warm_incompatible(meta: dict, cfg: FitConfig) -> Optional[str]:
     return None
 
 
-def _graft_state_leaf(old: np.ndarray, fresh: np.ndarray) -> np.ndarray:
-    """One donor state leaf grafted into its fresh-init counterpart (the
-    JAX package's rule): equal shapes give the donor's bytes verbatim; a
-    fresh leaf grown along some axes (appended rows grow n, new shards
-    grow G) takes the donor in its origin block and keeps its fresh init
-    in the grown region; a shrunk or reshaped leaf raises (the caller's
-    cold fallback)."""
-    f_shape = tuple(np.shape(fresh))
-    dtype = np.dtype(fresh.dtype)
-    if old.shape == f_shape:
-        return np.asarray(old, dtype=dtype)  # dcfm: ignore[DCFM801] - donor npz bytes already on the host, not a device fetch
-    if (old.ndim != len(f_shape)
-            or any(o > f for o, f in zip(old.shape, f_shape))):
+def graft_block(old: np.ndarray, block: np.ndarray, origin: tuple,
+                shape: tuple) -> np.ndarray:
+    """One donor state leaf ``old`` grafted into a fresh leaf of ``shape``
+    (the JAX package's rule), as its block at ``origin``: ``block`` is
+    that block of the fresh leaf.  The donor takes the fresh leaf's origin
+    block - all of it when the shapes are equal - and the fresh init stays
+    in the grown region (appended rows grow n, new shards grow G); a
+    shrunk or reshaped leaf raises (the caller's cold fallback).  The
+    shard mesh grafts each rank's block this way (parallel/shard.
+    leaf_block), so the blocks of every rank make up the one-device
+    graft."""
+    dtype = np.dtype(block.dtype)
+    if (old.ndim != len(shape)
+            or any(o > f for o, f in zip(old.shape, shape))):
         raise ValueError(
             f"donor state leaf {old.shape} does not embed in fresh "
-            f"{f_shape} - data shrank or layout changed")
-    out = np.array(fresh, dtype=dtype)  # dcfm: ignore[DCFM801] - the fresh leaf is a host array (host_state), not a device fetch
-    out[tuple(slice(0, s) for s in old.shape)] = old.astype(dtype)
+            f"{tuple(shape)} - data shrank or layout changed")
+    if old.shape == tuple(block.shape) and not any(origin):
+        return np.asarray(old, dtype=dtype)  # dcfm: ignore[DCFM801] - donor npz bytes already on the host, not a device fetch
+    out = np.array(block, dtype=dtype)  # dcfm: ignore[DCFM801] - the fresh leaf is a host array (host_state), not a device fetch
+    src, dst = [], []
+    for o, lo, b in zip(old.shape, origin, out.shape):
+        hi = min(lo + b, o)
+        if hi <= lo:
+            return out              # the donor does not reach this block
+        src.append(slice(lo, hi))
+        dst.append(slice(0, hi - lo))
+    out[tuple(dst)] = old[tuple(src)].astype(dtype)
     return out
+
+
+def _graft_state_leaf(old: np.ndarray, fresh: np.ndarray) -> np.ndarray:
+    """One donor state leaf grafted into its whole fresh-init counterpart
+    (:func:`graft_block` on one device)."""
+    return graft_block(old, fresh, (0,) * np.ndim(fresh), np.shape(fresh))
 
 
 def host_state(carries: list, names: tuple) -> dict:
@@ -381,11 +407,10 @@ def graft_into(carries: list, leaves: dict) -> None:
                 a[c] if len(carries) > 1 else a)))
 
 
-def _try_warm_start(ctx: ResumeContext) -> bool:
-    """The warm-start seam (``FitConfig.warm_start``): graft the donor
-    checkpoint's sampler state into the fresh chains' state, into
-    ``ctx.warm``; True when it did.  Never raises: any failure is a
-    recorded cold start (False).
+def _warm_graft(ctx: ResumeContext) -> tuple:
+    """The graft of the donor checkpoint (``FitConfig.warm_start``) into
+    the fresh chains' state: ``(grafted leaves or None, the warm_start
+    event's fields)``.  Never raises: any failure is a cold start.
 
     Only the state grafts - accumulators, iteration and health start
     fresh (a new run over new data).  The state leaves are the first
@@ -393,48 +418,70 @@ def _try_warm_start(ctx: ResumeContext) -> bool:
     it is grafted.  A donor with more chains seeds from its first rows; a
     donor with fewer leaves the extra chains on their fresh init (the
     origin-block graft).  Lambda's (P, K) must agree (per-shard width and
-    rank never graft); n and G may grow."""
+    rank never graft); n and G may grow.  On the shard mesh each rank
+    grafts its block of every global leaf (:func:`graft_block` at
+    ``parallel/shard.leaf_block``'s origin), in the global chain and shard
+    coordinates of the one-device graft."""
     cfg, ws = ctx.cfg, ctx.cfg.warm_start
     try:
         meta = read_checkpoint_meta(ws.checkpoint)
         reason = _warm_incompatible(meta, cfg)
         if reason is not None:
-            record("warm_start", decision="cold", reason=reason,
-                   checkpoint=ws.checkpoint)
-            return False
+            return None, {"decision": "cold", "reason": reason}
         names = state_leaf_names(cfg.model)
         fresh = host_state(ctx.fresh(), names)
+        blocks = {k: (fresh[k], (0,) * fresh[k].ndim, fresh[k].shape)
+                  if ctx.mesh is None
+                  else leaf_block(ctx.mesh.layout, k, fresh[k])
+                  for k in names}
         donor_chains = config_from_checkpoint_meta(meta).run.num_chains
         C = cfg.run.num_chains
         chain_slice = C if donor_chains > C else None
         grafted, verbatim = {}, 0
         with _open(ws.checkpoint) as z:
-            lam, f_lam = z["leaf_0"], fresh["Lambda"]
-            if lam.ndim != f_lam.ndim or lam.shape[-2:] != f_lam.shape[-2:]:
-                record("warm_start", decision="cold",
-                       reason=(f"donor Lambda {lam.shape} vs fresh "
-                               f"{f_lam.shape}: per-shard feature width / "
-                               "rank mismatch"),
-                       checkpoint=ws.checkpoint)
-                return False
+            lam, f_lam = z["leaf_0"], blocks["Lambda"][2]
+            if lam.ndim != len(f_lam) or lam.shape[-2:] != f_lam[-2:]:
+                return None, {
+                    "decision": "cold",
+                    "reason": (f"donor Lambda {lam.shape} vs fresh "
+                               f"{tuple(f_lam)}: per-shard feature width "
+                               "/ rank mismatch")}
             for i, name in enumerate(names):
                 arr = _read_leaf(z, meta, f"leaf_{i}", ws.checkpoint)
                 if chain_slice is not None:
                     arr = arr[:chain_slice]
-                grafted[name] = _graft_state_leaf(arr, fresh[name])
-                verbatim += int(arr.shape == fresh[name].shape)
-        ctx.warm = grafted
-        record("warm_start", decision="warm", checkpoint=ws.checkpoint,
-               donor_iteration=int(meta["iteration"]),
-               relineage=ws.relineage, leaves=len(grafted),
-               verbatim_leaves=verbatim)
-        return True
+                grafted[name] = graft_block(arr, *blocks[name]).reshape(
+                    fresh[name].shape)
+                verbatim += int(arr.shape == tuple(blocks[name][2]))
+        return grafted, {"decision": "warm",
+                         "donor_iteration": int(meta["iteration"]),
+                         "relineage": ws.relineage, "leaves": len(grafted),
+                         "verbatim_leaves": verbatim}
     except Exception as e:
         # a warm start is best-effort by contract: any failure is a
         # recorded cold start
-        record("warm_start", decision="cold",
-               reason=f"{type(e).__name__}: {e}", checkpoint=ws.checkpoint)
-        return False
+        return None, {"decision": "cold", "reason": f"{type(e).__name__}: {e}"}
+
+
+def _try_warm_start(ctx: ResumeContext) -> bool:
+    """The warm-start seam (``FitConfig.warm_start``): :func:`_warm_graft`
+    into ``ctx.warm``, recorded as the ``warm_start`` event; True when it
+    grafted.  Never raises: any failure is a recorded cold start (False).
+    On the shard mesh the decision is one for every rank - warm only when
+    every rank grafted its block, else cold on all of them (one rank's
+    cold start would run another chain on its block) - and the event is
+    rank 0's record."""
+    grafted, event = _warm_graft(ctx)
+    if ctx.mesh is not None:
+        cold = int(ctx.mesh.total(float(grafted is None)))
+        if cold and grafted is not None:
+            grafted = None
+            event = {"decision": "cold",
+                     "reason": (f"{cold} of the mesh's {ctx.mesh.world} "
+                                "ranks could not graft the donor")}
+    ctx.warm = grafted
+    record("warm_start", checkpoint=ctx.cfg.warm_start.checkpoint, **event)
+    return grafted is not None
 
 
 def _fresh(ctx: ResumeContext):
@@ -456,7 +503,6 @@ def resume_state(ctx: ResumeContext):
         return _fresh(ctx)
     auto = cfg.resume == "auto"
     path = cfg.checkpoint_path
-    refuse_multiprocess_sets(path)
     if not os.path.exists(path):
         if not auto:
             raise FileNotFoundError(f"resume=True but no checkpoint at {path}")

@@ -525,11 +525,11 @@ def fit_provenance(cfg: FitConfig, source: str) -> dict:
 
 
 def _exportable(cfg: FitConfig, n: int, p: int) -> None:
-    """Refuse a checkpoint whose config the port cannot represent, naming
-    the knob's Queue A item: the checks and refusals of a fit of the
-    file's model, schedule and backend (``config.validate``).  What only
-    steered the run that wrote the file (resume, cadence, stream_artifact,
-    warm_start) is not the export's business."""
+    """Refuse a checkpoint whose config is not a valid fit: the checks of
+    a fit of the file's model, schedule and backend (``config.validate``'s
+    ValueErrors).  What only steered the run that wrote the file (resume,
+    cadence, the mesh, stream_artifact, warm_start) is not the export's
+    business."""
     validate(FitConfig(model=cfg.model, run=cfg.run, backend=cfg.backend,
                        permute=cfg.permute, standardize=cfg.standardize,
                        pad_to_shards=cfg.pad_to_shards), n, p)

@@ -169,14 +169,14 @@ def test_export_refuses_what_the_jax_package_refuses(tmp_path):
 
 
 def test_export_refuses_a_config_the_port_cannot_represent(tmp_path):
-    """A JAX-written file of a knob the port does not run is refused
-    naming its Queue A item (the horseshoe prior, draw storage and the
-    chunked combine this test used are ported, see
-    tests/test_torch_adapt.py, tests/test_torch_draws.py and
-    tests/test_torch_combine_chunks.py, and so is the shard mesh: a
-    ``mesh_devices=2`` file exports, while one whose mesh forced the
-    streamed fetch, which the port's mesh does not run, is refused naming
-    item 4); a missing file is a FileNotFoundError."""
+    """A JAX-written file the port cannot represent is refused naming its
+    Queue A item (the horseshoe prior, draw storage and the chunked
+    combine this test used are ported, see tests/test_torch_adapt.py,
+    tests/test_torch_draws.py and tests/test_torch_combine_chunks.py, and
+    so is the shard mesh with its streamed fetch: a ``mesh_devices=2``
+    file exports, one whose mesh forced the streamed fetch too); a file
+    beside a multi-process ``.procK-of-N`` set is refused naming item 7;
+    a missing file is a FileNotFoundError."""
     path = str(tmp_path / "cc.npz")
     dcfm_tpu.fit(_data(), dataclasses.replace(
         _cfg(dcfm_tpu, sd=False, backend={"mesh_devices": 2}),
@@ -186,7 +186,9 @@ def test_export_refuses_a_config_the_port_cannot_represent(tmp_path):
         _cfg(dcfm_tpu, sd=False, backend={
             "mesh_devices": 2, "fetch_dtype": "quant8",
             "fetch_stream": "on"}), checkpoint_path=path))
-    with pytest.raises(NotImplementedError, match="Queue A item 4"):
+    tart.export_from_checkpoint(path, _data(), str(tmp_path / "stream"))
+    open(path + ".proc1-of-2", "wb").close()
+    with pytest.raises(NotImplementedError, match="Queue A item 7"):
         tart.export_from_checkpoint(path, _data(), str(tmp_path / "a"))
     with pytest.raises(FileNotFoundError):
         tart.export_from_checkpoint(str(tmp_path / "none.npz"), _data(),

@@ -223,9 +223,12 @@ def _names_a_queue_a_item(message: str) -> bool:
 # invalid values are test_scenario_knob_values_are_refused_as_in_the_jax_
 # package's and test_invalid_values_are_value_errors_in_both_packages's)
 #
-# The shard mesh (mesh_devices > 1) is ported too: each case now pairs its
-# ported knobs with a knob the mesh still refuses - the forced streamed
-# fetch or a warm start - which is refused on the mesh only, naming item 4
+# The shard mesh (mesh_devices > 1) is ported too, with the forced
+# streamed fetch, warm starts and elastic grows on it: what is still
+# refused is the multi-process layer (item 7), so each case now pairs its
+# ported knobs with a resume from a multi-process checkpoint set
+# (``.procK-of-N``), refused before any work - on the mesh before its
+# ranks start
 _ON_MESH = {"mesh_devices": 2, "fetch_dtype": "quant8", "fetch_stream": "on"}
 
 
@@ -239,15 +242,19 @@ _ON_MESH = {"mesh_devices": 2, "fetch_dtype": "quant8", "fetch_stream": "on"}
     ({"prior": "horseshoe"}, {}, {"mesh_devices": 4},
      {"warm_start": dcfm_tpu_torch.config.WarmStart("w.npz")}),
 ])
-def test_knobs_outside_the_port_are_refused(model, run, backend, extra):
+def test_knobs_outside_the_port_are_refused(tmp_path, model, run, backend,
+                                            extra):
     """Every knob the port does not run raises, naming the ROADMAP Queue A
     item that will port it (fault C1: the item must exist)."""
     Y, _ = make_synthetic(30, 8, 2, seed=0)
+    path = str(tmp_path / "ck.npz")
+    open(path + ".proc0-of-2", "wb").close()
     cfg = FitConfig(
         model=ModelConfig(num_shards=2, factors_per_shard=2, rho=0.5,
                           **model),
         run=RunConfig(burnin=2, mcmc=2, **run),
-        backend=BackendConfig(**backend), **extra)
+        backend=BackendConfig(**backend), checkpoint_path=path,
+        resume=True, **extra)
     with pytest.raises(NotImplementedError, match="ROADMAP") as e:
         fit(Y, cfg, device="cpu")
     assert _names_a_queue_a_item(str(e.value)), str(e.value)
@@ -335,10 +342,10 @@ def test_every_refusal_names_a_queue_a_item():
     streaming ingest and the chunked combine are ported) does too."""
     cited = [(f, m) for f, m in _refusal_messages()
              if re.search(r"item \d", m)]
-    # items 4 and 7 are still to port (items 5 and 6 are ported: none
-    # cites them)
+    # item 7 is still to port (items 4, 5 and 6 are ported: none cites
+    # them)
     assert {int(re.search(r"item (\d+)", m).group(1))
-            for _, m in cited} == {4, 7}
+            for _, m in cited} == {7}
     for name, message in cited:
         assert _names_a_queue_a_item(message), (name, message)
     import tempfile

@@ -18,7 +18,8 @@ profiled fit bitwise the plain one, its trace naming K1 and K5; the query
 engine on the card bitwise the one on the CPU (entries, blocks, rows,
 intervals, an evicting budget) and one request served by ``serve
 --device cuda``; the shard mesh's rank program as a 1-rank NCCL world,
-bitwise the one-device fit on the f32, bf16 and fused paths.
+bitwise the one-device fit on the f32, bf16 and fused paths, and with the
+streamed quant8 fetch, a warm start and a grow of the chain count.
 
 They need an NVIDIA GPU with nvcc (the kernels are built on first use) and
 skip without one.  They import no JAX, so on the card they run without the
@@ -29,6 +30,7 @@ repo's conftest:
 
 import dataclasses
 import functools
+from unittest import mock
 
 import numpy as np
 import pytest
@@ -392,6 +394,85 @@ def test_the_mesh_runs_on_the_card_the_caller_named(cuda, monkeypatch):
     with pytest.raises(ValueError, match="but only 1 devices visible"):
         fit(Y, dataclasses.replace(cfg, backend=BackendConfig(
             mesh_devices=2)), device=last)
+
+
+def _mesh_knob_cfg(**run):
+    return FitConfig(
+        model=ModelConfig(num_shards=4, factors_per_shard=4, rho=0.9),
+        run=RunConfig(**({"burnin": 20, "mcmc": 20, "thin": 2,
+                          "num_chains": 2, "chunk_size": 10} | run)),
+        backend=BackendConfig(sse_mode="gram", fetch_dtype="quant8"),
+        permute=False)
+
+
+@pytest.mark.parametrize("knob", ["stream", "warm", "grow"])
+def test_a_one_rank_nccl_mesh_streams_warm_starts_and_grows(cuda, tmp_path,
+                                                            knob):
+    """The knobs the mesh once refused, as a 1-rank NCCL world against one
+    device: the streamed quant8 fetch into a serve artifact (the post-hoc
+    fetch's panels, scales and Sigma), a warm start with new shards (2 ->
+    4, decision warm) and a 1-chain file at the burn-in boundary grown to
+    2 chains (the same elastic bookkeeping); Sigma and state bitwise."""
+    import shutil
+
+    from dcfm_tpu_torch.config import WarmStart
+    Y, _ = _small_data()
+    cfg = _mesh_knob_cfg()
+    if knob == "stream":
+        cfg = dataclasses.replace(cfg, stream_artifact=str(tmp_path / "a"),
+                                  backend=dataclasses.replace(
+                                      cfg.backend, fetch_stream="on"))
+        one = fit(Y, dataclasses.replace(cfg, stream_artifact=None,
+                                         backend=dataclasses.replace(
+                                             cfg.backend,
+                                             fetch_stream="off")),
+                  device=cuda)
+    elif knob == "warm":
+        donor = str(tmp_path / "donor.npz")
+        fit(Y[:, :Y.shape[1] // 2], dataclasses.replace(
+            cfg, model=dataclasses.replace(cfg.model, num_shards=2),
+            checkpoint_path=donor), device=cuda)
+        cfg = dataclasses.replace(cfg, warm_start=WarmStart(donor),
+                                  obs=str(tmp_path / "obs"))
+        one = fit(Y, dataclasses.replace(cfg, obs="off"), device=cuda)
+    else:
+        src = str(tmp_path / "burnin.npz")
+        api._fit(Y, dataclasses.replace(
+            _mesh_knob_cfg(mcmc=0, num_chains=1), checkpoint_path=src),
+            cuda, one_rank_mesh=True)
+        for name in ("one", "mesh"):
+            shutil.copy(src, str(tmp_path / f"{name}.npz"))
+        cfg = dataclasses.replace(cfg, resume=True,
+                                  checkpoint_path=str(tmp_path / "mesh.npz"))
+        one = fit(Y, dataclasses.replace(
+            cfg, checkpoint_path=str(tmp_path / "one.npz")), device=cuda)
+    cuda_lib.reset_collective_counts()
+    with mock.patch.object(api, "_fit", functools.partial(
+            api._fit, one_rank_mesh=True)):
+        mesh = fit(Y, cfg, device=cuda)         # the recorder's session
+    np.testing.assert_array_equal(mesh.Sigma, one.Sigma)
+    np.testing.assert_array_equal(mesh._q8_panels, one._q8_panels)
+    np.testing.assert_array_equal(mesh._q8_scales, one._q8_scales)
+    for a, b in zip(sampler.state_leaves(mesh.state),
+                    sampler.state_leaves(one.state), strict=True):
+        assert torch.equal(a, b)
+    assert mesh.kernel_launches == one.kernel_launches
+    assert mesh.graphs["replays"] > 0
+    if knob == "stream":
+        assert mesh.stream_stats["snapshots"] >= 1
+        np.testing.assert_array_equal(
+            PosteriorArtifact.open(cfg.stream_artifact).assemble(),
+            one.Sigma)
+    elif knob == "warm":
+        from dcfm_tpu_torch.obs import run_events
+        assert [e["decision"] for e in run_events(cfg.obs)
+                if e["event"] == "warm_start"] == ["warm"]
+    else:
+        assert mesh.elastic_resume == one.elastic_resume
+        assert mesh.elastic_resume["birthed"] == 1
+    sweeps = 2 * (40 if knob != "grow" else 20)
+    assert cuda_lib.collective_counts() == {"all_reduce": 3 * sweeps,
+                                            "all_gather": 3 * 20}
 
 
 def test_small_fit_runs_both_kernels(cuda):

@@ -335,8 +335,9 @@ def test_a_rank_draws_its_slice_of_the_one_device_chain():
 
 def test_the_mesh_s_refusals_and_checks():
     """Wider than the visible devices, or g not dividing over the ranks:
-    the JAX package's ValueErrors; a knob the mesh does not run yet is
-    refused by name (ROADMAP Queue A item 4), on the mesh only."""
+    the JAX package's ValueErrors.  The forced streamed fetch, once
+    refused on the mesh, streams there as on one device (the JAX
+    package's one-process mesh streams too)."""
     Y, _ = make_synthetic(30, 48, 2, seed=0)
     wide = len(os.sched_getaffinity(0)) + 1
     with pytest.raises(ValueError, match="devices visible .no silent "
@@ -345,12 +346,11 @@ def test_the_mesh_s_refusals_and_checks():
     with pytest.raises(ValueError, match="g=6 shards must divide over 4 "
                                          "mesh devices"):
         dt.fit(Y, _cfg(g=6, mesh=4))
-    with pytest.raises(NotImplementedError, match="Queue A item 4"):
-        dt.fit(Y, _cfg(g=4, mesh=2, backend={"fetch_dtype": "quant8",
-                                              "fetch_stream": "on"}))
-    res = dt.fit(Y, _cfg(g=4, backend={"fetch_dtype": "quant8",
-                                       "fetch_stream": "on"}))
-    assert res.stream_stats is not None
+    forced = {"fetch_dtype": "quant8", "fetch_stream": "on"}
+    mesh = dt.fit(Y, _cfg(g=4, mesh=2, backend=forced))
+    res = dt.fit(Y, _cfg(g=4, backend=forced))
+    assert res.stream_stats is not None and mesh.stream_stats is not None
+    assert mesh.stream_stats["snapshots"] == res.stream_stats["snapshots"]
 
 
 def test_the_mesh_s_cards_count_from_the_caller_s(monkeypatch):

@@ -6,7 +6,10 @@ rank 0 gathers the slices in pair order: the arithmetic is per panel, so
 every ``fetch_dtype`` gives the bytes that a one-device fetch of the same
 accumulators gives - here those of the mesh fit's final checkpoint,
 pooled in chain order - on a packed (chains x shards) grid and with the
-chains on every rank, the posterior SD beside the mean.
+chains on every rank, the posterior SD beside the mean.  Under quant8 the
+mesh streams its fetch ("auto"), and the final snapshot is the same
+computation on the same sums (tests/test_torch_mesh_stream.py holds it
+to the post-hoc fetch).
 """
 
 import numpy as np
