@@ -264,6 +264,21 @@
    ``mesh_devices=2`` refused with the ValueError.  ``python3
    chip_smoke.py --mesh-only`` runs the kernel phase and this step alone
    (with the one-device fits it compares against), with no result line.
+19. The pod (parallel/multihost.py) and its ``.procK-of-N`` sets: (a)
+   the f32 fit's checkpoint at iteration 200 rewritten as the 2-rank set a
+   2-process pod writes (each file's bytes and write seconds beside the
+   plain save's), resumed on the card by a one-device fit - Sigma bitwise
+   the uninterrupted fit's, one ``pod_elastic`` event, K1 and K5 once per
+   resumed sweep - and the finished file exported from a set byte for
+   byte as from the plain file; (b) ``dcfm-tpu-torch fit`` in a pod of one
+   process from the ``DCFM_*`` environment, NCCL on the card, its Sigma
+   file bitwise the same command's without the environment, the
+   rendezvous seconds printed; (c) ``supervise --pod 2`` of a small fit on
+   gloo processes of the machine's CPU through a SIGKILL of process 1,
+   bitwise the unsupervised pod (a card takes one NCCL rank, so pods of
+   2+ processes run on the CPU here and in the tier-1 tests).  ``python3
+   chip_smoke.py --pod-only`` runs the kernel phase and this step alone,
+   with no result line; ``--pod-child ARGS`` is (b)'s child.
 
 Any failed check exits non-zero before the last line.  The line before the
 last is the kernels' JSON record; the last line is
@@ -4966,6 +4981,339 @@ def mesh_phase(torch, dt, cuda_lib, card: str, Y, L, noise, digests: dict,
     return launches
 
 
+POD_RUN = {"burnin": 10, "mcmc": 10}     # step 19c's small CPU fit
+
+
+def write_pod_set(src: str, dst: str, world: int) -> list:
+    """Rewrite the plain checkpoint ``src`` as the ``world``-rank set at
+    ``dst``: each rank's block of every leaf under the pod layout
+    (parallel/mesh.make_pod_layout), written by the port's per-rank writer
+    (utils/checkpoint.save_checkpoint_multiprocess) with the file's
+    bookkeeping - the bytes a ``world``-process pod writes.  Returns
+    ``[(path, bytes, write seconds)]``."""
+    from dcfm_tpu_torch.parallel.mesh import make_pod_layout
+    from dcfm_tpu_torch.parallel.shard import local_leaves
+    from dcfm_tpu_torch.utils import checkpoint as ck
+    meta = ck.verify_checkpoint(src)
+    cfg = ck.config_from_checkpoint_meta(meta)
+    m, C, c = cfg.model, cfg.run.num_chains, FIT
+    leaves, meta = ck.load_checkpoint(src, ck.carry_template(
+        m, n=c["n"], P=-(-c["p"] // c["g"]), num_chains=C))
+    out = []
+    for r in range(world):
+        lay = make_pod_layout(world, r, m.num_shards, C)
+        local = local_leaves(lay, leaves)
+        t = time.perf_counter()
+        ck.save_checkpoint_multiprocess(
+            dst, local, cfg, layout=lay, fingerprint=meta["fingerprint"],
+            state_only=bool(meta.get("state_only")),
+            acc_start=int(meta.get("acc_start", 0)),
+            chain_acc_starts=meta.get("chain_acc_starts"),
+            fold_draws=int(meta.get("fold_draws", 0)),
+            elastic_lineage=int(meta.get("elastic_lineage", 0)),
+            pod_adoptions=int(meta.get("pod_adoptions", 0)))
+        path = ck.proc_path(dst, r, world)
+        out.append((path, os.path.getsize(path), time.perf_counter() - t))
+    return out
+
+
+def same_artifact_files(a: str, b: str) -> None:
+    """Two artifacts: the same panel and meta.json bytes, equal maps."""
+    names = sorted(os.listdir(a))
+    check(names == sorted(os.listdir(b)), f"artifact files {names} != "
+          f"{sorted(os.listdir(b))}")
+    for name in names:
+        if name == "maps.npz":
+            with np.load(os.path.join(a, name)) as x, \
+                    np.load(os.path.join(b, name)) as y:
+                check(sorted(x.files) == sorted(y.files)
+                      and all(np.array_equal(x[k], y[k]) for k in x.files),
+                      "maps.npz arrays differ")
+            continue
+        with open(os.path.join(a, name), "rb") as f, \
+                open(os.path.join(b, name), "rb") as g:
+            check(f.read() == g.read(), f"artifact file {name} differs")
+
+
+def pod_set_phase(torch, dt, cuda_lib, card: str, Y, work: str) -> dict:
+    """(19a) The ``.procK-of-N`` sets on the card: the f32 path (chunks of
+    CKPT_CHUNK) saving at iterations 200 and 400 (cadence 4, two
+    generations kept); its file at 200 rewritten as the 2-rank set a
+    2-process pod writes, each file's bytes and write seconds beside the
+    plain save's; the set resumed by a one-device fit (the host-elastic
+    reshard) - Sigma bitwise the uninterrupted fit's, one ``pod_elastic``
+    event (2 -> 1 hosts, one adoption), K1 and K5 once per resumed sweep;
+    ``export_from_checkpoint`` of the finished file rewritten as a set,
+    byte for byte the plain file's export.  Returns the resume's
+    launches."""
+    from dcfm_tpu_torch.serve.artifact import export_from_checkpoint
+    from dcfm_tpu_torch.utils import checkpoint as ck
+    c = FIT
+    ref_path = os.path.join(work, "pod_ref.npz")
+    ref, _, _ = counted_fit(torch, dt, cuda_lib, ckpt_config(
+        dt, "f32", checkpoint_path=ref_path, checkpoint_every_chunks=4,
+        checkpoint_keep_last=2), Y)
+    ref_digest = sigma_digest(ref.Sigma)
+    del ref
+    gens = {it: p for p, it, err in ck.scan_generations(ref_path)
+            if err is None}
+    check(sorted(gens) == [200, 400], f"(19a) generations {sorted(gens)}")
+    meta = ck.read_checkpoint_meta(gens[200])
+    cfg = ck.config_from_checkpoint_meta(meta)
+    leaves, _ = ck.load_checkpoint(gens[200], ck.carry_template(
+        cfg.model, n=c["n"], P=-(-c["p"] // c["g"]),
+        num_chains=c["chains"]))
+    plain = os.path.join(work, "pod_plain_copy.npz")
+    t = time.perf_counter()
+    ck.save_checkpoint(plain, leaves, cfg, fingerprint=meta["fingerprint"])
+    plain_s = time.perf_counter() - t
+    set_base = os.path.join(work, "pod_set.npz")
+    files = write_pod_set(gens[200], set_base, 2)
+    say("(19a) the iteration-200 checkpoint as a 2-rank set: "
+        + ", ".join(f"{os.path.basename(p)} {b} bytes in {s:.4f} s"
+                    for p, b, s in files)
+        + f"; the plain save {os.path.getsize(plain)} bytes in "
+        f"{plain_s:.4f} s; {card}")
+    obs = os.path.join(work, "pod_obs")
+    res, got, wall = counted_fit(torch, dt, cuda_lib, ckpt_config(
+        dt, "f32", checkpoint_path=set_base, resume=True, obs=obs), Y)
+    digest = sigma_digest(res.Sigma)
+    resumed = c["chains"] * (c["burnin"] + c["mcmc"] - 200)
+    pod = [e for e in outer_events(obs, "pod_elastic")]
+    say(f"(19a) the set resumed on one device: executed "
+        f"{res.traces.shape[1]}, wall {wall:.3f} s, init_s "
+        f"{res.phase_seconds['init_s']:.4f}; sigma {digest[:16]} "
+        f"{'=' if digest == ref_digest else '!='} uninterrupted "
+        f"{ref_digest[:16]}; pod_elastic {json.dumps(pod and {k: pod[0][k] for k in ('from_hosts', 'to_hosts', 'pod_adoptions', 'pair_panels', 'iteration')})}; "
+        f"{card}")
+    check(digest == ref_digest, "(19a) the resumed set is not the "
+          "uninterrupted fit's bits")
+    check(res.traces.shape[1] == 200, f"(19a) executed "
+          f"{res.traces.shape[1]}, expected 200")
+    check(len(pod) == 1 and (pod[0]["from_hosts"], pod[0]["to_hosts"],
+                             pod[0]["pod_adoptions"]) == (2, 1, 1),
+          f"(19a) pod_elastic events {pod}")
+    check_path_launches(got, resumed, "(19a) set resume")
+    del res
+    # the export: the finished file (400) as a plain file and as a set at
+    # one path, so the provenance is the same
+    exp = os.path.join(work, "pod_exp.npz")
+    os.link(ref_path, exp)
+    t = time.perf_counter()
+    export_from_checkpoint(exp, Y, os.path.join(work, "pod_exp_plain"))
+    plain_exp_s = time.perf_counter() - t
+    write_pod_set(exp, exp, 2)
+    os.unlink(exp)
+    t = time.perf_counter()
+    export_from_checkpoint(exp, Y, os.path.join(work, "pod_exp_set"))
+    set_exp_s = time.perf_counter() - t
+    same_artifact_files(os.path.join(work, "pod_exp_plain"),
+                        os.path.join(work, "pod_exp_set"))
+    say(f"(19a) export_from_checkpoint of the finished file as a 2-rank set "
+        f"= the plain file's export byte for byte (panels, meta.json, "
+        f"maps): {set_exp_s:.3f} s against {plain_exp_s:.3f} s; {card}")
+    return got
+
+
+def pod_child(argv: list) -> None:
+    """``--pod-child ARGS``: join the pod of the DCFM_* environment on the
+    card (parallel/multihost.initialize_from_env), then run
+    ``dcfm_tpu_torch.cli`` ARGS in this process (its own rendezvous call
+    is then a no-op); prints the rendezvous seconds, the backend and the
+    kernel launches as one JSON line on stderr."""
+    from dcfm_tpu_torch import cli
+    from dcfm_tpu_torch.ops import cuda_lib
+    from dcfm_tpu_torch.parallel import multihost
+    pid = multihost.initialize_from_env()
+    pod = multihost.pod()
+    cuda_lib.reset_launch_counts()
+    rc = cli.main(argv)
+    say(json.dumps({"pod_child": pid, "backend": pod and pod.backend,
+                    "device": pod and str(pod.device),
+                    "rendezvous_s": pod and pod.rendezvous_s,
+                    "launches": cuda_lib.launch_counts()}), sys.stderr)
+    multihost.shutdown()
+    sys.exit(rc)
+
+
+def free_port(count: int = 1) -> int:
+    """A port p with p .. p + count - 1 free now."""
+    import socket
+    for _ in range(50):
+        s = socket.socket()
+        s.bind(("127.0.0.1", 0))
+        p = s.getsockname()[1]
+        s.close()
+        ok = p + count < 65535
+        for q in range(p + 1, p + count):
+            t = socket.socket()
+            try:
+                t.bind(("127.0.0.1", q))
+            except OSError:
+                ok = False
+            finally:
+                t.close()
+        if ok:
+            return p
+    fail("no run of free ports")
+
+
+def run_procs(cmds: list, work: str, name: str, timeout: float) -> list:
+    """Start every ``(argv, env)`` of ``cmds`` at once from this checkout,
+    wait for all (all killed past ``timeout``), return ``[(exit code,
+    output)]``."""
+    procs, logs = [], []
+    root = os.path.dirname(os.path.abspath(__file__))
+    for i, (argv, env) in enumerate(cmds):
+        log = open(os.path.join(work, f"{name}.{i}.log"), "w+")
+        logs.append(log)
+        procs.append(subprocess.Popen(
+            argv, cwd=root, env=dict(os.environ, **env), stdout=log,
+            stderr=subprocess.STDOUT, stdin=subprocess.DEVNULL))
+    deadline = time.perf_counter() + timeout
+    try:
+        for p in procs:
+            p.wait(timeout=max(deadline - time.perf_counter(), 1.0))
+    except subprocess.TimeoutExpired:
+        pass
+    out = []
+    for p, log in zip(procs, logs):
+        if p.poll() is None:
+            p.kill()
+        p.wait()
+        log.seek(0)
+        out.append((p.returncode, log.read()))
+        log.close()
+    return out
+
+
+def pod_env(port: int, n: int, i: int) -> dict:
+    return {"DCFM_COORDINATOR": f"127.0.0.1:{port}",
+            "DCFM_NUM_PROCESSES": str(n), "DCFM_PROCESS_ID": str(i)}
+
+
+def pod_cli_phase(card: str, Y, work: str) -> dict:
+    """(19b) ``dcfm-tpu-torch fit`` at the north-star width under the pod
+    environment of one process (DCFM_COORDINATOR on a free port,
+    DCFM_NUM_PROCESSES=1, DCFM_PROCESS_ID=0): NCCL on the card, its Sigma
+    file bitwise the same command's without the environment (run side by
+    side), the rendezvous seconds printed.  Returns the pod CLI's
+    launches."""
+    c = FIT
+    data = os.path.join(work, "pod_Y.npy")
+    np.save(data, Y)
+    args = ["fit", data, "--shards", str(c["g"]), "--factors",
+            str(c["g"] * c["K"]), "--rho", str(c["rho"]), "--burnin",
+            str(c["burnin"]), "--mcmc", str(c["mcmc"]), "--thin",
+            str(c["thin"]), "--chains", str(c["chains"]), "--sse-mode",
+            "auto"]
+    me = [sys.executable, os.path.abspath(__file__), "--pod-child"]
+    t = time.perf_counter()
+    (rc_one, log_one), (rc_pod, log_pod) = run_procs([
+        (me + args + ["--out", os.path.join(work, "pod_one.npy")], {}),
+        (me + args + ["--out", os.path.join(work, "pod_env.npy")],
+         pod_env(free_port(), 1, 0))], work, "pod_cli", 300)
+    wall = time.perf_counter() - t
+    check(rc_one == 0 and rc_pod == 0, f"(19b) the CLI fits failed "
+          f"({rc_one}, {rc_pod}): {log_one[-1500:]} {log_pod[-1500:]}")
+    info = [json.loads(line) for line in log_pod.splitlines()
+            if line.startswith('{"pod_child"')][-1]
+    one = np.load(os.path.join(work, "pod_one.npy"))
+    env = np.load(os.path.join(work, "pod_env.npy"))
+    same = bool(np.array_equal(one, env))
+    say(f"(19b) `dcfm-tpu-torch fit` in a 1-process pod: backend "
+        f"{info['backend']} on {info['device']}, rendezvous "
+        f"{info['rendezvous_s']:.4f} s; Sigma {sigma_digest(env)[:16]} "
+        f"{'=' if same else '!='} the one-device CLI's "
+        f"{sigma_digest(one)[:16]}; launches "
+        f"{json.dumps({k: v for k, v in info['launches'].items() if v})}; "
+        f"both CLIs side by side in {wall:.1f} s; {card}")
+    check(info["backend"] == "nccl", f"(19b) backend {info['backend']}")
+    check(same, "(19b) the pod's Sigma file is not the one-device fit's")
+    return info["launches"]
+
+
+def pod_supervise_phase(work: str) -> None:
+    """(19c) ``supervise --pod 2`` of a small fit on gloo processes of this
+    machine's CPU: process 1 SIGKILLed after its save at iteration 10 of
+    launch 1, the pod reaped, relaunched and resumed - its Sigma bitwise
+    an unsupervised 2-process pod's of the same command (run side by
+    side)."""
+    rng = np.random.default_rng(3)
+    Ys = (rng.normal(size=(40, 3)) @ rng.normal(size=(64, 3)).T
+          + 0.3 * rng.normal(size=(40, 64))).astype(np.float32)
+    data = os.path.join(work, "pod_small.npy")
+    np.save(data, Ys)
+    fit = ["fit", data, "--shards", "4", "--factors", "12", "--burnin",
+           str(POD_RUN["burnin"]), "--mcmc", str(POD_RUN["mcmc"]),
+           "--chunk-size", "5", "--backend", "torch_cpu"]
+    cli = [sys.executable, "-m", "dcfm_tpu_torch.cli"]
+    plan = {"faults": [{"op": "kill", "at_iteration": 10,
+                        "when": "post_save", "process": 1,
+                        "at_launch": 1}]}
+    port = free_port()
+    sup_env = {"DCFM_FAULT_PLAN": json.dumps(plan),
+               "DCFM_OBS_DIR": os.path.join(work, "pod_sup_obs")}
+    t = time.perf_counter()
+    out = run_procs(
+        [(cli + fit + ["--out", os.path.join(work, f"pod_u{i}.npy")],
+          pod_env(port, 2, i)) for i in range(2)]
+        + [(cli + ["supervise", "--pod", "2", "--port-base",
+                   str(free_port(3) - 1), "--backoff", "0.05", "--"] + fit
+            + ["--checkpoint", os.path.join(work, "pod_sup.npz"),
+               "--checkpoint-every", "1", "--keep-last", "2", "--out",
+               os.path.join(work, "pod_sup.npy")], sup_env)],
+        work, "pod_sup", 240)
+    wall = time.perf_counter() - t
+    check([rc for rc, _ in out] == [0, 0, 0], f"(19c) exit codes "
+          f"{[rc for rc, _ in out]}: {out[2][1][-2000:]}")
+    report = supervise_json(out[2][1])
+    sup = np.load(os.path.join(work, "pod_sup.npy"))
+    ref = np.load(os.path.join(work, "pod_u0.npy"))
+    same = bool(np.array_equal(sup, ref))
+    say(f"(19c) supervise --pod 2 on gloo processes of this machine's cpu "
+        f"(not the card): launches {report['launches']}, deaths "
+        f"{report['deaths']}, final iteration {report['final_iteration']};"
+        f" Sigma {'=' if same else '!='} the unsupervised cpu pod's; both "
+        f"side by side in {wall:.1f} s")
+    check(report["launches"] == 2 and [d[1] for d in report["deaths"]]
+          == [10], f"(19c) report {report}")
+    check(same, "(19c) the supervised pod is not the unsupervised pod's "
+          "bits")
+    check(not os.path.exists(os.path.join(work, "pod_u1.npy")),
+          "(19c) process 1 of the pod wrote a Sigma file")
+
+
+def pod_phase(torch, dt, cuda_lib, card: str, Y, work: str) -> dict:
+    """(19) The pod (parallel/multihost.py) and its ``.procK-of-N`` sets:
+    (19a) :func:`pod_set_phase`, (19b) :func:`pod_cli_phase`, (19c)
+    :func:`pod_supervise_phase` - 19b and 19c run side by side (19c on the
+    CPU).  Returns the launches of 19a and 19b."""
+    import threading
+    t_step = time.perf_counter()
+    launches = {}
+    cpu = {}
+
+    def cpu_pod():
+        try:
+            pod_supervise_phase(work)
+        except BaseException as e:     # re-raised below
+            cpu["error"] = e
+    th = threading.Thread(target=cpu_pod)
+    th.start()
+    try:
+        launches["19a set resume"] = pod_set_phase(torch, dt, cuda_lib,
+                                                   card, Y, work)
+        say(f"(19a) done at {time.perf_counter() - t_step:.1f} s")
+        launches["19b pod cli"] = pod_cli_phase(card, Y, work)
+    finally:
+        th.join()
+    if "error" in cpu:
+        raise cpu["error"]
+    say(f"(19) pod step: {time.perf_counter() - t_step:.1f} s; {card}")
+    return launches
+
+
 def main() -> None:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     if sys.argv[1:2] == ["--fit-child"]:
@@ -4976,6 +5324,9 @@ def main() -> None:
         return
     if sys.argv[1:2] == ["--counted"]:
         counted(sys.argv[2:])
+        return
+    if sys.argv[1:2] == ["--pod-child"]:
+        pod_child(sys.argv[2:])
         return
     try:
         import torch
@@ -5094,6 +5445,19 @@ def main() -> None:
             shutil.rmtree(work, ignore_errors=True)
         say("mesh phase only: no result is printed")
         return
+    if "--pod-only" in sys.argv[1:]:
+        import shutil
+        import tempfile
+        work = tempfile.mkdtemp(prefix="dcfm_pod_")
+        try:
+            pod = pod_phase(torch, dt, cuda_lib, card, Y, work)
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
+        for path, got in pod.items():
+            say(f"pod launches [{path}]: " + json.dumps(
+                {k: v for k, v in got.items() if v}))
+        say("pod phase only: no result is printed")
+        return
     if "--ingest-only" in sys.argv[1:]:
         import shutil
         import tempfile
@@ -5167,6 +5531,8 @@ def main() -> None:
         mesh = mesh_phase(torch, dt, cuda_lib, card, Y, L, noise, digests,
                           kill_refs["f32"], work, outer_refs)
         say(f"mesh_phase done at {time.perf_counter() - t_start:.1f} s")
+        pod = pod_phase(torch, dt, cuda_lib, card, Y, work)
+        say(f"pod_phase done at {time.perf_counter() - t_start:.1f} s")
     finally:
         shutil.rmtree(work, ignore_errors=True)
     launches["cho_solve"] = k3_path(torch, bs, cuda_lib, rng)["cho_solve"]
@@ -5196,6 +5562,11 @@ def main() -> None:
             {k: v for k, v in got.items() if v}))
     for path, got in mesh.items():
         say(f"mesh launches [{path}]: " + json.dumps(
+            {k: v for k, v in got.items() if v}))
+    for path, got in pod.items():
+        check(got["chol_sample"] > 0 and got["sse_ps"] > 0,
+              f"step 19 [{path}] launched no K1 or K5: {got}")
+        say(f"pod launches [{path}]: " + json.dumps(
             {k: v for k, v in got.items() if v}))
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {

@@ -1,6 +1,6 @@
 """Public API: ``fit`` (config-first) and ``divideconquer`` (reference-shaped).
 
-The port of ``dcfm_tpu/api.py`` for one device and one process.  The flow:
+The port of ``dcfm_tpu/api.py``.  The flow:
 host preprocessing -> the data's upload (``BackendConfig.upload_dtype``)
 -> the chunk loop (runtime/pipeline.run_chain: the chains' states and
 packed covariance accumulators on the device, run chunk-major, with
@@ -67,7 +67,8 @@ from dcfm_tpu_torch.models.state import SamplerState, num_upper_pairs
 from dcfm_tpu_torch.noise import TorchNoise, warm_lineage
 from dcfm_tpu_torch.obs import recorder as obs_recorder
 from dcfm_tpu_torch.ops import cuda_lib
-from dcfm_tpu_torch.parallel.mesh import make_layout
+from dcfm_tpu_torch.parallel import multihost
+from dcfm_tpu_torch.parallel.mesh import make_layout, make_pod_layout
 from dcfm_tpu_torch.parallel.shard import (
     check_mesh_devices, rank_block, start_mesh)
 from dcfm_tpu_torch.runtime.fetch import (
@@ -75,10 +76,10 @@ from dcfm_tpu_torch.runtime.fetch import (
     fetch_prep, fetch_sd_prep, quant8_fetch_assemble,
     quant8_start, upload_data)
 from dcfm_tpu_torch.runtime.pipeline import StreamingFetcher, run_chain
-from dcfm_tpu_torch.runtime.resume import refuse_multiprocess_sets
 from dcfm_tpu_torch.serve.artifact import (
     PosteriorArtifact, begin_streamed_artifact, export_fit_result,
-    finalize_streamed_artifact, fit_provenance)
+    export_fit_result_cooperative, finalize_streamed_artifact,
+    fit_provenance)
 from dcfm_tpu_torch.utils.checkpoint import carry_template, data_fingerprint
 from dcfm_tpu_torch.utils.diagnostics import ess, split_rhat
 from dcfm_tpu_torch.utils.estimate import (
@@ -502,11 +503,20 @@ def fit(Y: np.ndarray, cfg: FitConfig, *, device=None) -> FitResult:
     mesh (parallel/shard.py): N rank processes, this one rank 0, each on
     its block of g / N shards (cards 0 .. N-1 over NCCL, or the CPU over
     gloo), and returns the one result here; ``mesh_devices`` of 0 or 1 is
-    the one-device path, as in the JAX package."""
+    the one-device path, as in the JAX package.
+
+    In a pod (parallel/multihost.initialize: N > 1 processes, each calling
+    ``fit`` with the same ``Y`` and config) this process is one rank of
+    the fit over the whole pod: ``mesh_devices`` must be 0 or N, each rank
+    saves its own ``.procK-of-N`` file, the resume is collective, the
+    fetch is the replicated post-hoc one (``fetch_stream="on"`` warns),
+    a warm start is recorded cold, a ``stream_artifact`` is written
+    cooperatively, and every process returns the same result."""
     obs_dir = _resolve_obs_dir(cfg)
     if obs_dir is None:
         return _fit(Y, cfg, device)
-    rec = obs_recorder.install(obs_recorder.FlightRecorder(obs_dir))
+    rec = obs_recorder.install(obs_recorder.FlightRecorder(
+        obs_dir, process_index=multihost.process_index()))
     try:
         rec.emit("fit_start", shards=cfg.model.num_shards,
                  factors_per_shard=cfg.model.factors_per_shard,
@@ -690,15 +700,38 @@ def _fit(Y: np.ndarray, cfg: FitConfig, device, *,
     device = _resolve_device(cfg.backend, device)
     m, run, be = cfg.model, cfg.run, cfg.backend
     # the shard mesh's ranks (0: the one-device path); a mesh wider than
-    # the visible devices is refused before any work
-    ranks = (1 if one_rank_mesh
-             else (be.mesh_devices if be.mesh_devices > 1 else 0))
-    if cfg.resume and cfg.checkpoint_path:
-        # before any work, on the mesh before its ranks start
-        refuse_multiprocess_sets(cfg.checkpoint_path)
-    if ranks:
-        check_mesh_devices(ranks, device)
-        make_layout(ranks, 0, m.num_shards, run.num_chains)
+    # the visible devices is refused before any work.  In a pod the mesh
+    # spans every process's device (one each), as the JAX package's
+    # multi-process mesh spans every global device
+    world = multihost.process_count()
+    pod = world > 1 and not one_rank_mesh
+    if pod:
+        n_mesh = be.mesh_devices
+        if n_mesh > world:
+            raise ValueError(
+                f"mesh_devices={n_mesh} but only {world} devices visible "
+                "(no silent fallback; set mesh_devices=0 for single-device "
+                "vmap)")
+        n_mesh = n_mesh or world
+        if n_mesh != world:
+            raise ValueError(
+                f"multi-process runs must span all {world} global devices "
+                f"(got mesh_devices={n_mesh}); partial multi-host meshes "
+                "would leave idle processes deadlocked in collectives")
+        where = multihost.pod()
+        if where.device.type != device.type:
+            raise ValueError(
+                f"the pod's process group runs {where.backend} on "
+                f"{where.device.type}, but this fit asks for "
+                f"{device.type}")
+        ranks = world
+        make_pod_layout(world, 0, m.num_shards, run.num_chains)
+    else:
+        ranks = (1 if one_rank_mesh
+                 else (be.mesh_devices if be.mesh_devices > 1 else 0))
+        if ranks:
+            check_mesh_devices(ranks, device)
+            make_layout(ranks, 0, m.num_shards, run.num_chains)
     # thread the backend's sweep knobs into the internal model config, as
     # the JAX package does
     m = dataclasses.replace(m, sse_mode=be.sse_mode,
@@ -727,11 +760,19 @@ def _fit(Y: np.ndarray, cfg: FitConfig, device, *,
     g, C, mode = m.num_shards, run.num_chains, be.fetch_dtype
     P = pre.data.shape[2]
 
+    if be.fetch_stream == "on" and pod:
+        # an explicit force-stream is not dropped silently
+        warnings.warn(
+            "BackendConfig.fetch_stream='on' is ignored on multi-process "
+            "runs: the streamed fetch is single-process only (pods keep "
+            "the replicated post-hoc fetch)", RuntimeWarning)
     job = _RankJob(
         cfg=cfg, model=m, n=n, P=P, num_stored_draws=S_draws, unroll=unroll,
         # the quant8 fetch streams under "auto" and "on", on one device
-        # and on the shard mesh, as on the JAX package's one-process mesh
-        streaming=mode == "quant8" and be.fetch_stream != "off",
+        # and on the shard mesh, as on the JAX package's one-process mesh;
+        # a pod keeps the replicated post-hoc fetch
+        streaming=(mode == "quant8" and be.fetch_stream != "off"
+                   and not pod),
         fingerprint=(data_fingerprint(pre.data) if cfg.checkpoint_path
                      else None),
         template=carry_template(m, n=n, P=P, num_chains=C,
@@ -743,12 +784,18 @@ def _fit(Y: np.ndarray, cfg: FitConfig, device, *,
     with _profiler(be.profile_dir, device):
         try:
             data = pre.data
-            if ranks:
+            if pod:
+                mesh = multihost.pod_mesh(g, C)
+                data = rank_block(data, mesh.layout)
+            elif ranks:
                 mesh = start_mesh(ranks, device, g, C, job, data)
                 data = rank_block(data, mesh.layout)
             rr, carries, fetched = _run_rank(
                 job, mesh, data, device if mesh is None else mesh.device,
                 phase=phase)
+            if pod:
+                # the replicated result: every process returns rank 0's
+                carries, fetched = mesh.share((carries, fetched))
         except BaseException as e:
             if mesh is not None:
                 err = mesh.failure(e)
@@ -922,9 +969,17 @@ def _fit(Y: np.ndarray, cfg: FitConfig, device, *,
         _sd_upper_f32=sd_upper, _sd_q8_panels=sd_q8,
         _sd_q8_scales=sd_scales)
     if cfg.stream_artifact and res.artifact_path is None:
-        # nothing landed (a no-op finished resume, a stream that failed):
-        # the post-hoc export, so the artifact exists whenever fit returns
-        export_fit_result(res, cfg.stream_artifact)
+        # nothing landed (a no-op finished resume, a stream that failed, a
+        # pod): the post-hoc export, so the artifact exists whenever fit
+        # returns - on a pod written cooperatively, each process its slice
+        # of the panels (a shared artifact filesystem, as for the sets)
+        if pod:
+            export_fit_result_cooperative(
+                res, cfg.stream_artifact,
+                process_index=multihost.process_index(),
+                process_count=world, barrier=multihost.barrier)
+        else:
+            export_fit_result(res, cfg.stream_artifact)
         res.artifact_path = cfg.stream_artifact
     return res
 

@@ -18,12 +18,15 @@ installed as ``dcfm-tpu-torch``:
 
 ``fit`` (supervised or not) and ``watch`` run on the card unless
 ``--backend torch_cpu``; ``serve`` and ``export`` take ``--device``
-(default ``cuda``).  What the port does not run is refused by name:
-``supervise --pod N`` with N > 1 and a multi-process rendezvous (ROADMAP
-Queue A item 7), and ``lint`` / ``test-isolated``, which analyse the JAX
-package and belong to its CLI.  ``fit --mesh-devices N`` runs the shard
-mesh (parallel/shard.py): N rank processes, one card each, or gloo ranks
-of the CPU under ``--backend torch_cpu``.
+(default ``cuda``).  ``fit --mesh-devices N`` runs the shard mesh
+(parallel/shard.py): N rank processes, one card each, or gloo ranks of the
+CPU under ``--backend torch_cpu``.  Under ``DCFM_COORDINATOR`` /
+``DCFM_NUM_PROCESSES`` / ``DCFM_PROCESS_ID`` a ``fit`` joins a pod
+(parallel/multihost.py; one such process per host, the same command
+line everywhere, or ``supervise --pod N`` starting them): every process
+fits and prints its JSON line, process 0 alone writes the output files.
+``lint`` and ``test-isolated`` analyse the JAX package and belong to its
+CLI: they are refused by name.
 """
 
 from __future__ import annotations
@@ -35,9 +38,6 @@ import sys
 
 import numpy as np
 
-# the JAX CLI's multi-process rendezvous variables
-_MULTIPROCESS_ENV = ("DCFM_COORDINATOR", "DCFM_NUM_PROCESSES",
-                     "DCFM_PROCESS_ID")
 # fit --supervise's own flags: the child command runs without them
 _SUPERVISE_FLAGS = ("--supervise-max-retries", "--supervise-backoff",
                     "--supervise-poison-deaths", "--supervise-watchdog")
@@ -491,11 +491,6 @@ def _refused(raw: list) -> str:
     if cmd in ("lint", "test-isolated"):
         return (f"`{cmd}` analyses the JAX package and is not part of "
                 f"this CLI: run `python -m dcfm_tpu.cli {cmd}`")
-    if cmd == "fit" and any(os.environ.get(k) for k in _MULTIPROCESS_ENV):
-        return ("a multi-process fit (DCFM_COORDINATOR / "
-                "DCFM_NUM_PROCESSES / DCFM_PROCESS_ID) is not ported to "
-                "dcfm_tpu_torch yet: ROADMAP Queue A item 7 (outer "
-                "layers: (f) the multi-process layers)")
     return ""
 
 
@@ -622,8 +617,16 @@ def _fit(args) -> int:
     from dcfm_tpu_torch.api import fit
     from dcfm_tpu_torch.config import (
         BackendConfig, FitConfig, ModelConfig, RunConfig)
+    from dcfm_tpu_torch.parallel.multihost import (
+        initialize_from_env, process_index)
     from dcfm_tpu_torch.utils.checkpoint import checkpoint_discoverable
 
+    # the pod rendezvous when DCFM_COORDINATOR / DCFM_NUM_PROCESSES /
+    # DCFM_PROCESS_ID are set (one process per host, the same command line
+    # everywhere; NCCL on a card, gloo under --backend torch_cpu); a no-op
+    # otherwise
+    initialize_from_env(device="cpu" if args.backend == "torch_cpu"
+                        else None)
     Y = _load(args.data, sparse=args.sparse, mmap=args.mmap)
     if args.imputed_out and (args.sparse or args.mmap):
         raise SystemExit("--imputed-out is unsupported with --sparse/"
@@ -638,8 +641,8 @@ def _fit(args) -> int:
     if args.resume and not args.checkpoint:
         raise SystemExit("--resume requires --checkpoint")
     # resume when a checkpoint exists - a plain file, a retained .bakK or
-    # a .procK-of-N set (which the resume refuses by name) - strictly: an
-    # incompatible one is a refusal, never a silent fresh start
+    # a .procK-of-N set - strictly: an incompatible one is a refusal, never
+    # a silent fresh start
     resume = bool(args.resume and checkpoint_discoverable(args.checkpoint))
     cfg = FitConfig(
         model=ModelConfig(
@@ -686,22 +689,26 @@ def _fit(args) -> int:
     else:
         Sigma = (res.covariance(destandardize=False)
                  if args.raw_coords else res.Sigma)
-    if Sigma is not None:
+    # a pod's processes hold the same result: process 0 alone writes, so
+    # they never race on one file of a shared filesystem
+    write_files = process_index() == 0
+    if Sigma is not None and write_files:
         np.save(args.out, Sigma)
-    if args.draws_out:
+    if args.draws_out and write_files:
         # single-chain draw files keep their chain-free layout, as the
         # JAX CLI writes them
         np.savez(args.draws_out,
                  **{k: v[0] if v.shape[0] == 1 else v
                     for k, v in res.draws.items()})
-    if args.imputed_out:
+    if args.imputed_out and write_files:
         np.save(args.imputed_out, res.Y_imputed)
     sd_out = None
     if res.Sigma_sd is not None:
         root, ext = os.path.splitext(args.out)
         sd_out = f"{root}_sd{ext or '.npy'}"
-        np.save(sd_out, res.posterior_sd(destandardize=False)
-                if args.raw_coords else res.Sigma_sd)
+        if write_files:
+            np.save(sd_out, res.posterior_sd(destandardize=False)
+                    if args.raw_coords else res.Sigma_sd)
     # the convergence table on stderr; stdout stays one JSON object
     chain_s = max(res.phase_seconds.get("chain_s", 0.0), 1e-9)
     ess_per_sec = {k: v / chain_s if np.isfinite(v) else None
@@ -714,21 +721,22 @@ def _fit(args) -> int:
                      f"{e:.1f}" if np.isfinite(e) else "-",
                      f"{e / chain_s:.2f}" if np.isfinite(e) else "-"))
     w = max(len(r[0]) for r in rows) if rows else 8
-    print(f"{'summary':<{w}}  {'R-hat':>8}  {'ESS':>9}  {'ESS/s':>8}",
-          file=sys.stderr)
-    for name, r, e, eps in rows:
-        print(f"{name:<{w}}  {r:>8}  {e:>9}  {eps:>8}", file=sys.stderr)
-    if cfg.run.early_stop == "off":
-        print("early stop: off (full schedule, "
-              f"{cfg.run.total_iters} iterations)", file=sys.stderr)
-    elif res.stopped_at_iter is not None:
-        print(f"early stop: converged at iteration "
-              f"{res.stopped_at_iter}/{cfg.run.total_iters} "
-              f"(R-hat < {cfg.run.rhat_threshold}, pooled ESS >= "
-              f"{cfg.run.ess_target:g})", file=sys.stderr)
-    else:
-        print("early stop: did not trigger (ran the full "
-              f"{cfg.run.total_iters} iterations)", file=sys.stderr)
+    if write_files:
+        print(f"{'summary':<{w}}  {'R-hat':>8}  {'ESS':>9}  {'ESS/s':>8}",
+              file=sys.stderr)
+        for name, r, e, eps in rows:
+            print(f"{name:<{w}}  {r:>8}  {e:>9}  {eps:>8}", file=sys.stderr)
+        if cfg.run.early_stop == "off":
+            print("early stop: off (full schedule, "
+                  f"{cfg.run.total_iters} iterations)", file=sys.stderr)
+        elif res.stopped_at_iter is not None:
+            print(f"early stop: converged at iteration "
+                  f"{res.stopped_at_iter}/{cfg.run.total_iters} "
+                  f"(R-hat < {cfg.run.rhat_threshold}, pooled ESS >= "
+                  f"{cfg.run.ess_target:g})", file=sys.stderr)
+        else:
+            print("early stop: did not trigger (ran the full "
+                  f"{cfg.run.total_iters} iterations)", file=sys.stderr)
     print(json.dumps({
         "out": args.out if Sigma is not None else None,
         "sd_out": sd_out,

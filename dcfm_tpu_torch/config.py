@@ -3,8 +3,10 @@ port runs, copied (the port imports nothing of ``dcfm_tpu``).
 
 Field names, defaults and meanings are those of the JAX package, so a
 config written for one reads the same in the other.  The port runs one
-device in one process, or the shard mesh (``mesh_devices`` > 1: one rank
-process per card, or gloo ranks of the CPU; parallel/shard.py); the MGP,
+device in one process, the shard mesh (``mesh_devices`` > 1: one rank
+process per card, or gloo ranks of the CPU; parallel/shard.py), or one
+rank of a pod of processes that met through the ``DCFM_*`` environment
+(parallel/multihost.py); the MGP,
 horseshoe and Dirichlet-Laplace priors
 (``prior``) with or without adaptive rank truncation (``rank_adapt``);
 the sweep in float32 or mixed bf16
@@ -16,7 +18,8 @@ under every ``upload_dtype``, with Sigma assembled or kept packed
 missing values (NaN input, imputed every sweep: ``impute_missing``), the
 thinned draw ring (``store_draws``) and the R-hat early stop
 (``early_stop``); checkpoints, resume (elastic across chain counts too)
-and the divergence sentinel on one process; warm starts from another
+and the divergence sentinel, with ``.procK-of-N`` checkpoint sets on a
+pod; warm starts from another
 run's checkpoint (``warm_start``); the streamed fetch landing in a serve
 artifact (``stream_artifact``); the chunked combine on one device
 (``combine_chunks``); the flight recorder (``obs``), the profiler trace
@@ -25,17 +28,13 @@ artifact (``stream_artifact``); the chunked combine on one device
 too: warm starts, the streamed fetch and ``stream_artifact``, and elastic
 resumes that grow or shrink the chain count.  Every other knob the JAX
 package has is absent here (passing it is a ``TypeError``), so a knob is
-never silently ignored; what the port still refuses - the multi-process
-layers, ROADMAP Queue A item 7 - is refused where it is met, by name.
+never silently ignored.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from typing import Optional
-
-# the ROADMAP item the refusals point at (ROADMAP.md, "Queue A")
-_OUTER = "ROADMAP Queue A item 7 (outer layers)"
 
 
 @dataclasses.dataclass(frozen=True)

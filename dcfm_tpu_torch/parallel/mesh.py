@@ -16,6 +16,12 @@ running chain c over all g shards, and no sweep collective crosses a row.
 Otherwise every rank runs all C chains on its shards (the JAX package's
 vmapped chain axis).  Chains keep their GLOBAL index either way, so a
 chain draws the same stream wherever it runs.
+
+A pod (parallel/multihost.py: N processes that met through the
+``DCFM_*`` environment) lays its ranks out as the JAX package's pod mesh,
+(chains x) hosts x shards (:func:`make_pod_layout`): each process is one
+host row of one device, so the chains pack only when
+:func:`legal_pod_grid` holds for N hosts over N devices.
 """
 
 from __future__ import annotations
@@ -46,6 +52,20 @@ def legal_chain_grid(num_chains: int, num_devices: int,
     predicate for one process)."""
     return (num_chains > 1 and num_devices % num_chains == 0
             and num_shards % (num_devices // num_chains) == 0)
+
+
+def legal_pod_grid(num_chains: int, num_hosts: int, num_devices: int,
+                   num_shards: int) -> bool:
+    """True when the host-sharded pod grid is legal for this C x H x N
+    topology: H > 1 host rows, (H * C) dividing the N devices evenly, and
+    the g shards dividing each chain's block of N / C devices (the JAX
+    package's ``legal_pod_grid``)."""
+    if num_hosts < 2 or num_chains < 1:
+        return False
+    if num_devices % (num_hosts * max(num_chains, 1)) != 0:
+        return False
+    per_chain = num_devices // max(num_chains, 1)
+    return num_shards % per_chain == 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -107,6 +127,22 @@ def make_layout(world: int, rank: int, num_shards: int,
     shard count's divisibility is checked here."""
     rows = (num_chains if legal_chain_grid(num_chains, world, num_shards)
             else 1)
+    shards_per_device(num_shards, world // rows)
+    return RankLayout(world=world, rank=rank, num_shards=num_shards,
+                      num_chains=num_chains, rows=rows)
+
+
+def make_pod_layout(world: int, rank: int, num_shards: int,
+                    num_chains: int) -> RankLayout:
+    """Rank ``rank``'s layout in a pod of ``world`` processes, one device
+    each: the JAX package's ``make_pod_mesh`` over ``world`` host rows -
+    the chains packed one per row when :func:`legal_pod_grid` holds for
+    ``world`` hosts over ``world`` devices (only one chain does: a row of
+    one device cannot hold more), else every rank runs every chain on its
+    block of shards (the vmapped chain axis).  The shard count's
+    divisibility is checked here."""
+    rows = (num_chains if num_chains > 1 and legal_pod_grid(
+        num_chains, world, world, num_shards) else 1)
     shards_per_device(num_shards, world // rows)
     return RankLayout(world=world, rank=rank, num_shards=num_shards,
                       num_chains=num_chains, rows=rows)

@@ -31,6 +31,16 @@ are issued inside the CUDA graphs of the trips (NCCL ops are capturable;
 the trips' first meeting is eager, which creates the communicators) and
 each is counted into ``ops/cuda_lib.COLLECTIVES`` as a kernel launch is.
 
+A pod's rank (parallel/multihost.py: N processes started from outside,
+``pod=True``) runs the same program with three differences: each rank
+saves its own ``.procK-of-N`` file (utils/checkpoint.
+save_checkpoint_multiprocess, its block at :func:`block_slices`), with no
+gather of the carries for a save; its resume reads its own file
+(runtime/resume.resume_state_multiproc); and the result is replicated -
+what rank 0 gathered is shared with every rank (:meth:`RankMesh.share`),
+so every process returns the same FitResult.  It starts and reaps no
+rank, and its process group outlives the fit.
+
 Process hygiene: every rank dies with its parent (``PR_SET_PDEATHSIG``),
 runs one thread of intra-op parallelism (the CPU mesh shares its cores),
 meets the others through a ``FileStore`` in a fresh temporary directory
@@ -60,8 +70,8 @@ import torch
 import torch.distributed as dist
 
 from dcfm_tpu_torch.models.sampler import (
-    ChainStats, carry_like, carry_shard_axes, carry_tensors)
-from dcfm_tpu_torch.models.state import num_upper_pairs
+    ChainCarry, ChainStats, carry_like, carry_shard_axes, carry_tensors)
+from dcfm_tpu_torch.models.state import num_padded_pairs, num_upper_pairs
 from dcfm_tpu_torch.ops import cuda_lib
 from dcfm_tpu_torch.parallel.mesh import RankLayout, make_layout, pair_slice
 from dcfm_tpu_torch.runtime.fetch import fetch_prep, fetch_sd_prep
@@ -104,10 +114,12 @@ def check_mesh_devices(num_devices: int, device: torch.device) -> None:
 
 class RankMesh:
     """This process's place in the mesh and its collectives; the process
-    group is initialized (:func:`start_mesh`, :func:`rank_main`)."""
+    group is initialized (:func:`start_mesh`, :func:`rank_main`, or a
+    pod's parallel/multihost.initialize: ``pod=True``)."""
 
-    def __init__(self, layout: RankLayout, device: torch.device):
-        self.layout, self.device = layout, device
+    def __init__(self, layout: RankLayout, device: torch.device, *,
+                 pod: bool = False):
+        self.layout, self.device, self.pod = layout, device, pod
         self.rank, self.world = layout.rank, layout.world
         self.num_shards = layout.num_shards
         self.shard_offset = layout.shard_offset
@@ -181,6 +193,27 @@ class RankMesh:
         t = self._vec([x])
         dist.all_reduce(t)
         return t.item()
+
+    def gather_ints(self, values) -> np.ndarray:
+        """Every rank's integer vector ``values``: (world, len) int64, in
+        rank order, on every rank (a pod resume's source signatures)."""
+        t = torch.tensor([int(v) for v in values], dtype=torch.int64,
+                         device=self.device)
+        return self._every(t).cpu().numpy()
+
+    def share(self, obj):
+        """Rank 0's ``obj`` on every rank: a pod's replicated result.  Its
+        tensors (bare, in lists and tuples, or a ChainCarry's) cross as
+        host copies and land on this rank's device; what the other ranks
+        pass is ignored."""
+        box = [_map_tensors(obj, lambda t: t.cpu()) if self.rank == 0
+               else None]
+        dist.broadcast_object_list(
+            box, src=0,
+            device=self.device if self.device.type == "cuda" else None)
+        if self.rank == 0:
+            return obj
+        return _map_tensors(box[0], lambda t: t.to(self.device))
 
     def decide(self, *flags: bool) -> tuple:
         """Rank 0's ``flags`` on every rank."""
@@ -337,29 +370,10 @@ class RankMesh:
             inv_count, bessel, mode)
 
     def local_leaves(self, leaves: dict) -> dict:
-        """A checkpoint's global leaves (the chain-axis convention of C
-        chains) -> this rank's chains and block (the convention of its
-        c_loc chains): the scatter of a resume, from the one file."""
-        lay = self.layout
-        C, chains = lay.num_chains, lay.chains
-        Gl, off = lay.local_shards, lay.shard_offset
-        ql, poff = lay.local_pairs, lay.pair_offset
-        lead = 1 if len(chains) > 1 else 0
-        out = {}
-        for k, a in leaves.items():
-            a = np.asarray(a)
-            if C > 1:
-                a = a[chains.start:chains.stop]
-                if len(chains) == 1:
-                    a = a[0]
-            if k in _PAIR_LEAVES:
-                a = np.take(a, range(poff, poff + ql), axis=lead)
-            elif k in _RING_LEAVES:
-                a = np.take(a, range(off, off + Gl), axis=lead + 1)
-            elif k not in _REPLICATED:
-                a = np.take(a, range(off, off + Gl), axis=lead)
-            out[k] = a
-        return out
+        """A checkpoint's global leaves -> this rank's
+        (:func:`local_leaves`): the scatter of a resume, from the one
+        file."""
+        return local_leaves(self.layout, leaves)
 
     # ---- the ranks' lives ------------------------------------------------
 
@@ -401,11 +415,12 @@ class RankMesh:
         return MeshRankError(
             f"the mesh fit over {self.world} ranks failed: "
             + ("; ".join(parts) if parts else "a collective failed")
-            + f" (rank 0: {e})")
+            + f" (rank {self.rank}: {e})")
 
     def close(self, *, kill: bool = False) -> None:
         """Rank 0: wait for (or, with ``kill``, kill) every started rank,
-        then leave the process group and remove the store."""
+        then leave the process group and remove the store.  A pod's rank
+        keeps its process group (parallel/multihost.shutdown leaves it)."""
         for p in self.procs:
             if kill:
                 p.kill()
@@ -414,22 +429,81 @@ class RankMesh:
             except subprocess.TimeoutExpired:
                 p.kill()
                 p.wait()
-        if dist.is_initialized():
+        if dist.is_initialized() and not self.pod:
             dist.destroy_process_group()
         if self.tmpdir:
             shutil.rmtree(self.tmpdir, ignore_errors=True)
 
 
+def _map_tensors(obj, fn):
+    """``obj`` with ``fn`` applied to each of its tensors (bare, in lists
+    and tuples, a ChainCarry's)."""
+    if isinstance(obj, torch.Tensor):
+        return fn(obj)
+    if isinstance(obj, ChainCarry):
+        return carry_like(obj, [None if t is None else fn(t)
+                                for t in carry_tensors(obj)])
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_map_tensors(o, fn) for o in obj)
+    return obj
+
+
+def _split_axis(name: str) -> tuple:
+    """``(axis after the chain axis, "pairs" or "shards")`` along which
+    the mesh splits checkpoint leaf ``name``; ``(None, None)`` for a leaf
+    every rank of a chain holds whole."""
+    if name in _PAIR_LEAVES:
+        return 0, "pairs"
+    if name in _RING_LEAVES:
+        return 1, "shards"
+    if name in _REPLICATED:
+        return None, None
+    return 0, "shards"
+
+
+def block_slices(layout: RankLayout, name: str, shape: tuple) -> tuple:
+    """The rank's block of the global checkpoint leaf ``name`` of
+    ``shape`` (the chain-axis convention of C chains), as a tuple of
+    slices: its chains, and its shards (or packed panels) along the axis
+    the mesh splits."""
+    out, lead = [], 0
+    if layout.num_chains > 1:
+        out.append(slice(layout.chains.start, layout.chains.stop))
+        lead = 1
+    rest = [slice(None)] * (len(shape) - lead)
+    ax, kind = _split_axis(name)
+    if ax is not None:
+        lo, n = ((layout.pair_offset, layout.local_pairs) if kind == "pairs"
+                 else (layout.shard_offset, layout.local_shards))
+        rest[ax] = slice(lo, lo + n)
+    return tuple(out + rest)
+
+
+def local_leaves(layout: RankLayout, leaves: dict) -> dict:
+    """A checkpoint's global leaves (the chain-axis convention of C
+    chains) -> the rank's chains and block (the convention of its c_loc
+    chains: no chain axis when it runs one)."""
+    out = {}
+    for k, a in leaves.items():
+        a = np.asarray(a)
+        a = a[block_slices(layout, k, a.shape)]
+        if layout.num_chains > 1 and len(layout.chains) == 1:
+            a = a[0]
+        out[k] = a
+    return out
+
+
 def leaf_block(layout: RankLayout, name: str, local: np.ndarray) -> tuple:
-    """A rank's block of the global state leaf ``name`` (the chain-axis
-    convention of C chains): ``(block, origin, shape)``, where ``block``
-    is ``local`` (the convention of the rank's c_loc chains) with the
-    global leaf's axes - a length-1 chain axis where the global leaf has
-    one and the rank runs one chain - ``origin`` its first index in the
-    global leaf and ``shape`` the global leaf's shape.
-    :meth:`RankMesh.local_leaves` takes this block out of a global leaf;
-    a warm start grafts a donor's global leaf into it
-    (runtime/resume.graft_block)."""
+    """A rank's block of the global checkpoint leaf ``name`` (the
+    chain-axis convention of C chains): ``(block, origin, shape)``, where
+    ``block`` is ``local`` (the convention of the rank's c_loc chains)
+    with the global leaf's axes - a length-1 chain axis where the global
+    leaf has one and the rank runs one chain - ``origin`` its first index
+    in the global leaf and ``shape`` the global leaf's shape.
+    :func:`local_leaves` takes this block out of a global leaf; a warm
+    start grafts a donor's global leaf into it (runtime/resume.
+    graft_block), and a pod's rank saves it at its origin
+    (utils/checkpoint.save_checkpoint_multiprocess)."""
     block, origin, shape = np.asarray(local), [], []
     if layout.num_chains > 1:
         if len(layout.chains) == 1:
@@ -437,12 +511,16 @@ def leaf_block(layout: RankLayout, name: str, local: np.ndarray) -> tuple:
         origin.append(layout.chains.start)
         shape.append(layout.num_chains)
     rest = list(block.shape[len(origin):])
-    if name not in _REPLICATED:
-        origin.append(layout.shard_offset)
-        shape.append(layout.num_shards)
-        rest = rest[1:]
-    return (block, tuple(origin) + (0,) * len(rest),
-            tuple(shape) + tuple(rest))
+    rest_origin = [0] * len(rest)
+    ax, kind = _split_axis(name)
+    if ax is not None:
+        if kind == "pairs":
+            rest_origin[ax] = layout.pair_offset
+            rest[ax] = num_padded_pairs(layout.num_shards)
+        else:
+            rest_origin[ax] = layout.shard_offset
+            rest[ax] = layout.num_shards
+    return block, tuple(origin + rest_origin), tuple(shape + rest)
 
 
 def _init_group(device: torch.device, store_path: str, rank: int,

@@ -7,9 +7,10 @@ The port of ``dcfm_tpu/resilience``:
   ``dcfm-tpu-torch fit --supervise``: the fit runs in a child process
   and, on crash/SIGKILL/preemption, resumes from the last good
   checkpoint with exponential backoff, a max-retry budget, and
-  poison-iteration detection (typed :class:`PoisonedRunError`).  The
-  pod supervisor (``supervise_pod``) waits for ROADMAP Queue A item
-  7 (f).
+  poison-iteration detection (typed :class:`PoisonedRunError`);
+  ``supervise_pod`` / ``supervise --pod N`` does the same for an
+  N-process pod (coordinated stop, unanimous-generation resume, elastic
+  degrade).
 * :mod:`~dcfm_tpu_torch.resilience.faults` - the deterministic fault
   harness (``DCFM_FAULT_PLAN``), threaded through the fit's chunk loop,
   resume windows and checkpoint writer and the serving plane.
@@ -24,7 +25,8 @@ from dcfm_tpu_torch.resilience.sentinel import (
     ChainDivergedError, DivergenceSentinel)
 from dcfm_tpu_torch.resilience.supervisor import (
     PodCapacityError, PodHangError, PoisonedRunError,
-    RetriesExhaustedError, SuperviseReport, supervise, supervise_command)
+    RetriesExhaustedError, SuperviseReport, supervise, supervise_command,
+    supervise_pod)
 
 __all__ = [
     "ChainDivergedError",
@@ -40,4 +42,5 @@ __all__ = [
     "SuperviseReport",
     "supervise",
     "supervise_command",
+    "supervise_pod",
 ]

@@ -41,7 +41,13 @@ do next is one for all of them: the resume's (each rank reads the same
 file), the warm start's (runtime/resume), the sentinel's and the early
 stop's (reduced statistics, gathered traces), the saves' and each streamed
 boundary's (rank 0's, broadcast).  An elastic grow's new chains are drawn
-by each rank on its own block once the adopted file is scattered.
+by each rank on its own block once the adopted file is scattered.  A
+pod's ranks (parallel/multihost.py) resume collectively
+(runtime/resume.resume_state_multiproc: each rank its own block) and each
+writes its own ``.procK-of-N`` file with its own write-behind writer
+(utils/checkpoint.save_checkpoint_multiprocess); the sentinel aborts
+there instead of rewinding, as in the JAX package (a collective rewind
+has no unanimity protocol).
 
 Flight recorder (obs/): the loop emits the JAX package's events at each
 boundary - ``chunk`` (one per boundary for all the chains, its ``dur_s``
@@ -66,6 +72,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import queue
 import threading
 import time
@@ -86,9 +93,11 @@ from dcfm_tpu_torch.resilience.sentinel import (
 from dcfm_tpu_torch.runtime.fetch import (
     _fetch_stream, fetch_prep, fetch_sd_prep, quant8_drain, quant8_start)
 from dcfm_tpu_torch.runtime.resume import (
-    ElasticResume, ResumeContext, graft_into, resume_state, rewind_source)
+    ElasticResume, ResumeContext, graft_into, resume_state,
+    resume_state_multiproc, rewind_source)
 from dcfm_tpu_torch.utils.checkpoint import (
-    DRAW_LEAVES, AsyncCheckpointWriter, Snapshot, save_checkpoint)
+    DRAW_LEAVES, AsyncCheckpointWriter, Snapshot, save_checkpoint,
+    save_checkpoint_multiprocess)
 from dcfm_tpu_torch.utils.diagnostics import ess, split_rhat
 
 
@@ -536,11 +545,13 @@ def run_chain(*, cfg, model, run, phase: dict, fingerprint, template: dict,
     leaves (``RankMesh.local_leaves``), each boundary reduces the health
     statistics and gathers the trace rows over the ranks, so every rank
     takes the same early-stop and sentinel decisions, rank 0 decides the
-    saves and writes each from every chain's carry gathered to it.  The
-    returned carries are the rank's own."""
+    saves and writes each from every chain's carry gathered to it - on a
+    pod every rank writes its own file instead.  The returned carries are
+    the rank's own."""
     C = run.num_chains
     chains = list(range(C)) if mesh is None else list(mesh.layout.chains)
     leader = mesh is None or mesh.rank == 0
+    pod = mesh is not None and mesh.pod
     chunk = run.chunk_size or run.total_iters
     graphs = dict.fromkeys(_GRAPH_KEYS, 0)
 
@@ -583,7 +594,8 @@ def run_chain(*, cfg, model, run, phase: dict, fingerprint, template: dict,
                 y_imp_shape[1:])
 
     def from_leaves(leaves):
-        if mesh is not None:
+        # a pod's resume reads the rank's own block already
+        if mesh is not None and not pod:
             leaves = mesh.local_leaves(leaves)
             record("carry_relayout", iteration=int(np.asarray(
                 leaves["iteration"]).reshape(-1)[0]), ranks=mesh.world)
@@ -602,7 +614,8 @@ def run_chain(*, cfg, model, run, phase: dict, fingerprint, template: dict,
 
     rctx = ResumeContext(cfg=cfg, fingerprint=fingerprint, template=template,
                          birth=birth, fresh=new_chains, mesh=mesh)
-    leaves, done, acc_start = resume_state(rctx)
+    leaves, done, acc_start = (resume_state_multiproc if pod
+                               else resume_state)(rctx)
     if leaves is None:
         carries = list(new_chains())
         if rctx.warm is not None:
@@ -623,8 +636,12 @@ def run_chain(*, cfg, model, run, phase: dict, fingerprint, template: dict,
     stats, traces, chunk_secs = None, [], []
     phase["checkpoint_s"] = 0.0
     saving = bool(cfg.checkpoint_path)
-    # on the mesh rank 0 writes, every rank takes part in the gathers
-    writer = AsyncCheckpointWriter() if saving and leader else None
+    # on the mesh rank 0 writes, every rank takes part in the gathers; on
+    # a pod every rank writes its own file
+    writer = AsyncCheckpointWriter() if saving and (leader or pod) else None
+    save_fn = (functools.partial(save_checkpoint_multiprocess,
+                                 layout=mesh.layout) if pod
+               else save_checkpoint)
     light_mode = cfg.checkpoint_mode == "light"
     cadence = cfg.checkpoint_every_chunks
     auto = cadence == "auto"
@@ -649,7 +666,14 @@ def run_chain(*, cfg, model, run, phase: dict, fingerprint, template: dict,
     plan = fault_plan()
     s_mode = cfg.sentinel
     if s_mode == "auto":
-        s_mode = "rewind" if cfg.checkpoint_path else "abort"
+        s_mode = "rewind" if cfg.checkpoint_path and not pod else "abort"
+    elif s_mode == "rewind" and pod:
+        warnings.warn(
+            "sentinel='rewind' is not supported on multi-process runs (a "
+            "collective rewind needs its own unanimity protocol); "
+            "degrading to 'abort' - a divergence will raise "
+            "ChainDivergedError instead of rewinding", RuntimeWarning)
+        s_mode = "abort"
     sentinel = None
     if s_mode in ("abort", "rewind") and executed:
         baseline = sum(float(c.health[..., 3].sum()) for c in carries)
@@ -861,16 +885,20 @@ def run_chain(*, cfg, model, run, phase: dict, fingerprint, template: dict,
                         kw.update(chain_acc_starts=list(
                             rctx.elastic.chain_acc_starts),
                             fold_draws=rctx.elastic.fold_draws)
+                if rctx.pod is not None:
+                    # the host-adoption count rides every save, as the
+                    # lineage does
+                    kw["pod_adoptions"] = rctx.pod["pod_adoptions"]
                 t = time.perf_counter()
                 to_save = carries
-                if mesh is not None:
+                if mesh is not None and not pod:
                     # every chain's global carry, on rank 0: the one file
                     # a one-device fit writes
                     kw["num_devices"] = mesh.world
                     to_save = mesh.gather_carries(carries)
                 if writer is not None:
                     try:
-                        writer.submit(save_checkpoint, target, to_save, cfg,
+                        writer.submit(save_fn, target, to_save, cfg,
                                       fingerprint=fingerprint,
                                       state_only=state_only,
                                       acc_start=acc_start,

@@ -19,17 +19,19 @@ quantized with the quant8 link's max-abs rule (runtime/fetch.cast_for_link;
 and written last, so a half-written artifact fails to open instead of
 serving garbage.
 
-Three export sources, no refit: :func:`export_fit_result` (a FitResult),
-the streamed export (:func:`begin_streamed_artifact` hands the streamed
-fetch its landing memmaps, :func:`finalize_streamed_artifact` completes
-the artifact) and :func:`export_from_checkpoint` (a checkpoint file of
-either package and the data matrix); :func:`export_main` is the CLI's
+Three export sources, no refit: :func:`export_fit_result` (a FitResult;
+on a pod :func:`export_fit_result_cooperative`, each process writing its
+slice of the panels), the streamed export (:func:`begin_streamed_artifact`
+hands the streamed fetch its landing memmaps,
+:func:`finalize_streamed_artifact` completes the artifact) and
+:func:`export_from_checkpoint` (a checkpoint file or ``.procK-of-N`` set
+of either package and the data matrix); :func:`export_main` is the CLI's
 ``export``.  :func:`create_sparse_artifact` synthesizes a hole-backed
 artifact for capacity tests.  Each finished artifact is an
 ``artifact_write`` flight-recorder event (obs/recorder.py; ``source``
-"export" or "stream").  :func:`write_artifact` carries the fault plan's
-``artifact`` seam (resilience/faults.py).  Not ported (ROADMAP Queue A
-item 7): ``.procK-of-N`` checkpoint sets and the cooperative exports.
+"export", "stream" or "cooperative").  :func:`write_artifact` carries the
+fault plan's ``artifact`` seam, :func:`write_artifact_cooperative` the
+``coop_export_*`` kill seams (resilience/faults.py).
 """
 
 from __future__ import annotations
@@ -46,12 +48,12 @@ import numpy as np
 from dcfm_tpu_torch.config import FitConfig, validate
 from dcfm_tpu_torch.models.state import num_upper_pairs
 from dcfm_tpu_torch.obs.recorder import record
-from dcfm_tpu_torch.resilience.faults import fault_plan
+from dcfm_tpu_torch.resilience.faults import fault_event, fault_plan
 from dcfm_tpu_torch.runtime.fetch import accumulator_window
-from dcfm_tpu_torch.runtime.resume import refuse_multiprocess_sets
 from dcfm_tpu_torch.utils.checkpoint import (
     carry_template, config_from_checkpoint_meta, data_fingerprint,
-    elastic_meta, load_checkpoint, read_checkpoint_meta)
+    discover_checkpoint, elastic_meta, load_checkpoint,
+    load_checkpoint_resharded, read_checkpoint_meta)
 from dcfm_tpu_torch.utils.estimate import assemble_from_q8
 from dcfm_tpu_torch.utils.preprocess import PreprocessResult, preprocess
 
@@ -492,11 +494,11 @@ def create_sparse_artifact(path: str, *, g: int, P: int,
     return path
 
 
-def export_fit_result(res, path: str) -> PosteriorArtifact:
-    """Export a :class:`dcfm_tpu_torch.api.FitResult` - no refit, no dense
-    Sigma.  Under the quant8 fetch the fetched int8 panels and scales are
-    written as they are; every other fetch is quantized on the host with
-    the identical rule.  The SD panels ride along under posterior_sd."""
+def _result_panels(res) -> tuple:
+    """A FitResult's ``(mean int8 panels, scales, SD panels, SD scales)``
+    for an artifact: the quant8 fetch's as they are, every other fetch's
+    quantized on the host with the identical rule; no SD without
+    posterior_sd."""
     if res._q8_panels is not None:
         mean_q8 = np.asarray(res._q8_panels)
         mean_scale = np.asarray(res._q8_scales, np.float32)
@@ -508,10 +510,136 @@ def export_fit_result(res, path: str) -> PosteriorArtifact:
         sd_scale = np.asarray(res._sd_q8_scales, np.float32)
     elif res.sd_upper_panels is not None:
         sd_q8, sd_scale = quantize_panels(res.sd_upper_panels)
+    return mean_q8, mean_scale, sd_q8, sd_scale
+
+
+def export_fit_result(res, path: str) -> PosteriorArtifact:
+    """Export a :class:`dcfm_tpu_torch.api.FitResult` - no refit, no dense
+    Sigma.  Under the quant8 fetch the fetched int8 panels and scales are
+    written as they are; every other fetch is quantized on the host with
+    the identical rule.  The SD panels ride along under posterior_sd."""
+    mean_q8, mean_scale, sd_q8, sd_scale = _result_panels(res)
     return write_artifact(path, mean_q8=mean_q8, mean_scale=mean_scale,
                           pre=res.preprocess, sd_q8=sd_q8,
                           sd_scale=sd_scale,
                           provenance=fit_provenance(res.config, "fit"))
+
+
+def cooperative_pair_slice(n_pairs: int, process_index: int,
+                           process_count: int) -> tuple[int, int]:
+    """This process's contiguous ``[lo, hi)`` slice of the canonical triu
+    panel order: the write ownership of the cooperative export, balanced
+    to within one panel."""
+    lo = process_index * n_pairs // process_count
+    hi = (process_index + 1) * n_pairs // process_count
+    return lo, hi
+
+
+def write_artifact_cooperative(
+    path: str,
+    *,
+    mean_q8: np.ndarray,
+    mean_scale: np.ndarray,
+    pre: PreprocessResult,
+    sd_q8: Optional[np.ndarray] = None,
+    sd_scale: Optional[np.ndarray] = None,
+    provenance: Optional[dict] = None,
+    process_index: int = 0,
+    process_count: int = 1,
+    barrier=None,
+) -> PosteriorArtifact:
+    """A pod's artifact, each process writing only its slice of the
+    panels (the JAX package's protocol and bytes).
+
+    Every process calls this with the same arguments (the pod's fetch is
+    replicated).  Phased by ``barrier`` (``callable(tag)``: parallel/
+    multihost.barrier on a pod, a no-op by default): (1) process 0 removes
+    ``meta.json`` and pre-sizes fresh panel files; (2) every process
+    writes panels ``[lo, hi)`` (:func:`cooperative_pair_slice`) through
+    an ``r+`` memmap and flushes; (3) process 0 records the per-panel
+    CRC32s of the stitched files as they are on disk, then writes the
+    maps and ``meta.json`` last; (4) every process opens the result.  The
+    panel files and ``meta.json`` are byte for byte a one-process
+    :func:`write_artifact` of the same panels.  A kill seam
+    (``coop_export_prepare`` / ``_panels`` / ``_meta``) precedes each
+    barrier: a process killed there leaves its peers waiting in it, the
+    state the pod supervisor's coordinated stop reaps."""
+    if barrier is None:
+        def barrier(tag):
+            return None
+    n_pairs, P, P2 = np.shape(mean_q8)
+    g = pre.num_shards
+    if P != P2 or n_pairs != _num_pairs(g):
+        raise ValueError(
+            f"mean panels {np.shape(mean_q8)} are not the full "
+            f"g(g+1)/2={_num_pairs(g)} upper-triangle set for g={g}")
+    if g * P != pre.p_used:
+        raise ValueError(f"g={g} panels of width {P} != p_used {pre.p_used}")
+    if not 0 <= process_index < process_count:
+        raise ValueError(
+            f"process_index {process_index} not in [0, {process_count})")
+    if (sd_q8 is None) != (sd_scale is None):
+        raise ValueError("sd_q8 and sd_scale must be passed together")
+    has_sd = sd_q8 is not None
+    files = ((MEAN_PANELS_FILE, mean_q8),
+             (SD_PANELS_FILE, sd_q8))[:1 + has_sd]
+    if process_index == 0:
+        os.makedirs(path, exist_ok=True)
+        stale = [META_FILE] + ([] if has_sd else [SD_PANELS_FILE])
+        for name in stale:
+            if os.path.exists(os.path.join(path, name)):
+                os.unlink(os.path.join(path, name))
+        for name, _ in files:
+            fp = os.path.join(path, name)
+            if os.path.exists(fp):
+                # a fresh inode: an earlier result may still map the old
+                os.unlink(fp)
+            with open(fp, "wb") as f:
+                f.truncate(n_pairs * P * P)
+    fault_event("coop_export_prepare")
+    barrier("dcfm-coop-artifact-prepare")
+    lo, hi = cooperative_pair_slice(n_pairs, process_index, process_count)
+    if hi > lo:
+        for name, panels in files:
+            mm = np.memmap(os.path.join(path, name), dtype=np.int8,
+                           mode="r+", shape=(n_pairs, P, P))
+            mm[lo:hi] = np.asarray(panels)[lo:hi]
+            mm.flush()
+            del mm
+    fault_event("coop_export_panels")
+    barrier("dcfm-coop-artifact-panels")
+    if process_index == 0:
+        crc = {}
+        for kind, (name, _) in zip(("mean", "sd"), files):
+            stitched = np.memmap(os.path.join(path, name), dtype=np.int8,
+                                 mode="r", shape=(n_pairs, P, P))
+            crc[kind] = [int(panel_crc32(q)) for q in stitched]
+            del stitched
+        np.savez(os.path.join(path, MAPS_FILE),
+                 **_build_maps(pre, mean_scale, sd_scale))
+        meta = _meta(pre, P, crc, has_sd, provenance)
+        _write_meta_last(path, meta)
+        record("artifact_write", path=os.path.basename(path),
+               source="cooperative", fingerprint=meta["fingerprint"],
+               processes=process_count)
+    fault_event("coop_export_meta")
+    barrier("dcfm-coop-artifact-meta")
+    return PosteriorArtifact.open(path)
+
+
+def export_fit_result_cooperative(res, path: str, *, process_index: int,
+                                  process_count: int,
+                                  barrier=None) -> PosteriorArtifact:
+    """:func:`export_fit_result` on a pod: the same panels (every process
+    derives identical ones from the replicated fetch) written through
+    :func:`write_artifact_cooperative`."""
+    mean_q8, mean_scale, sd_q8, sd_scale = _result_panels(res)
+    return write_artifact_cooperative(
+        path, mean_q8=mean_q8, mean_scale=mean_scale, pre=res.preprocess,
+        sd_q8=sd_q8, sd_scale=sd_scale,
+        provenance=fit_provenance(res.config, "fit"),
+        process_index=process_index, process_count=process_count,
+        barrier=barrier)
 
 
 def fit_provenance(cfg: FitConfig, source: str) -> dict:
@@ -554,25 +682,34 @@ def export_from_checkpoint(checkpoint_path: str, Y: np.ndarray,
     bookkeeping (meta v7) when it holds any.  A ``store_draws`` file's
     draw ring is sized from the file's schedule and skipped, and an
     imputation file's ``y_imp_acc`` (its last leaf) is not read: neither
-    enters the panels.  ``.procK-of-N`` sets are refused (ROADMAP Queue A
-    item 7)."""
-    refuse_multiprocess_sets(checkpoint_path)
-    if not os.path.exists(checkpoint_path):
-        raise FileNotFoundError(f"no checkpoint at {checkpoint_path}")
-    meta = read_checkpoint_meta(checkpoint_path)
+    enters the panels.  The source is the plain file or a complete
+    ``.procK-of-N`` set at ``checkpoint_path`` (utils/checkpoint.
+    discover_checkpoint, a tie going to the plain file), a set assembled
+    whole (``load_checkpoint_resharded``)."""
+    def resolve(p):
+        source = discover_checkpoint(p, prefer_plain=True)
+        if source is None:
+            raise FileNotFoundError(
+                f"no checkpoint at {p} (or any .procK-of-N set)")
+        return source, read_checkpoint_meta(
+            p if source[0] == "plain" else source[1][1][0])
+
+    source, meta = resolve(checkpoint_path)
     if meta.get("state_only"):
         side = checkpoint_path + ".full"
         # only an absent sidecar is the refusal below: a corrupt one
         # raises its own read error
-        smeta = (read_checkpoint_meta(side) if os.path.exists(side)
-                 else {"state_only": True})
-        if smeta.get("state_only"):
+        try:
+            source, meta = resolve(side)
+        except FileNotFoundError:
+            meta = {"state_only": True}
+        if meta.get("state_only"):
             raise ArtifactError(
                 f"{checkpoint_path} is a state-only (light) checkpoint: it "
                 "stores no covariance accumulators and no .full sidecar "
                 "exists - export from a full checkpoint "
                 "(checkpoint_mode='full' or checkpoint_full_every)")
-        checkpoint_path, meta = side, smeta
+        checkpoint_path = side
     cfg = config_from_checkpoint_meta(meta)
     Y = np.asarray(Y)
     _exportable(cfg, *Y.shape)
@@ -585,9 +722,12 @@ def export_from_checkpoint(checkpoint_path: str, Y: np.ndarray,
             "checkpoint data fingerprint mismatch - the data matrix passed "
             "to export is not the one the checkpointed chain ran on")
     C = run.num_chains
-    leaves, meta = load_checkpoint(checkpoint_path, carry_template(
+    template = carry_template(
         m, n=pre.data.shape[1], P=pre.data.shape[2], num_chains=C,
-        num_stored_draws=run.num_saved if run.store_draws else 0))
+        num_stored_draws=run.num_saved if run.store_draws else 0)
+    leaves, meta = (load_checkpoint(checkpoint_path, template)
+                    if source[0] == "plain"
+                    else load_checkpoint_resharded(source[1][1], template))
     it = int(meta["iteration"])
     acc0 = int(meta.get("acc_start", 0))
     starts, fold, _ = elastic_meta(meta, C)

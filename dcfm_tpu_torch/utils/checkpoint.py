@@ -43,6 +43,16 @@ accumulators into chain 0, a grow splices in re-lineaged births; the meta
 v7 fields (``chain_acc_starts``, ``fold_draws``, ``elastic_lineage``)
 keep the divisor exact.
 
+Multi-process ``.procK-of-N`` sets (:func:`save_checkpoint_multiprocess`,
+the JAX package's layout): a pod's rank K of N writes ``path.procK-of-N``
+with the leaves every rank holds whole stored whole and its block of each
+split leaf keyed by its global offsets, so :func:`load_checkpoint_resharded`
+assembles a set of any writer count into the global leaves, a set written
+at this pod's size resumes rank-locally
+(:func:`load_checkpoint_multiprocess`), and :func:`discover_checkpoint`
+picks the most progressed source among the plain file and the complete
+sets.  Either package reads the other's sets.
+
 Writes are atomic (tmp + rename), so a crash mid-save never corrupts the
 previous checkpoint; ``keep_last`` > 1 keeps older generations as
 ``.bakK`` files.  Every durable write is a ``checkpoint_save``
@@ -405,8 +415,8 @@ def retained_checkpoints(path: str) -> list:
 
 def checkpoint_discoverable(path: str) -> bool:
     """Whether a resume of ``path`` has a source: the live file, a
-    retained ``.bakK`` or a ``.procK-of-N`` set member (which the resume
-    refuses by name).  The one-process discovery of the CLI's
+    retained ``.bakK`` or a ``.procK-of-N`` set member.  The one-process
+    discovery of the CLI's
     ``--resume`` and the supervised child: a discoverable checkpoint is
     resumed strictly, and only a run with none starts fresh."""
     if retained_checkpoints(path):
@@ -480,7 +490,8 @@ def save_checkpoint(path: str, leaves: dict, cfg: FitConfig, *,
                     fingerprint: str, state_only: bool = False,
                     acc_start: int = 0, keep_last: int = 1,
                     chain_acc_starts=None, fold_draws: int = 0,
-                    elastic_lineage: int = 0, num_devices: int = 1) -> None:
+                    elastic_lineage: int = 0, num_devices: int = 1,
+                    pod_adoptions: int = 0) -> None:
     """Atomically write the chains' leaves (``{name: numpy array}``, a
     :class:`Snapshot`'s), the config and the data fingerprint, with the
     JAX package's v8 meta and the port's stream key.
@@ -494,7 +505,9 @@ def save_checkpoint(path: str, leaves: dict, cfg: FitConfig, *,
     bookkeeping of an elastic adoption (None: uniform starts at
     ``acc_start``); ``num_devices`` the ranks of a shard mesh that wrote
     the leaves gathered from them (the topology record only: the file is
-    the one a one-device fit writes)."""
+    the one a one-device fit writes); ``pod_adoptions`` the v8 count of
+    host-topology changes the chain crossed (runtime/resume
+    ``ResumeContext.pod``)."""
     names = file_leaves(cfg.model, state_only, "sigma_sq_acc" in leaves,
                         draws="draws_Lambda" in leaves,
                         impute="y_imp_acc" in leaves)
@@ -520,12 +533,91 @@ def save_checkpoint(path: str, leaves: dict, cfg: FitConfig, *,
         "fold_draws": int(fold_draws),
         "elastic_lineage": int(elastic_lineage),
         "pod_hosts": 1,
-        "pod_adoptions": 0,
+        "pod_adoptions": int(pod_adoptions),
         "topology": topology,
         "rng": RNG_STREAMS,
     }
     _atomic_savez(path, meta, {f"leaf_{i}": np.asarray(leaves[k])
                                for i, k in enumerate(names)},
+                  keep_last=keep_last)
+
+
+def pod_meta(meta: dict) -> Tuple[int, int]:
+    """``(pod_hosts, pod_adoptions)`` of a loadable meta: the v8
+    host-elastic bookkeeping, with the lossless pre-v8 defaults (the v7
+    topology's process count, else 1; no adoption)."""
+    hosts = meta.get("pod_hosts")
+    if hosts is None:
+        hosts = (meta.get("topology") or {}).get("num_processes", 1)
+    return int(hosts), int(meta.get("pod_adoptions", 0))
+
+
+def proc_path(path: str, process_index: int, process_count: int) -> str:
+    """The file of process ``process_index`` of a ``process_count``-process
+    set."""
+    return f"{path}.proc{process_index}-of-{process_count}"
+
+
+def save_checkpoint_multiprocess(path: str, leaves: dict, cfg: FitConfig, *,
+                                 layout, fingerprint: str,
+                                 state_only: bool = False,
+                                 acc_start: int = 0, keep_last: int = 1,
+                                 chain_acc_starts=None, fold_draws: int = 0,
+                                 elastic_lineage: int = 0,
+                                 pod_adoptions: int = 0) -> None:
+    """Rank ``layout.rank`` of a ``layout.world``-rank pod atomically
+    writes ``path.procK-of-N`` (:func:`proc_path`) from its own chains'
+    leaves (``{name: numpy array}``, a :class:`Snapshot` of its carries:
+    the convention of its chains): no gather, p^2 / N bytes per rank.
+
+    The JAX package's set format: a leaf the rank holds whole is stored
+    whole (``leaf_i``, mode "replicated"), a split leaf as the rank's
+    block (``leaf_i_s0``, mode "sharded") keyed by its global offsets
+    (parallel/shard.leaf_block), so :func:`load_checkpoint_resharded`
+    rebuilds every global leaf from any complete set.  The meta is
+    :func:`save_checkpoint`'s with ``process_index`` / ``process_count``,
+    the pod's ``pod_hosts`` and topology, and the per-leaf ``leaf_meta``;
+    ``state_only`` and the bookkeeping arguments are
+    :func:`save_checkpoint`'s."""
+    from dcfm_tpu_torch.parallel.shard import leaf_block
+    names = file_leaves(cfg.model, state_only, "sigma_sq_acc" in leaves,
+                        draws="draws_Lambda" in leaves,
+                        impute="y_imp_acc" in leaves)
+    payload, leaf_meta = {}, []
+    for i, k in enumerate(names):
+        block, origin, shape = leaf_block(layout, k, leaves[k])
+        if tuple(block.shape) == tuple(shape):
+            payload[f"leaf_{i}"] = np.asarray(block)
+            leaf_meta.append({"mode": "replicated"})
+        else:
+            payload[f"leaf_{i}_s0"] = np.ascontiguousarray(block)
+            leaf_meta.append({"mode": "sharded",
+                              "offsets": [[int(o) for o in origin]]})
+    num_chains, world = int(cfg.run.num_chains), int(layout.world)
+    meta = {
+        "version": _FORMAT_VERSION,
+        "config": _config_to_json(cfg),
+        "treedef": _treedef(cfg.model, names),
+        "iteration": int(np.asarray(leaves["iteration"]).reshape(-1)[0]),
+        "fingerprint": fingerprint,
+        "process_index": int(layout.rank),
+        "process_count": world,
+        "leaf_meta": leaf_meta,
+        "state_only": bool(state_only),
+        "acc_start": int(acc_start),
+        "acc_leaf_indices": [],
+        "chain_acc_starts": [int(a) for a in (
+            chain_acc_starts if chain_acc_starts is not None
+            else [acc_start] * num_chains)],
+        "fold_draws": int(fold_draws),
+        "elastic_lineage": int(elastic_lineage),
+        "pod_hosts": world,
+        "pod_adoptions": int(pod_adoptions),
+        "topology": {"num_chains": num_chains, "num_devices": world,
+                     "num_processes": world},
+        "rng": RNG_STREAMS,
+    }
+    _atomic_savez(proc_path(path, layout.rank, world), meta, payload,
                   keep_last=keep_last)
 
 
@@ -635,6 +727,241 @@ def load_checkpoint(path: str, template: dict) -> Tuple[dict, dict]:
     return leaves, meta
 
 
+def find_multiprocess_checkpoint(path: str) -> Optional[tuple]:
+    """The best COMPLETE ``.procK-of-N`` set of ``path``:
+    ``(process_count, [file paths in process order], iteration)``, or
+    None (the JAX package's rule).  Every member must be visible (a shared
+    checkpoint filesystem), readable and at one iteration - a torn set (a
+    crash between two processes' saves) is as unloadable as an incomplete
+    one and never shadows another candidate.  Among complete sets the most
+    progress wins, then the set of this pod's size (parallel/multihost.
+    process_count: 1 outside a pod), then the smaller set: a rule of the
+    files alone, so every process picks the same set.  When candidate
+    sets exist but none is readable, the first read error is raised."""
+    from dcfm_tpu_torch.parallel.multihost import process_count
+    d = os.path.dirname(os.path.abspath(path)) or "."
+    if not os.path.isdir(d):
+        return None
+    pat = re.compile(re.escape(os.path.basename(path))
+                     + r"\.proc(\d+)-of-(\d+)$")
+    by_count: dict = {}
+    for f in os.listdir(d):
+        m = pat.match(f)
+        if m:
+            by_count.setdefault(int(m.group(2)), set()).add(int(m.group(1)))
+    best, first_err = None, None
+    for count, idxs in by_count.items():
+        if idxs != set(range(count)):
+            continue                      # incomplete set: not loadable
+        try:
+            its = {int(read_checkpoint_meta(proc_path(path, i, count))
+                       ["iteration"]) for i in range(count)}
+            if len(its) != 1:
+                raise ValueError(
+                    f"per-process checkpoints disagree on the iteration "
+                    f"({sorted(its)}) - a crash between saves")
+            it = its.pop()
+        except Exception as e:
+            first_err = first_err or e
+            continue
+        key = (it, count == process_count(), -count)
+        if best is None or key > best[0]:
+            best = (key, count, it)
+    if best is None:
+        if first_err is not None:
+            raise ValueError(f"checkpoint set unreadable: {first_err}")
+        return None
+    count, it = best[1], best[2]
+    return count, [proc_path(path, i, count) for i in range(count)], it
+
+
+def discover_checkpoint(path: str, *, prefer_plain: bool):
+    """The resume source with the most chain progress among the plain
+    file and any complete ``.procK-of-N`` set (the JAX package's rule):
+    ``("plain", None)``, ``("set", (count, paths, iteration))`` or None;
+    a tie goes to the caller's native kind (``prefer_plain``).  An
+    unreadable candidate of one kind never masks a valid one of the
+    other; the read error is raised only when no candidate loads."""
+    err, found, plain_it = None, None, None
+    try:
+        found = find_multiprocess_checkpoint(path)
+    except Exception as e:
+        err = e
+    if os.path.exists(path):
+        try:
+            plain_it = int(read_checkpoint_meta(path)["iteration"])
+        except Exception as e:
+            err = err or e
+    if found is None and plain_it is None:
+        if err is not None:
+            raise ValueError(f"checkpoint unreadable: {err}")
+        return None
+    if found is None:
+        return ("plain", None)
+    if plain_it is None:
+        return ("set", found)
+    if plain_it == found[2]:
+        return ("plain", None) if prefer_plain else ("set", found)
+    return ("plain", None) if plain_it > found[2] else ("set", found)
+
+
+def load_checkpoint_resharded(paths: list,
+                              template: dict) -> Tuple[dict, dict]:
+    """Assemble a complete ``.procK-of-N`` set into the global leaves
+    (``{name: numpy array}``, :func:`load_checkpoint`'s), whatever
+    topology wrote it: a whole ("replicated") leaf comes from the first
+    file that holds it, a split leaf is filled from every file's blocks at
+    their global offsets (overlapping copies are equal and overwrite in
+    place), every entry CRC-checked.  Returns ``(leaves, meta of file
+    0)``; raises when the files disagree on the iteration (a torn set),
+    mix light and full files, or do not match ``template``
+    (:func:`carry_template`'s).  A light set has no accumulators, as a
+    light file has none."""
+    meta0 = read_checkpoint_meta(paths[0])
+    state_only = bool(meta0.get("state_only"))
+    names = [k for k in template if not (state_only and k in ACC_LEAVES)]
+    full: dict = {}
+    metas = []
+    for fp in paths:
+        with _open(fp) as z:
+            meta = _read_meta(z, fp)
+            if meta["version"] != meta0["version"]:
+                raise ValueError(f"checkpoint format v{meta['version']} != "
+                                 f"v{meta0['version']}")
+            if bool(meta.get("state_only")) != state_only:
+                raise ValueError(
+                    "per-process checkpoints mix state-only and full files")
+            metas.append(meta)
+            lm = meta["leaf_meta"]
+            if len(lm) != len(names):
+                raise ValueError(
+                    f"checkpoint has {len(lm)} leaves, carry has "
+                    f"{len(names)} - config mismatch?")
+            for i, name in enumerate(names):
+                shape, dtype = template[name]
+                if lm[i]["mode"] == "replicated":
+                    if name in full:
+                        continue
+                    arr = _read_leaf(z, meta, f"leaf_{i}", fp)
+                    if tuple(arr.shape) != tuple(shape):
+                        raise ValueError(
+                            f"checkpoint leaf {i} ({name}) shape "
+                            f"{arr.shape} != expected {shape} - config/"
+                            "data mismatch?")
+                    full[name] = arr
+                    continue
+                if name not in full:
+                    full[name] = np.empty(shape, dtype)
+                for j, off in enumerate(lm[i]["offsets"]):
+                    b = _read_leaf(z, meta, f"leaf_{i}_s{j}", fp)
+                    full[name][tuple(slice(o, o + n) for o, n in
+                                     zip(off, b.shape))] = b
+    iters = {int(m["iteration"]) for m in metas}
+    if len(iters) != 1:
+        raise ValueError(
+            f"per-process checkpoints disagree on the iteration "
+            f"({sorted(iters)}) - a crash between two processes' saves")
+    return full, metas[0]
+
+
+def load_checkpoint_multiprocess(path: str, template: dict, *, layout,
+                                 source=None) -> Tuple[dict, dict]:
+    """A pod rank's leaves (the convention of its chains, its block of
+    every split leaf) from ``source`` (a :func:`discover_checkpoint`
+    result, or runtime/resume's "local-set" of this rank's own file;
+    discovered here when None), and the meta.
+
+    Fast path (a set written at this pod's size): the rank reads only its
+    own ``path.procK-of-N`` and takes each split leaf's block at its
+    origin, or stitches it from the file's blocks - a layout the file does
+    not cover raises.  Otherwise (a plain file, a set of
+    another size) the global leaves are assembled
+    (:func:`load_checkpoint_resharded` / :func:`load_checkpoint`) and the
+    rank's block cut from them, which needs every file on a shared
+    filesystem: a "local-set" source is refused there."""
+    from dcfm_tpu_torch.parallel.shard import block_slices, local_leaves
+    if source is None:
+        source = discover_checkpoint(path, prefer_plain=False)
+    if source is None:
+        raise FileNotFoundError(
+            f"no complete checkpoint set at {path}(.procK-of-N)")
+    kind, found = source
+    if kind == "plain" or found[0] != layout.world:
+        if kind == "local-set":
+            raise ValueError(
+                "local-set checkpoint source (only this process's file "
+                "verified) cannot be resharded - the peer files may not "
+                "exist on this host")
+        leaves, meta = (load_checkpoint_resharded(found[1], template)
+                        if kind == "set" else load_checkpoint(path, template))
+        return local_leaves(layout, leaves), meta
+    target = proc_path(path, layout.rank, layout.world)
+    one = layout.num_chains > 1 and len(layout.chains) == 1
+    with _open(target) as z:
+        meta = _read_meta(z, target)
+        names = [k for k in template
+                 if not (meta.get("state_only") and k in ACC_LEAVES)]
+        lm = meta["leaf_meta"]
+        if len(lm) != len(names):
+            raise ValueError(
+                f"checkpoint has {len(lm)} leaves, carry has {len(names)} "
+                "- config mismatch?")
+        out = {}
+        for i, name in enumerate(names):
+            shape = tuple(template[name][0])
+            sl = block_slices(layout, name, shape)
+            if lm[i]["mode"] == "replicated":
+                arr = _read_leaf(z, meta, f"leaf_{i}", target)
+                if tuple(arr.shape) != shape:
+                    raise ValueError(
+                        f"checkpoint leaf {i} ({name}) shape {arr.shape} "
+                        f"!= expected {shape} - config/data mismatch?")
+                block = arr[sl]
+            else:
+                block = _file_region(z, meta, i, target, sl, shape,
+                                     template[name][1])
+            out[name] = block[0] if one else block
+    return out, meta
+
+
+def _file_region(z, meta: dict, i: int, path: str, sl: tuple, shape: tuple,
+                 dtype) -> np.ndarray:
+    """Leaf ``i``'s region ``sl`` of its global ``shape`` from one set
+    member's blocks: the block saved at the region's origin with its shape
+    (a pod of the port writes one per leaf), else the region stitched from
+    every block of the file that reaches into it (the JAX package writes
+    one per device; equal offsets are copies).  A region the file does not
+    cover raises: the set was laid out for other ranks."""
+    origin = [s.start or 0 for s in sl]
+    want = tuple(len(range(*s.indices(n))) for s, n in zip(sl, shape))
+    offsets = [tuple(o) for o in meta["leaf_meta"][i]["offsets"]]
+    if tuple(origin) in offsets:
+        j = offsets.index(tuple(origin))
+        block = _read_leaf(z, meta, f"leaf_{i}_s{j}", path)
+        if tuple(block.shape) == want:
+            return block
+    out = np.empty(want, dtype)
+    covered = 0
+    for j, off in enumerate(offsets):
+        if off in offsets[:j]:
+            continue
+        b = _read_leaf(z, meta, f"leaf_{i}_s{j}", path)
+        lo = [max(o, r) for o, r in zip(off, origin)]
+        hi = [min(o + n, r + w) for o, n, r, w in zip(off, b.shape, origin,
+                                                      want)]
+        if any(h <= low for low, h in zip(lo, hi)):
+            continue
+        out[tuple(slice(low - r, h - r) for low, h, r in
+                  zip(lo, hi, origin))] = b[tuple(
+                      slice(low - o, h - o) for low, h, o in zip(lo, hi, off))]
+        covered += int(np.prod([h - low for low, h in zip(lo, hi)]))
+    if covered != int(np.prod(want)):
+        raise ValueError(
+            f"checkpoint leaf {i}: the saved shards do not cover offset "
+            f"{tuple(origin)} - device layout changed?")
+    return out
+
+
 def checkpoint_compatible(meta: dict, cfg: FitConfig, fingerprint: str, *,
                           ignore_chains: bool = False) -> Optional[str]:
     """None if resumable under ``cfg``, else a human-readable refusal: the
@@ -698,7 +1025,8 @@ def _donor_template(template: dict, run_chains: int,
 
 
 def load_checkpoint_elastic(path: str, template: dict, num_chains: int, *,
-                            births: Optional[list] = None
+                            births: Optional[list] = None,
+                            paths: Optional[list] = None
                             ) -> Tuple[dict, dict, dict]:
     """Adopt a full checkpoint written at another chain count onto
     ``num_chains`` chains: the port of the JAX package's
@@ -718,8 +1046,10 @@ def load_checkpoint_elastic(path: str, template: dict, num_chains: int, *,
     from/to chains, kept, dropped, birthed, ``fold_draws``,
     ``chain_acc_starts``, the donor's ``elastic_lineage`` and topology.
     Light donors and ``store_draws`` donors are refused (ValueError, the
-    JAX package's messages)."""
-    meta = read_checkpoint_meta(path)
+    JAX package's messages).  ``paths``: the donor is that complete
+    ``.procK-of-N`` set (:func:`load_checkpoint_resharded`), not the
+    plain file."""
+    meta = read_checkpoint_meta(path if paths is None else paths[0])
     saved = _config_from_json(meta["config"])
     donor_chains = int(saved.run.num_chains)
     new_c = int(num_chains)
@@ -735,8 +1065,9 @@ def load_checkpoint_elastic(path: str, template: dict, num_chains: int, *,
             "per-draw buffers are statically sized per chain and cannot "
             "be re-chained - resume at the original chain count "
             f"({donor_chains}) instead")
-    leaves, meta = load_checkpoint(
-        path, _donor_template(template, new_c, donor_chains))
+    donor = _donor_template(template, new_c, donor_chains)
+    leaves, meta = (load_checkpoint(path, donor) if paths is None
+                    else load_checkpoint_resharded(paths, donor))
     starts, fold, lineage = elastic_meta(meta, donor_chains)
     it = int(meta["iteration"])
     burnin, thin = int(saved.run.burnin), int(saved.run.thin)

@@ -4,9 +4,10 @@ The ``fit`` -> ``export`` -> ``serve`` -> ``promote`` -> ``delta`` round
 trip on the CPU; the ``fit`` JSON has the JAX CLI's keys; the parsers of
 the two CLIs accept the same flags (the port adds ``--device`` to
 ``serve`` and ``export`` and ``--backend`` to ``watch``); ``supervise``
-and the ``watch`` daemon run; what the port does not run is refused by
-name; and ``strip_checkpoint`` of a port file resumes like a light
-checkpoint.
+(``--pod N`` too) and the ``watch`` daemon run; a ``fit`` under the
+``DCFM_*`` environment joins a pod; ``lint`` and ``test-isolated`` are
+sent to the JAX package's CLI by name; and ``strip_checkpoint`` of a port
+file resumes like a light checkpoint.
 """
 
 import argparse
@@ -32,8 +33,10 @@ import dcfm_tpu_torch.cli as port_cli  # noqa: E402
 from dcfm_tpu_torch.serve.artifact import PosteriorArtifact  # noqa: E402
 from dcfm_tpu_torch.utils.checkpoint import (  # noqa: E402
     read_checkpoint_meta, strip_checkpoint)
+from dcfm_tpu_torch.parallel import multihost  # noqa: E402
+from dcfm_tpu_torch.resilience import supervisor as tsup  # noqa: E402
 from tests.conftest import make_synthetic  # noqa: E402
-from tests.test_torch_fit import _names_a_queue_a_item  # noqa: E402
+from tests.torch_pod_rank import free_port_base  # noqa: E402
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -87,15 +90,30 @@ def test_parsers_accept_the_same_flags():
     (["lint", "--list-rules"], None),
     (["test-isolated"], None),
 ])
-def test_what_the_port_does_not_run_is_refused_by_name(argv, item):
+def test_what_the_port_does_not_run_is_refused_by_name(argv, item,
+                                                      monkeypatch):
+    """``lint`` and ``test-isolated`` (item 8) are sent to the JAX
+    package's CLI by name.  ``supervise --pod 2`` (item 7 (f)) is ported:
+    it runs the pod supervisor, with the JAX CLI's port base and the
+    child's ``--resume``."""
+    if item == 7:
+        seen = {}
+
+        def supervised(cmd, **kw):
+            seen.update(kw, cmd=cmd)
+            return 0
+        monkeypatch.setattr(tsup, "run_supervised_cli", supervised)
+        assert port_cli.main(argv) == 0
+        assert (seen["pod"], seen["port_base"], seen["checkpoint"]) == (
+            2, 29900, "ck.npz")
+        assert seen["cmd"] == ["fit", "Y.npy", "--checkpoint", "ck.npz",
+                               "--resume"]
+        return
     with pytest.raises(SystemExit) as e:
         port_cli.main(argv)
     msg = str(e.value.code)
-    if item is None:
-        assert f"python -m dcfm_tpu.cli {argv[0]}" in msg
-        assert "ROADMAP" not in msg
-    else:
-        assert _names_a_queue_a_item(msg) and f"item {item}" in msg, msg
+    assert f"python -m dcfm_tpu.cli {argv[0]}" in msg
+    assert "ROADMAP" not in msg
 
 
 def test_supervise_runs_a_command_through_a_kill(tmp_path):
@@ -179,9 +197,10 @@ def test_mesh_and_multiprocess_fits_are_refused_citing_item_4(tmp_path,
                                                               monkeypatch):
     """Item 4's shard mesh is ported: ``--mesh-devices 2`` fits on two
     gloo ranks, its Sigma the one-device fit's within the JAX package's
-    mesh band.  A multi-process fit (the JAX package's multi-host
-    rendezvous) is still refused by name, now citing item 7 (f), the
-    multi-process layers."""
+    mesh band.  So is item 7 (f): a fit under the JAX package's multi-host
+    rendezvous variables joins the pod (here one process: a one-process
+    fit, as in the JAX package), its Sigma the one-device fit's bit for
+    bit."""
     Y, _ = make_synthetic(24, 8, 2, seed=0)
     np.save(tmp_path / "Y.npy", Y)
     base = ["fit", str(tmp_path / "Y.npy"), "-g", "2", "-k", "4",
@@ -192,11 +211,18 @@ def test_mesh_and_multiprocess_fits_are_refused_citing_item_4(tmp_path,
     np.testing.assert_allclose(np.load(tmp_path / "S2.npy"),
                                np.load(tmp_path / "S1.npy"), rtol=1e-3,
                                atol=1e-4)
-    monkeypatch.setenv("DCFM_COORDINATOR", "localhost:1234")
-    with pytest.raises(SystemExit) as e:
-        port_cli.main(base + ["--out", str(tmp_path / "S.npy")])
-    assert _names_a_queue_a_item(str(e.value.code))
-    assert "item 7" in str(e.value.code)
+    monkeypatch.setenv("DCFM_COORDINATOR",
+                       f"127.0.0.1:{free_port_base(1) + 1}")
+    monkeypatch.setenv("DCFM_NUM_PROCESSES", "1")
+    monkeypatch.setenv("DCFM_PROCESS_ID", "0")
+    try:
+        assert port_cli.main(base + ["--out", str(tmp_path / "S.npy")]) == 0
+        assert multihost.process_count() == 1
+        assert multihost.pod().backend == "gloo"
+    finally:
+        multihost.shutdown()
+    np.testing.assert_array_equal(np.load(tmp_path / "S.npy"),
+                                  np.load(tmp_path / "S1.npy"))
 
 
 def test_fit_json_has_the_jax_clis_keys(tmp_path):

@@ -169,14 +169,16 @@ def test_export_refuses_what_the_jax_package_refuses(tmp_path):
 
 
 def test_export_refuses_a_config_the_port_cannot_represent(tmp_path):
-    """A JAX-written file the port cannot represent is refused naming its
-    Queue A item (the horseshoe prior, draw storage and the chunked
-    combine this test used are ported, see tests/test_torch_adapt.py,
-    tests/test_torch_draws.py and tests/test_torch_combine_chunks.py, and
-    so is the shard mesh with its streamed fetch: a ``mesh_devices=2``
-    file exports, one whose mesh forced the streamed fetch too); a file
-    beside a multi-process ``.procK-of-N`` set is refused naming item 7;
-    a missing file is a FileNotFoundError."""
+    """A JAX-written file exports whatever the port represents (the
+    horseshoe prior, draw storage and the chunked combine this test used
+    are ported, see tests/test_torch_adapt.py, tests/test_torch_draws.py
+    and tests/test_torch_combine_chunks.py, and so is the shard mesh with
+    its streamed fetch: a ``mesh_devices=2`` file exports, one whose mesh
+    forced the streamed fetch too).  So do ``.procK-of-N`` sets (ROADMAP
+    item 7 (f), ported): beside an incomplete set the file exports as it
+    is, and the file rewritten as a 2-rank set exports byte for byte the
+    same artifact; a missing file is a FileNotFoundError."""
+    from tests.torch_pod_rank import same_artifact_bytes, write_set
     path = str(tmp_path / "cc.npz")
     dcfm_tpu.fit(_data(), dataclasses.replace(
         _cfg(dcfm_tpu, sd=False, backend={"mesh_devices": 2}),
@@ -188,14 +190,17 @@ def test_export_refuses_a_config_the_port_cannot_represent(tmp_path):
             "fetch_stream": "on"}), checkpoint_path=path))
     tart.export_from_checkpoint(path, _data(), str(tmp_path / "stream"))
     open(path + ".proc1-of-2", "wb").close()
-    with pytest.raises(NotImplementedError, match="Queue A item 7"):
-        tart.export_from_checkpoint(path, _data(), str(tmp_path / "a"))
+    tart.export_from_checkpoint(path, _data(), str(tmp_path / "a"))
+    same_artifact_bytes(str(tmp_path / "stream"), str(tmp_path / "a"))
+    os.unlink(path + ".proc1-of-2")
+    write_set(path, path, 2)
+    os.rename(path, path + ".moved")
+    tart.export_from_checkpoint(path, _data(), str(tmp_path / "set"))
+    same_artifact_bytes(str(tmp_path / "stream"), str(tmp_path / "set"))
     with pytest.raises(FileNotFoundError):
         tart.export_from_checkpoint(str(tmp_path / "none.npz"), _data(),
                                     str(tmp_path / "b"))
 
-
-# ---- stream_artifact ------------------------------------------------------
 
 def _stream_cfg(path, sd=True, **kw):
     cfg = _cfg(dt, 2, sd, {"fetch_dtype": "quant8"})

@@ -224,11 +224,11 @@ def _names_a_queue_a_item(message: str) -> bool:
 # package's and test_invalid_values_are_value_errors_in_both_packages's)
 #
 # The shard mesh (mesh_devices > 1) is ported too, with the forced
-# streamed fetch, warm starts and elastic grows on it: what is still
-# refused is the multi-process layer (item 7), so each case now pairs its
-# ported knobs with a resume from a multi-process checkpoint set
-# (``.procK-of-N``), refused before any work - on the mesh before its
-# ranks start
+# streamed fetch, warm starts and elastic grows on it, and so is the
+# multi-process layer (item 7): a ``.procK-of-N`` set is a resume source
+# now, and each case pairs its ported knobs with a resume beside an
+# INCOMPLETE set - no source, as in the JAX package's discovery, so
+# resume=True raises its FileNotFoundError (on the mesh in every rank)
 _ON_MESH = {"mesh_devices": 2, "fetch_dtype": "quant8", "fetch_stream": "on"}
 
 
@@ -239,13 +239,16 @@ _ON_MESH = {"mesh_devices": 2, "fetch_dtype": "quant8", "fetch_stream": "on"}
      _ON_MESH, {}),
     ({"impute_missing": True, "combine_chunks": 2}, {}, _ON_MESH, {}),
     ({}, {}, _ON_MESH, {}),
-    ({"prior": "horseshoe"}, {}, {"mesh_devices": 4},
+    ({"prior": "horseshoe"}, {}, {"mesh_devices": 2},
      {"warm_start": dcfm_tpu_torch.config.WarmStart("w.npz")}),
 ])
 def test_knobs_outside_the_port_are_refused(tmp_path, model, run, backend,
                                             extra):
-    """Every knob the port does not run raises, naming the ROADMAP Queue A
-    item that will port it (fault C1: the item must exist)."""
+    """No knob is refused any more: each case's knobs reach the resume,
+    where an incomplete ``.procK-of-N`` set (one member of two) is no
+    source (utils/checkpoint.find_multiprocess_checkpoint, the JAX
+    package's rule) and resume=True raises the JAX package's
+    FileNotFoundError."""
     Y, _ = make_synthetic(30, 8, 2, seed=0)
     path = str(tmp_path / "ck.npz")
     open(path + ".proc0-of-2", "wb").close()
@@ -255,10 +258,11 @@ def test_knobs_outside_the_port_are_refused(tmp_path, model, run, backend,
         run=RunConfig(burnin=2, mcmc=2, **run),
         backend=BackendConfig(**backend), checkpoint_path=path,
         resume=True, **extra)
-    with pytest.raises(NotImplementedError, match="ROADMAP") as e:
+    with pytest.raises(FileNotFoundError,
+                       match=r"no checkpoint at .*\(or any \.procK-of-N "
+                             r"set\)") as e:
         fit(Y, cfg, device="cpu")
-    assert _names_a_queue_a_item(str(e.value)), str(e.value)
-    assert "item 5" not in str(e.value)
+    assert "ROADMAP" not in str(e.value)
 
 
 # the JAX package's refusals of the scenario knobs the port now runs
@@ -337,25 +341,17 @@ def _refusal_messages() -> list:
 def test_every_refusal_names_a_queue_a_item():
     """Fault C1: refusals cited "'Still to port' item 8", which the ROADMAP
     never numbered.  Every ROADMAP citation in the package names a Queue A
-    item the ROADMAP lists, and the refusal outside config.validate
-    (multi-process checkpoint sets; missing values, the priors, the
-    streaming ingest and the chunked combine are ported) does too."""
+    item the ROADMAP lists.  Item 7's last refusals (the multi-process
+    layers) are ported, and items 4, 5 and 6 before them, so no refusal
+    cites an item any more; ``lint`` / ``test-isolated`` (item 8) are
+    routed to the JAX package's CLI, not refused by item
+    (tests/test_torch_cli.py)."""
     cited = [(f, m) for f, m in _refusal_messages()
              if re.search(r"item \d", m)]
-    # item 7 is still to port (items 4, 5 and 6 are ported: none cites
-    # them)
     assert {int(re.search(r"item (\d+)", m).group(1))
-            for _, m in cited} == {7}
+            for _, m in cited} == set()
     for name, message in cited:
         assert _names_a_queue_a_item(message), (name, message)
-    import tempfile
-
-    from dcfm_tpu_torch.runtime.resume import refuse_multiprocess_sets
-    d = tempfile.mkdtemp()
-    open(os.path.join(d, "ck.npz.proc0-of-2"), "wb").close()
-    with pytest.raises(NotImplementedError) as e:
-        refuse_multiprocess_sets(os.path.join(d, "ck.npz"))
-    assert _names_a_queue_a_item(str(e.value)), str(e.value)
 
 
 # fault C3: invalid values of knobs the port refuses are the JAX package's
@@ -518,8 +514,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     the observability package (recorder, metrics, spans, cli), the
     serving plane (engine, batcher, server, fleet, promote, delta,
     loadgen), the fault plan, the supervisor and its child runner, the
-    online loop (cycle, watch), the CLI and the shard mesh (parallel/:
-    the rank layout, the rank program and its entry)."""
+    online loop (cycle, watch), the CLI, the shard mesh (parallel/: the
+    rank layout, the rank program and its entry) and the pod's
+    rendezvous (parallel/multihost)."""
     out = subprocess.run([sys.executable, "-c", _GUARD], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
@@ -545,4 +542,5 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "dcfm_tpu_torch.online.cycle", "dcfm_tpu_torch.online.watch",
             "dcfm_tpu_torch.cli", "dcfm_tpu_torch.parallel",
             "dcfm_tpu_torch.parallel.mesh", "dcfm_tpu_torch.parallel.shard",
-            "dcfm_tpu_torch.parallel._rank", "chip_smoke"} <= set(mods)
+            "dcfm_tpu_torch.parallel._rank",
+            "dcfm_tpu_torch.parallel.multihost", "chip_smoke"} <= set(mods)

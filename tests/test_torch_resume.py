@@ -533,21 +533,67 @@ def test_elastic_adoption_is_refused_unless_elastic_is_off(tmp_path, writer):
     _same(res, _plain())
 
 
-def test_multiprocess_sets_are_refused_by_name(tmp_path):
+def test_multiprocess_sets_are_refused_by_name(tmp_path, writer,
+                                               monkeypatch):
+    """``.procK-of-N`` sets are ported (ROADMAP item 7 (f)): a file
+    killed at iteration 8, rewritten as the set a 2-process pod writes,
+    resumes on this one process bitwise the uninterrupted fit, narrated as
+    one ``pod_elastic`` event (2 -> 1 hosts, one adoption) before the
+    decision; every later save carries the adoption.  Under the
+    supervisor's ``--no-elastic`` (DCFM_NO_ELASTIC=1) the same resume is
+    refused with the JAX package's text, and resume="auto" starts
+    fresh."""
+    from dcfm_tpu.runtime import resume as jresume
+    from dcfm_tpu_torch.runtime import resume
+    from tests.torch_pod_rank import write_set
     path = str(tmp_path / "m.npz")
-    open(path + ".proc0-of-2", "wb").close()
-    with pytest.raises(NotImplementedError, match="Queue A item 7"):
-        _fit(_cfg(), checkpoint_path=path, resume="auto")
+    cfg = dataclasses.replace(_cfg(), checkpoint_path=path,
+                              checkpoint_every_chunks=1)
+    ref = _plain()
+    _killed_run(cfg, writer, 2)                     # the file at 8
+    write_set(path, path, 2)
+    os.rename(path, path + ".plain")
+    events = []
+    monkeypatch.setattr(resume, "record",
+                        lambda name, **kw: events.append((name, kw)))
+    res = _fit(cfg, resume=True)
+    _same(res, ref)
+    assert [e for e, _ in events] == ["pod_elastic", "resume_decision"]
+    pod = events[0][1]
+    assert pod | {"pair_panels": 0} == {
+        "decision": "adopted", "from_hosts": 2, "to_hosts": 1,
+        "pod_adoptions": 1, "pair_panels": 0, "iteration": 8}
+    assert pod["pair_panels"] == dt.models.state.num_padded_pairs(G)
+    assert events[1][1] | {"kind": 0} == {
+        "decision": "resume", "kind": 0, "iteration": 8, "acc_start": 0}
+    assert events[1][1]["kind"] == "set"
+    meta = ck.read_checkpoint_meta(path)
+    assert (meta["pod_hosts"], meta["pod_adoptions"]) == (1, 1)
+    os.unlink(path)
+    monkeypatch.setenv("DCFM_NO_ELASTIC", "1")
+    with pytest.raises(ValueError, match="refusing to resume") as e:
+        _fit(cfg, resume=True)
+    smeta = ck.read_checkpoint_meta(path + ".proc0-of-2")
+    want = jresume._pod_refusal(smeta, _cfg(pkg=dcfm_tpu))
+    assert str(e.value) == f"refusing to resume: {want}"
+    assert "2-host pod, run has 1 host(s)" in want
+    _same(_fit(cfg, resume="auto"), ref)
 
 
 def test_export_from_a_checkpoint_is_refused_by_name(tmp_path):
-    """export_from_checkpoint is ported (tests/test_torch_export.py); what
-    stays refused by name is a multi-process .procK-of-N set (Queue A item
-    7), and a missing file is a FileNotFoundError."""
+    """export_from_checkpoint is ported (tests/test_torch_export.py), and
+    so are the ``.procK-of-N`` sets it reads (ROADMAP item 7 (f)): a file
+    rewritten as a 2-rank set exports byte for byte what the file
+    exports; a missing file is a FileNotFoundError naming both kinds of
+    source."""
     from dcfm_tpu_torch.serve.artifact import export_from_checkpoint
+    from tests.torch_pod_rank import same_artifact_bytes, write_set
     path = str(tmp_path / "c.npz")
-    with pytest.raises(FileNotFoundError):
+    with pytest.raises(FileNotFoundError, match="procK-of-N"):
         export_from_checkpoint(path, _data(), str(tmp_path / "art"))
-    open(path + ".proc0-of-2", "wb").close()
-    with pytest.raises(NotImplementedError, match="Queue A item 7"):
-        export_from_checkpoint(path, _data(), str(tmp_path / "art"))
+    _fit(_cfg(), checkpoint_path=path)
+    export_from_checkpoint(path, _data(), str(tmp_path / "plain"))
+    write_set(path, path, 2)
+    os.rename(path, path + ".plain")
+    export_from_checkpoint(path, _data(), str(tmp_path / "set"))
+    same_artifact_bytes(str(tmp_path / "plain"), str(tmp_path / "set"))

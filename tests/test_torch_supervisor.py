@@ -1,12 +1,13 @@
 """The port's crash supervisor against the JAX package's.
 
-``dcfm_tpu_torch.resilience.supervisor`` is the single-host half of the
-JAX supervisor: the same relaunch loop (integrity pre-pass, death
-accounting, poison detection, retry budget, watchdog), the same report
-and typed errors, the same CLI protocol.  Its supervised children fit with
-the port; a supervised kill -> resume is bitwise the port's uninterrupted
-fit, and the reports equal the JAX supervisor's under the same plan and
-schedule.  ``--pod N > 1`` is refused citing ROADMAP Queue A item 7.
+``dcfm_tpu_torch.resilience.supervisor`` is the JAX supervisor: the same
+relaunch loop (integrity pre-pass, death accounting, poison detection,
+retry budget, watchdog), the same report and typed errors, the same CLI
+protocol.  Its supervised children fit with the port; a supervised kill
+-> resume is bitwise the port's uninterrupted fit, and the reports equal
+the JAX supervisor's under the same plan and schedule.  ``--pod N``
+starts the N processes of a pod with the JAX package's environment
+contract (the pod half itself: tests/test_torch_pod_supervisor.py).
 """
 
 import contextlib
@@ -29,7 +30,6 @@ import dcfm_tpu_torch.cli as port_cli  # noqa: E402
 import dcfm_tpu_torch.resilience.supervisor as tsup  # noqa: E402
 from dcfm_tpu_torch.resilience import faults as tf  # noqa: E402
 from tests.conftest import make_synthetic  # noqa: E402
-from tests.test_torch_fit import _names_a_queue_a_item  # noqa: E402
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # tests/test_resilience.py's data and schedule: boundaries 8, 16, 24, 32
@@ -280,15 +280,51 @@ def test_the_relaunch_loop_is_the_jax_packages(tmp_path, monkeypatch, argv,
     assert outs[0][0] == want
 
 
-def test_pod_supervision_is_refused_citing_item_7(tmp_path):
-    with pytest.raises(SystemExit) as e:
-        port_cli.main(["supervise", "--pod", "2", "--", "fit", "Y.npy",
-                       "--checkpoint", str(tmp_path / "ck")])
-    msg = str(e.value.code)
-    assert _names_a_queue_a_item(msg) and "item 7" in msg, msg
-    with pytest.raises(NotImplementedError) as e:
-        tsup.run_supervised_cli(["fit"], checkpoint="ck", pod=4)
-    assert _names_a_queue_a_item(str(e.value)) and "item 7" in str(e.value)
+def test_pod_supervision_is_refused_citing_item_7(tmp_path, monkeypatch):
+    """``supervise --pod N`` is ported (ROADMAP item 7 (f)): the CLI hands
+    the pod size and port base to ``run_supervised_cli``, which starts N
+    copies of the child command under ``supervise_pod``, each with the
+    JAX package's environment contract - coordinator ``127.0.0.1:
+    port_base + attempt``, ``DCFM_NUM_PROCESSES``, ``DCFM_PROCESS_ID``,
+    ``DCFM_FAULT_PROCESS``, ``DCFM_FAULT_LAUNCH`` - and returns 0 when
+    every process exits 0."""
+    seen = {}
+
+    def routed(cmd, **kw):
+        seen.update(kw, cmd=cmd)
+        return 0
+    with monkeypatch.context() as m:
+        m.setattr(tsup, "run_supervised_cli", routed)
+        assert port_cli.main(["supervise", "--pod", "2", "--port-base",
+                              "31000", "--", "fit", "Y.npy",
+                              "--checkpoint", str(tmp_path / "ck")]) == 0
+    assert (seen["pod"], seen["port_base"]) == (2, 31000)
+    started = []
+
+    class Done:
+        def __init__(self, argv, env):
+            started.append((argv, env))
+
+        def poll(self):
+            return 0
+
+        def wait(self, timeout=None):
+            return 0
+
+    monkeypatch.setattr(tsup.subprocess, "Popen", Done)
+    monkeypatch.setenv("DCFM_OBS_DIR", str(tmp_path / "obs"))
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        assert tsup.run_supervised_cli(
+            ["fit", "Y.npy"], checkpoint=str(tmp_path / "ck"), pod=4,
+            port_base=31000) == 0
+    assert [a[-2:] for a, _ in started] == [["fit", "Y.npy"]] * 4
+    assert [(e["DCFM_COORDINATOR"], e["DCFM_NUM_PROCESSES"],
+             e["DCFM_PROCESS_ID"], e["DCFM_FAULT_PROCESS"],
+             e["DCFM_FAULT_LAUNCH"]) for _, e in started] == [
+        ("127.0.0.1:31001", "4", str(i), str(i), "1") for i in range(4)]
+    report = json.loads(err.getvalue().strip().splitlines()[-1])
+    assert report["supervised"] and report["launches"] == 1
 
 
 def _help_flags(main, argv) -> list:
