@@ -204,10 +204,11 @@
    fits at the north-star width exported (generations 1 and 2) and a
    delta of 64 changed mean panels against generation 2 (generation 3);
    (b) ``python -m dcfm_tpu_torch.cli serve`` on the card over a
-   promotion root - /healthz names the card; 20,000 seeded entries, 50
+   promotion root - /healthz names the card; 2,000 seeded entries, 50
    blocks, 20 full rows and 200 intervals over HTTP, every value bitwise
    ``PosteriorArtifact.assemble()`` (mean and SD); a 64-thread
-   ``run_load`` (requests/s, p50/p99 per route, statuses, no untyped
+   ``run_load`` of 20 requests a thread (requests/s, p50/p99 per route,
+   statuses, no untyped
    answer), the server's cache counters; the device bytes of a fully warm
    cache against the 410,159,360 B reckoning; (d) generation 2 promoted
    and then the delta, under a 64-thread storm: generation headers
@@ -279,6 +280,19 @@
    2+ processes run on the CPU here and in the tier-1 tests).  ``python3
    chip_smoke.py --pod-only`` runs the kernel phase and this step alone,
    with no result line; ``--pod-child ARGS`` is (b)'s child.
+20. The static analysis's trace gate (dcfm_tpu_torch/analysis/) on the
+   card: (a) ``python -m dcfm_tpu_torch.analysis --trace --fail-on
+   warning`` as a child process - exit 0, all nine registered entries
+   traced (none skipped), each sweep body inside a CUDA graph capture,
+   its op count and capture tally printed; (b) a real ChainRunner at the
+   fits' width on the f32, bf16 and fused paths under the same recorder
+   during the capture of a burn-in trip and of a trip with a saved draw:
+   no finding, the static carry's storage kept, each capture's kernel
+   tally the path's Lambda kernel (K1, K4 or K2) and K5 once a sweep;
+   (c) seeded hazards on the card: a trip that calls torch.randn fires
+   exactly DCFM1809, a trip that records a CUDA event fires it too.
+   ``python3 chip_smoke.py --trace-only`` runs the kernel phase and this
+   step alone, with no result line.
 
 Any failed check exits non-zero before the last line.  The line before the
 last is the kernels' JSON record; the last line is
@@ -3513,6 +3527,11 @@ def sass_report(cuda_lib, lib_path: str) -> None:
 SERVE_P5 = dict(g=256, P=196)           # BASELINE config 5's width
 SERVE_DEVICE = "cuda"                   # where step 16's engines run
 SERVE_C5_CACHE_MB = 1024                # config 5's cache: < its panels
+# step 16's depth: (16b)'s seeded entries checked bitwise over HTTP (with
+# 50 blocks, 20 rows and 200 intervals) and its 64-thread load's requests
+# a thread; (16c)'s requests a thread, whose seeded stream touches more
+# distinct panels than the 1 GiB cache holds (so it must evict)
+SERVE_ENTRIES, SERVE_LOAD_REQUESTS, SERVE_C5_REQUESTS = 2_000, 20, 160
 
 
 def serve_fit(dt, Y, seed: int):
@@ -3792,11 +3811,12 @@ def serve_phase(torch, dt, cuda_lib, card: str, Y, work: str) -> None:
             f"(interpreter, torch, CUDA, artifact), /healthz device "
             f"{h['device']!r}; {card}")
         rng = np.random.default_rng(16)
-        got = http_bitwise(base, refs[1], rng, 20_000, 50, 20, 200)
+        got = http_bitwise(base, refs[1], rng, SERVE_ENTRIES, 50, 20, 200)
         say(f"(16b) {got['counts']} answers bitwise assemble() (mean and "
             f"SD) in {got['seconds']:.2f} s over 32 keep-alive clients; "
             f"{card}")
-        res = run_load(base, threads=64, requests_per_thread=100, seed=16,
+        res = run_load(base, threads=64,
+                       requests_per_thread=SERVE_LOAD_REQUESTS, seed=16,
                        p=a1.p_original, retries=2, timeout=60.0)
         load_report(res, card, "64-thread load, north star")
         with urllib.request.urlopen(base + "/metrics", timeout=60) as r:
@@ -3940,7 +3960,8 @@ def serve_phase(torch, dt, cuda_lib, card: str, Y, work: str) -> None:
                     else f"entry ({i},{j})")
 
         res = run_load(info["serving"], threads=64,
-                       requests_per_thread=200, seed=18, p=g5 * P5,
+                       requests_per_thread=SERVE_C5_REQUESTS, seed=18,
+                       p=g5 * P5,
                        retries=2, timeout=60.0, expect=expect5,
                        route_mix=(("entry", 6), ("block", 1)))
         load_report(res, card, "config 5, 1 GiB cache")
@@ -5314,6 +5335,132 @@ def pod_phase(torch, dt, cuda_lib, card: str, Y, work: str) -> dict:
     return launches
 
 
+# -- step 20: the static analysis's trace gate on the card ------------------
+
+# (20c)'s seeded hazards: (the trip's extra call, the rules that must fire)
+TRACE_HAZARDS = (("randn", {"DCFM1809"}), ("event", None))
+
+
+def trace_gate_line(line: str) -> tuple:
+    """(name, op count) of one ``dcfm-lint: trace NAME: N ops in ...``
+    line of the gate's stderr, or None for any other line."""
+    m = re.match(r"dcfm-lint: trace (\S+): (\d+) ops in ", line)
+    return (m.group(1), int(m.group(2))) if m else None
+
+
+def trace_phase(torch, dt, cuda_lib, card: str, Y) -> None:
+    """(20) The static analysis's trace gate (dcfm_tpu_torch/analysis/) on
+    the card: (a) ``python -m dcfm_tpu_torch.analysis --trace --fail-on
+    warning`` in a child process - exit 0, every registered entry traced
+    (none skipped), the sweep bodies inside CUDA graph captures whose
+    tallies hold the path's kernels; (b) a real ChainRunner at the fits'
+    width on the f32, bf16 and fused paths with the recorder on during
+    each capture (a burn-in trip and a trip with a saved draw): no
+    finding, the static carry's storage kept, and each capture's tally
+    the path's Lambda kernel and K5 once a sweep and nothing else; (c) two
+    seeded hazards traced on the card - a trip that calls torch.randn
+    fires exactly DCFM1809, one that records a CUDA event fires it too."""
+    from dcfm_tpu_torch.analysis import registry, tracecheck
+    from dcfm_tpu_torch.models.sampler import (
+        ChainRunner, carry_tensors, trace_runner, trace_trip)
+    from dcfm_tpu_torch.noise import TorchNoise
+    t_phase = time.perf_counter()
+    # (a) the gate, as a user runs it
+    names = [e.name for e in registry.discover()]
+    t = time.perf_counter()
+    cp = subprocess.run(
+        [sys.executable, "-m", "dcfm_tpu_torch.analysis", "--trace",
+         "--fail-on", "warning"], capture_output=True, text=True,
+        cwd=os.path.dirname(os.path.abspath(__file__)), timeout=600)
+    secs = time.perf_counter() - t
+    check(cp.returncode == 0 and cp.stdout.strip() == "dcfm-lint: clean",
+          f"(20a) the trace gate exited {cp.returncode}: "
+          f"{cp.stdout[-2000:]} {cp.stderr[-4000:]}")
+    lines = [ln for ln in cp.stderr.splitlines()
+             if ln.startswith("dcfm-lint: trace ")]
+    traced = [trace_gate_line(ln) for ln in lines]
+    check(len(names) == 9 and [n for n, _ in filter(None, traced)] == names,
+          f"(20a) traced {lines}, registered {names}")
+    for ln in lines:
+        say(f"(20a) {ln.split('dcfm-lint: trace ', 1)[1]}")
+        name = ln.split()[2][:-1]
+        if name != "runtime.fetch_quant8":
+            check("capture tally" in ln and "0 finding(s)" in ln,
+                  f"(20a) {ln}")
+    say(f"(20a) the trace gate on the card: exit 0, {len(names)} entries "
+        f"traced, {sum(n for _, n in traced)} ops, {secs:.1f} s in a "
+        f"child process; {card}")
+    # (b) the recorder during a real runner's captures at the fits' width
+    for label, model, backend, kernels in FIT_PATHS:
+        m, Yd, prior = chain_setup(torch, path_config(dt, model, backend), Y)
+        runner = ChainRunner(TorchNoise(0, "cuda"), Yd, m, prior, burnin=2,
+                             thin=1, unroll=1, graphs=True)
+        carry = runner.init_chain(0)
+        ptrs = [x.data_ptr() for x in carry_tensors(carry)]
+        recs, sweeps = [], runner._sweeps
+
+        def recorded(draws, pattern, _sweeps=sweeps, _recs=recs):
+            if not torch.cuda.is_current_stream_capturing():
+                return _sweeps(draws, pattern)
+            with tracecheck.record() as rec:
+                _sweeps(draws, pattern)
+            _recs.append((pattern, rec))
+        runner._sweeps = recorded
+        # trips 1-2 burn-in (eager; captured and replayed), 3-4 saved
+        # (eager; captured and replayed), 5-6 replays
+        runner.run_chunk(0, carry, 6)
+        torch.cuda.synchronize()
+        check([p for p, _ in recs] == [(False,), (True,)]
+              and runner.captured == 2 and runner.replays == 4,
+              f"(20b) [{label}] captures {[p for p, _ in recs]}, "
+              f"{runner.captured} captured, {runner.replays} replays")
+        check([x.data_ptr() for x in carry_tensors(runner.carry)] == ptrs,
+              f"(20b) [{label}] the static carry moved")
+        for pattern, rec in recs:
+            found = tracecheck.check_recording(
+                rec, compute_dtype=m.compute_dtype, sweep_body=True)
+            tally = runner._graphs[pattern][1]
+            want = {k: (1 if k in kernels else 0) for k in tally}
+            check(not found, f"(20b) [{label}] capture {pattern}: {found}")
+            check(tally == want, f"(20b) [{label}] capture {pattern} "
+                  f"tally {tally}, want {want}")
+            say(f"(20b) [{label}] capture of a trip with saves {pattern}: "
+                f"{len(rec.ops)} ops recorded, 0 findings, tally "
+                f"{json.dumps({k: v for k, v in tally.items() if v})}; "
+                f"{card}")
+        del runner, carry, Yd
+    # (c) seeded hazards traced on the card
+    cfg = dt.ModelConfig(num_shards=2, factors_per_shard=3, rho=0.8)
+    for what, rules in TRACE_HAZARDS:
+        def build(device, _what=what):
+            runner = trace_runner(device, cfg, 2)
+            trip = trace_trip(runner)
+
+            def hazard():
+                trip()
+                if _what == "randn":
+                    torch.randn((2, 3), device=device)
+                else:
+                    torch.cuda.Event().record()
+            return registry.TraceSpec(
+                fn=hazard, device=device,
+                carry=lambda: carry_tensors(runner.carry))
+        name = f"fixture.{what}_in_trip"
+        registry.register_trace_entry(name, sweep_body=True)(build)
+        try:
+            got = {f.rule for f in tracecheck.check_entry(
+                registry.get(name), device="cuda")}
+        finally:
+            registry._REGISTRY.pop(name, None)
+        check(got == rules if rules else "DCFM1809" in got,
+              f"(20c) {name} fired {sorted(got)}")
+        say(f"(20c) {name} on the card fired {sorted(got)}; {card}")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    say(f"(20) the trace gate step took {time.perf_counter() - t_phase:.1f}"
+        f" s; {card}")
+
+
 def main() -> None:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     if sys.argv[1:2] == ["--fit-child"]:
@@ -5458,6 +5605,10 @@ def main() -> None:
                 {k: v for k, v in got.items() if v}))
         say("pod phase only: no result is printed")
         return
+    if "--trace-only" in sys.argv[1:]:
+        trace_phase(torch, dt, cuda_lib, card, Y)
+        say("trace gate phase only: no result is printed")
+        return
     if "--ingest-only" in sys.argv[1:]:
         import shutil
         import tempfile
@@ -5533,6 +5684,8 @@ def main() -> None:
         say(f"mesh_phase done at {time.perf_counter() - t_start:.1f} s")
         pod = pod_phase(torch, dt, cuda_lib, card, Y, work)
         say(f"pod_phase done at {time.perf_counter() - t_start:.1f} s")
+        trace_phase(torch, dt, cuda_lib, card, Y)
+        say(f"trace_phase done at {time.perf_counter() - t_start:.1f} s")
     finally:
         shutil.rmtree(work, ignore_errors=True)
     launches["cho_solve"] = k3_path(torch, bs, cuda_lib, rng)["cho_solve"]

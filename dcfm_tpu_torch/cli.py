@@ -25,8 +25,13 @@ CPU under ``--backend torch_cpu``.  Under ``DCFM_COORDINATOR`` /
 (parallel/multihost.py; one such process per host, the same command
 line everywhere, or ``supervise --pod N`` starting them): every process
 fits and prints its JSON line, process 0 alone writes the output files.
-``lint`` and ``test-isolated`` analyse the JAX package and belong to its
-CLI: they are refused by name.
+``lint`` is the port's static analysis (analysis/: the JAX package's AST
+rules, and ``--trace``, the gate over the port's graphed trips) and
+``test-isolated`` its per-file test runner:
+
+    python -m dcfm_tpu_torch.cli lint . --baseline LINT_BASELINE.json
+    python -m dcfm_tpu_torch.cli lint --trace --device cpu
+    python -m dcfm_tpu_torch.cli test-isolated tests -- -q
 """
 
 from __future__ import annotations
@@ -78,17 +83,20 @@ def build_parser() -> argparse.ArgumentParser:
     sub = p.add_subparsers(dest="command", required=True)
 
     # HELP-ONLY entries: main() dispatches them before argparse runs (the
-    # events reader's, the supervisor's and the daemon's flags belong to
-    # their own parsers; lint and test-isolated are refusals), so `--help`
+    # linter's, the test runner's, the events reader's, the supervisor's
+    # and the daemon's flags belong to their own parsers), so `--help`
     # lists every subcommand of the JAX CLI
     sub.add_parser(
         "lint", add_help=False,
-        help="not in this CLI: the static analysis reads the JAX package "
-             "(python -m dcfm_tpu.cli lint)")
+        help="JAX/FFI-aware static analysis (dcfm-lint): AST rules, "
+             "plus `--trace` for the DCFM18xx invariants over the "
+             "registered trips (on the card; --device cpu); see "
+             "`dcfm-tpu-torch lint --list-rules`")
     sub.add_parser(
         "test-isolated", add_help=False,
-        help="not in this CLI: the per-file test runner belongs to the "
-             "JAX package (python -m dcfm_tpu.cli test-isolated)")
+        help="run pytest one subprocess per test file, so a native "
+             "crash (SIGABRT/SIGSEGV) fails one file instead of the "
+             "whole suite")
     sub.add_parser(
         "supervise", add_help=False,
         help="run any dcfm-tpu-torch command under the crash supervisor "
@@ -484,21 +492,16 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def _refused(raw: list) -> str:
-    """The refusal message of a command line the port does not run, or
-    an empty string."""
-    cmd = raw[0] if raw else ""
-    if cmd in ("lint", "test-isolated"):
-        return (f"`{cmd}` analyses the JAX package and is not part of "
-                f"this CLI: run `python -m dcfm_tpu.cli {cmd}`")
-    return ""
-
-
 def main(argv=None) -> int:
+    # lint/test-isolated dispatch BEFORE argparse, as in the JAX CLI: their
+    # flags (e.g. `lint --list-rules`) belong to the delegated parser
     raw = list(sys.argv[1:] if argv is None else argv)
-    why = _refused(raw)
-    if why:
-        raise SystemExit(why)
+    if raw and raw[0] == "lint":
+        from dcfm_tpu_torch.analysis.__main__ import main as lint_main
+        return lint_main(raw[1:])
+    if raw and raw[0] == "test-isolated":
+        from dcfm_tpu_torch.analysis.isolate import main as isolate_main
+        return isolate_main(raw[1:])
     if raw and raw[0] == "events":
         # the reader's own flags belong to its parser
         from dcfm_tpu_torch.obs.cli import events_main

@@ -35,6 +35,7 @@ from typing import Optional
 
 import torch
 
+from dcfm_tpu_torch.analysis.registry import TraceSpec, register_trace_entry
 from dcfm_tpu_torch.config import ModelConfig
 from dcfm_tpu_torch.models.state import SamplerState
 from dcfm_tpu_torch.noise import (
@@ -289,3 +290,73 @@ def covariance_panels(Lam_all: torch.Tensor, ps_all: torch.Tensor,
     blocks.diagonal(dim1=-2, dim2=-1).add_(
         diag.to(blocks.dtype)[:, None] * inv_ps_r)
     return blocks
+
+
+# -- trace-gate registrations (analysis/tracecheck.py) --------------------
+#
+# Each builder returns a sweep on pre-drawn variates: the first sweep runs
+# on live draws (RecordingDraws: the recipe), the second iteration's
+# recipe is drawn into slots outside the entry (noise.draw_into) and the
+# entry runs the sweep on BufferedDraws, as a graphed trip does - so a
+# clean entry draws nothing inside.  Registration changes no arithmetic.
+
+
+def trace_data(shape: tuple, device) -> torch.Tensor:
+    """Seeded float32 standard normals of ``shape`` on ``device``: the
+    trace gate's representative data."""
+    import numpy as np
+    gen = np.random.default_rng(0)
+    return torch.from_numpy(
+        gen.standard_normal(shape).astype(np.float32)).to(device)
+
+
+def _sweep_trace_spec(device: str, compute_dtype: str,
+                      sse_mode: str = "resid") -> TraceSpec:
+    from dcfm_tpu_torch.models.priors import make_prior
+    from dcfm_tpu_torch.models.state import init_state
+    from dcfm_tpu_torch.noise import (
+        BufferedDraws, RecordingDraws, TorchNoise, draw_into)
+
+    cfg = ModelConfig(num_shards=2, factors_per_shard=3, rho=0.8,
+                      compute_dtype=compute_dtype, sse_mode=sse_mode)
+    prior = make_prior(cfg)
+    noise = TorchNoise(0, device)
+    Y = trace_data((2, 8, 6), device)
+    state = init_state(noise.init(0), prior, G=2, n=8, P=6, K=3,
+                       as_=cfg.as_, bs=cfg.bs, device=device)
+    recipe: list = []
+    state, _ = gibbs_sweep(RecordingDraws(noise.sweep(0, 1), recipe), Y,
+                           state, cfg, prior)
+    slots = [torch.empty(c.shape, dtype=torch.float32, device=device)
+             for c in recipe]
+    draw_into(noise.sweep(0, 2), recipe, slots)
+
+    def sweep():
+        draws = BufferedDraws(recipe, slots)
+        gibbs_sweep(draws, Y, state, cfg, prior)
+        draws.finish()
+    return TraceSpec(fn=sweep, device=device, compute_dtype=compute_dtype,
+                     static_key=(cfg,))
+
+
+@register_trace_entry("models.gibbs_sweep[f32]", sweep_body=True)
+def _trace_gibbs_sweep_f32(device: str) -> TraceSpec:
+    return _sweep_trace_spec(device, "f32")
+
+
+@register_trace_entry("models.gibbs_sweep[bf16]", sweep_body=True)
+def _trace_gibbs_sweep_bf16(device: str) -> TraceSpec:
+    return _sweep_trace_spec(device, "bf16")
+
+
+# The Gram-SSE sweep variants run other psi / Lambda stages (the moments
+# reused, K5 for the SSE and the rate, the Exp-sum Gamma draw) - both get
+# the full DCFM18xx battery too.
+@register_trace_entry("models.gibbs_sweep[gram-f32]", sweep_body=True)
+def _trace_gibbs_sweep_gram_f32(device: str) -> TraceSpec:
+    return _sweep_trace_spec(device, "f32", sse_mode="gram")
+
+
+@register_trace_entry("models.gibbs_sweep[gram-bf16]", sweep_body=True)
+def _trace_gibbs_sweep_gram_bf16(device: str) -> TraceSpec:
+    return _sweep_trace_spec(device, "bf16", sse_mode="gram")

@@ -45,15 +45,16 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from dcfm_tpu_torch.analysis.registry import TraceSpec, register_trace_entry
 from dcfm_tpu_torch.config import ModelConfig
 from dcfm_tpu_torch.models.adapt import adapt_rank, effective_ranks
 from dcfm_tpu_torch.models.conditionals import (
     covariance_panels, cross_moments, gibbs_sweep, impute_missing_y,
-    local_sum, scope)
+    local_sum, scope, trace_data)
 from dcfm_tpu_torch.models.state import (
     SamplerState, init_state, num_padded_pairs, packed_pair_indices)
 from dcfm_tpu_torch.noise import (
-    BufferedDraws, RecordingDraws, ShardSliceNoise, draw_into)
+    BufferedDraws, RecordingDraws, ShardSliceNoise, TorchNoise, draw_into)
 from dcfm_tpu_torch.ops import cuda_lib
 
 # per-iteration chain summaries, in the JAX package's order: mean signal
@@ -528,11 +529,7 @@ class ChainRunner:
         self.carry.iteration = carry.iteration
 
     def _trip(self, chain: int, start: int, pattern: tuple) -> None:
-        if self._its is not None:
-            # the trip's iterations, start + 1 .. start + len(pattern), by a
-            # kernel on the runner's stream (no host-to-device copy)
-            torch.arange(start + 1, start + 1 + len(pattern),
-                         out=self._its[:len(pattern)])
+        self._write_its(start, len(pattern))
         if self._recipe is None:
             # the runner's first trip: live draws, the first sweep's calls
             # recorded as the recipe every later trip is drawn from
@@ -548,11 +545,7 @@ class ChainRunner:
             self._seen.add(pattern)
             self.eager_trips += 1
             return
-        draws = []
-        for j in range(len(pattern)):
-            slots = [s[j] for s in self._slots]
-            draw_into(self.noise.sweep(chain, start + j), self._recipe, slots)
-            draws.append(BufferedDraws(self._recipe, slots))
+        draws = self._predrawn(chain, start, len(pattern))
         if not self.use_graphs or pattern not in self._seen:
             self._sweeps(draws, pattern)
             self._seen.add(pattern)
@@ -563,6 +556,24 @@ class ChainRunner:
             graph[0].replay()
         cuda_lib.add_launches(graph[1])
         self.replays += 1
+
+    def _write_its(self, start: int, length: int) -> None:
+        if self._its is not None:
+            # the trip's iterations, start + 1 .. start + length, by a
+            # kernel on the runner's stream (no host-to-device copy)
+            torch.arange(start + 1, start + 1 + length,
+                         out=self._its[:length])
+
+    def _predrawn(self, chain: int, start: int, length: int) -> list:
+        """The draws of the ``length`` sweeps after ``start``: each
+        sweep's recipe drawn into its slots (outside any graph), handed
+        out by BufferedDraws."""
+        draws = []
+        for j in range(length):
+            slots = [s[j] for s in self._slots]
+            draw_into(self.noise.sweep(chain, start + j), self._recipe, slots)
+            draws.append(BufferedDraws(self._recipe, slots))
+        return draws
 
     def _capture(self, draws: list, pattern: tuple) -> tuple:
         graph = torch.cuda.CUDAGraph()
@@ -672,3 +683,43 @@ class ChainRunner:
                          (ring.X, state.X), (ring.H, H_grid)):
             if buf is not None:
                 buf.index_copy_(0, slot, val[None])
+
+
+# -- trace-gate registration (analysis/tracecheck.py) ---------------------
+
+def trace_trip(runner: ChainRunner, chain: int = 0):
+    """Chain ``chain``'s second trip on ``runner``, made ready to run:
+    the static carry at the chain's initial state, the first trip run (on
+    live draws, recording the recipe), the second trip's iteration tensor
+    written and its variates drawn into the slots.  Returns a zero-argument
+    callable that runs the second trip's sweeps on BufferedDraws against
+    the static carry - what a capture records - once."""
+    carry = runner.init_chain(chain)
+    n = runner.unroll
+    runner._trip(chain, 0, save_pattern(0, n, runner.burnin, runner.thin))
+    carry.iteration = n
+    pattern = save_pattern(n, n, runner.burnin, runner.thin)
+    runner._write_its(n, n)
+    draws = runner._predrawn(chain, n, n)
+    return lambda: runner._sweeps(draws, pattern)
+
+
+def trace_runner(device: str, cfg: ModelConfig, G: int, *, mesh=None
+                 ) -> ChainRunner:
+    """The trace gate's runner: ``G`` shards of seeded (G, 8, 6) data,
+    trips of 2 sweeps with burn-in 2 and thin 2 - the second trip's
+    pattern (False, True), so a saved draw's combine runs in it."""
+    from dcfm_tpu_torch.models.priors import make_prior
+
+    Y = trace_data((G, 8, 6), device)
+    return ChainRunner(TorchNoise(0, device), Y, cfg, make_prior(cfg),
+                       burnin=2, thin=2, unroll=2, graphs=False, mesh=mesh)
+
+
+@register_trace_entry("models.run_chunk", sweep_body=True)
+def _trace_run_chunk(device: str) -> TraceSpec:
+    cfg = ModelConfig(num_shards=2, factors_per_shard=3, rho=0.8)
+    runner = trace_runner(device, cfg, 2)
+    return TraceSpec(fn=trace_trip(runner), device=device,
+                     carry=lambda: carry_tensors(runner.carry),
+                     static_key=(cfg, runner.unroll))

@@ -69,6 +69,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from dcfm_tpu_torch.analysis.registry import TraceSpec, register_trace_entry
 from dcfm_tpu_torch.models.sampler import (
     ChainCarry, ChainStats, carry_like, carry_shard_axes, carry_tensors)
 from dcfm_tpu_torch.models.state import num_padded_pairs, num_upper_pairs
@@ -663,3 +664,46 @@ def start_mesh(world: int, device: torch.device, num_shards: int,
         raise
     mesh.procs, mesh.tmpdir = procs, tmpdir
     return mesh
+
+
+# -- trace-gate registrations (analysis/tracecheck.py) --------------------
+#
+# Rank 0's second trip on a representative layout, its RankMesh built
+# while the gate's stand-in collectives run (tracecheck.fake_collectives:
+# group tokens, no process group): the gate checks every group the
+# sweep's reduce_fn / gather_fn name against the rank's chain row.
+
+def _mesh_trip_spec(device: str, layout: RankLayout, *,
+                    pod: bool = False) -> TraceSpec:
+    from dcfm_tpu_torch.config import ModelConfig
+    from dcfm_tpu_torch.models.sampler import trace_runner, trace_trip
+
+    cfg = ModelConfig(num_shards=layout.num_shards, factors_per_shard=3,
+                      rho=0.8)
+    mesh = RankMesh(layout, torch.device(device), pod=pod)
+    runner = trace_runner(device, cfg, layout.local_shards, mesh=mesh)
+    return TraceSpec(fn=trace_trip(runner, layout.chains[0]),
+                     device=device, mesh=layout, pod=pod,
+                     carry=lambda: carry_tensors(runner.carry),
+                     static_key=(cfg, layout, runner.unroll))
+
+
+@register_trace_entry("parallel.mesh_chunk", sweep_body=True)
+def _trace_mesh_chunk(device: str) -> TraceSpec:
+    # one chain over a row of 2 ranks (the JAX package's 1-D shard mesh)
+    return _mesh_trip_spec(device, make_layout(2, 0, 4, 1))
+
+
+@register_trace_entry("parallel.packed_chunk", sweep_body=True)
+def _trace_packed_chunk(device: str) -> TraceSpec:
+    # 2 chains packed as 2 rows of 2 ranks (chains x shards): the sweep's
+    # collectives stay inside the chain row, never its column group
+    return _mesh_trip_spec(device, make_layout(4, 0, 4, 2))
+
+
+@register_trace_entry("parallel.pod_chunk", sweep_body=True)
+def _trace_pod_chunk(device: str) -> TraceSpec:
+    # a 2-host pod, one rank a host: the sweep's collectives span both
+    # hosts' ranks of the row, never one host's part of it (DCFM1808)
+    from dcfm_tpu_torch.parallel.mesh import make_pod_layout
+    return _mesh_trip_spec(device, make_pod_layout(2, 0, 4, 1), pod=True)

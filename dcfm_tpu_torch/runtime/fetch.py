@@ -37,6 +37,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from dcfm_tpu_torch.analysis.registry import TraceSpec, register_trace_entry
 from dcfm_tpu_torch.models.sampler import num_saved_draws
 from dcfm_tpu_torch.models.state import num_upper_pairs
 from dcfm_tpu_torch.utils.estimate import assemble_from_q8
@@ -297,3 +298,21 @@ def upload_host_array(data: np.ndarray, upload_dtype: str) -> torch.Tensor:
     if upload_dtype == "float16":
         return torch.from_numpy(data.astype(np.float16))
     return torch.from_numpy(data).to(torch.bfloat16)
+
+
+# -- trace-gate registration (analysis/tracecheck.py) ---------------------
+
+@register_trace_entry("runtime.fetch_quant8")
+def _trace_fetch_quant8(device: str) -> TraceSpec:
+    # the post-hoc quant8 fetch of 2 chains' summed accumulators over g = 4
+    # shards (12 padded panels of 8 x 8, 10 kept): fetch_prep, then its
+    # cast_for_link
+    from dcfm_tpu_torch.models.conditionals import trace_data
+    from dcfm_tpu_torch.models.state import num_padded_pairs
+
+    g, num_chains = 4, 2
+    acc = trace_data((num_padded_pairs(g), 8, 8), device)
+    _, inv_count, _ = accumulator_window(40, 20, 2, 0, num_chains)
+    return TraceSpec(
+        fn=lambda: fetch_prep(acc, num_chains, g, inv_count, "quant8"),
+        device=device, static_key=(g, num_chains, "quant8"))

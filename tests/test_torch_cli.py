@@ -5,9 +5,9 @@ trip on the CPU; the ``fit`` JSON has the JAX CLI's keys; the parsers of
 the two CLIs accept the same flags (the port adds ``--device`` to
 ``serve`` and ``export`` and ``--backend`` to ``watch``); ``supervise``
 (``--pod N`` too) and the ``watch`` daemon run; a ``fit`` under the
-``DCFM_*`` environment joins a pod; ``lint`` and ``test-isolated`` are
-sent to the JAX package's CLI by name; and ``strip_checkpoint`` of a port
-file resumes like a light checkpoint.
+``DCFM_*`` environment joins a pod; ``lint`` and ``test-isolated`` run the
+port's own analysis (dcfm_tpu_torch/analysis/); and ``strip_checkpoint``
+of a port file resumes like a light checkpoint.
 """
 
 import argparse
@@ -87,15 +87,35 @@ def test_parsers_accept_the_same_flags():
 @pytest.mark.parametrize("argv,item", [
     (["supervise", "--pod", "2", "--", "fit", "Y.npy", "--checkpoint",
       "ck.npz"], 7),
-    (["lint", "--list-rules"], None),
-    (["test-isolated"], None),
+    (["lint", "--list-rules"], 8),
+    (["test-isolated"], 8),
 ])
 def test_what_the_port_does_not_run_is_refused_by_name(argv, item,
-                                                      monkeypatch):
-    """``lint`` and ``test-isolated`` (item 8) are sent to the JAX
-    package's CLI by name.  ``supervise --pod 2`` (item 7 (f)) is ported:
-    it runs the pod supervisor, with the JAX CLI's port base and the
-    child's ``--resume``."""
+                                                      monkeypatch, capsys,
+                                                      tmp_path):
+    """Nothing is refused any more.  ``supervise --pod 2`` (item 7 (f))
+    runs the pod supervisor, with the JAX CLI's port base and the child's
+    ``--resume``.  ``lint`` and ``test-isolated`` (item 8) run the port's
+    own analysis: ``lint --list-rules`` exits 0 listing every AST rule id
+    of the JAX package's registry, and ``test-isolated`` runs a test
+    directory file by file."""
+    if argv[0] == "lint":
+        from dcfm_tpu.analysis.rules import RULES
+        assert port_cli.main(argv) == 0
+        listed = {line.split()[0] for line in
+                  capsys.readouterr().out.splitlines()}
+        assert set(RULES) <= listed
+        return
+    if argv[0] == "test-isolated":
+        (tmp_path / "test_ok.py").write_text(
+            "def test_ok():\n    assert True\n")
+        cp = _cli(*argv, str(tmp_path), timeout=120)
+        assert cp.returncode == 0, cp.stdout + cp.stderr
+        out = cp.stdout
+        assert "[isolated] PASS" in out
+        assert "ISOLATED SUMMARY: 1 file(s) passed, 0 failed, 0 crashed" \
+            in out
+        return
     if item == 7:
         seen = {}
 
@@ -108,12 +128,6 @@ def test_what_the_port_does_not_run_is_refused_by_name(argv, item,
             2, 29900, "ck.npz")
         assert seen["cmd"] == ["fit", "Y.npy", "--checkpoint", "ck.npz",
                                "--resume"]
-        return
-    with pytest.raises(SystemExit) as e:
-        port_cli.main(argv)
-    msg = str(e.value.code)
-    assert f"python -m dcfm_tpu.cli {argv[0]}" in msg
-    assert "ROADMAP" not in msg
 
 
 def test_supervise_runs_a_command_through_a_kill(tmp_path):
