@@ -290,9 +290,14 @@
    no finding, the static carry's storage kept, each capture's kernel
    tally the path's Lambda kernel (K1, K4 or K2) and K5 once a sweep;
    (c) seeded hazards on the card: a trip that calls torch.randn fires
-   exactly DCFM1809, a trip that records a CUDA event fires it too.
-   ``python3 chip_smoke.py --trace-only`` runs the kernel phase and this
-   step alone, with no result line.
+   exactly DCFM1809, a trip that records a CUDA event fires it too;
+   (d) the AST gate over the port's own files (``python -m
+   dcfm_tpu_torch.analysis --gate``, the torch-idiom rules against the
+   port's baseline) in a child process started with the step and read
+   after (c): exit 0 and no finding, the files linted and its seconds
+   printed.  ``python3 chip_smoke.py
+   --trace-only`` runs the kernel phase and this step alone, with no
+   result line.
 
 Any failed check exits non-zero before the last line.  The line before the
 last is the kernels' JSON record; the last line is
@@ -1055,7 +1060,7 @@ def quant8_bound(torch, q8, f32, card: str, kind: str = "mean") -> None:
     shard = torch.as_tensor(idx[idx >= 0] // P, device=dev)
     s = torch.as_tensor(pre.col_scale.reshape(-1)[idx[idx >= 0]], device=dev)
     r, c = np.triu_indices(g)
-    grid = torch.zeros((g, g), dtype=torch.float32, device=dev)
+    grid = torch.zeros((g, g), dtype=torch.float32, device=dev)  # dcfm-torch: ignore[DCFM1501] - one scale per shard pair, g x g
     sd = kind == "sd"
     scales = torch.as_tensor(q8._sd_q8_scales if sd else q8._q8_scales,
                              device=dev)
@@ -1840,7 +1845,7 @@ def blockwise_errors(torch, res, Y, L, noise, batch: int = 1024,
     del Yc
     eye = torch.eye(P, device=dev)
     rows, colq = np.triu_indices(g)
-    sums = torch.zeros(3, dtype=torch.float64, device=dev)
+    sums = torch.zeros(3, dtype=torch.float64, device=dev)  # dcfm-torch: ignore[DCFM301] - the check's error sums over a whole Sigma, in double so the check's own rounding stays negligible
     for a in range(0, rows.size, batch):
         r, c = rows[a:a + batch], colq[a:a + batch]
         B = torch.as_tensor(np.stack([res.sigma_block(int(i), int(j))
@@ -1852,9 +1857,9 @@ def blockwise_errors(torch, res, Y, L, noise, batch: int = 1024,
         S = Ys[rt] @ Ys[ct].mT / (n - 1)
         w = (torch.where(diag, 1.0, 2.0)[:, None, None]
              * mask[rt][:, :, None] * mask[ct][:, None, :])
-        sums += torch.stack([(w * (B - T) ** 2).double().sum(),
-                             (w * (S - T) ** 2).double().sum(),
-                             (w * T ** 2).double().sum()])
+        sums += torch.stack([(w * (B - T) ** 2).double().sum(),  # dcfm-torch: ignore[DCFM301] - the check's error sums, in double (above)
+                             (w * (S - T) ** 2).double().sum(),  # dcfm-torch: ignore[DCFM301] - the check's error sums, in double (above)
+                             (w * T ** 2).double().sum()])  # dcfm-torch: ignore[DCFM301] - the check's error sums, in double (above)
     err2, samp2, tru2 = sums.tolist()
     return math.sqrt(err2 / tru2), math.sqrt(samp2 / tru2)
 
@@ -5359,12 +5364,15 @@ def trace_phase(torch, dt, cuda_lib, card: str, Y) -> None:
     finding, the static carry's storage kept, and each capture's tally
     the path's Lambda kernel and K5 once a sweep and nothing else; (c) two
     seeded hazards traced on the card - a trip that calls torch.randn
-    fires exactly DCFM1809, one that records a CUDA event fires it too."""
+    fires exactly DCFM1809, one that records a CUDA event fires it too;
+    (d) the AST gate (:func:`start_ast_gate`), a child process that runs
+    beside (a)-(c) and is read after them."""
     from dcfm_tpu_torch.analysis import registry, tracecheck
     from dcfm_tpu_torch.models.sampler import (
         ChainRunner, carry_tensors, trace_runner, trace_trip)
     from dcfm_tpu_torch.noise import TorchNoise
     t_phase = time.perf_counter()
+    ast_gate = start_ast_gate()
     # (a) the gate, as a user runs it
     names = [e.name for e in registry.discover()]
     t = time.perf_counter()
@@ -5439,7 +5447,7 @@ def trace_phase(torch, dt, cuda_lib, card: str, Y) -> None:
             def hazard():
                 trip()
                 if _what == "randn":
-                    torch.randn((2, 3), device=device)
+                    torch.randn((2, 3), device=device)  # dcfm-torch: ignore[DCFM101] - (20c)'s seeded hazard: the variate in a trip that the trace gate's DCFM1809 must catch
                 else:
                     torch.cuda.Event().record()
             return registry.TraceSpec(
@@ -5457,8 +5465,54 @@ def trace_phase(torch, dt, cuda_lib, card: str, Y) -> None:
         say(f"(20c) {name} on the card fired {sorted(got)}; {card}")
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
+    ast_gate_phase(card, *ast_gate)
     say(f"(20) the trace gate step took {time.perf_counter() - t_phase:.1f}"
         f" s; {card}")
+
+
+def start_ast_gate() -> tuple:
+    """(20d) Start the port's AST gate over its own files on this machine,
+    as a user runs it (``python -m dcfm_tpu_torch.analysis --gate``), in a
+    child process; a thread notes when it ends.  Returns (process,
+    thread, result) for :func:`ast_gate_phase`."""
+    import threading
+    root = os.path.dirname(os.path.abspath(__file__))
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "dcfm_tpu_torch.analysis", "--gate",
+         "--format", "json"], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True, cwd=root)
+    t = time.perf_counter()
+    result: dict = {}
+
+    def wait():
+        result["out"], result["err"] = proc.communicate()
+        result["secs"] = time.perf_counter() - t
+    waiter = threading.Thread(target=wait)
+    waiter.start()
+    return proc, waiter, result
+
+
+def ast_gate_phase(card: str, proc, waiter, result: dict) -> None:
+    """(20d) The AST gate's child process: exit 0 and no finding."""
+    from dcfm_tpu_torch.analysis import __main__ as lint_main
+    from dcfm_tpu_torch.analysis.engine import collect_files
+    root = os.path.dirname(os.path.abspath(__file__))
+    files = collect_files(lint_main.gate_paths(root))
+    waiter.join(timeout=300)
+    if waiter.is_alive():
+        proc.kill()
+        waiter.join()
+        fail("(20d) the AST gate did not end within 300 s")
+    try:
+        findings = json.loads(result["out"])
+    except ValueError:
+        findings = None
+    check(proc.returncode == 0 and findings == [],
+          f"(20d) the AST gate exited {proc.returncode}: "
+          f"{result['out'][-3000:]} {result['err'][-2000:]}")
+    say(f"(20d) the AST gate over the port's files: {len(files)} files "
+        f"linted, {len(findings)} findings, exit 0, {result['secs']:.1f} s "
+        f"in a child process (beside 20a-20c); {card}")
 
 
 def main() -> None:

@@ -1,13 +1,20 @@
-"""dcfm-lint for the port: the JAX package's static analysis, and a trace
-gate over the port's graphed trips.
+"""dcfm-lint for the port: the AST lint in torch idiom, and a trace gate
+over the port's graphed trips.
 
-The port's copy of ``dcfm_tpu/analysis/``, importing nothing of it:
+The port of ``dcfm_tpu/analysis/``, importing nothing of it:
 
 * **the AST lint** (``linter.py``, ``locks.py``, ``lifetime.py``,
-  ``engine.py``, ``baseline.py``, ``rules.RULES``): copies of the JAX
-  package's modules, so the same source gives the same findings, the
-  whole-tree gate reads the same ``LINT_BASELINE.json`` and SARIF, JSON
-  and ``--changed`` behave alike.  The rules stay JAX-aware, as they are.
+  ``engine.py``, ``baseline.py``, ``rules.RULES``): the JAX registry's
+  thirty ids, families, severities and scopes.  Fifteen are the JAX
+  detectors unchanged (the same findings on the same source); fifteen
+  (``rules.TRANSLATED``) match the torch spelling of their hazard - the
+  global RNG stream, host syncs / branches / environment reads / float64
+  in code a CUDA-graph capture reaches (across modules, through the
+  engine's call graph), rank-branch collectives, blocking fetches in
+  ``runtime/``, ``from_numpy`` aliases copied asynchronously, torch
+  allocations and bf16 products, process groups outside ``parallel/``,
+  live device counts in resume arithmetic.  ``--gate`` lints the port's
+  own files against ``analysis/lint_baseline.json``.
 * **the trace gate** (``registry.py``, ``tracecheck.py``,
   ``rules.TRACE_RULES``): the JAX gate traces jaxprs; this one runs each
   registered entry of the port once under a recording
@@ -21,8 +28,10 @@ The port's copy of ``dcfm_tpu/analysis/``, importing nothing of it:
 Run it as ``dcfm-tpu-torch lint <paths>`` or ``python -m
 dcfm_tpu_torch.analysis``; ``--trace`` for the gate (on the card by
 default, ``--device cpu`` on the CPU).  Suppress a single finding with an
-inline ``# dcfm: ignore[RULE_ID]`` comment on the flagged line.
-Importing this package (and ``registry.py``) imports no torch.
+inline ``# dcfm-torch: ignore[RULE_ID] - <why>`` comment on the flagged
+line (the JAX form ``# dcfm: ignore[...]`` is read too, and is the one to
+use where both linters fire).  Importing this package (and
+``registry.py``) imports no torch.
 """
 
 from dcfm_tpu_torch.analysis.linter import (

@@ -4,8 +4,10 @@
 ``dcfm-tpu-torch lint``) lints the given files/directories (default: the
 ``dcfm_tpu_torch`` package next to this file) through the project-wide
 engine (cross-module symbol table, optional content-hash cache,
-optional committed baseline): the port's copy of ``python -m
-dcfm_tpu.analysis``, with the same flags, findings and exit codes.
+optional committed baseline): the port of ``python -m
+dcfm_tpu.analysis``, with the same flags and exit codes.  ``--gate`` is
+the port's whole-tree gate: its own files (:func:`gate_paths`) against
+its own baseline (``analysis/lint_baseline.json``), warnings failing.
 ``--trace`` runs the port's trace gate (analysis/tracecheck.py) on the
 card, or on the CPU under ``--device cpu``; without a card and without
 ``--device cpu`` it exits 2 - it never traces on the CPU unasked.
@@ -28,6 +30,7 @@ error (same contract as the ``events`` CLI).
 from __future__ import annotations
 
 import argparse
+import glob
 import json
 import os
 import sys
@@ -36,18 +39,41 @@ _README_BEGIN = ("<!-- dcfm-torch-lint-rules:begin (generated: "
                  "dcfm-tpu-torch lint --rules-md) -->")
 _README_END = "<!-- dcfm-torch-lint-rules:end -->"
 
+_PACKAGE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+GATE_BASELINE = os.path.join(_PACKAGE, "analysis", "lint_baseline.json")
+
+
+def gate_paths(repo: str) -> list:
+    """The port's own files in a checkout at ``repo``: the package, its
+    tests (``tests/test_torch_*.py`` and the rank scripts
+    ``tests/torch_*.py``) and ``chip_smoke.py``."""
+    tests = os.path.join(repo, "tests")
+    out = [os.path.join(repo, "dcfm_tpu_torch")]
+    out += sorted(glob.glob(os.path.join(tests, "test_torch_*.py")))
+    out += sorted(glob.glob(os.path.join(tests, "torch_*.py")))
+    smoke = os.path.join(repo, "chip_smoke.py")
+    return out + ([smoke] if os.path.isfile(smoke) else [])
+
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="dcfm-tpu-torch lint",
-        description="the port's copy of dcfm-lint: JAX/FFI-aware static "
-                    "analysis (RNG discipline, jit hygiene, dtype drift, "
-                    "FFI safety, thread shutdown, lockset races, "
-                    "host-buffer lifetime), and the trace gate over the "
-                    "port's graphed trips")
+        description="the port's dcfm-lint: torch/FFI-aware static "
+                    "analysis (RNG discipline, CUDA-graph capture "
+                    "hygiene, dtype drift, FFI safety, thread shutdown, "
+                    "rank-branch collectives, lockset races, host-buffer "
+                    "lifetime), and the trace gate over the port's "
+                    "graphed trips")
     p.add_argument("paths", nargs="*",
                    help="files or directories to lint (default: the "
                         "dcfm_tpu_torch package)")
+    p.add_argument("--gate", action="store_true",
+                   help="the port's whole-tree gate: lint dcfm_tpu_torch/, "
+                        "tests/test_torch_*.py, tests/torch_*.py and "
+                        "chip_smoke.py of this checkout against "
+                        "dcfm_tpu_torch/analysis/lint_baseline.json "
+                        "(unless --baseline names another) with "
+                        "--fail-on warning")
     p.add_argument("--format", choices=("text", "json", "sarif"),
                    default="text")
     p.add_argument("--list-rules", action="store_true",
@@ -202,8 +228,16 @@ def _run(args) -> int:
         return _report(args, findings, baseline_mod, engine, ALL_RULES,
                        root, trace_mode=True)
 
-    paths = args.paths or [os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__)))]
+    if args.gate:
+        if args.paths:
+            print("dcfm-lint: --gate lints the port's own files; give no "
+                  "paths", file=sys.stderr)
+            return 2
+        root = os.path.dirname(_PACKAGE)
+        args.baseline = args.baseline or GATE_BASELINE
+        args.fail_on = "warning"
+    paths = (gate_paths(root) if args.gate else args.paths
+             or [_PACKAGE])
     for p in paths:
         if not os.path.exists(p):
             print(f"dcfm-lint: no such path: {p}", file=sys.stderr)

@@ -7,8 +7,9 @@ analysis:
 * **two-pass scan**: pass 1 parses every file once and collects the
   cross-module symbol table (:class:`Project`) - classes whose methods
   are Thread targets in *other* modules (locks.py), loader helpers
-  whose returns carry numpy provenance, and module-level jit entry
-  points (lifetime.py).  Pass 2 lints each file with that context.
+  whose returns carry numpy provenance (lifetime.py), and each module's
+  captured functions and call edges (linter.py).  Pass 2 lints each
+  file with that context.
 * **content-hash cache**: both passes are cached per file, keyed on
   the sha256 of the file bytes plus an engine/rules version stamp; the
   findings pass is additionally keyed on the project-table hash, so a
@@ -20,10 +21,15 @@ analysis:
   restricted to files that differ from git HEAD (plus untracked files).
 * **SARIF 2.1.0** serialization for code-scanning uploads, beside the
   text/JSON reporters in __main__.py.
+* **worker processes**: both passes are per file, so a large tree is
+  summarized and linted in worker processes (:func:`_map`), with the
+  same results in the same order.
 
-The port's copy of ``dcfm_tpu/analysis/engine.py``: the same code, so the
-same findings on the same source (held finding for finding by
-tests/test_torch_analysis.py).
+The port of ``dcfm_tpu/analysis/engine.py``.  Its symbol table carries
+what the port's rules need across modules: threaded classes (locks.py),
+loader helpers (lifetime.py), and the call graph that closes the
+captured set - a function a CUDA-graph capture reaches in one module is
+captured code in every module it calls into (linter.py's DCFM2xx/301).
 """
 
 from __future__ import annotations
@@ -31,45 +37,65 @@ from __future__ import annotations
 import ast
 import hashlib
 import json
+import multiprocessing
 import os
 import subprocess
 import tempfile
+from concurrent.futures import ProcessPoolExecutor
 from typing import Iterable, Optional
 
 from dcfm_tpu_torch.analysis import lifetime, locks
-from dcfm_tpu_torch.analysis.linter import Finding, _Module, lint_source
+from dcfm_tpu_torch.analysis.linter import (
+    ATTR_CALL, Finding, _Module, lint_source)
 from dcfm_tpu_torch.analysis.rules import ALL_RULES, RULES
 
 # bumped whenever analysis semantics change so stale caches self-expire;
 # the rules-registry digest is folded in as well
-ENGINE_VERSION = 1
+ENGINE_VERSION = 2
 
 _SKIP_DIRS = {"__pycache__", ".git", ".jax_cache", ".pytest_cache",
               ".hypothesis"}
 
 
 class Project:
-    """Cross-module symbol table handed to the per-file checkers."""
+    """Cross-module symbol table handed to the per-file checkers.
+    ``traced`` is the dotted names of every function a capture reaches,
+    closed over the call graph of all modules."""
 
     def __init__(self):
         self.threaded_classes: set = set()
         self.tainted_returners: set = set()
-        self.jit_entries: set = set()
+        self.traced: set = set()
 
     @classmethod
     def from_summaries(cls, summaries: Iterable[dict]) -> "Project":
         p = cls()
+        edges: dict = {}
+        frontier: list = []
         for s in summaries:
             p.threaded_classes.update(s.get("threaded_classes", ()))
             p.tainted_returners.update(s.get("tainted_returners", ()))
-            p.jit_entries.update(s.get("jit_entries", ()))
+            frontier.extend(s.get("traced", ()))
+            for name, callees in s.get("edges", {}).items():
+                edges.setdefault(name, set()).update(callees)
+            for name, target in s.get("reexports", {}).items():
+                edges.setdefault(name, set()).add(target)
+            for attr, defs in s.get("published", {}).items():
+                edges.setdefault(f"{ATTR_CALL}{attr}", set()).update(defs)
+        while frontier:
+            name = frontier.pop()
+            if name in p.traced:
+                continue
+            p.traced.add(name)
+            frontier.extend(edges.get(name, ()))
+        p.traced = {n for n in p.traced if not n.startswith(ATTR_CALL)}
         return p
 
     def digest(self) -> str:
         blob = json.dumps({
             "threaded_classes": sorted(self.threaded_classes),
             "tainted_returners": sorted(self.tainted_returners),
-            "jit_entries": sorted(self.jit_entries),
+            "traced": sorted(self.traced),
         }, sort_keys=True)
         return hashlib.sha256(blob.encode("utf-8")).hexdigest()
 
@@ -110,19 +136,6 @@ def collect_files(paths: Iterable[str], exclude: Iterable[str] = ()) -> list:
     return sorted(set(out))
 
 
-def _module_dotted(path: str) -> str:
-    """Dotted module name for the cross-module symbol table, anchored
-    at the innermost 'dcfm_tpu' path segment (files outside the package
-    key by their stem - scripts can't be imported cross-module anyway)."""
-    parts = os.path.abspath(path).replace("\\", "/").split("/")
-    stem = parts[-1][:-3] if parts[-1].endswith(".py") else parts[-1]
-    if "dcfm_tpu" in parts[:-1]:
-        i = len(parts) - 2 - parts[-2::-1].index("dcfm_tpu")
-        pkg = parts[i:-1] + ([] if stem == "__init__" else [stem])
-        return ".".join(pkg)
-    return stem
-
-
 def _summarize(source: str, path: str) -> dict:
     """Pass-1 product for one file: its symbol-table contribution."""
     try:
@@ -131,7 +144,13 @@ def _summarize(source: str, path: str) -> dict:
         return {}
     mod = _Module(tree, source, path)
     out = {"threaded_classes": sorted(locks.collect_threaded_classes(mod))}
-    out.update(lifetime.collect_lifetime_summary(mod, _module_dotted(path)))
+    out.update(lifetime.collect_lifetime_summary(mod, mod.dotted))
+    out["traced"] = sorted(
+        {mod.dotted_of[d] for d in mod.traced if d in mod.dotted_of}
+        | mod.traced_external)
+    out["edges"] = mod.call_edges()
+    out["reexports"] = mod.reexports()
+    out["published"] = mod.published()
     return out
 
 
@@ -186,21 +205,59 @@ def _changed_files(root: str) -> Optional[set]:
     return out
 
 
+# A worker process starts in about a second (it imports the package,
+# and with it torch), so a pool pays only on a large tree - the gate's
+# ~120 files, not a directory of fixtures - and each worker gets many
+# files.
+_POOL_MIN_FILES = 64
+_FILES_PER_WORKER = 16
+
+
+def _pool(n_files: int) -> Optional[ProcessPoolExecutor]:
+    """Spawned workers (not forked: the parent has torch's threads) for
+    a tree of ``n_files``, or None for a small one.  They start when the
+    first file is handed out: a warm cache starts none."""
+    workers = min(len(os.sched_getaffinity(0)),
+                  n_files // _FILES_PER_WORKER)
+    if n_files < _POOL_MIN_FILES or workers < 2:
+        return None
+    return ProcessPoolExecutor(
+        workers, mp_context=multiprocessing.get_context("spawn"))
+
+
+def _map(pool, fn, calls: list) -> list:
+    """``fn(*args)`` for each ``args`` of ``calls``, in order, in the
+    pool's workers or here: the same list either way."""
+    if pool is None or not calls:
+        return [fn(*args) for args in calls]
+    return list(pool.map(fn, *zip(*calls), chunksize=4))
+
+
 def lint_project(paths: Iterable[str], *, exclude: Iterable[str] = (),
                  cache_path: Optional[str] = None,
                  changed_only: bool = False,
                  root: Optional[str] = None) -> list:
     """Project-aware lint over ``paths``; the drop-in upgrade behind
-    :func:`dcfm_tpu.analysis.lint_paths`."""
+    :func:`dcfm_tpu_torch.analysis.lint_paths`."""
     root = os.path.abspath(root or os.getcwd())
     files = collect_files(paths, exclude)
+    pool = _pool(len(files))
+    try:
+        return _lint_files(files, pool, cache_path, changed_only, root)
+    finally:
+        if pool is not None:
+            pool.shutdown()
+
+
+def _lint_files(files: list, pool, cache_path: Optional[str],
+                changed_only: bool, root: str) -> list:
     cache = _load_cache(cache_path)
 
     # pass 1: hashes + symbol-table summaries (cached per content hash)
     sources: dict = {}
     hashes: dict = {}
-    summaries: list = []
     new_cache: dict = {}
+    fresh: list = []
     for path in files:
         ap = os.path.abspath(path)
         try:
@@ -212,15 +269,16 @@ def lint_project(paths: Iterable[str], *, exclude: Iterable[str] = (),
         hashes[ap] = sha
         entry = cache.get(ap)
         if entry and entry.get("sha") == sha and "summary" in entry:
-            summary = entry["summary"]
+            new_cache[ap] = {"sha": sha, "summary": entry["summary"]}
         else:
-            source = raw.decode("utf-8", errors="replace")
-            sources[ap] = source
-            summary = _summarize(source, path)
-        summaries.append(summary)
-        new_cache[ap] = {"sha": sha, "summary": summary}
+            sources[ap] = raw.decode("utf-8", errors="replace")
+            new_cache[ap] = {"sha": sha}
+            fresh.append((sources[ap], path))
+    for (_, path), summary in zip(fresh, _map(pool, _summarize, fresh)):
+        new_cache[os.path.abspath(path)]["summary"] = summary
 
-    project = Project.from_summaries(summaries)
+    project = Project.from_summaries(
+        entry["summary"] for entry in new_cache.values())
     project_sha = project.digest()
 
     # pass 2: per-file findings (cached on content hash + project hash)
@@ -233,7 +291,8 @@ def lint_project(paths: Iterable[str], *, exclude: Iterable[str] = (),
                 f"{root} (git diff/ls-files failed)")
         targets = [p for p in files if os.path.abspath(p) in changed]
 
-    findings: list = []
+    per_file: dict = {}
+    stale: list = []
     for path in targets:
         ap = os.path.abspath(path)
         if ap not in hashes:
@@ -242,17 +301,22 @@ def lint_project(paths: Iterable[str], *, exclude: Iterable[str] = (),
         if (entry and entry.get("sha") == hashes[ap]
                 and entry.get("project_sha") == project_sha
                 and "findings" in entry):
-            cached = [Finding(*row) for row in entry["findings"]]
+            per_file[ap] = [Finding(*row) for row in entry["findings"]]
         else:
             if ap not in sources:
                 with open(path, "rb") as f:
                     sources[ap] = f.read().decode("utf-8",
                                                   errors="replace")
-            cached = lint_source(sources[ap], path, project=project)
+            per_file[ap] = None
+            stale.append((sources[ap], path, project))
+    for (_, path, _), found in zip(stale, _map(pool, lint_source, stale)):
+        per_file[os.path.abspath(path)] = found
+    findings: list = []
+    for ap, found in per_file.items():
         new_cache[ap]["project_sha"] = project_sha
         new_cache[ap]["findings"] = [
-            [f.path, f.line, f.col, f.rule, f.message] for f in cached]
-        findings.extend(cached)
+            [f.path, f.line, f.col, f.rule, f.message] for f in found]
+        findings.extend(found)
 
     _save_cache(cache_path, new_cache)
     findings.sort(key=lambda f: (f.path, f.line, f.col, f.rule))

@@ -1,29 +1,36 @@
-"""AST linter core: JAX/FFI-aware checks over one module at a time.
+"""AST linter core: torch/FFI-aware checks over one module at a time.
 
 Design: one :func:`lint_source` pass per file, no imports of the linted
 code (pure ``ast``), no third-party dependencies.  Each rule family is a
 separate checker over a shared :class:`_Module` context that pre-resolves
 the things every family needs:
 
-* import aliases (``jnp``/``np``/``jax.random``/``ctypes`` may be bound
-  to anything; the checkers work on *resolved* dotted names),
-* the set of **traced functions** - jit-decorated, ``jax.jit(f)``-wrapped,
-  or passed to ``lax.scan/cond/while_loop/fori_loop/switch`` /
-  ``jax.vmap/pmap`` - plus nested functions they call (propagated to
-  siblings defined in the same scope, the ``run_chunk`` ->
-  ``body``/``_body``/``accumulate`` structure),
+* import aliases (``torch``/``np``/``dist``/``ctypes`` may be bound to
+  anything; the checkers work on *resolved* dotted names),
+* the set of **captured regions** - the port's counterpart of JAX's
+  traced functions: the body of a ``with torch.cuda.graph(...)`` block,
+  a callable given to ``torch.cuda.make_graphed_callables``, and the
+  entry (``TraceSpec(fn=...)``) of a builder registered with
+  ``register_trace_entry(..., sweep_body=True)``, plus every function
+  such a region calls - in this module, and through the engine's
+  cross-module symbol table (analysis/engine.py) in the others,
 * CDLL-tainted names for the FFI family (values flowing out of
   ``ctypes.CDLL`` through module globals and local helper returns).
 
-False-positive posture: every rule errs toward silence.  The lint gate is
-``dcfm-tpu lint dcfm_tpu/`` exiting 0 with no suppressions, so a rule
-that cries wolf on sanctioned idioms (``fold_in`` site derivation, the
-static-shape ``float()`` guards in ops/gamma.py, host-side ``np.float64``
-diagnostics) would be deleted, not argued with.
+False-positive posture: every rule errs toward silence.  The gate is
+``dcfm-tpu-torch lint --gate`` exiting 0, so a rule that cries wolf on
+sanctioned idioms (a dtype guard, a shape test in a captured function,
+the host-side float64 of a test oracle) would be deleted, not argued
+with.
 
-The port's copy of ``dcfm_tpu/analysis/linter.py``: the same code, so the
-same findings on the same source (held finding for finding by
-tests/test_torch_analysis.py).
+Fifteen rules are the JAX package's detectors unchanged (the meta, FFI,
+thread, server, robustness, telemetry, handler, lockset, poll-loop and
+pointer rules: the same findings on the same source, held by
+tests/test_torch_analysis.py); the other fifteen keep the JAX ids,
+families, severities and scopes and match the torch spelling of the
+hazard (tests/test_torch_lint_rules.py).  A port-only suppression is
+written ``# dcfm-torch: ignore[RULE] - <why>``, which the JAX linter does
+not read; this linter reads that form and the JAX one.
 """
 
 from __future__ import annotations
@@ -36,40 +43,61 @@ import re
 import tokenize
 from typing import Iterable, Optional
 
-from dcfm_tpu_torch.analysis.rules import ALL_RULES, RULES
+from dcfm_tpu_torch.analysis.rules import ALL_RULES, RULES, TRANSLATED
 
+# the JAX linter's pragma, and the port's own (invisible to the JAX one)
 _IGNORE_RE = re.compile(r"#\s*dcfm:\s*ignore\[([A-Z0-9, ]+)\]")
+_TORCH_IGNORE_RE = re.compile(r"#\s*dcfm-torch:\s*ignore\[([A-Z0-9, ]+)\]")
 
-# jax.random functions that CONSUME the key they are given (the key must
-# not be used again).  fold_in/key/PRNGKey/clone DERIVE keys and are
-# exempt: fold_in with distinct site constants is this repo's sanctioned
-# key-derivation architecture (models/conditionals._shard_keys).
-_RNG_CONSUMERS = {
-    "split", "normal", "uniform", "gamma", "beta", "bernoulli", "cauchy",
-    "categorical", "chisquare", "choice", "dirichlet", "double_sided_maxwell",
-    "exponential", "f", "gumbel", "laplace", "loggamma", "logistic",
-    "maxwell", "multivariate_normal", "orthogonal", "pareto", "permutation",
-    "poisson", "rademacher", "randint", "rayleigh", "t", "truncated_normal",
-    "weibull_min", "ball", "binomial", "geometric",
+# torch functions that draw from a stream: without generator= (or with
+# generator=None) they draw from the process-global one
+_TORCH_VARIATES = {
+    "randn", "rand", "randint", "randperm", "normal", "poisson",
+    "bernoulli", "multinomial", "binomial", "rand_like", "randn_like",
+    "randint_like", "_standard_gamma", "_sample_dirichlet",
 }
-_RNG_DERIVERS = {"fold_in", "key", "PRNGKey", "wrap_key_data", "clone",
-                 "key_data"}
-_KEY_PARAM_RE = re.compile(
-    r"^(key|keys|rng|rngs|rng_key|k|k_[A-Za-z0-9_]+|[A-Za-z0-9_]*_key)$")
-
-# callees whose function arguments execute under trace
-_TRACER_CALLERS = {"scan", "while_loop", "fori_loop", "cond", "switch",
-                   "vmap", "pmap", "checkpoint", "remat", "associative_scan",
-                   "pallas_call", "shard_map"}
+# in-place tensor methods that fill from a stream
+_INPLACE_VARIATES = {
+    "normal_", "uniform_", "exponential_", "bernoulli_", "random_",
+    "cauchy_", "log_normal_", "geometric_",
+}
+_SEED_METHODS = {"manual_seed", "manual_seed_all"}
 
 _CONTIG_PRODUCERS = {"ascontiguousarray", "require", "zeros", "empty",
                      "ones", "full", "zeros_like", "empty_like",
                      "ones_like", "full_like"}
 
-_HOST_SYNC_NP = {"asarray", "array", "ascontiguousarray", "save", "load",
-                 "copy"}
-_HOST_SYNC_METHODS = {"item", "tolist", "tobytes"}
+# methods that copy a tensor's values to the host (or wait for the card)
+_HOST_SYNC_METHODS = {"item", "tolist", "tobytes", "cpu", "numpy"}
+_HOST_SYNC_NP = {"numpy.asarray", "numpy.array", "numpy.ascontiguousarray",
+                 "numpy.copy"}
+# torch calls whose result size or Python value depends on the data
+_HOST_SYNC_TORCH = {"torch.cuda.synchronize", "torch.nonzero",
+                    "torch.argwhere", "torch.equal"}
 
+# tensor metadata: fixed when a graph is captured, so a test on it is
+# static structure, not a captured value
+_META_ATTRS = {"shape", "dtype", "device", "ndim", "is_cuda", "is_cpu",
+               "layout", "requires_grad", "is_sparse", "is_leaf", "names",
+               "itemsize", "nbytes", "type"}
+_META_METHODS = {"size", "dim", "numel", "nelement", "ndimension", "stride",
+                 "element_size", "data_ptr", "is_contiguous",
+                 "is_floating_point", "is_complex", "get_device",
+                 "storage_offset", "untyped_storage", "is_pinned", "item",
+                 "tolist", "type"}
+# builtins whose result is a host value (a count, a flag, a container)
+_HOST_BUILTINS = {"len", "isinstance", "issubclass", "int", "float", "bool",
+                  "str", "repr", "format", "type", "id", "hash", "getattr",
+                  "hasattr", "callable", "range", "list", "tuple", "dict",
+                  "set", "frozenset", "enumerate", "zip", "sorted", "print"}
+# torch functions that return no tensor
+_TORCH_HOST_TAILS = {"is_tensor", "is_floating_point", "is_complex",
+                     "get_default_dtype", "is_grad_enabled", "Size",
+                     "device", "dtype", "finfo", "iinfo", "result_type",
+                     "promote_types", "broadcast_shapes", "can_cast",
+                     "is_storage", "Generator", "is_inference_mode_enabled"}
+_TORCH_HOST_PREFIXES = ("torch.cuda.", "torch.backends.", "torch.autograd.",
+                        "torch.distributed.", "torch.profiler.")
 
 @dataclasses.dataclass(frozen=True)
 class Finding:
@@ -87,7 +115,7 @@ class Finding:
 
 
 def _dotted(node: ast.AST) -> Optional[str]:
-    """'jax.random.split' for Attribute/Name chains, else None."""
+    """'torch.cuda.graph' for Attribute/Name chains, else None."""
     parts = []
     while isinstance(node, ast.Attribute):
         parts.append(node.attr)
@@ -102,13 +130,37 @@ def _last(name: Optional[str]) -> str:
     return name.rsplit(".", 1)[-1] if name else ""
 
 
+def module_dotted(path: str) -> str:
+    """Dotted module name for the cross-module symbol table: the file's
+    stem under every enclosing directory that holds an ``__init__.py``
+    (``dcfm_tpu_torch/models/sampler.py`` ->
+    ``dcfm_tpu_torch.models.sampler``; a file outside a package keys by
+    its stem - scripts cannot be imported cross-module anyway)."""
+    ap = os.path.abspath(path)
+    d, base = os.path.split(ap)
+    stem = base[:-3] if base.endswith(".py") else base
+    parts = [] if stem == "__init__" else [stem]
+    while os.path.isfile(os.path.join(d, "__init__.py")):
+        d, pkg = os.path.split(d)
+        parts.insert(0, pkg)
+        if not pkg:
+            break
+    return ".".join(parts)
+
+
+_DEFS = (ast.FunctionDef, ast.AsyncFunctionDef)
+# the symbol-table key of "a call of field NAME on an object of unknown
+# type" (engine.Project maps it to the defs published under NAME)
+ATTR_CALL = "attr:"
+
+
 class _Module:
-    """Shared per-file context: aliases, traced-function set, taint.
+    """Shared per-file context: aliases, captured regions, taint.
 
     ``project`` is the optional cross-module symbol table built by
-    analysis/engine.py (threaded classes, loader helpers, jit entries);
-    single-file mode (``lint_file`` without a project) keeps every rule
-    functional on in-module evidence alone.
+    analysis/engine.py (threaded classes, loader helpers, the functions
+    a capture reaches); single-file mode (``lint_file`` without a
+    project) keeps every rule functional on in-module evidence alone.
     """
 
     def __init__(self, tree: ast.Module, source: str, path: str,
@@ -120,8 +172,8 @@ class _Module:
         base = os.path.basename(path)
         self.is_test = base.startswith("test_") or base == "conftest.py"
         # Runtime pipeline module (DCFM801 scope): a file living under a
-        # directory named "runtime" (dcfm_tpu/runtime/), or whose stem
-        # is "runtime" / ends in "_runtime" (the lint-fixture naming
+        # directory named "runtime" (dcfm_tpu_torch/runtime/), or whose
+        # stem is "runtime" / ends in "_runtime" (the lint-fixture naming
         # convention).  Deliberately NOT a substring match: a module
         # like runtime_flags.py is ordinary library code and must not
         # be held to the pipeline's async-fetch discipline.
@@ -129,6 +181,8 @@ class _Module:
         stem = base[:-3] if base.endswith(".py") else base
         self.is_runtime = ("runtime" in parts[:-1] or stem == "runtime"
                            or stem.endswith("_runtime"))
+        # the process-group seam (DCFM1701 scope): parallel/
+        self.is_parallel = "parallel" in parts[:-1]
         # Standalone scripts (scripts/, bench.py, the graft driver) are
         # operator entry points, not library code: library_only rules
         # (constant seeds, console prints, daemon helpers) skip them
@@ -136,17 +190,24 @@ class _Module:
         # telemetry discipline onto demo drivers.
         self.is_script = ("scripts" in parts[:-1]
                           or stem in {"bench", "__graft_entry__"})
+        self.dotted = module_dotted(path)
+        self.pragmas: list = []
         self.ignores = self._collect_ignores()
         self.aliases: dict = {}
         self._collect_aliases()
+        self._collect_defs()
+        # captured regions: FunctionDef / Lambda / With nodes
         self.traced: set = set()
+        # dotted names outside this module that a captured region calls
+        self.traced_external: set = set()
         self._collect_traced()
 
     def _collect_ignores(self) -> dict:
         """Pragmas from real COMMENT tokens only: a docstring or rule
         summary that merely *mentions* the ``# dcfm: ignore[...]``
         syntax is prose, not a suppression (and must not be flagged as
-        a stale one by DCFM002)."""
+        a stale one by DCFM002).  Both forms are read; ``self.pragmas``
+        keeps each one's form for the staleness check."""
         out: dict = {}
         try:
             tokens = list(tokenize.generate_tokens(
@@ -156,10 +217,16 @@ class _Module:
         for tok in tokens:
             if tok.type != tokenize.COMMENT:
                 continue
-            m = _IGNORE_RE.search(tok.string)
-            if m:
-                out[tok.start[0]] = {r.strip()
-                                     for r in m.group(1).split(",")}
+            for form, regex in (("dcfm", _IGNORE_RE),
+                                ("dcfm-torch", _TORCH_IGNORE_RE)):
+                m = regex.search(tok.string)
+                if not m:
+                    continue
+                rules = {r.strip() for r in m.group(1).split(",")}
+                out.setdefault(tok.start[0], set()).update(rules)
+                self.pragmas.append((tok.start[0],
+                                     tok.start[1] + m.start(), form,
+                                     rules))
         return out
 
     def _collect_aliases(self) -> None:
@@ -176,8 +243,8 @@ class _Module:
     def resolve(self, node: ast.AST) -> str:
         """Canonical dotted name of an expression ('' if unresolvable):
         the head segment is expanded through the import aliases, so
-        ``from jax import random as r`` makes ``r.split`` resolve to
-        ``jax.random.split``."""
+        ``import torch.distributed as dist`` makes ``dist.barrier``
+        resolve to ``torch.distributed.barrier``."""
         name = _dotted(node)
         if not name:
             return ""
@@ -185,77 +252,294 @@ class _Module:
         head = self.aliases.get(head, head)
         return f"{head}.{rest}" if rest else head
 
-    def is_jax_random(self, call: ast.Call) -> Optional[str]:
-        """The jax.random function name if this call targets one."""
-        full = self.resolve(call.func)
-        if full.startswith("jax.random."):
-            tail = full.rsplit(".", 1)[-1]
-            if tail in _RNG_CONSUMERS or tail in _RNG_DERIVERS:
-                return tail
-        return None
+    # -- the def tree ---------------------------------------------------
+    def _collect_defs(self) -> None:
+        """One linear traversal: every def keyed by its enclosing def
+        scope (the module for top-level functions), methods by their
+        class, each node's innermost enclosing def, and the dotted name
+        of every top-level function and top-level class method (the
+        cross-module symbol table's keys)."""
+        self._scope_defs: dict = {self.tree: {}}
+        self._parent: dict = {}
+        self._class_of: dict = {}
+        self._classes: dict = {}
+        self._class_by_name: dict = {}
+        self._owner: dict = {}
+        self.dotted_of: dict = {}
 
-    # -- traced-function discovery ------------------------------------
-    def _collect_traced(self) -> None:
-        # function-definition tree: every def, keyed by nearest
-        # enclosing def scope (module for top-level and class methods -
-        # class bodies do not make a def scope).  One linear traversal;
-        # the previous per-def ancestor walk was quadratic and dominated
-        # whole-tree lint time.
-        self._defs_by_scope: dict = {self.tree: {}}
-
-        def collect(node: ast.AST, scope: ast.AST) -> None:
+        def walk(node, scope, cls, cls_top):
             for child in ast.iter_child_nodes(node):
-                if isinstance(child,
-                              (ast.FunctionDef, ast.AsyncFunctionDef)):
-                    self._defs_by_scope[scope][child.name] = child
-                    self._defs_by_scope.setdefault(child, {})
-                    collect(child, child)
+                self._owner[id(child)] = scope
+                if isinstance(child, _DEFS):
+                    if cls is not None:
+                        self._classes[cls][child.name] = child
+                        self._class_of[child] = cls
+                        if cls_top:
+                            self.dotted_of[child] = (
+                                f"{self.dotted}.{cls.name}.{child.name}")
+                    else:
+                        self._scope_defs[scope][child.name] = child
+                        if scope is self.tree:
+                            self.dotted_of[child] = (
+                                f"{self.dotted}.{child.name}")
+                        elif scope in self.dotted_of:
+                            self.dotted_of[child] = (
+                                f"{self.dotted_of[scope]}.{child.name}")
+                    self._parent[child] = scope
+                    self._scope_defs[child] = {}
+                    walk(child, child, None, False)
+                elif isinstance(child, ast.ClassDef):
+                    self._classes[child] = {}
+                    top = scope is self.tree and cls is None
+                    if top:
+                        self._class_by_name[child.name] = child
+                    walk(child, scope, child, top)
                 else:
-                    collect(child, scope)
+                    walk(child, scope, cls, cls_top)
 
-        collect(self.tree, self.tree)
+        walk(self.tree, self.tree, None, False)
+        self._methods_named: dict = {}
+        for meths in self._classes.values():
+            for name, d in meths.items():
+                self._methods_named.setdefault(name, []).append(d)
+        self._published = self._collect_published()
 
-        for scope, defs in self._defs_by_scope.items():
-            for fdef in defs.values():
-                for dec in getattr(fdef, "decorator_list", []):
-                    flat = ast.dump(dec)
-                    if "'jit'" in flat or "'pjit'" in flat:
-                        self.traced.add(fdef)
-        all_defs: dict = {}
-        for defs in self._defs_by_scope.values():
-            all_defs.update(defs)
+    def _collect_published(self) -> dict:
+        """Defs of this module handed to a constructor as a named field
+        - ``Prior(name, init, update, ...)`` of a NamedTuple defined
+        here, or any ``f(update=fn)`` - keyed by the field name: a later
+        ``prior.update(...)`` on an object of unknown type may run them
+        (the priors' closures that gibbs_sweep calls)."""
+        out: dict = {}
         for node in ast.walk(self.tree):
             if not isinstance(node, ast.Call):
                 continue
-            tail = _last(self.resolve(node.func))
-            if tail not in {"jit", "pjit"} and tail not in _TRACER_CALLERS:
+            pairs = [(k.arg, k.value) for k in node.keywords if k.arg]
+            if (isinstance(node.func, ast.Name)
+                    and node.func.id in self._class_by_name):
+                cls = self._class_by_name[node.func.id]
+                fields = [st.target.id for st in cls.body
+                          if isinstance(st, ast.AnnAssign)
+                          and isinstance(st.target, ast.Name)]
+                pairs += list(zip(fields, node.args))
+            where = self._owner.get(id(node))
+            for attr, v in pairs:
+                if isinstance(v, ast.Name):
+                    d = self._lookup(v.id, where)
+                    if d is not None:
+                        out.setdefault(attr, set()).add(d)
+        return out
+
+    def published(self) -> dict:
+        """:meth:`_collect_published` as dotted names, for the engine."""
+        return {attr: sorted(self.dotted_of[d] for d in defs
+                             if d in self.dotted_of)
+                for attr, defs in self._published.items()}
+
+    def _lookup(self, name: str, where) -> Optional[ast.AST]:
+        """The def ``name`` visible from scope ``where`` (its own nested
+        defs, then each enclosing def scope, then the module)."""
+        scope = where
+        while scope is not None:
+            d = self._scope_defs.get(scope, {}).get(name)
+            if d is not None:
+                return d
+            scope = self._parent.get(scope)
+        return None
+
+    def _enclosing_class(self, where) -> Optional[ast.ClassDef]:
+        scope = where
+        while scope is not None and scope is not self.tree:
+            if scope in self._class_of:
+                return self._class_of[scope]
+            scope = self._parent.get(scope)
+        return None
+
+    def callees(self, func: ast.AST, where) -> tuple:
+        """(defs of this module, dotted names elsewhere) that a call of
+        ``func`` made in scope ``where`` may run.  Method calls resolve
+        on ``self``/``cls``, on a class of this module, or - for a
+        private method name that exactly one class here defines - on any
+        receiver (``runner._sweeps``)."""
+        if isinstance(func, ast.Lambda):
+            return {func}, set()
+        if isinstance(func, ast.Name):
+            d = self._lookup(func.id, where)
+            if d is not None:
+                return {d}, set()
+            full = self.resolve(func)
+            return set(), ({full} if full != func.id else set())
+        if not isinstance(func, ast.Attribute):
+            return set(), set()
+        recv = func.value
+        if isinstance(recv, ast.Name):
+            if recv.id in ("self", "cls"):
+                cls = self._enclosing_class(where)
+                d = self._classes.get(cls, {}).get(func.attr)
+                return ({d} if d is not None else set()), set()
+            if recv.id in self._class_by_name:
+                d = self._classes[self._class_by_name[recv.id]].get(
+                    func.attr)
+                return ({d} if d is not None else set()), set()
+            if recv.id in self.aliases:
+                return set(), {self.resolve(func)}
+        if func.attr.startswith("_") and not func.attr.startswith("__"):
+            cands = self._methods_named.get(func.attr, [])
+            if len(cands) == 1:
+                return {cands[0]}, set()
+        # a field call on an object of unknown type: the defs published
+        # under that field name, here and (through the engine) elsewhere
+        return (set(self._published.get(func.attr, ())),
+                {f"{ATTR_CALL}{func.attr}"})
+
+    def _callable_targets(self, expr: ast.AST, where) -> tuple:
+        """What a callable-valued expression runs when called: a lambda,
+        a def, a ``functools.partial`` of one, or the lambdas / defs a
+        local factory returns (``fn=trace_trip(runner)``)."""
+        if isinstance(expr, (ast.Tuple, ast.List)):
+            local, ext = set(), set()
+            for e in expr.elts:
+                lo, ex = self._callable_targets(e, where)
+                local |= lo
+                ext |= ex
+            return local, ext
+        if isinstance(expr, ast.Call):
+            if _last(self.resolve(expr.func)) == "partial" and expr.args:
+                return self._callable_targets(expr.args[0], where)
+            local, _ = self.callees(expr.func, where)
+            out: set = set()
+            for factory in local:
+                if not isinstance(factory, _DEFS):
+                    continue
+                for r in ast.walk(factory):
+                    if isinstance(r, ast.Return) and r.value is not None:
+                        lo, _ = self._callable_targets(r.value, factory)
+                        out |= lo
+            return out, set()
+        return self.callees(expr, where)
+
+    # -- captured regions -----------------------------------------------
+    def _collect_traced(self) -> None:
+        roots: set = set()
+        builders: list = []
+        for node in ast.walk(self.tree):
+            if isinstance(node, ast.With) and any(
+                    isinstance(it.context_expr, ast.Call)
+                    and self.resolve(it.context_expr.func)
+                    == "torch.cuda.graph" for it in node.items):
+                roots.add(node)
+            elif (isinstance(node, ast.Call) and node.args
+                  and _last(self.resolve(node.func))
+                  == "make_graphed_callables"):
+                lo, ex = self._callable_targets(
+                    node.args[0], self._owner.get(id(node)))
+                roots |= lo
+                self.traced_external |= ex
+            elif isinstance(node, _DEFS) and any(
+                    isinstance(dec, ast.Call)
+                    and _last(self.resolve(dec.func))
+                    == "register_trace_entry"
+                    and any(k.arg == "sweep_body"
+                            and isinstance(k.value, ast.Constant)
+                            and k.value.value is True
+                            for k in dec.keywords)
+                    for dec in node.decorator_list):
+                builders.append(node)
+        # a sweep-body builder's entry: the fn= of the TraceSpec it (or a
+        # helper of this module it calls) builds - what the gate runs as
+        # a trip; the builder's own set-up runs eagerly before it
+        seen: set = set()
+        while builders:
+            b = builders.pop()
+            if b in seen:
                 continue
-            for arg in list(node.args) + [k.value for k in node.keywords]:
-                if isinstance(arg, ast.Lambda):
-                    self.traced.add(arg)
-                elif isinstance(arg, ast.Name) and arg.id in all_defs:
-                    self.traced.add(all_defs[arg.id])
-                elif (isinstance(arg, ast.Call)
-                      and _last(self.resolve(arg.func)) == "partial"):
-                    for parg in arg.args:
-                        if isinstance(parg, ast.Name) and parg.id in all_defs:
-                            self.traced.add(all_defs[parg.id])
-        # propagate to same-scope siblings the traced functions call
-        # (run_chunk's scan body calls its sibling _body); module-level
-        # helpers are NOT propagated into - that is what keeps the
-        # statically-guarded float() in ops/gamma.py out of DCFM201.
-        changed = True
-        while changed:
-            changed = False
-            for scope, defs in self._defs_by_scope.items():
-                for fdef in [d for d in defs.values() if d in self.traced]:
-                    for call in ast.walk(fdef):
-                        if (isinstance(call, ast.Call)
-                                and isinstance(call.func, ast.Name)
-                                and call.func.id in defs
-                                and defs[call.func.id] not in self.traced):
-                            self.traced.add(defs[call.func.id])
-                            changed = True
+            seen.add(b)
+            for n in ast.walk(b):
+                if not isinstance(n, ast.Call):
+                    continue
+                where = self._owner.get(id(n))
+                if _last(self.resolve(n.func)) == "TraceSpec":
+                    for k in n.keywords:
+                        if k.arg == "fn":
+                            lo, ex = self._callable_targets(k.value, where)
+                            roots |= lo
+                            self.traced_external |= ex
+                else:
+                    lo, _ = self.callees(n.func, where)
+                    builders.extend(d for d in lo if isinstance(d, _DEFS))
+        if self.project is not None:
+            known = getattr(self.project, "traced", ())
+            roots |= {d for d, name in self.dotted_of.items()
+                      if name in known}
+        self._propagate(roots)
+
+    def _propagate(self, roots: set) -> None:
+        """Close the captured set over calls: every def a region calls,
+        in this module; calls leaving the module go to traced_external
+        (the engine closes those over the other modules)."""
+        frontier = list(roots - self.traced)
+        self.traced |= roots
+        while frontier:
+            region = frontier.pop()
+            where = region if isinstance(region, _DEFS) else \
+                self._owner.get(id(region))
+            for n in region_nodes(region, ()):
+                if not isinstance(n, ast.Call):
+                    continue
+                lo, ex = self.callees(n.func, self._owner.get(id(n), where))
+                self.traced_external |= ex
+                for d in lo - self.traced:
+                    self.traced.add(d)
+                    frontier.append(d)
+
+    def call_edges(self) -> dict:
+        """Cross-module call graph contribution: for every top-level
+        function and method, the dotted names of what it may call
+        (nested defs and lambdas included)."""
+        out: dict = {}
+        for fdef, name in self.dotted_of.items():
+            callees: set = set()
+            for n in ast.walk(fdef):
+                if not isinstance(n, ast.Call):
+                    continue
+                lo, ex = self.callees(n.func, self._owner.get(id(n), fdef))
+                callees |= ex
+                callees |= {self.dotted_of[d] for d in lo
+                            if d in self.dotted_of}
+            if callees:
+                out[name] = sorted(callees)
+        return out
+
+    def reexports(self) -> dict:
+        """Names this module binds by ``from x import y`` at its top
+        level, as the dotted names they stand for (a package's
+        ``__init__`` re-exporting a function)."""
+        out: dict = {}
+        for node in self.tree.body:
+            if isinstance(node, ast.ImportFrom) and node.module \
+                    and not node.level:
+                for a in node.names:
+                    out[f"{self.dotted}.{a.asname or a.name}"] = (
+                        f"{node.module}.{a.name}")
+        return out
+
+
+def region_nodes(region: ast.AST, traced) -> Iterable[ast.AST]:
+    """The nodes a captured region runs: a def's body, a lambda's body,
+    a ``with`` block's statements; nested defs and classes are their own
+    regions (walked only when they are in ``traced`` themselves)."""
+    if isinstance(region, ast.With):
+        stack = list(reversed(region.body))
+    elif isinstance(region, ast.Lambda):
+        stack = [region.body]
+    else:
+        stack = list(reversed(region.body))
+    while stack:
+        node = stack.pop()
+        if isinstance(node, (*_DEFS, ast.ClassDef)) and node not in traced:
+            continue
+        yield node
+        stack.extend(reversed(list(ast.iter_child_nodes(node))))
 
 
 class _Reporter:
@@ -289,212 +573,213 @@ class _Reporter:
 # DCFM1xx - RNG discipline
 # =====================================================================
 
-@dataclasses.dataclass
-class _KeyState:
-    """Per-key consumption record along one control-flow path."""
-    samplers: int = 0                  # direct jax.random sampler/split uses
-    escapes: dict = dataclasses.field(default_factory=dict)  # callee -> n
-
-    def copy(self) -> "_KeyState":
-        return _KeyState(self.samplers, dict(self.escapes))
-
-    def merge(self, other: "_KeyState") -> "_KeyState":
-        esc = dict(self.escapes)
-        for c, n in other.escapes.items():
-            esc[c] = max(esc.get(c, 0), n)
-        return _KeyState(max(self.samplers, other.samplers), esc)
+def _generator_kw(call: ast.Call) -> Optional[ast.AST]:
+    """The ``generator=`` argument of a call, None when absent or given
+    as a literal None (both draw from the process-global stream)."""
+    for k in call.keywords:
+        if k.arg == "generator":
+            if isinstance(k.value, ast.Constant) and k.value.value is None:
+                return None
+            return k.value
+    return None
 
 
-class _KeyFlow:
-    """Path-sensitive single-scope key-consumption counter.
+def _distribution_names(mod: _Module) -> set:
+    """Names bound to a ``torch.distributions`` object anywhere in the
+    module (``d = Gamma(a, b)`` after ``from torch.distributions import
+    Gamma``): their ``.sample()`` has no generator argument at all."""
+    out: set = set()
+    for node in ast.walk(mod.tree):
+        if (isinstance(node, ast.Assign) and isinstance(node.value, ast.Call)
+                and mod.resolve(node.value.func).startswith(
+                    "torch.distributions.")):
+            out |= {t.id for t in node.targets if isinstance(t, ast.Name)}
+    return out
 
-    Tracks names bound to PRNG keys (key-producing assignments and
-    key-looking parameters) and counts static *consumption* sites.  A
-    key is violated when, along one path, it is (a) consumed by two
-    jax.random sampler/``split`` calls, (b) passed twice into the SAME
-    unknown callee, or (c) both sampled directly and passed into an
-    unknown callee.  Passing one parent key into *distinct* helpers is
-    exempt: that is this repo's sanctioned site-derivation architecture
-    (gibbs_sweep/impute_missing_y/adapt_rank each ``fold_in`` a distinct
-    ``_SITE_*`` constant from the same iteration key).  ``fold_in``
-    itself derives, never consumes.  ``if``/``else`` branches count
-    independently (a returning branch never merges with the fallthrough
-    path); loop bodies are walked twice so a key consumed across
-    iterations without re-derivation inside the loop is caught.  Nested
-    function bodies are separate scopes (closure keys are not tracked
-    there - by design, it keeps ``fit()``'s resume helpers quiet);
-    lambdas are walked inline with parameter shadowing.
-    """
+
+def _variate_call(mod: _Module, call: ast.Call, dists: set) -> str:
+    """What this call draws from the global stream ('' if nothing)."""
+    full = mod.resolve(call.func)
+    if (full.startswith("torch.") and _last(full) in _TORCH_VARIATES
+            and full.count(".") == 1):
+        return "" if _generator_kw(call) is not None else f"{full}()"
+    if not isinstance(call.func, ast.Attribute):
+        return ""
+    attr = call.func.attr
+    if attr in _INPLACE_VARIATES:
+        return "" if _generator_kw(call) is not None else f".{attr}()"
+    if attr in ("sample", "rsample", "sample_n"):
+        recv = call.func.value
+        if (isinstance(recv, ast.Name) and recv.id in dists) or (
+                isinstance(recv, ast.Call) and mod.resolve(
+                    recv.func).startswith("torch.distributions.")):
+            return f"torch.distributions .{attr}()"
+    return ""
+
+
+class _SeedFlow:
+    """Path-sensitive single-scope seeding tracker (DCFM101's second
+    half): one seed expression handed to ``manual_seed`` twice on one
+    path gives two identical streams (two generators) or replays one.
+    ``if``/``else`` branches count independently (a returning branch
+    never merges with the fallthrough); a loop body is walked twice,
+    the second time forgetting seeds that mention a name the loop
+    rebinds (``manual_seed(base + i)`` differs per iteration, a
+    loop-invariant seed does not); rebinding a name forgets the seeds
+    that mention it.  Nested defs are separate scopes."""
 
     def __init__(self, mod: _Module, rep: _Reporter, scope: ast.AST):
-        self.mod, self.rep = mod, rep
-        self.scope = scope
+        self.mod, self.rep, self.scope = mod, rep, scope
 
     def run(self) -> None:
-        counts: dict = {}
-        args = getattr(self.scope, "args", None)
-        if args is not None:
-            for a in (args.posonlyargs + args.args + args.kwonlyargs):
-                if _KEY_PARAM_RE.match(a.arg):
-                    counts[a.arg] = _KeyState()
         body = self.scope.body if isinstance(self.scope.body, list) else [
             ast.Expr(self.scope.body)]
-        self._stmts(body, counts)
+        self._stmts(body, {})
 
-    def _stmts(self, stmts, counts) -> bool:
+    def _stmts(self, stmts, seen) -> bool:
         """Process a statement list; True if every path terminates."""
         for st in stmts:
-            if isinstance(st, (ast.FunctionDef, ast.AsyncFunctionDef,
-                               ast.ClassDef)):
-                continue  # separate scope, analyzed on its own
+            if isinstance(st, (*_DEFS, ast.ClassDef)):
+                continue
             if isinstance(st, (ast.Return, ast.Raise)):
                 v = getattr(st, "value", None) or getattr(st, "exc", None)
                 if v is not None:
-                    self._expr(v, counts)
+                    self._expr(v, seen)
                 return True
             if isinstance(st, (ast.Assign, ast.AnnAssign, ast.AugAssign)):
                 if st.value is not None:
-                    self._expr(st.value, counts)
+                    self._expr(st.value, seen)
                 targets = (st.targets if isinstance(st, ast.Assign)
                            else [st.target])
-                self._rebind(targets, st.value, counts)
+                self._forget(_bound_names(targets), seen)
             elif isinstance(st, ast.If):
-                self._expr(st.test, counts)
-                c_body = {k: v.copy() for k, v in counts.items()}
-                c_else = {k: v.copy() for k, v in counts.items()}
+                self._expr(st.test, seen)
+                c_body, c_else = dict(seen), dict(seen)
                 t_body = self._stmts(st.body, c_body)
                 t_else = self._stmts(st.orelse, c_else)
                 live = [c for c, t in ((c_body, t_body), (c_else, t_else))
                         if not t]
                 if not live:
                     return True
-                merged: dict = {}
+                seen.clear()
                 for c in live:
-                    for k, v in c.items():
-                        merged[k] = merged[k].merge(v) if k in merged else v
-                counts.clear()
-                counts.update(merged)
+                    seen.update(c)
             elif isinstance(st, (ast.For, ast.While)):
                 self._expr(st.iter if isinstance(st, ast.For) else st.test,
-                           counts)
-                self._stmts(st.body, counts)
-                self._stmts(st.body, counts)   # cross-iteration reuse
-                self._stmts(st.orelse, counts)
+                           seen)
+                bound = _bound_names([st.target]) if isinstance(
+                    st, ast.For) else set()
+                for n in ast.walk(st):
+                    if isinstance(n, (ast.Assign, ast.AugAssign,
+                                      ast.AnnAssign)):
+                        bound |= _bound_names(
+                            n.targets if isinstance(n, ast.Assign)
+                            else [n.target])
+                self._forget(bound, seen)
+                self._stmts(st.body, seen)
+                self._forget(bound, seen)
+                self._stmts(st.body, seen)   # the next iteration
+                self._stmts(st.orelse, seen)
             elif isinstance(st, ast.With):
                 for item in st.items:
-                    self._expr(item.context_expr, counts)
-                if self._stmts(st.body, counts):
+                    self._expr(item.context_expr, seen)
+                if self._stmts(st.body, seen):
                     return True
             elif isinstance(st, ast.Try):
-                self._stmts(st.body, counts)
+                self._stmts(st.body, seen)
                 for h in st.handlers:
-                    self._stmts(h.body,
-                                {k: v.copy() for k, v in counts.items()})
-                self._stmts(st.orelse, counts)
-                self._stmts(st.finalbody, counts)
-            elif isinstance(st, ast.Expr):
-                self._expr(st.value, counts)
+                    self._stmts(h.body, dict(seen))
+                self._stmts(st.orelse, seen)
+                self._stmts(st.finalbody, seen)
             else:
                 for child in ast.iter_child_nodes(st):
                     if isinstance(child, ast.expr):
-                        self._expr(child, counts)
+                        self._expr(child, seen)
         return False
 
-    def _rebind(self, targets, value, counts) -> None:
-        produced = self._is_key_producer(value)
-        for t in targets:
-            names = ([t.id] if isinstance(t, ast.Name) else
-                     [e.id for e in getattr(t, "elts", [])
-                      if isinstance(e, ast.Name)])
-            for n in names:
-                if produced:
-                    counts[n] = _KeyState()   # fresh key(s): lineage resets
-                elif n in counts:
-                    del counts[n]             # rebound to a non-key value
+    @staticmethod
+    def _forget(names: set, seen: dict) -> None:
+        for key, mentioned in list(seen.items()):
+            if mentioned & names:
+                del seen[key]
 
-    def _is_key_producer(self, value) -> bool:
-        if not isinstance(value, ast.Call):
-            return False
-        fn = self.mod.is_jax_random(value)
-        if fn == "split" or fn in _RNG_DERIVERS:
-            return True
-        return _last(self.mod.resolve(value.func)) == "chain_keys"
-
-    def _expr(self, node, counts, shadow=frozenset()) -> None:
-        if node is None:
-            return
-        if isinstance(node, ast.Lambda):
-            inner = shadow | {a.arg for a in node.args.args}
-            self._expr(node.body, counts, inner)
-            return
-        if isinstance(node, ast.Call):
-            self._consume(node, counts, shadow)
-        for child in ast.iter_child_nodes(node):
-            self._expr(child, counts, shadow)
-
-    def _consume(self, call, counts, shadow) -> None:
-        fn = self.mod.is_jax_random(call)
-        if fn is not None and fn != "split" and fn in _RNG_DERIVERS:
-            return                        # derivation, not consumption
-        full = self.mod.resolve(call.func)
-        tail = _last(full)
-        if fn is None and tail in {"eval_shape", "ShapeDtypeStruct",
-                                   "key_data", "block_until_ready"}:
-            return                        # shape/introspection only
-        callee = full or f"<dynamic:{id(call.func)}>"
-        for a in list(call.args) + [k.value for k in call.keywords]:
-            if not (isinstance(a, ast.Name) and a.id in counts
-                    and a.id not in shadow):
+    def _expr(self, node, seen) -> None:
+        for n in ast.walk(node):
+            if not (isinstance(n, ast.Call)
+                    and isinstance(n.func, ast.Attribute)
+                    and n.func.attr in _SEED_METHODS and n.args):
                 continue
-            st = counts[a.id]
-            if fn is not None:            # direct sampler / split
-                st.samplers += 1
-                if st.samplers >= 2 or st.escapes:
-                    self._flag(a)
-            else:                         # escapes into an unknown callee
-                st.escapes[callee] = st.escapes.get(callee, 0) + 1
-                if st.escapes[callee] >= 2 or st.samplers:
-                    self._flag(a)
+            key = ast.dump(n.args[0])
+            if key in seen:
+                self.rep.emit(
+                    "DCFM101", n,
+                    f"seed '{_unparse(n.args[0])}' is handed to "
+                    "manual_seed a second time on this path - two "
+                    "generators (or one restarted) then draw the SAME "
+                    "stream; derive a distinct seed for each stream "
+                    "(noise.stream_seed)")
+            else:
+                seen[key] = {m.id for m in ast.walk(n.args[0])
+                             if isinstance(m, ast.Name)}
 
-    def _flag(self, node) -> None:
-        self.rep.emit(
-            "DCFM101", node,
-            f"PRNG key '{node.id}' is consumed more than once on this "
-            "path (two samplers, the same helper twice, or a sampler "
-            "plus a helper) - derive a fresh key with split/fold_in "
-            "before each consumption")
+
+def _bound_names(targets) -> set:
+    out: set = set()
+    for t in targets:
+        for n in ast.walk(t):
+            if isinstance(n, ast.Name):
+                out.add(n.id)
+    return out
+
+
+def _unparse(node: ast.AST) -> str:
+    try:
+        return ast.unparse(node)
+    except (ValueError, TypeError, AttributeError, RecursionError):
+        return "<expr>"
 
 
 def _check_rng(mod: _Module, rep: _Reporter) -> None:
-    scopes = [mod.tree] + [
-        n for n in ast.walk(mod.tree)
-        if isinstance(n, (ast.FunctionDef, ast.AsyncFunctionDef))]
-    for scope in scopes:
-        _KeyFlow(mod, rep, scope).run()
-    # DCFM102: inline constant-seed key construction in library code,
-    # except shape-only eval_shape arguments
-    shape_only: set = set()
+    dists = _distribution_names(mod)
     for node in ast.walk(mod.tree):
-        if isinstance(node, ast.Call) and _last(
-                mod.resolve(node.func)) in {"eval_shape",
-                                            "ShapeDtypeStruct"}:
-            for sub in ast.walk(node):
-                shape_only.add(id(sub))
-    for node in ast.walk(mod.tree):
-        if not isinstance(node, ast.Call) or id(node) in shape_only:
+        if not isinstance(node, ast.Call):
             continue
-        fn = mod.is_jax_random(node)
-        if fn in {"key", "PRNGKey"} and node.args \
-                and isinstance(node.args[0], ast.Constant):
+        what = _variate_call(mod, node, dists)
+        if what:
+            rep.emit("DCFM101", node,
+                     f"{what} draws from the process-global stream (no "
+                     "generator=) - its values then depend on every other "
+                     "draw in the process, and a CUDA graph replays the "
+                     "global Philox offset it captured; pass the "
+                     "caller's generator (noise.TorchNoise) instead")
+    if any("manual_seed" in line for line in mod.lines):
+        scopes = [mod.tree] + [n for n in ast.walk(mod.tree)
+                               if isinstance(n, _DEFS)]
+        for scope in scopes:
+            _SeedFlow(mod, rep, scope).run()
+    # DCFM102: constant seeds in library code
+    for node in ast.walk(mod.tree):
+        if not (isinstance(node, ast.Call)
+                and isinstance(node.func, ast.Attribute)
+                and node.func.attr in _SEED_METHODS and node.args):
+            continue
+        seed = node.args[0]
+        if isinstance(seed, ast.UnaryOp):
+            seed = seed.operand
+        if isinstance(seed, ast.Constant):
             rep.emit("DCFM102", node,
-                     f"jax.random.{fn}({node.args[0].value!r}) with a "
+                     f"{node.func.attr}({_unparse(node.args[0])}) with a "
                      "constant seed in library code - thread the "
-                     "caller's key/seed instead")
+                     "caller's seed (FitConfig / noise.stream_seed) "
+                     "instead")
 
 
 # =====================================================================
-# DCFM2xx / DCFM3xx - jit hygiene and dtype drift
+# DCFM2xx / DCFM3xx - capture hygiene and dtype drift
 # =====================================================================
+
+_F64_NAMES = {"torch.float64", "torch.double"}
+
 
 def _is_float64_dtype(mod: _Module, node: ast.AST) -> bool:
     if _last(mod.resolve(node)) in {"float64", "double"}:
@@ -503,24 +788,119 @@ def _is_float64_dtype(mod: _Module, node: ast.AST) -> bool:
             and node.value in ("float64", "double", ">f8", "<f8", "f8"))
 
 
+def _is_torch_f64(mod: _Module, node: ast.AST) -> bool:
+    return isinstance(node, ast.Attribute) and mod.resolve(node) in _F64_NAMES
+
+
+def _compare_operands(tree: ast.AST) -> set:
+    """ids of the operands of comparisons: ``x.dtype == torch.float64``
+    is a dtype guard, it computes nothing in double."""
+    out: set = set()
+    for n in ast.walk(tree):
+        if isinstance(n, ast.Compare):
+            out |= {id(e) for e in [n.left, *n.comparators]}
+    return out
+
+
+def tensor_names(mod: _Module, region: ast.AST) -> set:
+    """Names that hold a tensor in a region: parameters annotated
+    ``torch.Tensor`` (or Optional of it), and names assigned (anywhere
+    in it) from a tensor-valued expression - a fixed point."""
+    out: set = set()
+    fdef = region
+    if not isinstance(fdef, (*_DEFS, ast.Lambda)):
+        fdef = mod._owner.get(id(region))
+    args = getattr(fdef, "args", None)
+    if args is not None:
+        for a in args.posonlyargs + args.args + args.kwonlyargs:
+            if a.annotation is not None and any(
+                    mod.resolve(n) == "torch.Tensor"
+                    or (isinstance(n, ast.Constant)
+                        and isinstance(n.value, str)
+                        and "Tensor" in n.value)
+                    for n in ast.walk(a.annotation)):
+                out.add(a.arg)
+    body = fdef if isinstance(fdef, (*_DEFS, ast.Lambda)) else region
+    assigns = [n for n in ast.walk(body)
+               if isinstance(n, (ast.Assign, ast.AnnAssign, ast.AugAssign))
+               and n.value is not None]
+    changed = True
+    while changed:
+        changed = False
+        for node in assigns:
+            if not tensor_valued(mod, node.value, out):
+                continue
+            targets = (node.targets if isinstance(node, ast.Assign)
+                       else [node.target])
+            for t in targets:
+                elts = t.elts if isinstance(t, (ast.Tuple, ast.List)) \
+                    else [t]
+                for e in elts:
+                    if isinstance(e, ast.Name) and e.id not in out:
+                        out.add(e.id)
+                        changed = True
+    return out
+
+
+def tensor_valued(mod: _Module, node: ast.AST, names: set) -> bool:
+    """Conservative 'this expression is a tensor' (so a Python truth
+    test of it reads a device value): a tensor name, a torch call that
+    returns a tensor, arithmetic or comparison on one - but not its
+    metadata (shape, dtype, device, numel(), ...), which a capture
+    fixes, nor a builtin's host value (len, isinstance, int, ...)."""
+    if isinstance(node, ast.Name):
+        return node.id in names
+    if isinstance(node, ast.Attribute):
+        if node.attr in _META_ATTRS:
+            return False
+        return tensor_valued(mod, node.value, names)
+    if isinstance(node, ast.Subscript):
+        return tensor_valued(mod, node.value, names)
+    if isinstance(node, ast.Call):
+        f = node.func
+        if isinstance(f, ast.Name) and f.id in _HOST_BUILTINS:
+            return False
+        full = mod.resolve(f)
+        if full.startswith("torch."):
+            return not (_last(full) in _TORCH_HOST_TAILS
+                        or full.startswith(_TORCH_HOST_PREFIXES))
+        if isinstance(f, ast.Attribute):
+            if f.attr in _META_METHODS:
+                return False
+            if tensor_valued(mod, f.value, names):
+                return True
+        return any(tensor_valued(mod, a, names)
+                   for a in [*node.args, *(k.value for k in node.keywords)])
+    if isinstance(node, ast.Compare):
+        if any(isinstance(op, (ast.Is, ast.IsNot, ast.In, ast.NotIn))
+               for op in node.ops):
+            return False
+        return any(tensor_valued(mod, e, names)
+                   for e in [node.left, *node.comparators])
+    if isinstance(node, ast.BinOp):
+        return (tensor_valued(mod, node.left, names)
+                or tensor_valued(mod, node.right, names))
+    if isinstance(node, ast.UnaryOp):
+        return tensor_valued(mod, node.operand, names)
+    if isinstance(node, ast.BoolOp):
+        return any(tensor_valued(mod, v, names) for v in node.values)
+    if isinstance(node, ast.IfExp):
+        return (tensor_valued(mod, node.body, names)
+                or tensor_valued(mod, node.orelse, names))
+    return False
+
+
 def _check_traced_bodies(mod: _Module, rep: _Reporter) -> None:
-    for fdef in mod.traced:
-        # subtrees of nested defs that are NOT themselves traced are a
-        # separate function - skip them here
-        skip: set = set()
-        for nd in ast.walk(fdef):
-            if nd is fdef or not isinstance(
-                    nd, (ast.FunctionDef, ast.AsyncFunctionDef)):
-                continue
-            if nd not in mod.traced:
-                for sub in ast.walk(nd):
-                    skip.add(id(sub))
-        tracerish = _tracerish_names(mod, fdef)
-        for node in ast.walk(fdef):
-            if id(node) in skip:
-                continue
+    for region in mod.traced:
+        names = tensor_names(mod, region)
+        guards = _compare_operands(region)
+        for node in region_nodes(region, mod.traced):
             if isinstance(node, ast.Call):
-                _check_traced_call(mod, rep, node, tracerish)
+                _check_traced_call(mod, rep, node, names)
+            elif _is_torch_f64(mod, node) and id(node) not in guards:
+                rep.emit("DCFM301", node,
+                         f"{mod.resolve(node)} inside a captured function "
+                         "(the chain is float32 end to end)")
             resolved = ""
             if isinstance(node, ast.Subscript):
                 resolved = mod.resolve(node.value)
@@ -528,97 +908,82 @@ def _check_traced_bodies(mod: _Module, rep: _Reporter) -> None:
                 resolved = mod.resolve(node.func)
             if resolved in {"os.environ", "os.environ.get", "os.getenv"}:
                 rep.emit("DCFM203", node,
-                         "os.environ read inside a traced function is "
-                         "baked in at trace time; read it outside the "
-                         "jit and pass the value in")
+                         "os.environ read inside a captured function is "
+                         "baked in when the graph is captured and ignored "
+                         "on every replay; read it outside and pass the "
+                         "value in")
             if isinstance(node, (ast.If, ast.While)):
                 test = node.test
                 if _is_static_test(test):
                     continue
-                if _mentions(test, tracerish) or _has_jnp_call(mod, test):
+                if tensor_valued(mod, test, names):
                     rep.emit("DCFM202", node,
-                             "Python control flow on a traced value "
-                             "(ConcretizationError or silent trace-time "
-                             "constant fold; use lax.cond / jnp.where)")
+                             "Python control flow on a tensor inside a "
+                             "captured function: the truth test syncs "
+                             "with the card, and the capture bakes in "
+                             "the branch it took - every replay runs it; "
+                             "use torch.where / a mask")
 
 
-def _check_traced_call(mod, rep, node, tracerish) -> None:
+def _check_traced_call(mod, rep, node, names) -> None:
     full = mod.resolve(node.func)
-    tail = _last(full)
-    head = full.split(".", 1)[0] if full else ""
-    if head in {"numpy", "np"} and tail in _HOST_SYNC_NP:
+    f = node.func
+    if full in _HOST_SYNC_NP and node.args \
+            and tensor_valued(mod, node.args[0], names):
         rep.emit("DCFM201", node,
-                 f"numpy call '{full}' inside a traced function forces "
-                 "a host sync (or fails at trace time); use jnp")
-    elif full == "jax.device_get":
+                 f"{full} of a tensor inside a captured function copies "
+                 "it to the host (a sync the capture refuses)")
+    elif full in _HOST_SYNC_TORCH or (
+            full == "torch.where" and len(node.args) == 1
+            and not node.keywords):
         rep.emit("DCFM201", node,
-                 "jax.device_get inside a traced function")
-    elif (isinstance(node.func, ast.Attribute)
-          and node.func.attr in _HOST_SYNC_METHODS):
+                 f"{full}() inside a captured function waits for the "
+                 "card (its result's size or value is read on the host)")
+    elif isinstance(f, ast.Attribute) and (
+            f.attr in _HOST_SYNC_METHODS or f.attr in {
+                "synchronize", "nonzero"}
+            or (f.attr == "query" and not node.args)):
         rep.emit("DCFM201", node,
-                 f".{node.func.attr}() inside a traced function "
-                 "materializes the value on host")
-    elif (isinstance(node.func, ast.Name)
-          and node.func.id in {"float", "int", "bool"}
-          and node.args and _mentions(node.args[0], tracerish)):
+                 f".{f.attr}() inside a captured function waits for the "
+                 "card or reads a device value on the host")
+    elif isinstance(f, ast.Attribute) and f.attr == "to" and any(
+            isinstance(a, ast.Constant) and a.value == "cpu"
+            for a in [*node.args, *(k.value for k in node.keywords)]):
         rep.emit("DCFM201", node,
-                 f"{node.func.id}() on a traced value forces a concrete "
-                 "host value at trace time")
+                 ".to('cpu') inside a captured function copies to the "
+                 "host")
+    elif (isinstance(f, ast.Name) and f.id in {"float", "int", "bool"}
+          and node.args and tensor_valued(mod, node.args[0], names)):
+        rep.emit("DCFM201", node,
+                 f"{f.id}() of a tensor inside a captured function reads "
+                 "its value on the host")
     for a in list(node.args) + [k.value for k in node.keywords]:
         if _is_float64_dtype(mod, a):
             rep.emit("DCFM301", a,
-                     "float64 dtype inside a traced function (the TPU "
-                     "path is float32 end to end)")
-    if tail == "astype" and node.args and isinstance(
-            node.args[0], ast.Name) and node.args[0].id == "float":
+                     "float64 dtype inside a captured function (the chain "
+                     "is float32 end to end)")
+    if isinstance(f, ast.Attribute) and f.attr == "double" \
+            and not node.args:
+        rep.emit("DCFM301", node,
+                 ".double() inside a captured function (the chain is "
+                 "float32 end to end)")
+    if isinstance(f, ast.Attribute) and f.attr in ("to", "astype", "type") \
+            and node.args and isinstance(node.args[0], ast.Name) \
+            and node.args[0].id == "float":
         rep.emit("DCFM302", node,
-                 "astype(float) in traced code (float64 under x64; "
-                 "pin jnp.float32)")
+                 f".{f.attr}(float) in captured code (Python's float is "
+                 "float64; pin torch.float32)")
     for k in node.keywords:
         if k.arg == "dtype" and isinstance(k.value, ast.Name) \
                 and k.value.id == "float":
             rep.emit("DCFM302", k.value,
-                     "dtype=float in traced code (float64 under x64; "
-                     "pin jnp.float32)")
-
-
-def _tracerish_names(mod: _Module, fdef) -> set:
-    """Names assigned (anywhere in the function) from expressions that
-    contain a jnp/lax call - conservative 'this is an array value'
-    marker for DCFM201/202."""
-    out: set = set()
-    changed = True
-    while changed:
-        changed = False
-        for node in ast.walk(fdef):
-            if not isinstance(node, ast.Assign):
-                continue
-            if _has_jnp_call(mod, node.value) or _mentions(node.value, out):
-                for t in node.targets:
-                    if isinstance(t, ast.Name) and t.id not in out:
-                        out.add(t.id)
-                        changed = True
-    return out
-
-
-def _has_jnp_call(mod: _Module, node: ast.AST) -> bool:
-    for n in ast.walk(node):
-        if isinstance(n, ast.Call):
-            full = mod.resolve(n.func)
-            if full.startswith("jax.numpy.") or full.startswith("jax.lax.") \
-                    or full.split(".", 1)[0] in {"jnp", "lax"}:
-                return True
-    return False
-
-
-def _mentions(node: ast.AST, names: set) -> bool:
-    return any(isinstance(n, ast.Name) and n.id in names
-               for n in ast.walk(node))
+                     "dtype=float in captured code (Python's float is "
+                     "float64; pin torch.float32)")
 
 
 def _is_static_test(test: ast.AST) -> bool:
-    """Tests that are fine in traced code: None/isinstance/shape checks -
-    static structure, not traced values."""
+    """Tests that are fine in captured code: None/isinstance/shape
+    checks - static structure, not captured values."""
     if isinstance(test, ast.Compare) and any(
             isinstance(op, (ast.Is, ast.IsNot)) for op in test.ops):
         return True
@@ -630,32 +995,54 @@ def _is_static_test(test: ast.AST) -> bool:
     return False
 
 
+# tensor methods that take a dtype
+_DTYPE_METHODS = {"to", "type", "new_zeros", "new_empty", "new_ones",
+                  "new_full", "new_tensor", "view"}
+
+
 def _check_dtype_module(mod: _Module, rep: _Reporter) -> None:
-    """DCFM301/302 outside traced functions: float64 passed into jnp
-    calls anywhere (host-side np.float64 diagnostics are deliberately
-    fine - utils/diagnostics.py accumulates in double on purpose)."""
+    """DCFM301/302 outside captured functions: torch.float64 /
+    torch.double (not as a dtype guard's operand), ``.double()``, a
+    float64 numpy dtype passed to a torch call, and Python's float as a
+    torch dtype.  Host-side numpy float64 stays fine
+    (utils/diagnostics.py accumulates in double on purpose)."""
+    guards = _compare_operands(mod.tree)
     for node in ast.walk(mod.tree):
-        if isinstance(node, ast.Attribute) and mod.resolve(node) in {
-                "jnp.float64", "jax.numpy.float64"}:
+        if _is_torch_f64(mod, node) and id(node) not in guards:
             rep.emit("DCFM301", node,
-                     "jnp.float64 in library code - the TPU path is "
+                     f"{mod.resolve(node)} - the port's tensors are "
                      "float32 end to end")
         if not isinstance(node, ast.Call):
             continue
-        full = mod.resolve(node.func)
-        if not (full.startswith("jnp.") or full.startswith("jax.numpy.")):
-            continue
-        for a in list(node.args) + [k.value for k in node.keywords]:
-            if _is_float64_dtype(mod, a):
-                rep.emit("DCFM301", a,
-                         f"float64 dtype passed to {full} - drifts the "
-                         "float32 TPU path to double precision")
-        for k in node.keywords:
-            if k.arg == "dtype" and isinstance(k.value, ast.Name) \
-                    and k.value.id == "float":
-                rep.emit("DCFM302", k.value,
-                         f"dtype=float passed to {full} (float64 under "
-                         "x64; pin jnp.float32)")
+        f = node.func
+        full = mod.resolve(f)
+        if isinstance(f, ast.Attribute) and f.attr == "double" \
+                and not node.args:
+            rep.emit("DCFM301", node,
+                     ".double() casts a tensor to float64 - the port's "
+                     "tensors are float32 end to end")
+        torch_fn = full.startswith("torch.")
+        if torch_fn:
+            for a in list(node.args) + [k.value for k in node.keywords]:
+                if _is_float64_dtype(mod, a) and not _is_torch_f64(mod, a):
+                    rep.emit("DCFM301", a,
+                             f"float64 dtype passed to {full} - drifts a "
+                             "float32 tensor to double precision")
+        if torch_fn or (isinstance(f, ast.Attribute)
+                        and f.attr in _DTYPE_METHODS):
+            for k in node.keywords:
+                if k.arg == "dtype" and isinstance(k.value, ast.Name) \
+                        and k.value.id == "float":
+                    rep.emit("DCFM302", k.value,
+                             f"dtype=float passed to {full or f.attr} "
+                             "(Python's float is float64; pin "
+                             "torch.float32)")
+        if isinstance(f, ast.Attribute) and f.attr == "to" and node.args \
+                and isinstance(node.args[0], ast.Name) \
+                and node.args[0].id == "float":
+            rep.emit("DCFM302", node,
+                     ".to(float) casts to float64 (Python's float); pin "
+                     "torch.float32")
 
 
 # =====================================================================
@@ -999,137 +1386,205 @@ def _check_robustness(mod: _Module, rep: _Reporter) -> None:
 
 
 # =====================================================================
-# DCFM7xx - multi-host discipline
+# DCFM7xx - multi-process discipline
 # =====================================================================
 
-# Calls that mark a function as multi-host-aware: it branches on (or
-# gathers across) the process topology, so arrays flowing through it
-# can be non-fully-addressable global arrays.
-_MULTIHOST_MARKER_FULL = {"jax.process_index", "jax.process_count"}
-_MULTIHOST_MARKER_TAILS = {"process_allgather", "broadcast_one_to_all",
-                           "sync_global_devices"}
-# Referencing any of these in the same function counts as addressing
-# the shard-locality question - the guard the rule demands.
-_ADDRESSABILITY_ATTRS = {"is_fully_addressable", "is_fully_replicated",
-                         "addressable_shards", "addressable_data"}
+# torch.distributed calls every rank of the group must issue (point-to-
+# point send/recv are rank-conditional by design and not listed)
+_DIST_COLLECTIVES = {
+    "all_reduce", "all_gather", "all_gather_into_tensor",
+    "all_gather_object", "broadcast", "broadcast_object_list", "reduce",
+    "reduce_scatter", "reduce_scatter_tensor", "gather", "gather_object",
+    "scatter", "scatter_object_list", "barrier", "monitored_barrier",
+    "all_to_all", "all_to_all_single", "new_group", "new_subgroups",
+}
+# parallel/shard.RankMesh's methods that issue collectives
+_MESH_COLLECTIVES = {
+    "reduce_fn", "gather_fn", "reduce_stats", "total", "gather_ints",
+    "share", "decide", "gather_counts", "gather_traces", "gather_carries",
+    "link_panels", "fetch",
+}
+_RANK_NAME_RE = re.compile(
+    r"^(rank|process_id|process_index|(local|global|my|this|node)_rank)$")
+_RANK_CALLS = {"get_rank", "process_index", "get_node_local_rank"}
+
+
+def _is_rank_test(mod: _Module, test: ast.AST) -> bool:
+    for n in ast.walk(test):
+        if isinstance(n, ast.Name) and _RANK_NAME_RE.match(n.id):
+            return True
+        if isinstance(n, ast.Attribute) and _RANK_NAME_RE.match(n.attr):
+            return True
+        if isinstance(n, ast.Call) and _last(
+                mod.resolve(n.func)) in _RANK_CALLS:
+            return True
+    return False
+
+
+def _collective_calls(mod: _Module, stmts) -> list:
+    """(name, call) of every collective issued in ``stmts`` (nested
+    defs excluded: they run when called, not here)."""
+    out = []
+    stack = list(stmts)
+    while stack:
+        node = stack.pop()
+        if isinstance(node, (*_DEFS, ast.ClassDef, ast.Lambda)):
+            continue
+        if isinstance(node, ast.Call):
+            full = mod.resolve(node.func)
+            if (full.startswith("torch.distributed.")
+                    and _last(full) in _DIST_COLLECTIVES):
+                out.append((_last(full), node))
+            elif (isinstance(node.func, ast.Attribute)
+                  and node.func.attr in _MESH_COLLECTIVES
+                  and "mesh" in _last(_dotted(node.func.value)).lower()):
+                out.append((node.func.attr, node))
+        stack.extend(ast.iter_child_nodes(node))
+    return out
+
+
+def _terminates(stmts) -> bool:
+    return bool(stmts) and isinstance(
+        stmts[-1], (ast.Return, ast.Raise, ast.Continue, ast.Break))
 
 
 def _check_multihost(mod: _Module, rep: _Reporter) -> None:
-    """DCFM701: function-granular like the FFI contiguity rule, and
-    nested-def-exclusive (a nested helper is its own function with its
-    own markers): in a multi-host-aware function with no addressability
-    reference, flag ``jax.device_get`` on an array variable
-    (Name/Attribute argument - a jit output fetched inline is the
-    caller's explicit choice) and ``np.asarray`` on a bare Name (list
-    literals building collective payloads are fine)."""
-    for fdef in ast.walk(mod.tree):
-        if not isinstance(fdef, (ast.FunctionDef, ast.AsyncFunctionDef)):
-            continue
-        skip: set = set()
-        for nd in ast.walk(fdef):
-            if nd is not fdef and isinstance(
-                    nd, (ast.FunctionDef, ast.AsyncFunctionDef)):
-                for sub in ast.walk(nd):
-                    skip.add(id(sub))
-        own = [n for n in ast.walk(fdef) if id(n) not in skip]
-        marked = False
-        guarded = False
-        for n in own:
-            if isinstance(n, ast.Call):
-                full = mod.resolve(n.func)
-                if (full in _MULTIHOST_MARKER_FULL
-                        or _last(full) in _MULTIHOST_MARKER_TAILS):
-                    marked = True
-            if isinstance(n, ast.Attribute) \
-                    and n.attr in _ADDRESSABILITY_ATTRS:
-                guarded = True
-        if not marked or guarded:
-            continue
-        for n in own:
-            if not isinstance(n, ast.Call) or not n.args:
+    """DCFM701: a collective issued on one side of a branch on the rank
+    that the other side never issues - the ranks that take the other
+    side never join it, and the group deadlocks.  An ``if`` on the rank
+    (``rank``/``process_id`` names, ``dist.get_rank()``) is compared
+    branch against branch by collective name; an ``if`` whose body
+    returns (or raises) with no ``else`` is compared against the rest of
+    its block, which only the other ranks run.  Both sides issuing the
+    same collective (rank 0 gathers into a list, the others send None)
+    is the sanctioned shape."""
+
+    def flag(name, call, side):
+        rep.emit("DCFM701", call,
+                 f"collective {name}() issued only by the ranks that "
+                 f"take {side} of a branch on the rank - the other ranks "
+                 "never issue it and the group deadlocks; issue it on "
+                 "every rank (pass None / an empty buffer where a rank "
+                 "has nothing to give)")
+
+    def compare(a, b, side_a, side_b):
+        names_a = {n for n, _ in a}
+        names_b = {n for n, _ in b}
+        for n, call in a:
+            if n not in names_b:
+                flag(n, call, side_a)
+        for n, call in b:
+            if n not in names_a:
+                flag(n, call, side_b)
+
+    def block(stmts):
+        for i, st in enumerate(stmts):
+            if isinstance(st, (*_DEFS, ast.ClassDef)):
                 continue
-            full = mod.resolve(n.func)
-            arg = n.args[0]
-            if full == "jax.device_get" and isinstance(
-                    arg, (ast.Name, ast.Attribute)):
-                rep.emit("DCFM701", n,
-                         "jax.device_get on an array variable in a "
-                         "multi-host-aware function with no "
-                         "addressability guard - non-fully-addressable "
-                         "global arrays cannot be device_get; fetch "
-                         "addressable shards, or guard on "
-                         "is_fully_addressable")
-            elif (full in {"numpy.asarray", "numpy.array"}
-                  and isinstance(arg, ast.Name)):
-                rep.emit("DCFM701", n,
-                         f"{_last(full)} on '{arg.id}' in a multi-host-"
-                         "aware function with no addressability guard - "
-                         "materializing a non-fully-addressable global "
-                         "array on host raises; fetch addressable "
-                         "shards, or guard on is_fully_addressable")
+            if isinstance(st, ast.If) and _is_rank_test(mod, st.test):
+                body = _collective_calls(mod, st.body)
+                if _terminates(st.body) and not st.orelse:
+                    rest = _collective_calls(mod, stmts[i + 1:])
+                    compare(body, rest, "one side", "the fall-through")
+                else:
+                    compare(body, _collective_calls(mod, st.orelse),
+                            "the if side", "the else side")
+            for field in ("body", "orelse", "finalbody"):
+                sub = getattr(st, field, None)
+                if isinstance(sub, list) and sub and isinstance(
+                        sub[0], ast.stmt):
+                    block(sub)
+            for h in getattr(st, "handlers", ()):
+                block(h.body)
+
+    block(mod.tree.body)
+    for fdef in ast.walk(mod.tree):
+        if isinstance(fdef, _DEFS):
+            block(fdef.body)
 
 
 # =====================================================================
 # DCFM8xx - runtime pipeline discipline
 # =====================================================================
 
+def _async_marker(mod: _Module, node: ast.AST) -> bool:
+    """An asynchronous device-to-host dispatch, an event recorded behind
+    one, or a wait on such an event (the drain half): a call with
+    ``non_blocking=True``, ``ev.record(stream)`` (one non-string
+    positional argument at most - the flight recorder's
+    ``record("kind", ...)`` is telemetry), ``stream.record_event()``, or
+    ``ev.synchronize()`` - an event's or stream's, not the device-wide
+    ``torch.cuda.synchronize()``."""
+    if not isinstance(node, ast.Call):
+        return False
+    if any(k.arg == "non_blocking" and isinstance(k.value, ast.Constant)
+           and k.value.value is True for k in node.keywords):
+        return True
+    f = node.func
+    if not isinstance(f, ast.Attribute):
+        return False
+    if f.attr == "record_event" or (
+            f.attr == "synchronize"
+            and not mod.resolve(f).startswith("torch.")):
+        return True
+    return (f.attr == "record" and not node.keywords
+            and len(node.args) <= 1
+            and not (node.args and isinstance(node.args[0], ast.Constant)))
+
+
+def _blocking_fetch(mod: _Module, node: ast.Call) -> str:
+    full = mod.resolve(node.func)
+    if full == "torch.cuda.synchronize":
+        return "torch.cuda.synchronize()"
+    if full in {"numpy.asarray", "numpy.array"} and node.args \
+            and isinstance(node.args[0], ast.Name):
+        return f"{_last(full)} on '{node.args[0].id}'"
+    if isinstance(node.func, ast.Attribute) and node.func.attr in {
+            "cpu", "item", "tolist", "numpy"} and not node.args:
+        return f".{node.func.attr}()"
+    return ""
+
+
 def _check_pipeline(mod: _Module, rep: _Reporter) -> None:
     """DCFM801: blocking host fetch in a runtime pipeline module with no
-    preceding ``copy_to_host_async`` in the same function.
+    preceding asynchronous copy or event record in the same function.
 
     Scope is the runtime package only (``mod.is_runtime`` - path-gated,
-    so api/serve code is untouched), function-granular and nested-def-
-    exclusive like DCFM701, and PRECEDENCE-aware: a fetch on a line at
-    or after the function's first ``copy_to_host_async`` dispatch is the
-    sanctioned drain half of an async pair; one before any dispatch is
-    the serializing sync fetch the rule hunts.  Argument shapes mirror
-    DCFM701 (``jax.device_get`` on Name/Attribute, ``np.asarray`` /
-    ``np.array`` on a bare Name) so jit-output fetches chosen inline and
-    list-literal payloads stay quiet."""
+    so serve/api code is untouched), function-granular and nested-def-
+    exclusive, and PRECEDENCE-aware: a fetch on a line at or after the
+    function's first ``non_blocking=True`` copy (or event record, or
+    wait on an event) is the drain half of an async pair; one before
+    any dispatch is the serializing sync fetch the rule hunts.  ``np.asarray`` / ``np.array``
+    count on a bare name only, so list-literal payloads stay quiet."""
     if not mod.is_runtime:
         return
     for fdef in ast.walk(mod.tree):
-        if not isinstance(fdef, (ast.FunctionDef, ast.AsyncFunctionDef)):
+        if not isinstance(fdef, _DEFS):
             continue
         skip: set = set()
         for nd in ast.walk(fdef):
-            if nd is not fdef and isinstance(
-                    nd, (ast.FunctionDef, ast.AsyncFunctionDef)):
+            if nd is not fdef and isinstance(nd, _DEFS):
                 for sub in ast.walk(nd):
                     skip.add(id(sub))
         own = [n for n in ast.walk(fdef) if id(n) not in skip]
-        async_lines = [
-            n.lineno for n in own
-            if isinstance(n, ast.Call)
-            and isinstance(n.func, ast.Attribute)
-            and n.func.attr == "copy_to_host_async"]
-        first_async = min(async_lines, default=None)
+        first_async = min((n.lineno for n in own
+                           if _async_marker(mod, n)),
+                          default=None)
         for n in own:
-            if not isinstance(n, ast.Call) or not n.args:
+            if not isinstance(n, ast.Call):
                 continue
             if first_async is not None and n.lineno >= first_async:
                 continue
-            full = mod.resolve(n.func)
-            arg = n.args[0]
-            if full == "jax.device_get" and isinstance(
-                    arg, (ast.Name, ast.Attribute)):
+            what = _blocking_fetch(mod, n)
+            if what:
                 rep.emit("DCFM801", n,
-                         "jax.device_get in a runtime pipeline function "
-                         "with no preceding copy_to_host_async - a "
-                         "blocking fetch here serializes the chain "
-                         "behind the device->host link; dispatch the "
-                         "async copy at the chunk boundary and drain "
-                         "off-thread (StreamingFetcher), or annotate "
+                         f"{what} in a runtime pipeline function with no "
+                         "preceding non_blocking copy or event record - a "
+                         "blocking fetch here serializes the chain behind "
+                         "the device->host link; dispatch the async copy "
+                         "at the chunk boundary and drain off-thread "
+                         "(runtime/pipeline.StreamingFetcher), or annotate "
                          "the deliberate sync fetch")
-            elif (full in {"numpy.asarray", "numpy.array"}
-                  and isinstance(arg, ast.Name)):
-                rep.emit("DCFM801", n,
-                         f"{_last(full)} on '{arg.id}' in a runtime "
-                         "pipeline function with no preceding "
-                         "copy_to_host_async - a blocking fetch here "
-                         "serializes the chain behind the device->host "
-                         "link; dispatch the async copy first, or "
-                         "annotate the deliberate sync fetch")
 
 
 # =====================================================================
@@ -1327,48 +1782,58 @@ def _chain_name(node: ast.AST) -> bool:
     return False
 
 
-def _bare_axis0(call: ast.Call) -> bool:
+def _bare_axis0(call: ast.Call, method: bool) -> bool:
     """True when the reduction collapses the leading axis implicitly:
-    no axis argument at all, or a bare literal ``axis=0``.  An axis
-    spelled any other way (a named constant, a non-zero index, a tuple)
-    counts as the author naming the axis deliberately."""
+    no axis argument at all, or a bare literal 0 - numpy's ``axis=``,
+    torch's ``dim=``, or the positional axis (the first argument of a
+    method, the second of ``np.mean(x, 0)`` / ``torch.sum(x, 0)``).  An
+    axis spelled any other way (a named constant, a non-zero index, a
+    tuple) counts as the author naming the axis deliberately."""
     for kw in call.keywords:
-        if kw.arg == "axis":
+        if kw.arg in ("axis", "dim"):
             return (isinstance(kw.value, ast.Constant)
                     and kw.value.value == 0)
+    pos = 0 if method else 1
+    if len(call.args) > pos:
+        a = call.args[pos]
+        return isinstance(a, ast.Constant) and a.value == 0
     return True
+
+
+_REDUCE_FNS = {f"{m}.{r}" for m in ("numpy", "torch")
+               for r in ("mean", "sum")}
 
 
 def _check_chain_reductions(mod: _Module, rep: _Reporter) -> None:
     """DCFM1401: a host reduction over a chain-major array without the
     chain axis named.  Trace blocks, pooled Sigma, and draws are ALWAYS
     chain-major (single-chain runs carry a length-1 leading axis), so a
-    bare ``.mean(axis=0)`` on a name containing 'chain' conflates
-    'average over chains' with 'average over draws'.  Functions whose
-    own name contains 'chain' (pool_chains, _pool_chain_axis) ARE the
-    sanctioned seam and are skipped."""
+    bare ``.mean(axis=0)`` / ``.mean(0)`` on a name containing 'chain'
+    conflates 'average over chains' with 'average over draws'.
+    Functions whose own name contains 'chain' (pool_chains,
+    _pool_chain_axis) ARE the sanctioned seam and are skipped."""
 
     def visit(node: ast.AST, in_chain_fn: bool) -> None:
         for child in ast.iter_child_nodes(node):
-            if isinstance(child, (ast.FunctionDef, ast.AsyncFunctionDef)):
+            if isinstance(child, _DEFS):
                 visit(child, in_chain_fn
                       or "chain" in child.name.lower())
                 continue
             if isinstance(child, ast.Call) and not in_chain_fn:
-                target = None
+                target, method = None, False
                 fn = mod.resolve(child.func)
-                if fn in ("numpy.mean", "numpy.sum") and child.args:
+                if fn in _REDUCE_FNS and child.args:
                     target = child.args[0]
                 elif (isinstance(child.func, ast.Attribute)
                         and child.func.attr in ("mean", "sum")):
-                    target = child.func.value
+                    target, method = child.func.value, True
                 if (target is not None and _chain_name(target)
-                        and _bare_axis0(child)):
+                        and _bare_axis0(child, method)):
                     rep.emit(
                         "DCFM1401", child,
                         "host reduction over a chain-major array "
                         "collapses the leading chain axis implicitly "
-                        "(bare axis=0 / no axis) - pool through "
+                        "(bare axis/dim 0, or none) - pool through "
                         "pool_chains()/_pool_chain_axis() or name the "
                         "chain axis in the reducing helper")
             visit(child, in_chain_fn)
@@ -1381,66 +1846,89 @@ def _check_chain_reductions(mod: _Module, rep: _Reporter) -> None:
 # =====================================================================
 
 _ALLOC_FNS = frozenset(
-    f"{m}.{a}" for m in ("numpy", "jax.numpy")
+    f"{m}.{a}" for m in ("numpy", "torch")
     for a in ("zeros", "empty", "ones", "full"))
+_NEW_ALLOC_METHODS = {"new_zeros", "new_empty", "new_ones", "new_full"}
+
+
+def _alloc_dims(mod: _Module, node: ast.Call) -> Optional[list]:
+    """The shape of an allocation call as a list of dim expressions, or
+    None: a tuple/list first argument (or ``size=``), or - torch's
+    varargs form - every positional argument (``torch.zeros(p, p)``,
+    ``x.new_zeros(p, p)``)."""
+    full = mod.resolve(node.func)
+    method = (isinstance(node.func, ast.Attribute)
+              and node.func.attr in _NEW_ALLOC_METHODS)
+    if full not in _ALLOC_FNS and not method:
+        return None
+    size = next((k.value for k in node.keywords
+                 if k.arg in ("size", "shape")), None)
+    if size is None and node.args:
+        size = node.args[0]
+    if isinstance(size, (ast.Tuple, ast.List)):
+        return size.elts
+    varargs = method and node.func.attr != "new_full"
+    if (full.startswith("torch.") and not full.endswith(".full")) \
+            or varargs:
+        return [a for a in node.args if not isinstance(a, ast.Starred)]
+    return None
 
 
 def _check_dense_quadratic(mod: _Module, rep: _Reporter) -> None:
-    """DCFM1501: an allocation whose shape tuple repeats a symbolic
-    dimension - the (p, p) / (pairs, P, P) dense-buffer signature.  At
-    the scale-out shapes the streaming ingest targets (p >= 1e6) such a
-    buffer is hundreds of GB of host RAM, so library code routes
+    """DCFM1501: an allocation whose shape repeats a symbolic dimension
+    - the (p, p) / (pairs, P, P) dense-buffer signature - in numpy
+    (np.zeros/empty/ones/full, the host assembly) or torch
+    (torch.zeros/empty/ones/full and ``.new_zeros/new_empty/...``, the
+    device).  At the scale-out shapes the streaming ingest targets
+    (p >= 1e6) such a buffer is hundreds of GB, so library code routes
     through the packed-panel seams; the handful of sanctioned assembly
-    sites (force=True restores, the reference implementation, device-
+    sites (force=True restores, the native assembler's output, device-
     side packed accumulators) carry inline pragmas.  Constant dims are
-    ignored: np.zeros((3, 3)) repeats no *symbol*."""
+    ignored: torch.zeros((3, 3)) repeats no *symbol*."""
     for node in ast.walk(mod.tree):
-        if not isinstance(node, ast.Call) or not node.args:
+        if not isinstance(node, ast.Call):
             continue
-        if mod.resolve(node.func) not in _ALLOC_FNS:
+        elts = _alloc_dims(mod, node)
+        if not elts or len(elts) < 2:
             continue
-        shape = node.args[0]
-        if not isinstance(shape, ast.Tuple) or len(shape.elts) < 2:
-            continue
-        dims = [(ast.dump(e), getattr(e, "lineno", None))
-                for e in shape.elts if not isinstance(e, ast.Constant)]
-        seen: dict = {}
+        seen: set = set()
         repeated = None
-        for dump, _ in dims:
+        for e in elts:
+            if isinstance(e, ast.Constant):
+                continue
+            dump = ast.dump(e)
             if dump in seen:
-                repeated = dump
+                repeated = e
                 break
-            seen[dump] = True
+            seen.add(dump)
         if repeated is None:
             continue
-        try:
-            dim_src = ast.unparse(
-                next(e for e in shape.elts
-                     if not isinstance(e, ast.Constant)
-                     and ast.dump(e) == repeated))
-        except Exception:  # dcfm: ignore[DCFM601] - cosmetic unparse only; the finding still emits
-            dim_src = "<dim>"
+        # numpy sites are the JAX linter's too, so they take its pragma
+        form = ("dcfm" if mod.resolve(node.func).startswith("numpy.")
+                else "dcfm-torch")
         rep.emit(
             "DCFM1501", node,
-            f"shape tuple repeats the symbolic dimension '{dim_src}' - "
-            "a dense O(d^2) buffer that is hundreds of GB at the "
-            "scale-out shapes (p >= 1e6) the streaming ingest "
-            "supports.  Route through the packed-panel / sigma_block / "
-            "artifact seams, or annotate a sanctioned assembly site "
-            "with `# dcfm: ignore[DCFM1501] - <why>`")
+            f"shape repeats the symbolic dimension "
+            f"'{_unparse(repeated)}' - a dense O(d^2) buffer that is "
+            "hundreds of GB at the scale-out shapes (p >= 1e6) the "
+            "streaming ingest supports.  Route through the packed-panel "
+            "/ sigma_block / artifact seams, or annotate a sanctioned "
+            f"assembly site with `# {form}: ignore[DCFM1501] - <why>`")
 
 
 # =====================================================================
 # DCFM16xx - mixed-precision discipline
 # =====================================================================
 
-_LOWP_DTYPES = {"jnp.bfloat16", "jax.numpy.bfloat16",
-                "jnp.float16", "jax.numpy.float16"}
-_LOWP_STRS = {"bfloat16", "float16", "bf16", "fp16"}
-_MATMUL_FNS = {"jnp.dot", "jax.numpy.dot",
-               "jnp.matmul", "jax.numpy.matmul",
-               "jnp.einsum", "jax.numpy.einsum",
-               "jnp.tensordot", "jax.numpy.tensordot"}
+_LOWP_DTYPES = {"torch.bfloat16", "torch.float16", "torch.half"}
+_LOWP_STRS = {"bfloat16", "float16", "bf16", "fp16", "half"}
+_LOWP_METHODS = {"bfloat16", "half"}
+_MATMUL_FNS = {"torch.mm", "torch.bmm", "torch.matmul", "torch.einsum",
+               "torch.baddbmm", "torch.addmm", "torch.addbmm",
+               "torch.tensordot", "torch.linalg.matmul",
+               "torch.linalg.multi_dot", "torch.chain_matmul",
+               "torch.nn.functional.linear"}
+_MATMUL_METHODS = {"mm", "bmm", "matmul"}
 
 
 def _is_lowp_dtype_expr(mod: _Module, node) -> bool:
@@ -1450,15 +1938,23 @@ def _is_lowp_dtype_expr(mod: _Module, node) -> bool:
 
 
 def _is_lowp_cast(mod: _Module, node) -> bool:
-    """``x.astype(jnp.bfloat16)`` / ``jnp.asarray(x, dtype='float16')``
-    and friends - an expression that PRODUCES a low-precision array."""
+    """``x.to(torch.bfloat16)`` / ``x.bfloat16()`` / ``x.half()`` /
+    ``torch.zeros(..., dtype=torch.float16)`` - an expression whose
+    OUTERMOST operation produces a low-precision tensor (so
+    ``x.to(torch.bfloat16).float()``, the float32 upcast of the rounded
+    values, is not one)."""
     if not isinstance(node, ast.Call):
         return False
-    if (isinstance(node.func, ast.Attribute) and node.func.attr == "astype"
-            and node.args and _is_lowp_dtype_expr(mod, node.args[0])):
-        return True
-    full = mod.resolve(node.func)
-    if full.startswith("jnp.") or full.startswith("jax.numpy."):
+    f = node.func
+    if isinstance(f, ast.Attribute):
+        if f.attr in _LOWP_METHODS and not node.args:
+            return True
+        if f.attr in ("to", "type") and any(
+                _is_lowp_dtype_expr(mod, a)
+                for a in [*node.args, *(k.value for k in node.keywords
+                                         if k.arg == "dtype")]):
+            return True
+    if mod.resolve(f).startswith("torch."):
         for k in node.keywords:
             if k.arg == "dtype" and _is_lowp_dtype_expr(mod, k.value):
                 return True
@@ -1467,10 +1963,13 @@ def _is_lowp_cast(mod: _Module, node) -> bool:
 
 def _check_precision_matmul(mod: _Module, rep: _Reporter) -> None:
     """DCFM1601: a contraction over bf16/f16-cast operands without
-    ``preferred_element_type`` accumulates in the LOW precision - the
-    one way the mixed-precision sweep (BackendConfig.compute_dtype=
-    "bf16") can silently void its accuracy contract, since every other
-    piece (state, RNG, K x K factorizations) stays f32 by construction.
+    ``out_dtype=torch.float32`` returns (and rounds) its result in the
+    LOW precision - the one way the mixed-precision sweep
+    (BackendConfig.compute_dtype="bf16") can silently void its accuracy
+    contract, since every other piece (state, RNG, K x K factorizations)
+    stays f32 by construction.  models/conditionals.mm_bf16 is the
+    sanctioned seam: ``torch.mm/bmm(..., out_dtype=torch.float32)`` on
+    the card, the float32 upcast of the rounded inputs elsewhere.
 
     Taint is name-based per module: names assigned from a low-precision
     cast anywhere in the file, plus inline cast expressions used
@@ -1479,9 +1978,17 @@ def _check_precision_matmul(mod: _Module, rep: _Reporter) -> None:
     contracted; shadowing false positives carry an inline pragma."""
     tainted: set = set()
     for node in ast.walk(mod.tree):
-        if isinstance(node, ast.Assign) and _is_lowp_cast(mod, node.value):
-            for t in node.targets:
-                if isinstance(t, ast.Name):
+        if isinstance(node, ast.Assign):
+            value = node.value
+            pairs = ([(t, value) for t in node.targets]
+                     if not (isinstance(value, ast.Tuple) and all(
+                         isinstance(t, ast.Tuple)
+                         and len(t.elts) == len(value.elts)
+                         for t in node.targets))
+                     else [(te, ve) for t in node.targets
+                           for te, ve in zip(t.elts, value.elts)])
+            for t, v in pairs:
+                if isinstance(t, ast.Name) and _is_lowp_cast(mod, v):
                     tainted.add(t.id)
         elif (isinstance(node, ast.AnnAssign) and node.value is not None
               and _is_lowp_cast(mod, node.value)
@@ -1497,65 +2004,72 @@ def _check_precision_matmul(mod: _Module, rep: _Reporter) -> None:
             if lowp_operand(node.left) or lowp_operand(node.right):
                 rep.emit(
                     "DCFM1601", node,
-                    "`@` on a bfloat16/float16-cast operand accumulates "
-                    "in the low input precision - use jnp.matmul(..., "
-                    "preferred_element_type=jnp.float32) (the "
-                    "models/conditionals.py `mm` pattern)")
+                    "`@` on a bfloat16/float16 operand returns and rounds "
+                    "its result in the low precision - use "
+                    "torch.mm/bmm(..., out_dtype=torch.float32) (the "
+                    "models/conditionals.mm_bf16 pattern)")
         elif isinstance(node, ast.Call):
             full = mod.resolve(node.func)
+            operands = list(node.args)
             if full not in _MATMUL_FNS:
+                if not (isinstance(node.func, ast.Attribute)
+                        and node.func.attr in _MATMUL_METHODS
+                        and not full.startswith(("numpy.", "torch."))):
+                    continue
+                operands.append(node.func.value)
+            if any(k.arg == "out_dtype" for k in node.keywords):
                 continue
-            if any(k.arg == "preferred_element_type"
-                   for k in node.keywords):
-                continue
-            if any(lowp_operand(a) for a in node.args):
+            if any(lowp_operand(a) for a in operands):
+                name = full if full in _MATMUL_FNS else \
+                    f".{node.func.attr}()"
                 rep.emit(
                     "DCFM1601", node,
-                    f"{full} on a bfloat16/float16-cast operand without "
-                    "preferred_element_type - the contraction "
-                    "accumulates in the low input precision; pass "
-                    "preferred_element_type=jnp.float32 so only the "
-                    "MULTIPLY runs low-precision (f32 accumulation, "
-                    "README 'Precision policy')")
+                    f"{name} on a bfloat16/float16 operand without "
+                    "out_dtype=torch.float32 - the product is returned "
+                    "(and rounded) in the low input precision; route "
+                    "it through models/conditionals.mm_bf16 so only the "
+                    "MULTIPLY runs low-precision (README 'Precision "
+                    "policy')")
 
 
 # =====================================================================
-# DCFM17xx - partition-rule conformance
+# DCFM17xx - process-group conformance
 # =====================================================================
 
-_SPEC_CTORS = {"jax.sharding.PartitionSpec", "jax.sharding.NamedSharding",
-               "jax.P", "jax.NamedSharding"}
+_GROUP_CTORS = {"torch.distributed.new_group",
+                "torch.distributed.new_subgroups",
+                "torch.distributed.init_process_group",
+                "torch.distributed.init_device_mesh",
+                "torch.distributed.device_mesh.init_device_mesh"}
 
 
 def _check_partition_specs(mod: _Module, rep: _Reporter) -> None:
-    """DCFM1701: PartitionSpec/NamedSharding constructed outside
-    parallel/mesh.py's rule table.  ROADMAP item 5: partitioning
-    decisions collapse onto the ONE name-keyed table
-    (match_partition_rules plus the shard_sharding /
-    replicated_sharding / named_shardings helpers), so a placement
-    change edits one file and the trace gate can audit every spec.
-    parallel/mesh.py itself - the table's home - is exempt."""
-    parts = str(mod.path).replace("\\", "/").split("/")
-    if parts[-1] == "mesh.py" and len(parts) >= 2 \
-            and parts[-2] == "parallel":
+    """DCFM1701: a process group or a mesh layout built outside
+    parallel/ - the rank layout (parallel/mesh.RankLayout and its
+    make_layout / make_pod_layout), the groups (parallel/shard.RankMesh)
+    and the rendezvous (parallel/multihost.initialize,
+    parallel/shard._init_group) live in ONE package, so a placement
+    change edits one place and the trace gate's group checks
+    (DCFM1801/1802/1808) audit every group.  parallel/ itself - their
+    home - is exempt."""
+    if mod.is_parallel:
         return
     for node in ast.walk(mod.tree):
         if not isinstance(node, ast.Call):
             continue
         full = mod.resolve(node.func)
-        if full not in _SPEC_CTORS:
+        if full not in _GROUP_CTORS and _last(full) != "RankLayout":
             continue
-        ctor = full.rsplit(".", 1)[-1]
         rep.emit(
             "DCFM1701", node,
-            f"{ctor}(...) constructed outside parallel/mesh.py's rule "
-            "table - partitioning decisions live in ONE place "
-            "(match_partition_rules / carry_partition_rules and the "
-            "shard_sharding / replicated_sharding / named_shardings "
-            "helpers) so a placement change edits one file and the "
-            "trace gate audits every spec.  Route through a mesh.py "
-            "helper, or annotate a sanctioned one-off with "
-            "`# dcfm: ignore[DCFM1701] - <why>`")
+            f"{_last(full)}(...) outside parallel/ - the rank layout, "
+            "the process groups and the rendezvous live in ONE package "
+            "(parallel/mesh.make_layout / make_pod_layout, "
+            "parallel/shard.RankMesh, parallel/multihost.initialize) so "
+            "a placement change edits one place and the trace gate "
+            "audits every group.  Route through a parallel/ helper, or "
+            "annotate a sanctioned one-off with "
+            "`# dcfm-torch: ignore[DCFM1701] - <why>`")
 
 
 # =====================================================================
@@ -1620,8 +2134,8 @@ def _check_pointer_mutation(mod: _Module, rep: _Reporter) -> None:
 # DCFM2001 - elastic-resume topology discipline
 # =====================================================================
 
-_TOPOLOGY_CALLS = {"jax.device_count", "jax.local_device_count",
-                   "jax.process_count", "jax.devices"}
+_TOPOLOGY_CALLS = {"torch.cuda.device_count",
+                   "torch.distributed.get_world_size"}
 # Function-name hints that put a def on the resume/checkpoint carry
 # path.  Deliberately function-scoped, not module-scoped: mesh sizing
 # and launch-time capacity probes legitimately read live topology, and
@@ -1632,13 +2146,22 @@ _RESUME_HINTS = ("resume", "checkpoint", "rewind", "restore",
 
 
 def _topology_site(mod: _Module, node: ast.AST) -> str:
-    """The dotted jax topology query when ``node`` is one (a direct
-    call; ``len(jax.devices())`` is caught via the inner call when the
-    enclosing expression is walked), else ''."""
+    """The live topology query when ``node`` is one - a direct
+    ``torch.cuda.device_count()`` / ``dist.get_world_size()`` call, or
+    ``len(...ranks)`` of a rank list - else ''."""
     if not isinstance(node, ast.Call):
         return ""
     full = mod.resolve(node.func)
-    return full if full in _TOPOLOGY_CALLS else ""
+    if full in _TOPOLOGY_CALLS:
+        return f"{full}()"
+    if (isinstance(node.func, ast.Name) and node.func.id == "len"
+            and node.args):
+        arg = node.args[0]
+        if isinstance(arg, ast.Call):
+            arg = arg.func
+        if "ranks" in _last(_dotted(arg)).lower():
+            return f"len({_unparse(node.args[0])})"
+    return ""
 
 
 def _check_topology_constants(mod: _Module, rep: _Reporter) -> None:
@@ -1646,7 +2169,7 @@ def _check_topology_constants(mod: _Module, rep: _Reporter) -> None:
     window-divisor arithmetic inside resume/checkpoint-path functions.
     Elastic resume restarts a checkpoint on a DIFFERENT capacity than
     the one that saved it: a shape or divisor derived from
-    jax.device_count()/jax.process_count()/len(jax.devices()) silently
+    torch.cuda.device_count()/dist.get_world_size()/len(ranks) silently
     mis-sizes carries or mis-divides the pooled accumulators once the
     topology changes.  Bookkeeping must flow from the checkpoint's
     recorded meta (``topology``, ``chain_acc_starts``, ``fold_draws``).
@@ -1660,7 +2183,7 @@ def _check_topology_constants(mod: _Module, rep: _Reporter) -> None:
         low = fdef.name.lower()
         if not any(h in low for h in _RESUME_HINTS):
             continue
-        # one-hop taint: `n = jax.process_count()` then `total * n`
+        # one-hop taint: `n = dist.get_world_size()` then `total * n`
         tainted: dict = {}
         for node in ast.walk(fdef):
             if isinstance(node, ast.Assign) and len(node.targets) == 1 \
@@ -1684,7 +2207,7 @@ def _check_topology_constants(mod: _Module, rep: _Reporter) -> None:
                         continue
                     rep.emit(
                         "DCFM2001", sub,
-                        f"{full}() feeds carry-shape/divisor "
+                        f"{full} feeds carry-shape/divisor "
                         f"arithmetic in '{fdef.name}' - elastic resume "
                         "restarts a checkpoint on a DIFFERENT topology "
                         "than the one that saved it, so window "
@@ -1711,21 +2234,25 @@ class _PragmaSite:
 
 
 def _check_stale_pragmas(mod: _Module, rep: _Reporter) -> None:
-    """DCFM002: every ``# dcfm: ignore[RULE]`` must have suppressed at
-    least one finding in this run.  MUST run after every other checker
-    (it reads the reporter's used-ignore ledger)."""
-    for line, rules in sorted(mod.ignores.items()):
-        text = mod.lines[line - 1] if 0 < line <= len(mod.lines) else ""
-        m = _IGNORE_RE.search(text)
-        col = m.start() if m else 0
+    """DCFM002: every pragma must have suppressed at least one finding
+    in this run.  MUST run after every other checker (it reads the
+    reporter's used-ignore ledger).  A ``# dcfm-torch: ignore[...]`` is
+    checked for every rule; a JAX-form ``# dcfm: ignore[...]`` for the
+    rules whose detectors the two linters share (and unknown ids) - on a
+    translated rule it addresses the JAX linter's detector, whose own
+    gate (which lints the port's files too) judges it."""
+    for line, col, form, rules in sorted(mod.pragmas,
+                                         key=lambda p: (p[0], p[1])):
         for rule in sorted(rules):
             if (line, rule) in rep.used_ignores:
+                continue
+            if form == "dcfm" and rule in TRANSLATED:
                 continue
             detail = ("names an unknown rule id"
                       if rule not in RULES and rule != "DCFM000"
                       else "no longer fires on this line")
             rep.emit("DCFM002", _PragmaSite(line, col),
-                     f"stale suppression: '# dcfm: ignore[{rule}]' "
+                     f"stale suppression: '# {form}: ignore[{rule}]' "
                      f"{detail} - the pragma hides nothing today but "
                      "would mask a future regression; drop it")
 

@@ -18,9 +18,14 @@ drift) are reported but only fail under ``--fail-on warning`` - which
 is what scripts/ci_check.sh passes, so warnings still gate CI without
 hard-failing ad-hoc local runs.
 
-The port's copy of ``dcfm_tpu/analysis/rules.py``: :data:`RULES` is the
-JAX package's registry rule for rule (ids, names, families, summaries,
-severities, scopes), because the AST linter is its copy; the trace rules
+The port of ``dcfm_tpu/analysis/rules.py``.  :data:`RULES` keeps every
+id, family, severity and scope of the JAX package's registry.  Fifteen
+rules (:data:`TRANSLATED`) detect the torch spelling of their hazard -
+the global RNG stream, CUDA-graph captures, torch dtypes, rank branches,
+non_blocking copies, torch allocations and matmuls, process groups,
+live device counts - and carry summaries in the port's terms (and a new
+name where the JAX name named a JAX thing); the other fifteen are the
+JAX rules word for word, as their detectors are.  The trace rules
 (:data:`TRACE_RULES`) keep the JAX ids DCFM1800-1808 in the port's terms
 - an aten op graph recorded while an entry runs, not a jaxpr - and add
 DCFM1809, which JAX's keyed randomness cannot need.
@@ -51,37 +56,46 @@ RULES = {r.id: r for r in [
          "regression; drop it",
          severity="warning"),
     # ---- DCFM1xx: RNG discipline -------------------------------------
-    Rule("DCFM101", "rng-key-reuse", "rng",
-         "a PRNG key is consumed more than once on one path: two "
-         "jax.random sampler/split calls, the same helper twice, or a "
-         "sampler plus a helper.  fold_in derivation and handing one "
-         "parent key to distinct site-deriving helpers are exempt"),
-    Rule("DCFM102", "rng-inline-const-key", "rng",
-         "jax.random.key/PRNGKey called with a constant seed inline in "
-         "library code (fixed entropy; thread the caller's key instead). "
-         "Shape-only jax.eval_shape arguments are exempt",
+    Rule("DCFM101", "rng-global-stream", "rng",
+         "a variate drawn from the process-global stream - "
+         "torch.randn/rand/randint/randperm/normal/poisson/bernoulli/"
+         "multinomial, an in-place normal_/uniform_/exponential_, or a "
+         "torch.distributions .sample() - with no generator= (or "
+         "generator=None), or one seed expression handed to manual_seed "
+         "twice on one path (two identical streams, or one replayed).  "
+         "Draw from the caller's generator (noise.TorchNoise) and derive "
+         "a distinct seed per stream (noise.stream_seed)"),
+    Rule("DCFM102", "rng-inline-const-seed", "rng",
+         "torch.manual_seed / Generator.manual_seed (or manual_seed_all) "
+         "called with a constant seed in library code (fixed entropy; "
+         "thread the caller's seed instead)",
          library_only=True),
-    # ---- DCFM2xx: jit hygiene ----------------------------------------
-    Rule("DCFM201", "jit-host-sync", "jit",
-         "host-synchronizing call (np.asarray/np.array, .item(), "
-         ".tolist(), jax.device_get, float()/int()/bool() on a traced "
-         "value) inside a jit-decorated or scan/cond/while-carried "
-         "function"),
-    Rule("DCFM202", "jit-python-control-flow", "jit",
-         "Python if/while on a value computed from jnp/lax inside a "
-         "traced function (trace-time constant-fold or ConcretizationError; "
-         "use lax.cond/lax.select)"),
-    Rule("DCFM203", "jit-env-read", "jit",
-         "os.environ read inside a traced function (baked in at trace "
-         "time, ignored on later calls; read it outside the jit)"),
+    # ---- DCFM2xx: capture hygiene ------------------------------------
+    Rule("DCFM201", "capture-host-sync", "jit",
+         "host-synchronizing call (.item(), .tolist(), .cpu(), .numpy(), "
+         "np.asarray/np.array of a tensor, float()/int()/bool() of a "
+         "tensor, torch.cuda.synchronize, an event's .synchronize()/"
+         ".query(), torch.nonzero/.nonzero()) inside a captured "
+         "function: the body of a `with torch.cuda.graph(...)`, a "
+         "callable given to torch.cuda.make_graphed_callables, the entry "
+         "of a sweep_body trace builder, or anything they call"),
+    Rule("DCFM202", "capture-python-control-flow", "jit",
+         "Python if/while on a tensor inside a captured function (the "
+         "truth test syncs, and the capture bakes in the branch it took "
+         "for every replay; use torch.where or a mask)"),
+    Rule("DCFM203", "capture-env-read", "jit",
+         "os.environ read inside a captured function (baked in at "
+         "capture time, ignored on every replay; read it outside the "
+         "capture)"),
     # ---- DCFM3xx: dtype drift ----------------------------------------
     Rule("DCFM301", "dtype-float64", "dtype",
-         "float64 dtype (jnp.float64, np.float64/'float64' passed to a "
-         "jnp call, or any float64 inside a traced function) leaking "
-         "into the float32 TPU path"),
+         "float64 dtype (torch.float64/torch.double outside a dtype "
+         "guard, .double(), np.float64/'float64' passed to a torch call, "
+         "or any float64 inside a captured function) leaking into the "
+         "float32 device path"),
     Rule("DCFM302", "dtype-weak-float", "dtype",
-         "builtin float used as a dtype in a jnp call or astype(float) "
-         "on a traced value (means float64 under x64; pin jnp.float32)"),
+         "builtin float used as a dtype in a torch call (dtype=float) or "
+         ".to(float) (Python's float is float64; pin torch.float32)"),
     # ---- DCFM4xx: FFI safety -----------------------------------------
     Rule("DCFM401", "ffi-missing-signature", "ffi",
          "ctypes foreign function called without both argtypes and "
@@ -131,18 +145,17 @@ RULES = {r.id: r for r in [
          "must be CRC-checked before a chain resumes on them",
          library_only=True),
     # ---- DCFM7xx: multi-host discipline ------------------------------
-    Rule("DCFM701", "multihost-unguarded-host-fetch", "multihost",
-         "jax.device_get (on an array variable) or np.asarray (on a "
-         "name) inside a multi-host-aware function (one that calls "
-         "jax.process_index/process_count or "
-         "multihost_utils.process_allgather) with no addressability "
-         "reference (is_fully_addressable / is_fully_replicated / "
-         "addressable_shards) in the same function - device_get of a "
-         "non-fully-addressable global array RAISES, and it does so in "
-         "exactly the pod regime the code targets (the "
-         "device-snapshot-OOM-fallback bug class, ADVICE r5).  Fetch "
-         "per-leaf addressable shards, or guard on "
-         "leaf.is_fully_addressable",
+    Rule("DCFM701", "multihost-rank-branch-collective", "multihost",
+         "a torch.distributed collective (all_reduce, all_gather, "
+         "broadcast, gather, barrier, new_group, ...) or a RankMesh "
+         "gather/reduce issued on one side of a branch on the rank "
+         "(rank == 0, dist.get_rank(), process_id) that the other side "
+         "never issues - an if with no matching collective in its else, "
+         "or an early return on the rank before one.  The ranks that "
+         "take the other side never join it and the group deadlocks, in "
+         "exactly the pod regime the code targets.  Issue it on every "
+         "rank (None / an empty buffer where a rank has nothing to "
+         "give)",
          library_only=True),
     # ---- DCFM9xx: telemetry discipline -------------------------------
     Rule("DCFM901", "print-bypasses-telemetry", "obs",
@@ -158,18 +171,19 @@ RULES = {r.id: r for r in [
          library_only=True),
     # ---- DCFM8xx: runtime pipeline discipline ------------------------
     Rule("DCFM801", "pipeline-blocking-host-fetch", "pipeline",
-         "blocking host fetch (jax.device_get on an array variable, or "
-         "np.asarray/np.array on a name) inside a function of a runtime "
-         "pipeline module (any module under - or named - 'runtime', "
-         "such as dcfm_tpu/runtime/) with no PRECEDING copy_to_host_async "
-         "dispatch in the same function.  The chunk pipeline's contract "
-         "is async-first: dispatch the device->host copy at the chunk "
+         "blocking host fetch (.cpu(), .item(), .tolist(), .numpy(), "
+         "torch.cuda.synchronize(), or np.asarray/np.array on a name) "
+         "inside a function of a runtime pipeline module (any module "
+         "under - or named - 'runtime', such as dcfm_tpu_torch/runtime/) "
+         "with no PRECEDING non_blocking=True copy or event record in "
+         "the same function.  The chunk pipeline's contract is "
+         "async-first: dispatch the device->host copy at the chunk "
          "boundary and drain off-thread "
          "(runtime/pipeline.StreamingFetcher), so a synchronous fetch "
          "silently serializes the chain behind the link.  Deliberate "
          "sync fetches (KB-sized trace rows, the drain half of an "
          "already-dispatched async) must carry an inline "
-         "`# dcfm: ignore[DCFM801] - <why>`",
+         "`# dcfm-torch: ignore[DCFM801] - <why>`",
          library_only=True),
     # ---- DCFM10xx: serving discipline --------------------------------
     Rule("DCFM1001", "handler-unbounded-blocking-wait", "serve",
@@ -215,20 +229,22 @@ RULES = {r.id: r for r in [
     # ---- DCFM12xx: host-buffer lifetime discipline -------------------
     Rule("DCFM1201", "host-buffer-lifetime", "lifetime",
          "a host buffer of numpy provenance (np.load / np.memmap / a "
-         "view of one / a loader-helper return) flows into a jit entry "
-         "point, jax.device_put, or jax.make_array_from_callback "
-         "without an owned-copy commit - on the CPU backend jit "
-         "ingestion aliases the host buffer zero-copy, so if the "
-         "source dies before the device reads it this is a "
-         "use-after-free (the PR-1 resume SIGSEGV / PR-5 multiproc "
-         "NaN-Sigma / PR-6 stream-drain class).  Commit through "
-         "_owned_copy_jit / _copy_tree / np.ascontiguousarray while "
-         "the source is still alive",
+         "view of one / a loader-helper return) reaches "
+         "torch.from_numpy/torch.as_tensor (a zero-copy alias) and then "
+         "an asynchronous device copy (.to(dev, non_blocking=True), "
+         ".copy_(..., non_blocking=True), .cuda(non_blocking=True), "
+         ".pin_memory()), or outlives the with-block of its source, "
+         "without an owned-copy commit - if the source dies before the "
+         "card reads it this is a use-after-free (the JAX package's "
+         "PR-1 resume SIGSEGV / PR-5 multiproc NaN-Sigma / PR-6 "
+         "stream-drain class).  Commit through .clone() / np.array / "
+         "torch.tensor while the source is still alive",
          library_only=True),
     # ---- DCFM15xx: scale-out discipline ------------------------------
     Rule("DCFM1501", "dense-quadratic-materialization", "scale",
-         "a host allocation (np/jnp zeros/empty/ones/full) whose shape "
-         "tuple repeats the same symbolic dimension - an O(d^2) dense "
+         "a host or device allocation (np/torch zeros/empty/ones/full, "
+         "a tensor's new_zeros/new_empty) whose shape repeats the same "
+         "symbolic dimension - an O(d^2) dense "
          "buffer such as (p, p) or (n_pairs, P, P) with a repeated "
          "panel axis.  At the scale-out shapes the streaming ingest "
          "targets (p >= 1e6) a quadratic host buffer is hundreds of GB, "
@@ -240,10 +256,10 @@ RULES = {r.id: r for r in [
          library_only=True),
     # ---- DCFM14xx: chain-axis reduction discipline -------------------
     Rule("DCFM1401", "chain-axis-silent-reduction", "chains",
-         "a host-side reduction (np.mean/np.sum or .mean()/.sum()) "
+         "a host-side reduction (np/torch mean/sum or .mean()/.sum()) "
          "over a chain-major array (a name containing 'chain') "
-         "collapses the leading chain axis implicitly - bare axis=0 or "
-         "no axis at all.  Trace blocks, pooled Sigma, and draws are "
+         "collapses the leading chain axis implicitly - a bare 0 as "
+         "axis=, dim= or the positional axis, or no axis at all.  Trace blocks, pooled Sigma, and draws are "
          "ALWAYS chain-major (a single-chain run carries a length-1 "
          "leading axis), so an ad-hoc axis-0 mean silently conflates "
          "'average over chains' with 'average over draws' and breaks "
@@ -254,26 +270,27 @@ RULES = {r.id: r for r in [
          library_only=True),
     # ---- DCFM16xx: mixed-precision discipline ------------------------
     Rule("DCFM1601", "precision-unsafe-matmul", "precision",
-         "a jnp.dot/jnp.matmul/jnp.einsum call or `@` operator takes an "
-         "operand cast to bfloat16/float16 (`.astype(jnp.bfloat16)`, "
-         "`dtype='bfloat16'`, ...) without `preferred_element_type` - "
-         "the contraction then ACCUMULATES in the low input precision "
-         "instead of float32, which is how the mixed-precision sweep "
-         "silently loses the accuracy contract (README 'Precision "
-         "policy').  Pass preferred_element_type=jnp.float32 at every "
-         "low-precision matmul, as models/conditionals.py's `mm` helper "
-         "and the combine-step einsum do",
+         "a torch.mm/bmm/matmul/einsum/baddbmm/addmm call (or the "
+         "method, or `@`) takes an operand cast to bfloat16/float16 "
+         "(`.to(torch.bfloat16)`, `.bfloat16()`, `.half()`, "
+         "`dtype=torch.float16`) without `out_dtype=torch.float32` - "
+         "the product is then returned, and rounded, in the low input "
+         "precision, which is how the mixed-precision sweep silently "
+         "loses the accuracy contract (README 'Precision policy').  "
+         "Route low-precision products through "
+         "models/conditionals.mm_bf16 (out_dtype=torch.float32 on the "
+         "card, the float32 upcast of the rounded inputs elsewhere)",
          library_only=True),
     # ---- DCFM17xx: partition-rule conformance ------------------------
-    Rule("DCFM1701", "inline-partition-spec", "partition",
-         "PartitionSpec(...) or NamedSharding(...) constructed outside "
-         "parallel/mesh.py - partitioning decisions must collapse onto "
-         "the one rule table (match_partition_rules and the "
-         "shard_sharding/replicated_sharding/named_shardings helpers, "
-         "ROADMAP item 5) so a placement change edits ONE file and the "
-         "trace gate can audit every spec.  Sanctioned one-off "
-         "constructions carry an inline "
-         "`# dcfm: ignore[DCFM1701] - <why>`",
+    Rule("DCFM1701", "inline-process-group", "partition",
+         "torch.distributed.new_group/init_process_group (or a device "
+         "mesh) or a RankLayout(...) built outside parallel/ - the rank "
+         "layout (parallel/mesh.make_layout / make_pod_layout), the "
+         "process groups (parallel/shard.RankMesh) and the rendezvous "
+         "(parallel/multihost.initialize) live in one package so a "
+         "placement change edits ONE place and the trace gate can audit "
+         "every group.  Sanctioned one-off constructions carry an inline "
+         "`# dcfm-torch: ignore[DCFM1701] - <why>`",
          library_only=True),
     # ---- DCFM19xx: promotion-pointer discipline ----------------------
     Rule("DCFM1901", "pointer-mutation-outside-promote", "pointer",
@@ -289,8 +306,9 @@ RULES = {r.id: r for r in [
          library_only=True),
     # ---- DCFM20xx: elastic-resume topology discipline ----------------
     Rule("DCFM2001", "topology-constant-in-resume-path", "topology",
-         "a live topology query (jax.device_count / jax.process_count "
-         "/ len(jax.devices())) feeding carry-shape or window-divisor "
+         "a live topology query (torch.cuda.device_count / "
+         "dist.get_world_size / len(...ranks)) feeding carry-shape or "
+         "window-divisor "
          "arithmetic inside a resume/checkpoint-path function - "
          "elastic resume restarts a checkpoint on a DIFFERENT capacity "
          "than the one that saved it, so shape and divisor bookkeeping "
@@ -299,9 +317,16 @@ RULES = {r.id: r for r in [
          "INTO that meta, comparing it in a gate, or naming a "
          "per-process file with it is the sanctioned direction; a "
          "deliberate exception carries an inline "
-         "`# dcfm: ignore[DCFM2001] - <why>`",
+         "`# dcfm-torch: ignore[DCFM2001] - <why>`",
          library_only=True),
 ]}
+
+# The rules whose detectors match the torch spelling of their hazard;
+# the other RULES are the JAX package's, detector and text alike.
+TRANSLATED = frozenset({
+    "DCFM101", "DCFM102", "DCFM201", "DCFM202", "DCFM203", "DCFM301",
+    "DCFM302", "DCFM701", "DCFM801", "DCFM1201", "DCFM1401", "DCFM1501",
+    "DCFM1601", "DCFM1701", "DCFM2001"})
 
 
 # Trace-level rules (analysis/tracecheck.py): verified on the aten ops a

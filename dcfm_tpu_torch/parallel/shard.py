@@ -171,7 +171,7 @@ class RankMesh:
         return out.view(self.world, *t.shape)
 
     def _vec(self, values) -> torch.Tensor:
-        return torch.tensor([float(v) for v in values], dtype=torch.float64,
+        return torch.tensor([float(v) for v in values], dtype=torch.float64,  # dcfm-torch: ignore[DCFM301] - rank statistics crossing ranks at a chunk boundary: double keeps the summed counts exact; never enters the chain
                             device=self.device)
 
     def reduce_stats(self, s: ChainStats) -> ChainStats:

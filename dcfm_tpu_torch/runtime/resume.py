@@ -494,8 +494,8 @@ def host_state(carries: list, names: tuple) -> dict:
     chain-axis convention (a leading chain axis for more than one
     chain)."""
     per = [_chain_tensors(c, True) for c in carries]
-    return {k: (np.stack([p[k].cpu().numpy() for p in per])
-                if len(per) > 1 else per[0][k].cpu().numpy())
+    return {k: (np.stack([p[k].cpu().numpy() for p in per])  # dcfm-torch: ignore[DCFM801] - once per resume, off the chunk path
+                if len(per) > 1 else per[0][k].cpu().numpy())  # dcfm-torch: ignore[DCFM801] - once per resume, off the chunk path
             for k in names}
 
 
@@ -786,11 +786,11 @@ def resume_state_multiproc(ctx: ResumeContext):
             return loaded[0], my_iter, acc0
     if cfg.resume and not auto and not agree:
         record("resume_decision", decision="refused", iteration=my_iter,
-               signatures=all_sigs.tolist())
+               signatures=all_sigs.tolist())  # dcfm-torch: ignore[DCFM801] - a numpy array (gather_ints returns host ints), not a device fetch
         raise ValueError(
             failure or "resume=True but the per-process checkpoints "
             "disagree on the resume source "
-            f"({all_sigs.tolist()} as [iteration, kind, count, "
+            f"({all_sigs.tolist()} as [iteration, kind, count, "  # dcfm-torch: ignore[DCFM801] - a numpy array, not a device fetch
             "state_only] rows) - a crash between two processes' saves, "
             "or mixed stale files; delete the files or use "
             "resume='auto' to restart fresh")

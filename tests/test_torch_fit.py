@@ -319,8 +319,8 @@ def _refusal_messages() -> list:
     """Every message of the package that cites the ROADMAP: the string
     constants (and f-string parts) of its sources that mention it,
     docstrings aside, and the rule registry of analysis/rules.py aside:
-    its summaries are the JAX package's registry word for word (DCFM1701
-    cites the JAX package's own history, "ROADMAP item 5"), and none is a
+    its shared summaries are the JAX package's registry word for word
+    (and may cite the JAX package's own history), and none is a
     refusal."""
     import ast
     import dcfm_tpu_torch

@@ -138,7 +138,7 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         chol_sample(Q, b, b)
     with pytest.raises(TypeError, match="float32"):
-        chol_sample(Q.contiguous().double(), b.double(), b.double())
+        chol_sample(Q.contiguous().double(), b.double(), b.double())  # dcfm-torch: ignore[DCFM301] - float64 on purpose: the wrapper's dtype refusal under test
 
 
 # the three solve kernels against their plain versions; float32 rounding
@@ -262,14 +262,14 @@ def test_new_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         bs.chol_solve_sample_batched(Q, b, b)
     with pytest.raises(TypeError, match="float32"):
-        bs.cho_solve_batched(Q.contiguous().double(), b.double())
+        bs.cho_solve_batched(Q.contiguous().double(), b.double())  # dcfm-torch: ignore[DCFM301] - float64 on purpose: the wrapper's dtype refusal under test
     E = torch.eye(3, device=cuda).expand(2, 3, 3)
     plam = torch.ones((2, 5, 3), device=cuda)
     ps = torch.ones((2, 5), device=cuda)
     with pytest.raises(ValueError, match="contiguous"):
         lam_update(E, plam, ps, plam, plam)
     with pytest.raises(TypeError, match="float32"):
-        lam_update(E.contiguous(), plam, ps.double(), plam, plam)
+        lam_update(E.contiguous(), plam, ps.double(), plam, plam)  # dcfm-torch: ignore[DCFM301] - float64 on purpose: the wrapper's dtype refusal under test
 
 
 def test_mm_bf16_on_the_card_matches_the_cpu_rule(cuda):
@@ -569,7 +569,7 @@ def test_pinned_sliced_drain_equals_a_plain_copy(cuda, dtype, n):
     """The drain's slices land in pinned host memory on the side stream,
     each behind its event; what it returns is a plain .cpu() of the same
     tensor, bit for bit - right after the kernel that wrote the tensor."""
-    x = torch.randn(n, 33, 33, device=cuda) * 50
+    x = torch.randn(n, 33, 33, device=cuda) * 50  # dcfm-torch: ignore[DCFM101] - test data: only the host copy is compared with its source
     x = x.to(torch.int8) if dtype == torch.int8 else x.to(dtype)
     y = x * 1 if dtype == torch.int8 else x * 2      # just queued
     d = fetch.Drain(y)

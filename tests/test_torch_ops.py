@@ -86,7 +86,7 @@ def test_chol_sample_wrapper_refuses_bad_input():
     with pytest.raises(ValueError, match="contiguous"):
         chol_sample(Q, b, b)
     with pytest.raises(TypeError, match="float32"):
-        chol_sample(Q.contiguous().double(), b.double(), b.double())
+        chol_sample(Q.contiguous().double(), b.double(), b.double())  # dcfm-torch: ignore[DCFM301] - float64 on purpose: the wrapper's dtype refusal under test
     with pytest.raises(ValueError, match="range"):
         chol_sample(torch.eye(17).expand(2, 17, 17).contiguous(),
                     torch.zeros((2, 17)), torch.zeros((2, 17)))
@@ -94,7 +94,7 @@ def test_chol_sample_wrapper_refuses_bad_input():
         chol_sample(Q.contiguous(), torch.zeros((3, 5)), b)
 
 
-_F64 = dict(dtype=torch.float64)
+_F64 = dict(dtype=torch.float64)  # dcfm-torch: ignore[DCFM301] - float64 on purpose: the wrapper's dtype refusals under test
 
 
 @pytest.mark.parametrize("shapes,kw,exc,msg", [
@@ -284,14 +284,14 @@ def test_new_wrappers_refuse_bad_input():
     with pytest.raises(ValueError, match="contiguous"):
         tbs.chol_solve_sample_batched(Q, b, b)
     with pytest.raises(TypeError, match="float32"):
-        tbs.cho_solve_batched(Q.contiguous().double(), b.double())
+        tbs.cho_solve_batched(Q.contiguous().double(), b.double())  # dcfm-torch: ignore[DCFM301] - float64 on purpose: the wrapper's dtype refusal under test
     E, plam, ps, EYt, Zn = (torch.as_tensor(a) for a in _lam_operands(
         np.random.default_rng(0), 2, 5, 3))
     with pytest.raises(ValueError, match="contiguous"):
         lam_update(E, plam, ps, EYt.transpose(0, 1).contiguous()
                    .transpose(0, 1), Zn)
     with pytest.raises(TypeError, match="float32"):
-        lam_update(E, plam, ps.double(), EYt, Zn)
+        lam_update(E, plam, ps.double(), EYt, Zn)  # dcfm-torch: ignore[DCFM301] - float64 on purpose: the wrapper's dtype refusal under test
     with pytest.raises(ValueError, match=r"\(2, 5\)"):
         lam_update(E, plam, ps[:, :4], EYt, Zn)
     with pytest.raises(ValueError, match="range"):
