@@ -189,7 +189,7 @@
    (d) ``backend="torch_cuda"`` bitwise the default fit, and a ``device=``
    contradicting ``backend`` (or a JAX backend name) refused before any
    card work; (b) ``profile_dir``: Sigma bitwise (a)'s, K1 and K5 among the
-   trace's kernels once per sweep, the trip ranges, chain iterations/s
+   trace's kernels once per sweep, the replay ranges, chain iterations/s
    against (d)'s unprofiled fit; (c) warm starts from (a)'s checkpoint
    (20 burn-in + 200): 100 appended rows and 8 new shards (p = 72 x 157),
    each decided warm with the donor's bytes in the first 64 shards'
@@ -3168,7 +3168,8 @@ def recorded_phase(torch, dt, cuda_lib, card: str, Y, L, noise,
     names = [e["name"] for e in events if e.get("cat") == "kernel"]
     k1 = sum(1 for k in names if K1_NAME.search(k))
     k5 = sum(1 for k in names if K5_NAME.search(k))
-    trips = sum(1 for e in events if e.get("name") == "trip"
+    trips = sum(1 for e in events
+                if e.get("name", "").startswith("api.chain.replay.")
                 and e.get("cat") == "user_annotation")
     check(k1 > 0 and k5 > 0, f"(15b) K1 ({k1}) or K5 ({k5}) missing from "
           "the trace's kernels: " + str(sorted(set(names))[:40]))
@@ -3179,7 +3180,8 @@ def recorded_phase(torch, dt, cuda_lib, card: str, Y, L, noise,
         f"{rate_d:.2f}: overhead {rate_d / rate_p - 1:+.4f}), wall "
         f"{wall:.3f} s; trace {os.path.getsize(path)} bytes, "
         f"{len(names)} kernel events ({k1} K1, {k5} K5, {len(set(names))} "
-        f"names), {trips} trip ranges ({prof.graphs['replays']} replays); "
+        f"names), {trips} replay ranges ({prof.graphs['replays']} "
+        f"replays), stage ms {prof.graphs['stage_ms']}; "
         f"Sigma = (a)'s bits; {card}")
     return {"launches": launches, "donor": ck, "digest": digest}
 

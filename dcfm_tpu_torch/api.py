@@ -34,9 +34,12 @@ Entry points run on the card unless the caller asks for the CPU
 ``"torch_cuda"`` demands the card and never falls back).  Observability:
 ``FitConfig.obs`` keeps a flight-recorder event log of the fit
 (obs/recorder.py; ``FitResult.events_path``), and
-``BackendConfig.profile_dir`` wraps the chain in a ``torch.profiler``
-trace.  ``FitConfig.warm_start`` seeds the chains from another run's
-checkpoint on re-lineaged streams.  On the card the chain always runs as
+``BackendConfig.profile_dir`` wraps the fit's body, from the preprocess
+to the assembly, in a ``torch.profiler`` trace, where each phase and each
+step of the chain is a range and the trips captured under it time their
+stages on the device (profiling.py; ``FitResult.graphs["stage_ms"]``).
+``FitConfig.warm_start`` seeds the chains from another run's checkpoint
+on re-lineaged streams.  On the card the chain always runs as
 CUDA graphs of ``RunConfig.sweep_unroll`` sweeps (models/sampler.ChainRunner); the CPU
 runs the same trips eagerly.  Float32 matmuls run in full float32: the
 sweep's products are numerically load-bearing (the JAX package measured a
@@ -71,6 +74,7 @@ from dcfm_tpu_torch.parallel import multihost
 from dcfm_tpu_torch.parallel.mesh import make_layout, make_pod_layout
 from dcfm_tpu_torch.parallel.shard import (
     check_mesh_devices, rank_block, start_mesh)
+from dcfm_tpu_torch.profiling import Phase
 from dcfm_tpu_torch.runtime.fetch import (
     Drain, accumulator_window, assemble_q8_sigma, elastic_pooled_draws,
     fetch_prep, fetch_sd_prep, quant8_fetch_assemble,
@@ -128,8 +132,14 @@ class FitResult:
     # of a post-hoc fetch, the final join of a streamed one), assemble_s
     phase_seconds: dict
     kernel_launches: dict          # hand-written kernel launches in this fit
-    graphs: dict                   # unroll, captured, capture_s (inside
-                                   # chain_s), replays, eager_trips
+    # unroll, captured, capture_s (inside chain_s), replays, eager_trips;
+    # stage_ms, the mean device ms a sweep of each stage of the sweep
+    # (profiling.py; "combine" a saved draw, "other" the device time
+    # between stages) over stage_samples timed replays: while a profiler
+    # records, each save pattern's first trip in a chunk replays a twin of
+    # its graph with timing events (one more capture each; {} and 0 when
+    # no profiler recorded, and on the CPU)
+    graphs: dict
     # repr of a checkpoint save that failed after the chain's last chunk
     # (warned about; the results stand, the run is not resumable from its
     # end), or None
@@ -470,9 +480,10 @@ def _resolve_obs_dir(cfg: FitConfig) -> Optional[str]:
 
 
 def _profiler(profile_dir: Optional[str], device: torch.device):
-    """BackendConfig.profile_dir: a torch.profiler over the chain (CPU
-    activity, and CUDA activity on the card) writing its Chrome trace into
-    ``profile_dir`` (``tensorboard_trace_handler``); else nothing."""
+    """BackendConfig.profile_dir: a torch.profiler over the fit's body,
+    from the preprocess to the assembly (CPU activity, and CUDA activity
+    on the card), writing its Chrome trace into ``profile_dir``
+    (``tensorboard_trace_handler``); else nothing."""
     if not profile_dir:
         return contextlib.nullcontext()
     from torch.profiler import (
@@ -618,10 +629,9 @@ def _run_rank(job: _RankJob, mesh, data, device: torch.device, *,
     ranks."""
     cfg, m, run = job.cfg, job.model, job.cfg.run
     phase = {} if phase is None else phase
-    t = time.perf_counter()
-    Yd = upload_data(data, cfg.backend.upload_dtype, device)
-    _sync(device)
-    phase["upload_s"] = time.perf_counter() - t
+    with Phase("api.upload", phase, "upload_s"):
+        Yd = upload_data(data, cfg.backend.upload_dtype, device)
+        _sync(device)
     # a warm start re-lineages the chain's sweep streams (never the init's,
     # so a cold fallback starts from a plain fit's state): the warm chain
     # never replays its donor's draws, and a relaunched warm refit rebuilds
@@ -736,14 +746,24 @@ def _fit(Y: np.ndarray, cfg: FitConfig, device, *,
     # the JAX package does
     m = dataclasses.replace(m, sse_mode=be.sse_mode,
                             compute_dtype=be.compute_dtype)
+    with _profiler(be.profile_dir, device):
+        return _fit_body(Y, cfg, device, m, n, ranks, pod, world)
+
+
+def _fit_body(Y, cfg: FitConfig, device: torch.device, m: ModelConfig,
+              n: int, ranks: int, pod: bool, world: int) -> FitResult:
+    """``_fit`` once the config is checked and the mesh laid out: the
+    preprocess, the chain, the fetch and the assembly, each phase a
+    profiler range while one records (profiling.py)."""
+    run, be = cfg.run, cfg.backend
     launches0 = cuda_lib.launch_counts()
     t_start = time.perf_counter()
 
-    t = time.perf_counter()
-    pre = preprocess(Y, m.num_shards, permute=cfg.permute,
-                     standardize=cfg.standardize,
-                     pad_to_shards=cfg.pad_to_shards, seed=run.seed)
-    phase = {"preprocess_s": time.perf_counter() - t}
+    phase: dict = {}
+    with Phase("api.preprocess", phase, "preprocess_s"):
+        pre = preprocess(Y, m.num_shards, permute=cfg.permute,
+                         standardize=cfg.standardize,
+                         pad_to_shards=cfg.pad_to_shards, seed=run.seed)
     if pre.n_missing and not m.impute_missing:
         # NaN entries: the per-sweep imputation, in the internal model
         # only, so the config (and a checkpoint's) round-trips unchanged
@@ -781,32 +801,31 @@ def _fit(Y: np.ndarray, cfg: FitConfig, device, *,
     threads = torch.get_num_threads()
     if ranks > 1 and device.type == "cpu":
         torch.set_num_threads(1)        # the ranks share the cores, one each
-    with _profiler(be.profile_dir, device):
-        try:
-            data = pre.data
-            if pod:
-                mesh = multihost.pod_mesh(g, C)
-                data = rank_block(data, mesh.layout)
-            elif ranks:
-                mesh = start_mesh(ranks, device, g, C, job, data)
-                data = rank_block(data, mesh.layout)
-            rr, carries, fetched = _run_rank(
-                job, mesh, data, device if mesh is None else mesh.device,
-                phase=phase)
-            if pod:
-                # the replicated result: every process returns rank 0's
-                carries, fetched = mesh.share((carries, fetched))
-        except BaseException as e:
-            if mesh is not None:
-                err = mesh.failure(e)
-                mesh.close(kill=True)
-                if err is not None:
-                    raise err from e
-            raise
-        finally:
-            torch.set_num_threads(threads)
+    try:
+        data = pre.data
+        if pod:
+            mesh = multihost.pod_mesh(g, C)
+            data = rank_block(data, mesh.layout)
+        elif ranks:
+            mesh = start_mesh(ranks, device, g, C, job, data)
+            data = rank_block(data, mesh.layout)
+        rr, carries, fetched = _run_rank(
+            job, mesh, data, device if mesh is None else mesh.device,
+            phase=phase)
+        if pod:
+            # the replicated result: every process returns rank 0's
+            carries, fetched = mesh.share((carries, fetched))
+    except BaseException as e:
         if mesh is not None:
-            mesh.close()
+            err = mesh.failure(e)
+            mesh.close(kill=True)
+            if err is not None:
+                raise err from e
+        raise
+    finally:
+        torch.set_num_threads(threads)
+    if mesh is not None:
+        mesh.close()
     streamer = rr.streamer
     phase["chain_s"] = float(sum(rr.chunk_seconds))
     stats = rr.stats or _carried_stats(carries)
@@ -842,21 +861,20 @@ def _fit(Y: np.ndarray, cfg: FitConfig, device, *,
     phase["fetch_s"] = phase["assemble_s"] = 0.0
     stream_stats = streamed = artifact_path = None
     if streamer is not None:
-        t = time.perf_counter()
-        try:
-            streamed = streamer.finish()
-            if not streamed["final_landed"]:
-                streamed = None
-        except Exception as e:  # the reference's policy: warn, fetch post hoc
-            if ranks:
-                raise   # the mesh's accumulators were never gathered here
-            warnings.warn(f"streamed accumulator fetch failed ({e!r}); "
-                          "falling back to the post-hoc fetch",
-                          RuntimeWarning)
-        if streamed is None and ranks:
-            raise RuntimeError("the mesh's streamed fetch landed no final "
-                               "snapshot")
-        phase["exposed_fetch_s"] = time.perf_counter() - t
+        with Phase("api.fetch", phase, "exposed_fetch_s"):
+            try:
+                streamed = streamer.finish()
+                if not streamed["final_landed"]:
+                    streamed = None
+            except Exception as e:  # the reference's policy: warn, fetch post hoc
+                if ranks:
+                    raise   # the mesh's accumulators were never gathered
+                warnings.warn(f"streamed accumulator fetch failed ({e!r}); "
+                              "falling back to the post-hoc fetch",
+                              RuntimeWarning)
+            if streamed is None and ranks:
+                raise RuntimeError("the mesh's streamed fetch landed no "
+                                   "final snapshot")
     if streamed is not None:
         phase["exposed_fetch_s"] += streamed["final_wait_s"]
         drain = float(sum(streamed["chunk_fetch_s"]))
@@ -883,55 +901,54 @@ def _fit(Y: np.ndarray, cfg: FitConfig, device, *,
             q8, sd_q8 = art.mean_panels, art.sd_panels
             artifact_path = cfg.stream_artifact
         if want_sigma:
-            t = time.perf_counter()
-            Sigma = assemble_q8_sigma(q8, scales, pre)
-            if sd_q8 is not None:
-                Sigma_sd = assemble_q8_sigma(sd_q8, sd_scales, pre)
-            phase["assemble_s"] = time.perf_counter() - t
+            with Phase("api.assemble", phase, "assemble_s"):
+                Sigma = assemble_q8_sigma(q8, scales, pre)
+                if sd_q8 is not None:
+                    Sigma_sd = assemble_q8_sigma(sd_q8, sd_scales, pre)
     else:
         exposed0 = phase.get("exposed_fetch_s", 0.0)
-        t = time.perf_counter()
-        if fetched is None:
-            pooled = carries[0].sigma_acc   # summed in place, chain order
-            for c in carries[1:]:
-                pooled += c.sigma_acc
-            pooled_sq = None
-            if want_sd:
-                pooled_sq = carries[0].sigma_sq_acc
+        # the post-hoc fetch: the chains' sums pooled, the preps and the
+        # drain (under quant8 its start: quant8_fetch_assemble waits)
+        with Phase("api.fetch", phase, "fetch_s"):
+            if fetched is None:
+                pooled = carries[0].sigma_acc   # summed in place, in order
                 for c in carries[1:]:
-                    pooled_sq += c.sigma_sq_acc
-            n_upper = num_upper_pairs(g)
+                    pooled += c.sigma_acc
+                pooled_sq = None
+                if want_sd:
+                    pooled_sq = carries[0].sigma_sq_acc
+                    for c in carries[1:]:
+                        pooled_sq += c.sigma_sq_acc
+                n_upper = num_upper_pairs(g)
 
-            def mean_prep():
-                return fetch_prep(pooled, C, g, inv_count, mode)
+                def mean_prep():
+                    return fetch_prep(pooled, C, g, inv_count, mode)
 
-            def sd_prep():
-                return fetch_sd_prep(pooled_sq, pooled[:n_upper], C,
-                                     inv_count, bessel, mode)
-        else:       # the shard mesh's, each rank's slice gathered here
-            def mean_prep():
-                return fetched[0]
+                def sd_prep():
+                    return fetch_sd_prep(pooled_sq, pooled[:n_upper], C,
+                                         inv_count, bessel, mode)
+            else:       # the shard mesh's, each rank's slice gathered here
+                def mean_prep():
+                    return fetched[0]
 
-            def sd_prep():
-                return fetched[1]
-        if mode == "quant8":
-            started = quant8_start(*mean_prep())
-            sd_started = quant8_start(*sd_prep()) if want_sd else None
+                def sd_prep():
+                    return fetched[1]
+            if mode == "quant8":
+                started = quant8_start(*mean_prep())
+                sd_started = quant8_start(*sd_prep()) if want_sd else None
+            else:
+                upper = Drain(mean_prep()).wait()
+                if want_sd:
+                    sd_upper = Drain(sd_prep()).wait()
             pooled = pooled_sq = fetched = None
-            phase["fetch_s"] = time.perf_counter() - t
+        if mode == "quant8":
             Sigma, q8, scales = quant8_fetch_assemble(
                 started, pre, phase, assemble=want_sigma)
             if want_sd:
                 Sigma_sd, sd_q8, sd_scales = quant8_fetch_assemble(
                     sd_started, pre, phase, assemble=want_sigma)
-        else:
-            upper = Drain(mean_prep()).wait()
-            if want_sd:
-                sd_upper = Drain(sd_prep()).wait()
-            pooled = pooled_sq = fetched = None
-            phase["fetch_s"] = time.perf_counter() - t
-            if want_sigma:
-                t = time.perf_counter()
+        elif want_sigma:
+            with Phase("api.assemble", phase, "assemble_s"):
                 Sigma = assemble_from_upper(upper, pre,
                                             reinsert_zero_cols=True,
                                             force=True)
@@ -939,7 +956,6 @@ def _fit(Y: np.ndarray, cfg: FitConfig, device, *,
                     Sigma_sd = assemble_from_upper(sd_upper, pre,
                                                    reinsert_zero_cols=True,
                                                    force=True)
-                phase["assemble_s"] = time.perf_counter() - t
         # after a failed stream its join is exposed too
         phase["exposed_fetch_s"] = exposed0 + phase["fetch_s"]
     del carries

@@ -169,12 +169,14 @@ class BackendConfig:
     mesh_devices: int = 0
     fetch_dtype: str = "float32"
     upload_dtype: str = "float32"
-    # if set, fit() wraps the chain in a torch.profiler trace (CPU
-    # activity, and CUDA activity on the card) and writes its Chrome trace
-    # here; the per-conditional record_function ranges (z_update,
-    # x_update, lambda_update, prior_update, ps_update, combine,
-    # health_trace, impute_missing) mark the eager sweeps, one "trip"
-    # range each CUDA-graph replay
+    # if set, fit() wraps its body, from the preprocess to the assembly,
+    # in a torch.profiler trace (CPU activity, and CUDA activity on the
+    # card) and writes its Chrome trace here; record_function ranges name
+    # the phases (api.preprocess ... api.assemble), the chain's steps
+    # (api.chain.draw, api.chain.replay.save / .plain, ...) and the
+    # sweep's stages in eager sweeps (z_update ... health_trace), and the
+    # trips captured under it time their stages on the device into
+    # FitResult.graphs["stage_ms"] (dcfm_tpu_torch/profiling.py)
     profile_dir: Optional[str] = None
     fetch_stream: str = "auto"
     compute_dtype: str = "f32"

@@ -29,7 +29,6 @@ take bfloat16 inputs with float32 accumulation and output
 
 from __future__ import annotations
 
-import contextlib
 import math
 from typing import Optional
 
@@ -47,18 +46,7 @@ from dcfm_tpu_torch.ops.gaussian import (
     sample_mvn_precision_linalg, sample_mvn_precision_shared)
 from dcfm_tpu_torch.ops.lam_update import lam_update
 from dcfm_tpu_torch.ops.sse_gamma import sse_ps
-
-
-def scope(name: str):
-    """A ``torch.profiler`` range named as the JAX package's named scope
-    (z_update, x_update, lambda_update, prior_update, ps_update, combine,
-    health_trace, impute_missing) while a profiler records
-    (``BackendConfig.profile_dir``); nothing otherwise.  A host-side
-    marker: it launches nothing, so a CUDA graph captured through it is
-    the graph captured without it, and a replay shows none of it."""
-    if torch.autograd._profiler_enabled():
-        return torch.profiler.record_function(name)
-    return contextlib.nullcontext()
+from dcfm_tpu_torch.profiling import scope
 
 
 def resolve_sse_mode(mode: str, *, n: int, K: int) -> str:

@@ -50,12 +50,14 @@ from dcfm_tpu_torch.config import ModelConfig
 from dcfm_tpu_torch.models.adapt import adapt_rank, effective_ranks
 from dcfm_tpu_torch.models.conditionals import (
     covariance_panels, cross_moments, gibbs_sweep, impute_missing_y,
-    local_sum, scope, trace_data)
+    local_sum, trace_data)
 from dcfm_tpu_torch.models.state import (
     SamplerState, init_state, num_padded_pairs, packed_pair_indices)
 from dcfm_tpu_torch.noise import (
     BufferedDraws, RecordingDraws, ShardSliceNoise, TorchNoise, draw_into)
 from dcfm_tpu_torch.ops import cuda_lib
+from dcfm_tpu_torch.profiling import (
+    StageClock, StageTally, recording, scope)
 
 # per-iteration chain summaries, in the JAX package's order: mean signal
 # variance, mean residual variance, their sum, average log-likelihood
@@ -339,6 +341,15 @@ def add_panels(sigma_acc: torch.Tensor, sigma_sq_acc: Optional[torch.Tensor],
         del blocks
 
 
+class _Graph(NamedTuple):
+    """A captured trip: its graph, the launches it counts, its replays'
+    profiler range, and its stage timer (a timed twin's) or None."""
+    graph: object
+    tally: dict
+    span: str
+    clock: Optional[StageClock]
+
+
 class ChainRunner:
     """Runs the chains of one fit on ``Y`` in trips of ``unroll`` sweeps.
 
@@ -365,6 +376,15 @@ class ChainRunner:
     static carry are the runner's: it lives for one fit, or until a
     sentinel rewind changes the model (its jitter is baked into the
     graphs).
+
+    While a profiler records, each trip's steps are ranges (profiling.py:
+    ``api.chain.draw``, ``.eager``, ``.capture``, ``.replay.save`` /
+    ``.replay.plain``, and a chunk's ``api.chain.boundary``), and each
+    pattern's first trip in a chunk replays a twin of its graph whose
+    stage boundaries are timing events (profiling.StageClock), captured
+    beside it; the chunk's end adds those samples to ``stages``
+    (profiling.StageTally).  Every other replay is the untimed graph, the
+    graph a fit with no profiler replays.
     """
 
     def __init__(self, noise, Y: torch.Tensor, cfg: ModelConfig, prior, *,
@@ -421,9 +441,14 @@ class ChainRunner:
         self._recipe = None        # the sweep's draw calls, recorded once
         self._slots = None         # per call: (unroll, *shape) variates
         self._seen: set = set()    # save patterns run at least once
-        self._graphs: dict = {}    # save pattern -> (graph, launch tally)
+        self._graphs: dict = {}    # save pattern -> _Graph
+        # under a profiler: save pattern -> its twin with timing events,
+        # replayed for the pattern's first trip in each chunk (_sampled)
+        self._timed: dict = {}
+        self._sampled: set = set()
         self.captured, self.capture_s = 0, 0.0
         self.replays = self.eager_trips = 0
+        self.stages = StageTally()
 
     @contextlib.contextmanager
     def _on_stream(self):
@@ -496,19 +521,26 @@ class ChainRunner:
             pos = 0
             for length in trip_lengths(num_iters, self.unroll):
                 self._trip(chain, work.iteration, save_pattern(
-                    work.iteration, length, self.burnin, self.thin))
-                trace[pos:pos + length].copy_(self._trace[:length])
+                    work.iteration, length, self.burnin, self.thin),
+                    trace[pos:pos + length])
                 work.iteration += length
                 pos += length
-            h = work.health.cpu()
-            ranks = effective_ranks(work.state).cpu()
-            stats = ChainStats(
-                tau_log_max=float(h[:, 0].max()), ps_min=float(h[:, 1].min()),
-                ps_max=float(h[:, 2].max()),
-                rank_min=float(ranks.min()), rank_max=float(ranks.max()),
-                rank_mean=float(ranks.mean()),
-                nonfinite_count=float(h[:, 3].sum()),
-                acc_nonfinite=float((~torch.isfinite(work.sigma_acc)).sum()))
+            with scope("api.chain.boundary"):
+                h = work.health.cpu()
+                ranks = effective_ranks(work.state).cpu()
+                stats = ChainStats(
+                    tau_log_max=float(h[:, 0].max()),
+                    ps_min=float(h[:, 1].min()), ps_max=float(h[:, 2].max()),
+                    rank_min=float(ranks.min()), rank_max=float(ranks.max()),
+                    rank_mean=float(ranks.mean()),
+                    nonfinite_count=float(h[:, 3].sum()),
+                    acc_nonfinite=float(
+                        (~torch.isfinite(work.sigma_acc)).sum()))
+                # the reads above waited for the chunk's replays: the
+                # stage times of each pattern's timed replay among them
+                for pattern in self._sampled:
+                    self.stages.add(self._timed[pattern].clock)
+                self._sampled.clear()
             if own:
                 wait_readers(carry, self._stream)
                 for dst, src in zip(carry_tensors(carry),
@@ -528,16 +560,27 @@ class ChainRunner:
             dst.copy_(src)
         self.carry.iteration = carry.iteration
 
-    def _trip(self, chain: int, start: int, pattern: tuple) -> None:
-        self._write_its(start, len(pattern))
+    def _trip(self, chain: int, start: int, pattern: tuple,
+              rows: Optional[torch.Tensor] = None) -> None:
+        """One trip of the chain from ``start`` with save ``pattern``, its
+        trace rows copied into ``rows`` where given.  While a profiler
+        records each step is a range (profiling.py); the one flag check
+        is made here, once a trip."""
+        on = recording()
+        n = len(pattern)
         if self._recipe is None:
             # the runner's first trip: live draws, the first sweep's calls
             # recorded as the recipe every later trip is drawn from
-            recipe: list = []
-            draws = [RecordingDraws(self.noise.sweep(chain, start), recipe)]
-            draws += [self.noise.sweep(chain, start + j)
-                      for j in range(1, len(pattern))]
-            self._sweeps(draws, pattern)
+            with scope("api.chain.eager", on):
+                self._write_its(start, n)
+                recipe: list = []
+                draws = [RecordingDraws(self.noise.sweep(chain, start),
+                                        recipe)]
+                draws += [self.noise.sweep(chain, start + j)
+                          for j in range(1, n)]
+                self._sweeps(draws, pattern)
+                if rows is not None:
+                    rows.copy_(self._trace[:n])
             self._recipe = recipe
             self._slots = [torch.empty((self.unroll, *c.shape),
                                        dtype=torch.float32,
@@ -545,16 +588,35 @@ class ChainRunner:
             self._seen.add(pattern)
             self.eager_trips += 1
             return
-        draws = self._predrawn(chain, start, len(pattern))
+        with scope("api.chain.draw", on):
+            self._write_its(start, n)
+            draws = self._predrawn(chain, start, n)
         if not self.use_graphs or pattern not in self._seen:
-            self._sweeps(draws, pattern)
+            with scope("api.chain.eager", on):
+                self._sweeps(draws, pattern)
+                if rows is not None:
+                    rows.copy_(self._trace[:n])
             self._seen.add(pattern)
             self.eager_trips += 1
             return
-        graph = self._graphs.get(pattern) or self._capture(draws, pattern)
-        with scope("trip"):         # the profiler's range of one replay
-            graph[0].replay()
-        cuda_lib.add_launches(graph[1])
+        graph = self._graphs.get(pattern)
+        if graph is None:
+            with scope("api.chain.capture", on):
+                graph = self._graphs[pattern] = self._capture(pattern)
+        if on and pattern not in self._sampled:
+            # the pattern's first trip of the chunk while a profiler
+            # records: its twin, which times the stages
+            graph = self._timed.get(pattern)
+            if graph is None:
+                with scope("api.chain.capture", on):
+                    graph = self._timed[pattern] = self._capture(
+                        pattern, timed=True)
+            self._sampled.add(pattern)
+        with scope(graph.span, on):
+            graph.graph.replay()
+            if rows is not None:
+                rows.copy_(self._trace[:n])
+        cuda_lib.add_launches(graph.tally)
         self.replays += 1
 
     def _write_its(self, start: int, length: int) -> None:
@@ -575,8 +637,14 @@ class ChainRunner:
             draws.append(BufferedDraws(self._recipe, slots))
         return draws
 
-    def _capture(self, draws: list, pattern: tuple) -> tuple:
+    def _capture(self, pattern: tuple, *, timed: bool = False) -> "_Graph":
+        """Capture the trip whose variates the slots hold into a CUDA
+        graph; ``timed`` stamps its stage boundaries
+        (profiling.StageClock)."""
+        draws = [BufferedDraws(self._recipe, [s[j] for s in self._slots])
+                 for j in range(len(pattern))]
         graph = torch.cuda.CUDAGraph()
+        clock = StageClock(len(pattern), sum(pattern)) if timed else None
         t = time.perf_counter()
         # Python's cyclic collector may run at any allocation, and a dead
         # cycle can hold CUDA graphs, events or pinned buffers (an
@@ -595,7 +663,11 @@ class ChainRunner:
                 with torch.cuda.graph(graph, pool=self._pool,
                                       stream=self._stream,
                                       capture_error_mode="thread_local"):
-                    self._sweeps(draws, pattern)
+                    if clock is None:
+                        self._sweeps(draws, pattern)
+                    else:
+                        with clock.timing():
+                            self._sweeps(draws, pattern)
         except RuntimeError as e:
             raise RuntimeError(
                 f"capturing a trip of {len(pattern)} sweeps (saves "
@@ -605,8 +677,8 @@ class ChainRunner:
                 gc.enable()
         self.capture_s += time.perf_counter() - t
         self.captured += 1
-        self._graphs[pattern] = (graph, tally)
-        return graph, tally
+        return _Graph(graph, tally, "api.chain.replay.save" if any(pattern)
+                      else "api.chain.replay.plain", clock)
 
     def _sweeps(self, draws: list, pattern: tuple) -> None:
         """The trip: one sweep per entry of ``draws``, the packed panels
@@ -629,7 +701,9 @@ class ChainRunner:
             # the carried state after it (the JAX package's order)
             sweep_state = state
             if cfg.rank_adapt:
-                state = adapt_rank(d, state, self._its[j], self.burnin, cfg)
+                with scope("adapt_rank"):
+                    state = adapt_rank(d, state, self._its[j], self.burnin,
+                                       cfg)
             if isinstance(d, BufferedDraws):
                 d.finish()
             if pattern[j]:

@@ -31,7 +31,6 @@ the "copy" is the tensor itself.  No fetch runs inside a captured graph.
 
 from __future__ import annotations
 
-import time
 from typing import Optional
 
 import numpy as np
@@ -40,6 +39,7 @@ import torch
 from dcfm_tpu_torch.analysis.registry import TraceSpec, register_trace_entry
 from dcfm_tpu_torch.models.sampler import num_saved_draws
 from dcfm_tpu_torch.models.state import num_upper_pairs
+from dcfm_tpu_torch.profiling import Phase
 from dcfm_tpu_torch.utils.estimate import assemble_from_q8
 from dcfm_tpu_torch.utils.preprocess import PreprocessResult
 
@@ -243,16 +243,15 @@ def quant8_fetch_assemble(started: tuple, pre: PreprocessResult,
     """Drain a started quant8 fetch and assemble the caller-coordinate
     Sigma from the int8 panels in one native pass; returns ``(Sigma or
     None, q8 panels, scales)`` and adds to ``phase``'s fetch_s and
-    assemble_s.  ``assemble=False`` is the packed result
+    assemble_s, each a profiler range (``api.fetch``, ``api.assemble``)
+    while one records.  ``assemble=False`` is the packed result
     (FitConfig.materialize_sigma): the panels land, no dense stitch."""
-    t = time.perf_counter()
-    q8, scales = quant8_drain(started)
-    phase["fetch_s"] += time.perf_counter() - t
+    with Phase("api.fetch", phase, "fetch_s"):
+        q8, scales = quant8_drain(started)
     if not assemble:
         return None, q8, scales
-    t = time.perf_counter()
-    Sigma = assemble_q8_sigma(q8, scales, pre)
-    phase["assemble_s"] += time.perf_counter() - t
+    with Phase("api.assemble", phase, "assemble_s"):
+        Sigma = assemble_q8_sigma(q8, scales, pre)
     return Sigma, q8, scales
 
 

@@ -66,6 +66,11 @@ boundary's save and ``post_save`` after the write-behind writer made that
 save durable (only on a boundary that saved); ``poison_state`` NaNs every
 chain's Lambda after the boundary, so the next one trips the sentinel.
 Without a plan each seam is one truthiness check.
+
+While a ``torch.profiler`` records, the state init is the range
+``api.init`` (timed into ``init_s`` by the same helper), the chunk loop
+``api.chain``, and a boundary's streamed dispatch and save
+``api.chain.stream`` and ``api.chain.checkpoint`` (profiling.py).
 """
 
 from __future__ import annotations
@@ -87,6 +92,7 @@ from dcfm_tpu_torch.models.sampler import (
 from dcfm_tpu_torch.models.state import SamplerState
 from dcfm_tpu_torch.obs import metrics as obs_metrics
 from dcfm_tpu_torch.obs.recorder import active as obs_active, record
+from dcfm_tpu_torch.profiling import Phase, StageTally, scope
 from dcfm_tpu_torch.resilience.faults import fault_event, fault_plan
 from dcfm_tpu_torch.resilience.sentinel import (
     ChainDivergedError, DivergenceSentinel)
@@ -496,7 +502,8 @@ class ChainRunResult:
     rewinds: int
     trace0: int                    # global iteration the traces start at
     streamer: Optional[StreamingFetcher]
-    graphs: dict                   # the runners' graph counts, summed
+    graphs: dict                   # the runners' graph counts, summed,
+                                   # and their sampled stage times
     # the R-hat early stop: the global iteration the run stopped at (None:
     # it ran its schedule), and the [iteration, rhat_max, ess_min] row of
     # every boundary it was evaluated at (None when early_stop is off)
@@ -554,12 +561,14 @@ def run_chain(*, cfg, model, run, phase: dict, fingerprint, template: dict,
     pod = mesh is not None and mesh.pod
     chunk = run.chunk_size or run.total_iters
     graphs = dict.fromkeys(_GRAPH_KEYS, 0)
+    stages = StageTally()
 
     def retire(r):
         for k in _GRAPH_KEYS:
             graphs[k] += getattr(r, k)
+        stages.merge(r.stages)
 
-    t_init = time.perf_counter()
+    init = Phase("api.init", phase, "init_s").start()
     lineage: tuple = ()
     m_active = model
     runner = make_runner(m_active, lineage)
@@ -631,7 +640,7 @@ def run_chain(*, cfg, model, run, phase: dict, fingerprint, template: dict,
     del leaves
     fresh.clear()       # a rewind must be able to free the first carries
     _sync(device)
-    phase["init_s"] = time.perf_counter() - t_init
+    init.stop()
     executed = run.total_iters - done
     stats, traces, chunk_secs = None, [], []
     phase["checkpoint_s"] = 0.0
@@ -692,6 +701,7 @@ def run_chain(*, cfg, model, run, phase: dict, fingerprint, template: dict,
     es_on = run.early_stop == "rhat"
     stopped_at = None
     rhat_traj = [] if es_on else None
+    loop = Phase("api.chain").start()
     try:
         while qi < len(queue_):
             ni = queue_[qi]
@@ -817,26 +827,27 @@ def run_chain(*, cfg, model, run, phase: dict, fingerprint, template: dict,
                     draws += rctx.elastic.fold_draws
                 if last or draws > 0:
                     fault_event("stream_submit")
-                    try:
-                        if streamer.submit(carries, final=last):
-                            record("stream_snapshot", iteration=it_now,
-                                   final=last)
-                        elif streamer.failed:
-                            # the drain died: "stream dead since k", never
-                            # "double buffer saturated"
-                            record("stream_refused", iteration=it_now)
-                        else:
-                            record("stream_skip", iteration=it_now)
-                    except Exception as e:  # the stream is an optimization: the post-hoc fetch serves
-                        if mesh is not None:
-                            raise   # collective: no rank falls back alone
-                        warnings.warn(
-                            f"streamed fetch dispatch failed ({e!r}); "
-                            "disabling streaming for this run - the "
-                            "post-hoc fetch will serve the result",
-                            RuntimeWarning)
-                        streamer.abort()
-                        streamer = None
+                    with scope("api.chain.stream"):
+                        try:
+                            if streamer.submit(carries, final=last):
+                                record("stream_snapshot", iteration=it_now,
+                                       final=last)
+                            elif streamer.failed:
+                                # the drain died: "stream dead since k",
+                                # never "double buffer saturated"
+                                record("stream_refused", iteration=it_now)
+                            else:
+                                record("stream_skip", iteration=it_now)
+                        except Exception as e:  # the stream is an optimization: the post-hoc fetch serves
+                            if mesh is not None:
+                                raise   # collective: no rank falls back alone
+                            warnings.warn(
+                                f"streamed fetch dispatch failed ({e!r}); "
+                                "disabling streaming for this run - the "
+                                "post-hoc fetch will serve the result",
+                                RuntimeWarning)
+                            streamer.abort()
+                            streamer = None
                     fault_event("stream_submit_post")
             if not saving:
                 _flush_events()
@@ -889,26 +900,25 @@ def run_chain(*, cfg, model, run, phase: dict, fingerprint, template: dict,
                     # the host-adoption count rides every save, as the
                     # lineage does
                     kw["pod_adoptions"] = rctx.pod["pod_adoptions"]
-                t = time.perf_counter()
-                to_save = carries
-                if mesh is not None and not pod:
-                    # every chain's global carry, on rank 0: the one file
-                    # a one-device fit writes
-                    kw["num_devices"] = mesh.world
-                    to_save = mesh.gather_carries(carries)
-                if writer is not None:
-                    try:
-                        writer.submit(save_fn, target, to_save, cfg,
-                                      fingerprint=fingerprint,
-                                      state_only=state_only,
-                                      acc_start=acc_start,
-                                      keep_last=cfg.checkpoint_keep_last,
-                                      **kw)
-                        saved_this_boundary = True
-                    except Exception as e:  # the save-failure policy
-                        save_failure(e, last)
-                del to_save
-                phase["checkpoint_s"] += time.perf_counter() - t
+                with Phase("api.chain.checkpoint", phase, "checkpoint_s"):
+                    to_save = carries
+                    if mesh is not None and not pod:
+                        # every chain's global carry, on rank 0: the one
+                        # file a one-device fit writes
+                        kw["num_devices"] = mesh.world
+                        to_save = mesh.gather_carries(carries)
+                    if writer is not None:
+                        try:
+                            writer.submit(save_fn, target, to_save, cfg,
+                                          fingerprint=fingerprint,
+                                          state_only=state_only,
+                                          acc_start=acc_start,
+                                          keep_last=cfg.checkpoint_keep_last,
+                                          **kw)
+                            saved_this_boundary = True
+                        except Exception as e:  # the save-failure policy
+                            save_failure(e, last)
+                    del to_save
                 since_save = 0
                 saves_done += 1
                 _G_CK_GEN.set(saves_done)
@@ -929,17 +939,19 @@ def run_chain(*, cfg, model, run, phase: dict, fingerprint, template: dict,
                     _poison(carries)
         if writer is not None:
             # the last save must be durable before fit returns
-            t = time.perf_counter()
-            try:
-                writer.wait()
-            except Exception as e:  # the chain is complete: downgrade
-                save_failure(e, True)
-            phase["checkpoint_s"] += time.perf_counter() - t
+            with Phase("api.chain.checkpoint", phase, "checkpoint_s"):
+                try:
+                    writer.wait()
+                except Exception as e:  # the chain is complete: downgrade
+                    save_failure(e, True)
     except BaseException:
         if streamer is not None:
             streamer.abort()
         raise
+    finally:
+        loop.stop()
     retire(runner)
+    graphs.update(stage_ms=stages.means(), stage_samples=stages.samples)
     if stopped_at is not None:
         # the truncated count: the divisor's window end, iters_per_sec
         executed = it_now - done

@@ -196,7 +196,8 @@ def test_sweep_unroll_preserves_cadence_and_results():
     assert _equal_states(r1.state, r5.state)      # both chains, stacked
     # 38 iterations in chunks of 13 / 13 / 12, trips of 5 and remainders
     assert r5.graphs == {"unroll": 5, "captured": 0, "capture_s": 0.0,
-                         "replays": 0, "eager_trips": 2 * 9}
+                         "replays": 0, "eager_trips": 2 * 9,
+                         "stage_ms": {}, "stage_samples": 0}
 
 
 def test_auto_unroll_is_one_on_the_cpu():

@@ -14,7 +14,8 @@ a device tensor) graphed bitwise the eager chain; the chunked combine
 graphed bitwise the eager chain, the lazy (sparse, memmap) upload bitwise
 the dense one, and a memmap fit's panels bitwise its dense twin's; a
 warm-started fit graphed bitwise the eager one, and a recorded and
-profiled fit bitwise the plain one, its trace naming K1 and K5; the query
+profiled fit bitwise the plain one, its trace naming K1 and K5 and its
+sweep's stages timed on the device; the query
 engine on the card bitwise the one on the CPU (entries, blocks, rows,
 intervals, an evicting budget) and one request served by ``serve
 --device cuda``; the shard mesh's rank program as a 1-rank NCCL world,
@@ -1277,9 +1278,10 @@ def test_a_warm_started_graphed_fit_is_the_eager_one(cuda, tmp_path,
 
 
 def test_a_recorded_and_profiled_fit_on_the_card(cuda, tmp_path):
-    """Recording and the profiler change no bit; the event log holds the
-    fit's chunks and stream; the trace names K1 and K5 among its kernels
-    and one "trip" range per replay."""
+    """Recording and the profiler change no bit, though the profiled
+    fit's graphs hold its stage timers' event nodes; the event log holds
+    the fit's chunks and stream; the trace names K1 and K5 among its
+    kernels and one api.chain.replay.* range per replay."""
     import json
     import os
     import re
@@ -1304,9 +1306,107 @@ def test_a_recorded_and_profiled_fit_on_the_card(cuda, tmp_path):
     assert any(re.search(r"chol_group_kernel(<\d+, \d+, false, true"
                          r"|ILi\d+ELi\d+ELb0ELb1)", k) for k in kernels)
     assert any("sse_ps_" in k for k in kernels)
-    trips = [e for e in events if e.get("name") == "trip"
+    trips = [e for e in events
+             if e.get("name", "").startswith("api.chain.replay.")
              and e.get("cat") == "user_annotation"]
     assert len(trips) == res.graphs["replays"]
+    assert res.graphs["stage_samples"] > 0 and plain.graphs["stage_ms"] == {}
+
+
+def _replay_times(events) -> dict:
+    """Per graph replay of a Chrome trace, keyed by the range its launch
+    ran in (api.chain.replay.save / .plain) and by whether it was the
+    timed twin (the kind's first replay after the fit's start or a
+    chunk's api.chain.boundary): (kernel ms summed, the ms from its first
+    kernel's start to its last kernel's end)."""
+    marks = sorted((e["ts"], e["ts"] + e["dur"], e["name"]) for e in events
+                   if e.get("cat") == "user_annotation"
+                   and (e["name"].startswith("api.chain.replay.")
+                        or e["name"] == "api.chain.boundary"))
+    kind = {}
+    for e in events:
+        if e.get("cat") == "cuda_runtime" and "GraphLaunch" in e["name"]:
+            for t0, t1, name in marks:
+                if t0 <= e["ts"] <= t1 and name != "api.chain.boundary":
+                    kind[e["args"]["correlation"]] = (name, t0)
+    timed, seen = set(), set()
+    for t0, _, name in marks:
+        if name == "api.chain.boundary":
+            seen.clear()
+        elif name not in seen:
+            seen.add(name)
+            timed.add(t0)
+    ops: dict = {}
+    for e in events:
+        corr = e.get("args", {}).get("correlation")
+        if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset") \
+                and corr in kind:
+            ops.setdefault(corr, []).append((e["ts"], e["ts"] + e["dur"]))
+    out: dict = {}
+    for corr, ivs in ops.items():
+        busy = sum(b - a for a, b in ivs) * 1e-3         # us -> ms
+        span = (max(b for _, b in ivs) - min(a for a, _ in ivs)) * 1e-3
+        name, t0 = kind[corr]
+        out.setdefault((name, t0 in timed), []).append((busy, span))
+    return out
+
+
+def test_a_profiled_graphed_fit_times_every_stage_of_its_sweep(cuda,
+                                                               tmp_path):
+    """The trips' timed twins, replayed once a chunk and pattern under the
+    profiler, time every stage of the path (MGP, Gram psi, K1) and the
+    device time between them, the combine a saved draw.  At the north
+    star's shapes (64 shards of 157, n = 500, K = 8) the stages of the
+    timed replays add up to those replays' span on the device within
+    10%: both run from the graph's first node to its last (the kernel sum
+    the profiler reports leaves out the gaps between nodes; printed
+    beside, with the untimed replays')."""
+    import json
+    import os
+
+    rng = np.random.default_rng(3)
+    L = rng.normal(size=(10048, 8)) / 8 ** 0.5
+    Y = (rng.normal(size=(500, 8)) @ L.T
+         + 0.2 * rng.normal(size=(500, 10048))).astype(np.float32)
+    prof = str(tmp_path / "trace")
+    cfg = FitConfig(
+        model=ModelConfig(num_shards=64, factors_per_shard=8, rho=0.9),
+        run=RunConfig(burnin=30, mcmc=30, thin=5, num_chains=2,
+                      sweep_unroll=1, chunk_size=10),
+        backend=BackendConfig(sse_mode="gram", profile_dir=prof))
+    res = fit(Y, cfg, device=cuda)
+    stages = res.graphs["stage_ms"]
+    assert set(stages) == {"z_update", "x_update", "lambda_update",
+                           "prior_update", "ps_update", "combine",
+                           "health_trace", "other"}
+    assert all(v > 0 for v in stages.values())
+    # a sample per chunk, chain and pattern: 6 chunks of 2 chains, the
+    # saving pattern met in the last 3
+    assert res.graphs["stage_samples"] == 2 * 6 + 2 * 3
+    (name,) = [f for f in os.listdir(prof) if f.endswith(".pt.trace.json")]
+    with open(os.path.join(prof, name)) as f:
+        times = _replay_times(json.load(f)["traceEvents"])
+    plain, save = "api.chain.replay.plain", "api.chain.replay.save"
+    assert len(times[plain, True]) == 2 * 6
+    assert len(times[save, True]) == 2 * 3
+    # the timed replays, 18 sweeps and 6 saved draws: their stages'
+    # device ms against the same replays' spans and kernel sums
+    events = (18 * sum(v for k, v in stages.items() if k != "combine")
+              + 6 * stages["combine"])
+    span = sum(r[1] for r in times[plain, True] + times[save, True])
+    busy = sum(r[0] for r in times[plain, True] + times[save, True])
+
+    def mean(kind, timed, i):
+        rows = times[kind, timed]
+        return sum(r[i] for r in rows) / len(rows)
+    print(f"timed replays: stages {events:.4f} ms, span {span:.4f} ms, "
+          f"kernels {busy:.4f} ms; plain span timed "
+          f"{mean(plain, True, 1):.4f} / untimed {mean(plain, False, 1):.4f}"
+          f" ms, kernels {mean(plain, True, 0):.4f} / "
+          f"{mean(plain, False, 0):.4f} ms; spans "
+          f"{[round(r[1], 3) for r in times[plain, True]]} "
+          f"{[round(r[1], 3) for r in times[save, True]]}; {stages}")
+    assert abs(events - span) <= 0.10 * span
 
 
 def _serve_artifact(path, *, p=24, g=2, seed=0):
