@@ -24,6 +24,13 @@
    events); for K1, where the host time of one wrapper call goes; and the
    card's floor for a launch of K5's size: an empty kernel and a streaming
    pass of K5's traffic (``floor: empty X us, K5-sized pass Y us``).
+   Then the combine kernel (csrc/combine_panels.cu, a saved draw's panels
+   formed in registers and added into the accumulator) against its plain
+   version (``combine_phase``: config 5's and the north star's pairs,
+   both estimators, the second moment, K = 1, 16 and 20 on a range that
+   does not start at pair 0) within float32 rounding of its K-term sums,
+   and the device time of one saved draw's combine at both widths beside
+   the bytes bound (``combine [...]`` lines).
    ``python3 chip_smoke.py --kernels-only`` stops here, with no result
    line.
 3. Graphs against the eager chain: one chain at the fit's width (below)
@@ -164,10 +171,11 @@
    must stay below half the dense (g, n, P) tensor; the dense array's
    beside it, and the reckoning); (b) the
    same with combine_chunks=16: graph == eager on one chain for 10
-   trips, that chain's float32 accumulator against the unchunked
+   trips, that chain's float32 accumulator bitwise the unchunked
    chain's, the fit's int8 panels against (a)'s, peak allocated against
-   (a)'s, one saved sweep's transient chunked and unchunked, device busy
-   per sweep against the unchunked chain's with the add and GEMM
+   (a)'s, one saved sweep's transient chunked and unchunked (below one
+   range's panels: the combine kernel keeps none), device busy per sweep
+   against the unchunked chain's with the combine, add and GEMM
    kernels' times; (c) step 4's Y made sparse (|y| below its 90th
    percentile zeroed, 0.5% stored NaN, one all-zero column) fitted as a
    SparseMatrix CSR on the f32 path: the upper panels and, under
@@ -708,6 +716,156 @@ def k5_phase(torch, k5, cuda_lib, card: str) -> tuple:
                 bound_ms=bnd, bound_by=by, library_ms=lib), sized
 
 
+def combine_operands(torch, rng, g: int, P: int, K: int, scaled: bool):
+    """A draw's operands at g shards of P x K: loadings, residual
+    precisions, the packed pairs (int64, padded) and, for the scaled
+    estimator, the cross-moments of 32 rows of factors (a permuted view,
+    as cross_moments returns it)."""
+    from dcfm_tpu_torch.models.conditionals import cross_moments
+    from dcfm_tpu_torch.models.state import packed_pair_indices
+    rows, cols = (torch.as_tensor(x, dtype=torch.long, device="cuda")
+                  for x in packed_pair_indices(g))
+
+    def dev(x):
+        return torch.as_tensor(x.astype(np.float32), device="cuda")
+
+    Lam = dev(rng.standard_normal((g, P, K)))
+    ps = dev(rng.gamma(2.0, 1.0, (g, P)))
+    H = (cross_moments(dev(rng.standard_normal((g, 32, K)))) if scaled
+         else None)
+    return Lam, ps, rows, cols, H
+
+
+def combine_compare(torch, comb, rng, label: str, g: int, P: int, K: int,
+                    scaled: bool, sd: bool, span=None) -> float:
+    """The combine kernel against its plain version on the packed pairs
+    ``span`` (a (c0, c1) range; None: all of them) of g shards, added into
+    accumulators that already hold draws: one launch, nothing outside the
+    range touched, and every entry within float32 rounding of the plain
+    version's.  Both round M = Lam_r H and the K-term dots in their own
+    order, so a panel entry may differ by 4 (K + 1) eps sum_k |M||Lam_c|
+    (with |M| = |Lam_r||H|) plus 2 eps of the panel, an accumulator entry
+    by 2 eps of itself more, a square by (2 |b| + db) db + 2 eps b^2 and 2
+    eps of the second moment.  Returns the largest gap over its
+    tolerance."""
+    from dcfm_tpu_torch.ops import cuda_lib
+    rho = 0.9
+    Lam, ps, rows, cols, H = combine_operands(torch, rng, g, P, K, scaled)
+    c0, c1 = span or (0, rows.shape[0])
+    r, c = rows[c0:c1], cols[c0:c1]
+    n = c1 - c0
+    acc0 = torch.as_tensor(rng.standard_normal((n, P, P)).astype(np.float32),
+                           device="cuda")
+    sq0 = acc0.abs() if sd else None
+    got = {}
+    for name in ("kernel", "plain"):
+        acc = acc0.clone()
+        sq = None if sq0 is None else sq0.clone()
+        before = cuda_lib.launch_counts()["combine_panels"]
+        if name == "kernel":
+            comb.combine_panels(acc, sq, Lam, ps, r, c, rho=rho, H_grid=H)
+        else:
+            comb.combine_panels_plain(acc, sq, Lam, ps, r, c, rho, H)
+        torch.cuda.synchronize()
+        check(cuda_lib.launch_counts()["combine_panels"] - before
+              == (name == "kernel"), f"{label}: the {name} run's launches")
+        got[name] = acc, sq
+    eps = float(np.finfo(np.float32).eps)
+    b = comb.form_panels(Lam, ps, rho, r, c, H).abs()
+    Mabs = Lam[r].abs() @ (H[r, c].abs() if H is not None else torch.eye(
+        K, device="cuda"))
+    S = Mabs @ Lam[c].abs().transpose(1, 2)
+    if H is None:
+        S *= torch.where(r == c, 1.0, rho)[:, None, None]
+    db = 4 * (K + 1) * eps * S + 2 * eps * b
+    del S
+    (ka, ks), (pa, pq) = got["kernel"], got["plain"]
+    worst = float(((ka - pa).abs() / (db + 2 * eps * pa.abs())).max())
+    if sd:
+        tol = (2 * b + db) * db + 2 * eps * b * b + 2 * eps * pq.abs()
+        worst = max(worst, float(((ks - pq).abs() / tol).max()))
+    err = float((ka - pa).abs().max())
+    ok = worst <= 1.0 and math.isfinite(err)
+    say(f"{label} g={g} P={P} K={K} {'scaled' if scaled else 'plain rule'}"
+        f"{', posterior_sd' if sd else ''}, pairs [{c0}, {c1}): "
+        f"max_abs_err={err:.3e}, largest gap / tolerance {worst:.3f} "
+        f"(4 (K + 1) eps sum|M||Lam_c| + 2 eps |b| + 2 eps |acc|) "
+        f"{'ok' if ok else 'MISMATCH'}")
+    check(ok, f"{label} disagrees with its plain version")
+    return err
+
+
+def combine_phase(torch, comb, card: str) -> list:
+    """The combine kernel against its plain version: 2,048 of config 5's
+    packed pairs (g = 256, P = 196, K = 8: float4 columns) up to the
+    padded tail, the north star's every pair (g = 64, P = 157: one column
+    a thread) under both estimators, with and without the second moment,
+    and at g = 4 K = 1, 16 and 20 (the run-time-K kernel) from pair 3 on;
+    then at both widths the device time of one saved draw's combine -
+    the kernel, its plain version and the library route (the gathers, a
+    bmm and baddbmm with beta = 1, then the diagonal add) - beside the
+    bytes bound.  Returns the kernel's records (config 5, north star)."""
+    rng = np.random.default_rng(23)
+    c5 = CONFIG5
+    g5, P5 = c5["g"], c5["p"] // c5["g"]
+    from dcfm_tpu_torch.models.state import num_padded_pairs
+    Q5 = num_padded_pairs(g5)
+    err5 = combine_compare(torch, comb, rng, "combine", g5, P5, 8, True,
+                           False, span=(Q5 - 2048, Q5))
+    gN, PN = FIT["g"], FULL_B // FIT["g"]
+    errN = max(combine_compare(torch, comb, rng, "combine", gN, PN, 8,
+                               scaled, sd)
+               for scaled in (True, False) for sd in (False, True))
+    for P in (157, 196):
+        for K in (1, 16, 20):
+            combine_compare(torch, comb, rng, "combine", 4, P, K, K != 16,
+                            K == 16, span=(3, 12))
+    recs = []
+    for label, g, P, err in (("config 5", g5, P5, err5),
+                             ("north star", gN, PN, errN)):
+        Lam, ps, rows, cols, H = combine_operands(torch, rng, g, P, 8, True)
+        Q = rows.shape[0]
+        acc = torch.zeros((Q, P, P), device="cuda")  # dcfm-torch: ignore[DCFM1501] - the packed panels of one accumulator, as the fit holds them
+
+        def kernel():
+            comb.combine_panels(acc, None, Lam, ps, rows, cols, rho=0.9,
+                                H_grid=H)
+
+        def plain():
+            comb.combine_panels_plain(acc, None, Lam, ps, rows, cols, 0.9, H)
+
+        def library():
+            # the route a library call offers: the add folded into the
+            # second GEMM, the diagonal pairs' 1/ps added after
+            M = torch.bmm(Lam[rows], H[rows, cols])
+            acc.baddbmm_(M, Lam[cols].transpose(1, 2))
+            acc.diagonal(dim1=1, dim2=2).add_(
+                (rows == cols).float()[:, None] / ps[rows])
+
+        ms = device_ms(kernel, 20)
+        call = cuda_ms(kernel, 20)
+        plain_ms = device_ms(plain, 5)
+        lib = device_ms(library, 5)
+        K = 8
+        nbytes = 2.0 * Q * P * P * 4 + 4.0 * g * P * (K + 1) + 8.0 * 2 * Q
+        flops = Q * (2.0 * P * K * K + 2.0 * P * P * K + 3.0 * P * P)
+        bnd, by = bound_ms(nbytes, flops)
+        say(f"combine [{label}]: {Q} panels of {P} x {P}, K = {K}: kernel "
+            f"{ms:.4f} ms on the device ({call:.4f} ms per wrapper call), "
+            f"plain {plain_ms:.4f} ms, library {lib:.4f} ms, bound "
+            f"{bnd:.4f} ms ({by}: {nbytes / 1e9:.3f} GB): "
+            f"{100 * bnd / ms:.1f}% of the roofline; {card}")
+        recs.append(dict(name="combine_panels", shape=label, route="cuda",
+                         source="dcfm_tpu_torch/csrc/combine_panels.cu",
+                         replaces="none (the JAX combine is an XLA einsum)",
+                         max_abs_err=err, ms=ms, call_ms=call,
+                         plain_ms=plain_ms, bound_ms=bnd, bound_by=by,
+                         library_ms=lib))
+        del acc, Lam, ps, rows, cols, H
+        torch.cuda.empty_cache()
+    return recs
+
+
 def synthetic(n: int, p: int, k_true: int, noise: float = 0.2,
               seed: int = 0):
     """Y = F L' + noise * eps with known Sigma = L L' + noise^2 I."""
@@ -963,22 +1121,46 @@ def fit_phase(torch, dt, cuda_lib, card: str, label: str, model: dict,
     return launches, cfg, err, res
 
 
+def saved_draws(start: int, end: int, burnin: int, thin: int) -> int:
+    """The draws a chain saves over iterations (start, end]."""
+    from dcfm_tpu_torch.models.sampler import save_pattern
+    return sum(save_pattern(start, end - start, burnin, thin))
+
+
+def combine_want(cfg, start: int = 0, chains=None) -> int:
+    """The combine kernel's launches in a fit of ``cfg`` whose chains ran
+    iterations (start, burnin + mcmc]: one a combine range
+    (ModelConfig.combine_chunks) of each saved draw of each chain, none
+    under the bf16 combine (compute_dtype "bf16" or combine_dtype
+    "bfloat16"), which keeps its GEMMs."""
+    m, r = cfg.model, cfg.run
+    if "bf16" in (m.compute_dtype, cfg.backend.compute_dtype) \
+            or m.combine_dtype == "bfloat16":
+        return 0
+    return ((r.num_chains if chains is None else chains) * m.combine_chunks
+            * saved_draws(start, r.burnin + r.mcmc, r.burnin, r.thin))
+
+
 def check_fit(torch, res, launches: dict, label: str, kernels: tuple, Y,
               L, noise) -> float:
     """A fit's checks: CUDA graphs ran; each of the path's kernels launched
-    once per sweep and every other kernel not at all (``launches``, the
-    counters zeroed just before the fit and read just after); healthy
-    chains; and, where the fit assembled Sigma, a finite, symmetric Sigma
-    within the quality rule.  Returns the rel. Frobenius error against
-    the truth (None without a Sigma)."""
+    once per sweep, the combine kernel once per saved draw (``combine_want``)
+    and every other kernel not at all (``launches``, the counters zeroed
+    just before the fit and read just after); healthy chains; and, where
+    the fit assembled Sigma, a finite, symmetric Sigma within the quality
+    rule.  Returns the rel. Frobenius error against the truth (None
+    without a Sigma)."""
     c = FIT
     sweeps = c["chains"] * (c["burnin"] + c["mcmc"])
+    combines = combine_want(res.config)
     check(res.graphs["captured"] > 0 and res.graphs["replays"] > 0,
           f"[{label}] the fit ran no CUDA graph: {res.graphs}")
     say(f"fit [{label}] kernel launches: {json.dumps(launches)} "
-        f"(expected {sweeps} for {', '.join(kernels)}, 0 for the others)")
+        f"(expected {sweeps} for {', '.join(kernels)}, {combines} for "
+        "combine_panels, 0 for the others)")
     for name, count in launches.items():
-        want = sweeps if name in kernels else 0
+        want = (combines if name == "combine_panels"
+                else sweeps if name in kernels else 0)
         check(count == want, f"[{label}] {name} launched {count} times in "
               f"{sweeps} sweeps, expected {want}")
     return check_quality(torch, res, label, Y, L, noise)
@@ -1766,8 +1948,11 @@ def elastic_phase(dt, card: str, work: str) -> None:
         sweeps = to * out["executed"]
         check(out["executed"] == total - meta["iteration"],
               f"(11) to {to}: resumed from the wrong iteration")
+        combines = to * saved_draws(meta["iteration"], total,
+                                    run["burnin"], FIT["thin"])
         for name, count in out["kernel_launches"].items():
-            want = sweeps if name in FIT_PATHS[0][3] else 0
+            want = (combines if name == "combine_panels"
+                    else sweeps if name in FIT_PATHS[0][3] else 0)
             check(count == want, f"(11) to {to}: {name} launched {count} "
                   f"times in {sweeps} sweeps")
         check(out["nonfinite"] == 0, f"(11) to {to}: non-finite state")
@@ -1991,11 +2176,13 @@ def config5_phase(torch, dt, cuda_lib, k1, k5, card: str) -> tuple:
     say("config 5 phase_seconds: " + json.dumps(ph))
     say(f"config 5 graphs: {json.dumps(res.graphs)}; stream "
         f"{json.dumps(res.stream_stats)}")
+    combines = combine_want(cfg)
     say(f"config 5 kernel launches: {json.dumps(launches)} (expected "
-        f"{sweeps} for chol_sample and sse_ps at B = {B}, 0 for the "
-        "others)")
+        f"{sweeps} for chol_sample and sse_ps at B = {B}, {combines} for "
+        "combine_panels, 0 for the others)")
     for name, count in launches.items():
-        want = sweeps if name in ("chol_sample", "sse_ps") else 0
+        want = (combines if name == "combine_panels"
+                else sweeps if name in ("chol_sample", "sse_ps") else 0)
         check(count == want, f"[config 5] {name} launched {count} times in "
               f"{sweeps} sweeps, expected {want}")
     check(res.Sigma is None and res.graphs["replays"] > 0,
@@ -2558,12 +2745,16 @@ def sampled_rss_probe(spec: dict, workdir: str, name: str,
     return res
 
 
-def check_path_launches(launches: dict, sweeps: int, label: str) -> None:
-    """K1 and K5 once per sweep, every other kernel not at all."""
+def check_path_launches(launches: dict, sweeps: int, combines: int,
+                        label: str) -> None:
+    """K1 and K5 once per sweep, the combine kernel ``combines`` times
+    (``combine_want``), every other kernel not at all."""
     say(f"{label} kernel launches: {json.dumps(launches)} (expected "
-        f"{sweeps} for chol_sample and sse_ps, 0 for the others)")
+        f"{sweeps} for chol_sample and sse_ps, {combines} for "
+        "combine_panels, 0 for the others)")
     for name, count in launches.items():
-        want = sweeps if name in ("chol_sample", "sse_ps") else 0
+        want = (combines if name == "combine_panels"
+                else sweeps if name in ("chol_sample", "sse_ps") else 0)
         check(count == want, f"[{label}] {name} launched {count} times in "
               f"{sweeps} sweeps, expected {want}")
 
@@ -2597,7 +2788,8 @@ def memmap_phase(torch, dt, cuda_lib, card: str, work: str, c5) -> dict:
         res, launches, _ = counted_fit(torch, dt, cuda_lib, cfg, Y5)
         c5 = {"q8": q8_digest(res), "phase": res.phase_seconds,
               "peak": torch.cuda.max_memory_allocated()}
-        check_path_launches(launches, sweeps, "(14a) dense twin")
+        check_path_launches(launches, sweeps, combine_want(cfg),
+                            "(14a) dense twin")
         del res
         torch.cuda.empty_cache()
     dense_bytes = g * n * P * 4
@@ -2632,7 +2824,8 @@ def memmap_phase(torch, dt, cuda_lib, card: str, work: str, c5) -> dict:
     res, launches, wall = counted_fit(torch, dt, cuda_lib, lazy_cfg, Ymm)
     peak = torch.cuda.max_memory_allocated()
     ph = res.phase_seconds
-    check_path_launches(launches, sweeps, "(14a) memmap")
+    check_path_launches(launches, sweeps, combine_want(lazy_cfg),
+                        "(14a) memmap")
     check(res.preprocess.is_lazy and res.Sigma is None
           and res.graphs["replays"] > 0,
           "[14a] the memmap fit was not lazy, formed a Sigma or ran no graph")
@@ -2717,12 +2910,14 @@ def saved_trip_peak(torch, cfg, Y) -> int:
 def chunked_phase(torch, dt, cuda_lib, card: str, a: dict) -> dict:
     """(14b) (14a) with combine_chunks=CONFIG5_CHUNKS: graph == eager on
     one chain for 10 trips (the accumulators included) and that chain's
-    float32 accumulator against the unchunked chain's, the fit from the
-    memmap with K1 and K5 once per sweep, the max |chunked - unchunked|
-    of its int8 panels, peak allocated against (14a)'s, one saved sweep's
-    transient chunked and unchunked, and device busy per sweep against
-    the unchunked chain's with the add and GEMM kernels' times (the
-    accumulator add and the combine)."""
+    float32 accumulator bitwise the unchunked chain's, the fit from the
+    memmap with K1 and K5 once per sweep and the combine kernel once a
+    range of each saved draw, the max |chunked - unchunked| of its int8
+    panels, peak allocated against (14a)'s, one saved sweep's transient
+    chunked and unchunked (neither holds a range's panels: the combine
+    kernel forms them in registers), and device busy per sweep against
+    the unchunked chain's with the combine kernel's, the add and the GEMM
+    kernels' times."""
     c = CONFIG5
     sweeps = c["chains"] * (c["burnin"] + c["mcmc"])
     cfg = config5_config(dt, combine_chunks=CONFIG5_CHUNKS)
@@ -2738,10 +2933,10 @@ def chunked_phase(torch, dt, cuda_lib, card: str, a: dict) -> dict:
         f"chunked against unchunked: max |difference| {worst:.6g} of a "
         f"largest entry {top:.6g} ({worst / top:.3g} relative); "
         f"bitwise {bool(torch.equal(acc, flat))}")
-    # float32: the chunked GEMMs may take other cuBLAS algorithms, whose
-    # K-term sums round in another order (the tolerance of the CPU tests)
-    check(worst <= 1e-5 * top, f"[14b] chunked accumulator off by {worst} "
-          f"(> 1e-5 of {top})")
+    # the combine kernel's arithmetic for an entry is the same in every
+    # range it falls in
+    check(bool(torch.equal(acc, flat)), f"[14b] chunked accumulator off "
+          f"by {worst} (of {top})")
     del acc, flat
     torch.cuda.empty_cache()
     from dcfm_tpu_torch.models.state import num_padded_pairs
@@ -2749,15 +2944,15 @@ def chunked_phase(torch, dt, cuda_lib, card: str, a: dict) -> dict:
     Qp = num_padded_pairs(g)
     trips = {x: saved_trip_peak(torch, config5_config(dt, combine_chunks=x),
                                 a["Y5"]) for x in (1, CONFIG5_CHUNKS)}
+    range_bytes = (Qp // CONFIG5_CHUNKS) * P * P * 4
     say(f"(14b) one saved sweep's transient above the carry (peak "
         f"allocated above its start, eager): unchunked {trips[1]} bytes, "
         f"combine_chunks={CONFIG5_CHUNKS} {trips[CONFIG5_CHUNKS]} bytes; "
-        f"reckoned: the panel temporary {Qp * P * P * 4} / "
-        f"{(Qp // CONFIG5_CHUNKS) * P * P * 4} bytes plus three (Q, P, K) "
-        f"gathers of {Qp * P * K * 4} / {(Qp // CONFIG5_CHUNKS) * P * K * 4} "
-        f"bytes; {card}")
-    check(trips[CONFIG5_CHUNKS] < trips[1], "[14b] the chunked combine did "
-          "not shrink a saved sweep's transient")
+        f"a float32 combine keeps no panel in device memory (the GEMM "
+        f"route's temporary: {Qp * P * P * 4} / {range_bytes} bytes); "
+        f"{card}")
+    check(max(trips.values()) < range_bytes, "[14b] a saved sweep's "
+          "transient holds a range's panels")
     lazy_cfg = dataclasses.replace(cfg, materialize_sigma="auto")
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -2766,7 +2961,8 @@ def chunked_phase(torch, dt, cuda_lib, card: str, a: dict) -> dict:
                                       a["Ymm"])
     peak = torch.cuda.max_memory_allocated()
     ph = res.phase_seconds
-    check_path_launches(launches, sweeps, "(14b) chunked")
+    check_path_launches(launches, sweeps, combine_want(lazy_cfg),
+                        "(14b) chunked")
     check(res.Sigma is None and res.graphs["replays"] > 0
           and res.stats.nonfinite_count == 0
           and res.stats.acc_nonfinite == 0,
@@ -2797,13 +2993,14 @@ def chunked_phase(torch, dt, cuda_lib, card: str, a: dict) -> dict:
         rows: list = []
         b = sweep_profile(torch, cfgx, a["Y5"], card, f"config 5 {name}",
                           rows)
+        combine_us = sum(us for k, us in rows if "combine_kernel" in k)
         adds = sum(us for k, us in rows if "Functor_add" in k)
         gemms = sum(us for k, us in rows if "gemm" in k.lower())
         busy[name] = b
         say(f"(14b) config 5 {name}: device busy {b:.4f} ms per sweep; the "
-            f"add kernels (the accumulator's among them) {adds:.2f} us, the "
-            f"GEMM kernels (the combine's among them) {gemms:.2f} us per "
-            f"sweep; {card}")
+            f"combine kernel {combine_us:.2f} us, the add kernels "
+            f"{adds:.2f} us, "
+            f"the GEMM kernels {gemms:.2f} us per sweep; {card}")
     say(f"(14b) device busy per sweep chunked / unchunked: "
         f"{busy['chunked'] / busy['unchunked']:.4f}")
     return launches
@@ -2838,7 +3035,8 @@ def csr_phase(torch, dt, cuda_lib, card: str, Y) -> dict:
         torch.cuda.synchronize()
         res, launches, wall = counted_fit(
             torch, dt, cuda_lib, dataclasses.replace(cfg, **kw), inp)
-        check_path_launches(launches, sweeps, f"(14c) {label}")
+        check_path_launches(launches, sweeps, combine_want(cfg),
+                            f"(14c) {label}")
         check(res.stats.nonfinite_count == 0
               and res.stats.acc_nonfinite == 0,
               f"[14c] {label} chain health: {res.stats}")
@@ -3126,7 +3324,7 @@ def recorded_phase(torch, dt, cuda_lib, card: str, Y, L, noise,
     # (15d) the backend switch (before 15b: its fit is 15b's yardstick)
     cfg = outer_config(dt, obs="off", backend={"backend": "torch_cuda"})
     d, got, wall = counted_fit(torch, dt, cuda_lib, cfg, Y)
-    check_path_launches(got, sweeps, "(15d) torch_cuda")
+    check_path_launches(got, sweeps, combine_want(cfg), "(15d) torch_cuda")
     launches["backend torch_cuda"] = got
     check(d.device.startswith("cuda"), f"(15d) backend='torch_cuda' ran "
           f"on {d.device}")
@@ -3156,7 +3354,7 @@ def recorded_phase(torch, dt, cuda_lib, card: str, Y, L, noise,
     prof_dir = os.path.join(work, "outer_profile")
     cfg = outer_config(dt, obs="off", backend={"profile_dir": prof_dir})
     prof, got, wall = counted_fit(torch, dt, cuda_lib, cfg, Y)
-    check_path_launches(got, sweeps, "(15b) profiled")
+    check_path_launches(got, sweeps, combine_want(cfg), "(15b) profiled")
     launches["profiled fit"] = got
     check(sigma_digest(prof.Sigma) == digest,
           "(15b) the profiler changed Sigma's bits")
@@ -3210,7 +3408,8 @@ def warm_phase(torch, dt, cuda_lib, card: str, Y, L, noise, work: str,
             warm, got, wall = counted_fit(torch, dt, cuda_lib, outer_config(
                 dt, run=OUTER_WARM_RUN, model=model, obs=obs,
                 warm_start=WarmStart(donor)), Yw)
-        check_path_launches(got, sweeps, f"(15c) warm, {label}")
+        check_path_launches(got, sweeps, combine_want(warm.config),
+                            f"(15c) warm, {label}")
         launches[f"warm, {label}"] = got
         if refs is not None:
             refs[f"warm, {label}"] = sigma_digest(warm.Sigma)
@@ -3224,7 +3423,8 @@ def warm_phase(torch, dt, cuda_lib, card: str, Y, L, noise, work: str,
               "the donor's bytes")
         cold, got, _ = counted_fit(torch, dt, cuda_lib, outer_config(
             dt, run=OUTER_WARM_RUN, model=model, obs="off"), Yw)
-        check_path_launches(got, sweeps, f"(15c) cold, {label}")
+        check_path_launches(got, sweeps, combine_want(cold.config),
+                            f"(15c) cold, {label}")
         err, err_s = truth_errors(torch, warm.Sigma, Yw, Lw, noise)
         err_c, _ = truth_errors(torch, cold.Sigma, Yw, Lw, noise)
         say(f"(15c) {label} {Yw.shape}: decision warm, {ev['leaves']} "
@@ -3437,6 +3637,12 @@ KERNEL_FAMILIES = (
     (r"sse_ps_anyILi(\d+)E",
      lambda T: f"sse_ps_any any K T={T} K5 (the K > 16 route), scalar loads",
      lambda T: ("K5", 0)),
+    (r"combine_kernelILi(\d+)ELi(\d+)ELb([01])E",
+     lambda K, W, sq: (f"combine_kernel K={int(K):2d} (the K > 16 route)"
+                       if K == "0" else f"combine_kernel K={int(K):2d}")
+     + f", {'float4 columns' if W == '4' else 'one column'} a thread"
+     + (", second moment" if sq == "1" else ""),
+     lambda K, W, sq: ("combine", int(K))),
     (r"floor_empty_kernel", lambda: "floor_empty_kernel (no port)",
      lambda: ("floor", 0)),
     (r"floor_pass_kernelILi(\d+)ELi(\d+)E",
@@ -3449,8 +3655,9 @@ KERNEL_FAMILIES = (
 def kernel_report(log: str) -> None:
     """The ptxas registers and spills of every instantiation of the
     templated kernels (the lane-group kernel of K1, K4 and K3, K2's
-    loader, K5's fixed-K and any-K kernels), one line each; fails on a
-    spill, or if a kernel lacks an instantiation for a K of 1..16."""
+    loader, K5's fixed-K and any-K kernels, the combine's), one line each;
+    fails on a spill, or if a kernel lacks an instantiation for a K of
+    1..16."""
     seen, spilled, name, spill = set(), [], None, None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
@@ -3472,10 +3679,11 @@ def kernel_report(log: str) -> None:
                 if spill[0] or spill[1]:
                     spilled.append(label(*g.groups()))
         name = None
-    missing = [(k, K) for k in ("K1", "K4", "K3", "K2", "K5")
+    missing = [(k, K) for k in ("K1", "K4", "K3", "K2", "K5", "combine")
                for K in range(1, 17) if (k, K) not in seen]
-    if ("K5", 0) not in seen:
-        missing.append(("K5", "any K"))
+    for k in ("K5", "combine"):
+        if (k, 0) not in seen:
+            missing.append((k, "any K"))
     check(not missing, f"ptxas reports no kernel for {missing}")
     check(not spilled, f"kernels spill: {spilled}")
 
@@ -4078,11 +4286,14 @@ SUPERVISE_PLAN = {"faults": [
 def supervised_child(argv: list) -> None:
     """``--supervised-child MODULE ARGS``: a supervised child, ``python -m
     MODULE ARGS`` (the ``_child`` runner or the CLI's ``fit``), then this
-    launch's kernel launch counts and the sweeps its chunk boundaries
-    report written to ``$DCFM_SMOKE_LAUNCH_DIR/<checkpoint>.launch<N>.json``
-    - also just before an injected SIGKILL, which ends the process."""
+    launch's kernel launch counts, the sweeps its chunk boundaries report
+    and the combine ranges its trips' saved draws ask for (each saved
+    draw's ``ChainRunner._pair_chunks``) written to
+    ``$DCFM_SMOKE_LAUNCH_DIR/<checkpoint>.launch<N>.json`` - also just
+    before an injected SIGKILL, which ends the process."""
     import importlib
 
+    from dcfm_tpu_torch.models import sampler
     from dcfm_tpu_torch.ops import cuda_lib
     from dcfm_tpu_torch.runtime import pipeline
     mod, args = argv[0], argv[1:]
@@ -4102,10 +4313,17 @@ def supervised_child(argv: list) -> None:
             sweeps[0] += fields["iters"]
         real_record(event, **fields)
 
+    combines = [0]
+    real_trip = sampler.ChainRunner._trip
+
+    def trip(self, chain, start, pattern, *args, **kw):
+        combines[0] += sum(pattern) * len(self._pair_chunks)
+        return real_trip(self, chain, start, pattern, *args, **kw)
+
     def dump():
         with open(out, "w") as f:
             json.dump({"checkpoint": os.path.basename(ck), "launch": launch,
-                       "sweeps": sweeps[0],
+                       "sweeps": sweeps[0], "combines": combines[0],
                        "launches": cuda_lib.launch_counts()}, f)
 
     real_kill = os.kill
@@ -4116,6 +4334,7 @@ def supervised_child(argv: list) -> None:
         real_kill(pid, sig)
 
     pipeline.record = record
+    sampler.ChainRunner._trip = trip
     os.kill = kill
     rc = importlib.import_module(mod).main(args)
     dump()
@@ -4151,7 +4370,8 @@ def child_launches(ldir: str, label: str, kernels: tuple,
                    chains: int = FIT["chains"]) -> tuple:
     """Every launch file ``supervised_child`` wrote to ``ldir``: the
     kernels ``kernels`` launched ``chains`` x the launch's sweeps, the
-    others none.  Returns (the counts summed, {checkpoint: [(launch,
+    combine kernel once a combine range of each saved draw its trips ran,
+    the others none.  Returns (the counts summed, {checkpoint: [(launch,
     sweeps, K1, K5), ...]})."""
     C = chains
     total, per = {}, {}
@@ -4159,7 +4379,8 @@ def child_launches(ldir: str, label: str, kernels: tuple,
         with open(os.path.join(ldir, name)) as f:
             rec = json.load(f)
         got, n = rec["launches"], rec["sweeps"]
-        want = {k: (C * n if k in kernels else 0) for k in got}
+        want = {k: (C * n if k in kernels else rec["combines"]
+                    if k == "combine_panels" else 0) for k in got}
         check(got == want, f"({label}) {rec['checkpoint']} launch "
               f"{rec['launch']} ran {n} sweeps of {C} chains but launched "
               f"{got}")
@@ -4657,7 +4878,9 @@ def online_phase(torch, dt, cuda_lib, card: str, Y, L, noise,
                                       online_config(dt), Y)
     ref = sigma_digest(res.Sigma)
     sweeps = FIT["chains"] * (ONLINE["burnin"] + ONLINE["mcmc"])
-    check(launches == {k: (sweeps if k in FIT_PATHS[0][3] else 0)
+    combines = combine_want(res.config)
+    check(launches == {k: (sweeps if k in FIT_PATHS[0][3] else combines
+                           if k == "combine_panels" else 0)
                        for k in launches},
           f"(17) the unsupervised fit launched {launches} in {sweeps} sweeps")
     check_quality(torch, res, "17 unsupervised", Y, L, noise)
@@ -4707,14 +4930,14 @@ def one_rank_fit(torch, dt, cuda_lib, cfg, Y) -> tuple:
 
 def check_mesh_counts(got: dict, coll: dict, chains: int, run: dict,
                       label: str) -> None:
-    """K1 and K5 once a sweep and no other kernel; 3 all-reduces a sweep
-    and 3 all-gathers a saved draw, over ``chains`` chains running the
-    ``run`` schedule's iterations (``{"burnin", "mcmc"}``; a resumed
-    fit's executed ones)."""
+    """K1 and K5 once a sweep, the combine kernel once a saved draw and
+    no other kernel; 3 all-reduces a sweep and 3 all-gathers a saved draw,
+    over ``chains`` chains running the ``run`` schedule's iterations
+    (``{"burnin", "mcmc"}``; a resumed fit's executed ones)."""
     sweeps = chains * (run["burnin"] + run["mcmc"])
     saved = chains * (run["mcmc"] // FIT["thin"])
     want = {"all_reduce": 3 * sweeps, "all_gather": 3 * saved}
-    check_path_launches(got, sweeps, label)
+    check_path_launches(got, sweeps, saved, label)
     say(f"{label} collectives {json.dumps(coll)} (expected "
         f"{json.dumps(want)})")
     check(coll == want, f"[{label}] collectives {coll}, expected {want}")
@@ -4956,7 +5179,8 @@ def mesh_phase(torch, dt, cuda_lib, card: str, Y, L, noise, digests: dict,
         check(res.graphs["captured"] > 0 and res.graphs["replays"] > 0,
               f"[mesh {label}] no CUDA graph ran: {res.graphs}")
         for name, count in got.items():
-            want = sweeps if name in path_kernels else 0
+            want = (combine_want(cfg) if name == "combine_panels"
+                    else sweeps if name in path_kernels else 0)
             check(count == want, f"[mesh {label}] {name} launched {count} "
                   f"times in {sweeps} sweeps, expected {want}")
         check(coll == {"all_reduce": 3 * sweeps, "all_gather": 3 * saved},
@@ -5121,7 +5345,8 @@ def pod_set_phase(torch, dt, cuda_lib, card: str, Y, work: str) -> dict:
     check(len(pod) == 1 and (pod[0]["from_hosts"], pod[0]["to_hosts"],
                              pod[0]["pod_adoptions"]) == (2, 1, 1),
           f"(19a) pod_elastic events {pod}")
-    check_path_launches(got, resumed, "(19a) set resume")
+    check_path_launches(got, resumed, combine_want(res.config, start=200),
+                        "(19a) set resume")
     del res
     # the export: the finished file (400) as a plain file and as a set at
     # one path, so the provenance is the same
@@ -5430,7 +5655,10 @@ def trace_phase(torch, dt, cuda_lib, card: str, Y) -> None:
             found = tracecheck.check_recording(
                 rec, compute_dtype=m.compute_dtype, sweep_body=True)
             tally = runner._graphs[pattern][1]
-            want = {k: (1 if k in kernels else 0) for k in tally}
+            # a saving trip's combine: one range, none under bf16
+            want = {k: (1 if k in kernels else int(
+                        k == "combine_panels" and any(pattern)
+                        and label != "bf16")) for k in tally}
             check(not found, f"(20b) [{label}] capture {pattern}: {found}")
             check(tally == want, f"(20b) [{label}] capture {pattern} "
                   f"tally {tally}, want {want}")
@@ -5543,6 +5771,7 @@ def main() -> None:
         from dcfm_tpu_torch import native
         from dcfm_tpu_torch.ops import batched_solve as bs
         from dcfm_tpu_torch.ops import chol_sample as k1
+        from dcfm_tpu_torch.ops import combine as comb
         from dcfm_tpu_torch.ops import cuda_lib
         from dcfm_tpu_torch.ops import lam_update as k2
         from dcfm_tpu_torch.ops import sse_gamma as k5
@@ -5573,6 +5802,7 @@ def main() -> None:
                k3_phase(torch, bs, rng), k2_phase(torch, k2)]
     k5_rec, floor_ms = k5_phase(torch, k5, cuda_lib, card)
     kernels.append(k5_rec)
+    kernels.extend(combine_phase(torch, comb, card))
     if "--kernels-only" in sys.argv[1:]:
         for k in kernels:
             say(json.dumps(k))
@@ -5697,6 +5927,7 @@ def main() -> None:
         del res
         for name in path_kernels:          # a kernel's count from its path
             launches.setdefault(name, got[name])
+        launches.setdefault("combine_panels", got["combine_panels"])
         sweep_profile(torch, cfg, Y, card, label)
     say(f"|err_bf16 - err_f32| = {abs(errs['bf16'] - errs['f32']):.3e}, "
         f"|err_fused - err_f32| = {abs(errs['fused'] - errs['f32']):.3e}")

@@ -41,6 +41,7 @@ from dcfm_tpu_torch.noise import (
     SITE_IMPUTE, SITE_LAM, SITE_PS, SITE_X, SITE_Z)
 from dcfm_tpu_torch.ops.batched_solve import chol_solve_sample_batched
 from dcfm_tpu_torch.ops.chol_sample import MAX_K, chol_sample
+from dcfm_tpu_torch.ops.combine import form_panels
 from dcfm_tpu_torch.ops.gamma import gamma_rate, gamma_unit_static
 from dcfm_tpu_torch.ops.gaussian import (
     sample_mvn_precision_linalg, sample_mvn_precision_shared)
@@ -256,28 +257,11 @@ def covariance_panels(Lam_all: torch.Tensor, ps_all: torch.Tensor,
         raise ValueError(
             f"compute_dtype must be None or torch.bfloat16, got "
             f"{compute_dtype}")
-    mm = torch.matmul if compute_dtype is None else mm_bf16
-    Lam_r = Lam_all[pair_rows]                                  # (Q, P, K)
-    Lam_c = Lam_all[pair_cols]
-    diag = pair_rows == pair_cols                               # (Q,)
-    if eta_all is not None:
-        if H_grid is None:
-            H_grid = cross_moments(eta_all)
-        H = H_grid[pair_rows, pair_cols]                        # (Q, K, K)
-        blocks = mm(mm(Lam_r, H), _t(Lam_c))
-    else:
-        blocks = mm(Lam_r, _t(Lam_c))
-        scale = torch.where(diag, torch.ones((), dtype=blocks.dtype,
-                                             device=blocks.device),
-                            torch.full((), rho, dtype=blocks.dtype,
-                                       device=blocks.device))
-        blocks = blocks * scale[:, None, None]
-    # residual variances on the diagonal pairs, added in place: a second
-    # (Q, P, P) temporary would double the combine's footprint
-    inv_ps_r = 1.0 / ps_all[pair_rows]                          # (Q, P)
-    blocks.diagonal(dim1=-2, dim2=-1).add_(
-        diag.to(blocks.dtype)[:, None] * inv_ps_r)
-    return blocks
+    if eta_all is not None and H_grid is None:
+        H_grid = cross_moments(eta_all)
+    return form_panels(Lam_all, ps_all, rho, pair_rows, pair_cols,
+                       H_grid if eta_all is not None else None,
+                       torch.matmul if compute_dtype is None else mm_bf16)
 
 
 # -- trace-gate registrations (analysis/tracecheck.py) --------------------

@@ -23,15 +23,16 @@ on the completed matrix, which saved draws also sum into ``y_imp_acc``;
 under ``RunConfig.store_draws`` saved draws are written into the draw ring
 (``DrawBuffers``) at a slot computed on the device from the iteration
 tensor ``ChainRunner._its``, never from a Python int a capture would bake
-in.  Under ``ModelConfig.combine_chunks`` a saved draw's panels are formed
-and added range by range of the packed-pair axis (:func:`add_panels`), so
-the per-draw temporary is one range's.  On the shard mesh
-(``ChainRunner(..., mesh=)``, parallel/shard.py) the runner holds the
-rank's block of shards and packed panels, draws its slice of the
-one-device chain's variates (noise.ShardSliceNoise), sums the X update's
-and the trace's shard sums through the mesh's all-reduce, and reads a
-saved draw's loadings, residual precisions and factors through its
-all-gather - inside the graphs.
+in.  A saved draw's panels are formed and added range by range of the
+packed-pair axis (``ModelConfig.combine_chunks``; :func:`add_panels`): on
+the card a float32 range is one launch of the combine kernel, which keeps
+no panel in device memory; the bf16 combine's temporary is one range's.
+On the shard mesh (``ChainRunner(..., mesh=)``, parallel/shard.py) the
+runner holds the rank's block of shards and packed panels, draws its
+slice of the one-device chain's variates (noise.ShardSliceNoise), sums the
+X update's and the trace's shard sums through the mesh's all-reduce, and
+reads a saved draw's loadings, residual precisions and factors through
+its all-gather - inside the graphs.
 """
 
 from __future__ import annotations
@@ -49,13 +50,14 @@ from dcfm_tpu_torch.analysis.registry import TraceSpec, register_trace_entry
 from dcfm_tpu_torch.config import ModelConfig
 from dcfm_tpu_torch.models.adapt import adapt_rank, effective_ranks
 from dcfm_tpu_torch.models.conditionals import (
-    covariance_panels, cross_moments, gibbs_sweep, impute_missing_y,
-    local_sum, trace_data)
+    cross_moments, gibbs_sweep, impute_missing_y, local_sum, mm_bf16,
+    trace_data)
 from dcfm_tpu_torch.models.state import (
     SamplerState, init_state, num_padded_pairs, packed_pair_indices)
 from dcfm_tpu_torch.noise import (
     BufferedDraws, RecordingDraws, ShardSliceNoise, TorchNoise, draw_into)
 from dcfm_tpu_torch.ops import cuda_lib
+from dcfm_tpu_torch.ops.combine import combine_panels, combine_panels_plain
 from dcfm_tpu_torch.profiling import (
     StageClock, StageTally, recording, scope)
 
@@ -321,24 +323,29 @@ def add_panels(sigma_acc: torch.Tensor, sigma_sq_acc: Optional[torch.Tensor],
                compute_dtype: Optional[torch.dtype] = None) -> None:
     """A saved draw's packed panels added to the accumulators in place,
     range by range of ``chunks`` (:func:`pair_chunks`): the panels of pairs
-    [c0, c1) from ``covariance_panels`` on those pairs' slices, then
-    ``sigma_acc[c0:c1] += blocks`` (and the squares into ``sigma_sq_acc``)
-    - the single-device body of the JAX package's chunked combine, whose
-    per-draw temporary is one range's panels.  The ranges are Python ints,
-    fixed in every captured graph; the JAX package's mesh rendezvous token
-    has no counterpart on one device."""
+    [c0, c1) added into ``sigma_acc[c0:c1]`` (and their squares into
+    ``sigma_sq_acc``) - the single-device body of the JAX package's
+    chunked combine.  The ranges are Python ints, fixed in every captured
+    graph; the JAX package's mesh rendezvous token has no counterpart on
+    one device.
+
+    A float32 combine is one :func:`~dcfm_tpu_torch.ops.combine.
+    combine_panels` a range (on the card the combine kernel, which forms
+    each panel in registers: no temporary).  The bf16 combine
+    (``compute_dtype=torch.bfloat16``) is other arithmetic - bf16-rounded
+    inputs and intermediate - and keeps its GEMMs (the plain version with
+    :func:`mm_bf16`) and a range's (c1 - c0, P, P) temporary."""
+    if eta is not None and H_grid is None:
+        H_grid = cross_moments(eta)
+    H = None if eta is None else H_grid
     for c0, c1 in chunks:
-        blocks = covariance_panels(
-            state.Lambda, state.ps, rho, rows[c0:c1], cols[c0:c1],
-            eta_all=eta, compute_dtype=compute_dtype, H_grid=H_grid)
-        sigma_acc[c0:c1].add_(blocks)
-        if sigma_sq_acc is not None:
-            # the JAX package's acc_sq + blocks * blocks: the square
-            # rounded on its own (an in-place multiply, no second
-            # temporary), then the add - two kernels, so no compiler can
-            # contract them into an FMA
-            sigma_sq_acc[c0:c1].add_(blocks.mul_(blocks))
-        del blocks
+        sq = None if sigma_sq_acc is None else sigma_sq_acc[c0:c1]
+        args = (sigma_acc[c0:c1], sq, state.Lambda, state.ps, rows[c0:c1],
+                cols[c0:c1])
+        if compute_dtype is None:
+            combine_panels(*args, rho=rho, H_grid=H)
+        else:
+            combine_panels_plain(*args, rho, H, mm=mm_bf16)
 
 
 class _Graph(NamedTuple):

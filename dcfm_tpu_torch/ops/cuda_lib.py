@@ -34,13 +34,17 @@ import torch
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD = os.path.join(_PKG, "build")
-SOURCES = ("chol_sample.cu", "batched_solve.cu", "lam_rows.cu", "sse_ps.cu")
+SOURCES = ("chol_sample.cu", "batched_solve.cu", "lam_rows.cu", "sse_ps.cu",
+           "combine_panels.cu")
 HEADERS = ("chol_group.cuh",)
+# -split-compile=0: nvcc compiles a source's kernels on all the host's
+# cores (the combine's 66 template instantiations took 29 s on one core of
+# an H100 host, 10 s on its eight)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC", "-split-compile=0")
 
 LAUNCHES = {"chol_sample": 0, "chol_solve_sample": 0, "cho_solve": 0,
-            "lam_update": 0, "sse_ps": 0}
+            "lam_update": 0, "sse_ps": 0, "combine_panels": 0}
 COLLECTIVES = {"all_reduce": 0, "all_gather": 0}
 
 _lock = threading.Lock()
@@ -185,6 +189,8 @@ def library() -> ctypes.CDLL:
                     ("dcfm_lam_rows", [ptr] * 6 + [i64, i64, i32, ptr]),
                     ("dcfm_sse_ps", [ptr] * 7 + [i64, i32, ctypes.c_float,
                                                  ptr]),
+                    ("dcfm_combine_panels", [ptr] * 5 + [i64] * 4
+                     + [ptr] * 2 + [i64, i32, i32, ctypes.c_float, ptr]),
                     # the card's floor, timed by chip_smoke.py only
                     ("dcfm_floor_empty", [ptr]),
                     ("dcfm_floor_pass", [ptr] * 7 + [i64, i32, ptr])):

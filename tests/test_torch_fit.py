@@ -83,7 +83,7 @@ def test_parity_with_numpy_twin(sse_mode):
     assert _rel_frob(S_pt, S_np) < 0.05
     assert res.kernel_launches == {                              # CPU
         "chol_sample": 0, "chol_solve_sample": 0, "cho_solve": 0,
-        "lam_update": 0, "sse_ps": 0}
+        "lam_update": 0, "sse_ps": 0, "combine_panels": 0}
 
 
 def test_parity_with_jax_fit():

@@ -273,6 +273,87 @@ def test_new_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         lam_update(E.contiguous(), plam, ps.double(), plam, plam)  # dcfm-torch: ignore[DCFM301] - float64 on purpose: the wrapper's dtype refusal under test
 
 
+# the combine kernel's shapes: K through its fixed-K kernels and its
+# run-time-K kernel (20), at the north star's P = 157 (one column a
+# thread) and config 5's 196 (float4 columns); then P wider than a block's
+# row of threads and than a slab's shared memory (2 and 3 slabs a panel)
+_COMBINE_SHAPES = [(P, K) for P in (157, 196) for K in (1, 4, 8, 16, 20)] \
+    + [(1028, 16), (1201, 20)]
+
+
+@pytest.mark.parametrize("sd", [False, True])
+@pytest.mark.parametrize("estimator", ["scaled", "plain"])
+@pytest.mark.parametrize("P,K", _COMBINE_SHAPES)
+def test_combine_kernel_matches_plain(cuda, P, K, estimator, sd):
+    """g = 4 shards (10 upper pairs padded to 12 with aliases of (0, 0)),
+    the range [3, 12) - not starting at 0, the padded pairs in it - added
+    into accumulators that already hold draws: one launch, nothing outside
+    the range touched, and every entry within float32 rounding of the
+    plain version's.  Both round M = Lam_r H and the K-term dots in their
+    own order, so an entry's panel value may differ by 4 (K + 1) eps
+    sum_k |Lam_r||H| |Lam_c| (the plain rule: |Lam_r| |Lam_c|) plus 2 eps
+    of the panel, and the sums by 2 eps of the accumulator more; a square
+    by (2 |b| + db) db + 2 eps b^2 + 2 eps |sq|."""
+    from dcfm_tpu_torch.models.conditionals import cross_moments
+    from dcfm_tpu_torch.models.state import packed_pair_indices
+    from dcfm_tpu_torch.ops.combine import (
+        combine_panels, combine_panels_plain)
+    rng = np.random.default_rng(1000 + 10 * K + P)
+    g, c0, rho = 4, 3, 0.9
+    rows, cols = (torch.as_tensor(x, dtype=torch.long, device=cuda)
+                  for x in packed_pair_indices(g))
+    Q = rows.shape[0]
+
+    def dev(shape, kind="normal"):
+        x = (rng.standard_normal(shape) if kind == "normal"
+             else rng.gamma(2.0, 1.0, shape))
+        return torch.as_tensor(x.astype(np.float32), device=cuda)
+
+    Lam, ps = dev((g, P, K)), dev((g, P), "gamma")
+    H = (cross_moments(dev((g, 30, K))) if estimator == "scaled" else None)
+    acc0, sq0 = dev((Q, P, P)), dev((Q, P, P), "gamma")
+    out = {}
+    for name, fn in (("kernel", functools.partial(combine_panels, rho=rho,
+                                                  H_grid=H)),
+                     ("plain", functools.partial(combine_panels_plain,
+                                                 rho=rho, H_grid=H))):
+        acc, sq = acc0.clone(), sq0.clone()
+        before = cuda_lib.launch_counts()["combine_panels"]
+        fn(acc[c0:], sq[c0:] if sd else None, Lam, ps, rows[c0:], cols[c0:])
+        torch.cuda.synchronize()
+        launched = cuda_lib.launch_counts()["combine_panels"] - before
+        assert launched == (1 if name == "kernel" else 0)
+        assert torch.equal(acc[:c0], acc0[:c0])
+        assert torch.equal(sq[:c0] if sd else sq, sq0[:c0] if sd else sq0)
+        out[name] = acc, sq
+    eps = float(np.finfo(np.float32).eps)
+    r, c = rows[c0:].cpu().numpy(), cols[c0:].cpu().numpy()
+    L64, p64 = Lam.cpu().numpy().astype(np.float64), ps.cpu().numpy()
+    if H is not None:
+        H64 = H.cpu().numpy().astype(np.float64)[r, c]
+        M, Mabs = L64[r] @ H64, np.abs(L64[r]) @ np.abs(H64)
+        scale = np.ones(Q - c0)
+    else:
+        M, Mabs = L64[r], np.abs(L64[r])
+        scale = np.where(r == c, 1.0, np.float32(rho))
+    Lc = np.swapaxes(L64[c], 1, 2)
+    b = (M @ Lc) * scale[:, None, None]
+    idx = np.arange(P)
+    b[:, idx, idx] += (r == c)[:, None] / p64[r]
+    db = (4 * (K + 1) * eps * (Mabs @ np.abs(Lc)) * scale[:, None, None]
+          + 2 * eps * np.abs(b))
+    (ka, ks), (pa, pq) = ((x.cpu().numpy() for x in out[k])
+                          for k in ("kernel", "plain"))
+    gap = np.abs(ka[c0:] - pa[c0:].astype(np.float64))
+    tol = db + 2 * eps * np.abs(pa[c0:])
+    assert (gap <= tol).all(), float((gap / tol).max())
+    if sd:
+        gap = np.abs(ks[c0:] - pq[c0:].astype(np.float64))
+        tol = ((2 * np.abs(b) + db) * db + 2 * eps * b * b
+               + 2 * eps * np.abs(pq[c0:]))
+        assert (gap <= tol).all(), float((gap / tol).max())
+
+
 def test_mm_bf16_on_the_card_matches_the_cpu_rule(cuda):
     """cuBLAS's bf16 GEMM with float32 output against the CPU rule (bf16
     inputs multiplied exactly in float32): only the summation order
@@ -476,20 +557,37 @@ def test_a_one_rank_nccl_mesh_streams_warm_starts_and_grows(cuda, tmp_path,
                                             "all_gather": 3 * 20}
 
 
+def _combines(run: RunConfig, *, start: int = 0, chains=None,
+              ranges: int = 1) -> int:
+    """The combine kernel's launches in a float32 fit of ``run`` that ran
+    iterations (start, burnin + mcmc] of each chain: one a combine range
+    (ModelConfig.combine_chunks) of each saved draw of each chain."""
+    end = run.burnin + run.mcmc
+    saved = sum(sampler.save_pattern(start, end - start, run.burnin,
+                                     run.thin))
+    return (run.num_chains if chains is None else chains) * saved * ranges
+
+
 def test_small_fit_runs_both_kernels(cuda):
+    """600 sweeps: K1 and K5 once each per sweep, the combine kernel once
+    per saved draw (75 a chain)."""
     assert _small_fit(cuda) == {"chol_sample": 600, "chol_solve_sample": 0,
                                 "cho_solve": 0, "lam_update": 0,
-                                "sse_ps": 600}
+                                "sse_ps": 600, "combine_panels": 150}
 
 
 @pytest.mark.parametrize("knobs,kernel", [
     ({"compute_dtype": "bf16", "lambda_kernel": "auto"}, "chol_solve_sample"),
     ({"lambda_kernel": "pallas-fused"}, "lam_update")])
 def test_small_bf16_and_fused_fits_run_their_kernels(cuda, knobs, kernel):
-    """600 sweeps: the path's Lambda kernel and K5 once each per sweep."""
+    """600 sweeps: the path's Lambda kernel and K5 once each per sweep; the
+    combine kernel once per saved draw, except under bf16, whose combine
+    keeps its GEMMs."""
     launches = _small_fit(cuda, **knobs)
     expected = dict.fromkeys(launches, 0)
-    expected.update({kernel: 600, "sse_ps": 600})
+    expected.update({kernel: 600, "sse_ps": 600,
+                     "combine_panels": 0 if "compute_dtype" in knobs
+                     else 150})
     assert launches == expected
 
 
@@ -559,8 +657,10 @@ def test_graph_chain_equals_eager_chain_bitwise(cuda, sse_mode,
     assert c_eager == (0, 0, 18)
     assert c_graph == (7, 11, 7)                 # captured, replays, eager
     assert n_graph == n_eager
-    # the Lambda kernel every sweep, K5 every Gram sweep
-    assert sum(n_eager.values()) == 2 * 38 * (1 + (sse_mode == "gram"))
+    # the Lambda kernel every sweep, K5 every Gram sweep, the combine
+    # kernel every saved draw (9 a chain) but under bf16's GEMM combine
+    assert sum(n_eager.values()) == 2 * 38 * (1 + (sse_mode == "gram")) \
+        + (0 if compute_dtype == "bf16" else 2 * 9)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
@@ -860,7 +960,7 @@ def test_a_small_sd_fit_streams_and_exports_on_the_card(cuda, tmp_path):
     path = str(tmp_path / "ck.npz")
     f32, launches = run(checkpoint_path=path)
     assert launches == dict(dict.fromkeys(launches, 0), chol_sample=160,
-                            sse_ps=160)
+                            sse_ps=160, combine_panels=_combines(base.run))
     assert np.isfinite(f32.Sigma_sd).all() and (f32.Sigma_sd >= 0).all()
     streamed, _ = run(backend=q8, stream_artifact=str(tmp_path / "s"))
     post, _ = run(backend=dataclasses.replace(q8, fetch_stream="off"))
@@ -906,7 +1006,7 @@ def test_an_elastic_resume_on_the_card(cuda, tmp_path, to):
     sweeps = to * (80 - 48)
     assert res.kernel_launches == dict(
         dict.fromkeys(res.kernel_launches, 0), chol_sample=sweeps,
-        sse_ps=sweeps)
+        sse_ps=sweeps, combine_panels=_combines(cfg.run, start=48))
     assert np.isfinite(res.Sigma).all()
     assert np.linalg.norm(res.Sigma - St) / np.linalg.norm(St) < 0.25
 
@@ -971,7 +1071,8 @@ def test_small_scenario_fits_run_their_kernels(cuda, scen):
     assert np.isfinite(res.Sigma).all() and res.stats.nonfinite_count == 0
     assert np.linalg.norm(res.Sigma - St) / np.linalg.norm(St) < 0.25
     expected = dict.fromkeys(res.kernel_launches, 0)
-    expected.update({"chol_sample": 600, "sse_ps": 600})
+    expected.update({"chol_sample": 600, "sse_ps": 600,
+                     "combine_panels": _combines(cfg.run)})
     assert res.kernel_launches == expected
     assert 1 <= res.stats.rank_min <= res.stats.rank_max <= 4
 
@@ -1143,7 +1244,8 @@ def test_small_missing_and_draws_fits_run_their_kernels(cuda):
     assert np.isfinite(res.Sigma).all() and res.stats.nonfinite_count == 0
     assert np.linalg.norm(res.Sigma - St) / np.linalg.norm(St) < 0.25
     expected = dict.fromkeys(res.kernel_launches, 0)
-    expected.update({"chol_sample": 600, "sse_ps": 600})
+    expected.update({"chol_sample": 600, "sse_ps": 600,
+                     "combine_panels": _combines(cfg.run)})
     assert res.kernel_launches == expected
     assert np.isfinite(res.Y_imputed).all()
     np.testing.assert_array_equal(res.Y_imputed[~mask], Ym[~mask])
@@ -1156,9 +1258,10 @@ def test_chunked_combine_graph_equals_eager_bitwise(cuda, combine_chunks,
                                                     posterior_sd):
     """combine_chunks: the ranges are Python ints fixed at capture, so the
     graphed chain is the eager one bit for bit - the accumulators (and
-    under posterior_sd the second moment) and the draw ring included - and
-    the chunked accumulator lies within float32 rounding of the unchunked
-    one (a smaller batched GEMM may take another cuBLAS algorithm)."""
+    under posterior_sd the second moment) and the draw ring included - with
+    the combine kernel launched once a range of each saved draw; and the
+    chunked accumulators are the unchunked ones bit for bit (the kernel's
+    arithmetic for an entry does not depend on the range it is in)."""
     cfg = ModelConfig(num_shards=4, factors_per_shard=4, rho=0.9,
                       lambda_kernel="pallas", combine_chunks=combine_chunks,
                       posterior_sd=posterior_sd)
@@ -1170,13 +1273,18 @@ def test_chunked_combine_graph_equals_eager_bitwise(cuda, combine_chunks,
         for i, (a, b) in enumerate(zip(eager[c], graph[c], strict=True)):
             assert torch.equal(a, b), (c, i, float((a - b).abs().max()))
     assert n_graph == n_eager and c_graph[1] > 0
-    flat, _, _ = _run_chains(cuda, dataclasses.replace(cfg, combine_chunks=1),
-                             graphs=True, num_stored_draws=9)
+    # 38 iterations a chain, burn-in 11, thin 3: 9 saved draws a chain
+    assert n_graph["combine_panels"] == 2 * 9 * combine_chunks
+    flat, n_flat, _ = _run_chains(
+        cuda, dataclasses.replace(cfg, combine_chunks=1), graphs=True,
+        num_stored_draws=9)
+    assert n_flat["combine_panels"] == 2 * 9
     n_leaves = len(state_leaf_names(cfg))
     for c in range(2):
-        acc, ref = graph[c][n_leaves], flat[c][n_leaves]
-        torch.testing.assert_close(acc, ref, rtol=1e-5,
-                                   atol=1e-5 * float(ref.abs().max()))
+        # the accumulator and, under posterior_sd, the second moment
+        for i in (n_leaves, n_leaves + 3)[:1 + posterior_sd]:
+            assert torch.equal(graph[c][i], flat[c][i]), (
+                c, i, float((graph[c][i] - flat[c][i]).abs().max()))
 
 
 @pytest.mark.parametrize("upload_dtype", ["float32", "bfloat16", "float16"])
@@ -1240,9 +1348,13 @@ def _outer_cfg(**run):
         backend=BackendConfig(sse_mode="gram", fetch_dtype="quant8"))
 
 
-def _path_launches(sweeps: int) -> dict:
+def _path_launches(cfg: FitConfig) -> dict:
+    """K1 and K5 once a sweep of each chain, the combine kernel once a
+    saved draw."""
+    sweeps = cfg.run.num_chains * (cfg.run.burnin + cfg.run.mcmc)
     want = dict.fromkeys(cuda_lib.launch_counts(), 0)
-    want.update(chol_sample=sweeps, sse_ps=sweeps)
+    want.update(chol_sample=sweeps, sse_ps=sweeps,
+                combine_panels=_combines(cfg.run))
     return want
 
 
@@ -1271,7 +1383,7 @@ def test_a_warm_started_graphed_fit_is_the_eager_one(cuda, tmp_path,
                     sampler.state_leaves(eager.state), strict=True):
         assert torch.equal(a.cpu(), b.cpu())
     assert graphed.kernel_launches == eager.kernel_launches \
-        == _path_launches(2 * 50)
+        == _path_launches(cfg)
     assert [e["decision"] for e in run_events(str(tmp_path / "events"))
             if e["event"] == "warm_start"] == ["warm"]
     assert np.linalg.norm(graphed.Sigma - St) / np.linalg.norm(St) < 0.25
@@ -1295,7 +1407,7 @@ def test_a_recorded_and_profiled_fit_on_the_card(cuda, tmp_path):
         cfg, obs=obs_dir, backend=dataclasses.replace(
             cfg.backend, profile_dir=prof)), device=cuda)
     np.testing.assert_array_equal(res.Sigma, plain.Sigma)
-    assert res.kernel_launches == _path_launches(2 * 80)
+    assert res.kernel_launches == _path_launches(cfg)
     kinds = [e["event"] for e in run_events(obs_dir)]
     assert kinds[0] == "fit_start" and kinds[-1] == "fit_done"
     assert kinds.count("chunk") == 4 and "stream_drain" in kinds
