@@ -53,15 +53,15 @@ def shape_of(config: dict) -> dict:
 
 def fit_config(config: dict, schedule: dict, seed: int):
     """The program's FitConfig for ``config`` under ``schedule``: every
-    field the configuration file names, by name."""
+    field the configuration file names, by name; a ``ModelConfig`` field
+    whose default is a dataclass (a prior's or the adaptation's
+    sub-config) is built as that dataclass from the file's group."""
     import dcfm_tpu_torch as dt
 
     model = dict(config["model"])
-    for key, cls in (("mgp", dt.config.MGPConfig),
-                     ("horseshoe", dt.config.HorseshoeConfig),
-                     ("adapt", dt.config.AdaptConfig)):
-        if key in model:
-            model[key] = cls(**model[key])
+    for f in dataclasses.fields(dt.ModelConfig):
+        if f.name in model and dataclasses.is_dataclass(f.default):
+            model[f.name] = type(f.default)(**model[f.name])
     run = dict(config["run"], burnin=int(schedule["burnin"]),
                mcmc=int(schedule["mcmc"]), thin=int(schedule["thin"]),
                seed=int(seed))
@@ -127,6 +127,7 @@ def run_cell(cell: spec.Cell, seed: int, seconds: float, traced: bool,
     dev = torch.device(device)
     cuda = dev.type == "cuda"
     config, traffic = cell.config, cell.traffic
+    check.reference_module(config)
     Y = data.make_data(config["data"], seed, dev)
     warm = fit_config(config, warm_schedule(traffic),
                       data.run_seed(seed, 4095))

@@ -1,6 +1,7 @@
 """Whether a fit's answer is correct: the program's posterior mean held
-against the plain reference's (``fitref``) for the same data, config and
-run seed.
+against the plain reference's (the file the configuration names under
+``reference``, ``fitref/gibbs.py`` for the built-in priors) for the same
+data, config and run seed.
 
 The two consume the same variates, so a sound fit differs from the
 reference by rounding alone.  The numbers compared, each against the
@@ -20,22 +21,48 @@ limit its configuration file states:
 
 from __future__ import annotations
 
+import os
+import re
+import sys
+
 import numpy as np
 import torch
 
+from fitbench import spec
 from fitref import gibbs
+
+
+def reference_module(config: dict):
+    """The plain reference the configuration names under ``reference``, a
+    path relative to the checkout's root; there is no default.  Loaded
+    once a process, in a run's set-up: a missing file fails before the
+    window, and no module is executed after it (doing so there doubled
+    the time of the q8 comparison's host reads on the card)."""
+    name = config.get("name", "?")
+    path = config.get("reference")
+    if not path:
+        raise KeyError(f"configuration {name!r} names no reference")
+    module = "fitbench_reference_" + re.sub(r"\W", "_", path)
+    if module in sys.modules:
+        return sys.modules[module]
+    try:
+        return spec.load_module(os.path.join(spec.ROOT, path), module)
+    except FileNotFoundError:
+        raise FileNotFoundError(f"configuration {name!r}: its reference "
+                                f"{path!r} is not a file") from None
 
 
 def reference(Y: np.ndarray, config: dict, traffic: dict, seed: int,
               device, *, tf32: bool = False, dtype=torch.float32):
     """The reference's ``(panels, prepared)`` in ``dtype``; ``tf32`` runs
     its float32 products in TF32 (the control), else in full float32."""
+    ref = reference_module(config)
     cuda = torch.device(device).type == "cuda"
     prev = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = bool(tf32) and cuda
     try:
         model = dict(config["model"], **config["backend"])
-        return gibbs.posterior_mean(
+        return ref.posterior_mean(
             Y, model, traffic, seed, int(config["run"]["num_chains"]),
             device, dtype=dtype)
     finally:

@@ -10,7 +10,12 @@ found by its name:
   loop runs back to back,
 * a per-layer metric: ``metrics/<name>.py``, a reader with
   ``read(ctx) -> float | None``,
-* the operations and bytes of a stage or kernel: ``counts/<name>.py``.
+* the operations and bytes of a stage or kernel: ``counts/<name>.py``,
+* a configuration's plain reference: the file its ``reference`` key
+  names, relative to the checkout's root, which exports
+  ``posterior_mean(Y, model, schedule, seed, chains, device, *, dtype)
+  -> (panels, prepared)`` with ``fitref/gibbs.py``'s meaning and imports
+  only ``numpy``, ``torch``, the standard library and ``fitref``.
 """
 
 from __future__ import annotations
@@ -19,6 +24,7 @@ import dataclasses
 import importlib.util
 import json
 import os
+import sys
 
 BENCH_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ROOT = os.path.dirname(BENCH_DIR)
@@ -31,11 +37,14 @@ def load_json(path: str) -> dict:
 
 def load_module(path: str, name: str):
     """The Python file ``path`` as a module of its own (metric and count
-    files have dots in their names, so they are loaded by path)."""
+    files have dots in their names, so they are loaded by path), entered
+    in ``sys.modules`` as ``name`` before it runs: a dataclass defined in
+    it looks its module up there."""
     if not os.path.isfile(path):
         raise FileNotFoundError(path)
     spec = importlib.util.spec_from_file_location(name, path)
     mod = importlib.util.module_from_spec(spec)
+    sys.modules[name] = mod
     spec.loader.exec_module(mod)
     return mod
 

@@ -14,9 +14,10 @@ precision or a step that departs shows as a gap far above it.
 Per shard m: Y_m = eta_m Lambda_m' + eps_m, eps ~ N(0, diag(1/ps_m)),
 eta_m = sqrt(rho) X + sqrt(1 - rho) Z_m with X shared by the shards.  A
 sweep draws Z, X, Lambda (row by row, K x K Gaussian in precision form),
-the shrinkage prior (MGP or horseshoe), then ps from the Gram moments;
-under adaptive rank truncation a coin decides after each burn-in sweep
-whether each shard drops its redundant loading columns.  A saved draw
+the shrinkage prior (a ``Prior`` record: MGP or horseshoe here, another
+file's own), then ps from the Gram moments; under adaptive rank
+truncation a coin decides after each burn-in sweep whether each shard
+drops its redundant loading columns.  A saved draw
 adds Lam_r H_rc Lam_c' (H_rc = eta_r' eta_c / n), plus diag(1/ps_r) on
 the diagonal pairs, to every upper shard pair's panel.
 """
@@ -132,76 +133,103 @@ def gaussian_rows(Q, B, Zn):
 # Every state leaf carries a leading chain axis C, then the shard axis G;
 # the draws (``ChainStreams``) stack each chain's variates on it.
 
-def prior_init(model: dict, st: ChainStreams, G: int, P: int,
-               K: int) -> dict:
-    if model["prior"] == "mgp":
-        c = model["mgp"]
-        psijh = gamma_static(st, SITE_PRIOR, c["df"] / 2,
-                             (G, P, K)) / (c["df"] / 2)
-        d1 = gamma_static(st, SITE_PRIOR, c["ad1"], (G, 1)) / c["bd1"]
-        dh = gamma_static(st, SITE_PRIOR, c["ad2"], (G, K - 1)) / c["bd2"]
-        return {"psijh": psijh, "delta": torch.cat([d1, dh], dim=-1)}
-    if model["prior"] == "horseshoe":
-        def ones(*shape):
-            return torch.ones((st.chains,) + shape, dtype=st.dtype,
-                              device=st.device)
-        return {"lam2": ones(G, P, K), "nu": ones(G, P, K), "tau2": ones(G),
-                "xi": ones(G)}
-    raise NotImplementedError(f"prior {model['prior']!r}")
+@dataclasses.dataclass(frozen=True)
+class Prior:
+    """A shrinkage prior on the loadings, as the chain uses it:
+
+    * ``init(model, st, G, P, K) -> dict``: the prior's initial state,
+      drawn from the init streams;
+    * ``update(model, st, pr, Lam, active) -> dict``: its state redrawn
+      given the new loadings ``Lam`` (C, G, P, K) and the active columns
+      (C, G, K), or None without adaptation;
+    * ``row_precision(model, pr) -> Tensor``: the (C, G, P, K) prior
+      precisions of the loadings, the diagonal of each row's precision.
+
+    A reference for another prior defines its own record and hands it to
+    :func:`posterior_mean`."""
+    init: object
+    update: object
+    row_precision: object
 
 
-def row_precision(model: dict, pr: dict) -> torch.Tensor:
-    if model["prior"] == "mgp":
-        return pr["psijh"] * torch.cumprod(pr["delta"], dim=-1)[..., None, :]
+def _mgp_init(model: dict, st: ChainStreams, G: int, P: int,
+              K: int) -> dict:
+    c = model["mgp"]
+    psijh = gamma_static(st, SITE_PRIOR, c["df"] / 2,
+                         (G, P, K)) / (c["df"] / 2)
+    d1 = gamma_static(st, SITE_PRIOR, c["ad1"], (G, 1)) / c["bd1"]
+    dh = gamma_static(st, SITE_PRIOR, c["ad2"], (G, K - 1)) / c["bd2"]
+    return {"psijh": psijh, "delta": torch.cat([d1, dh], dim=-1)}
+
+
+def _mgp_row_precision(model: dict, pr: dict) -> torch.Tensor:
+    return pr["psijh"] * torch.cumprod(pr["delta"], dim=-1)[..., None, :]
+
+
+def _mgp_update(model: dict, st: ChainStreams, pr: dict, Lam,
+                active) -> dict:
+    C, G, P, K = Lam.shape
+    dev = Lam.device
+    lam_sq = Lam * Lam
+    c = model["mgp"]
+    df = float(c["df"])
+    if not (df.is_integer() and df <= 7):
+        raise NotImplementedError("MGP df must be an integer <= 7")
+    tau = torch.cumprod(pr["delta"], dim=-1)
+    rate = df / 2 + 0.5 * tau[..., None, :] * lam_sq
+    # Gamma((df + a_h) / 2): half the sum of df + a_h squared normals,
+    # a_h = 1 for an active column, 0 for a dropped one
+    z = st.normal(SITE_PRIOR, (G, P, K, int(df) + 1))
+    used = torch.full(lam_sq.shape, int(df) + 1, device=dev)
+    if active is not None:
+        used = int(df) + active[..., None, :].expand_as(lam_sq).long()
+    keep = torch.arange(int(df) + 1, device=dev) < used[..., None]
+    psijh = 0.5 * torch.sum(torch.where(keep, z * z, 0.0), dim=-1) / rate
+    s = torch.sum(psijh * lam_sq, dim=-2)                        # (C, G, K)
+    hs = torch.arange(K, device=dev)
+    base = torch.where(hs == 0, c["ad1"], c["ad2"]).float()
+    rates0 = torch.where(hs == 0, c["bd1"], c["bd2"]).to(Lam.dtype)
+    if active is None:
+        n_ge = torch.arange(K, 0, -1, device=dev).float()
+        g_std = st.standard_gamma(
+            SITE_PRIOR, (base + 0.5 * P * n_ge).expand(G, K))
+    else:
+        n_ge = torch.flip(torch.cumsum(torch.flip(active, [-1]), -1), [-1])
+        counts = torch.arange(K + 1, device=dev).float()
+        table = st.standard_gamma(SITE_PRIOR, (
+            base[:, None] + 0.5 * P * counts).expand(G, K, K + 1))
+        g_std = torch.gather(table, -1, n_ge.long()[..., None])[..., 0]
+    delta = pr["delta"].clone()
+    for h in range(K):
+        tau_minus = torch.cumprod(delta, dim=-1) / delta[..., h:h + 1]
+        rate_h = rates0[h] + 0.5 * torch.sum(
+            (hs >= h).to(Lam.dtype) * tau_minus * s, dim=-1)
+        delta[..., h] = g_std[..., h] / rate_h
+    return {"psijh": psijh, "delta": delta}
+
+
+# horseshoe, Makalic & Schmidt's auxiliaries: every conditional is an
+# inverse Gamma, 1 / Gamma(shape, rate)
+
+def _hs_init(model: dict, st: ChainStreams, G: int, P: int,
+             K: int) -> dict:
+    def ones(*shape):
+        return torch.ones((st.chains,) + shape, dtype=st.dtype,
+                          device=st.device)
+    return {"lam2": ones(G, P, K), "nu": ones(G, P, K), "tau2": ones(G),
+            "xi": ones(G)}
+
+
+def _hs_row_precision(model: dict, pr: dict) -> torch.Tensor:
     return 1.0 / torch.clamp(pr["lam2"] * pr["tau2"][..., None, None],
                              1.0 / _HS_MAX_PRECISION, _HS_MAX_PRECISION)
 
 
-def prior_update(model: dict, st: ChainStreams, pr: dict, Lam,
-                 active) -> dict:
+def _hs_update(model: dict, st: ChainStreams, pr: dict, Lam,
+               active) -> dict:
     C, G, P, K = Lam.shape
     dev = Lam.device
     lam_sq = Lam * Lam
-    if model["prior"] == "mgp":
-        c = model["mgp"]
-        df = float(c["df"])
-        if not (df.is_integer() and df <= 7):
-            raise NotImplementedError("MGP df must be an integer <= 7")
-        tau = torch.cumprod(pr["delta"], dim=-1)
-        rate = df / 2 + 0.5 * tau[..., None, :] * lam_sq
-        # Gamma((df + a_h) / 2): half the sum of df + a_h squared normals,
-        # a_h = 1 for an active column, 0 for a dropped one
-        z = st.normal(SITE_PRIOR, (G, P, K, int(df) + 1))
-        used = torch.full(lam_sq.shape, int(df) + 1, device=dev)
-        if active is not None:
-            used = int(df) + active[..., None, :].expand_as(lam_sq).long()
-        keep = torch.arange(int(df) + 1, device=dev) < used[..., None]
-        psijh = 0.5 * torch.sum(torch.where(keep, z * z, 0.0), dim=-1) / rate
-        s = torch.sum(psijh * lam_sq, dim=-2)                    # (C, G, K)
-        hs = torch.arange(K, device=dev)
-        base = torch.where(hs == 0, c["ad1"], c["ad2"]).float()
-        rates0 = torch.where(hs == 0, c["bd1"], c["bd2"]).to(Lam.dtype)
-        if active is None:
-            n_ge = torch.arange(K, 0, -1, device=dev).float()
-            g_std = st.standard_gamma(
-                SITE_PRIOR, (base + 0.5 * P * n_ge).expand(G, K))
-        else:
-            n_ge = torch.flip(torch.cumsum(torch.flip(active, [-1]), -1),
-                              [-1])
-            counts = torch.arange(K + 1, device=dev).float()
-            table = st.standard_gamma(SITE_PRIOR, (
-                base[:, None] + 0.5 * P * counts).expand(G, K, K + 1))
-            g_std = torch.gather(table, -1, n_ge.long()[..., None])[..., 0]
-        delta = pr["delta"].clone()
-        for h in range(K):
-            tau_minus = torch.cumprod(delta, dim=-1) / delta[..., h:h + 1]
-            rate_h = rates0[h] + 0.5 * torch.sum(
-                (hs >= h).to(Lam.dtype) * tau_minus * s, dim=-1)
-            delta[..., h] = g_std[..., h] / rate_h
-        return {"psijh": psijh, "delta": delta}
-
-    # horseshoe, Makalic & Schmidt's auxiliaries: every conditional is an
-    # inverse Gamma, 1 / Gamma(shape, rate)
     s2 = float(model["horseshoe"]["global_scale"]) ** 2
     tau2 = pr["tau2"]
     lam2 = torch.clamp(
@@ -226,6 +254,11 @@ def prior_update(model: dict, st: ChainStreams, pr: dict, Lam,
     return {"lam2": lam2, "nu": nu, "tau2": tau2, "xi": xi}
 
 
+MGP = Prior(_mgp_init, _mgp_update, _mgp_row_precision)
+HORSESHOE = Prior(_hs_init, _hs_update, _hs_row_precision)
+PRIORS = {"mgp": MGP, "horseshoe": HORSESHOE}
+
+
 # -- the chain -----------------------------------------------------------------
 
 @dataclasses.dataclass
@@ -238,8 +271,8 @@ class State:
     active: object          # (C, G, K) 0/1, or None without adaptation
 
 
-def init_state(model: dict, st: ChainStreams, G: int, n: int, P: int,
-               K: int) -> State:
+def init_state(model: dict, prior: Prior, st: ChainStreams, G: int, n: int,
+               P: int, K: int) -> State:
     X = st.normal(SITE_X, (n, K))
     ps = gamma_static(st, SITE_PS, model["as_"], (G, P)) / model["bs"]
     Z = st.normal(SITE_Z, (G, n, K))
@@ -248,12 +281,12 @@ def init_state(model: dict, st: ChainStreams, G: int, n: int, P: int,
         return torch.full((st.chains,) + shape, value, dtype=st.dtype,
                           device=st.device)
     return State(full(0.0, G, P, K), Z, X, ps,
-                 prior_init(model, st, G, P, K),
+                 prior.init(model, st, G, P, K),
                  full(1.0, G, K) if model["rank_adapt"] else None)
 
 
-def sweep(model: dict, st: ChainStreams, Y: torch.Tensor, yty: torch.Tensor,
-          s: State, it: int, burnin: int) -> State:
+def sweep(model: dict, prior: Prior, st: ChainStreams, Y: torch.Tensor,
+          yty: torch.Tensor, s: State, it: int, burnin: int) -> State:
     """One Gibbs sweep of every chain, making 1-based iteration ``it``,
     then the rank adaptation after it."""
     G, n, P = Y.shape
@@ -278,7 +311,7 @@ def sweep(model: dict, st: ChainStreams, Y: torch.Tensor, yty: torch.Tensor,
         eta = eta * s.active[..., None, :]
     E = eta.mT @ eta                                         # (C, G, K, K)
     EYt = (eta.mT @ Y).mT                                    # (C, G, P, K)
-    Q = (torch.diag_embed(row_precision(model, s.prior))
+    Q = (torch.diag_embed(prior.row_precision(model, s.prior))
          + ps[..., None, None] * E[..., None, :, :])
     Lam = gaussian_rows(Q.reshape(-1, K, K),
                         (ps[..., None] * EYt).reshape(-1, 1, K),
@@ -287,14 +320,14 @@ def sweep(model: dict, st: ChainStreams, Y: torch.Tensor, yty: torch.Tensor,
     if s.active is not None:
         Lam = Lam * s.active[..., None, :]
 
-    prior = prior_update(model, st, s.prior, Lam, s.active)
+    pr = prior.update(model, st, s.prior, Lam, s.active)
 
     # ps_j ~ Gamma(as + n/2, bs + SSE_j / 2), SSE from the Gram moments
     sse = torch.clamp(yty - 2.0 * torch.sum(Lam * EYt, dim=-1)
                       + torch.sum(Lam * (Lam @ E), dim=-1), min=0.0)
     g = gamma_large(st, SITE_PS, model["as_"] + 0.5 * n, (G, P))
     ps = g / (model["bs"] + 0.5 * sse)
-    out = State(Lam, Z, X, ps, prior, s.active)
+    out = State(Lam, Z, X, ps, pr, s.active)
     if s.active is not None:
         out = adapt(model, st, out, it, burnin)
     return out
@@ -372,12 +405,18 @@ def check_supported(model: dict, n: int) -> None:
 
 def posterior_mean(Y: np.ndarray, model: dict, schedule: dict, seed: int,
                    chains: int, device, *, dtype=torch.float32,
-                   block: int = 4096):
+                   block: int = 4096, prior: Prior | None = None):
     """The fit's posterior-mean panels: ``(panels, prepared)`` with panels
     (g(g+1)/2, P, P) on ``device``, upper shard pairs in
     ``np.triu_indices`` order, standardized shard coordinates, computed
-    in ``dtype`` (the variates drawn in float32 either way)."""
+    in ``dtype`` (the variates drawn in float32 either way).  ``prior``
+    is the shrinkage prior's record; None picks the one of ``PRIORS``
+    that ``model["prior"]`` names, and refuses any other name."""
     check_supported(model, Y.shape[0])
+    if prior is None:
+        if model["prior"] not in PRIORS:
+            raise NotImplementedError(f"prior {model['prior']!r}")
+        prior = PRIORS[model["prior"]]
     g, K = int(model["num_shards"]), int(model["factors_per_shard"])
     burnin, mcmc, thin = (int(schedule[k]) for k in ("burnin", "mcmc",
                                                      "thin"))
@@ -389,13 +428,14 @@ def posterior_mean(Y: np.ndarray, model: dict, schedule: dict, seed: int,
     rows = torch.as_tensor(r, device=device)
     cols = torch.as_tensor(c, device=device)
     acc = torch.zeros((r.size, P, P), dtype=dtype, device=device)
-    s = init_state(model, ChainStreams.init(seed, chains, device, dtype), G,
-                   n, P, K)
+    s = init_state(model, prior,
+                   ChainStreams.init(seed, chains, device, dtype), G, n, P, K)
     saved = 0
     for i in range(burnin + mcmc):
         it = i + 1
-        s = sweep(model, ChainStreams.sweep(seed, chains, i, device, dtype),
-                  Yd, yty, s, it, burnin)
+        s = sweep(model, prior,
+                  ChainStreams.sweep(seed, chains, i, device, dtype), Yd, yty,
+                  s, it, burnin)
         if it > burnin and (it - burnin) % thin == 0:
             add_panels(acc, s, float(model["rho"]), rows, cols, block)
             saved += chains

@@ -12,6 +12,7 @@ import sys
 import pytest
 
 from conftest import BENCH, ROOT
+from fitbench import spec
 
 FORBIDDEN = {"jax", "jaxlib", "flax", "dcfm_tpu"}
 FILES = sorted(glob.glob(os.path.join(BENCH, "**", "*.py"), recursive=True))
@@ -34,8 +35,20 @@ def test_no_source_imports_jax(path):
     assert not top_level_imports(path) & FORBIDDEN
 
 
+def _named_references() -> set:
+    """Every file a configuration in BENCHMARK.json names as its plain
+    reference."""
+    bench = spec.load_json(os.path.join(ROOT, "BENCHMARK.json"))
+    return {os.path.normpath(os.path.join(
+        ROOT, spec.load_json(os.path.join(ROOT, c["file"]))["reference"]))
+        for c in bench["configs"]}
+
+
 def test_the_reference_imports_nothing_of_the_program():
-    for path in glob.glob(os.path.join(BENCH, "fitref", "*.py")):
+    named = _named_references()
+    assert named and all(os.path.isfile(p) for p in named)
+    for path in named | set(glob.glob(os.path.join(BENCH, "fitref",
+                                                   "*.py"))):
         assert top_level_imports(path) <= {
             "__future__", "dataclasses", "math", "numpy", "torch",
             "fitref"}, path
