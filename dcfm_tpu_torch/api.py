@@ -138,7 +138,11 @@ class FitResult:
     # between stages) over stage_samples timed replays: while a profiler
     # records, each save pattern's first trip in a chunk replays a twin of
     # its graph with timing events (one more capture each; {} and 0 when
-    # no profiler recorded, and on the CPU)
+    # no profiler recorded, and on the CPU); a stage nested in another
+    # ("gig" in the DL prior's "prior_update") counts in both.  "gig", in
+    # a DL fit's timed replays only: the GIG sampler's counts summed over
+    # them (profiling.GIG_COUNTS: draws, rounds_evaluated, rounds_needed,
+    # unaccepted); no such key otherwise
     graphs: dict
     # repr of a checkpoint save that failed after the chain's last chunk
     # (warned about; the results stand, the run is not resumable from its

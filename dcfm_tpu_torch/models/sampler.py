@@ -389,7 +389,8 @@ class ChainRunner:
     ``.replay.plain``, and a chunk's ``api.chain.boundary``), and each
     pattern's first trip in a chunk replays a twin of its graph whose
     stage boundaries are timing events (profiling.StageClock), captured
-    beside it; the chunk's end adds those samples to ``stages``
+    beside it; the chunk's end adds those samples, and the GIG sampler's
+    counts the twin carries, to ``stages``
     (profiling.StageTally).  Every other replay is the untimed graph, the
     graph a fit with no profiler replays.
     """
@@ -544,7 +545,8 @@ class ChainRunner:
                     acc_nonfinite=float(
                         (~torch.isfinite(work.sigma_acc)).sum()))
                 # the reads above waited for the chunk's replays: the
-                # stage times of each pattern's timed replay among them
+                # stage times and GIG counts of each pattern's timed
+                # replay among them
                 for pattern in self._sampled:
                     self.stages.add(self._timed[pattern].clock)
                 self._sampled.clear()
@@ -651,7 +653,8 @@ class ChainRunner:
         draws = [BufferedDraws(self._recipe, [s[j] for s in self._slots])
                  for j in range(len(pattern))]
         graph = torch.cuda.CUDAGraph()
-        clock = StageClock(len(pattern), sum(pattern)) if timed else None
+        clock = (StageClock(len(pattern), sum(pattern), device=self.Y.device)
+                 if timed else None)
         t = time.perf_counter()
         # Python's cyclic collector may run at any allocation, and a dead
         # cycle can hold CUDA graphs, events or pinned buffers (an

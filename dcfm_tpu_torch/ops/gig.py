@@ -20,6 +20,12 @@ own, so fed the same variates both return the same draws.
   first accept - and it has a fixed shape, so it runs inside a CUDA
   graph with no wait on a device flag.  Plain PyTorch: the JAX module
   has no Pallas kernel.
+
+:func:`gig` is the stage ``gig`` of the profiler (profiling.py).  In a
+trip's timed twin it also counts, past the stage's end,
+``profiling.GIG_COUNTS``: the elements drawn, the element-rounds computed, each element's first
+accepting round (1-based, ``max_rounds`` where none accepts) summed, and
+the elements no round accepted.
 """
 
 from __future__ import annotations
@@ -27,6 +33,7 @@ from __future__ import annotations
 import torch
 
 from dcfm_tpu_torch.noise import sub_part
+from dcfm_tpu_torch.profiling import scope, timing_clock
 
 # rounds of the GIG rejection sampler (the JAX package's max_rounds)
 MAX_ROUNDS = 64
@@ -64,6 +71,21 @@ def gig(draws, site: int, p, a, b, *, part=None,
     1e-12.  Round r's uniforms U, V, W are children 0, 1, 2 of the
     three-way split of the round's key; V takes the JAX package's
     ``minval=1e-30``."""
+    clock = timing_clock()
+    with scope("gig"):
+        y, hit, first = _gig(draws, site, p, a, b, part, max_rounds)
+    if clock is not None:
+        need = torch.where(hit, first.squeeze(1) + 1, max_rounds)
+        clock.count_gig(torch.stack([
+            need.new_full((), need.numel()),
+            need.new_full((), need.numel() * max_rounds),
+            need.sum(), (~hit).sum()]))
+    return y
+
+
+def _gig(draws, site: int, p, a, b, part, max_rounds: int) -> tuple:
+    """:func:`gig`'s draws, with each element's flag of an accepting round
+    and the index of its first one (0 where none accepts)."""
     dev = b.device
     # scalars built on the device (torch.full), never copied from the
     # host: a host-to-device copy cannot be captured into a CUDA graph
@@ -132,12 +154,12 @@ def gig(draws, site: int, p, a, b, *, part=None,
     accept = W * hat <= torch.exp(_psi(cand, alpha_r, lam_r))
     # each element's first accepting round; zero where none accepts
     first = torch.argmax(accept.to(torch.uint8), dim=1, keepdim=True)
-    u_log = torch.where(accept.any(dim=1),
-                        torch.gather(cand, 1, first).squeeze(1),
+    hit = accept.any(dim=1)
+    u_log = torch.where(hit, torch.gather(cand, 1, first).squeeze(1),
                         torch.zeros_like(alpha))
 
     # back from psi-space: y = exp(u) * mode
     ratio = lam / omega
     y = torch.exp(u_log) * (ratio + torch.sqrt(1.0 + ratio * ratio))
     y = torch.where(swap, 1.0 / y, y)
-    return y * torch.sqrt(b / a)
+    return y * torch.sqrt(b / a), hit, first

@@ -25,7 +25,8 @@ device's idle gaps by the range the host was in.  The names:
 * the sweep's stages, the JAX package's named scopes: ``impute_missing``,
   ``z_update``, ``x_update``, ``lambda_update``, ``prior_update``,
   ``ps_update``, then ``adapt_rank``, ``combine`` (a saved draw's) and
-  ``health_trace``.
+  ``health_trace``; and ``gig``, the GIG sampler (ops/gig.py), a stage
+  nested in ``prior_update`` of the Dirichlet-Laplace prior.
 
 A graph replay shows none of the ranges opened while its trip was
 captured.  So while a profiler records, the chain runner captures each
@@ -35,9 +36,13 @@ stream at every stage boundary, which the capture turns into event-record
 nodes of the graph.  Each pattern's first trip in a chunk replays the
 twin; read after the chunk's end, its events give the device time of
 each stage (:class:`StageTally` sums those samples into
-``FitResult.graphs``).  Every other replay is the untimed graph, and a
-fit with no profiler recording captures no twin: its graphs are the
-graphs captured without any of this.
+``FitResult.graphs``).  A stage opened inside another is timed under its
+own label and counts into the enclosing stage's time too.  The twin may
+also count the GIG sampler's draws and rejection rounds
+(:meth:`StageClock.count_gig`), summed on the device and read with its
+events.  Every other replay is the untimed graph, and a fit with no
+profiler recording captures no twin: its graphs are the graphs captured
+without any of this.
 """
 
 from __future__ import annotations
@@ -52,6 +57,8 @@ import torch
 # the label of the device time between the sweep's stages: a trip's first
 # and last operations, the carry copy-back
 OTHER = "other"
+# the GIG sampler's counters (ops/gig.py; FitResult.graphs["gig"])
+GIG_COUNTS = ("draws", "rounds_evaluated", "rounds_needed", "unaccepted")
 
 _OFF = contextlib.nullcontext()
 
@@ -61,6 +68,12 @@ class _Active(threading.local):
 
 
 _ACTIVE = _Active()
+
+
+def timing_clock() -> Optional["StageClock"]:
+    """The clock of the timed twin being captured on this thread, or None
+    (every other trip, and every fit with no profiler recording)."""
+    return _ACTIVE.clock
 
 
 def recording() -> bool:
@@ -124,14 +137,25 @@ class StageClock:
     """The stage boundaries of one captured trip: ``marks`` holds (the
     stage that starts here, its event) in capture order, from the trip's
     first device operation to its last, so the intervals tile the trip.
-    ``event`` makes the events (:func:`timing_event`); anything with
-    ``record()`` and ``elapsed_time(other)`` in ms will do."""
+    A stage opened inside an open one marks its own bounds and, when it
+    closes, hands the clock back to the enclosing stage; ``nested`` maps
+    such a stage to the stages enclosing it.  ``event`` makes the events
+    (:func:`timing_event`); anything with ``record()`` and
+    ``elapsed_time(other)`` in ms will do.  The GIG's counters add up on
+    ``device`` in a tensor made here, before the capture: a tensor the
+    capture made would lie in the graph pool the runner's graphs share,
+    where the next replay of another graph writes over it."""
 
     def __init__(self, sweeps: int, saves: int,
-                 event: Callable = timing_event):
+                 event: Callable = timing_event, device=None):
         self.sweeps, self.saves = sweeps, saves
         self._event = event
         self.marks: list = []
+        self.nested: dict = {}
+        self._open: list = []      # the stages open now, innermost last
+        self._gig = torch.zeros((len(GIG_COUNTS),), dtype=torch.int64,
+                                device=device)
+        self._gig_counted = False  # whether the trip runs the GIG
 
     def mark(self, label: Optional[str]) -> None:
         """A boundary on the current stream: ``label`` runs from here to
@@ -156,40 +180,72 @@ class StageClock:
     @contextlib.contextmanager
     def stage(self, name: str):
         with torch.profiler.record_function(name):
+            if self._open:
+                self.nested[name] = tuple(self._open)
+            self._open.append(name)
             self.mark(name)
             yield
-            self.mark(OTHER)
+            self._open.pop()
+            self.mark(self._open[-1] if self._open else OTHER)
+
+    def count_gig(self, values: torch.Tensor) -> None:
+        """One GIG call's counts, in :data:`GIG_COUNTS`' order, added on
+        the device, so every call and every replay adds up until
+        :meth:`gig_counts` reads them."""
+        self._gig.add_(values)
+        self._gig_counted = True
 
     def intervals(self) -> dict:
-        """Device ms of each label over the last replay: call once the
-        replay's work is done (its events are then complete)."""
+        """Device ms of each label over the last replay, a nested stage's
+        under its own label and under each stage enclosing it: call once
+        the replay's work is done (its events are then complete)."""
         out: dict = {}
         for (label, a), (_, b) in zip(self.marks, self.marks[1:]):
-            out[label] = out.get(label, 0.0) + a.elapsed_time(b)
+            ms = a.elapsed_time(b)
+            for key in (label,) + self.nested.get(label, ()):
+                out[key] = out.get(key, 0.0) + ms
         return out
+
+    def gig_counts(self) -> dict:
+        """The GIG's counts since the last read by name ({} where the trip
+        runs no GIG), then zeroed on the current stream: call once the
+        replays' work is done."""
+        if not self._gig_counted:
+            return {}
+        counts = dict(zip(GIG_COUNTS, self._gig.tolist()))
+        self._gig.zero_()
+        return counts
 
 
 class StageTally:
     """Sampled stage times summed over replays: ``means()`` is the mean
     device ms a sweep of each stage over the sampled replays that ran it,
-    the combine's a saved draw; ``samples`` counts the replays read."""
+    the combine's a saved draw; ``samples`` counts the replays read;
+    ``gig`` sums the clocks' GIG counts ({} where no GIG ran)."""
 
     def __init__(self):
         self.ms: dict = {}
         self.per: dict = {}
         self.samples = 0
+        self.gig: dict = {}
+
+    def _add_gig(self, counts: dict) -> None:
+        for name, v in counts.items():
+            self.gig[name] = self.gig.get(name, 0) + v
 
     def add(self, clock: StageClock) -> None:
         for label, ms in clock.intervals().items():
             n = clock.saves if label == "combine" else clock.sweeps
             self.ms[label] = self.ms.get(label, 0.0) + ms
             self.per[label] = self.per.get(label, 0) + n
+        self._add_gig(clock.gig_counts())
         self.samples += 1
 
     def merge(self, other: "StageTally") -> None:
         for label, ms in other.ms.items():
             self.ms[label] = self.ms.get(label, 0.0) + ms
             self.per[label] = self.per.get(label, 0) + other.per[label]
+        self._add_gig(other.gig)
         self.samples += other.samples
 
     def means(self) -> dict:

@@ -503,7 +503,8 @@ class ChainRunResult:
     trace0: int                    # global iteration the traces start at
     streamer: Optional[StreamingFetcher]
     graphs: dict                   # the runners' graph counts, summed,
-                                   # and their sampled stage times
+                                   # their sampled stage times and
+                                   # GIG counts (profiling.StageTally)
     # the R-hat early stop: the global iteration the run stopped at (None:
     # it ran its schedule), and the [iteration, rhat_max, ess_min] row of
     # every boundary it was evaluated at (None when early_stop is off)
@@ -952,6 +953,8 @@ def run_chain(*, cfg, model, run, phase: dict, fingerprint, template: dict,
         loop.stop()
     retire(runner)
     graphs.update(stage_ms=stages.means(), stage_samples=stages.samples)
+    if stages.gig:
+        graphs["gig"] = stages.gig
     if stopped_at is not None:
         # the truncated count: the divisor's window end, iters_per_sec
         executed = it_now - done

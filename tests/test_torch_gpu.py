@@ -15,7 +15,8 @@ graphed bitwise the eager chain, the lazy (sparse, memmap) upload bitwise
 the dense one, and a memmap fit's panels bitwise its dense twin's; a
 warm-started fit graphed bitwise the eager one, and a recorded and
 profiled fit bitwise the plain one, its trace naming K1 and K5 and its
-sweep's stages timed on the device; the query
+sweep's stages timed on the device, and a profiled DL fit's GIG sampler
+timed inside its prior update and its draws and rounds counted; the query
 engine on the card bitwise the one on the CPU (entries, blocks, rows,
 intervals, an evicting budget) and one request served by ``serve
 --device cuda``; the shard mesh's rank program as a 1-rank NCCL world,
@@ -1519,6 +1520,37 @@ def test_a_profiled_graphed_fit_times_every_stage_of_its_sweep(cuda,
           f"{[round(r[1], 3) for r in times[plain, True]]} "
           f"{[round(r[1], 3) for r in times[save, True]]}; {stages}")
     assert abs(events - span) <= 0.10 * span
+
+
+def test_a_profiled_dl_fit_times_and_counts_its_gig(cuda, tmp_path):
+    """A graphed DL fit under the profiler times the GIG sampler as the
+    stage ``gig`` inside ``prior_update`` and counts its draws over the
+    timed replays only: G P K of phi's T and G P of tau a sweep, 64
+    rounds each; the same fit without the profiler computes the same
+    Sigma bit for bit and carries no ``gig`` key."""
+    Y, _ = _small_data()
+    cfg = FitConfig(
+        model=ModelConfig(num_shards=4, factors_per_shard=4, rho=0.9,
+                          prior="dl", lambda_kernel="pallas"),
+        run=RunConfig(burnin=20, mcmc=20, thin=2, num_chains=2,
+                      sweep_unroll=4, chunk_size=20),
+        backend=BackendConfig(sse_mode="gram"))
+    plain = fit(Y, cfg, device=cuda)
+    res = fit(Y, dataclasses.replace(cfg, backend=dataclasses.replace(
+        cfg.backend, profile_dir=str(tmp_path / "trace"))), device=cuda)
+    np.testing.assert_array_equal(res.Sigma, plain.Sigma)
+    assert "gig" not in plain.graphs and plain.graphs["stage_ms"] == {}
+    stages = res.graphs["stage_ms"]
+    assert 0 < stages["gig"] < stages["prior_update"]
+    # trips of 4 sweeps, one timed replay a chunk, chain and pattern
+    G, P, K = 4, 24, 4
+    draws = 4 * res.graphs["stage_samples"] * (G * P * K + G * P)
+    got = res.graphs["gig"]
+    assert got["draws"] == draws and got["rounds_evaluated"] == 64 * draws
+    assert draws <= got["rounds_needed"] < got["rounds_evaluated"]
+    assert 0 <= got["unaccepted"] < draws
+    print(f"gig: {stages['gig']:.4f} of prior_update "
+          f"{stages['prior_update']:.4f} ms a sweep; {got}")
 
 
 def _serve_artifact(path, *, p=24, g=2, seed=0):

@@ -208,3 +208,111 @@ def test_the_tally_means_a_sweep_and_a_saved_draw():
     assert a.samples == 2
     assert a.means() == pytest.approx(
         {"other": 1.0 / 3, "z_update": 5.0 / 3, "combine": 3.0})
+
+
+class _Tick:
+    """A stub timing event: each record reads the next tick of a shared
+    counter, so every interval between two marks is positive."""
+
+    def __init__(self, ticks):
+        self._ticks, self.t = ticks, None
+
+    def record(self):
+        self.t = next(self._ticks)
+
+    def elapsed_time(self, other) -> float:
+        return float(other.t - self.t)
+
+
+def test_a_nested_stage_counts_under_its_label_and_its_parents():
+    """A stage opened inside an open one marks its bounds and hands the
+    clock back to the enclosing stage, not to ``other``; the enclosing
+    stage's total includes it, and the outermost labels tile the trip."""
+    import itertools
+
+    ticks = itertools.count()
+    clock = profiling.StageClock(1, 0, event=lambda: _Tick(ticks))
+    with clock.timing():
+        with profiling.scope("z_update"):
+            pass
+        with profiling.scope("prior_update"):
+            for _ in range(2):
+                with profiling.scope("gig"):
+                    pass
+    labels = [label for label, _ in clock.marks]
+    assert labels == [profiling.OTHER, "z_update", profiling.OTHER,
+                      "prior_update", "gig", "prior_update", "gig",
+                      "prior_update", profiling.OTHER, None]
+    assert clock.nested == {"gig": ("prior_update",)}
+    spans = clock.intervals()
+    # ticks 0 .. 9: gig holds [4, 5) and [6, 7), prior_update [3, 8)
+    assert spans == {profiling.OTHER: 3.0, "z_update": 1.0,
+                     "prior_update": 5.0, "gig": 2.0}
+    assert sum(v for k, v in spans.items() if k not in clock.nested) == 9.0
+    # the GIG's counts add up over calls (and replays) until read, then
+    # restart; a trip that runs no GIG reads none
+    assert profiling.StageClock(1, 0).gig_counts() == {}
+    clock.count_gig(torch.tensor([1, 2, 3, 4]))
+    clock.count_gig(torch.tensor([5, 6, 7, 8]))
+    tally = profiling.StageTally()
+    tally.add(clock)
+    assert tally.means()["gig"] == 2.0
+    assert tally.gig == dict(zip(profiling.GIG_COUNTS, [6, 8, 10, 12]))
+    assert clock.gig_counts() == dict.fromkeys(profiling.GIG_COUNTS, 0)
+
+
+def _timed_sweeps(monkeypatch):
+    """Every trip of the fits that follow runs as a timed twin would: under
+    a StageClock of stub events, added to its runner's tally (a CPU fit
+    captures no twin; the card tests time the real ones)."""
+    import itertools
+
+    from dcfm_tpu_torch.models.sampler import ChainRunner
+
+    ticks = itertools.count()
+    sweeps = ChainRunner._sweeps
+
+    def timed(self, draws, pattern):
+        clock = profiling.StageClock(len(pattern), sum(pattern),
+                                     event=lambda: _Tick(ticks))
+        with clock.timing():
+            sweeps(self, draws, pattern)
+        self.stages.add(clock)
+
+    monkeypatch.setattr(ChainRunner, "_sweeps", timed)
+
+
+@pytest.mark.parametrize("prior", ["mgp", "horseshoe", "dl"])
+def test_a_timed_fit_reports_the_gig_of_the_dl_prior_only(prior,
+                                                          monkeypatch):
+    """Timed trips of a DL fit add the stage ``gig`` inside
+    ``prior_update`` and the GIG's counters to ``FitResult.graphs``: per
+    sweep and chain G P K draws of phi's T and G P of tau, 64 rounds
+    each.  MGP and horseshoe fits keep their stages and carry no ``gig``.
+    Timing changes no bit, and an untimed fit has neither key."""
+    def cfg():
+        c = _cfg()
+        return dataclasses.replace(c, model=dataclasses.replace(
+            c.model, prior=prior))
+
+    Y, _ = make_synthetic(40, 24, 2, seed=1)
+    plain = dt.fit(Y, cfg(), device="cpu")
+    _timed_sweeps(monkeypatch)
+    res = dt.fit(Y, cfg(), device="cpu")
+    np.testing.assert_array_equal(res.Sigma, plain.Sigma)
+    assert "gig" not in plain.graphs and plain.graphs["stage_ms"] == {}
+    stages = res.graphs["stage_ms"]
+    base = set(SWEEP) | {"combine", "health_trace", profiling.OTHER}
+    if prior != "dl":
+        assert set(stages) == base and "gig" not in res.graphs
+        return
+    assert set(stages) == base | {"gig"}
+    assert 0 < stages["gig"] < stages["prior_update"]
+    G, P, K = 3, 8, 3
+    draws = 2 * 12 * (G * P * K + G * P)
+    got = res.graphs["gig"]
+    assert set(got) == {"draws", "rounds_evaluated", "rounds_needed",
+                        "unaccepted"}
+    assert got["draws"] == draws and got["rounds_evaluated"] == 64 * draws
+    assert draws <= got["rounds_needed"] <= got["rounds_evaluated"]
+    assert got["unaccepted"] >= 0
